@@ -6,16 +6,20 @@ Run from the root of a checkout on a machine with an H100:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``torchmdnet_tpu_torch/csrc`` with
-nvcc, holds each kernel against its plain PyTorch version on the card, drives
-the port's main path (ET energy and forces for a DHFR-sized system through
-``External.calculate``) and times it.  Each phase prints one line; the line
-before the last is a JSON object with each kernel's numbers, the last line is
-``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero.
-Without a CUDA device, or outside a checkout, it exits non-zero and prints no
-result.
+nvcc, holds each kernel against its plain PyTorch version on the card, and
+drives the port's main paths: ET energy and forces for a DHFR-sized system
+through ``External.calculate`` (whose neighbor list now comes from the cell
+list and the selection kernel), the cell list against the brute search, and
+ET molecular dynamics at STMV size through ``md.Simulation`` (Verlet skin,
+a cell-list rebuild every 10 steps).  It times each.  Each phase prints one
+line; the line before the last is a JSON object with each kernel's numbers,
+the last line is ``{"ok": true, "device": {...}}``.  Any failure raises and
+exits non-zero.  Without a CUDA device, or outside a checkout, it exits
+non-zero and prints no result.  It takes one to two minutes on an H100.
 """
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -58,6 +62,28 @@ E2E_FORCE_TOL = 3e-2  # max|dF| / max|F|
 HBM_BYTES_PER_S = 3.35e12
 BF16_TENSOR_FLOPS = 989e12
 F32_CUDA_CORE_FLOPS = 67e12
+# int32 compare/select/min outside the tensor cores: the f32 peak counts an
+# FMA as two operations on 128 f32 lanes per SM; an SM has 64 int32 lanes,
+# one operation each, so a quarter of it
+INT32_CUDA_CORE_OPS = F32_CUDA_CORE_FLOPS / 4
+
+# STMV molecular dynamics as bench.py's stmv_md_ms configures it
+# (bench.py:397-473): Verlet skin 0.5 A, a rebuild every 10 steps, Langevin
+# at 300 K, spatially sorted atoms
+MD_ARGS = dict(timestep_fs=1.0, temperature_K=300.0, friction_per_fs=0.01,
+               neighbor_skin=0.5, rebuild_every=10)
+MD_WARMUP_STEPS = 10
+MD_TIMED_STEPS = 20
+# a rebuild cadence at which the skin holds: at 300 K the fastest of 30,000
+# atoms (hydrogens) start near 0.075 A/fs, so thermal motion alone carries
+# them about 0.75 A in bench.py's 10 fs, three times skin/2, whatever the
+# potential; in 2 fs about 0.15 A
+MD_VALID_EVERY = 2
+MD_VALID_STEPS = 10
+# cutoff-boundary pairs between the brute search (|xi|^2 + |xj|^2 - 2 xi.xj)
+# and the cell list (component form) may differ where d^2 is within this many
+# f32 ulps of the cutoff^2: the two forms round differently
+BOUNDARY_ULPS = 4
 
 
 def log(line):
@@ -184,6 +210,22 @@ def _event_ms(fn, reps=20, warmup=3, flush=None):
     return statistics.median(times)
 
 
+def _host_ms(fn, reps=20, warmup=3):
+    """Median over ``reps`` calls of host-clock time, each ended by a sync."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times)
+
+
 def _bounds(n, kk, h, rbf, backward):
     """Least time for the same work: max(bytes / HBM rate, operations / peak).
 
@@ -257,6 +299,7 @@ def main_path():
     from torchmdnet_tpu_torch import External, create_model
     from torchmdnet_tpu_torch.data.systems import DHFR_ATOMS
     from torchmdnet_tpu_torch.ops.kernels import et_message as em
+    from torchmdnet_tpu_torch.ops.kernels.select_topk import select_topk
 
     z, pos, _ = _synthetic_batch(DHFR_ATOMS, SEED, "cpu")
     potential = create_model(ET_ARGS, seed=SEED)  # on cuda: no device named
@@ -266,20 +309,23 @@ def main_path():
     requests.append(requests[-1].copy())  # the last request repeats the one before
 
     em.reset_launch_counts()
+    select_topk.launches = 0
     results = []
     for p in requests:
         energy, forces = ext.calculate(p)
         results.append((energy.clone(), forces.clone()))
     torch.cuda.synchronize()
-    launches = (em.run_fwd.launches, em.run_bwd.launches)
+    launches = (em.run_fwd.launches, em.run_bwd.launches, select_topk.launches)
     layers = ET_ARGS["num_layers"]
     for energy, forces in results:
         if energy.shape != (1,) or forces.shape != (1, DHFR_ATOMS, 3):
             raise AssertionError(f"unexpected shapes {tuple(energy.shape)}, {tuple(forces.shape)}")
         if not (torch.isfinite(energy).all() and torch.isfinite(forces).all()):
             raise AssertionError("non-finite energy or forces")
-    if launches != (layers * REQUESTS, layers * REQUESTS):
-        raise AssertionError(f"expected {layers} fwd + {layers} bwd launches per request, got {launches}")
+    # one cell-list build per request, one more for the first request's capacity check
+    if launches != (layers * REQUESTS, layers * REQUESTS, REQUESTS + 1):
+        raise AssertionError(f"expected {layers} fwd + {layers} bwd launches per request and "
+                             f"{REQUESTS + 1} select_topk launches, got {launches}")
     if not torch.equal(results[-1][1], results[-2][1]):
         raise AssertionError("forces of two identical requests differ")
 
@@ -293,26 +339,14 @@ def main_path():
     f_l2 = float((results[0][1] - f32).norm() / f32.norm())
     log(f"main path: {REQUESTS} requests, ET 6x128 fused bf16, {DHFR_ATOMS} atoms (padded to "
         f"{ext.n_real + ext.n_pad}); launches fwd {launches[0]} bwd {launches[1]} "
-        f"({layers}+{layers} per request); energies {[round(float(r[0][0]), 4) for r in results]}; "
+        f"({layers}+{layers} per request), select_topk {launches[2]}; energies {[round(float(r[0][0]), 4) for r in results]}; "
         f"repeat forces bitwise equal: True; vs composable fp32: |dE|/|E| {e_err:.3e} (tol {E2E_ENERGY_TOL}), "
         f"max|dF|/max|F| {f_err:.3e} (tol {E2E_FORCE_TOL}), |dF|/|F| {f_l2:.3e}")
     if e_err > E2E_ENERGY_TOL or f_err > E2E_FORCE_TOL:
         raise AssertionError("fused energies/forces disagree with the composable fp32 path")
 
-    def ms_per_call(e, p, reps=20):
-        for _ in range(3):
-            e.calculate(p)
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(reps):
-            t0 = time.perf_counter()
-            e.calculate(p)
-            torch.cuda.synchronize()
-            times.append(1e3 * (time.perf_counter() - t0))
-        return statistics.median(times)
-
-    fused_ms = ms_per_call(ext, requests[0])
-    comp_ms = ms_per_call(ref_ext, requests[0])
+    fused_ms = _host_ms(lambda: ext.calculate(requests[0]))
+    comp_ms = _host_ms(lambda: ref_ext.calculate(requests[0]))
     log(f"energy+forces per call (External.calculate, host clock with sync, median of 20): "
         f"fused bf16 {fused_ms:.3f} ms; composable fp32 {comp_ms:.3f} ms")
     return launches, ext, requests[0]
@@ -351,6 +385,346 @@ def profile_calls(ext, pos, calls=3):
         f"other kernels {other:.3f} ms/call ({launches / calls:.0f} launches/call)")
 
 
+def _stmv_batch():
+    """Synthetic STMV (seed 0), padded to a multiple of 32, spatially sorted,
+    on the card: the batch of bench.py's STMV MD (bench.py:420-425)."""
+    from torchmdnet_tpu_torch.data.batch import spatial_sort
+    from torchmdnet_tpu_torch.data.systems import STMV_ATOMS
+
+    _, _, batch = _synthetic_batch(STMV_ATOMS, SEED, "cuda")
+    return spatial_sort(batch)[0]
+
+
+def stmv_skin_keys(batch):
+    """The selection kernel's input at an STMV skin rebuild: the candidate
+    key matrix of the cell list with the probed sizes ``md.Simulation``
+    uses, and the skin list's k (``Potential.neighbors``' rule)."""
+    from torchmdnet_tpu_torch.ops.cell_list import cell_candidate_keys, probe_cell_kwargs
+
+    skin = MD_ARGS["neighbor_skin"]
+    hi = ET_ARGS["cutoff_upper"]
+    sizes = probe_cell_kwargs(batch, cutoff_upper=hi + skin)
+    keys, _, overflow = cell_candidate_keys(
+        batch.pos, batch.batch, batch.atom_mask, cutoff_upper=hi + skin, **sizes)
+    if bool(overflow):
+        raise AssertionError(f"the STMV skin build overflowed its probed cell sizes {sizes}")
+    k = int(math.ceil(ET_ARGS["max_num_neighbors"] * ((hi + skin) / hi) ** 3 / 8.0)) * 8
+    return keys, k, sizes
+
+
+def _unique_keys(rng, n, w, sentinel, invalid_share):
+    """(n, w) int32 keys, unique per row below ``sentinel``, a share of them
+    replaced by the sentinel."""
+    import numpy as np
+
+    keys = np.argsort(rng.random((n, sentinel)), axis=1)[:, :w].astype(np.int32)
+    keys[rng.random((n, w)) < invalid_share] = sentinel
+    return keys
+
+
+def check_select_topk(keys, k):
+    """Kernel #6 against its plain version, one case for each keys-per-lane
+    variant the kernel compiles: a ragged case (W not a multiple of 32, N not
+    a multiple of the rows per block, rows with fewer real keys than k, an
+    all-sentinel row), the DHFR build's keys (External's list, default cell
+    capacity), the STMV skin build's keys, a capacity of up to 75 and a row
+    wider than the register budget.  Integers: bitwise equal."""
+    import numpy as np
+    import torch
+
+    from torchmdnet_tpu_torch.data.systems import DHFR_ATOMS
+    from torchmdnet_tpu_torch.ops.cell_list import cell_candidate_keys
+    from torchmdnet_tpu_torch.ops.kernels.select_topk import select_topk, select_topk_reference
+
+    rng = np.random.default_rng(3)
+    ragged = _unique_keys(rng, 1001, 45, 5000, 0.3)
+    ragged[5] = 5000
+    ragged[6, 3:] = 5000
+    _, _, dhfr = _synthetic_batch(DHFR_ATOMS, SEED, "cuda")
+    dhfr_keys, _, overflow = cell_candidate_keys(dhfr.pos, dhfr.batch, dhfr.atom_mask,
+                                                 cutoff_upper=ET_ARGS["cutoff_upper"])
+    if bool(overflow):
+        raise AssertionError("the DHFR build overflowed the default cell sizes")
+    cap66 = _unique_keys(rng, 500, 27 * 66, 5000, 0.6)
+    wide = _unique_keys(rng, 37, 2100, 5000, 0.5)
+    cases = [("ragged", torch.as_tensor(ragged, device="cuda"), 20, 5000),
+             ("DHFR build", dhfr_keys, ET_ARGS["max_num_neighbors"], dhfr_keys.shape[0]),
+             ("STMV skin build", keys, k, keys.shape[0]),
+             ("capacity 66", torch.as_tensor(cap66, device="cuda"), 112, 5000),
+             ("wide", torch.as_tensor(wide, device="cuda"), 50, 5000)]
+    parts = []
+    err = 0
+    for label, kk, k_sel, sentinel in cases:
+        got = select_topk(kk, k_sel, sentinel)
+        want = select_topk_reference(kk, k_sel)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            bad = int((got != want).any(dim=1).sum())
+            raise AssertionError(f"select_topk disagrees with its plain version on {label}: {bad} rows")
+        err = max(err, int((got.long() - want.long()).abs().max()))
+        parts.append(f"{label} N={kk.shape[0]} W={kk.shape[1]} k={k_sel}: equal")
+    log("select_topk check (kernel vs plain, bitwise): " + "; ".join(parts))
+    return err
+
+
+def check_cell_vs_brute(n_atoms):
+    """The cell list against the brute search on the card at the cutoff and k
+    of ET_ARGS: equal idx, mask and n_neighbors, except rows touched by pairs
+    whose squared distance lies within BOUNDARY_ULPS f32 ulps of cutoff^2."""
+    import torch
+
+    from torchmdnet_tpu_torch.ops.neighbors import neighbor_list
+
+    _, _, batch = _synthetic_batch(n_atoms, SEED, "cuda")
+    cut = ET_ARGS["cutoff_upper"]
+    kw = dict(k=ET_ARGS["max_num_neighbors"], cutoff_upper=cut, loop=True)
+    cell = neighbor_list(batch.pos, batch.batch, batch.atom_mask, strategy="cell", **kw)
+    brute = neighbor_list(batch.pos, batch.batch, batch.atom_mask, strategy="brute", **kw)
+    if bool(cell.cell_overflow) or bool(cell.overflow()):
+        raise AssertionError(f"the cell list overflowed at {n_atoms} atoms")
+    n = batch.pos.shape[0]
+
+    def pairs(nbl):
+        adj = torch.zeros((n, n), dtype=torch.bool, device="cuda")
+        rows = torch.arange(n, device="cuda")[:, None].expand_as(nbl.idx)
+        adj[rows[nbl.mask], nbl.idx[nbl.mask].long()] = True
+        return adj
+
+    cell_only = pairs(cell) & ~pairs(brute)
+    brute_only = pairs(brute) & ~pairs(cell)
+    diff = (cell_only | brute_only).nonzero()
+    if diff.numel():
+        d = batch.pos[diff[:, 1]] - batch.pos[diff[:, 0]]
+        d2 = d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1] + d[:, 2] * d[:, 2]
+        c2 = torch.tensor(cut * cut, dtype=torch.float32)
+        ulp = float(torch.nextafter(c2, torch.tensor(math.inf)) - c2)
+        far = (d2 - float(c2)).abs() > BOUNDARY_ULPS * ulp
+        if bool(far.any()):
+            raise AssertionError(f"{int(far.sum())} pairs differ between the cell list and brute "
+                                 f"away from the cutoff at {n_atoms} atoms")
+    touched = torch.zeros(n, dtype=torch.bool, device="cuda")
+    touched[diff[:, 0]] = True
+    same = ~touched
+    if not (torch.equal(cell.idx[same], brute.idx[same]) and torch.equal(cell.mask[same], brute.mask[same])
+            and torch.equal(cell.n_neighbors[same], brute.n_neighbors[same])):
+        raise AssertionError(f"the cell list and brute differ in rows without boundary pairs at {n_atoms} atoms")
+    dn = cell_only.sum(dim=1) - brute_only.sum(dim=1)
+    if not torch.equal((cell.n_neighbors - brute.n_neighbors).long(), dn):
+        raise AssertionError("n_neighbors differences do not match the boundary pairs")
+    build_ms = {
+        strategy: _host_ms(lambda: neighbor_list(batch.pos, batch.batch, batch.atom_mask, strategy=strategy, **kw))
+        for strategy in ("brute", "cell")
+    }
+    log(f"cell list vs brute at {n_atoms} atoms (N={n}, K={cell.k}, cutoff {cut}): idx, mask, n_neighbors "
+        f"equal; {diff.shape[0] // 2} cutoff-boundary pairs differ (within {BOUNDARY_ULPS} ulps of "
+        f"cutoff^2), {int(touched.sum())} rows touched; cell_overflow False; build time (host clock "
+        f"with sync, median of 20) brute {build_ms['brute']:.3f} ms, cell {build_ms['cell']:.3f} ms")
+
+
+def _select_topk_bounds(keys, k):
+    """Least time for the selection: max(bytes / HBM rate, operations / int32
+    peak).  Bytes: the keys read once, the output written once.  Operations:
+    what the function needs, one per key (a radix select, or a merge of the
+    cells' already-ascending runs, looks at each key a bounded number of
+    times).  Also returns what this kernel's design does, as a note: one
+    compare/select and one min per key for each pass this data needs (a pass
+    per real key of the row up to k, plus the pass that finds the sentinel
+    when a row has fewer than k), at the int32 peak."""
+    n, w = keys.shape
+    passes = int(((keys < n).sum(dim=1) + 1).clamp(max=k).sum())
+    t_bytes = (4 * n * w + 4 * n * k) / HBM_BYTES_PER_S
+    t_ops = n * w / INT32_CUDA_CORE_OPS
+    design_ops = 2 * passes * w
+    bound = (1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+    return bound + (design_ops, 1e3 * design_ops / INT32_CUDA_CORE_OPS)
+
+
+def time_select_topk(keys, k):
+    """Kernel #6 at the STMV skin shapes: its time, the plain version's, one
+    torch.topk call's, and the bound (L2 flushed, median of 20)."""
+    import torch
+
+    from torchmdnet_tpu_torch.ops.kernels.select_topk import select_topk, select_topk_reference
+
+    n = keys.shape[0]
+    flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")  # 256 MB > L2
+    ms = _event_ms(lambda: select_topk(keys, k, n), flush=flush)
+    plain_ms = _event_ms(lambda: select_topk_reference(keys, k), flush=flush)
+    lib_ms = _event_ms(lambda: torch.topk(keys, k, dim=1, largest=False, sorted=True), flush=flush)
+    bound_ms, bound_by, design_ops, design_ms = _select_topk_bounds(keys, k)
+    log(f"select_topk time at the STMV skin shapes (N={n} W={keys.shape[1]} k={k}, L2 flushed, "
+        f"median of 20): {ms:.4f} ms (plain sort {plain_ms:.4f} ms, torch.topk {lib_ms:.4f} ms, "
+        f"bound {bound_ms:.4f} ms by {bound_by}, {100 * bound_ms / ms:.1f}% of it reached); this "
+        f"design's min-extraction passes do {design_ops:.3e} int32 operations, {design_ms:.4f} ms "
+        f"at the int32 peak")
+    return ms, plain_ms, bound_ms, bound_by, lib_ms
+
+
+def _pairs_against_fresh(sim, model, batch, built_at):
+    """The skin list built at ``built_at`` and refined at ``sim``'s current
+    positions against a fresh list built there, as sets of (atom, neighbor)
+    pairs: (pairs only the fresh list holds, pairs only the refined list
+    holds, the fresh list's pairs)."""
+    import torch
+
+    from torchmdnet_tpu_torch.ops.cell_list import probe_cell_kwargs
+
+    hi = ET_ARGS["cutoff_upper"]
+    pos = sim.state.pos
+    n = batch.num_atoms
+    skin_nbl = sim._build_nbl(built_at)
+    refined = skin_nbl.refine(pos, ET_ARGS["cutoff_lower"], hi)
+    fresh = model.neighbors(batch.replace(pos=pos), k=skin_nbl.k - 1, **probe_cell_kwargs(batch, cutoff_upper=hi))
+    fresh.raise_on_overflow("chip_smoke fresh STMV list")
+
+    def pairs(nbl):
+        rows = torch.arange(n, device=pos.device)[:, None].expand_as(nbl.idx)
+        return (rows * n + nbl.idx.long())[nbl.mask]
+
+    r, f = pairs(refined), pairs(fresh)
+    return int((~torch.isin(f, r)).sum()), int((~torch.isin(r, f)).sum()), int(f.numel())
+
+
+def md_stmv(select_ms):
+    """ET molecular dynamics at STMV size through md.Simulation.
+
+    1. bench.py's configuration: warm-up, timed steps, every kernel's
+       launches; ``stale`` must agree with the largest displacement between
+       rebuilds seen from the host.  The fastest atoms' thermal speed at
+       300 K times 10 fs exceeds skin/2, so these lists do go stale; the
+       pairs the last refined list misses against a fresh one are counted.
+    2. A rebuild cadence at which the skin holds (MD_VALID_EVERY): two
+       Simulations from the same batch and seed end bitwise equal, ``stale``
+       stays False, and the last skin list, refined at the final positions,
+       holds exactly the pairs of a fresh list built there.
+    """
+    import torch
+
+    from torchmdnet_tpu_torch import Simulation, create_model
+    from torchmdnet_tpu_torch.ops.kernels import et_message as em
+    from torchmdnet_tpu_torch.ops.kernels.select_topk import select_topk
+
+    batch = _stmv_batch()
+    real = batch.atom_mask
+    n = batch.num_atoms
+    torch.cuda.reset_peak_memory_stats()
+    model = create_model(ET_ARGS, seed=SEED)
+    every = MD_ARGS["rebuild_every"]
+    half_skin = 0.5 * MD_ARGS["neighbor_skin"]
+
+    def largest_move(starts, end):
+        ends = starts[1:] + [end]
+        return max(float((b - a).norm(dim=-1)[real].max()) for a, b in zip(starts, ends))
+
+    sim = Simulation(model, batch, seed=SEED, **MD_ARGS)
+    sim.set_velocities_from_temperature(300.0)
+    v_max = float(sim.state.vel.norm(dim=-1)[real].max())
+    em.reset_launch_counts()
+    select_topk.launches = 0
+    starts = []
+    for _ in range(MD_WARMUP_STEPS // every):
+        starts.append(sim.state.pos)
+        sim.step(every)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(MD_TIMED_STEPS // every):
+        starts.append(sim.state.pos)
+        sim.step(every)
+    torch.cuda.synchronize()
+    ms_step = 1e3 * (time.perf_counter() - t0) / MD_TIMED_STEPS
+    launches = (em.run_fwd.launches, em.run_bwd.launches, select_topk.launches)
+
+    steps = MD_WARMUP_STEPS + MD_TIMED_STEPS
+    rebuilds = steps // every
+    evaluations = steps + 1  # one per step, carried across chunks, plus the first
+    layers = ET_ARGS["num_layers"]
+    if launches != (layers * evaluations, layers * evaluations, rebuilds):
+        raise AssertionError(f"expected {layers}+{layers} ET launches per force evaluation "
+                             f"({evaluations}) and one select_topk per rebuild ({rebuilds}), got {launches}")
+    state = sim.state
+    if not (torch.isfinite(state.pos).all() and torch.isfinite(state.energy).all()):
+        raise AssertionError("non-finite positions or energies in MD")
+    if not torch.equal(state.pos[~real], batch.pos[~real]):
+        raise AssertionError("padding atoms moved")
+    move = largest_move(starts, state.pos)
+    stale = bool(state.stale)
+    if move > half_skin and not stale:
+        raise AssertionError(f"atoms moved {move:.3f} A between rebuilds (> skin/2) but stale is False")
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    missed, extra, total = _pairs_against_fresh(sim, model, batch, starts[-1])
+
+    rebuild_ms = _host_ms(lambda: sim._build_nbl(state.pos).transpose_perm, reps=5, warmup=0)
+    log(f"MD at STMV size, bench.py's configuration (ET {layers}x{ET_ARGS['embedding_dimension']} fused "
+        f"bf16, {int(real.sum())} atoms padded to {n}, {MD_ARGS}, cell sizes {sim.neighbor_kwargs}): "
+        f"{steps} steps, energy {float(state.energy.sum()):.4f} eV, padding still; launches fwd "
+        f"{launches[0]} bwd {launches[1]} select_topk {launches[2]} ({evaluations} force evaluations, "
+        f"{rebuilds} rebuilds); {ms_step:.3f} ms/step (host clock with sync, mean of {MD_TIMED_STEPS}); "
+        f"neighbor rebuild {rebuild_ms:.3f} ms (cell list + select_topk + transpose permutation, median "
+        f"of 5), select_topk {100 * select_ms / rebuild_ms:.1f}% of it; peak memory {peak_gb:.2f} GiB; "
+        f"largest move between rebuilds {move:.3f} A against skin/2 = {half_skin} A: stale {stale}; "
+        f"initial max speed {v_max:.4f} A/fs, x {every} fs = {v_max * every * MD_ARGS['timestep_fs']:.3f} A; "
+        f"at the last step the refined skin list misses {missed} of a fresh list's {total} pairs "
+        f"({extra} it holds that a fresh list does not)")
+    if extra:
+        raise AssertionError(f"the refined skin list holds {extra} pairs that a fresh list does not")
+
+    valid = dict(MD_ARGS, rebuild_every=MD_VALID_EVERY)
+    runs = []
+    for _ in range(2):
+        run = Simulation(model, batch, seed=SEED, **valid)
+        run.set_velocities_from_temperature(300.0)
+        vstarts = []
+        for _ in range(MD_VALID_STEPS // MD_VALID_EVERY):
+            vstarts.append(run.state.pos)
+            run.step(MD_VALID_EVERY)
+        runs.append((run, vstarts))
+    (a, vstarts), (b, _) = runs
+    if not torch.equal(a.state.pos, b.state.pos):
+        raise AssertionError("two Simulations from the same batch and seed diverged")
+    vmove = largest_move(vstarts, a.state.pos)
+    if bool(a.state.stale):
+        raise AssertionError(f"the skin list went stale at rebuild_every={MD_VALID_EVERY} (move {vmove:.3f} A)")
+    if _pairs_against_fresh(a, model, batch, vstarts[-1])[:2] != (0, 0):
+        raise AssertionError("the refined skin list and a fresh list hold different pairs")
+    log(f"MD at STMV size, rebuild every {MD_VALID_EVERY}: {MD_VALID_STEPS} steps, largest move between "
+        f"rebuilds {vmove:.3f} A, stale False, two runs from one seed bitwise equal, the refined skin "
+        f"list holds exactly a fresh list's pairs")
+    del runs, a, b
+    return launches, sim
+
+
+def profile_md(sim, steps=10):
+    """Where the time of an MD step goes at STMV: device time by kernel
+    (torch.profiler's CUDA activity) over one skin chunk."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sim.step(steps)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0) / steps
+    groups = {"et_fwd_kernel": 0.0, "et_bwd_kernel": 0.0, "ell_transpose_sum_kernel": 0.0,
+              "select_topk_kernel": 0.0}
+    other = 0.0
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        ms = ev.device_time / 1e3 / steps
+        key = next((k for k in groups if k in ev.name), None)
+        if key is None:
+            other += ms
+        else:
+            groups[key] += ms
+    busy = sum(groups.values()) + other
+    if busy <= 0.0:
+        raise AssertionError("the profiler recorded no device time")
+    shares = ", ".join(f"{k} {v:.3f} ms ({100 * v / busy:.1f}%)" for k, v in groups.items())
+    log(f"profile of {steps} MD steps at STMV (torch.profiler): wall {wall:.3f} ms/step, device busy "
+        f"{busy:.3f} ms/step; {shares}, other kernels {other:.3f} ms ({100 * other / busy:.1f}%)")
+
+
 def main():
     import torch
 
@@ -362,6 +736,8 @@ def main():
               "run it from a checkout of the repository", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
+    from torchmdnet_tpu_torch.data.systems import DHFR_ATOMS, FACTOR_IX_ATOMS
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -380,22 +756,38 @@ def main():
 
     check_kernels("medium", 512, 40, 64, 4, 32, 3.5, seed=1)
     fwd_abs, bwd_abs = check_kernels("DHFR", 2489, 80, 128, 8, 50, 5.0, seed=2)
-    launches, ext, pos = main_path()
+    stmv = _stmv_batch()
+    keys, k, _ = stmv_skin_keys(stmv)
+    sel_abs = check_select_topk(keys, k)
+    check_cell_vs_brute(DHFR_ATOMS)
+    check_cell_vs_brute(FACTOR_IX_ATOMS)
+    ext_launches, ext, pos = main_path()
     times = time_kernels(seed=SEED)
-    profile_calls(ext, pos)  # last: the profiler's tracing may slow what runs after it
+    sel_time = time_select_topk(keys, k)
+    del keys, stmv
+    md_launches, sim = md_stmv(sel_time[0])
+    # last: the profiler's tracing may slow what runs after it
+    profile_calls(ext, pos)
+    profile_md(sim)
 
+    # launches: the counts of the two main paths' runs (External at DHFR size,
+    # MD at STMV size), each counted from 0 just before it ran
     kernels = []
-    for name, line, launched, err in (
-        ("et_message_fwd", 227, launches[0], fwd_abs),
-        ("et_message_bwd", 296, launches[1], bwd_abs),
+    for name, source, line, (ms, plain_ms, bound_ms, bound_by, lib_ms), err, i in (
+        ("et_message_fwd", "et_message.cu", "et_message.py:227", times["fwd"] + (None,), fwd_abs, 0),
+        ("et_message_bwd", "et_message.cu", "et_message.py:296", times["bwd"] + (None,), bwd_abs, 1),
+        ("select_topk", "select_topk.cu", "select_topk.py:32", sel_time, sel_abs, 2),
     ):
-        ms, plain_ms, bound_ms, bound_by = times[name[-3:]]
         kernels.append(dict(
-            name=name, route="cuda", source="torchmdnet_tpu_torch/csrc/et_message.cu",
-            replaces=f"torchmdnet_tpu/ops/pallas/et_message.py:{line}", launches=launched,
+            name=name, route="cuda", source=f"torchmdnet_tpu_torch/csrc/{source}",
+            replaces=f"torchmdnet_tpu/ops/pallas/{line}",
+            launches=ext_launches[i] + md_launches[i],
+            launches_by_path={"external_dhfr": ext_launches[i], "md_stmv": md_launches[i]},
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-            library_ms=None,
+            library_ms=lib_ms,
         ))
+        if min(ext_launches[i], md_launches[i]) < 1:
+            raise AssertionError(f"{name} was not launched on a main path")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

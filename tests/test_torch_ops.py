@@ -196,8 +196,25 @@ def test_refine_and_without_self_loops_match_jax():
 
 
 def test_cell_strategy_points_to_the_roadmap():
+    # the cell strategy is ported (ROADMAP.md slice C) and builds lists; what
+    # its JAX counterpart adds on top and the port does not have yet, the
+    # gather plan of kernels #4/#5, points to the ROADMAP
+    from torchmdnet_tpu_torch import create_model
+
+    pos = torch.tensor([[0.0, 0.0, 0.0], [1.0, 0.0, 0.0], [9.0, 0.0, 0.0], [9.5, 0.0, 0.0]])
+    nbl = neighbors.neighbor_list(pos, k=2, cutoff_upper=2.0, strategy="cell")
+    assert nbl.idx.tolist() == [[1, 0], [0, 1], [3, 2], [2, 3]]
+    assert not bool(nbl.cell_overflow)
+    with pytest.raises(ValueError, match="Unknown neighbor strategy"):
+        neighbors.neighbor_list(pos, k=2, strategy="cells")
+    model = create_model(dict(
+        model="equivariant-transformer", embedding_dimension=8, num_layers=1, num_rbf=4,
+        rbf_type="expnorm", trainable_rbf=False, activation="silu", max_z=10,
+        max_num_neighbors=2, cutoff_lower=0.0, cutoff_upper=2.0, num_heads=1,
+    ), device="cpu")
+    batch = pad_molecules([{"z": np.ones(4, np.int64), "pos": pos.numpy()}], num_atoms=4)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        neighbors.neighbor_list(torch.zeros(4, 3), k=2, strategy="cell")
+        model.neighbors(batch, gather_plan=True)
 
 
 def test_asymmetric_list_raises():

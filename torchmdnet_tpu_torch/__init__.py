@@ -14,5 +14,7 @@ device given and no GPU present they raise.
 __version__ = "0.1.0"
 
 from torchmdnet_tpu_torch.calculators import External  # noqa: F401
+from torchmdnet_tpu_torch.md import MDState, Simulation  # noqa: F401
 from torchmdnet_tpu_torch.models.potential import Potential, create_model  # noqa: F401
+from torchmdnet_tpu_torch.optimize import OptimizedPotential, optimize  # noqa: F401
 from torchmdnet_tpu_torch.tools.from_jax import state_dict_from_jax  # noqa: F401

@@ -8,7 +8,7 @@ A batch is padded to a fixed (num_atoms, num_mol) capacity:
 """
 
 import dataclasses
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -31,6 +31,14 @@ class AtomicBatch:
 
     def replace(self, **changes) -> "AtomicBatch":
         return dataclasses.replace(self, **changes)
+
+    def to(self, device) -> "AtomicBatch":
+        """The same batch with every tensor on ``device``."""
+        return self.replace(**{
+            f.name: getattr(self, f.name).to(device)
+            for f in dataclasses.fields(self)
+            if isinstance(getattr(self, f.name), torch.Tensor)
+        })
 
 
 def pad_molecules(
@@ -74,3 +82,30 @@ def pad_molecules(
         z=t(z), pos=t(pos), batch=t(batch), atom_mask=t(atom_mask),
         mol_mask=t(mol_mask), num_mol=num_mol,
     )
+
+
+def spatial_sort(batch: AtomicBatch, cell: float = 5.0) -> Tuple[AtomicBatch, torch.Tensor]:
+    """Reorder atoms so that storage order follows space (cell-key sort).
+
+    The JAX package's key (torchmdnet_tpu/data/batch.py:131-165): molecule id
+    first, then the cutoff-wide cell's x, y, z, with a stable sort and padding
+    atoms last, so molecule boundaries and segment reductions are untouched.
+    Atom order means nothing to the models; per-atom outputs (forces) come
+    back in the sorted order and map to the original one with the inverse
+    permutation, ``forces_original = forces_sorted[torch.argsort(order)]``.
+    ``cell`` should be about the model cutoff.  Returns (sorted batch, order).
+    """
+    pos = batch.pos.detach().cpu().numpy()
+    ids = batch.batch.cpu().numpy().astype(np.int64)
+    mask = batch.atom_mask.cpu().numpy()
+    c = np.floor((pos - pos.min(axis=0)) / float(cell)).astype(np.int64)
+    span = int(max(c.max() + 1, 1))
+    key = ((ids * span + c[:, 0]) * span + c[:, 1]) * span + c[:, 2]
+    key = np.where(mask, key, np.iinfo(np.int64).max)  # padding last
+    order = torch.as_tensor(np.argsort(key, kind="stable"), device=batch.pos.device)
+    n = batch.num_atoms
+    return batch.replace(**{
+        f.name: getattr(batch, f.name)[order]
+        for f in dataclasses.fields(batch)
+        if isinstance(getattr(batch, f.name), torch.Tensor) and getattr(batch, f.name).shape[:1] == (n,)
+    }), order

@@ -2,13 +2,17 @@
 
 Atoms at protein density (0.094 atoms/A^3) in a sphere, with protein-like
 composition, so the neighbor counts per atom, which drive message-passing
-cost, match a real protein of the same size (DHFR: 2489 atoms).
+cost, match a real protein of the same size (DHFR: 2489 atoms, factor IX:
+5807, STMV: 30327).
 """
 
 import numpy as np
 
 DENSITY = 0.094  # atoms / A^3
+# atom counts of the reference's benchmark systems (benchmarks/systems.py:16-23)
 DHFR_ATOMS = 2489
+FACTOR_IX_ATOMS = 5807
+STMV_ATOMS = 30327
 
 
 def synthetic_system(n_atoms: int, seed: int = 0):

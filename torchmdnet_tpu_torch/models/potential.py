@@ -29,6 +29,10 @@ _MODELS_TODO = (
     "slice E)"
 )
 _PRIORS_TODO = "prior models are not ported yet (ROADMAP.md, 'Modules to port', slice D)"
+_GATHER_PLAN_TODO = (
+    "the gather plan (one-hot gather kernels #4/#5) is not ported: the port's "
+    "fused ET kernel gathers by index (ROADMAP.md, 'TPU kernels to port')"
+)
 
 
 class EnergyModel(nn.Module):
@@ -80,17 +84,26 @@ class Potential:
             (grad,) = torch.autograd.grad(y.sum(), pos)
         return y.detach(), -grad
 
-    def neighbors(self, batch: AtomicBatch, box=None, strategy: str = "auto", skin: float = 0.0, k: Optional[int] = None):
+    def neighbors(self, batch: AtomicBatch, box=None, strategy: str = "auto", skin: float = 0.0,
+                  k: Optional[int] = None, gather_plan: bool = False, **cell_kwargs):
         """The representation's neighbor list, built on its own.
 
         With ``skin`` > 0 the list is built with ``cutoff_upper + skin`` and
         stays exact under ``NeighborList.refine`` while no atom moves more
         than skin/2; ``k`` defaults to max_num_neighbors, scaled by the skin
-        volume ratio (rounded up to a multiple of 8).
+        volume ratio (rounded up to a multiple of 8).  ``cell_kwargs`` go to
+        the cell strategy (``cell_capacity``, ``max_cells``, ...).  Batches of
+        small molecules (fewer than 512 atoms each on average) take the brute
+        strategy under 'auto': they overlap in space, so cells would hold
+        every sample's atoms at once.
         """
+        if gather_plan:
+            raise NotImplementedError(_GATHER_PLAN_TODO)
         a = self.args
         cutoff_upper = a.get("cutoff_upper", 5.0)
         cutoff_lower = a.get("cutoff_lower", 0.0)
+        if strategy == "auto" and batch.num_mol > 1 and batch.num_atoms / batch.num_mol < 512:
+            strategy = "brute"
         if k is None:
             k = a["max_num_neighbors"]
             if skin > 0.0:
@@ -101,7 +114,7 @@ class Potential:
         return neighbor_list(
             batch.pos, batch.batch, batch.atom_mask, k=k,
             cutoff_lower=cutoff_lower, cutoff_upper=cutoff_upper + skin,
-            loop=a["model"] != "graph-network", box=box, strategy=strategy,
+            loop=a["model"] != "graph-network", box=box, strategy=strategy, **cell_kwargs,
         )
 
 

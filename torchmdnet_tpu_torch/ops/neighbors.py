@@ -19,7 +19,8 @@ slots (``ell_transpose_sum``).  No ``index_add_`` is involved, so gradients
 ``index_add_`` adds floats with atomics.
 
 PBC: rectangular and reduced-form triclinic boxes via minimum image, with the
-reference's convention and box-validity preconditions.
+reference's convention and box-validity preconditions (the cell strategy,
+``ops/cell_list.py``, takes rectangular boxes only).
 """
 
 import dataclasses
@@ -28,11 +29,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-_CELL_LIST_TODO = (
-    "the cell-list strategy is not ported yet: it is the next slice of the "
-    "port (ROADMAP.md, 'Modules to port', slice C: ops/cell_list.py with the "
-    "select_topk kernel). Use strategy='brute'."
-)
+# atom count at which 'auto' switches from brute to the cell list, the JAX
+# package's threshold (torchmdnet_tpu/ops/neighbors.py:60)
+_AUTO_CELL_THRESHOLD = 2048
 
 
 def transpose_perm(idx: torch.Tensor) -> torch.Tensor:
@@ -122,12 +121,15 @@ class NeighborList:
         n_neighbors: (N,) int32, the TRUE number of in-cutoff neighbors of
             each atom (before capping at K), for overflow checks.
         self_loops: if True, column 0 is the self edge (i, i) with distance 0.
+        cell_overflow: cell strategy only, a scalar bool tensor: True if a
+            static cell-list size overflowed (the list may be incomplete).
     """
 
     idx: torch.Tensor
     mask: torch.Tensor
     n_neighbors: torch.Tensor
     self_loops: bool = False
+    cell_overflow: Optional[torch.Tensor] = None
     _perm: Optional[torch.Tensor] = dataclasses.field(
         default=None, repr=False, compare=False
     )
@@ -148,14 +150,25 @@ class NeighborList:
         return self._perm
 
     def without_self_loops(self) -> "NeighborList":
-        """Drop the self-loop column (used by NeighborEmbedding)."""
+        """Drop the self-loop column (used by NeighborEmbedding).
+
+        The new list's transpose permutation comes from this list's without
+        a sort or a host check: every group of K slots pointing at atom j
+        holds exactly one column-0 slot, (j, 0); dropping it keeps the
+        others' order, and slot (i, c) becomes (i, c - 1)."""
         if not self.self_loops:
             return self
+        n, k = self.idx.shape
+        groups = self.transpose_perm.reshape(n, k).long()
+        keep = torch.argsort((groups % k == 0).to(torch.int32), dim=1, stable=True)[:, : k - 1]
+        flat = torch.gather(groups, 1, keep)
         return NeighborList(
             idx=self.idx[:, 1:].contiguous(),
             mask=self.mask[:, 1:].contiguous(),
             n_neighbors=self.n_neighbors,
             self_loops=False,
+            cell_overflow=self.cell_overflow,
+            _perm=((flat // k) * (k - 1) + flat % k - 1).reshape(-1).to(torch.int32),
         )
 
     def overflow(self) -> torch.Tensor:
@@ -164,14 +177,21 @@ class NeighborList:
         return (self.n_neighbors > k_real).any()
 
     def raise_on_overflow(self, context: str = "") -> "NeighborList":
-        """Loud failure when the list is incomplete (one host fetch)."""
+        """Loud failure when the list is incomplete (up to two host fetches)."""
+        where = f" in {context}" if context else ""
         if bool(self.overflow()):
             k_real = self.k - (1 if self.self_loops else 0)
             raise ValueError(
-                f"Neighbor capacity exceeded{' in ' + context if context else ''}: "
+                f"Neighbor capacity exceeded{where}: "
                 f"an atom has more than max_num_neighbors={k_real} neighbors "
                 f"within the cutoff (true max: {int(self.n_neighbors.max())}). "
                 "Increase max_num_neighbors."
+            )
+        if self.cell_overflow is not None and bool(self.cell_overflow):
+            raise ValueError(
+                f"Cell-list capacity exceeded{where}: "
+                "raise cell_capacity / max_cells / max_dense_cells, or use "
+                "strategy='brute' or the hash fallback."
             )
         return self
 
@@ -198,7 +218,10 @@ class NeighborList:
             mask=self.mask & window,
             n_neighbors=self.n_neighbors,
             self_loops=self.self_loops,
-            _perm=self._perm,  # depends only on idx: still valid
+            cell_overflow=self.cell_overflow,
+            # depends only on idx: computed once on this list and shared by
+            # every refinement (one argsort and host check per skin rebuild)
+            _perm=self.transpose_perm,
         )
 
 
@@ -237,6 +260,14 @@ def check_box(box, cutoff: float):
         raise ValueError("triclinic box is not in reduced form")
 
 
+def _is_rectangular(box) -> bool:
+    """True without a box or for a diagonal one (one host fetch)."""
+    if box is None:
+        return True
+    box = torch.as_tensor(box)
+    return not bool((box - torch.diag(torch.diagonal(box))).any())
+
+
 def safe_norm(x, dim=-1, keepdim=False):
     """Euclidean norm that is finite, value and gradient, at x == 0."""
     sq = (x * x).sum(dim=dim, keepdim=keepdim)
@@ -272,11 +303,19 @@ def _neighbor_list_brute(pos, batch, atom_mask, box, *, k, cutoff_lower, cutoff_
 
     # keep the k valid neighbors with the smallest column index, ascending
     key = torch.where(valid, ar[None, :], n)
-    k_eff = min(k, n)
-    idx = torch.topk(key, k_eff, dim=1, largest=False, sorted=True).values
+    idx = torch.topk(key, min(k, n), dim=1, largest=False, sorted=True).values
+    idx, mask = _finish_rows(idx, n, k, loop, atom_mask)
+    return idx, mask, n_neighbors
+
+
+def _finish_rows(idx, n: int, k: int, loop: bool, atom_mask):
+    """ELL rows from each atom's ascending candidate ids (``n`` = empty):
+    empty slots point at the atom itself, rows are padded to k columns, and
+    the self edge is prepended when ``loop``.  Returns (idx int32, mask)."""
+    k_eff = idx.shape[1]
+    ar = torch.arange(n, device=idx.device, dtype=idx.dtype)
     mask = idx < n
-    rows = ar[:, None].expand(n, k_eff)
-    idx = torch.where(mask, idx, rows)
+    idx = torch.where(mask, idx, ar[:, None].expand(n, k_eff))
     if k_eff < k:
         pad = k - k_eff
         idx = torch.cat([idx, ar[:, None].expand(n, pad)], dim=1)
@@ -284,7 +323,7 @@ def _neighbor_list_brute(pos, batch, atom_mask, box, *, k, cutoff_lower, cutoff_
     if loop:
         idx = torch.cat([ar[:, None], idx], dim=1)
         mask = torch.cat([atom_mask[:, None], mask], dim=1)
-    return idx.to(torch.int32).contiguous(), mask.contiguous(), n_neighbors
+    return idx.to(torch.int32).contiguous(), mask.contiguous()
 
 
 def neighbor_list(
@@ -298,6 +337,7 @@ def neighbor_list(
     loop: bool = False,
     box=None,
     strategy: str = "auto",
+    **cell_kwargs,
 ) -> NeighborList:
     """Build a static-shape ELL neighbor list.
 
@@ -308,14 +348,25 @@ def neighbor_list(
         k: max neighbors per atom. The output has K = k (+1 if loop).
         loop: include the self edge as column 0.
         box: optional (3, 3) periodic box (reduced triclinic rows a, b, c).
-        strategy: 'brute' (O(N^2) masked search) or 'auto', which takes
-            brute force at every size in this port; 'cell' is not ported yet.
+        strategy: 'brute' (O(N^2) masked search), 'cell' (the cell list,
+            O(N), ``ops/cell_list.py``; rectangular boxes only), or 'auto':
+            the cell list from ``_AUTO_CELL_THRESHOLD`` atoms unless the box
+            is triclinic, brute otherwise.
+        cell_kwargs: the cell strategy's static sizes (``cell_capacity``,
+            ``max_cells``, ...; see ``neighbor_list_cell``); brute ignores them.
     """
-    if strategy == "cell":
-        raise NotImplementedError(_CELL_LIST_TODO)
-    if strategy not in ("auto", "brute"):
-        raise ValueError(f"Unknown neighbor strategy: {strategy}")
     n = pos.shape[0]
+    if strategy == "auto":
+        strategy = "cell" if n >= _AUTO_CELL_THRESHOLD and _is_rectangular(box) else "brute"
+    if strategy == "cell":
+        from torchmdnet_tpu_torch.ops.cell_list import neighbor_list_cell
+
+        return neighbor_list_cell(
+            pos, batch, atom_mask, k=k, cutoff_lower=cutoff_lower,
+            cutoff_upper=cutoff_upper, loop=loop, box=box, **cell_kwargs,
+        )
+    if strategy != "brute":
+        raise ValueError(f"Unknown neighbor strategy: {strategy}")
     if batch is None:
         batch = torch.zeros(n, dtype=torch.int64, device=pos.device)
     if atom_mask is None:
