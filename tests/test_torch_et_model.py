@@ -151,4 +151,4 @@ def test_configuration_errors():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         create_model(dict(ARGS, model="tensornet"), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        create_model(dict(ARGS, prior_model="Atomref"), device="cpu")
+        create_model(dict(ARGS, prior_model="ZBL"), device="cpu")

@@ -24,6 +24,8 @@ class AtomicBatch:
     atom_mask: torch.Tensor  # (N,) bool
     mol_mask: torch.Tensor  # (M,) bool
     num_mol: int  # M, the padded molecule capacity
+    y: Optional[torch.Tensor] = None  # (M, 1) energy labels
+    neg_dy: Optional[torch.Tensor] = None  # (N, 3) force labels
 
     @property
     def num_atoms(self) -> int:
@@ -48,9 +50,10 @@ def pad_molecules(
     float_dtype=np.float32,
     device="cpu",
 ) -> AtomicBatch:
-    """Collate a list of per-molecule dicts ``{"z": (n,), "pos": (n, 3)}``
+    """Collate a list of per-molecule dicts ``{"z": (n,), "pos": (n, 3)}``,
+    with the optional labels ``y`` (energy) and ``neg_dy`` (n, 3) (forces),
     into one padded AtomicBatch, built on ``device`` (the CPU unless named).
-    Labels (energies, forces, charges) arrive with the trainer."""
+    A label is carried when every molecule has it; padding rows are zero."""
     if num_mol is None:
         num_mol = len(mols)
     if len(mols) > num_mol:
@@ -64,6 +67,10 @@ def pad_molecules(
     batch = np.full(num_atoms, num_mol, dtype=np.int64)
     atom_mask = np.zeros(num_atoms, dtype=bool)
     mol_mask = np.zeros(num_mol, dtype=bool)
+    has_y = bool(mols) and all(m.get("y") is not None for m in mols)
+    has_f = bool(mols) and all(m.get("neg_dy") is not None for m in mols)
+    y = np.zeros((num_mol, 1), dtype=float_dtype) if has_y else None
+    neg_dy = np.zeros((num_atoms, 3), dtype=float_dtype) if has_f else None
     offset = 0
     for i, m in enumerate(mols):
         n = len(m["z"])
@@ -73,6 +80,10 @@ def pad_molecules(
         batch[sl] = i
         atom_mask[sl] = True
         mol_mask[i] = True
+        if has_y:
+            y[i, 0] = np.asarray(m["y"]).reshape(-1)[0]
+        if has_f:
+            neg_dy[sl] = m["neg_dy"]
         offset += n
 
     def t(a):
@@ -81,6 +92,7 @@ def pad_molecules(
     return AtomicBatch(
         z=t(z), pos=t(pos), batch=t(batch), atom_mask=t(atom_mask),
         mol_mask=t(mol_mask), num_mol=num_mol,
+        y=None if y is None else t(y), neg_dy=None if neg_dy is None else t(neg_dy),
     )
 
 
@@ -93,6 +105,7 @@ def spatial_sort(batch: AtomicBatch, cell: float = 5.0) -> Tuple[AtomicBatch, to
     Atom order means nothing to the models; per-atom outputs (forces) come
     back in the sorted order and map to the original one with the inverse
     permutation, ``forces_original = forces_sorted[torch.argsort(order)]``.
+    Force labels (``neg_dy``) move with their atoms.
     ``cell`` should be about the model cutoff.  Returns (sorted batch, order).
     """
     pos = batch.pos.detach().cpu().numpy()

@@ -4,7 +4,9 @@
 - ``EnergyModel`` is the ``nn.Module`` computing per-molecule energies;
 - ``Potential`` wraps it with forces = -dE/dpos from ``torch.autograd.grad``;
 - ``create_model`` builds a Potential from the flat config dict the JAX
-  package takes.  Only the equivariant transformer is ported so far.
+  package takes, ``create_prior_models`` its priors, ``load_model`` a
+  Potential from a port checkpoint.  Only the equivariant transformer and
+  the Atomref prior are ported so far.
 """
 
 import dataclasses
@@ -19,6 +21,7 @@ from torchmdnet_tpu_torch.models.et import TorchMD_ET
 from torchmdnet_tpu_torch.models.output_heads import head_class
 from torchmdnet_tpu_torch.ops.neighbors import neighbor_list
 from torchmdnet_tpu_torch.ops.segment import segment_reduce
+from torchmdnet_tpu_torch.priors import prior_class_mapping
 from torchmdnet_tpu_torch.utils import resolve_device
 
 dtype_mapping = {32: torch.float32, 64: torch.float64}
@@ -28,7 +31,6 @@ _MODELS_TODO = (
     "transformer and the graph network follow (ROADMAP.md, 'Modules to port', "
     "slice E)"
 )
-_PRIORS_TODO = "prior models are not ported yet (ROADMAP.md, 'Modules to port', slice D)"
 _GATHER_PLAN_TODO = (
     "the gather plan (one-hot gather kernels #4/#5) is not ported: the port's "
     "fused ET kernel gathers by index (ROADMAP.md, 'TPU kernels to port')"
@@ -36,12 +38,15 @@ _GATHER_PLAN_TODO = (
 
 
 class EnergyModel(nn.Module):
-    """representation -> pre_reduce -> *std -> reduce -> +mean -> post_reduce."""
+    """representation -> pre_reduce -> *std -> priors' pre_reduce -> reduce
+    -> +mean -> post_reduce -> priors' post_reduce."""
 
-    def __init__(self, representation_model, output_model, mean=0.0, std=1.0, atom_filter=-1):
+    def __init__(self, representation_model, output_model, priors=(), mean=0.0, std=1.0,
+                 atom_filter=-1):
         super().__init__()
         self.representation_model = representation_model
         self.output_model = output_model
+        self.priors = nn.ModuleList(priors)
         self.mean = float(mean)
         self.std = float(std)
         self.atom_filter = atom_filter
@@ -55,10 +60,15 @@ class EnergyModel(nn.Module):
             batch_ids = torch.where(z > self.atom_filter, batch_ids, torch.full_like(batch_ids, m))
         x = self.output_model.pre_reduce(x, v, z, pos, batch_ids)
         x = x * self.std
+        for prior in self.priors:
+            x = prior.pre_reduce(x, z, pos, batch_ids, batch.atom_mask)
         # padding atoms carry batch id == m (the trash segment)
         y = segment_reduce(x, batch_ids, m + 1, self.output_model.reduce_op)[:m]
         y = y + self.mean
-        return self.output_model.post_reduce(y)
+        y = self.output_model.post_reduce(y)
+        for prior in self.priors:
+            y = prior.post_reduce(y, z, pos, batch_ids, batch.atom_mask, m)
+        return y
 
 
 @dataclasses.dataclass
@@ -76,12 +86,20 @@ class Potential:
     def energy(self, batch: AtomicBatch, box=None, nbl=None) -> torch.Tensor:
         return self.module(batch, box, nbl)
 
-    def energy_and_forces(self, batch: AtomicBatch, box=None, nbl=None):
-        """(y (M, 1), forces (N, 3)) with forces = -dE/dpos by autograd."""
+    def energy_and_forces(self, batch: AtomicBatch, box=None, nbl=None, create_graph: bool = False):
+        """(y (M, 1), forces (N, 3)) with forces = -dE/dpos by autograd.
+
+        The default returns both detached (energies and forces for MD and
+        serving).  ``create_graph=True`` is the training form: both stay in
+        the autograd graph, so a loss on the forces differentiates through
+        them to the parameters (grad-of-grad).
+        """
         pos = batch.pos.detach().requires_grad_(True)
         with torch.enable_grad():
             y = self.module(batch.replace(pos=pos), box, nbl)
-            (grad,) = torch.autograd.grad(y.sum(), pos)
+            (grad,) = torch.autograd.grad(y.sum(), pos, create_graph=create_graph)
+        if create_graph:
+            return y, -grad
         return y.detach(), -grad
 
     def neighbors(self, batch: AtomicBatch, box=None, strategy: str = "auto", skin: float = 0.0,
@@ -142,15 +160,58 @@ def create_representation(args: Dict[str, Any], generator: torch.Generator) -> n
     )
 
 
+def create_prior_models(args: Dict[str, Any], dataset=None):
+    """The priors of ``args["prior_model"]``: a name, a dict {name: kwargs}
+    or a list of either; ``prior_args`` saved in a checkpoint replay when
+    present (the JAX package's parser).  Only Atomref is ported; the others
+    raise ``NotImplementedError``."""
+    from torchmdnet_tpu_torch.priors import Atomref
+
+    prior_models = []
+    if not args.get("prior_model"):
+        return prior_models
+    prior_model = args["prior_model"]
+    if not isinstance(prior_model, list):
+        prior_model = [prior_model]
+    names, kwargs_list = [], []
+    for prior in prior_model:
+        if isinstance(prior, dict):
+            for key, value in prior.items():
+                names.append(key)
+                kwargs_list.append({} if value is None else value)
+        else:
+            names.append(prior)
+            kwargs_list.append({})
+    if args.get("prior_args") is not None:
+        kwargs_list = args["prior_args"]
+        if not isinstance(kwargs_list, list):
+            kwargs_list = [kwargs_list]
+    for name, kwargs in zip(names, kwargs_list):
+        if name not in prior_class_mapping:
+            raise ValueError(f"Unknown prior model {name}. Available models are "
+                             f"{', '.join(prior_class_mapping)}")
+        kwargs = dict(kwargs)
+        if name == "Atomref":
+            if "initial_atomref" in kwargs:
+                prior_models.append(Atomref(**kwargs))
+            else:
+                prior_models.append(Atomref.from_dataset(dataset=dataset, max_z=kwargs.get("max_z")))
+        else:
+            prior_models.append(prior_class_mapping[name](**kwargs))
+    return prior_models
+
+
 def create_model(
     args: Dict[str, Any],
+    prior_models=None,
     mean: Optional[float] = None,
     std: Optional[float] = None,
     device=None,
     seed: int = 0,
 ) -> Potential:
     """Build a Potential from a flat config dict, with weights drawn from a
-    ``torch.Generator`` seeded with ``seed``.
+    ``torch.Generator`` seeded with ``seed``.  ``prior_models`` default to
+    ``create_prior_models(args)``.
 
     Runs on ``cuda`` unless ``device`` names another device; with no device
     given and no GPU present this raises.
@@ -160,8 +221,9 @@ def create_model(
     precision = args.get("precision", 32)
     if precision not in dtype_mapping:
         raise ValueError(f"precision {precision} is not supported (32 or 64)")
-    if args.get("prior_model"):
-        raise NotImplementedError(_PRIORS_TODO)
+    if args.get("prior_model") and prior_models is None:
+        prior_models = create_prior_models(args)
+    prior_models = list(prior_models or [])
     if args.get("atom_filter", -1) > -1 and args.get("derivative", False):
         raise ValueError("Derivative and atom filter can't be used together")
     generator = torch.Generator().manual_seed(int(seed))
@@ -173,11 +235,37 @@ def create_model(
         args["embedding_dimension"], args["activation"],
         reduce_op=args.get("reduce_op", "sum"), generator=generator,
     )
+    if prior_models and not head.allow_prior_model:
+        import warnings
+
+        warnings.warn("Prior model was given but the output model does not allow prior "
+                      "models. Dropping the prior model.")
+        prior_models = []
     module = EnergyModel(
-        representation, head,
+        representation, head, priors=prior_models,
         mean=0.0 if mean is None else mean,
         std=1.0 if std is None else std,
         atom_filter=args.get("atom_filter", -1),
     )
     module = module.to(device=device, dtype=dtype_mapping[precision])
     return Potential(module=module, args=args, device=device)
+
+
+def load_model(filepath, args=None, device=None, **kwargs) -> Potential:
+    """A Potential with the weights of a port checkpoint
+    (``train/checkpoints.py``).  Hyperparameters come from the checkpoint
+    unless ``args`` is given; ``kwargs`` override single ones.  Runs on
+    ``cuda`` unless ``device`` names another device."""
+    from torchmdnet_tpu_torch.train.checkpoints import load_checkpoint
+
+    ckpt = load_checkpoint(filepath)
+    args = dict(ckpt["hyper_parameters"] if args is None else args)
+    for key, value in kwargs.items():
+        if key not in args:
+            import warnings
+
+            warnings.warn(f"Unknown hyperparameter: {key}={value}")
+        args[key] = value
+    model = create_model(args, device=device)
+    model.module.load_state_dict(ckpt["state_dict"])
+    return model

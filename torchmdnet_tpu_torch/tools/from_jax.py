@@ -5,7 +5,8 @@ tree (nested dicts of arrays, with or without the outer ``{"params": ...}``)
 into the port's ``state_dict``.  The port keeps the reference torchmd-net key
 names (``representation_model.attention_layers.0.q_proj.weight``, ...) and
 the JAX package's column layout (v/dv projections in global thirds), so no
-column permutation is needed here.  Flax kernels are (in, out); torch Linear
+column permutation is needed here.  A prior's table (Atomref's
+``priors_0/atomref``) becomes ``priors.0.atomref``.  Flax kernels are (in, out); torch Linear
 weights are (out, in): transposed on the way.  This is the same map as
 torchmdnet_tpu/tools/import_torch.py, read from the other side.
 """
@@ -17,7 +18,8 @@ import torch
 
 
 def _t(a):
-    return torch.as_tensor(np.array(a, dtype=np.float32))
+    a = np.asarray(a)
+    return torch.as_tensor(np.array(a, dtype=np.float64 if a.dtype == np.float64 else np.float32))
 
 
 def _dense(out, prefix, tree, bias=True):
@@ -39,7 +41,8 @@ def _gated_block(out, prefix, tree):
 
 
 def state_dict_from_jax(args: Dict[str, Any], params: Mapping) -> Dict[str, torch.Tensor]:
-    """JAX ``Potential`` params -> the port's ``state_dict`` (float32 tensors)."""
+    """JAX ``Potential`` params -> the port's ``state_dict`` (float32 tensors,
+    float64 where the tree holds float64)."""
     if "params" in params:
         params = params["params"]
     if args["model"] != "equivariant-transformer":
@@ -85,4 +88,9 @@ def state_dict_from_jax(args: Dict[str, Any], params: Mapping) -> Dict[str, torc
     else:
         _dense(out, "output_model.output_network.0", head["lin1"])
         _dense(out, "output_model.output_network.2", head["lin2"])
+    i = 0
+    while f"priors_{i}" in params:
+        for name, value in params[f"priors_{i}"].items():
+            out[f"priors.{i}.{name}"] = _t(value)
+        i += 1
     return out
