@@ -9,16 +9,21 @@ It builds the port's CUDA kernels from ``torchmdnet_tpu_torch/csrc`` with
 nvcc, holds each kernel against its plain PyTorch version on the card, and
 drives the port's main paths: ET energy and forces for a DHFR-sized system
 through ``External.calculate`` (whose neighbor list now comes from the cell
-list and the selection kernel), the cell list against the brute search,
-ET molecular dynamics at STMV size through ``md.Simulation`` (Verlet skin,
-a cell-list rebuild every 10 steps), and force-loss training of the training
+list and the selection kernel), the cell list against the brute search, ET
+molecular dynamics at STMV size through ``md.Simulation`` (Verlet skin, a
+cell-list rebuild every 10 steps), and force-loss training of the training
 benchmark's ET (8 x 256) through the training CLI
 (``torchmdnet_tpu_torch.scripts.train.main``), whose second-order pass runs
-the second-order kernel.  It times each.  Each phase prints one line; the
-line before the last is a JSON object with each kernel's numbers, the last
-line is ``{"ok": true, "device": {...}}``.  Any failure raises and exits
-non-zero.  Without a CUDA device, or outside a checkout, it exits non-zero
-and prints no result.  It takes two to three minutes on an H100.
+the second-order kernel. The same for TensorNet: its three message-phase
+kernels against their plain versions (a periodic box, DHFR and training
+shapes), energy and forces at DHFR size through ``External.calculate``
+(bench.py's TensorNet 2 x 128), and force-loss training of
+examples/TensorNet-ANI1X.yaml through the CLI. It times each. Each phase
+prints one line; the line before the last is a JSON object with each
+kernel's numbers, the last line is ``{"ok": true, "device": {...}}``. Any
+failure raises and exits non-zero. Without a CUDA device, or outside a
+checkout, it exits non-zero and prints no result. It takes about two
+minutes on an H100.
 """
 
 import csv
@@ -400,32 +405,32 @@ def time_kernels(seed):
     return dict(fwd=(fwd_ms, plain_fwd_ms, fb, fby), bwd=(bwd_ms, plain_bwd_ms, bb, bby))
 
 
-def main_path():
-    """ET energy + forces for the DHFR-sized system through External.calculate."""
+def main_path(args, km, label):
+    """Energy + forces of ``args``' model for the DHFR-sized system through
+    External.calculate; ``km`` is the model's kernel module, whose forward
+    and backward must run once per layer per call."""
     import numpy as np
     import torch
 
     from torchmdnet_tpu_torch import External, create_model
     from torchmdnet_tpu_torch.data.systems import DHFR_ATOMS
-    from torchmdnet_tpu_torch.ops.kernels import et_message as em
     from torchmdnet_tpu_torch.ops.kernels.select_topk import select_topk
 
     z, pos, _ = _synthetic_batch(DHFR_ATOMS, SEED, "cpu")
-    potential = create_model(ET_ARGS, seed=SEED)  # on cuda: no device named
+    potential = create_model(args, seed=SEED)  # on cuda: no device named
     ext = External((potential, None), z[None])
     rng = np.random.default_rng(SEED)
     requests = [pos + rng.normal(scale=0.02, size=pos.shape).astype(np.float32) for _ in range(REQUESTS - 1)]
     requests.append(requests[-1].copy())  # the last request repeats the one before
 
-    em.reset_launch_counts()
-    select_topk.launches = 0
+    _reset_launches()
     results = []
     for p in requests:
         energy, forces = ext.calculate(p)
         results.append((energy.clone(), forces.clone()))
     torch.cuda.synchronize()
-    launches = (em.run_fwd.launches, em.run_bwd.launches, select_topk.launches)
-    layers = ET_ARGS["num_layers"]
+    launches = (km.run_fwd.launches, km.run_bwd.launches, select_topk.launches)
+    layers = args["num_layers"]
     for energy, forces in results:
         if energy.shape != (1,) or forces.shape != (1, DHFR_ATOMS, 3):
             raise AssertionError(f"unexpected shapes {tuple(energy.shape)}, {tuple(forces.shape)}")
@@ -439,46 +444,62 @@ def main_path():
         raise AssertionError("forces of two identical requests differ")
 
     # the same weights through the composable fp32 path
-    ref = create_model(dict(ET_ARGS, bf16_messages=False, fused_attention=False), seed=SEED)
+    ref = create_model(dict(args, bf16_messages=False, fused_attention=False, fused_message=False), seed=SEED)
     ref.module.load_state_dict(potential.module.state_dict())
     ref_ext = External((ref, None), z[None])
     e32, f32 = ref_ext.calculate(requests[0])
     e_err = float((results[0][0] - e32).abs().max() / e32.abs().max())
     f_err = float((results[0][1] - f32).abs().max() / f32.abs().max())
     f_l2 = float((results[0][1] - f32).norm() / f32.norm())
-    log(f"main path: {REQUESTS} requests, ET 6x128 fused bf16, {DHFR_ATOMS} atoms (padded to "
+    log(f"main path: {REQUESTS} requests, {label} fused bf16, {DHFR_ATOMS} atoms (padded to "
         f"{ext.n_real + ext.n_pad}); launches fwd {launches[0]} bwd {launches[1]} "
         f"({layers}+{layers} per request), select_topk {launches[2]}; energies {[round(float(r[0][0]), 4) for r in results]}; "
         f"repeat forces bitwise equal: True; vs composable fp32: |dE|/|E| {e_err:.3e} (tol {E2E_ENERGY_TOL}), "
         f"max|dF|/max|F| {f_err:.3e} (tol {E2E_FORCE_TOL}), |dF|/|F| {f_l2:.3e}")
     if e_err > E2E_ENERGY_TOL or f_err > E2E_FORCE_TOL:
         raise AssertionError("fused energies/forces disagree with the composable fp32 path")
+    if args["model"] == "tensornet":
+        # how much of the output the message phase carries at these weights:
+        # the composable fp32 model with each interaction's last MLP layer
+        # zeroed (silu(0) = 0, so every message is zero)
+        with torch.no_grad():
+            for layer in ref.module.representation_model.layers:
+                layer.linears_scalar[2].weight.zero_()
+                layer.linears_scalar[2].bias.zero_()
+        e0, f0 = External((ref, None), z[None]).calculate(requests[0])
+        log(f"{label}: the message phase carries |dE|/|E| {float((e0 - e32).abs().max() / e32.abs().max()):.3e} "
+            f"and max|dF|/max|F| {float((f0 - f32).abs().max() / f32.abs().max()):.3e} of the composable "
+            f"fp32 output (messages zeroed)")
+        ref.module.load_state_dict(potential.module.state_dict())
 
     fused_ms = _host_ms(lambda: ext.calculate(requests[0]))
     comp_ms = _host_ms(lambda: ref_ext.calculate(requests[0]))
-    log(f"energy+forces per call (External.calculate, host clock with sync, median of 20): "
+    log(f"{label} energy+forces per call (External.calculate, host clock with sync, median of 20): "
         f"fused bf16 {fused_ms:.3f} ms; composable fp32 {comp_ms:.3f} ms")
-    return launches, ext, requests[0]
+    return launches, ext, requests[0], fused_ms
 
 
-def profile_calls(ext, pos, calls=3):
-    """Where the time of a fused energy+forces call goes: device time by
-    kernel (torch.profiler's CUDA activity) against the host clock."""
+def _profile(fn, reps, names):
+    """Run ``fn`` ``reps`` times under torch.profiler's CUDA activity: (wall
+    ms per rep on the host clock, device busy ms per rep, {name: device ms
+    per rep of the kernels whose names contain it}, the other kernels' ms per
+    rep, their launches per rep)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(calls):
-            ext.calculate(pos)
+        for _ in range(reps):
+            fn()
         torch.cuda.synchronize()
-        wall = 1e3 * (time.perf_counter() - t0) / calls
-    groups = {"et_fwd_kernel": 0.0, "et_bwd_kernel": 0.0, "ell_transpose_sum_kernel": 0.0}
+        wall = 1e3 * (time.perf_counter() - t0) / reps
+    groups = dict.fromkeys(names, 0.0)
     other, launches = 0.0, 0
     for ev in prof.events():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
             continue
-        ms = ev.device_time / 1e3 / calls
+        ms = ev.device_time / 1e3 / reps
         key = next((k for k in groups if k in ev.name), None)
         if key is None:
             other += ms
@@ -488,10 +509,25 @@ def profile_calls(ext, pos, calls=3):
     busy = sum(groups.values()) + other
     if busy <= 0.0:
         raise AssertionError("the profiler recorded no device time")
-    log(f"profile of {calls} fused calls (torch.profiler): wall {wall:.3f} ms/call, device busy "
-        f"{busy:.3f} ms/call ({100 * busy / wall:.1f}%); et_fwd {groups['et_fwd_kernel']:.3f}, "
-        f"et_bwd {groups['et_bwd_kernel']:.3f}, transpose-sum {groups['ell_transpose_sum_kernel']:.3f}, "
-        f"other kernels {other:.3f} ms/call ({launches / calls:.0f} launches/call)")
+    return wall, busy, groups, other, launches / reps
+
+
+def _shares(groups, other, busy):
+    parts = [f"{k} {v:.3f} ms ({100 * v / busy:.1f}%)" for k, v in groups.items()]
+    return ", ".join(parts + [f"other kernels {other:.3f} ms ({100 * other / busy:.1f}%)"])
+
+
+ET_SERVE_KERNELS = ("et_fwd_kernel", "et_bwd_kernel", "ell_transpose_sum_kernel")
+TN_SERVE_KERNELS = ("tn_fwd_kernel", "tn_bwd_kernel")
+
+
+def profile_calls(ext, pos, names, label, calls=3):
+    """Where the time of a fused energy+forces call goes: device time by
+    kernel against the host clock."""
+    wall, busy, groups, other, launches = _profile(lambda: ext.calculate(pos), calls, names)
+    log(f"profile of {calls} fused {label} calls (torch.profiler): wall {wall:.3f} ms/call, device busy "
+        f"{busy:.3f} ms/call ({100 * busy / wall:.1f}%); {_shares(groups, other, busy)} "
+        f"({launches:.0f} other launches/call)")
 
 
 def _stmv_batch():
@@ -803,66 +839,67 @@ def md_stmv(select_ms):
 
 
 def profile_md(sim, steps=10):
-    """Where the time of an MD step goes at STMV: device time by kernel
-    (torch.profiler's CUDA activity) over one skin chunk."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        sim.step(steps)
-        torch.cuda.synchronize()
-        wall = 1e3 * (time.perf_counter() - t0) / steps
-    groups = {"et_fwd_kernel": 0.0, "et_bwd_kernel": 0.0, "ell_transpose_sum_kernel": 0.0,
-              "select_topk_kernel": 0.0}
-    other = 0.0
-    for ev in prof.events():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        ms = ev.device_time / 1e3 / steps
-        key = next((k for k in groups if k in ev.name), None)
-        if key is None:
-            other += ms
-        else:
-            groups[key] += ms
-    busy = sum(groups.values()) + other
-    if busy <= 0.0:
-        raise AssertionError("the profiler recorded no device time")
-    shares = ", ".join(f"{k} {v:.3f} ms ({100 * v / busy:.1f}%)" for k, v in groups.items())
+    """Where the time of an MD step goes at STMV: device time by kernel over
+    one skin chunk."""
+    names = ET_SERVE_KERNELS + ("select_topk_kernel",)
+    wall, busy, groups, other, _ = _profile(lambda: sim.step(steps), 1, names)
+    wall, busy, other = wall / steps, busy / steps, other / steps
+    groups = {k: v / steps for k, v in groups.items()}
     log(f"profile of {steps} MD steps at STMV (torch.profiler): wall {wall:.3f} ms/step, device busy "
-        f"{busy:.3f} ms/step; {shares}, other kernels {other:.3f} ms ({100 * other / busy:.1f}%)")
+        f"{busy:.3f} ms/step; {_shares(groups, other, busy)}")
 
 
-def _train_dataset():
+def _train_cfg(kind):
+    """A training path's configuration: "et" (benchmarks/training.py's ET) or
+    "tn" (examples/TensorNet-ANI1X.yaml)."""
+    from torchmdnet_tpu_torch.ops.kernels import et_message as em
+    from torchmdnet_tpu_torch.ops.kernels import tn_message as tm
+
+    if kind == "et":
+        return dict(args=TRAIN_ARGS, batch=TRAIN_BATCH, split=TRAIN_SPLIT, km=em, lr=1e-4,
+                    weights=(1.0, 1.0), label=f"ET {TRAIN_ARGS['num_layers']}x{TRAIN_ARGS['embedding_dimension']}",
+                    kernels=("et_fwd_kernel", "et_bwd_kernel", "et_bwd2_kernel", "ell_transpose_sum_kernel"),
+                    flags=["--num-heads", str(TRAIN_ARGS["num_heads"]), "--neighbor-embedding", "true",
+                           "--fused-attention", "true"])
+    return dict(args=TN_TRAIN_ARGS, batch=TN_TRAIN_BATCH, split=TN_TRAIN_SPLIT, km=tm, lr=TN_TRAIN_LR,
+                weights=TN_TRAIN_WEIGHTS, label="TensorNet-ANI1X 2x128",
+                kernels=("tn_fwd_kernel", "tn_bwd_kernel", "tn_bwd2_kernel", "tn_src_sum_kernel",
+                         "tn_wgrad_kernel", "tn_colsum_kernel"),
+                flags=["--equivariance-invariance-group", TN_TRAIN_ARGS["equivariance_invariance_group"],
+                       "--fused-message", "true"])
+
+
+def _train_dataset(split=TRAIN_SPLIT):
     from torchmdnet_tpu_torch.data.datasets import SyntheticMorse
 
-    return SyntheticMorse(num_samples=sum(TRAIN_SPLIT), seed=SEED, **TRAIN_MOL)
+    return SyntheticMorse(num_samples=sum(split), seed=SEED, **TRAIN_MOL)
 
 
-def _train_batch(ds, device):
-    """The first TRAIN_BATCH molecules as the trainer sees a batch: padded to
-    a multiple of 8 atoms, spatially sorted (fused_attention), on ``device``."""
+def _train_batch(ds, device, batch_size=TRAIN_BATCH, cutoff=TRAIN_ARGS["cutoff_upper"]):
+    """The first ``batch_size`` molecules as the trainer sees a batch: padded
+    to a multiple of 8 atoms, spatially sorted (the fused paths), on ``device``."""
     from torchmdnet_tpu_torch.data.batch import pad_molecules, spatial_sort
 
-    mols = [ds[i] for i in range(TRAIN_BATCH)]
-    n = -(-TRAIN_BATCH * TRAIN_MOL["num_atoms"] // 8) * 8
-    batch = pad_molecules(mols, num_atoms=n, num_mol=TRAIN_BATCH)
-    return spatial_sort(batch, cell=TRAIN_ARGS["cutoff_upper"])[0].to(device)
+    mols = [ds[i] for i in range(batch_size)]
+    n = -(-batch_size * TRAIN_MOL["num_atoms"] // 8) * 8
+    batch = pad_molecules(mols, num_atoms=n, num_mol=batch_size)
+    return spatial_sort(batch, cell=cutoff)[0].to(device)
 
 
-def _launches():
-    from torchmdnet_tpu_torch.ops.kernels import et_message as em
+def _launches(km):
+    """(fwd, bwd, bwd2, select_topk) launches of a kernel module."""
     from torchmdnet_tpu_torch.ops.kernels.select_topk import select_topk
 
-    return (em.run_fwd.launches, em.run_bwd.launches, em.run_bwd2.launches, select_topk.launches)
+    return (km.run_fwd.launches, km.run_bwd.launches, km.run_bwd2.launches, select_topk.launches)
 
 
 def _reset_launches():
     from torchmdnet_tpu_torch.ops.kernels import et_message as em
+    from torchmdnet_tpu_torch.ops.kernels import tn_message as tm
     from torchmdnet_tpu_torch.ops.kernels.select_topk import select_topk
 
     em.reset_launch_counts()
+    tm.reset_launch_counts()
     select_topk.launches = 0
 
 
@@ -912,8 +949,8 @@ def time_train_kernels(batch):
     return ms, plain, bounds
 
 
-def train_grads_vs_composable(ds):
-    """One force-loss gradient at the training configuration, fused bf16
+def train_grads_vs_composable(ds, cfg):
+    """One force-loss gradient at a training configuration, fused bf16
     against composable fp32 with the same weights; the fused pass must run
     L forward, 2L backward and L second-order launches."""
     import torch
@@ -921,24 +958,26 @@ def train_grads_vs_composable(ds):
     from torchmdnet_tpu_torch import create_model
     from torchmdnet_tpu_torch.train.trainer import masked_mse
 
-    batch = _train_batch(ds, "cuda")
-    fused = create_model(TRAIN_ARGS, seed=SEED)
-    comp = create_model(dict(TRAIN_ARGS, bf16_messages=False, fused_attention=False), seed=SEED)
+    args = cfg["args"]
+    batch = _train_batch(ds, "cuda", cfg["batch"], args["cutoff_upper"])
+    fused = create_model(args, seed=SEED)
+    comp = create_model(dict(args, bf16_messages=False, fused_attention=False, fused_message=False), seed=SEED)
     comp.module.load_state_dict(fused.module.state_dict())
+    wy, wf = cfg["weights"]
     grads, launches = {}, None
     for name, model in (("fused", fused), ("composable", comp)):
         _reset_launches()
         nbl = model.neighbors(batch)
         nbl.raise_on_overflow("the training batch")
         y, neg_dy = model.energy_and_forces(batch, nbl=nbl, create_graph=True)
-        loss = masked_mse(y, batch.y, batch.mol_mask) + masked_mse(neg_dy, batch.neg_dy, batch.atom_mask)
+        loss = wy * masked_mse(y, batch.y, batch.mol_mask) + wf * masked_mse(neg_dy, batch.neg_dy, batch.atom_mask)
         names = [k for k, p in model.module.named_parameters() if p.requires_grad]
         g = torch.autograd.grad(loss, [dict(model.module.named_parameters())[k] for k in names])
         torch.cuda.synchronize()
         grads[name] = dict(zip(names, g))
         if name == "fused":
-            launches = _launches()[:3]
-    layers = TRAIN_ARGS["num_layers"]
+            launches = _launches(cfg["km"])[:3]
+    layers = args["num_layers"]
     if launches != (layers, 2 * layers, layers):
         raise AssertionError(f"one fused force-loss gradient should launch {layers} fwd, {2 * layers} bwd "
                              f"and {layers} bwd2, got {launches}")
@@ -947,7 +986,7 @@ def train_grads_vs_composable(ds):
     den = sum(float(v.double().pow(2).sum()) for v in grads["composable"].values())
     l2 = math.sqrt(num / den)
     worst = max(per, key=per.get)
-    log(f"force-loss gradient at the training configuration (ET 8x256, {TRAIN_BATCH} molecules of "
+    log(f"force-loss gradient at the training configuration ({cfg['label']}, {cfg['batch']} molecules of "
         f"{TRAIN_MOL['num_atoms']} atoms, N={batch.num_atoms}): launches fwd {launches[0]} bwd {launches[1]} "
         f"bwd2 {launches[2]} (L, 2L, L for L={layers}); fused bf16 vs composable fp32 over "
         f"{len(per)} parameter tensors: max|dg|/max|g| worst {per[worst]:.3e} ({worst}, tol {TRAIN_GRAD_TOL}), "
@@ -957,26 +996,26 @@ def train_grads_vs_composable(ds):
     del grads, fused, comp
 
 
-def _cli_flags(workdir):
-    a = TRAIN_ARGS
-    train, val, test = TRAIN_SPLIT
+def _cli_flags(workdir, cfg):
+    a = cfg["args"]
+    train, val, test = cfg["split"]
+    wy, wf = cfg["weights"]
     return [
         "--model", a["model"], "--embedding-dimension", str(a["embedding_dimension"]),
         "--num-layers", str(a["num_layers"]), "--num-rbf", str(a["num_rbf"]),
-        "--num-heads", str(a["num_heads"]), "--max-num-neighbors", str(a["max_num_neighbors"]),
+        "--max-num-neighbors", str(a["max_num_neighbors"]),
         "--cutoff-upper", str(a["cutoff_upper"]), "--max-z", str(a["max_z"]),
-        "--neighbor-embedding", "true", "--derivative", "true",
-        "--bf16-messages", "true", "--fused-attention", "true",
-        "--lr", "1e-4", "--batch-size", str(TRAIN_BATCH), "--num-epochs", str(TRAIN_EPOCHS),
+        "--derivative", "true", "--bf16-messages", "true", *cfg["flags"],
+        "--lr", str(cfg["lr"]), "--batch-size", str(cfg["batch"]), "--num-epochs", str(TRAIN_EPOCHS),
         "--train-size", str(train), "--val-size", str(val), "--test-size", str(test),
-        "--y-weight", "1.0", "--neg-dy-weight", "1.0", "--seed", str(SEED),
+        "--y-weight", str(wy), "--neg-dy-weight", str(wf), "--seed", str(SEED),
         "--dataset", "SyntheticMorse", "--dataset-root", os.path.join(workdir, "data"),
-        "--dataset-arg", json.dumps(dict(num_samples=sum(TRAIN_SPLIT), seed=SEED, **TRAIN_MOL)),
+        "--dataset-arg", json.dumps(dict(num_samples=sum(cfg["split"]), seed=SEED, **TRAIN_MOL)),
         "--log-dir", os.path.join(workdir, "logs"), "--save-interval", "1", "--num-workers", "0",
     ]
 
 
-def train_cli(workdir):
+def train_cli(workdir, cfg):
     """Force-loss training through the CLI's entry point: losses finite and
     falling, the expected launches, a checkpoint written and reloadable."""
     import torch
@@ -987,9 +1026,9 @@ def train_cli(workdir):
 
     t0 = time.perf_counter()
     _reset_launches()
-    trainer, test_metrics = cli.main(_cli_flags(workdir))
+    trainer, test_metrics = cli.main(_cli_flags(workdir, cfg))
     torch.cuda.synchronize()
-    launches = _launches()
+    launches = _launches(cfg["km"])
     seconds = time.perf_counter() - t0
     with open(os.path.join(workdir, "logs", "metrics.csv")) as f:
         rows = [r for r in csv.DictReader(f) if r.get("train_total_mse_loss")]
@@ -1001,9 +1040,10 @@ def train_cli(workdir):
     if not train_losses[-1] < first:
         raise AssertionError(f"the last epoch's train loss {train_losses[-1]} is not below the first "
                              f"step's {first}")
-    layers = TRAIN_ARGS["num_layers"]
-    steps = TRAIN_EPOCHS * (TRAIN_SPLIT[0] // TRAIN_BATCH)
-    evals = TRAIN_EPOCHS * -(-TRAIN_SPLIT[1] // TRAIN_BATCH) + -(-TRAIN_SPLIT[2] // TRAIN_BATCH)
+    layers = cfg["args"]["num_layers"]
+    split, bs = cfg["split"], cfg["batch"]
+    steps = TRAIN_EPOCHS * (split[0] // bs)
+    evals = TRAIN_EPOCHS * -(-split[1] // bs) + -(-split[2] // bs)
     expected = (layers * (steps + evals), layers * (2 * steps + evals), layers * steps, 0)
     if launches != expected or trainer.state.global_step != steps:
         raise AssertionError(f"expected launches {expected} for {steps} steps and {evals} evaluation "
@@ -1014,8 +1054,8 @@ def train_cli(workdir):
     same = all(torch.equal(v.cpu(), ckpt["state_dict"][k]) for k, v in reloaded.module.state_dict().items())
     if not same or ckpt["optimizer"] is None:
         raise AssertionError(f"the checkpoint {best} did not reload")
-    log(f"training CLI (scripts.train.main, ET 8x256 fused bf16, SyntheticMorse {TRAIN_MOL}, "
-        f"{TRAIN_SPLIT} samples, batches of {TRAIN_BATCH}, {TRAIN_EPOCHS} epochs = {steps} steps): "
+    log(f"training CLI (scripts.train.main, {cfg['label']} fused bf16, SyntheticMorse {TRAIN_MOL}, "
+        f"{split} samples, batches of {bs}, {TRAIN_EPOCHS} epochs = {steps} steps): "
         f"first step loss {first:.4f}, epoch train losses {[round(v, 4) for v in train_losses]}, "
         f"test {json.dumps({k: round(v, 4) for k, v in test_metrics.items()})}; launches fwd {launches[0]} "
         f"bwd {launches[1]} bwd2 {launches[2]} select_topk {launches[3]} ({steps} steps x (L, 2L, L) + "
@@ -1024,12 +1064,13 @@ def train_cli(workdir):
     return trainer, launches
 
 
-def time_train_steps(trainer, ds):
+def time_train_steps(trainer, ds, cfg):
     """Trainer steps on one training batch: host clock with sync around each
     step, median after warm-up; (L, 2L, L) launches per step."""
     import torch
 
-    batch = trainer._prepare_batch(_train_batch(ds, "cpu"))
+    bs = cfg["batch"]
+    batch = trainer._prepare_batch(_train_batch(ds, "cpu", bs, cfg["args"]["cutoff_upper"]))
     acc = torch.zeros(4, dtype=trainer.dtype, device="cuda")
     ema = torch.zeros((), dtype=trainer.dtype, device="cuda")
     torch.cuda.reset_peak_memory_stats()
@@ -1043,55 +1084,285 @@ def time_train_steps(trainer, ds):
         trainer._train_step(batch, acc, ema, ema)
         torch.cuda.synchronize()
         times.append(1e3 * (time.perf_counter() - t0))
-    launches = _launches()[:3]
-    layers = TRAIN_ARGS["num_layers"]
+    launches = _launches(cfg["km"])[:3]
+    layers = cfg["args"]["num_layers"]
     if launches != tuple(c * layers * TRAIN_TIMED_STEPS for c in (1, 2, 1)):
         raise AssertionError(f"expected (L, 2L, L) launches per step, got {launches} in {TRAIN_TIMED_STEPS} steps")
     ms = statistics.median(times)
     peak = torch.cuda.max_memory_allocated() / 2**30
-    log(f"training step (Trainer, ET 8x256 fused bf16, {TRAIN_BATCH} x {TRAIN_MOL['num_atoms']} atoms, "
+    log(f"training step (Trainer, {cfg['label']} fused bf16, {bs} x {TRAIN_MOL['num_atoms']} atoms, "
         f"host clock with sync, median of {TRAIN_TIMED_STEPS} after {TRAIN_WARMUP_STEPS}): {ms:.3f} ms/step "
-        f"(min {min(times):.3f}, max {max(times):.3f}), {1e3 * TRAIN_BATCH / ms:.1f} molecules/s; launches "
+        f"(min {min(times):.3f}, max {max(times):.3f}), {1e3 * bs / ms:.1f} molecules/s; launches "
         f"per step fwd {launches[0] // TRAIN_TIMED_STEPS} bwd {launches[1] // TRAIN_TIMED_STEPS} bwd2 "
         f"{launches[2] // TRAIN_TIMED_STEPS}; peak memory {peak:.2f} GiB")
-    return batch
+    return batch, ms
 
 
-def profile_train(trainer, batch, steps=3):
+def profile_train(trainer, batch, cfg, steps=3):
     """Where the time of a training step goes: device time by kernel
-    (torch.profiler's CUDA activity) against the host clock."""
+    against the host clock."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     acc = torch.zeros(4, dtype=trainer.dtype, device="cuda")
     ema = torch.zeros((), dtype=trainer.dtype, device="cuda")
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            trainer._train_step(batch, acc, ema, ema)
+    wall, busy, groups, other, launches = _profile(
+        lambda: trainer._train_step(batch, acc, ema, ema), steps, cfg["kernels"])
+    log(f"profile of {steps} {cfg['label']} training steps (torch.profiler): wall {wall:.3f} ms/step, device "
+        f"busy {busy:.3f} ms/step ({100 * busy / wall:.1f}%); {_shares(groups, other, busy)} "
+        f"({launches:.0f} other launches/step)")
+
+
+# --- TensorNet: serving at DHFR size and force-loss training ----------------
+
+# TensorNet configuration of the serving benchmark (benchmarks/inference.py:31-61,
+# as bench.py's tensornet_forces_dhfr2489_ms line): 2 x 128, 32 ExpNormal RBFs
+# (not trainable), cutoff 0-4.5 A, 64 neighbors, O(3), the fused bf16 message phase
+TN_ARGS = dict(
+    model="tensornet", embedding_dimension=128, num_layers=2, num_rbf=32, rbf_type="expnorm",
+    trainable_rbf=False, activation="silu", cutoff_lower=0.0, cutoff_upper=4.5, max_z=128,
+    max_num_neighbors=64, derivative=True, output_model="Scalar", prior_model=None,
+    reduce_op="add", precision=32, atom_filter=-1, equivariance_invariance_group="O(3)",
+    bf16_messages=True, fused_message=True,
+)
+# examples/TensorNet-ANI1X.yaml: 2 x 128, 32 RBFs, cutoff 4.5 A, 32 neighbors,
+# batches of 64, y_weight 0.5, neg_dy_weight 0.5, lr 2e-4, max_z 128, O(3); with
+# the fused bf16 message phase.  SyntheticMorse stands in for ANI1X's files.
+TN_TRAIN_ARGS = dict(TN_ARGS, max_num_neighbors=32)
+TN_TRAIN_BATCH = 64
+TN_TRAIN_SPLIT = (768, 64, 64)  # 12 training batches, one val, one test
+TN_TRAIN_LR = 2e-4
+TN_TRAIN_WEIGHTS = (0.5, 0.5)  # y_weight, neg_dy_weight
+TN_ORDER = ["cat", "ea", "cutm", "w1", "b1", "w2", "b2", "w3", "b3"]
+# TensorNet's forward, kernel against plain version: both round at the same
+# points, but the edge MLP chains three layers, and the order of a layer's
+# f32 sums can flip the bf16 rounding of a pre-activation in each of them
+# (one ulp, 2^-8 relative), where ET's filter has one layer.  Measured on the
+# card: 1.07e-3 at N = 512, K = 81 and 2.29e-3 at DHFR (K = 65), with the
+# backward and second order, which recompute the same forward, at 7e-3 of
+# their 2e-2 and 3e-2.  So 5e-3, with a second check that the kernel is no
+# farther than twice the plain version's distance from the same function in
+# f32 without intermediate rounding.
+TN_FWD_TOL = 5e-3
+# a periodic cube of random atoms at about water's number density (0.1 / A^3)
+TN_BOX_ATOMS = 512
+
+
+def _tn_kernel_inputs(nbl, pos, h, rbf, cutoff, seed, box=None):
+    """Message-phase operands on the card for a list ``nbl`` over ``pos``:
+    its RBFs and cutoff from the geometry, random bf16 source rows and MLP."""
+    import torch
+
+    from torchmdnet_tpu_torch.ops.cutoff import cosine_cutoff
+    from torchmdnet_tpu_torch.ops.neighbors import edge_geometry_components
+    from torchmdnet_tpu_torch.ops.rbf import ExpNormalSmearing
+
+    n = nbl.idx.shape[0]
+    _, dist = edge_geometry_components(pos, nbl, box=box)
+    g = torch.Generator().manual_seed(seed)
+    bf = torch.bfloat16
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g) * scale).to("cuda")
+
+    ins = dict(
+        cat=rnd(n, 9 * h).to(bf),
+        ea=ExpNormalSmearing(0.0, cutoff, rbf).to("cuda")(dist).detach().to(bf),
+        cutm=(cosine_cutoff(dist, 0.0, cutoff) * nbl.mask).float().detach(),
+        w1=rnd(rbf, h, scale=rbf ** -0.5).to(bf), b1=rnd(1, h, scale=0.1).to(bf),
+        w2=rnd(h, 2 * h, scale=h ** -0.5).to(bf), b2=rnd(1, 2 * h, scale=0.1).to(bf),
+        w3=rnd(2 * h, 3 * h, scale=(2 * h) ** -0.5).to(bf), b3=rnd(1, 3 * h, scale=0.1).to(bf),
+    )
+    return ins, rnd(n, 9 * h)
+
+
+def _tn_system(kind, seed):
+    """(nbl, pos, box) on the card: "DHFR" (External's list at DHFR size),
+    "box" (a periodic cube, brute search) or a training batch."""
+    import torch
+
+    from torchmdnet_tpu_torch.ops.neighbors import neighbor_list
+
+    box = None
+    if kind == "DHFR":
+        from torchmdnet_tpu_torch.data.systems import DHFR_ATOMS
+
+        from torchmdnet_tpu_torch.ops.cell_list import probe_cell_kwargs
+
+        _, _, batch = _synthetic_batch(DHFR_ATOMS, seed, "cuda")
+        k, cut, strategy = TN_ARGS["max_num_neighbors"], TN_ARGS["cutoff_upper"], "auto"
+        cell_kwargs = probe_cell_kwargs(batch, cutoff_upper=cut)
+    elif kind == "box":
+        g = torch.Generator().manual_seed(seed)
+        side = (TN_BOX_ATOMS / 0.1) ** (1.0 / 3.0)
+        pos = (torch.rand(TN_BOX_ATOMS, 3, generator=g) * side).to("cuda")
+        box = torch.eye(3, device="cuda") * side
+        nbl = neighbor_list(pos, k=80, cutoff_upper=TN_ARGS["cutoff_upper"], loop=True, box=box,
+                            strategy="brute")
+        nbl.raise_on_overflow("chip_smoke periodic box")
+        return nbl, pos, box
+    else:
+        batch = kind
+        k, cut, strategy = TN_TRAIN_ARGS["max_num_neighbors"], TN_TRAIN_ARGS["cutoff_upper"], "brute"
+        cell_kwargs = {}
+    nbl = neighbor_list(batch.pos, batch.batch, batch.atom_mask, k=k, cutoff_upper=cut, loop=True,
+                        strategy=strategy, **cell_kwargs)
+    nbl.raise_on_overflow("chip_smoke TensorNet kernel inputs")
+    return nbl, batch.pos, box
+
+
+def _tn_z_like(ins, seed):
+    """Random cotangents Z on the backward's nine outputs, in their dtypes."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    return [(torch.randn(ins[n].shape, generator=g) * 0.5).to("cuda", ins[n].dtype) for n in TN_ORDER]
+
+
+def check_tn_kernels(label, kind, seed):
+    """#8, #9 and #10 against their plain versions: the forward output, all
+    nine input cotangents through autograd (the weight cotangents from the
+    edge reductions), the backward without weight cotangents (serving's),
+    and the second order's nine + 1 gradients; a third derivative must
+    raise.  Returns the max abs errors (fwd, bwd, bwd2)."""
+    import torch
+
+    from torchmdnet_tpu_torch.ops.kernels import tn_message as tm
+
+    h, rbf = TN_ARGS["embedding_dimension"], TN_ARGS["num_rbf"]
+    nbl, pos, box = _tn_system(kind, seed)
+    ins, ct = _tn_kernel_inputs(nbl, pos, h, rbf, TN_ARGS["cutoff_upper"], seed, box=box)
+    idx, perm = nbl.idx, nbl.transpose_perm
+    outs, grads = {}, {}
+    for name, fn in (("kernel", tm.fused_tn_messages), ("plain", tm.tn_messages_reference)):
+        t = {n: v.clone().requires_grad_(True) for n, v in ins.items()}
+        m = fn(idx, *[t[n] for n in TN_ORDER], act="silu", perm=perm)
+        g = torch.autograd.grad(m, [t[n] for n in TN_ORDER], ct)
         torch.cuda.synchronize()
-        wall = 1e3 * (time.perf_counter() - t0) / steps
-    groups = {"et_fwd_kernel": 0.0, "et_bwd_kernel": 0.0, "et_bwd2_kernel": 0.0,
-              "ell_transpose_sum_kernel": 0.0}
-    other, launches = 0.0, 0
-    for ev in prof.events():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        ms = ev.device_time / 1e3 / steps
-        key = next((k for k in groups if k in ev.name), None)
-        if key is None:
-            other += ms
-            launches += 1
-        else:
-            groups[key] += ms
-    busy = sum(groups.values()) + other
-    if busy <= 0.0:
-        raise AssertionError("the profiler recorded no device time")
-    shares = ", ".join(f"{k} {v:.3f} ms ({100 * v / busy:.1f}%)" for k, v in groups.items())
-    log(f"profile of {steps} training steps (torch.profiler): wall {wall:.3f} ms/step, device busy "
-        f"{busy:.3f} ms/step ({100 * busy / wall:.1f}%); {shares}, other kernels {other:.3f} ms "
-        f"({100 * other / busy:.1f}%, {launches / steps:.0f} launches/step)")
+        outs[name], grads[name] = m.detach(), dict(zip(TN_ORDER, g))
+    # serving's backward: no weight cotangents, the same input cotangents
+    frozen = tm.run_bwd(idx, *[ins[n] for n in TN_ORDER], ct, act="silu", want_weight_grads=False)
+    if any(x is not None for x in frozen[3:]):
+        raise AssertionError("the backward without weight cotangents returned some")
+    for n, a in zip(TN_ORDER[:3], frozen[:3]):
+        if not torch.equal(a, grads["kernel"][n]):
+            raise AssertionError(f"the backward's {n} cotangent depends on whether weight cotangents are wanted")
+    z = _tn_z_like(ins, seed)
+    inputs = [ins[n] for n in TN_ORDER]
+    got = tm.run_bwd2(idx, perm, inputs, ct, z, act="silu")
+    want = tm.tn_messages_bwd2_reference(idx, perm, inputs, ct, z, act="silu")
+    torch.cuda.synchronize()
+    names = TN_ORDER + ["ct"]
+    got, want = list(got[0]) + [got[1]], list(want[0]) + [want[1]]
+    bwd2 = {nm: _rel(a, b) for nm, a, b in zip(names, got, want)}
+    bwd2_abs = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, want))
+    # keeping the second derivative's graph (the way to a third) must raise
+    t = {n: v.clone().requires_grad_(n in ("cat", "ea")) for n, v in ins.items()}
+    m = tm.fused_tn_messages(idx, *[t[n] for n in TN_ORDER], perm=perm)
+    (g,) = torch.autograd.grad((m * m).sum(), t["cat"], create_graph=True)
+    try:
+        torch.autograd.grad((g.float() * g.float()).sum(), t["ea"], create_graph=True)
+    except NotImplementedError:
+        pass
+    else:
+        raise AssertionError("a third derivative through the fused TensorNet kernels did not raise")
+    fwd = _rel(outs["kernel"], outs["plain"])
+    exact = tm.tn_messages_reference(idx, *[ins[n].float() for n in TN_ORDER], perm=perm)
+    k_exact, p_exact = _rel(outs["kernel"], exact), _rel(outs["plain"], exact)
+    bwd = {n: _rel(grads["kernel"][n], grads["plain"][n]) for n in TN_ORDER}
+    fwd_abs = float((outs["kernel"] - outs["plain"]).abs().max())
+    bwd_abs = max(float((grads["kernel"][n].float() - grads["plain"][n].float()).abs().max()) for n in TN_ORDER)
+    n, kk = idx.shape
+    log(f"TensorNet kernel check {label} (N={n} K={kk} H={h} RBF={rbf}{', periodic box' if box is not None else ''}): "
+        f"fwd max rel err {fwd:.3e} (tol {TN_FWD_TOL}; from f32 without intermediate rounding: kernel "
+        f"{k_exact:.3e}, plain {p_exact:.3e}); bwd max rel err {max(bwd.values()):.3e} "
+        f"(tol {BWD_TOL}) {_fmt(bwd)}; bwd2 max rel err {max(bwd2.values()):.3e} (tol {BWD2_TOL}) "
+        f"{_fmt(bwd2)}; frozen-weight backward equal; a third derivative raises")
+    if fwd > TN_FWD_TOL or k_exact > 2 * p_exact:
+        raise AssertionError(f"TensorNet forward kernel disagrees with the plain version at {label}: {fwd} "
+                             f"(from unrounded f32: kernel {k_exact}, plain {p_exact})")
+    if max(bwd.values()) > BWD_TOL:
+        raise AssertionError(f"TensorNet backward kernel disagrees with the plain version at {label}: {bwd}")
+    if max(bwd2.values()) > BWD2_TOL:
+        raise AssertionError(f"TensorNet second-order kernel disagrees with the plain version at {label}: {bwd2}")
+    return fwd_abs, bwd_abs, bwd2_abs
+
+
+def _tn_bounds(n, kk, h, rbf, kind):
+    """Least time for a TensorNet message-phase kernel's work: max(bytes /
+    HBM rate, MLP products / bf16 tensor peak + the rest / f32 peak).
+
+    ``kind``: "fwd", "bwd" (frozen weights), "bwd_w" (with weight
+    cotangents) or "bwd2".  Bytes: each input read once, each output written
+    once.  The edge MLP is 2 * (RBF*H + H*2H + 2H*3H) flops per edge: once in
+    the forward; twice in the backward (the recompute and the reverse), three
+    times with weight cotangents; eight times in the second order (the
+    value, two tangent products per layer, three reverse products per layer
+    and two for the weight gradients).  The elementwise work, counted from
+    the kernels' arithmetic: ~45 H flops per edge forward (six activations
+    per H, the cutoff, nine gathered products and sums), ~150 H backward,
+    ~400 H second order (tangents, second derivatives and their reverse).
+    """
+    e = n * kk
+    wts = rbf * h + h + 2 * h * h + 2 * h + 6 * h * h + 3 * h  # MLP weights and biases
+    mlp = 2 * (rbf * h + 2 * h * h + 6 * h * h)
+    in_bytes = 4 * e + 2 * 9 * h * n + 2 * e * rbf + 4 * e + 2 * wts  # idx, cat, ea, cutm, weights
+    grads = 2 * 9 * h * n + 2 * e * rbf + 4 * e  # d_cat, d_ea, d_cutm
+    if kind == "fwd":
+        nbytes, mm, ew = in_bytes + 4 * 9 * h * n, mlp * e, 45 * h * e
+    elif kind in ("bwd", "bwd_w"):
+        nbytes, mm, ew = in_bytes + 4 * 9 * h * n + grads, 2 * mlp * e, 150 * h * e
+        if kind == "bwd_w":
+            nbytes += 4 * wts
+            mm += mlp * e
+    else:
+        nbytes = (in_bytes + 4 * 9 * h * n + 4 * e  # ct, perm
+                  + 2 * 9 * h * n + 2 * e * rbf + 4 * e + 2 * wts  # Z
+                  + grads + 4 * wts + 4 * 9 * h * n)  # g_inputs, g_ct
+        mm, ew = 8 * mlp * e, 400 * h * e
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = mm / BF16_TENSOR_FLOPS + ew / F32_CUDA_CORE_FLOPS
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def time_tn_kernels(train_batch):
+    """#8 and #9 (frozen weights) at the DHFR serving shapes, #9 with weight
+    cotangents and #10 at the training shapes: each kernel's time (L2
+    flushed, median of 20), its plain version's and its bound.  No single
+    PyTorch call computes the fused phase: no library time."""
+    import torch
+
+    from torchmdnet_tpu_torch.ops.kernels import tn_message as tm
+
+    h, rbf = TN_ARGS["embedding_dimension"], TN_ARGS["num_rbf"]
+    flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")  # 256 MB > L2
+    out = {}
+    for where, kind, kinds in (("DHFR", "DHFR", ("fwd", "bwd")), ("training", train_batch, ("bwd_w", "bwd2"))):
+        nbl, pos, box = _tn_system(kind, SEED)
+        ins, ct = _tn_kernel_inputs(nbl, pos, h, rbf, TN_ARGS["cutoff_upper"], SEED, box=box)
+        idx, perm = nbl.idx, nbl.transpose_perm
+        n, kk = idx.shape
+        args = [ins[x] for x in TN_ORDER]
+        z = _tn_z_like(ins, SEED)
+        for k in kinds:
+            if k == "fwd":
+                ms = _event_ms(lambda: tm.run_fwd(idx, *args, act="silu"), flush=flush)
+                plain = _event_ms(lambda: tm.tn_messages_reference(idx, *args, perm=perm), flush=flush)
+            elif k in ("bwd", "bwd_w"):
+                want = k == "bwd_w"
+                ms = _event_ms(lambda: tm.run_bwd(idx, *args, ct, act="silu", want_weight_grads=want), flush=flush)
+                t = {x: v.clone().requires_grad_(want or x in ("cat", "ea", "cutm")) for x, v in ins.items()}
+                m = tm.tn_messages_reference(idx, *[t[x] for x in TN_ORDER], perm=perm)
+                leaves = [t[x] for x in TN_ORDER if t[x].requires_grad]
+                plain = _event_ms(lambda: torch.autograd.grad(m, leaves, ct, retain_graph=True), flush=flush)
+                del m, t
+            else:
+                ms = _event_ms(lambda: tm.run_bwd2(idx, perm, args, ct, z, act="silu"), flush=flush)
+                plain = _event_ms(lambda: tm.tn_messages_bwd2_reference(idx, perm, args, ct, z), flush=flush, reps=5)
+            out[k] = (ms, plain) + _tn_bounds(n, kk, h, rbf, k) + ((n, kk),)
+    log("TensorNet kernel times (L2 flushed, median of 20; plain second order of 5): " + "; ".join(
+        f"{k} at N={v[4][0]} K={v[4][1]} {v[0]:.4f} ms (plain {v[1]:.4f} ms, bound {v[2]:.4f} ms by {v[3]}, "
+        f"{100 * v[2] / v[0]:.1f}% of it reached)" for k, v in out.items()))
+    return out
 
 
 def main():
@@ -1130,40 +1401,69 @@ def main():
     _, _, bwd2_abs = check_kernels("training", None, a["max_num_neighbors"], a["embedding_dimension"],
                                    a["num_heads"], a["num_rbf"], a["cutoff_upper"], seed=4,
                                    batch=_train_batch(train_ds, "cuda"))
+    tn_cfg = _train_cfg("tn")
+    tn_ds = _train_dataset(TN_TRAIN_SPLIT)
+    tn_batch = _train_batch(tn_ds, "cuda", TN_TRAIN_BATCH, TN_TRAIN_ARGS["cutoff_upper"])
+    check_tn_kernels("medium, periodic box", "box", seed=1)
+    tn_fwd_abs, tn_bwd_abs, _ = check_tn_kernels("DHFR", "DHFR", seed=2)
+    _, _, tn_bwd2_abs = check_tn_kernels("training", tn_batch, seed=4)
     stmv = _stmv_batch()
     keys, k, _ = stmv_skin_keys(stmv)
     sel_abs = check_select_topk(keys, k)
     check_cell_vs_brute(DHFR_ATOMS)
     check_cell_vs_brute(FACTOR_IX_ATOMS)
-    ext_launches, ext, pos = main_path()
+    from torchmdnet_tpu_torch.ops.kernels import et_message as em
+    from torchmdnet_tpu_torch.ops.kernels import tn_message as tm
+
+    ext_launches, ext, pos, _ = main_path(ET_ARGS, em, "ET 6x128")
+    tn_ext_launches, tn_ext, tn_pos, tn_call_ms = main_path(TN_ARGS, tm, "TensorNet 2x128")
     times = time_kernels(seed=SEED)
     train_ms, train_plain, train_bounds = time_train_kernels(_train_batch(train_ds, "cuda"))
+    tn_times = time_tn_kernels(tn_batch)
     sel_time = time_select_topk(keys, k)
     del keys, stmv
     md_launches, sim = md_stmv(sel_time[0])
-    train_grads_vs_composable(train_ds)
+    et_cfg = _train_cfg("et")
+    train_grads_vs_composable(train_ds, et_cfg)
+    train_grads_vs_composable(tn_ds, tn_cfg)
     with tempfile.TemporaryDirectory() as workdir:
-        trainer, train_launches = train_cli(workdir)
-    train_batch = time_train_steps(trainer, train_ds)
+        trainer, train_launches = train_cli(workdir, et_cfg)
+    with tempfile.TemporaryDirectory() as workdir:
+        tn_trainer, tn_train_launches = train_cli(workdir, tn_cfg)
+    train_batch, _ = time_train_steps(trainer, train_ds, et_cfg)
+    tn_train_batch, tn_step_ms = time_train_steps(tn_trainer, tn_ds, tn_cfg)
     # last: the profiler's tracing may slow what runs after it
-    profile_calls(ext, pos)
+    profile_calls(ext, pos, ET_SERVE_KERNELS, "ET")
+    profile_calls(tn_ext, tn_pos, TN_SERVE_KERNELS, "TensorNet")
     profile_md(sim)
-    profile_train(trainer, train_batch)
+    profile_train(trainer, train_batch, et_cfg)
+    profile_train(tn_trainer, tn_train_batch, tn_cfg)
+    log(f"TensorNet paths: DHFR energy+forces {tn_call_ms:.3f} ms/call, TensorNet-ANI1X training "
+        f"{tn_step_ms:.3f} ms/step ({1e3 * TN_TRAIN_BATCH / tn_step_ms:.1f} molecules/s)")
 
-    # launches: the counts of the three main paths' runs (External at DHFR
-    # size, MD at STMV size, training through the CLI), each counted from 0
-    # just before it ran
-    ext_launches = ext_launches[:2] + (0,) + ext_launches[2:]
-    md_launches = md_launches[:2] + (0,) + md_launches[2:]
+    # launches: the counts of the main paths' runs (External at DHFR size for
+    # ET and TensorNet, MD at STMV size, training through the CLI for ET and
+    # TensorNet), each counted from 0 just before it ran
+    paths = {
+        "external_dhfr": dict(zip(("et_message_fwd", "et_message_bwd", "select_topk"), ext_launches)),
+        "md_stmv": dict(zip(("et_message_fwd", "et_message_bwd", "select_topk"), md_launches)),
+        "train": dict(zip(("et_message_fwd", "et_message_bwd", "et_message_bwd2", "select_topk"), train_launches)),
+        "tn_external_dhfr": dict(zip(("tn_message_fwd", "tn_message_bwd", "select_topk"), tn_ext_launches)),
+        "tn_train": dict(zip(("tn_message_fwd", "tn_message_bwd", "tn_message_bwd2", "select_topk"),
+                             tn_train_launches)),
+    }
     bwd2_row = (train_ms["bwd2"], train_plain["bwd2"]) + train_bounds["bwd2"] + (None,)
     kernels = []
-    for name, source, line, (ms, plain_ms, bound_ms, bound_by, lib_ms), err, i in (
-        ("et_message_fwd", "et_message.cu", "et_message.py:227", times["fwd"] + (None,), fwd_abs, 0),
-        ("et_message_bwd", "et_message.cu", "et_message.py:296", times["bwd"] + (None,), bwd_abs, 1),
-        ("et_message_bwd2", "et_message.cu", "et_message.py:685", bwd2_row, bwd2_abs, 2),
-        ("select_topk", "select_topk.cu", "select_topk.py:32", sel_time, sel_abs, 3),
+    for name, source, line, (ms, plain_ms, bound_ms, bound_by, lib_ms), err in (
+        ("et_message_fwd", "et_message.cu", "et_message.py:227", times["fwd"] + (None,), fwd_abs),
+        ("et_message_bwd", "et_message.cu", "et_message.py:296", times["bwd"] + (None,), bwd_abs),
+        ("et_message_bwd2", "et_message.cu", "et_message.py:685", bwd2_row, bwd2_abs),
+        ("select_topk", "select_topk.cu", "select_topk.py:32", sel_time, sel_abs),
+        ("tn_message_fwd", "tn_message.cu", "tn_message.py:77", tn_times["fwd"][:4] + (None,), tn_fwd_abs),
+        ("tn_message_bwd", "tn_message.cu", "tn_message.py:107", tn_times["bwd"][:4] + (None,), tn_bwd_abs),
+        ("tn_message_bwd2", "tn_message.cu", "tn_message.py:455", tn_times["bwd2"][:4] + (None,), tn_bwd2_abs),
     ):
-        by_path = {"external_dhfr": ext_launches[i], "md_stmv": md_launches[i], "train": train_launches[i]}
+        by_path = {path: counts.get(name, 0) for path, counts in paths.items()}
         kernels.append(dict(
             name=name, route="cuda", source=f"torchmdnet_tpu_torch/csrc/{source}",
             replaces=f"torchmdnet_tpu/ops/pallas/{line}",

@@ -149,6 +149,6 @@ def test_configuration_errors():
     with pytest.raises(ValueError, match="bf16_messages"):
         create_model(dict(ARGS, fused_attention=True), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        create_model(dict(ARGS, model="tensornet"), device="cpu")
+        create_model(dict(ARGS, model="transformer"), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         create_model(dict(ARGS, prior_model="ZBL"), device="cpu")

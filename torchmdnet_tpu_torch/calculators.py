@@ -10,6 +10,7 @@ import numpy as np
 import torch
 
 from torchmdnet_tpu_torch.data.batch import AtomicBatch
+from torchmdnet_tpu_torch.ops.cell_list import probe_cell_kwargs
 from torchmdnet_tpu_torch.utils import resolve_device
 
 PAD_ATOMS = 32
@@ -38,6 +39,10 @@ class External:
         use_box: set True when ``calculate`` will be called with a box.
         check_errors: check on the first ``calculate`` that the neighbor
             capacity holds for this system (one host fetch).
+
+    The cell list's static sizes are probed from the first request, as
+    ``md.Simulation`` probes them: the defaults hold for the 5 A cutoff at
+    DHFR size but not for TensorNet's 4.5 A, whose smaller cells number more.
     """
 
     def __init__(self, netfile, embeddings, device=None, output_transform=None,
@@ -89,6 +94,7 @@ class External:
         else:
             raise ValueError(f"unknown output_transform: {output_transform!r}")
         self._check_errors = check_errors
+        self._neighbor_kwargs = None
 
     def calculate(self, pos, box: Optional[torch.Tensor] = None):
         """One MD step: pos (nbatch*natoms, 3) or (nbatch, natoms, 3).
@@ -110,10 +116,15 @@ class External:
         if box is not None:
             box = torch.as_tensor(box, dtype=dtype, device=self.device)
         batch = self._template.replace(pos=pos)
+        if self._neighbor_kwargs is None:
+            self._neighbor_kwargs = probe_cell_kwargs(
+                batch, cutoff_upper=self.model.args.get("cutoff_upper", 5.0), box=box)
         if self._check_errors:
             self._check_errors = False
-            self.model.neighbors(batch, box=box).raise_on_overflow("External.calculate")
-        energy, forces = self.model.energy_and_forces(batch, box=box)
+            self.model.neighbors(batch, box=box, **self._neighbor_kwargs).raise_on_overflow(
+                "External.calculate")
+        nbl = self.model.neighbors(batch, box=box, **self._neighbor_kwargs)
+        energy, forces = self.model.energy_and_forces(batch, box=box, nbl=nbl)
         return self.output_transformer(
             energy.reshape(self.n_batch),
             forces[: self.n_real].reshape(self.n_batch, self.n_atoms, 3),

@@ -5,8 +5,8 @@
 - ``Potential`` wraps it with forces = -dE/dpos from ``torch.autograd.grad``;
 - ``create_model`` builds a Potential from the flat config dict the JAX
   package takes, ``create_prior_models`` its priors, ``load_model`` a
-  Potential from a port checkpoint.  Only the equivariant transformer and
-  the Atomref prior are ported so far.
+  Potential from a port checkpoint.  The equivariant transformer, TensorNet
+  and the Atomref prior are ported so far.
 """
 
 import dataclasses
@@ -19,6 +19,7 @@ from torch import nn
 from torchmdnet_tpu_torch.data.batch import AtomicBatch
 from torchmdnet_tpu_torch.models.et import TorchMD_ET
 from torchmdnet_tpu_torch.models.output_heads import head_class
+from torchmdnet_tpu_torch.models.tensornet import TensorNet
 from torchmdnet_tpu_torch.ops.neighbors import neighbor_list
 from torchmdnet_tpu_torch.ops.segment import segment_reduce
 from torchmdnet_tpu_torch.priors import prior_class_mapping
@@ -27,13 +28,13 @@ from torchmdnet_tpu_torch.utils import resolve_device
 dtype_mapping = {32: torch.float32, 64: torch.float64}
 
 _MODELS_TODO = (
-    "only the equivariant-transformer is ported so far; TensorNet, the "
+    "only the equivariant-transformer and tensornet are ported so far; the "
     "transformer and the graph network follow (ROADMAP.md, 'Modules to port', "
     "slice E)"
 )
 _GATHER_PLAN_TODO = (
     "the gather plan (one-hot gather kernels #4/#5) is not ported: the port's "
-    "fused ET kernel gathers by index (ROADMAP.md, 'TPU kernels to port')"
+    "fused ET and TensorNet kernels gather by index (ROADMAP.md, 'TPU kernels to port')"
 )
 
 
@@ -137,26 +138,35 @@ class Potential:
 
 
 def create_representation(args: Dict[str, Any], generator: torch.Generator) -> nn.Module:
-    if args["model"] != "equivariant-transformer":
-        raise NotImplementedError(f"model {args['model']!r}: {_MODELS_TODO}")
-    return TorchMD_ET(
+    shared = dict(
         hidden_channels=args["embedding_dimension"],
         num_layers=args["num_layers"],
         num_rbf=args["num_rbf"],
         rbf_type=args["rbf_type"],
         trainable_rbf=args["trainable_rbf"],
         activation=args["activation"],
-        attn_activation=args.get("attn_activation", "silu"),
-        neighbor_embedding=args.get("neighbor_embedding", False),
-        num_heads=args.get("num_heads", 8),
-        distance_influence=args.get("distance_influence", "both"),
         cutoff_lower=args["cutoff_lower"],
         cutoff_upper=args["cutoff_upper"],
         max_z=args["max_z"],
         max_num_neighbors=args["max_num_neighbors"],
         bf16_messages=args.get("bf16_messages", False),
-        fused_attention=args.get("fused_attention", False),
         generator=generator,
+    )
+    if args["model"] == "tensornet":
+        return TensorNet(
+            equivariance_invariance_group=args.get("equivariance_invariance_group", "O(3)"),
+            fused_message=args.get("fused_message", False),
+            **shared,
+        )
+    if args["model"] != "equivariant-transformer":
+        raise NotImplementedError(f"model {args['model']!r}: {_MODELS_TODO}")
+    return TorchMD_ET(
+        attn_activation=args.get("attn_activation", "silu"),
+        neighbor_embedding=args.get("neighbor_embedding", False),
+        num_heads=args.get("num_heads", 8),
+        distance_influence=args.get("distance_influence", "both"),
+        fused_attention=args.get("fused_attention", False),
+        **shared,
     )
 
 

@@ -4,10 +4,13 @@
 tree (nested dicts of arrays, with or without the outer ``{"params": ...}``)
 into the port's ``state_dict``.  The port keeps the reference torchmd-net key
 names (``representation_model.attention_layers.0.q_proj.weight``, ...) and
-the JAX package's column layout (v/dv projections in global thirds), so no
-column permutation is needed here.  A prior's table (Atomref's
-``priors_0/atomref``) becomes ``priors.0.atomref``.  Flax kernels are (in, out); torch Linear
-weights are (out, in): transposed on the way.  This is the same map as
+the JAX package's column layout (ET's v/dv projections in global thirds,
+TensorNet's interaction filter in irrep thirds), so no column permutation is
+needed here: the reference's (H, 3)-interleaved TensorNet filter
+(``wproj_column_perm``) applies only to reference torch checkpoints.  A
+prior's table (Atomref's ``priors_0/atomref``) becomes ``priors.0.atomref``.
+Flax kernels are (in, out); torch Linear weights are (out, in): transposed
+on the way.  This is the same map as
 torchmdnet_tpu/tools/import_torch.py, read from the other side.
 """
 
@@ -45,18 +48,49 @@ def state_dict_from_jax(args: Dict[str, Any], params: Mapping) -> Dict[str, torc
     float64 where the tree holds float64)."""
     if "params" in params:
         params = params["params"]
-    if args["model"] != "equivariant-transformer":
+    if args["model"] not in ("equivariant-transformer", "tensornet"):
         raise NotImplementedError(
-            "only the equivariant-transformer is ported so far (ROADMAP.md, slice E)"
+            "only the equivariant-transformer and tensornet are ported so far (ROADMAP.md, slice E)"
         )
     rep = params["representation"]
     out: Dict[str, torch.Tensor] = {}
     p = "representation_model"
-    out[f"{p}.embedding.weight"] = _t(rep["Embed_0"]["embedding"])
     rbf_name = "ExpNormalSmearing_0" if args["rbf_type"] == "expnorm" else "GaussianSmearing_0"
     if args.get("trainable_rbf", False):
         for name, value in rep[rbf_name].items():
             out[f"{p}.distance_expansion.{name}"] = _t(value)
+    if args["model"] == "tensornet":
+        _tensornet(out, p, rep, args["num_layers"])
+    else:
+        _et(out, p, rep, args)
+    _head_and_priors(out, params)
+    return out
+
+
+def _tensornet(out, p, rep, num_layers):
+    """TensorNet's keys, those torchmdnet_tpu/tools/import_torch.py reads."""
+    te, emb = f"{p}.tensor_embedding", rep["TensorEmbedding_0"]
+    for i, name in enumerate(("distance_proj1", "distance_proj2", "distance_proj3")):
+        _dense(out, f"{te}.{name}", emb[f"Dense_{i}"])
+    out[f"{te}.emb.weight"] = _t(emb["Embed_0"]["embedding"])
+    _dense(out, f"{te}.emb2", emb["Dense_3"])
+    _layer_norm(out, f"{te}.init_norm", emb["LayerNorm_0"])
+    for i in range(3):
+        _dense(out, f"{te}.linears_tensor.{i}", emb[f"Dense_{4 + i}"], bias=False)
+    for i in range(2):
+        _dense(out, f"{te}.linears_scalar.{i}", emb[f"Dense_{7 + i}"])
+    for li in range(num_layers):
+        layer, lp = rep[f"Interaction_{li}"], f"{p}.layers.{li}"
+        for i in range(3):
+            _dense(out, f"{lp}.linears_scalar.{i}", layer[f"Dense_{i}"])
+        for i in range(6):
+            _dense(out, f"{lp}.linears_tensor.{i}", layer[f"Dense_{3 + i}"], bias=False)
+    _layer_norm(out, f"{p}.out_norm", rep["LayerNorm_0"])
+    _dense(out, f"{p}.linear", rep["Dense_0"])
+
+
+def _et(out, p, rep, args):
+    out[f"{p}.embedding.weight"] = _t(rep["Embed_0"]["embedding"])
     if args.get("neighbor_embedding", False):
         ne = rep["NeighborEmbedding_0"]
         _dense(out, f"{p}.neighbor_embedding.distance_proj", ne["Dense_0"])
@@ -81,6 +115,8 @@ def state_dict_from_jax(args: Dict[str, Any], params: Mapping) -> Dict[str, torc
         _dense(out, f"{lp}.o_proj", layer[f"Dense_{nxt}"])
     _layer_norm(out, f"{p}.out_norm", rep["LayerNorm_0"])
 
+
+def _head_and_priors(out, params):
     head = params["head"]
     if "block1" in head:
         _gated_block(out, "output_model.output_network.0", head["block1"])
@@ -93,4 +129,3 @@ def state_dict_from_jax(args: Dict[str, Any], params: Mapping) -> Dict[str, torc
         for name, value in params[f"priors_{i}"].items():
             out[f"priors.{i}.{name}"] = _t(value)
         i += 1
-    return out

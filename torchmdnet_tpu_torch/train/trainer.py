@@ -104,11 +104,12 @@ class Trainer:
         self.loggers = make_loggers(h, self.log_dir)
         self._ckpts = []  # (metric, path) of the top-k checkpoints
         # the JAX trainer sorts the batch in space for the fused kernels'
-        # gather plan; the port's kernels gather by index and keep the sort so
-        # that both see the same atom order.  steps_per_dispatch and the
-        # gather-plan flags are accepted: steps run one by one, the port
-        # builds no gather plan (ROADMAP.md, section 3)
-        self._fused = bool(h.get("fused_attention"))
+        # gather plan (ET's fused_attention, TensorNet's fused_message); the
+        # port's kernels gather by index and keep the sort so that both see
+        # the same atom order.  steps_per_dispatch and the gather-plan flags
+        # are accepted: steps run one by one, the port builds no gather plan
+        # (ROADMAP.md, section 3)
+        self._fused = bool(h.get("fused_attention") or h.get("fused_message"))
         self._cell_kwargs = {}
         self.params = [p for p in model.module.parameters() if p.requires_grad]
         self.optimizer = torch.optim.AdamW(
