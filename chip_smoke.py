@@ -18,12 +18,18 @@ the second-order kernel. The same for TensorNet: its three message-phase
 kernels against their plain versions (a periodic box, DHFR and training
 shapes), energy and forces at DHFR size through ``External.calculate``
 (bench.py's TensorNet 2 x 128), and force-loss training of
-examples/TensorNet-ANI1X.yaml through the CLI. It times each. Each phase
-prints one line; the line before the last is a JSON object with each
-kernel's numbers, the last line is ``{"ok": true, "device": {...}}``. Any
-failure raises and exits non-zero. Without a CUDA device, or outside a
-checkout, it exits non-zero and prints no result. It takes about two
-minutes on an H100.
+examples/TensorNet-ANI1X.yaml through the CLI, and a DHFR check at weights
+where TensorNet's message phase carries at least 10 % of the energy. The
+same for the graph network: the ELL gather and its transpose-sum (kernels #4
+and #5) against their plain versions, energy and forces at DHFR size
+through ``External.calculate`` (6 x 128, bf16 messages), bench.py's
+forward with a truncated list at DHFR and STMV size, MD at STMV size, and
+force-loss training of GN on aspirin-sized molecules through the CLI; each
+training path's gradient with ``remat`` against the one without. It times
+each. Each phase prints one line; the line before the last is a JSON object
+with each kernel's numbers, the last line is ``{"ok": true, "device":
+{...}}``. Any failure raises and exits non-zero. Without a CUDA device, or
+outside a checkout, it exits non-zero and prints no result.
 """
 
 import csv
@@ -83,6 +89,11 @@ E2E_FORCE_TOL = 3e-2  # max|dF| / max|F|
 # of each leaf's max.  Eight layers: 1e-1 per tensor, 5e-2 over all.
 TRAIN_GRAD_TOL = 1e-1
 TRAIN_GRAD_L2_TOL = 5e-2
+# The same gradient with remat: the recomputation replays the same launches
+# on the same inputs, so only the order in which autograd adds up a
+# parameter's contributions may differ (f32 rounding).  1e-5 of each
+# tensor's largest value.
+REMAT_TOL = 1e-5
 
 # ET configuration of the training benchmark (benchmarks/training.py:24-31,
 # 91-124): 8 x 256, 8 heads, 64 ExpNormal RBFs (not trainable), cutoff 0-5 A,
@@ -451,13 +462,13 @@ def main_path(args, km, label):
     e_err = float((results[0][0] - e32).abs().max() / e32.abs().max())
     f_err = float((results[0][1] - f32).abs().max() / f32.abs().max())
     f_l2 = float((results[0][1] - f32).norm() / f32.norm())
-    log(f"main path: {REQUESTS} requests, {label} fused bf16, {DHFR_ATOMS} atoms (padded to "
+    log(f"main path: {REQUESTS} requests, {label} bf16, {DHFR_ATOMS} atoms (padded to "
         f"{ext.n_real + ext.n_pad}); launches fwd {launches[0]} bwd {launches[1]} "
         f"({layers}+{layers} per request), select_topk {launches[2]}; energies {[round(float(r[0][0]), 4) for r in results]}; "
         f"repeat forces bitwise equal: True; vs composable fp32: |dE|/|E| {e_err:.3e} (tol {E2E_ENERGY_TOL}), "
         f"max|dF|/max|F| {f_err:.3e} (tol {E2E_FORCE_TOL}), |dF|/|F| {f_l2:.3e}")
     if e_err > E2E_ENERGY_TOL or f_err > E2E_FORCE_TOL:
-        raise AssertionError("fused energies/forces disagree with the composable fp32 path")
+        raise AssertionError("bf16 energies/forces disagree with the composable fp32 path")
     if args["model"] == "tensornet":
         # how much of the output the message phase carries at these weights:
         # the composable fp32 model with each interaction's last MLP layer
@@ -475,7 +486,7 @@ def main_path(args, km, label):
     fused_ms = _host_ms(lambda: ext.calculate(requests[0]))
     comp_ms = _host_ms(lambda: ref_ext.calculate(requests[0]))
     log(f"{label} energy+forces per call (External.calculate, host clock with sync, median of 20): "
-        f"fused bf16 {fused_ms:.3f} ms; composable fp32 {comp_ms:.3f} ms")
+        f"bf16 {fused_ms:.3f} ms; composable fp32 {comp_ms:.3f} ms")
     return launches, ext, requests[0], fused_ms
 
 
@@ -522,10 +533,10 @@ TN_SERVE_KERNELS = ("tn_fwd_kernel", "tn_bwd_kernel")
 
 
 def profile_calls(ext, pos, names, label, calls=3):
-    """Where the time of a fused energy+forces call goes: device time by
-    kernel against the host clock."""
+    """Where the time of an energy+forces call goes: device time by kernel
+    against the host clock."""
     wall, busy, groups, other, launches = _profile(lambda: ext.calculate(pos), calls, names)
-    log(f"profile of {calls} fused {label} calls (torch.profiler): wall {wall:.3f} ms/call, device busy "
+    log(f"profile of {calls} {label} calls (torch.profiler): wall {wall:.3f} ms/call, device busy "
         f"{busy:.3f} ms/call ({100 * busy / wall:.1f}%); {_shares(groups, other, busy)} "
         f"({launches:.0f} other launches/call)")
 
@@ -719,7 +730,8 @@ def _pairs_against_fresh(sim, model, batch, built_at):
     n = batch.num_atoms
     skin_nbl = sim._build_nbl(built_at)
     refined = skin_nbl.refine(pos, ET_ARGS["cutoff_lower"], hi)
-    fresh = model.neighbors(batch.replace(pos=pos), k=skin_nbl.k - 1, **probe_cell_kwargs(batch, cutoff_upper=hi))
+    fresh = model.neighbors(batch.replace(pos=pos), k=skin_nbl.k - int(skin_nbl.self_loops),
+                            **probe_cell_kwargs(batch, cutoff_upper=hi))
     fresh.raise_on_overflow("chip_smoke fresh STMV list")
 
     def pairs(nbl):
@@ -838,50 +850,72 @@ def md_stmv(select_ms):
     return launches, sim
 
 
-def profile_md(sim, steps=10):
+def profile_md(sim, names=ET_SERVE_KERNELS, label="ET", steps=10):
     """Where the time of an MD step goes at STMV: device time by kernel over
-    one skin chunk."""
-    names = ET_SERVE_KERNELS + ("select_topk_kernel",)
+    ``steps`` steps."""
+    names = names + ("select_topk_kernel",)
     wall, busy, groups, other, _ = _profile(lambda: sim.step(steps), 1, names)
     wall, busy, other = wall / steps, busy / steps, other / steps
     groups = {k: v / steps for k, v in groups.items()}
-    log(f"profile of {steps} MD steps at STMV (torch.profiler): wall {wall:.3f} ms/step, device busy "
-        f"{busy:.3f} ms/step; {_shares(groups, other, busy)}")
+    log(f"profile of {steps} {label} MD steps at STMV (torch.profiler): wall {wall:.3f} ms/step, device busy "
+        f"{busy:.3f} ms/step ({100 * busy / wall:.1f}%); {_shares(groups, other, busy)}")
+
+
+def _gn_km():
+    """GN's kernels in the shape of a fused kernel module: #4 counts as its
+    forward, #5 as its backward; it has no second-order kernel."""
+    import types
+
+    from torchmdnet_tpu_torch.ops.kernels import ell_gather as eg
+
+    return types.SimpleNamespace(run_fwd=eg.gather_rows, run_bwd=eg.transpose_sum_rows,
+                                 run_bwd2=types.SimpleNamespace(launches=0))
 
 
 def _train_cfg(kind):
-    """A training path's configuration: "et" (benchmarks/training.py's ET) or
-    "tn" (examples/TensorNet-ANI1X.yaml)."""
+    """A training path's configuration: "et" (benchmarks/training.py's ET),
+    "tn" (examples/TensorNet-ANI1X.yaml) or "gn" (BASELINE.json's GN on
+    aspirin).  ``per_step``/``per_eval``: launches of (fwd, bwd, bwd2) per
+    layer in a training step and in an evaluation batch."""
     from torchmdnet_tpu_torch.ops.kernels import et_message as em
     from torchmdnet_tpu_torch.ops.kernels import tn_message as tm
 
+    fused = dict(mol=TRAIN_MOL, per_step=(1, 2, 1), per_eval=(1, 1, 0))
     if kind == "et":
-        return dict(args=TRAIN_ARGS, batch=TRAIN_BATCH, split=TRAIN_SPLIT, km=em, lr=1e-4,
+        return dict(fused, args=TRAIN_ARGS, batch=TRAIN_BATCH, split=TRAIN_SPLIT, km=em, lr=1e-4,
                     weights=(1.0, 1.0), label=f"ET {TRAIN_ARGS['num_layers']}x{TRAIN_ARGS['embedding_dimension']}",
                     kernels=("et_fwd_kernel", "et_bwd_kernel", "et_bwd2_kernel", "ell_transpose_sum_kernel"),
                     flags=["--num-heads", str(TRAIN_ARGS["num_heads"]), "--neighbor-embedding", "true",
                            "--fused-attention", "true"])
-    return dict(args=TN_TRAIN_ARGS, batch=TN_TRAIN_BATCH, split=TN_TRAIN_SPLIT, km=tm, lr=TN_TRAIN_LR,
-                weights=TN_TRAIN_WEIGHTS, label="TensorNet-ANI1X 2x128",
-                kernels=("tn_fwd_kernel", "tn_bwd_kernel", "tn_bwd2_kernel", "tn_src_sum_kernel",
-                         "tn_wgrad_kernel", "tn_colsum_kernel"),
-                flags=["--equivariance-invariance-group", TN_TRAIN_ARGS["equivariance_invariance_group"],
-                       "--fused-message", "true"])
+    if kind == "tn":
+        return dict(fused, args=TN_TRAIN_ARGS, batch=TN_TRAIN_BATCH, split=TN_TRAIN_SPLIT, km=tm,
+                    lr=TN_TRAIN_LR, weights=TN_TRAIN_WEIGHTS, label="TensorNet-ANI1X 2x128",
+                    kernels=("tn_fwd_kernel", "tn_bwd_kernel", "tn_bwd2_kernel", "tn_src_sum_kernel",
+                             "tn_wgrad_kernel", "tn_colsum_kernel"),
+                    flags=["--equivariance-invariance-group", TN_TRAIN_ARGS["equivariance_invariance_group"],
+                           "--fused-message", "true"])
+    # a force-loss step gathers twice per layer (the forward and the outer
+    # pass through the inner transpose) and transposes twice (the inner
+    # force pass and the outer energy term)
+    return dict(args=GN_TRAIN_ARGS, batch=GN_TRAIN_BATCH, split=GN_TRAIN_SPLIT, km=_gn_km(), lr=GN_TRAIN_LR,
+                weights=GN_TRAIN_WEIGHTS, label="GN-aspirin 6x128", mol=GN_TRAIN_MOL,
+                per_step=(2, 2, 0), per_eval=(1, 1, 0), kernels=GN_KERNELS,
+                flags=["--neighbor-embedding", "true", "--aggr", GN_TRAIN_ARGS["aggr"]])
 
 
-def _train_dataset(split=TRAIN_SPLIT):
+def _train_dataset(split=TRAIN_SPLIT, mol=TRAIN_MOL):
     from torchmdnet_tpu_torch.data.datasets import SyntheticMorse
 
-    return SyntheticMorse(num_samples=sum(split), seed=SEED, **TRAIN_MOL)
+    return SyntheticMorse(num_samples=sum(split), seed=SEED, **mol)
 
 
-def _train_batch(ds, device, batch_size=TRAIN_BATCH, cutoff=TRAIN_ARGS["cutoff_upper"]):
+def _train_batch(ds, device, batch_size=TRAIN_BATCH, cutoff=TRAIN_ARGS["cutoff_upper"], mol=TRAIN_MOL):
     """The first ``batch_size`` molecules as the trainer sees a batch: padded
     to a multiple of 8 atoms, spatially sorted (the fused paths), on ``device``."""
     from torchmdnet_tpu_torch.data.batch import pad_molecules, spatial_sort
 
     mols = [ds[i] for i in range(batch_size)]
-    n = -(-batch_size * TRAIN_MOL["num_atoms"] // 8) * 8
+    n = -(-batch_size * mol["num_atoms"] // 8) * 8
     batch = pad_molecules(mols, num_atoms=n, num_mol=batch_size)
     return spatial_sort(batch, cell=cutoff)[0].to(device)
 
@@ -894,12 +928,14 @@ def _launches(km):
 
 
 def _reset_launches():
+    from torchmdnet_tpu_torch.ops.kernels import ell_gather as eg
     from torchmdnet_tpu_torch.ops.kernels import et_message as em
     from torchmdnet_tpu_torch.ops.kernels import tn_message as tm
     from torchmdnet_tpu_torch.ops.kernels.select_topk import select_topk
 
     em.reset_launch_counts()
     tm.reset_launch_counts()
+    eg.reset_launch_counts()
     select_topk.launches = 0
 
 
@@ -952,20 +988,24 @@ def time_train_kernels(batch):
 def train_grads_vs_composable(ds, cfg):
     """One force-loss gradient at a training configuration, fused bf16
     against composable fp32 with the same weights; the fused pass must run
-    L forward, 2L backward and L second-order launches."""
+    ``per_step`` launches per layer (L forward, 2L backward and L second
+    order for ET and TensorNet).  Then the same gradient with ``remat``
+    (each layer recomputed in the backward pass) must equal it."""
     import torch
 
     from torchmdnet_tpu_torch import create_model
     from torchmdnet_tpu_torch.train.trainer import masked_mse
 
     args = cfg["args"]
-    batch = _train_batch(ds, "cuda", cfg["batch"], args["cutoff_upper"])
+    batch = _train_batch(ds, "cuda", cfg["batch"], args["cutoff_upper"], cfg["mol"])
     fused = create_model(args, seed=SEED)
     comp = create_model(dict(args, bf16_messages=False, fused_attention=False, fused_message=False), seed=SEED)
     comp.module.load_state_dict(fused.module.state_dict())
+    remat = create_model(dict(args, remat=True), seed=SEED)
+    remat.module.load_state_dict(fused.module.state_dict())
     wy, wf = cfg["weights"]
     grads, launches = {}, None
-    for name, model in (("fused", fused), ("composable", comp)):
+    for name, model in (("fused", fused), ("composable", comp), ("remat", remat)):
         _reset_launches()
         nbl = model.neighbors(batch)
         nbl.raise_on_overflow("the training batch")
@@ -978,22 +1018,27 @@ def train_grads_vs_composable(ds, cfg):
         if name == "fused":
             launches = _launches(cfg["km"])[:3]
     layers = args["num_layers"]
-    if launches != (layers, 2 * layers, layers):
-        raise AssertionError(f"one fused force-loss gradient should launch {layers} fwd, {2 * layers} bwd "
-                             f"and {layers} bwd2, got {launches}")
+    expected = tuple(c * layers for c in cfg["per_step"])
+    if launches != expected:
+        raise AssertionError(f"one fused force-loss gradient should launch (fwd, bwd, bwd2) {expected}, "
+                             f"got {launches}")
+    remat_err = max(_rel(grads["remat"][k], v) for k, v in grads["fused"].items())
     per = {k: _rel(grads["fused"][k], v) for k, v in grads["composable"].items()}
     num = sum(float((grads["fused"][k].double() - v.double()).pow(2).sum()) for k, v in grads["composable"].items())
     den = sum(float(v.double().pow(2).sum()) for v in grads["composable"].values())
     l2 = math.sqrt(num / den)
     worst = max(per, key=per.get)
     log(f"force-loss gradient at the training configuration ({cfg['label']}, {cfg['batch']} molecules of "
-        f"{TRAIN_MOL['num_atoms']} atoms, N={batch.num_atoms}): launches fwd {launches[0]} bwd {launches[1]} "
-        f"bwd2 {launches[2]} (L, 2L, L for L={layers}); fused bf16 vs composable fp32 over "
+        f"{cfg['mol']['num_atoms']} atoms, N={batch.num_atoms}): launches fwd {launches[0]} bwd {launches[1]} "
+        f"bwd2 {launches[2]} ({cfg['per_step']} x L for L={layers}); fused bf16 vs composable fp32 over "
         f"{len(per)} parameter tensors: max|dg|/max|g| worst {per[worst]:.3e} ({worst}, tol {TRAIN_GRAD_TOL}), "
-        f"median {statistics.median(per.values()):.3e}; |dg|/|g| {l2:.3e} (tol {TRAIN_GRAD_L2_TOL})")
+        f"median {statistics.median(per.values()):.3e}; |dg|/|g| {l2:.3e} (tol {TRAIN_GRAD_L2_TOL}); "
+        f"with remat, max|dg|/max|g| {remat_err:.3e} from the gradient without (tol {REMAT_TOL})")
     if per[worst] > TRAIN_GRAD_TOL or l2 > TRAIN_GRAD_L2_TOL:
         raise AssertionError("fused force-loss gradients disagree with the composable fp32 path")
-    del grads, fused, comp
+    if remat_err > REMAT_TOL:
+        raise AssertionError(f"the force-loss gradient with remat differs from the one without: {remat_err}")
+    del grads, fused, comp, remat
 
 
 def _cli_flags(workdir, cfg):
@@ -1010,7 +1055,7 @@ def _cli_flags(workdir, cfg):
         "--train-size", str(train), "--val-size", str(val), "--test-size", str(test),
         "--y-weight", str(wy), "--neg-dy-weight", str(wf), "--seed", str(SEED),
         "--dataset", "SyntheticMorse", "--dataset-root", os.path.join(workdir, "data"),
-        "--dataset-arg", json.dumps(dict(num_samples=sum(cfg["split"]), seed=SEED, **TRAIN_MOL)),
+        "--dataset-arg", json.dumps(dict(num_samples=sum(cfg["split"]), seed=SEED, **cfg["mol"])),
         "--log-dir", os.path.join(workdir, "logs"), "--save-interval", "1", "--num-workers", "0",
     ]
 
@@ -1044,7 +1089,7 @@ def train_cli(workdir, cfg):
     split, bs = cfg["split"], cfg["batch"]
     steps = TRAIN_EPOCHS * (split[0] // bs)
     evals = TRAIN_EPOCHS * -(-split[1] // bs) + -(-split[2] // bs)
-    expected = (layers * (steps + evals), layers * (2 * steps + evals), layers * steps, 0)
+    expected = tuple(layers * (s * steps + e * evals) for s, e in zip(cfg["per_step"], cfg["per_eval"])) + (0,)
     if launches != expected or trainer.state.global_step != steps:
         raise AssertionError(f"expected launches {expected} for {steps} steps and {evals} evaluation "
                              f"batches, got {launches} after {trainer.state.global_step} steps")
@@ -1054,12 +1099,12 @@ def train_cli(workdir, cfg):
     same = all(torch.equal(v.cpu(), ckpt["state_dict"][k]) for k, v in reloaded.module.state_dict().items())
     if not same or ckpt["optimizer"] is None:
         raise AssertionError(f"the checkpoint {best} did not reload")
-    log(f"training CLI (scripts.train.main, {cfg['label']} fused bf16, SyntheticMorse {TRAIN_MOL}, "
+    log(f"training CLI (scripts.train.main, {cfg['label']} fused bf16, SyntheticMorse {cfg['mol']}, "
         f"{split} samples, batches of {bs}, {TRAIN_EPOCHS} epochs = {steps} steps): "
         f"first step loss {first:.4f}, epoch train losses {[round(v, 4) for v in train_losses]}, "
         f"test {json.dumps({k: round(v, 4) for k, v in test_metrics.items()})}; launches fwd {launches[0]} "
-        f"bwd {launches[1]} bwd2 {launches[2]} select_topk {launches[3]} ({steps} steps x (L, 2L, L) + "
-        f"{evals} evaluation batches x (L, L, 0), L={layers}); checkpoint {os.path.basename(best)} "
+        f"bwd {launches[1]} bwd2 {launches[2]} select_topk {launches[3]} ({steps} steps x {cfg['per_step']} x L + "
+        f"{evals} evaluation batches x {cfg['per_eval']} x L, L={layers}); checkpoint {os.path.basename(best)} "
         f"reloads with its optimizer state; {seconds:.1f} s in all (dataset and model setup included)")
     return trainer, launches
 
@@ -1070,7 +1115,7 @@ def time_train_steps(trainer, ds, cfg):
     import torch
 
     bs = cfg["batch"]
-    batch = trainer._prepare_batch(_train_batch(ds, "cpu", bs, cfg["args"]["cutoff_upper"]))
+    batch = trainer._prepare_batch(_train_batch(ds, "cpu", bs, cfg["args"]["cutoff_upper"], cfg["mol"]))
     acc = torch.zeros(4, dtype=trainer.dtype, device="cuda")
     ema = torch.zeros((), dtype=trainer.dtype, device="cuda")
     torch.cuda.reset_peak_memory_stats()
@@ -1086,11 +1131,12 @@ def time_train_steps(trainer, ds, cfg):
         times.append(1e3 * (time.perf_counter() - t0))
     launches = _launches(cfg["km"])[:3]
     layers = cfg["args"]["num_layers"]
-    if launches != tuple(c * layers * TRAIN_TIMED_STEPS for c in (1, 2, 1)):
-        raise AssertionError(f"expected (L, 2L, L) launches per step, got {launches} in {TRAIN_TIMED_STEPS} steps")
+    if launches != tuple(c * layers * TRAIN_TIMED_STEPS for c in cfg["per_step"]):
+        raise AssertionError(f"expected {cfg['per_step']} x L launches per step, got {launches} in "
+                             f"{TRAIN_TIMED_STEPS} steps")
     ms = statistics.median(times)
     peak = torch.cuda.max_memory_allocated() / 2**30
-    log(f"training step (Trainer, {cfg['label']} fused bf16, {bs} x {TRAIN_MOL['num_atoms']} atoms, "
+    log(f"training step (Trainer, {cfg['label']} fused bf16, {bs} x {cfg['mol']['num_atoms']} atoms, "
         f"host clock with sync, median of {TRAIN_TIMED_STEPS} after {TRAIN_WARMUP_STEPS}): {ms:.3f} ms/step "
         f"(min {min(times):.3f}, max {max(times):.3f}), {1e3 * bs / ms:.1f} molecules/s; launches "
         f"per step fwd {launches[0] // TRAIN_TIMED_STEPS} bwd {launches[1] // TRAIN_TIMED_STEPS} bwd2 "
@@ -1365,6 +1411,357 @@ def time_tn_kernels(train_batch):
     return out
 
 
+# --- The graph network: kernels #4/#5, serving, the fp32 forward, STMV MD, training ---
+
+# GN configuration of the serving benchmark (benchmarks/inference.py:31-55, as
+# bench.py's gn_forces_dhfr2489_ms line): 6 x 128, 50 trainable ExpNormal
+# RBFs, NeighborEmbedding, cutoff 0-5 A, 80 neighbors, add, Scalar head, bf16
+# messages (the gathers run #4, their gradients #5)
+GN_ARGS = dict(
+    model="graph-network", embedding_dimension=128, num_layers=6, num_rbf=50, rbf_type="expnorm",
+    trainable_rbf=True, activation="silu", neighbor_embedding=True, cutoff_lower=0.0,
+    cutoff_upper=5.0, max_z=128, max_num_neighbors=80, derivative=True, output_model="Scalar",
+    prior_model=None, reduce_op="add", precision=32, atom_filter=-1, aggr="add", bf16_messages=True,
+)
+# bench.py's headline GN forward (bench.py:94-117): the same model in f32,
+# max_z 100, no forces, and max_num_neighbors 32, which truncates the list at
+# protein density (about 49 neighbors within 5 A) as the reference's
+# radius_graph does; the STMV forward (bench.py:300-320) with bf16 messages
+GN_FWD_ARGS = dict(GN_ARGS, max_z=100, max_num_neighbors=32, derivative=False, bf16_messages=False)
+GN_STMV_FWD_ARGS = dict(GN_FWD_ARGS, bf16_messages=True)
+# the reference's published GN forward times (BASELINE.md), taken on a
+# desktop NVIDIA GPU, not an H100
+REF_GN_FWD_MS = {"DHFR": 27.22, "STMV": 217.72}
+GN_FWD_REPS = 10
+# GN MD at STMV size (bench.py's gn_stmv_force_md_ms_per_step: K = 80, skin
+# 0.5 A, so a skin list of K = 112) at a rebuild cadence at which the skin
+# holds, without remat (the residuals of six layers fit on the card).  GN's
+# random weights give forces several times ET's, which carried atoms 1.089 A
+# in 2 fs on the card; the model's output is standardized by std = 0.1
+# (EnergyModel's std), at which a rebuild every 2 fs holds.  The time per
+# step does not depend on it.
+GN_MD_STD = 0.1
+GN_MD_EVERY = MD_VALID_EVERY
+GN_MD_WARMUP_STEPS = 2
+GN_MD_TIMED_STEPS = 10
+# GN force training: BASELINE.json configs[1] (GN on MD17 aspirin) with
+# examples/ET-MD17.yaml's settings and --model graph-network: 6 x 128, 32
+# ExpNormal RBFs (not trainable), cutoff 0-5 A, 32 neighbors,
+# NeighborEmbedding, batches of 8, y_weight 0.2, neg_dy_weight 0.8, lr 5e-4;
+# bf16 messages.  SyntheticMorse molecules of aspirin's 21 atoms (MD17 needs a
+# download) in a 6.3 A cell, the 2 A spacing of the other training paths.
+GN_TRAIN_ARGS = dict(GN_ARGS, num_rbf=32, trainable_rbf=False, max_z=100, max_num_neighbors=32)
+GN_TRAIN_BATCH = 8
+GN_TRAIN_MOL = dict(num_atoms=21, cell=6.3)
+GN_TRAIN_SPLIT = (96, 16, 16)  # 12 training batches, two val, two test
+GN_TRAIN_LR = 5e-4
+GN_TRAIN_WEIGHTS = (0.2, 0.8)
+GN_KERNELS = ("gather_rows_kernel", "transpose_sum_rows_kernel")
+# a scalar-path width (F % 8 != 0) for the kernel checks
+GN_ODD_F = 13
+
+
+def _gn_lists():
+    """GN's lists on the card: External's at DHFR (cell list, probed sizes,
+    K = 80) and the STMV skin list of MD (cutoff 5.5 A, K = 112)."""
+    from torchmdnet_tpu_torch import create_model
+    from torchmdnet_tpu_torch.data.systems import DHFR_ATOMS
+    from torchmdnet_tpu_torch.ops.cell_list import probe_cell_kwargs
+
+    model = create_model(GN_ARGS, seed=SEED)
+    _, _, dhfr = _synthetic_batch(DHFR_ATOMS, SEED, "cuda")
+    stmv = _stmv_batch()
+    skin = MD_ARGS["neighbor_skin"]
+    dhfr_nbl = model.neighbors(dhfr, **probe_cell_kwargs(dhfr, cutoff_upper=GN_ARGS["cutoff_upper"]))
+    stmv_nbl = model.neighbors(stmv, skin=skin, **probe_cell_kwargs(stmv, cutoff_upper=GN_ARGS["cutoff_upper"] + skin))
+    for name, nbl in (("DHFR", dhfr_nbl), ("STMV skin", stmv_nbl)):
+        nbl.raise_on_overflow(f"chip_smoke GN {name} list")
+    return dhfr_nbl, stmv_nbl
+
+
+def _bf16_ulp(x):
+    """The bf16 ulp at |x| (8 significant bits)."""
+    import torch
+
+    mag = x.float().abs()
+    return torch.exp2(torch.floor(torch.log2(torch.where(mag > 0, mag, torch.ones_like(mag)))) - 7)
+
+
+def _slot_order_sum(ct, perm, k):
+    """#5's contract in plain PyTorch: each atom's K slot rows added in f32
+    one by one in ascending slot order from 0, rounded once to bf16; and the
+    sum of the rows' magnitudes."""
+    import torch
+
+    rows = ct.reshape(perm.numel(), -1).index_select(0, perm.long()).reshape(-1, k, ct.shape[-1]).float()
+    acc = torch.zeros_like(rows[:, 0])
+    for s in range(k):
+        acc = acc + rows[:, s]
+    return acc.to(torch.bfloat16), rows.abs().sum(dim=1)
+
+
+def check_ell_gather(dhfr_nbl, stmv_nbl):
+    """#4 against its plain version bitwise.  #5 bitwise equal from run to
+    run and to its contract (f32 sums in slot order, rounded once), and
+    against its plain version (an f32 sum in torch's own order, rounded
+    once) within one bf16 ulp of the output plus the f32 reordering bound
+    K 2^-24 sum|g|: where a sum cancels, the two orders' f32 results may
+    round to bf16 values more than one ulp of the small output apart.  At the
+    DHFR and STMV skin shapes (F = 128), at F = 384 and at a width of the
+    scalar path.  Returns the max abs errors (#4, #5 against the plain
+    version)."""
+    import torch
+
+    from torchmdnet_tpu_torch.ops import neighbors as nb
+    from torchmdnet_tpu_torch.ops.kernels import ell_gather as eg
+
+    g = torch.Generator().manual_seed(SEED)
+    parts, errs = [], [0.0, 0.0]
+    for label, nbl, f in (("DHFR", dhfr_nbl, 128), ("STMV skin", stmv_nbl, 128),
+                          ("DHFR", dhfr_nbl, 384), ("DHFR scalar path", dhfr_nbl, GN_ODD_F)):
+        n, k = nbl.idx.shape
+        perm = nbl.transpose_perm
+        x = torch.randn(n, f, generator=g).to("cuda", torch.bfloat16)
+        ct = torch.randn(n, k, f, generator=g).to("cuda", torch.bfloat16)
+        got, want = eg.gather_rows(x, nbl.idx), nb._gather_rows(x, nbl.idx)
+        t1, t2 = eg.transpose_sum_rows(ct, nbl.idx, perm), eg.transpose_sum_rows(ct, nbl.idx, perm)
+        t_plain = nb._transpose_sum(ct, nbl.idx, perm)
+        ordered, abs_sum = _slot_order_sum(ct, perm, k)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"#4 disagrees with its plain version at {label} F={f}")
+        if not (torch.equal(t1, t2) and torch.equal(t1, ordered)):
+            raise AssertionError(f"#5 at {label} F={f}: repeat bitwise equal {torch.equal(t1, t2)}, "
+                                 f"equal to the slot-order f32 sum {torch.equal(t1, ordered)}")
+        d = (t1.float() - t_plain.float()).abs()
+        out_ulp = torch.maximum(_bf16_ulp(t1), _bf16_ulp(t_plain))
+        if bool((d > out_ulp + k * 2.0**-24 * abs_sum).any()):
+            raise AssertionError(f"#5 at {label} F={f}: beyond one bf16 ulp plus the f32 reordering bound "
+                                 f"of its plain version")
+        beyond = int((d > out_ulp).sum())
+        errs[1] = max(errs[1], float(d.max()))
+        parts.append(f"{label} N={n} K={k} F={f}: #4 equal, #5 equal to the slot-order sum and from run to "
+                     f"run, {float((d / out_ulp).max()):.0f} output ulps from plain at most ({beyond} of "
+                     f"{d.numel()} beyond one, within the reordering bound)")
+        del x, ct, got, want, t1, t2, t_plain, ordered, abs_sum
+    log("ell_gather check (#4 bitwise equal to its plain version; #5 bitwise equal to its contract and "
+        "from run to run, within one bf16 ulp plus the f32 reordering bound of its plain version): "
+        + "; ".join(parts))
+    return tuple(errs)
+
+
+def _ell_bounds(n, k, f, kind):
+    """Least time: max(bytes / HBM rate, operations / f32 peak).  #4 reads
+    the source rows and idx once and writes (N, K, F); #5 reads (N, K, F) and
+    perm once, writes (N, F) and adds N*K*F times in f32."""
+    if kind == "gather":
+        nbytes, ops = 2 * n * f + 4 * n * k + 2 * n * k * f, 0
+    else:
+        nbytes, ops = 2 * n * k * f + 4 * n * k + 2 * n * f, n * k * f
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_CUDA_CORE_FLOPS
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def time_ell_gather(dhfr_nbl, stmv_nbl):
+    """#4 and #5 at the DHFR serving shapes and the STMV skin shapes (F =
+    128): kernel, plain version, the one PyTorch call that computes the same
+    function (``index_select`` for #4, ``index_add_`` into f32 of the rows in
+    f32 for #5: its atomics add in no fixed order), bound (L2 flushed,
+    median of 20)."""
+    import torch
+
+    from torchmdnet_tpu_torch.ops import neighbors as nb
+    from torchmdnet_tpu_torch.ops.kernels import ell_gather as eg
+
+    flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")  # 256 MB > L2
+    g = torch.Generator().manual_seed(SEED)
+    out = {}
+    for where, nbl in (("DHFR", dhfr_nbl), ("STMV skin", stmv_nbl)):
+        n, k = nbl.idx.shape
+        f = GN_ARGS["embedding_dimension"]
+        idx, perm, flat = nbl.idx, nbl.transpose_perm, nbl.idx.reshape(-1).long()
+        x = torch.randn(n, f, generator=g).to("cuda", torch.bfloat16)
+        ct = torch.randn(n, k, f, generator=g).to("cuda", torch.bfloat16)
+        rows32 = ct.reshape(n * k, f).float()
+        acc = torch.zeros(n, f, device="cuda")
+        out[where] = dict(
+            gather=(_event_ms(lambda: eg.gather_rows(x, idx), flush=flush),
+                    _event_ms(lambda: nb._gather_rows(x, idx), flush=flush),
+                    _event_ms(lambda: x.index_select(0, flat), flush=flush)) + _ell_bounds(n, k, f, "gather"),
+            transpose=(_event_ms(lambda: eg.transpose_sum_rows(ct, idx, perm), flush=flush),
+                       _event_ms(lambda: nb._transpose_sum(ct, idx, perm), flush=flush),
+                       _event_ms(lambda: acc.index_add_(0, flat, rows32), flush=flush))
+            + _ell_bounds(n, k, f, "transpose"),
+            shape=(n, k, f),
+        )
+        del x, ct, rows32, acc
+    log("ell_gather kernel times (L2 flushed, median of 20): " + "; ".join(
+        f"{kind} at {where} N={v['shape'][0]} K={v['shape'][1]} F={v['shape'][2]} {t[0]:.4f} ms (plain "
+        f"{t[1]:.4f} ms, library {t[2]:.4f} ms, bound {t[3]:.4f} ms by {t[4]}, {100 * t[3] / t[0]:.1f}% of it "
+        f"reached)" for where, v in out.items() for kind, t in v.items() if kind != "shape"))
+    return out
+
+
+def gn_forward():
+    """bench.py's headline GN forward: Potential.energy with the list built
+    inside the timed call (K = 32, truncated), f32 at DHFR and bf16 messages
+    at STMV; the STMV forward gathers through #4 once per layer and
+    transposes nothing.  Returns (DHFR ms, STMV ms, STMV launches)."""
+    import torch
+
+    from torchmdnet_tpu_torch import create_model
+    from torchmdnet_tpu_torch.data.systems import DHFR_ATOMS
+    from torchmdnet_tpu_torch.ops.cell_list import probe_cell_kwargs
+
+    out = {}
+    for label, args, batch in (("DHFR", GN_FWD_ARGS, _synthetic_batch(DHFR_ATOMS, SEED, "cuda")[2]),
+                               ("STMV", GN_STMV_FWD_ARGS, _stmv_batch())):
+        model = create_model(args, seed=SEED)
+        sizes = probe_cell_kwargs(batch, cutoff_upper=args["cutoff_upper"])
+        nbl = model.neighbors(batch, **sizes)
+        if bool(nbl.cell_overflow):
+            raise AssertionError(f"the GN {label} forward's cell list overflowed {sizes}")
+        truncated = bool(nbl.overflow())
+
+        def call():
+            with torch.no_grad():
+                return model.energy(batch, nbl=model.neighbors(batch, **sizes))
+
+        _reset_launches()
+        y = call()
+        torch.cuda.synchronize()
+        launches = _gn_launches()
+        if y.shape != (1, 1) or not bool(torch.isfinite(y).all()):
+            raise AssertionError(f"GN {label} forward: energy {y}")
+        layers = args["num_layers"]
+        expected = (layers, 0) if args["bf16_messages"] else (0, 0)
+        if launches[:2] != expected:
+            raise AssertionError(f"GN {label} forward: expected (#4, #5) launches {expected}, got {launches[:2]}")
+        ms = _host_ms(call, reps=GN_FWD_REPS)
+        out[label] = (ms, launches)
+        log(f"GN forward at {label} (bench.py's configuration: 6x128, K={args['max_num_neighbors']}, "
+            f"{'bf16 messages' if args['bf16_messages'] else 'f32'}, list built in the call, N={batch.num_atoms}): "
+            f"{ms:.3f} ms/call (host clock with sync, median of {GN_FWD_REPS}); list truncated {truncated} "
+            f"(true max {int(nbl.n_neighbors.max())} neighbors); launches (#4, #5, select_topk) {launches}; "
+            f"energy {float(y[0, 0]):.4f}; the reference's {REF_GN_FWD_MS[label]} ms was measured on a desktop "
+            f"NVIDIA GPU, another card")
+        del model, nbl
+    return out
+
+
+def _gn_launches():
+    """(#4, #5, select_topk) launches."""
+    gather, transpose, _, topk = _launches(_gn_km())
+    return gather, transpose, topk
+
+
+def gn_md_stmv():
+    """GN molecular dynamics at STMV size through md.Simulation at a rebuild
+    cadence at which the skin holds: launches per force evaluation and
+    rebuild, stale False, the refined skin list equal to a fresh one, the
+    time per step and the peak memory."""
+    import torch
+
+    from torchmdnet_tpu_torch import Simulation, create_model
+
+    batch = _stmv_batch()
+    real = batch.atom_mask
+    torch.cuda.reset_peak_memory_stats()
+    model = create_model(GN_ARGS, seed=SEED, std=GN_MD_STD)
+    every = GN_MD_EVERY
+    sim = Simulation(model, batch, seed=SEED, **dict(MD_ARGS, rebuild_every=every))
+    sim.set_velocities_from_temperature(300.0)
+    _reset_launches()
+    starts = []
+    for _ in range(GN_MD_WARMUP_STEPS // every):
+        starts.append(sim.state.pos)
+        sim.step(every)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(GN_MD_TIMED_STEPS // every):
+        starts.append(sim.state.pos)
+        sim.step(every)
+    torch.cuda.synchronize()
+    ms_step = 1e3 * (time.perf_counter() - t0) / GN_MD_TIMED_STEPS
+    launches = _gn_launches()
+    steps = GN_MD_WARMUP_STEPS + GN_MD_TIMED_STEPS
+    evaluations, rebuilds, layers = steps + 1, steps // every, GN_ARGS["num_layers"]
+    if launches != (layers * evaluations, layers * evaluations, rebuilds):
+        raise AssertionError(f"expected {layers}+{layers} (#4, #5) launches per force evaluation ({evaluations}) "
+                             f"and one select_topk per rebuild ({rebuilds}), got {launches}")
+    state = sim.state
+    if not (torch.isfinite(state.pos).all() and torch.isfinite(state.energy).all()):
+        raise AssertionError("non-finite positions or energies in GN MD")
+    ends = starts[1:] + [state.pos]
+    move = max(float((b - a).norm(dim=-1)[real].max()) for a, b in zip(starts, ends))
+    if bool(state.stale):
+        raise AssertionError(f"the GN skin list went stale at rebuild_every={every} (largest move {move:.3f} A)")
+    missed, extra, total = _pairs_against_fresh(sim, model, batch, starts[-1])
+    if (missed, extra) != (0, 0):
+        raise AssertionError(f"the refined GN skin list and a fresh list differ: {missed} missed, {extra} extra")
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    log(f"GN MD at STMV size (6x128 bf16 messages, K=80, skin list K={sim._build_nbl(state.pos).k}, "
+        f"{int(real.sum())} atoms padded to {batch.num_atoms}, rebuild every {every}, std {GN_MD_STD}, no remat): "
+        f"{steps} steps, "
+        f"energy {float(state.energy.sum()):.4f} eV; launches (#4, #5, select_topk) {launches} ({evaluations} "
+        f"force evaluations, {rebuilds} rebuilds); {ms_step:.3f} ms/step (host clock with sync, mean of "
+        f"{GN_MD_TIMED_STEPS}); largest move between rebuilds {move:.3f} A against skin/2 = "
+        f"{0.5 * MD_ARGS['neighbor_skin']} A: stale False; the refined skin list holds exactly a fresh list's {total} pairs; "
+        f"peak memory {peak_gb:.2f} GiB")
+    return launches, sim, ms_step, peak_gb
+
+
+def tn_strong_messages():
+    """TensorNet at weights where the message phase carries a real share of
+    the output: each interaction's last edge-MLP layer (linears_scalar.2) and
+    its three tensor linears after the message (linears_tensor.3-5) are
+    scaled by s, the smallest s of a ladder at which zeroing the messages
+    moves the composable fp32 energy by at least 10 %; there the fused bf16
+    path against composable fp32 at the end-to-end tolerances."""
+    import torch
+
+    from torchmdnet_tpu_torch import External, create_model
+    from torchmdnet_tpu_torch.data.systems import DHFR_ATOMS
+
+    z, pos, _ = _synthetic_batch(DHFR_ATOMS, SEED, "cpu")
+    fused = create_model(TN_ARGS, seed=SEED)
+    ref = create_model(dict(TN_ARGS, bf16_messages=False, fused_message=False), seed=SEED)
+    base = {k: v.clone() for k, v in fused.module.state_dict().items()}
+
+    def scaled(s, messages=True):
+        sd = dict(base)
+        for i in range(TN_ARGS["num_layers"]):
+            p = f"representation_model.layers.{i}."
+            for name in ("linears_scalar.2.weight", "linears_scalar.2.bias"):
+                sd[p + name] = base[p + name] * (s if messages else 0.0)
+            for j in (3, 4, 5):
+                sd[p + f"linears_tensor.{j}.weight"] = base[p + f"linears_tensor.{j}.weight"] * s
+        return sd
+
+    def calc(model, sd):
+        model.module.load_state_dict(sd)
+        return External((model, None), z[None]).calculate(pos)
+
+    for s in (8, 10, 12, 14, 16, 20, 24, 32):
+        e32, f32 = calc(ref, scaled(s))
+        e0, f0 = calc(ref, scaled(s, messages=False))
+        share = float((e0 - e32).abs().max() / e32.abs().max())
+        if share >= 0.1:
+            break
+    else:
+        raise AssertionError(f"no scale of the ladder gives the TensorNet messages 10 % of the energy ({share})")
+    f_share = float((f0 - f32).abs().max() / f32.abs().max())
+    e, f = calc(fused, scaled(s))
+    e_err = float((e - e32).abs().max() / e32.abs().max())
+    f_err = float((f - f32).abs().max() / f32.abs().max())
+    log(f"TensorNet 2x128 at DHFR with the message MLP's last layer and the tensor linears after it scaled "
+        f"by {s}: the message phase carries |dE|/|E| {share:.3e} and max|dF|/max|F| {f_share:.3e} of the "
+        f"composable fp32 output (messages zeroed); fused bf16 vs composable fp32 there: |dE|/|E| {e_err:.3e} "
+        f"(tol {E2E_ENERGY_TOL}), max|dF|/max|F| {f_err:.3e} (tol {E2E_FORCE_TOL})")
+    if e_err > E2E_ENERGY_TOL or f_err > E2E_FORCE_TOL:
+        raise AssertionError("fused TensorNet disagrees with composable fp32 where the messages carry the output")
+
+
 def main():
     import torch
 
@@ -1415,31 +1812,52 @@ def main():
     from torchmdnet_tpu_torch.ops.kernels import et_message as em
     from torchmdnet_tpu_torch.ops.kernels import tn_message as tm
 
-    ext_launches, ext, pos, _ = main_path(ET_ARGS, em, "ET 6x128")
-    tn_ext_launches, tn_ext, tn_pos, tn_call_ms = main_path(TN_ARGS, tm, "TensorNet 2x128")
+    gn_nbls = _gn_lists()
+    gn_errs = check_ell_gather(*gn_nbls)
+    ext_launches, ext, pos, _ = main_path(ET_ARGS, em, "ET 6x128 fused")
+    tn_ext_launches, tn_ext, tn_pos, tn_call_ms = main_path(TN_ARGS, tm, "TensorNet 2x128 fused")
+    tn_strong_messages()
+    gn_ext_launches, gn_ext, gn_pos, gn_call_ms = main_path(GN_ARGS, _gn_km(), "GN 6x128")
+    gn_fwd = gn_forward()
     times = time_kernels(seed=SEED)
     train_ms, train_plain, train_bounds = time_train_kernels(_train_batch(train_ds, "cuda"))
     tn_times = time_tn_kernels(tn_batch)
+    gn_times = time_ell_gather(*gn_nbls)
     sel_time = time_select_topk(keys, k)
-    del keys, stmv
+    del keys, stmv, gn_nbls
     md_launches, sim = md_stmv(sel_time[0])
+    gn_md_launches, gn_sim, gn_md_ms, _ = gn_md_stmv()
     et_cfg = _train_cfg("et")
+    gn_cfg = _train_cfg("gn")
+    gn_ds = _train_dataset(GN_TRAIN_SPLIT, GN_TRAIN_MOL)
     train_grads_vs_composable(train_ds, et_cfg)
     train_grads_vs_composable(tn_ds, tn_cfg)
+    train_grads_vs_composable(gn_ds, gn_cfg)
     with tempfile.TemporaryDirectory() as workdir:
         trainer, train_launches = train_cli(workdir, et_cfg)
     with tempfile.TemporaryDirectory() as workdir:
         tn_trainer, tn_train_launches = train_cli(workdir, tn_cfg)
+    with tempfile.TemporaryDirectory() as workdir:
+        gn_trainer, gn_train_launches = train_cli(workdir, gn_cfg)
     train_batch, _ = time_train_steps(trainer, train_ds, et_cfg)
     tn_train_batch, tn_step_ms = time_train_steps(tn_trainer, tn_ds, tn_cfg)
+    gn_train_batch, gn_step_ms = time_train_steps(gn_trainer, gn_ds, gn_cfg)
     # last: the profiler's tracing may slow what runs after it
-    profile_calls(ext, pos, ET_SERVE_KERNELS, "ET")
-    profile_calls(tn_ext, tn_pos, TN_SERVE_KERNELS, "TensorNet")
+    profile_calls(ext, pos, ET_SERVE_KERNELS, "fused ET")
+    profile_calls(tn_ext, tn_pos, TN_SERVE_KERNELS, "fused TensorNet")
+    profile_calls(gn_ext, gn_pos, GN_KERNELS, "GN")
     profile_md(sim)
+    profile_md(gn_sim, GN_KERNELS, "GN", steps=2 * MD_VALID_EVERY)
     profile_train(trainer, train_batch, et_cfg)
     profile_train(tn_trainer, tn_train_batch, tn_cfg)
+    profile_train(gn_trainer, gn_train_batch, gn_cfg)
     log(f"TensorNet paths: DHFR energy+forces {tn_call_ms:.3f} ms/call, TensorNet-ANI1X training "
         f"{tn_step_ms:.3f} ms/step ({1e3 * TN_TRAIN_BATCH / tn_step_ms:.1f} molecules/s)")
+    log(f"GN paths: DHFR energy+forces {gn_call_ms:.3f} ms/call (bf16 messages, K=80); forward "
+        f"{gn_fwd['DHFR'][0]:.3f} ms at DHFR (f32, K=32) and {gn_fwd['STMV'][0]:.3f} ms at STMV (bf16, K=32) "
+        f"against the reference's {REF_GN_FWD_MS['DHFR']} / {REF_GN_FWD_MS['STMV']} ms on a desktop NVIDIA GPU "
+        f"(another card); STMV MD {gn_md_ms:.3f} ms/step; GN-aspirin training {gn_step_ms:.3f} ms/step "
+        f"({1e3 * GN_TRAIN_BATCH / gn_step_ms:.1f} molecules/s)")
 
     # launches: the counts of the main paths' runs (External at DHFR size for
     # ET and TensorNet, MD at STMV size, training through the CLI for ET and
@@ -1451,7 +1869,12 @@ def main():
         "tn_external_dhfr": dict(zip(("tn_message_fwd", "tn_message_bwd", "select_topk"), tn_ext_launches)),
         "tn_train": dict(zip(("tn_message_fwd", "tn_message_bwd", "tn_message_bwd2", "select_topk"),
                              tn_train_launches)),
+        "gn_external_dhfr": dict(zip(("ell_gather", "ell_transpose_sum", "select_topk"), gn_ext_launches)),
+        "gn_forward_stmv": dict(zip(("ell_gather", "ell_transpose_sum", "select_topk"), gn_fwd["STMV"][1])),
+        "gn_md_stmv": dict(zip(("ell_gather", "ell_transpose_sum", "select_topk"), gn_md_launches)),
+        "gn_train": dict(zip(("ell_gather", "ell_transpose_sum"), gn_train_launches)),
     }
+    gn_rows = {kind: (t[0], t[1], t[3], t[4], t[2]) for kind, t in gn_times["DHFR"].items() if kind != "shape"}
     bwd2_row = (train_ms["bwd2"], train_plain["bwd2"]) + train_bounds["bwd2"] + (None,)
     kernels = []
     for name, source, line, (ms, plain_ms, bound_ms, bound_by, lib_ms), err in (
@@ -1462,6 +1885,8 @@ def main():
         ("tn_message_fwd", "tn_message.cu", "tn_message.py:77", tn_times["fwd"][:4] + (None,), tn_fwd_abs),
         ("tn_message_bwd", "tn_message.cu", "tn_message.py:107", tn_times["bwd"][:4] + (None,), tn_bwd_abs),
         ("tn_message_bwd2", "tn_message.cu", "tn_message.py:455", tn_times["bwd2"][:4] + (None,), tn_bwd2_abs),
+        ("ell_gather", "ell_gather.cu", "onehot_gather.py:178", gn_rows["gather"], gn_errs[0]),
+        ("ell_transpose_sum", "ell_gather.cu", "onehot_gather.py:227", gn_rows["transpose"], gn_errs[1]),
     ):
         by_path = {path: counts.get(name, 0) for path, counts in paths.items()}
         kernels.append(dict(

@@ -154,8 +154,8 @@ def test_optimize_matches_energy_and_forces(skin):
 def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         _sim(edge_partition=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _sim(neighbor_skin=1.0, neighbor_kwargs={"gather_plan": True})
+    # the gather plan is accepted with no effect (ROADMAP.md section 3)
+    assert _sim(neighbor_skin=1.0, neighbor_kwargs={"gather_plan": True}).neighbor_kwargs["gather_plan"]
     if not torch.cuda.is_available():  # entry points never fall back to the CPU
         with pytest.raises(RuntimeError, match="device='cpu'"):
             Simulation(_port_model(), _batch())

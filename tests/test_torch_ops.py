@@ -196,9 +196,10 @@ def test_refine_and_without_self_loops_match_jax():
 
 
 def test_cell_strategy_points_to_the_roadmap():
-    # the cell strategy is ported (ROADMAP.md slice C) and builds lists; what
-    # its JAX counterpart adds on top and the port does not have yet, the
-    # gather plan of kernels #4/#5, points to the ROADMAP
+    # the cell strategy is ported (ROADMAP.md slice C) and builds lists; the
+    # gather plan its JAX counterpart adds for the one-hot kernels #4/#5 is
+    # accepted with no effect (the port's kernels gather by index; ROADMAP.md
+    # section 3)
     from torchmdnet_tpu_torch import create_model
 
     pos = torch.tensor([[0.0, 0.0, 0.0], [1.0, 0.0, 0.0], [9.0, 0.0, 0.0], [9.5, 0.0, 0.0]])
@@ -213,8 +214,9 @@ def test_cell_strategy_points_to_the_roadmap():
         max_num_neighbors=2, cutoff_lower=0.0, cutoff_upper=2.0, num_heads=1,
     ), device="cpu")
     batch = pad_molecules([{"z": np.ones(4, np.int64), "pos": pos.numpy()}], num_atoms=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.neighbors(batch, gather_plan=True)
+    planned = model.neighbors(batch, gather_plan=True, plan_block_rows=8, plan_width=128)
+    plain = model.neighbors(batch)
+    assert torch.equal(planned.idx, plain.idx) and torch.equal(planned.mask, plain.mask)
 
 
 def test_asymmetric_list_raises():

@@ -20,6 +20,8 @@
   plain PyTorch, equals autograd's on a symmetric list in a periodic box.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -79,6 +81,19 @@ def _inputs(seed, n=N, h=H, rbf=RBF, k_req=16, cutoff=3.0, side=9.0):
     return idx, ins, r(n, 9 * h).astype(np.float32)
 
 
+@functools.lru_cache(maxsize=None)
+def _plan_fn(shape, width):
+    """``make_block_gather_plan`` compiled once per list shape and width and
+    shared by the tests (an eager call compiles each of its primitives)."""
+    spec = jax.ShapeDtypeStruct(shape, jnp.int32)
+    return jax.jit(make_block_gather_plan, static_argnames=("block_rows", "width")).lower(
+        spec, block_rows=8, width=width).compile(compiler_options=FAST_COMPILE)
+
+
+def _plan(idx, width=128):
+    return _plan_fn(tuple(idx.shape), width)(jnp.asarray(idx))
+
+
 def _jax_vjp(fn, ins, ct):
     """JAX forward and input cotangents of <out, ct>, in one jitted program
     compiled with LLVM's cheap pipeline (numerics unchanged)."""
@@ -109,9 +124,7 @@ def _check(m, grads, ref_m, ref_grads):
 def test_reference_matches_jax_fused_kernel():
     """One forward and one backward of JAX's Pallas kernels (interpret mode)."""
     idx, ins, ct = _inputs(seed=1)
-    plan = jax.jit(make_block_gather_plan, static_argnames=("block_rows", "width"))(
-        jnp.asarray(idx), block_rows=8, width=256
-    )
+    plan = _plan(idx, width=256)
     assert int(plan.overflow) == 0 and int(plan.inv_overflow) == 0
     cfg = FusedTNConfig(h=H, act="silu", interpret=True)
     out, ref_grads = _jax_vjp(lambda *a: j_fused_tn_messages(cfg, plan, *a), ins, ct)
@@ -123,7 +136,7 @@ def test_reference_matches_jax_fused_kernel():
 @pytest.mark.parametrize("act", ["tanh", "ssp"])
 def test_reference_variants_match_jax_composable(act):
     idx, ins, ct = _inputs(seed=2, n=24, h=32, rbf=8, cutoff=2.5, side=6.0)
-    plan = make_block_gather_plan(jnp.asarray(idx), block_rows=8, width=128)
+    plan = _plan(idx)
     cfg = FusedTNConfig(h=32, act=act, interpret=True)
     out, ref_grads = _jax_vjp(lambda *a: _composable_tn_reference(cfg, plan, a), ins, ct)
     m, grads = _port(idx, ins, ct, act=act)
@@ -136,8 +149,7 @@ def test_bwd2_reference_matches_jax(precision):
     npd = np.float64 if precision == 64 else np.float32
     rng = np.random.RandomState(4)
     zs = {n: rng.randn(*a.shape) * 0.5 for n, a in ins.items()}
-    jidx = jnp.asarray(idx)
-    plan = make_block_gather_plan(jidx, block_rows=8, width=128)
+    plan = _plan(idx)
     cfg = FusedTNConfig(h=32, act="silu", interpret=True)
 
     def run(inputs, c, z):

@@ -120,7 +120,8 @@ def test_fused_plain_version_matches_jax_fused_kernels():
     mols = [{"z": m["z"], "pos": m["pos"] * 1.2} for m in _mols(np.float32)]
     jb, _ = jax_spatial_sort(jax_pad_molecules(mols, num_atoms=32, num_mol=2))
     jm = jax_create_model(args)
-    nbl = jm.neighbors(jb, gather_plan=True, plan_block_rows=8, plan_width=128)
+    # one compile of the list and its gather plan, not one per primitive
+    nbl = _run_jitted(lambda b: jm.neighbors(b, gather_plan=True, plan_block_rows=8, plan_width=128), jb)
     nbl.raise_on_overflow("test")
     params = _draw(jax.eval_shape(jm.init, jax.random.PRNGKey(0), jb), seed=2)
     y_ref, f_ref = _run_jitted(lambda p, b, nl: jm.energy_and_forces(p, b, nbl=nl), params, jb, nbl)

@@ -10,6 +10,7 @@ import numpy as np
 import torch
 
 from torchmdnet_tpu_torch.data.batch import AtomicBatch
+from torchmdnet_tpu_torch.models.potential import check_atom_filter_batch, load_model
 from torchmdnet_tpu_torch.ops.cell_list import probe_cell_kwargs
 from torchmdnet_tpu_torch.utils import resolve_device
 
@@ -29,13 +30,14 @@ class External:
     """Batched external potential for MD engines.
 
     Args:
-        netfile: a ``(Potential, state)`` tuple; ``state`` is a state_dict to
-            load into the potential, or None to keep its weights.  Checkpoint
-            files arrive with the trainer.
+        netfile: a checkpoint path (``load_model``), or a ``(Potential,
+            state)`` tuple; ``state`` is a state_dict to load into the
+            potential, or None to keep its weights.
         embeddings: (nbatch, natoms) atom types; replicas share types.
         device: where to run; ``cuda`` unless named (raises without a GPU).
-        output_transform: a preset name from ``transforms`` or a callable
-            (energy, forces) -> (energy, forces).
+        output_transform: a preset name from ``transforms``, a callable
+            (energy, forces) -> (energy, forces), or the source of one, which
+            is ``eval``ed as the reference does.
         use_box: set True when ``calculate`` will be called with a box.
         check_errors: check on the first ``calculate`` that the neighbor
             capacity holds for this system (one host fetch).
@@ -47,13 +49,11 @@ class External:
 
     def __init__(self, netfile, embeddings, device=None, output_transform=None,
                  use_box=False, check_errors=True):
-        if not isinstance(netfile, tuple):
-            raise NotImplementedError(
-                "External takes a (Potential, state) tuple; loading checkpoint "
-                "files arrives with the trainer (ROADMAP.md, slice D)"
-            )
-        self.model, state = netfile
         self.device = resolve_device(device)
+        if isinstance(netfile, tuple):
+            self.model, state = netfile
+        else:
+            self.model, state = load_model(netfile, device=self.device, derivative=True), None
         self.model.module.to(self.device)
         self.model.device = self.device
         if state is not None:
@@ -84,6 +84,8 @@ class External:
             mol_mask=torch.ones(self.n_batch, dtype=torch.bool, device=dev),
             num_mol=self.n_batch,
         )
+        # atom types are fixed at construction, so the filter can be checked here
+        check_atom_filter_batch(self.model.module, self._template, "External")
         self.use_box = use_box
         if not output_transform:
             self.output_transformer = lambda energy, forces: (energy, forces)
@@ -92,7 +94,7 @@ class External:
         elif callable(output_transform):
             self.output_transformer = output_transform
         else:
-            raise ValueError(f"unknown output_transform: {output_transform!r}")
+            self.output_transformer = eval(output_transform)  # noqa: S307 (reference parity)
         self._check_errors = check_errors
         self._neighbor_kwargs = None
 

@@ -62,6 +62,17 @@ def embedding(num_embeddings: int, features: int, *, generator) -> nn.Embedding:
     return emb
 
 
+def remat_call(remat: bool, fn, *args):
+    """``fn(*args)``; under ``remat`` its activations are recomputed in the
+    backward pass instead of kept (``torch.utils.checkpoint``, non-reentrant,
+    so every derivative order works), as the JAX package's ``nn.remat``."""
+    if not remat:
+        return fn(*args)
+    from torch.utils.checkpoint import checkpoint
+
+    return checkpoint(fn, *args, use_reentrant=False)
+
+
 class NeighborEmbedding(nn.Module):
     """Initial neighborhood-type embedding (eq. 3 of the ET paper).
 
@@ -86,7 +97,7 @@ class NeighborEmbedding(nn.Module):
         c = cosine_cutoff(dist, self.cutoff_lower, self.cutoff_upper)
         w = self.distance_proj(edge_attr) * c[..., None]
         x_neighbors = self.embedding(z)
-        msg = ell_gather(x_neighbors, nbl.idx, nbl.transpose_perm) * w  # (N, K, H)
+        msg = ell_gather(x_neighbors, nbl.idx, nbl.lazy_perm) * w  # (N, K, H)
         msg = torch.where(nbl.mask[..., None], msg, torch.zeros_like(msg))
         agg = msg.sum(dim=1)
         return self.combine(torch.cat([x, agg], dim=-1))

@@ -25,6 +25,7 @@ from torchmdnet_tpu_torch.models.blocks import (
     NeighborEmbedding,
     embedding,
     layer_norm,
+    remat_call,
     xavier_linear,
 )
 from torchmdnet_tpu_torch.ops.activations import act_fn_mapping
@@ -157,7 +158,7 @@ class EquivariantMultiHeadAttention(nn.Module):
         mp = torch.bfloat16 if self.bf16_messages else acc
         act = act_fn_mapping[self.activation]
         attn_act = act_fn_mapping[self.attn_activation]
-        perm = nbl.transpose_perm
+        perm = nbl.lazy_perm
 
         def proj(lin, t):  # a Linear layer computed in the message dtype
             return torch.matmul(t.to(mp), lin.weight.to(mp).t()) + lin.bias.to(mp)
@@ -213,6 +214,7 @@ class TorchMD_ET(nn.Module):
         max_num_neighbors: int = 32,
         bf16_messages: bool = False,
         fused_attention: bool = False,
+        remat: bool = False,
         *,
         generator,
     ):
@@ -226,6 +228,8 @@ class TorchMD_ET(nn.Module):
         self.cutoff_lower = cutoff_lower
         self.cutoff_upper = cutoff_upper
         self.max_num_neighbors = max_num_neighbors
+        # recompute the neighbor embedding and each layer in the backward pass
+        self.remat = remat
         self.embedding = embedding(max_z, hidden_channels, generator=g)
         # the reference ET builds its RBF without a dtype, leaving float32
         # constants in any precision mode
@@ -264,12 +268,12 @@ class TorchMD_ET(nn.Module):
         edge_dir = tuple(comp * inv_dist for comp in delta)
 
         if self.neighbor_embedding is not None:
-            x = self.neighbor_embedding(z, x, nbl, dist, edge_attr)
+            x = remat_call(self.remat, self.neighbor_embedding, z, x, nbl, dist, edge_attr)
 
         zero = torch.zeros((x.shape[0], self.hidden_channels), dtype=x.dtype, device=x.device)
         vec = (zero, zero, zero)
         for layer in self.attention_layers:
-            dx, dvec = layer(x, vec, nbl, dist, edge_attr, edge_dir)
+            dx, dvec = remat_call(self.remat, layer, x, vec, nbl, dist, edge_attr, edge_dir)
             x = x + dx
             vec = tuple(vc + dc for vc, dc in zip(vec, dvec))
         x = self.out_norm(x)

@@ -5,19 +5,21 @@
 - ``Potential`` wraps it with forces = -dE/dpos from ``torch.autograd.grad``;
 - ``create_model`` builds a Potential from the flat config dict the JAX
   package takes, ``create_prior_models`` its priors, ``load_model`` a
-  Potential from a port checkpoint.  The equivariant transformer, TensorNet
-  and the Atomref prior are ported so far.
+  Potential from a port checkpoint.  The equivariant transformer, TensorNet,
+  the graph network and the Atomref prior are ported so far.
 """
 
 import dataclasses
 import math
 from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
 from torchmdnet_tpu_torch.data.batch import AtomicBatch
 from torchmdnet_tpu_torch.models.et import TorchMD_ET
+from torchmdnet_tpu_torch.models.graph_network import TorchMD_GN
 from torchmdnet_tpu_torch.models.output_heads import head_class
 from torchmdnet_tpu_torch.models.tensornet import TensorNet
 from torchmdnet_tpu_torch.ops.neighbors import neighbor_list
@@ -28,13 +30,8 @@ from torchmdnet_tpu_torch.utils import resolve_device
 dtype_mapping = {32: torch.float32, 64: torch.float64}
 
 _MODELS_TODO = (
-    "only the equivariant-transformer and tensornet are ported so far; the "
-    "transformer and the graph network follow (ROADMAP.md, 'Modules to port', "
-    "slice E)"
-)
-_GATHER_PLAN_TODO = (
-    "the gather plan (one-hot gather kernels #4/#5) is not ported: the port's "
-    "fused ET and TensorNet kernels gather by index (ROADMAP.md, 'TPU kernels to port')"
+    "the equivariant-transformer, tensornet and graph-network are ported so "
+    "far; the transformer follows (ROADMAP.md, 'Modules to port', slice E2)"
 )
 
 
@@ -72,6 +69,23 @@ class EnergyModel(nn.Module):
         return y
 
 
+def check_atom_filter_batch(module: EnergyModel, batch: AtomicBatch, context: str = ""):
+    """Raise when the atom filter would remove every atom of a molecule (the
+    reference asserts it in AtomFilter.forward); its energy would otherwise
+    silently be the mean plus the priors."""
+    if module.atom_filter <= -1:
+        return
+    z, ids, mask = (t.cpu().numpy() for t in (batch.z, batch.batch, batch.atom_mask))
+    keep = (z > module.atom_filter) & mask
+    m = batch.num_mol
+    present = np.bincount(ids[mask], minlength=m + 1)[:m]
+    kept = np.bincount(ids[keep], minlength=m + 1)[:m]
+    if np.any((present > 0) & (kept == 0)):
+        bad = int(np.argmax((present > 0) & (kept == 0)))
+        raise ValueError(f"Atom filter (Z > {module.atom_filter}) removed all atoms of sample "
+                         f"{bad}{' in ' + context if context else ''}; its energy would silently be zero.")
+
+
 @dataclasses.dataclass
 class Potential:
     """User-facing bundle of (module, hyperparameters) on one device."""
@@ -104,7 +118,8 @@ class Potential:
         return y.detach(), -grad
 
     def neighbors(self, batch: AtomicBatch, box=None, strategy: str = "auto", skin: float = 0.0,
-                  k: Optional[int] = None, gather_plan: bool = False, **cell_kwargs):
+                  k: Optional[int] = None, gather_plan: bool = False, plan_block_rows: int = 0,
+                  plan_width: int = 0, plan_inv_capacity: int = 0, **cell_kwargs):
         """The representation's neighbor list, built on its own.
 
         With ``skin`` > 0 the list is built with ``cutoff_upper + skin`` and
@@ -115,9 +130,11 @@ class Potential:
         small molecules (fewer than 512 atoms each on average) take the brute
         strategy under 'auto': they overlap in space, so cells would hold
         every sample's atoms at once.
+
+        ``gather_plan`` and its ``plan_*`` sizes are accepted and have no
+        effect: the JAX package's block gather plan feeds its one-hot MXU
+        gather, and the port's kernels gather by index, with the same result.
         """
-        if gather_plan:
-            raise NotImplementedError(_GATHER_PLAN_TODO)
         a = self.args
         cutoff_upper = a.get("cutoff_upper", 5.0)
         cutoff_lower = a.get("cutoff_lower", 0.0)
@@ -150,8 +167,17 @@ def create_representation(args: Dict[str, Any], generator: torch.Generator) -> n
         max_z=args["max_z"],
         max_num_neighbors=args["max_num_neighbors"],
         bf16_messages=args.get("bf16_messages", False),
+        remat=args.get("remat", False),
         generator=generator,
     )
+    if args["model"] == "graph-network":
+        return TorchMD_GN(
+            num_filters=args["embedding_dimension"],
+            aggr=args.get("aggr", "add"),
+            neighbor_embedding=args.get("neighbor_embedding", False),
+            buffer_dtype=dtype_mapping[args.get("precision", 32)],
+            **shared,
+        )
     if args["model"] == "tensornet":
         return TensorNet(
             equivariance_invariance_group=args.get("equivariance_invariance_group", "O(3)"),

@@ -26,7 +26,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from torchmdnet_tpu_torch.models.blocks import embedding, layer_norm, torch_default_linear
+from torchmdnet_tpu_torch.models.blocks import embedding, layer_norm, remat_call, torch_default_linear
 from torchmdnet_tpu_torch.ops.activations import act_fn_mapping
 from torchmdnet_tpu_torch.ops.cutoff import cosine_cutoff
 from torchmdnet_tpu_torch.ops.kernels import tn_message
@@ -138,7 +138,7 @@ class TensorEmbedding(nn.Module):
         zemb = self.emb(z)  # (N, H)
         h = zemb.shape[-1]
         pair = torch.cat([zemb[:, None, :].expand(n, k, h),
-                          ell_gather(zemb, nbl.idx, nbl.transpose_perm)], dim=-1)
+                          ell_gather(zemb, nbl.idx, nbl.lazy_perm)], dim=-1)
         zij = self.emb2(pair)
         gate = torch.where(nbl.mask[..., None], zij, torch.zeros_like(zij))
         gw1, gw2, gw3 = gate * w1, gate * w2, gate * w3
@@ -261,7 +261,7 @@ class Interaction(nn.Module):
             w = act(lin(w))
         w = w * c[..., None]
         w = torch.where(nbl.mask[..., None], w, torch.zeros_like(w))  # (N, K, 3H)
-        cat_j = ell_gather(cat.to(mp), nbl.idx, nbl.transpose_perm)  # (N, K, 9H)
+        cat_j = ell_gather(cat.to(mp), nbl.idx, nbl.lazy_perm)  # (N, K, 9H)
         w_i, w_a, w_s = torch.split(w.to(mp), h, dim=-1)
         wb = (w_i, w_a, w_a, w_a, w_s, w_s, w_s, w_s, w_s)
         parts = torch.split(cat_j, h, dim=-1)
@@ -286,12 +286,15 @@ class TensorNet(nn.Module):
         equivariance_invariance_group: str = "O(3)",
         bf16_messages: bool = False,
         fused_message: bool = False,
+        remat: bool = False,
         *,
         generator,
     ):
         super().__init__()
         g = generator
         self.hidden_channels = hidden_channels
+        # recompute the embedding and each interaction in the backward pass
+        self.remat = remat
         self.activation = activation
         self.cutoff_lower = cutoff_lower
         self.cutoff_upper = cutoff_upper
@@ -328,9 +331,9 @@ class TensorNet(nn.Module):
         pos_d = dist > 0
         neg_inv = -(pos_d.to(dist.dtype) / torch.where(pos_d, dist, torch.ones_like(dist)))
         edge_dir = tuple(comp * neg_inv for comp in delta)
-        x = self.tensor_embedding(z, nbl, dist, edge_dir, edge_attr)
+        x = remat_call(self.remat, self.tensor_embedding, z, nbl, dist, edge_dir, edge_attr)
         for layer in self.layers:
-            x = layer(x, nbl, dist, edge_attr)
+            x = remat_call(self.remat, layer, x, nbl, dist, edge_attr)
         lam, a_p, s_p = t9_decompose(x)
         feats = self.out_norm(torch.cat(irrep_norms(lam, a_p, s_p), dim=-1))
         return act_fn_mapping[self.activation](self.linear(feats)), None

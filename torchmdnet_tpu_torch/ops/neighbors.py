@@ -16,7 +16,13 @@ self/padding slots.  The transpose of a gather is therefore one argsort of
 ``idx`` (shared by every gather of a list), a row gather and a sum over K
 slots (``ell_transpose_sum``).  No ``index_add_`` is involved, so gradients
 (forces) are bitwise the same from run to run on the GPU, where
-``index_add_`` adds floats with atomics.
+``index_add_`` adds floats with atomics.  The argsort is made only when a
+backward first needs it (``NeighborList.lazy_perm``): a list truncated at
+its capacity (not symmetric, so without a transpose) still runs forwards, as
+the reference's truncating ``radius_graph`` does, and a gradient through it
+raises.  bf16 rows gather and transpose-sum through the CUDA kernels of
+``ops/kernels/ell_gather.py`` (their plain versions on the CPU); other
+dtypes stay ``index_select`` and a K-axis sum.
 
 PBC: rectangular and reduced-form triclinic boxes via minimum image, with the
 reference's convention and box-validity preconditions (the cell strategy,
@@ -24,7 +30,7 @@ reference's convention and box-validity preconditions (the cell strategy,
 """
 
 import dataclasses
-from typing import Optional
+from typing import Any, Optional
 
 import numpy as np
 import torch
@@ -68,22 +74,49 @@ def _transpose_sum(g, idx, perm):
     return out.reshape((n,) + tuple(g.shape[2:]))
 
 
+def _gather(x, idx):
+    if x.dtype == torch.bfloat16:  # kernel #4 on the card
+        from torchmdnet_tpu_torch.ops.kernels import ell_gather as kernels
+
+        return kernels.gather_rows(x, idx)
+    return _gather_rows(x, idx)
+
+
+def _resolve_perm(idx, perm):
+    """``perm`` as given, the value of a callable (``NeighborList.lazy_perm``),
+    or ``transpose_perm(idx)`` for None."""
+    if perm is None:
+        return transpose_perm(idx)
+    return perm() if callable(perm) else perm
+
+
 class _EllGather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, idx, perm):
-        ctx.save_for_backward(idx, perm)
-        return _gather_rows(x, idx)
+        # the permutation (a tensor, a callable or None; never differentiated)
+        # is resolved by a backward only: a forward through a truncated (not
+        # symmetric) list needs none.  It stays off save_for_backward, so a
+        # recomputation (remat) saves the same tensors whether or not it has
+        # been resolved since.
+        ctx.save_for_backward(idx)
+        ctx.perm = perm
+        return _gather(x, idx)
 
     @staticmethod
     def backward(ctx, g):
-        idx, perm = ctx.saved_tensors
-        return ell_transpose_sum(g, idx, perm), None, None
+        (idx,) = ctx.saved_tensors
+        return ell_transpose_sum(g, idx, ctx.perm), None, None
 
 
 class _EllTransposeSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, g, idx, perm):
+        perm = _resolve_perm(idx, perm)
         ctx.save_for_backward(idx, perm)
+        if g.dtype == torch.bfloat16:  # kernel #5 on the card
+            from torchmdnet_tpu_torch.ops.kernels import ell_gather as kernels
+
+            return kernels.transpose_sum_rows(g, idx, perm)
         return _transpose_sum(g, idx, perm)
 
     @staticmethod
@@ -92,21 +125,20 @@ class _EllTransposeSum(torch.autograd.Function):
         return ell_gather(c, idx, perm), None, None
 
 
-def ell_gather(x, idx, perm: Optional[torch.Tensor] = None):
+def ell_gather(x, idx, perm=None):
     """out[i, k] = x[idx[i, k]], whose gradient is the scatter-free
-    ``ell_transpose_sum``.  ``perm`` is ``transpose_perm(idx)``; pass it to
-    share one argsort between the gathers of a list.  The pair of functions
-    are each other's gradients, so every derivative order stays scatter-free.
+    ``ell_transpose_sum``.  ``perm`` is ``transpose_perm(idx)``, or a callable
+    returning it (``NeighborList.lazy_perm``: computed when a backward first
+    needs it, once per list), or None (computed by each backward).  The pair
+    of functions are each other's gradients, so every derivative order stays
+    scatter-free.
     """
-    if perm is None:
-        perm = transpose_perm(idx)
     return _EllGather.apply(x, idx, perm)
 
 
-def ell_transpose_sum(g, idx, perm: Optional[torch.Tensor] = None):
-    """dh[j] = sum of g[i, k] over all slots with idx[i, k] == j."""
-    if perm is None:
-        perm = transpose_perm(idx)
+def ell_transpose_sum(g, idx, perm=None):
+    """dh[j] = sum of g[i, k] over all slots with idx[i, k] == j; ``perm`` as
+    for ``ell_gather``."""
     return _EllTransposeSum.apply(g, idx, perm)
 
 
@@ -130,9 +162,8 @@ class NeighborList:
     n_neighbors: torch.Tensor
     self_loops: bool = False
     cell_overflow: Optional[torch.Tensor] = None
-    _perm: Optional[torch.Tensor] = dataclasses.field(
-        default=None, repr=False, compare=False
-    )
+    # the transpose permutation, or a callable giving it when first needed
+    _perm: Any = dataclasses.field(default=None, repr=False, compare=False)
 
     @property
     def num_atoms(self) -> int:
@@ -144,31 +175,46 @@ class NeighborList:
 
     @property
     def transpose_perm(self) -> torch.Tensor:
-        """``transpose_perm(idx)``, computed once per list."""
+        """``transpose_perm(idx)``, computed once per list (raises for a list
+        that is not symmetric)."""
         if self._perm is None:
             self._perm = transpose_perm(self.idx)
+        elif callable(self._perm):
+            self._perm = self._perm()
         return self._perm
+
+    @property
+    def lazy_perm(self):
+        """The transpose permutation if it is known, else a callable that
+        gives ``transpose_perm`` when a backward first needs it."""
+        if isinstance(self._perm, torch.Tensor):
+            return self._perm
+        return lambda: self.transpose_perm
 
     def without_self_loops(self) -> "NeighborList":
         """Drop the self-loop column (used by NeighborEmbedding).
 
-        The new list's transpose permutation comes from this list's without
-        a sort or a host check: every group of K slots pointing at atom j
-        holds exactly one column-0 slot, (j, 0); dropping it keeps the
-        others' order, and slot (i, c) becomes (i, c - 1)."""
+        The new list's transpose permutation comes from this list's, when
+        first needed, without a sort or a host check: every group of K slots
+        pointing at atom j holds exactly one column-0 slot, (j, 0); dropping
+        it keeps the others' order, and slot (i, c) becomes (i, c - 1)."""
         if not self.self_loops:
             return self
         n, k = self.idx.shape
-        groups = self.transpose_perm.reshape(n, k).long()
-        keep = torch.argsort((groups % k == 0).to(torch.int32), dim=1, stable=True)[:, : k - 1]
-        flat = torch.gather(groups, 1, keep)
+
+        def derived():
+            groups = self.transpose_perm.reshape(n, k).long()
+            keep = torch.argsort((groups % k == 0).to(torch.int32), dim=1, stable=True)[:, : k - 1]
+            flat = torch.gather(groups, 1, keep)
+            return ((flat // k) * (k - 1) + flat % k - 1).reshape(-1).to(torch.int32)
+
         return NeighborList(
             idx=self.idx[:, 1:].contiguous(),
             mask=self.mask[:, 1:].contiguous(),
             n_neighbors=self.n_neighbors,
             self_loops=False,
             cell_overflow=self.cell_overflow,
-            _perm=((flat // k) * (k - 1) + flat % k - 1).reshape(-1).to(torch.int32),
+            _perm=derived,
         )
 
     def overflow(self) -> torch.Tensor:
@@ -221,7 +267,7 @@ class NeighborList:
             cell_overflow=self.cell_overflow,
             # depends only on idx: computed once on this list and shared by
             # every refinement (one argsort and host check per skin rebuild)
-            _perm=self.transpose_perm,
+            _perm=self.lazy_perm,
         )
 
 
@@ -388,7 +434,7 @@ def edge_geometry_components(pos, nbl: NeighborList, box=None):
         dist: (N, K) distances, exactly 0 on self-loops/invalid slots, with
             finite derivatives.
     """
-    pj = ell_gather(pos, nbl.idx, nbl.transpose_perm)  # (N, K, 3)
+    pj = ell_gather(pos, nbl.idx, nbl.lazy_perm)  # (N, K, 3)
     dx = pj[..., 0] - pos[:, None, 0]
     dy = pj[..., 1] - pos[:, None, 1]
     dz = pj[..., 2] - pos[:, None, 2]

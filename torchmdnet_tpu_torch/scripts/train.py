@@ -127,7 +127,7 @@ def get_args(argv=None):
     parser.add_argument('--atom-filter', type=int, default=-1, help='Only sum over atoms with Z > atom_filter')
     parser.add_argument('--max-z', type=int, default=100, help='Maximum atomic number that fits in the embedding matrix')
     parser.add_argument('--max-num-neighbors', type=int, default=32, help='Maximum number of neighbors to consider in the network')
-    parser.add_argument('--remat', type=str2bool, default=False, help='Rematerialize each interaction layer in backward passes (accepted; the port keeps the activations)')
+    parser.add_argument('--remat', type=str2bool, default=False, help='Rematerialize each interaction layer in backward passes (torch.utils.checkpoint): one layer of activations at a time, at the cost of recomputing each layer')
     parser.add_argument('--bf16-messages', type=str2bool, default=False, help='Compute the message-passing gathers and products in bfloat16 with float32 accumulation')
     parser.add_argument('--fused-attention', type=str2bool, default=False, help='Route the equivariant-transformer edge phase through the fused CUDA kernels (requires bf16-messages; batches are spatially sorted). Force-loss training runs their second-order kernel')
     parser.add_argument('--force-grad-mode', type=str, default='gradgrad', choices=['gradgrad', 'jvp'], help='Force-loss gradient formulation: nested reverse ("gradgrad", default); "jvp" is not ported yet')

@@ -48,9 +48,10 @@ def state_dict_from_jax(args: Dict[str, Any], params: Mapping) -> Dict[str, torc
     float64 where the tree holds float64)."""
     if "params" in params:
         params = params["params"]
-    if args["model"] not in ("equivariant-transformer", "tensornet"):
+    if args["model"] not in ("equivariant-transformer", "tensornet", "graph-network"):
         raise NotImplementedError(
-            "only the equivariant-transformer and tensornet are ported so far (ROADMAP.md, slice E)"
+            "only the equivariant-transformer, tensornet and graph-network are ported so far "
+            "(ROADMAP.md, slice E2)"
         )
     rep = params["representation"]
     out: Dict[str, torch.Tensor] = {}
@@ -61,6 +62,8 @@ def state_dict_from_jax(args: Dict[str, Any], params: Mapping) -> Dict[str, torc
             out[f"{p}.distance_expansion.{name}"] = _t(value)
     if args["model"] == "tensornet":
         _tensornet(out, p, rep, args["num_layers"])
+    elif args["model"] == "graph-network":
+        _graph_network(out, p, rep, args)
     else:
         _et(out, p, rep, args)
     _head_and_priors(out, params)
@@ -89,13 +92,31 @@ def _tensornet(out, p, rep, num_layers):
     _dense(out, f"{p}.linear", rep["Dense_0"])
 
 
-def _et(out, p, rep, args):
+def _embeddings(out, p, rep, args):
+    """The atom embedding and the optional NeighborEmbedding (ET and GN)."""
     out[f"{p}.embedding.weight"] = _t(rep["Embed_0"]["embedding"])
     if args.get("neighbor_embedding", False):
         ne = rep["NeighborEmbedding_0"]
         _dense(out, f"{p}.neighbor_embedding.distance_proj", ne["Dense_0"])
         out[f"{p}.neighbor_embedding.embedding.weight"] = _t(ne["Embed_0"]["embedding"])
         _dense(out, f"{p}.neighbor_embedding.combine", ne["Dense_1"])
+
+
+def _graph_network(out, p, rep, args):
+    """GN's keys, those torchmdnet_tpu/tools/import_torch.py reads."""
+    _embeddings(out, p, rep, args)
+    for i in range(args["num_layers"]):
+        block, lp = rep[f"InteractionBlock_{i}"], f"{p}.interactions.{i}"
+        conv = block["CFConv_0"]
+        _dense(out, f"{lp}.mlp.0", conv["Dense_0"])
+        _dense(out, f"{lp}.mlp.2", conv["Dense_1"])
+        _dense(out, f"{lp}.conv.lin1", conv["Dense_2"], bias=False)
+        _dense(out, f"{lp}.conv.lin2", conv["Dense_3"])
+        _dense(out, f"{lp}.lin", block["Dense_0"])
+
+
+def _et(out, p, rep, args):
+    _embeddings(out, p, rep, args)
     influence = args.get("distance_influence", "both")
     for i in range(args["num_layers"]):
         layer = rep[f"EquivariantMultiHeadAttention_{i}"]

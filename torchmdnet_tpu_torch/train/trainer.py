@@ -30,11 +30,10 @@ import os
 from dataclasses import dataclass, field
 from typing import Dict, Optional
 
-import numpy as np
 import torch
 
 from torchmdnet_tpu_torch.data.batch import spatial_sort
-from torchmdnet_tpu_torch.models.potential import Potential
+from torchmdnet_tpu_torch.models.potential import Potential, check_atom_filter_batch
 from torchmdnet_tpu_torch.ops.cell_list import probe_cell_kwargs
 from torchmdnet_tpu_torch.train.checkpoints import latest_checkpoint, load_checkpoint, save_checkpoint
 from torchmdnet_tpu_torch.train.loggers import make_loggers
@@ -58,21 +57,6 @@ def masked_l1(pred, target, mask):
     ae = (pred - target).abs()
     ae = ae.reshape(ae.shape[0], -1).mean(dim=1)
     return torch.where(mask, ae, torch.zeros_like(ae)).sum() / mask.sum().clamp_min(1)
-
-
-def check_atom_filter_batch(module, batch, context: str = ""):
-    """Raise when the atom filter would remove every atom of a molecule."""
-    if module.atom_filter <= -1:
-        return
-    z, ids, mask = (t.cpu().numpy() for t in (batch.z, batch.batch, batch.atom_mask))
-    keep = (z > module.atom_filter) & mask
-    m = batch.num_mol
-    present = np.bincount(ids[mask], minlength=m + 1)[:m]
-    kept = np.bincount(ids[keep], minlength=m + 1)[:m]
-    if np.any((present > 0) & (kept == 0)):
-        bad = int(np.argmax((present > 0) & (kept == 0)))
-        raise ValueError(f"Atom filter (Z > {module.atom_filter}) removed all atoms of sample "
-                         f"{bad}{' in ' + context if context else ''}; its energy would silently be zero.")
 
 
 @dataclass
