@@ -25,8 +25,16 @@ and #5) against their plain versions, energy and forces at DHFR size
 through ``External.calculate`` (6 x 128, bf16 messages), bench.py's
 forward with a truncated list at DHFR and STMV size, MD at STMV size, and
 force-loss training of GN on aspirin-sized molecules through the CLI; each
-training path's gradient with ``remat`` against the one without. It times
-each. Each phase prints one line; the line before the last is a JSON object
+training path's gradient with ``remat`` against the one without. The same
+for the Transformer: its three edge-phase kernels (#11-#13) against their
+plain versions for every distance influence and at the DHFR and training
+shapes, energy and forces at DHFR size through ``External.calculate``
+(6 x 128, fused bf16), a check at weights where its messages carry at least
+10 % of the energy, MD at DHFR size on the fused brute neighbor search
+(``neighbor_strategy="brute-pallas"``, kernel #7, which is checked bitwise
+against its plain version through ``Potential.neighbors``), and force-loss
+training of the training benchmark's shapes (8 x 256) through the CLI. It
+times each. Each phase prints one line; the line before the last is a JSON object
 with each kernel's numbers, the last line is ``{"ok": true, "device":
 {...}}``. Any failure raises and exits non-zero. Without a CUDA device, or
 outside a checkout, it exits non-zero and prints no result.
@@ -469,16 +477,22 @@ def main_path(args, km, label):
         f"max|dF|/max|F| {f_err:.3e} (tol {E2E_FORCE_TOL}), |dF|/|F| {f_l2:.3e}")
     if e_err > E2E_ENERGY_TOL or f_err > E2E_FORCE_TOL:
         raise AssertionError("bf16 energies/forces disagree with the composable fp32 path")
-    if args["model"] == "tensornet":
+    share = None
+    if args["model"] in ("tensornet", "transformer"):
         # how much of the output the message phase carries at these weights:
-        # the composable fp32 model with each interaction's last MLP layer
-        # zeroed (silu(0) = 0, so every message is zero)
+        # the composable fp32 model with every message zeroed (TensorNet:
+        # each interaction's last MLP layer, silu(0) = 0; the Transformer:
+        # the value projection)
         with torch.no_grad():
-            for layer in ref.module.representation_model.layers:
-                layer.linears_scalar[2].weight.zero_()
-                layer.linears_scalar[2].bias.zero_()
+            if args["model"] == "transformer":
+                _zero_t_messages(ref.module.representation_model)
+            else:
+                for layer in ref.module.representation_model.layers:
+                    layer.linears_scalar[2].weight.zero_()
+                    layer.linears_scalar[2].bias.zero_()
         e0, f0 = External((ref, None), z[None]).calculate(requests[0])
-        log(f"{label}: the message phase carries |dE|/|E| {float((e0 - e32).abs().max() / e32.abs().max()):.3e} "
+        share = float((e0 - e32).abs().max() / e32.abs().max())
+        log(f"{label}: the message phase carries |dE|/|E| {share:.3e} "
             f"and max|dF|/max|F| {float((f0 - f32).abs().max() / f32.abs().max()):.3e} of the composable "
             f"fp32 output (messages zeroed)")
         ref.module.load_state_dict(potential.module.state_dict())
@@ -487,7 +501,7 @@ def main_path(args, km, label):
     comp_ms = _host_ms(lambda: ref_ext.calculate(requests[0]))
     log(f"{label} energy+forces per call (External.calculate, host clock with sync, median of 20): "
         f"bf16 {fused_ms:.3f} ms; composable fp32 {comp_ms:.3f} ms")
-    return launches, ext, requests[0], fused_ms
+    return launches, ext, requests[0], fused_ms, share
 
 
 def _profile(fn, reps, names):
@@ -874,10 +888,12 @@ def _gn_km():
 
 def _train_cfg(kind):
     """A training path's configuration: "et" (benchmarks/training.py's ET),
-    "tn" (examples/TensorNet-ANI1X.yaml) or "gn" (BASELINE.json's GN on
+    "t" (the same with --model transformer), "tn"
+    (examples/TensorNet-ANI1X.yaml) or "gn" (BASELINE.json's GN on
     aspirin).  ``per_step``/``per_eval``: launches of (fwd, bwd, bwd2) per
     layer in a training step and in an evaluation batch."""
     from torchmdnet_tpu_torch.ops.kernels import et_message as em
+    from torchmdnet_tpu_torch.ops.kernels import t_message as tmk
     from torchmdnet_tpu_torch.ops.kernels import tn_message as tm
 
     fused = dict(mol=TRAIN_MOL, per_step=(1, 2, 1), per_eval=(1, 1, 0))
@@ -886,6 +902,13 @@ def _train_cfg(kind):
                     weights=(1.0, 1.0), label=f"ET {TRAIN_ARGS['num_layers']}x{TRAIN_ARGS['embedding_dimension']}",
                     kernels=("et_fwd_kernel", "et_bwd_kernel", "et_bwd2_kernel", "ell_transpose_sum_kernel"),
                     flags=["--num-heads", str(TRAIN_ARGS["num_heads"]), "--neighbor-embedding", "true",
+                           "--fused-attention", "true"])
+    if kind == "t":
+        return dict(fused, args=T_TRAIN_ARGS, batch=TRAIN_BATCH, split=TRAIN_SPLIT, km=tmk, lr=1e-4,
+                    weights=(1.0, 1.0),
+                    label=f"Transformer {T_TRAIN_ARGS['num_layers']}x{T_TRAIN_ARGS['embedding_dimension']}",
+                    kernels=T_KERNELS,
+                    flags=["--num-heads", str(T_TRAIN_ARGS["num_heads"]), "--neighbor-embedding", "true",
                            "--fused-attention", "true"])
     if kind == "tn":
         return dict(fused, args=TN_TRAIN_ARGS, batch=TN_TRAIN_BATCH, split=TN_TRAIN_SPLIT, km=tm,
@@ -928,14 +951,18 @@ def _launches(km):
 
 
 def _reset_launches():
+    from torchmdnet_tpu_torch.ops.kernels import compaction
     from torchmdnet_tpu_torch.ops.kernels import ell_gather as eg
     from torchmdnet_tpu_torch.ops.kernels import et_message as em
+    from torchmdnet_tpu_torch.ops.kernels import t_message as tmk
     from torchmdnet_tpu_torch.ops.kernels import tn_message as tm
     from torchmdnet_tpu_torch.ops.kernels.select_topk import select_topk
 
     em.reset_launch_counts()
     tm.reset_launch_counts()
+    tmk.reset_launch_counts()
     eg.reset_launch_counts()
+    compaction.reset_launch_counts()
     select_topk.launches = 0
 
 
@@ -1762,6 +1789,404 @@ def tn_strong_messages():
         raise AssertionError("fused TensorNet disagrees with composable fp32 where the messages carry the output")
 
 
+# --- The Transformer (kernels #11-#13) and the fused brute search (#7) ------
+
+# Transformer configuration of the serving benchmark (benchmarks/inference.py:31-55,
+# model_args("transformer")): 6 x 128, 8 heads, 50 trainable ExpNormal RBFs,
+# NeighborEmbedding, distance_influence "both", cutoff 0-5 A, 80 neighbors
+# (+ the self loop), Scalar head, the fused bf16 edge phase
+T_ARGS = dict(ET_ARGS, model="transformer")
+# benchmarks/training.py with --model transformer --forces --fused-attention:
+# ET's training shapes (8 x 256, 64 RBFs, K = 32, batches of 128 molecules of
+# 18 atoms), NeighborEmbedding, 8 heads
+T_TRAIN_ARGS = dict(TRAIN_ARGS, model="transformer")
+T_ORDER = ["q", "k", "v", "ea", "cutm", "wdk", "bdk", "wdv", "bdv"]
+T_KERNELS = ("t_fwd_kernel", "t_bwd_kernel", "t_bwd2_kernel", "ell_transpose_sum_kernel")
+# Transformer MD at DHFR size on the brute-pallas search: a rebuild every
+# MD_VALID_EVERY steps, T_MD_STEPS steps.  The random weights' forces moved
+# atoms 0.540 A in 2 fs on an H100 at std 1, past skin/2 = 0.25 A, so the
+# model's output is standardized by T_MD_STD, as GN MD's is
+T_MD_STEPS = 10
+T_MD_STD = 0.1
+
+
+def _t_kernel_inputs(n_atoms, k, h, rbf, cutoff, seed, batch=None, influence="both"):
+    """The Transformer edge phase's operands on the card: ET's (a real ELL
+    list and its geometry, random bf16 rows and filters) cut to T's widths;
+    filters absent where ``influence`` leaves them out."""
+    nbl, ins, cts = _kernel_inputs(n_atoms, k, h, rbf, cutoff, seed, batch=batch)
+    t = dict(q=ins["q"], k=ins["k"], v=ins["v"][:, :h].contiguous(), ea=ins["ea"], cutm=ins["cutm"],
+             wdk=ins["wdk"], bdk=ins["bdk"], wdv=ins["wdv"][:, :h].contiguous(),
+             bdv=ins["bdv"][:, :h].contiguous())
+    if influence not in ("keys", "both"):
+        t["wdk"] = t["bdk"] = None
+    if influence not in ("values", "both"):
+        t["wdv"] = t["bdv"] = None
+    return nbl, t, cts[0]
+
+
+def _t_z_like(ins, seed):
+    """Random cotangents Z on the backward's nine outputs, in their dtypes
+    (None for an absent filter)."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    return [None if ins[n] is None else (torch.randn(ins[n].shape, generator=g) * 0.5).to("cuda", ins[n].dtype)
+            for n in T_ORDER]
+
+
+def check_t_kernels(label, n_atoms, k, h, heads, rbf, cutoff, seed, batch=None, influence="both"):
+    """#11, #12 and #13 against their plain versions: the forward output, the
+    nine input cotangents through autograd (the weight cotangents from the
+    backward kernel's partials), and the second order's nine + 1 gradients;
+    a third derivative must raise.  Returns the max abs errors (fwd, bwd,
+    bwd2)."""
+    import torch
+
+    from torchmdnet_tpu_torch.ops.kernels import t_message as tmk
+
+    nbl, ins, ct = _t_kernel_inputs(n_atoms, k, h, rbf, cutoff, seed, batch=batch, influence=influence)
+    idx, perm = nbl.idx, nbl.transpose_perm
+    names = [n for n in T_ORDER if ins[n] is not None]
+    outs, grads = {}, {}
+    for name, fn in (("kernel", tmk.fused_t_messages), ("plain", tmk.t_messages_reference)):
+        t = {n: None if v is None else v.clone().requires_grad_(True) for n, v in ins.items()}
+        out = fn(idx, *[t[n] for n in T_ORDER], heads=heads, perm=perm)
+        g = torch.autograd.grad((out * ct).sum(), [t[n] for n in names], allow_unused=True)
+        torch.cuda.synchronize()
+        outs[name] = out.detach()
+        grads[name] = {n: torch.zeros_like(ins[n]) if gi is None else gi for n, gi in zip(names, g)}
+    z = _t_z_like(ins, seed)
+    inputs = [ins[n] for n in T_ORDER]
+    got = tmk.run_bwd2(idx, perm, inputs, ct, z, heads=heads, act="silu", attn_act="silu")
+    want = tmk.t_messages_bwd2_reference(idx, perm, inputs, ct, z, heads=heads)
+    torch.cuda.synchronize()
+    pairs = [(n, a, b) for n, a, b in zip(T_ORDER, got[0], want[0]) if a is not None] + [("ct", got[1], want[1])]
+    bwd2 = {n: _rel(a, b) for n, a, b in pairs}
+    bwd2_abs = max(float((a.float() - b.float()).abs().max()) for _, a, b in pairs)
+    # keeping the second derivative's graph (the way to a third) must raise
+    t = {n: None if v is None else v.clone().requires_grad_(n in ("q", "k")) for n, v in ins.items()}
+    out = tmk.fused_t_messages(idx, *[t[n] for n in T_ORDER], heads=heads, perm=perm)
+    (g,) = torch.autograd.grad((out * out).sum(), t["q"], create_graph=True)
+    try:
+        torch.autograd.grad((g.float() * g.float()).sum(), t["k"], create_graph=True)
+    except NotImplementedError:
+        pass
+    else:
+        raise AssertionError("a third derivative through the fused Transformer kernels did not raise")
+    fwd = _rel(outs["kernel"], outs["plain"])
+    bwd = {n: _rel(grads["kernel"][n], grads["plain"][n]) for n in names}
+    fwd_abs = float((outs["kernel"] - outs["plain"]).abs().max())
+    bwd_abs = max(float((grads["kernel"][n].float() - grads["plain"][n].float()).abs().max()) for n in names)
+    n, kk = idx.shape
+    log(f"Transformer kernel check {label} (N={n} K={kk} H={h} heads={heads} RBF={rbf}, influence "
+        f"{influence}): fwd max rel err {fwd:.3e} (tol {FWD_TOL}); bwd max rel err {max(bwd.values()):.3e} "
+        f"(tol {BWD_TOL}) {_fmt(bwd)}; bwd2 max rel err {max(bwd2.values()):.3e} (tol {BWD2_TOL}) "
+        f"{_fmt(bwd2)}; a third derivative raises")
+    if fwd > FWD_TOL:
+        raise AssertionError(f"Transformer forward kernel disagrees with the plain version at {label}: {fwd}")
+    if max(bwd.values()) > BWD_TOL:
+        raise AssertionError(f"Transformer backward kernel disagrees with the plain version at {label}: {bwd}")
+    if max(bwd2.values()) > BWD2_TOL:
+        raise AssertionError(f"Transformer second-order kernel disagrees with the plain version at {label}: {bwd2}")
+    return fwd_abs, bwd_abs, bwd2_abs
+
+
+def _t_bounds(n, kk, h, rbf, kind):
+    """Least time for a Transformer edge-phase kernel's work: max(bytes / HBM
+    rate, filter products / bf16 tensor peak + the rest / f32 peak), as
+    ``_bounds`` counts ET's.
+
+    ``kind``: "fwd", "bwd" (frozen weights), "bwd_w" (with weight
+    cotangents) or "bwd2".  The filter products are 2 * RBF * 2H flops per
+    edge each: one forward, two backward (recompute, d ea), three with weight
+    cotangents, seven second order.  The elementwise work, counted from the
+    kernels' arithmetic: ~20 H flops per edge forward (two filter biases and
+    activations, four products, the head sum, the attention activation and
+    the sum), ~63 H backward, ~70 H second order (the dual forward with the
+    activations' first and second derivatives, its reverse, three head sums
+    and a channel sum).
+    """
+    e = n * kk
+    f = 2 * h
+    filt = 2 * (rbf * f + f)  # filters (bf16)
+    in_bytes = 4 * e + 2 * 3 * n * h + 2 * e * rbf + 4 * e + filt  # idx, q/k/v, ea, cutm, filters
+    mm_one = 2 * e * rbf * f
+    if kind == "fwd":
+        nbytes, mm, ew = in_bytes + 4 * n * h, mm_one, 20 * h * e
+    elif kind in ("bwd", "bwd_w"):
+        nbytes = in_bytes + 4 * n * h + 4 * e + 2 * 3 * n * h + 2 * e * rbf + 4 * e  # ct, perm, dq/dk/dv, dea, dcutm
+        mm, ew = 2 * mm_one, 63 * h * e
+        if kind == "bwd_w":
+            nbytes += filt
+            mm += mm_one
+    else:
+        nbytes = (in_bytes + 4 * n * h + 4 * e  # ct, perm
+                  + 2 * 3 * n * h + 2 * e * rbf + 4 * e + filt  # Z on the backward's outputs
+                  + 2 * 3 * n * h + 2 * e * rbf + 4 * e + filt  # g_inputs
+                  + 4 * n * h)  # g_ct
+        mm, ew = 7 * mm_one, 70 * h * e
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = mm / BF16_TENSOR_FLOPS + ew / F32_CUDA_CORE_FLOPS
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def time_t_kernels(train_batch):
+    """#11 and #12 (with and without weight cotangents) at the DHFR serving
+    shapes, #11, #12 with weight cotangents and #13 at the training shapes:
+    each kernel's time (L2 flushed, median of 20), its plain version's and
+    its bound.  No single PyTorch call computes the fused phase."""
+    import torch
+
+    from torchmdnet_tpu_torch.ops.kernels import t_message as tmk
+
+    flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")  # 256 MB > L2
+    kw = dict(act="silu", attn_act="silu")
+    out = {}
+    for where, a, n_atoms, batch, kinds in (
+        ("DHFR", T_ARGS, 2489, None, ("fwd", "bwd", "bwd_w")),
+        ("training", T_TRAIN_ARGS, None, train_batch, ("fwd", "bwd_w", "bwd2")),
+    ):
+        h, heads, rbf = a["embedding_dimension"], a["num_heads"], a["num_rbf"]
+        nbl, ins, ct = _t_kernel_inputs(n_atoms, a["max_num_neighbors"], h, rbf, a["cutoff_upper"], SEED,
+                                        batch=batch)
+        idx, perm = nbl.idx, nbl.transpose_perm
+        n, kk = idx.shape
+        args = [ins[x] for x in T_ORDER]
+        z = _t_z_like(ins, SEED)
+        for k in kinds:
+            if k == "fwd":
+                ms = _event_ms(lambda: tmk.run_fwd(idx, *args, heads=heads, **kw), flush=flush)
+                plain = _event_ms(lambda: tmk.t_messages_reference(idx, *args, heads=heads, perm=perm), flush=flush)
+            elif k in ("bwd", "bwd_w"):
+                want = k == "bwd_w"
+                ms = _event_ms(lambda: tmk.run_bwd(idx, perm, *args, ct, heads=heads, want_weight_grads=want, **kw),
+                               flush=flush)
+                t = {x: v.clone().requires_grad_(want or x not in ("wdk", "bdk", "wdv", "bdv")) for x, v in ins.items()}
+                m = tmk.t_messages_reference(idx, *[t[x] for x in T_ORDER], heads=heads, perm=perm)
+                leaves = [t[x] for x in T_ORDER if t[x].requires_grad]
+                plain = _event_ms(lambda: torch.autograd.grad(m, leaves, ct, retain_graph=True), flush=flush)
+                del m, t
+            else:
+                ms = _event_ms(lambda: tmk.run_bwd2(idx, perm, args, ct, z, heads=heads, **kw), flush=flush)
+                plain = _event_ms(lambda: tmk.t_messages_bwd2_reference(idx, perm, args, ct, z, heads=heads),
+                                  flush=flush, reps=5)
+            out[(where, k)] = (ms, plain) + _t_bounds(n, kk, h, rbf, k) + ((n, kk, h),)
+    log("Transformer kernel times (L2 flushed, median of 20; plain second order of 5): " + "; ".join(
+        f"{k} at {where} (N={v[4][0]} K={v[4][1]} H={v[4][2]}) {v[0]:.4f} ms (plain {v[1]:.4f} ms, bound "
+        f"{v[2]:.4f} ms by {v[3]}, {100 * v[2] / v[0]:.1f}% of it reached)" for (where, k), v in out.items()))
+    return out
+
+
+def _zero_t_messages(rep):
+    """Every attention layer's messages zeroed: v = 0 makes each edge's
+    message v_j * dv * attn zero."""
+    for layer in rep.attention_layers:
+        layer.v_proj.weight.zero_()
+        layer.v_proj.bias.zero_()
+
+
+def t_strong_messages(share):
+    """Where the Transformer's edge phase carries under 10 % of the energy at
+    chip_smoke's weights, the same check at weights where it carries more:
+    each layer's output projection (o_proj, which takes the messages) scaled
+    by the smallest s of a ladder at which zeroing the messages moves the
+    composable fp32 energy by at least 10 %; there the fused bf16 path
+    against composable fp32 at the end-to-end tolerances."""
+    import torch
+
+    from torchmdnet_tpu_torch import External, create_model
+    from torchmdnet_tpu_torch.data.systems import DHFR_ATOMS
+
+    if share >= 0.1:
+        log(f"Transformer: the edge phase carries {share:.3e} of the composable fp32 energy at chip_smoke's "
+            f"weights (>= 10 %): no check at scaled weights needed")
+        return
+    z, pos, _ = _synthetic_batch(DHFR_ATOMS, SEED, "cpu")
+    fused = create_model(T_ARGS, seed=SEED)
+    ref = create_model(dict(T_ARGS, bf16_messages=False, fused_attention=False), seed=SEED)
+    base = {k: v.clone() for k, v in fused.module.state_dict().items()}
+
+    def scaled(s, messages=True):
+        sd = dict(base)
+        for i in range(T_ARGS["num_layers"]):
+            p = f"representation_model.attention_layers.{i}."
+            sd[p + "o_proj.weight"] = base[p + "o_proj.weight"] * s
+            for name in ("v_proj.weight", "v_proj.bias"):
+                sd[p + name] = base[p + name] * (1.0 if messages else 0.0)
+        return sd
+
+    def calc(model, sd):
+        model.module.load_state_dict(sd)
+        return External((model, None), z[None]).calculate(pos)
+
+    for s in (2, 3, 4, 6, 8, 12, 16, 24, 32, 48, 64):
+        e32, f32 = calc(ref, scaled(s))
+        e0, f0 = calc(ref, scaled(s, messages=False))
+        share = float((e0 - e32).abs().max() / e32.abs().max())
+        if share >= 0.1:
+            break
+    else:
+        raise AssertionError(f"no scale of the ladder gives the Transformer's messages 10 % of the energy ({share})")
+    f_share = float((f0 - f32).abs().max() / f32.abs().max())
+    e, f = calc(fused, scaled(s))
+    e_err = float((e - e32).abs().max() / e32.abs().max())
+    f_err = float((f - f32).abs().max() / f32.abs().max())
+    log(f"Transformer 6x128 at DHFR with o_proj scaled by {s}: the edge phase carries |dE|/|E| {share:.3e} and "
+        f"max|dF|/max|F| {f_share:.3e} of the composable fp32 output (messages zeroed); fused bf16 vs composable "
+        f"fp32 there: |dE|/|E| {e_err:.3e} (tol {E2E_ENERGY_TOL}), max|dF|/max|F| {f_err:.3e} (tol {E2E_FORCE_TOL})")
+    if e_err > E2E_ENERGY_TOL or f_err > E2E_FORCE_TOL:
+        raise AssertionError("the fused Transformer disagrees with composable fp32 where the messages carry the output")
+
+
+def _brute_pairs(nbl, n):
+    import torch
+
+    rows = torch.arange(n, device=nbl.idx.device)[:, None].expand_as(nbl.idx)
+    return (rows * n + nbl.idx.long())[nbl.mask]
+
+
+def check_compaction(label, batch, k, cutoff, model=None):
+    """#7 on its entry points against its plain version, bitwise: the list
+    with the self loop (through ``model.neighbors(strategy="brute-pallas")``
+    when a model is given) and without it (``neighbor_list``).  Logs how
+    many pairs differ from the Gram-form ``strategy="brute"`` list.  Returns
+    the max abs error (0 when bitwise equal)."""
+    import torch
+
+    from torchmdnet_tpu_torch.ops.kernels.compaction import compact_neighbors_reference
+    from torchmdnet_tpu_torch.ops.neighbors import neighbor_list
+
+    n = batch.num_atoms
+    args = (batch.pos, batch.batch, batch.atom_mask)
+    plain_idx, plain_mask, plain_count = compact_neighbors_reference(*args, k=k, cutoff_upper=cutoff)
+    ar = torch.arange(n, device="cuda", dtype=torch.int32)[:, None]
+    for loop in (True, False):
+        if loop and model is not None:
+            got = model.neighbors(batch, strategy="brute-pallas")
+        else:
+            got = neighbor_list(*args, k=k, cutoff_upper=cutoff, loop=loop, strategy="brute-pallas")
+        want_idx = torch.cat([ar, plain_idx], dim=1) if loop else plain_idx
+        want_mask = torch.cat([batch.atom_mask[:, None], plain_mask], dim=1) if loop else plain_mask
+        torch.cuda.synchronize()
+        if not (torch.equal(got.idx, want_idx) and torch.equal(got.mask, want_mask)
+                and torch.equal(got.n_neighbors, plain_count) and got.self_loops == loop):
+            bad = int((got.idx != want_idx).sum()) if got.idx.shape == want_idx.shape else -1
+            raise AssertionError(f"#7 differs from its plain version at {label} (loop={loop}): {bad} slots")
+    brute = neighbor_list(*args, k=k, cutoff_upper=cutoff, strategy="brute")
+    fused = neighbor_list(*args, k=k, cutoff_upper=cutoff, strategy="brute-pallas")
+    pb, pf = _brute_pairs(brute, n), _brute_pairs(fused, n)
+    only_brute, only_fused = int((~torch.isin(pb, pf)).sum()), int((~torch.isin(pf, pb)).sum())
+    entry = "Potential.neighbors" if model is not None else "neighbor_list"
+    log(f"compaction check {label} (N={n} K={k} cutoff {cutoff} A, {batch.num_mol} molecules): bitwise equal to "
+        f"its plain version with and without the self loop ({entry}(strategy='brute-pallas')), true max "
+        f"{int(plain_count.max())} neighbors; against the Gram-form "
+        f"strategy='brute' list: {only_brute} pairs only there, {only_fused} only here, of {int(pb.numel())}")
+    return 0.0
+
+
+def _compaction_bounds(n, k, pairs):
+    """Least time for #7: max(bytes / HBM rate, pair tests / f32 peak).
+    Bytes: positions, ids and mask in, idx, mask and counts out; operations:
+    about 9 f32 operations per tested pair (three differences, three
+    products, two sums, the comparisons)."""
+    nbytes = 12 * n + 4 * n + n + 4 * n * k + n * k + 4 * n
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 9 * pairs / F32_CUDA_CORE_FLOPS
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def time_compaction(batch, k, cutoff):
+    """#7's time at the DHFR shapes (L2 flushed, median of 20), its plain
+    version's, the strategy='brute' route's (Gram-form distances and
+    torch.topk: the library yardstick) and its bound."""
+    import torch
+
+    from torchmdnet_tpu_torch.ops.kernels.compaction import compact_neighbors, compact_neighbors_reference
+    from torchmdnet_tpu_torch.ops.neighbors import neighbor_list
+
+    n = batch.num_atoms
+    args = (batch.pos, batch.batch, batch.atom_mask)
+    flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")  # 256 MB > L2
+    ms = _event_ms(lambda: compact_neighbors(*args, k=k, cutoff_upper=cutoff), flush=flush)
+    plain = _event_ms(lambda: compact_neighbors_reference(*args, k=k, cutoff_upper=cutoff), flush=flush)
+    brute = _event_ms(lambda: neighbor_list(*args, k=k, cutoff_upper=cutoff, strategy="brute"), flush=flush)
+    bound, by = _compaction_bounds(n, k, n * n)
+    log(f"compaction time at DHFR (N={n} K={k}, L2 flushed, median of 20): {ms:.4f} ms (plain {plain:.4f} ms, "
+        f"strategy='brute' route {brute:.4f} ms, bound {bound:.4f} ms by {by}, {100 * bound / ms:.1f}% of it reached)")
+    return ms, plain, bound, by, brute
+
+
+def t_md_brute_pallas():
+    """Transformer molecular dynamics at DHFR size through md.Simulation on
+    the brute-pallas search, at a rebuild cadence at which the skin holds:
+    #7 once per build, #11/#12 once per layer per force evaluation, stale
+    False, two runs from one seed bitwise equal, the last skin list refined
+    at the final positions equal to a fresh brute-pallas list."""
+    import torch
+
+    from torchmdnet_tpu_torch import Simulation, create_model
+    from torchmdnet_tpu_torch.data.systems import DHFR_ATOMS
+    from torchmdnet_tpu_torch.ops.kernels import t_message as tmk
+    from torchmdnet_tpu_torch.ops.kernels.compaction import compact_neighbors
+    from torchmdnet_tpu_torch.ops.kernels.select_topk import select_topk
+
+    batch = _synthetic_batch(DHFR_ATOMS, SEED, "cuda")[2]
+    real = batch.atom_mask
+    model = create_model(T_ARGS, seed=SEED, std=T_MD_STD)
+    every = MD_VALID_EVERY
+    runs = []
+    for r in range(2):
+        sim = Simulation(model, batch, seed=SEED, neighbor_strategy="brute-pallas",
+                         **dict(MD_ARGS, rebuild_every=every))
+        sim.set_velocities_from_temperature(300.0)
+        _reset_launches()
+        starts = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(T_MD_STEPS // every):
+            starts.append(sim.state.pos)
+            sim.step(every)
+        torch.cuda.synchronize()
+        ms_step = 1e3 * (time.perf_counter() - t0) / T_MD_STEPS
+        if r == 0:
+            launches = (tmk.run_fwd.launches, tmk.run_bwd.launches, compact_neighbors.launches,
+                        select_topk.launches)
+        runs.append((sim, starts, ms_step))
+    (sim, starts, ms_step), (other, _, _) = runs
+    evaluations, rebuilds, layers = T_MD_STEPS + 1, T_MD_STEPS // every, T_ARGS["num_layers"]
+    if launches != (layers * evaluations, layers * evaluations, rebuilds, 0):
+        raise AssertionError(f"expected {layers}+{layers} (#11, #12) launches per force evaluation ({evaluations}), "
+                             f"one #7 per rebuild ({rebuilds}) and no select_topk, got {launches}")
+    state = sim.state
+    if not (torch.isfinite(state.pos).all() and torch.isfinite(state.energy).all()):
+        raise AssertionError("non-finite positions or energies in Transformer MD")
+    if not torch.equal(state.pos, other.state.pos):
+        raise AssertionError("two Transformer Simulations from the same batch and seed diverged")
+    ends = starts[1:] + [state.pos]
+    move = max(float((b - a).norm(dim=-1)[real].max()) for a, b in zip(starts, ends))
+    if bool(state.stale):
+        raise AssertionError(f"the brute-pallas skin list went stale at rebuild_every={every} (move {move:.3f} A)")
+    skin_nbl = sim._build_nbl(starts[-1])
+    refined = skin_nbl.refine(state.pos, T_ARGS["cutoff_lower"], T_ARGS["cutoff_upper"])
+    fresh = model.neighbors(batch.replace(pos=state.pos), k=skin_nbl.k - 1, strategy="brute-pallas")
+    fresh.raise_on_overflow("chip_smoke fresh Transformer MD list")
+    n = batch.num_atoms
+    r, f = _brute_pairs(refined, n), _brute_pairs(fresh, n)
+    missed, extra = int((~torch.isin(f, r)).sum()), int((~torch.isin(r, f)).sum())
+    if (missed, extra) != (0, 0):
+        raise AssertionError(f"the refined brute-pallas skin list and a fresh one differ: {missed} missed, "
+                             f"{extra} extra")
+    log(f"Transformer MD at DHFR size on strategy='brute-pallas' (6x128 fused bf16, {int(real.sum())} atoms padded "
+        f"to {n}, skin list K={skin_nbl.k}, rebuild every {every}, std {T_MD_STD}): {T_MD_STEPS} steps, energy "
+        f"{float(state.energy.sum()):.4f} eV; launches (#11, #12, #7, select_topk) {launches} ({evaluations} force "
+        f"evaluations, {rebuilds} rebuilds); {ms_step:.3f} ms/step (host clock with sync, mean of {T_MD_STEPS}); "
+        f"largest move between rebuilds {move:.3f} A against skin/2 = {0.5 * MD_ARGS['neighbor_skin']} A: stale "
+        f"False; two runs from one seed bitwise equal; the refined skin list holds exactly a fresh list's "
+        f"{int(f.numel())} pairs")
+    return launches, ms_step
+
+
 def main():
     import torch
 
@@ -1773,6 +2198,7 @@ def main():
               "run it from a checkout of the repository", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
+    from torchmdnet_tpu_torch import create_model
     from torchmdnet_tpu_torch.data.systems import DHFR_ATOMS, FACTOR_IX_ATOMS
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1804,53 +2230,81 @@ def main():
     check_tn_kernels("medium, periodic box", "box", seed=1)
     tn_fwd_abs, tn_bwd_abs, _ = check_tn_kernels("DHFR", "DHFR", seed=2)
     _, _, tn_bwd2_abs = check_tn_kernels("training", tn_batch, seed=4)
+    for influence in ("keys", "values", "none"):
+        check_t_kernels("medium", 512, 40, 64, 4, 32, 3.5, seed=1, influence=influence)
+    t_fwd_abs, t_bwd_abs, _ = check_t_kernels("DHFR", 2489, T_ARGS["max_num_neighbors"], 128, 8, 50, 5.0, seed=2)
+    ta = T_TRAIN_ARGS
+    _, _, t_bwd2_abs = check_t_kernels("training", None, ta["max_num_neighbors"], ta["embedding_dimension"],
+                                       ta["num_heads"], ta["num_rbf"], ta["cutoff_upper"], seed=4,
+                                       batch=_train_batch(train_ds, "cuda"))
     stmv = _stmv_batch()
     keys, k, _ = stmv_skin_keys(stmv)
     sel_abs = check_select_topk(keys, k)
     check_cell_vs_brute(DHFR_ATOMS)
     check_cell_vs_brute(FACTOR_IX_ATOMS)
     from torchmdnet_tpu_torch.ops.kernels import et_message as em
+    from torchmdnet_tpu_torch.ops.kernels import t_message as tmk
     from torchmdnet_tpu_torch.ops.kernels import tn_message as tm
 
+    t_model = create_model(T_ARGS, seed=SEED)
+    dhfr_batch = _synthetic_batch(DHFR_ATOMS, SEED, "cuda")[2]
+    train_batch_gpu = _train_batch(train_ds, "cuda")
+    check_compaction("DHFR", dhfr_batch, T_ARGS["max_num_neighbors"], T_ARGS["cutoff_upper"], model=t_model)
+    check_compaction("training batch", train_batch_gpu, T_TRAIN_ARGS["max_num_neighbors"],
+                     T_TRAIN_ARGS["cutoff_upper"])
+    del t_model
     gn_nbls = _gn_lists()
     gn_errs = check_ell_gather(*gn_nbls)
-    ext_launches, ext, pos, _ = main_path(ET_ARGS, em, "ET 6x128 fused")
-    tn_ext_launches, tn_ext, tn_pos, tn_call_ms = main_path(TN_ARGS, tm, "TensorNet 2x128 fused")
+    ext_launches, ext, pos, _, _ = main_path(ET_ARGS, em, "ET 6x128 fused")
+    tn_ext_launches, tn_ext, tn_pos, tn_call_ms, _ = main_path(TN_ARGS, tm, "TensorNet 2x128 fused")
     tn_strong_messages()
-    gn_ext_launches, gn_ext, gn_pos, gn_call_ms = main_path(GN_ARGS, _gn_km(), "GN 6x128")
+    gn_ext_launches, gn_ext, gn_pos, gn_call_ms, _ = main_path(GN_ARGS, _gn_km(), "GN 6x128")
+    t_ext_launches, t_ext, t_pos, t_call_ms, t_share = main_path(T_ARGS, tmk, "Transformer 6x128 fused")
+    t_strong_messages(t_share)
     gn_fwd = gn_forward()
     times = time_kernels(seed=SEED)
     train_ms, train_plain, train_bounds = time_train_kernels(_train_batch(train_ds, "cuda"))
     tn_times = time_tn_kernels(tn_batch)
     gn_times = time_ell_gather(*gn_nbls)
     sel_time = time_select_topk(keys, k)
+    t_times = time_t_kernels(_train_batch(train_ds, "cuda"))
+    comp_time = time_compaction(dhfr_batch, T_ARGS["max_num_neighbors"], T_ARGS["cutoff_upper"])
+    del dhfr_batch, train_batch_gpu
     del keys, stmv, gn_nbls
     md_launches, sim = md_stmv(sel_time[0])
     gn_md_launches, gn_sim, gn_md_ms, _ = gn_md_stmv()
+    t_md_launches, t_md_ms = t_md_brute_pallas()
     et_cfg = _train_cfg("et")
     gn_cfg = _train_cfg("gn")
     gn_ds = _train_dataset(GN_TRAIN_SPLIT, GN_TRAIN_MOL)
     train_grads_vs_composable(train_ds, et_cfg)
     train_grads_vs_composable(tn_ds, tn_cfg)
     train_grads_vs_composable(gn_ds, gn_cfg)
+    t_cfg = _train_cfg("t")
+    train_grads_vs_composable(train_ds, t_cfg)
     with tempfile.TemporaryDirectory() as workdir:
         trainer, train_launches = train_cli(workdir, et_cfg)
     with tempfile.TemporaryDirectory() as workdir:
         tn_trainer, tn_train_launches = train_cli(workdir, tn_cfg)
     with tempfile.TemporaryDirectory() as workdir:
         gn_trainer, gn_train_launches = train_cli(workdir, gn_cfg)
+    with tempfile.TemporaryDirectory() as workdir:
+        t_trainer, t_train_launches = train_cli(workdir, t_cfg)
     train_batch, _ = time_train_steps(trainer, train_ds, et_cfg)
     tn_train_batch, tn_step_ms = time_train_steps(tn_trainer, tn_ds, tn_cfg)
     gn_train_batch, gn_step_ms = time_train_steps(gn_trainer, gn_ds, gn_cfg)
+    t_train_batch, t_step_ms = time_train_steps(t_trainer, train_ds, t_cfg)
     # last: the profiler's tracing may slow what runs after it
     profile_calls(ext, pos, ET_SERVE_KERNELS, "fused ET")
     profile_calls(tn_ext, tn_pos, TN_SERVE_KERNELS, "fused TensorNet")
     profile_calls(gn_ext, gn_pos, GN_KERNELS, "GN")
+    profile_calls(t_ext, t_pos, T_KERNELS[:2] + T_KERNELS[3:], "fused Transformer")
     profile_md(sim)
     profile_md(gn_sim, GN_KERNELS, "GN", steps=2 * MD_VALID_EVERY)
     profile_train(trainer, train_batch, et_cfg)
     profile_train(tn_trainer, tn_train_batch, tn_cfg)
     profile_train(gn_trainer, gn_train_batch, gn_cfg)
+    profile_train(t_trainer, t_train_batch, t_cfg)
     log(f"TensorNet paths: DHFR energy+forces {tn_call_ms:.3f} ms/call, TensorNet-ANI1X training "
         f"{tn_step_ms:.3f} ms/step ({1e3 * TN_TRAIN_BATCH / tn_step_ms:.1f} molecules/s)")
     log(f"GN paths: DHFR energy+forces {gn_call_ms:.3f} ms/call (bf16 messages, K=80); forward "
@@ -1858,6 +2312,8 @@ def main():
         f"against the reference's {REF_GN_FWD_MS['DHFR']} / {REF_GN_FWD_MS['STMV']} ms on a desktop NVIDIA GPU "
         f"(another card); STMV MD {gn_md_ms:.3f} ms/step; GN-aspirin training {gn_step_ms:.3f} ms/step "
         f"({1e3 * GN_TRAIN_BATCH / gn_step_ms:.1f} molecules/s)")
+    log(f"Transformer paths: DHFR energy+forces {t_call_ms:.3f} ms/call; DHFR MD on brute-pallas "
+        f"{t_md_ms:.3f} ms/step; training {t_step_ms:.3f} ms/step ({1e3 * TRAIN_BATCH / t_step_ms:.1f} molecules/s)")
 
     # launches: the counts of the main paths' runs (External at DHFR size for
     # ET and TensorNet, MD at STMV size, training through the CLI for ET and
@@ -1873,9 +2329,15 @@ def main():
         "gn_forward_stmv": dict(zip(("ell_gather", "ell_transpose_sum", "select_topk"), gn_fwd["STMV"][1])),
         "gn_md_stmv": dict(zip(("ell_gather", "ell_transpose_sum", "select_topk"), gn_md_launches)),
         "gn_train": dict(zip(("ell_gather", "ell_transpose_sum"), gn_train_launches)),
+        "t_external_dhfr": dict(zip(("t_message_fwd", "t_message_bwd", "select_topk"), t_ext_launches)),
+        "t_train": dict(zip(("t_message_fwd", "t_message_bwd", "t_message_bwd2", "select_topk"), t_train_launches)),
+        "t_md_brute_pallas": dict(zip(("t_message_fwd", "t_message_bwd", "compaction", "select_topk"),
+                                      t_md_launches)),
     }
     gn_rows = {kind: (t[0], t[1], t[3], t[4], t[2]) for kind, t in gn_times["DHFR"].items() if kind != "shape"}
     bwd2_row = (train_ms["bwd2"], train_plain["bwd2"]) + train_bounds["bwd2"] + (None,)
+    t_rows = {k: t_times[(where, k)][:4] + (None,)
+              for where, k in (("DHFR", "fwd"), ("DHFR", "bwd"), ("training", "bwd2"))}
     kernels = []
     for name, source, line, (ms, plain_ms, bound_ms, bound_by, lib_ms), err in (
         ("et_message_fwd", "et_message.cu", "et_message.py:227", times["fwd"] + (None,), fwd_abs),
@@ -1887,6 +2349,10 @@ def main():
         ("tn_message_bwd2", "tn_message.cu", "tn_message.py:455", tn_times["bwd2"][:4] + (None,), tn_bwd2_abs),
         ("ell_gather", "ell_gather.cu", "onehot_gather.py:178", gn_rows["gather"], gn_errs[0]),
         ("ell_transpose_sum", "ell_gather.cu", "onehot_gather.py:227", gn_rows["transpose"], gn_errs[1]),
+        ("compaction", "compaction.cu", "compaction.py:31", comp_time, 0.0),
+        ("t_message_fwd", "t_message.cu", "t_message.py:66", t_rows["fwd"], t_fwd_abs),
+        ("t_message_bwd", "t_message.cu", "t_message.py:113", t_rows["bwd"], t_bwd_abs),
+        ("t_message_bwd2", "t_message.cu", "t_message.py:519", t_rows["bwd2"], t_bwd2_abs),
     ):
         by_path = {path: counts.get(name, 0) for path, counts in paths.items()}
         kernels.append(dict(
@@ -1895,6 +2361,9 @@ def main():
             launches=sum(by_path.values()), launches_by_path=by_path,
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
             library_ms=lib_ms,
+            # the redesign queue's order (ROADMAP.md): the device time this
+            # run's launches spent above the bound, at the timed shapes
+            excess_ms=sum(by_path.values()) * (ms - bound_ms),
         ))
         if max(by_path.values()) < 1:
             raise AssertionError(f"{name} was not launched on a main path")

@@ -62,7 +62,7 @@ def _jax_params():
     the map is exercised; the RBF shape constants keep their initial values."""
     jb = jax_pad_molecules(_mols(np.float32), num_atoms=28, num_mol=2)
     jm = jax_create_model(dict(ARGS, precision=32))
-    jm.neighbors(jb).raise_on_overflow("test")
+    _run_jitted(jm.neighbors, jb).raise_on_overflow("test")
     shapes = jax.eval_shape(jm.init, jax.random.PRNGKey(0), jb)
     rbf = ExpNormalSmearing(
         ARGS["cutoff_lower"], ARGS["cutoff_upper"], ARGS["num_rbf"], buffer_dtype=np.float32
@@ -149,6 +149,6 @@ def test_configuration_errors():
     with pytest.raises(ValueError, match="bf16_messages"):
         create_model(dict(ARGS, fused_attention=True), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        create_model(dict(ARGS, model="transformer"), device="cpu")
+        create_model(dict(ARGS, output_model="DipoleMoment"), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         create_model(dict(ARGS, prior_model="ZBL"), device="cpu")

@@ -153,7 +153,7 @@ def test_truncated_list_forward_matches_jax_and_forces_raise():
     params = _jax_params(True, 64)
     jb, pb = _batches(np.float64)
     jm = jax_create_model(args)
-    assert bool(jm.neighbors(jb).overflow())
+    assert bool(_run_jitted(jm.neighbors, jb).overflow())
     y_ref = _run_jitted(lambda p, b: jm.module.apply(p, b), params, jb)
     pm = _port(args, params)
     np.testing.assert_allclose(pm.energy(pb).detach().numpy(), np.asarray(y_ref), rtol=1e-9)
@@ -190,7 +190,7 @@ def test_trainer_step_matches_jax(tmp_path):
     pb = pad_molecules(mols, num_atoms=N_ATOMS, num_mol=3)
     jtr = JaxTrainer(jax_create_model(args), h)
     params = _jax_params()
-    opt_state = jtr._set_lr(jtr.optimizer.init(params), jtr._current_lr(type("S", (), {"lr": h["lr"], "global_step": 0})()))
+    opt_state = jtr._set_lr(jax.jit(jtr.optimizer.init)(params), jtr._current_lr(type("S", (), {"lr": h["lr"], "global_step": 0})()))
     acc = jnp.zeros((4,), jnp.float32)
     ema = (jnp.asarray(0.0, jnp.float32), jnp.asarray(0.0, jnp.float32))
     params, _, acc, ly, lf = _run_jitted(jtr._train_step_impl, params, opt_state, acc, jb, *ema)

@@ -47,6 +47,13 @@ def test_the_graph_network_and_its_gather_kernels_are_scanned():
             "torchmdnet_tpu_torch/ops/kernels/ell_gather.py"} <= scanned
 
 
+def test_the_transformer_and_the_last_kernels_are_scanned():
+    scanned = {os.path.relpath(p, ROOT) for p in _port_files()}
+    assert {"torchmdnet_tpu_torch/models/transformer.py",
+            "torchmdnet_tpu_torch/ops/kernels/t_message.py",
+            "torchmdnet_tpu_torch/ops/kernels/compaction.py"} <= scanned
+
+
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: os.path.relpath(p, ROOT))
 def test_no_jax_import(path):
     bad = sorted({m for m in _imported_modules(path) if m.split(".")[0] in FORBIDDEN})

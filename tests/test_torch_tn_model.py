@@ -83,7 +83,7 @@ def _draw(shapes, seed=1):
 def _jax_params():
     jb = jax_pad_molecules(_mols(np.float32), num_atoms=N_ATOMS, num_mol=2)
     jm = jax_create_model(dict(ARGS, precision=32))
-    jm.neighbors(jb).raise_on_overflow("test")
+    _run_jitted(jm.neighbors, jb).raise_on_overflow("test")
     return _draw(jax.eval_shape(jm.init, jax.random.PRNGKey(0), jb))
 
 
@@ -169,4 +169,4 @@ def test_configuration_errors():
     with pytest.raises(ValueError, match="equivariance group"):
         create_model(dict(ARGS, equivariance_invariance_group="E(3)"), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        create_model(dict(ARGS, model="transformer"), device="cpu")
+        create_model(dict(ARGS, output_model="DipoleMoment"), device="cpu")

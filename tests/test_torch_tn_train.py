@@ -105,7 +105,7 @@ def test_trainer_steps_match_jax(tmp_path):
     assert jtr._fused  # the batch is sorted as for the fused kernels
     jb = jtr._prepare_batch(jax_pad_molecules(_mols(), num_atoms=N_ATOMS, num_mol=3))
     params = _jax_params(jtr.model, jb)
-    opt_state = jtr.optimizer.init(params)
+    opt_state = jax.jit(jtr.optimizer.init)(params)  # one program, not one per leaf
     acc = jnp.zeros((4,), jnp.float32)
     ema = (jnp.asarray(0.0, jnp.float32), jnp.asarray(0.0, jnp.float32))
     ptr = Trainer(_port_model(ARGS, params), h)

@@ -118,7 +118,7 @@ def test_trainer_steps_match_jax(precision, tol, tmp_path):
     # JAX: its own train step, jitted once, fed the host loop's lr and EMA
     jtr = JaxTrainer(jax_create_model(args, jax_create_prior_models(args, _dataset())), h)
     params = _jax_params(precision)
-    opt_state = jtr.optimizer.init(params)
+    opt_state = jax.jit(jtr.optimizer.init)(params)  # one program, not one per leaf
     acc = jnp.zeros((4,), fdt)
     ema = (jnp.asarray(0.0, fdt), jnp.asarray(0.0, fdt))
     jb = _jax_batch(fdt)
@@ -154,7 +154,7 @@ def test_fused_bf16_grads_match_jax_bf16_composable():
     args = dict(ARGS, precision=32, bf16_messages=True)
     jm = jax_create_model(args, jax_create_prior_models(args, _dataset()))
     jb = _jax_batch(np.float32)
-    nbl = jm.neighbors(jb)
+    nbl = jax.jit(jm.neighbors).lower(jb).compile(compiler_options=FAST_COMPILE)(jb)
     nbl.raise_on_overflow("test")
 
     def loss(p):

@@ -670,7 +670,9 @@ __global__ void __launch_bounds__(BWD_MAX_THREADS, 1)
         }
       }
       if (want_dw) {
-        const int nact = min(p.groups, p.n - (blockIdx.x * p.iters + t) * p.groups);
+        // signed: past the last row the count is negative (an unsigned
+        // blockIdx.x would wrap it to p.groups and re-add stale rows)
+        const int nact = min(p.groups, p.n - ((int)blockIdx.x * p.iters + t) * p.groups);
         accumulate_dw<2>(L, smem, cur_buf, H, p.rbf, nact, false, t == 0 && c0 == 0,
                       dw_part + (size_t)blockIdx.x * rbfp * F);
       }
@@ -978,7 +980,9 @@ __global__ void __launch_bounds__(BWD2_MAX_THREADS, 1)
         }
       }
       if (has_w) {
-        const int nact = min(p.groups, p.n - (blockIdx.x * p.iters + t) * p.groups);
+        // signed: past the last row the count is negative (an unsigned
+        // blockIdx.x would wrap it to p.groups and re-add stale rows)
+        const int nact = min(p.groups, p.n - ((int)blockIdx.x * p.iters + t) * p.groups);
         accumulate_dw<4>(L, smem, cur_buf, H, p.rbf, nact, true, t == 0 && c0 == 0,
                       dw_part + (size_t)blockIdx.x * rbfp * F);
       }

@@ -71,7 +71,9 @@ class Simulation:
         neighbor_skin: Verlet-skin width (Angstrom); 0 rebuilds the neighbor
             list inside every force evaluation.
         rebuild_every: steps between neighbor rebuilds when skin > 0.
-        neighbor_strategy: 'auto' | 'brute' | 'cell' for the skin builds.
+        neighbor_strategy: 'auto' | 'brute' | 'brute-pallas' | 'cell' for
+            the neighbor builds ('brute-pallas': the fused search kernel of
+            ``ops/kernels/compaction.py``, no box).
         neighbor_kwargs: cell-list sizes; for large molecules the missing
             ``cell_capacity``/``max_cells`` are probed from ``batch`` here.
         device: where to run; ``cuda`` unless named (raises without a GPU).
@@ -121,8 +123,11 @@ class Simulation:
             strategy=neighbor_strategy,
         )
         # loud setup check (the reference's check_errors): a silently
-        # truncated neighbor list would give wrong forces
-        model.neighbors(batch, box=box, skin=self.skin, **self.neighbor_kwargs).raise_on_overflow(
+        # truncated neighbor list would give wrong forces.  It builds with the
+        # strategy the steps build with (JAX's uses "auto", which for a
+        # brute-force Simulation would build a cell list with unprobed sizes)
+        model.neighbors(batch, box=box, skin=self.skin, strategy=neighbor_strategy,
+                        **self.neighbor_kwargs).raise_on_overflow(
             "the initial MD configuration"
         )
         self.generator = torch.Generator(device=dev).manual_seed(int(seed))

@@ -13,7 +13,7 @@ from torchmdnet_tpu_torch.ops.activations import Activation
 
 _HEADS_TODO = (
     "only the Scalar and EquivariantScalar heads are ported so far; the other "
-    "heads follow with the other models (ROADMAP.md, 'Modules to port', slice E)"
+    "heads are queued (ROADMAP.md, queue 1, 'The remaining heads')"
 )
 
 

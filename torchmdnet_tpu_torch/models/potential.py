@@ -5,8 +5,9 @@
 - ``Potential`` wraps it with forces = -dE/dpos from ``torch.autograd.grad``;
 - ``create_model`` builds a Potential from the flat config dict the JAX
   package takes, ``create_prior_models`` its priors, ``load_model`` a
-  Potential from a port checkpoint.  The equivariant transformer, TensorNet,
-  the graph network and the Atomref prior are ported so far.
+  Potential from a port checkpoint.  All four representation models (the
+  equivariant transformer, TensorNet, the graph network and the
+  Transformer) are ported; of the priors, Atomref.
 """
 
 import dataclasses
@@ -22,6 +23,7 @@ from torchmdnet_tpu_torch.models.et import TorchMD_ET
 from torchmdnet_tpu_torch.models.graph_network import TorchMD_GN
 from torchmdnet_tpu_torch.models.output_heads import head_class
 from torchmdnet_tpu_torch.models.tensornet import TensorNet
+from torchmdnet_tpu_torch.models.transformer import TorchMD_T
 from torchmdnet_tpu_torch.ops.neighbors import neighbor_list
 from torchmdnet_tpu_torch.ops.segment import segment_reduce
 from torchmdnet_tpu_torch.priors import prior_class_mapping
@@ -29,10 +31,6 @@ from torchmdnet_tpu_torch.utils import resolve_device
 
 dtype_mapping = {32: torch.float32, 64: torch.float64}
 
-_MODELS_TODO = (
-    "the equivariant-transformer, tensornet and graph-network are ported so "
-    "far; the transformer follows (ROADMAP.md, 'Modules to port', slice E2)"
-)
 
 
 class EnergyModel(nn.Module):
@@ -131,6 +129,10 @@ class Potential:
         strategy under 'auto': they overlap in space, so cells would hold
         every sample's atoms at once.
 
+        ``strategy``: 'auto', 'brute', 'brute-pallas' (the fused search
+        kernel, ``ops/kernels/compaction.py``; no box) or 'cell'; see
+        ``ops.neighbors.neighbor_list``.
+
         ``gather_plan`` and its ``plan_*`` sizes are accepted and have no
         effect: the JAX package's block gather plan feeds its one-hot MXU
         gather, and the port's kernels gather by index, with the same result.
@@ -184,16 +186,18 @@ def create_representation(args: Dict[str, Any], generator: torch.Generator) -> n
             fused_message=args.get("fused_message", False),
             **shared,
         )
-    if args["model"] != "equivariant-transformer":
-        raise NotImplementedError(f"model {args['model']!r}: {_MODELS_TODO}")
-    return TorchMD_ET(
+    attention = dict(
         attn_activation=args.get("attn_activation", "silu"),
         neighbor_embedding=args.get("neighbor_embedding", False),
         num_heads=args.get("num_heads", 8),
         distance_influence=args.get("distance_influence", "both"),
         fused_attention=args.get("fused_attention", False),
-        **shared,
     )
+    if args["model"] == "transformer":
+        return TorchMD_T(buffer_dtype=dtype_mapping[args.get("precision", 32)], **attention, **shared)
+    if args["model"] != "equivariant-transformer":
+        raise ValueError(f"Unknown architecture: {args['model']}")
+    return TorchMD_ET(**attention, **shared)
 
 
 def create_prior_models(args: Dict[str, Any], dataset=None):

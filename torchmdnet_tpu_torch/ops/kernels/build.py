@@ -19,7 +19,7 @@ from typing import Dict, Sequence
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
-SOURCES = ("et_message.cu", "select_topk.cu", "tn_message.cu", "ell_gather.cu")
+SOURCES = ("et_message.cu", "select_topk.cu", "tn_message.cu", "ell_gather.cu", "t_message.cu", "compaction.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",

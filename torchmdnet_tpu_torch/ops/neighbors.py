@@ -394,10 +394,14 @@ def neighbor_list(
         k: max neighbors per atom. The output has K = k (+1 if loop).
         loop: include the self edge as column 0.
         box: optional (3, 3) periodic box (reduced triclinic rows a, b, c).
-        strategy: 'brute' (O(N^2) masked search), 'cell' (the cell list,
-            O(N), ``ops/cell_list.py``; rectangular boxes only), or 'auto':
-            the cell list from ``_AUTO_CELL_THRESHOLD`` atoms unless the box
-            is triclinic, brute otherwise.
+        strategy: 'brute' (O(N^2) masked search), 'brute-pallas' (the same
+            search fused into one kernel with ordered compaction,
+            ``ops/kernels/compaction.py``, the JAX package's strategy of that
+            name; no box; d^2 in difference form, so a pair within float
+            rounding of a cutoff may differ from 'brute'), 'cell' (the cell
+            list, O(N), ``ops/cell_list.py``; rectangular boxes only), or
+            'auto': the cell list from ``_AUTO_CELL_THRESHOLD`` atoms unless
+            the box is triclinic, brute otherwise.
         cell_kwargs: the cell strategy's static sizes (``cell_capacity``,
             ``max_cells``, ...; see ``neighbor_list_cell``); brute ignores them.
     """
@@ -411,12 +415,26 @@ def neighbor_list(
             pos, batch, atom_mask, k=k, cutoff_lower=cutoff_lower,
             cutoff_upper=cutoff_upper, loop=loop, box=box, **cell_kwargs,
         )
-    if strategy != "brute":
+    if strategy not in ("brute", "brute-pallas"):
         raise ValueError(f"Unknown neighbor strategy: {strategy}")
     if batch is None:
         batch = torch.zeros(n, dtype=torch.int64, device=pos.device)
     if atom_mask is None:
         atom_mask = torch.ones(n, dtype=torch.bool, device=pos.device)
+    if strategy == "brute-pallas":
+        if box is not None:
+            raise ValueError("strategy='brute-pallas' takes no periodic box (use 'brute' or 'cell')")
+        from torchmdnet_tpu_torch.ops.kernels.compaction import compact_neighbors
+
+        idx, mask, n_neighbors = compact_neighbors(
+            pos.detach(), batch, atom_mask, k=int(k),
+            cutoff_lower=float(cutoff_lower), cutoff_upper=float(cutoff_upper),
+        )
+        if loop:
+            ar = torch.arange(n, device=pos.device, dtype=idx.dtype)
+            idx = torch.cat([ar[:, None], idx], dim=1).contiguous()
+            mask = torch.cat([atom_mask[:, None], mask], dim=1).contiguous()
+        return NeighborList(idx=idx, mask=mask, n_neighbors=n_neighbors, self_loops=loop)
     idx, mask, n_neighbors = _neighbor_list_brute(
         pos.detach(), batch, atom_mask, box, k=int(k),
         cutoff_lower=float(cutoff_lower), cutoff_upper=float(cutoff_upper),

@@ -129,7 +129,7 @@ def get_args(argv=None):
     parser.add_argument('--max-num-neighbors', type=int, default=32, help='Maximum number of neighbors to consider in the network')
     parser.add_argument('--remat', type=str2bool, default=False, help='Rematerialize each interaction layer in backward passes (torch.utils.checkpoint): one layer of activations at a time, at the cost of recomputing each layer')
     parser.add_argument('--bf16-messages', type=str2bool, default=False, help='Compute the message-passing gathers and products in bfloat16 with float32 accumulation')
-    parser.add_argument('--fused-attention', type=str2bool, default=False, help='Route the equivariant-transformer edge phase through the fused CUDA kernels (requires bf16-messages; batches are spatially sorted). Force-loss training runs their second-order kernel')
+    parser.add_argument('--fused-attention', type=str2bool, default=False, help='Route the equivariant-transformer or transformer edge phase through the fused CUDA kernels (requires bf16-messages; batches are spatially sorted). Force-loss training runs their second-order kernel')
     parser.add_argument('--force-grad-mode', type=str, default='gradgrad', choices=['gradgrad', 'jvp'], help='Force-loss gradient formulation: nested reverse ("gradgrad", default); "jvp" is not ported yet')
     parser.add_argument('--fused-message', type=str2bool, default=False, help='Route the tensornet message phase through the fused CUDA kernels (requires bf16-messages; batches are spatially sorted). Force-loss training runs their second-order kernel')
     parser.add_argument('--edge-partition', type=str2bool, default=False, help="Shard each batch's atom rows over the devices (not ported yet)")

@@ -48,11 +48,8 @@ def state_dict_from_jax(args: Dict[str, Any], params: Mapping) -> Dict[str, torc
     float64 where the tree holds float64)."""
     if "params" in params:
         params = params["params"]
-    if args["model"] not in ("equivariant-transformer", "tensornet", "graph-network"):
-        raise NotImplementedError(
-            "only the equivariant-transformer, tensornet and graph-network are ported so far "
-            "(ROADMAP.md, slice E2)"
-        )
+    if args["model"] not in ("equivariant-transformer", "transformer", "tensornet", "graph-network"):
+        raise ValueError(f"Unknown architecture: {args['model']}")
     rep = params["representation"]
     out: Dict[str, torch.Tensor] = {}
     p = "representation_model"
@@ -65,7 +62,7 @@ def state_dict_from_jax(args: Dict[str, Any], params: Mapping) -> Dict[str, torc
     elif args["model"] == "graph-network":
         _graph_network(out, p, rep, args)
     else:
-        _et(out, p, rep, args)
+        _attention(out, p, rep, args)
     _head_and_priors(out, params)
     return out
 
@@ -93,7 +90,7 @@ def _tensornet(out, p, rep, num_layers):
 
 
 def _embeddings(out, p, rep, args):
-    """The atom embedding and the optional NeighborEmbedding (ET and GN)."""
+    """The atom embedding and the optional NeighborEmbedding (ET, the Transformer and GN)."""
     out[f"{p}.embedding.weight"] = _t(rep["Embed_0"]["embedding"])
     if args.get("neighbor_embedding", False):
         ne = rep["NeighborEmbedding_0"]
@@ -115,18 +112,24 @@ def _graph_network(out, p, rep, args):
         _dense(out, f"{lp}.lin", block["Dense_0"])
 
 
-def _et(out, p, rep, args):
+def _attention(out, p, rep, args):
+    """ET's and the Transformer's keys, in the order of
+    torchmdnet_tpu/tools/import_torch.py:84-123: q, k, v, (ET: vec), then
+    dk and dv where distance_influence keeps them, then o."""
     _embeddings(out, p, rep, args)
     influence = args.get("distance_influence", "both")
+    et = args["model"] == "equivariant-transformer"
     for i in range(args["num_layers"]):
-        layer = rep[f"EquivariantMultiHeadAttention_{i}"]
+        layer = rep[f"{'EquivariantMultiHeadAttention' if et else 'MultiHeadAttention'}_{i}"]
         lp = f"{p}.attention_layers.{i}"
         _layer_norm(out, f"{lp}.layernorm", layer["LayerNorm_0"])
         _dense(out, f"{lp}.q_proj", layer["Dense_0"])
         _dense(out, f"{lp}.k_proj", layer["Dense_1"])
         _dense(out, f"{lp}.v_proj", layer["Dense_2"])
-        _dense(out, f"{lp}.vec_proj", layer["Dense_3"], bias=False)
-        nxt = 4
+        nxt = 3
+        if et:
+            _dense(out, f"{lp}.vec_proj", layer["Dense_3"], bias=False)
+            nxt = 4
         if influence in ("keys", "both"):
             _dense(out, f"{lp}.dk_proj", layer[f"Dense_{nxt}"])
             nxt += 1
