@@ -166,11 +166,11 @@ def _synthetic_batch(n_atoms, seed, device):
     return z, pos, pad_molecules([{"z": z, "pos": pos}], num_atoms=padded, device=device)
 
 
-def _kernel_inputs(n_atoms, k, h, rbf, cutoff, seed, batch=None):
+def _kernel_inputs(n_atoms, k, h, rbf, cutoff, seed, batch=None, nbl=None):
     """Edge-phase operands on the card: a real ELL list of a synthetic
     system (or of ``batch``, a batch of small molecules: brute search, as
-    ``Potential.neighbors`` takes for it), its geometry and RBFs, random bf16
-    features and filters."""
+    ``Potential.neighbors`` takes for it; or ``nbl``, a list of ``batch``),
+    its geometry and RBFs, random bf16 features and filters."""
     import torch
 
     from torchmdnet_tpu_torch.ops.cutoff import cosine_cutoff
@@ -183,8 +183,9 @@ def _kernel_inputs(n_atoms, k, h, rbf, cutoff, seed, batch=None):
         _, _, batch = _synthetic_batch(n_atoms, seed, dev)
     else:
         strategy = "brute"
-    nbl = neighbor_list(batch.pos, batch.batch, batch.atom_mask, k=k, cutoff_upper=cutoff, loop=True,
-                        strategy=strategy)
+    if nbl is None:
+        nbl = neighbor_list(batch.pos, batch.batch, batch.atom_mask, k=k, cutoff_upper=cutoff, loop=True,
+                            strategy=strategy)
     nbl.raise_on_overflow("chip_smoke kernel inputs")
     n, kk = nbl.idx.shape
     (dx, dy, dz), dist = edge_geometry_components(batch.pos, nbl)
@@ -211,6 +212,33 @@ def _kernel_inputs(n_atoms, k, h, rbf, cutoff, seed, batch=None):
 
 ORDER = ["q", "k", "v", "vec0", "vec1", "vec2", "ea", "cutm", "msk",
          "dir0", "dir1", "dir2", "wdk", "bdk", "wdv", "bdv"]
+
+
+def _stmv_kernel_inputs(seed):
+    """#2's operands at ET MD's STMV skin list (30,336 atoms, cutoff 5 A + a
+    0.5 A skin, K = 112, the probed cell sizes of ``md.Simulation``), H =
+    128, RBF = 50."""
+    from torchmdnet_tpu_torch import create_model
+    from torchmdnet_tpu_torch.ops.cell_list import probe_cell_kwargs
+
+    stmv = _stmv_batch()
+    skin = MD_ARGS["neighbor_skin"]
+    model = create_model(ET_ARGS, seed=SEED)
+    nbl = model.neighbors(stmv, skin=skin, **probe_cell_kwargs(stmv, cutoff_upper=ET_ARGS["cutoff_upper"] + skin))
+    return _kernel_inputs(None, nbl.idx.shape[1], ET_ARGS["embedding_dimension"], ET_ARGS["num_rbf"],
+                          ET_ARGS["cutoff_upper"], seed, batch=stmv, nbl=nbl)
+
+
+# The backward's and second order's helper kernels (the source passes,
+# et_dw_kernel) against their plain versions on the same inputs (the
+# receiver passes' outputs), as max|kernel - plain| / max|plain|.  Source
+# passes: both sides round at the same points, but the f32 order of the
+# filter products and the kernels' fast exp can flip a bf16 rounding of a
+# filter, which the per-edge chains carry into a term before the K-slot sum
+# (as BWD_TOL): 2e-2.  The weight reduction: the same bf16 operands summed
+# in f32 in another order: 1e-4.
+PART_TOL = 2e-2
+WGRAD_TOL = 1e-4
 
 
 def _call(fn, nbl, ins, heads):
@@ -276,6 +304,7 @@ def check_kernels(label, n_atoms, k, h, heads, rbf, cutoff, seed, batch=None):
         # msk is 0/1 data: neither side gives it a cotangent (the 16th slot)
         grads[name]["msk"] = torch.zeros_like(ins["msk"])
     bwd2, bwd2_abs = check_bwd2(nbl, ins, cts, heads, seed)
+    parts = check_parts(nbl, ins, cts, heads, seed)
     # a second derivative runs the second-order kernel; keeping its graph
     # (the way to a third derivative) must raise
     t = {n: v.clone().requires_grad_(n in ("q", "k")) for n, v in ins.items()}
@@ -296,14 +325,51 @@ def check_kernels(label, n_atoms, k, h, heads, rbf, cutoff, seed, batch=None):
         f"fwd max rel err {max(fwd.values()):.3e} (tol {FWD_TOL}) {_fmt(fwd)}; "
         f"bwd max rel err {max(bwd.values()):.3e} (tol {BWD_TOL}) {_fmt(bwd)}; "
         f"bwd2 max rel err {max(bwd2.values()):.3e} (tol {BWD2_TOL}) {_fmt(bwd2)}; "
-        f"a third derivative raises")
+        f"helper kernels against their plain versions {_fmt(parts)} (source passes tol {PART_TOL}, "
+        f"weight reduction tol {WGRAD_TOL}); a third derivative raises")
     if max(fwd.values()) > FWD_TOL:
         raise AssertionError(f"forward kernel disagrees with the plain version at {label}: {fwd}")
     if max(bwd.values()) > BWD_TOL:
         raise AssertionError(f"backward kernel disagrees with the plain version at {label}: {bwd}")
     if max(bwd2.values()) > BWD2_TOL:
         raise AssertionError(f"second-order kernel disagrees with the plain version at {label}: {bwd2}")
+    if max(v for k, v in parts.items() if "src" in k) > PART_TOL or \
+            max(v for k, v in parts.items() if "dw" in k) > WGRAD_TOL:
+        raise AssertionError(f"a helper kernel disagrees with its plain version at {label}: {parts}")
     return fwd_abs, bwd_abs, bwd2_abs
+
+
+def check_parts(nbl, ins, cts, heads, seed):
+    """The source passes (et_bwd_src_kernel, et_bwd2_src_kernel) and the
+    weight reduction (et_dw_kernel) against their plain versions, fed the
+    receiver kernels' outputs: {name: max rel err}."""
+    import torch
+
+    from torchmdnet_tpu_torch.ops.kernels import et_message as em
+
+    kw = dict(heads=heads, act="silu", attn_act="silu")
+    a = [ins[n] for n in ORDER]
+    ops, dirs, w = a[:9], tuple(a[9:12]), a[12:]
+    recv = em.bwd_receiver(nbl.idx, *ops, dirs, *w, cts[0], cts[1], want_dpre=True, **kw)
+    hs, dpre = recv[4], recv[5]
+    src_args = (nbl.idx, nbl.transpose_perm, *ops, dirs, *w, cts[0], cts[1], hs)
+    got = em.bwd_source(*src_args, **kw)
+    want = em.bwd_source_reference(*src_args[:9], ops[8], dirs, *w, cts[0], cts[1], hs, heads=heads, act="silu")
+    rel = {"bwd_src": max(_rel(x, y) for x, y in zip(got, want))}
+    pairs = [(ins["ea"].reshape(-1, ins["ea"].shape[-1]), dpre)]
+    rel["bwd_dw"] = _rel(em.weight_grads(pairs, ins["ea"].shape[-1]),
+                         em.weight_grads_reference(pairs, ins["ea"].shape[-1]))
+    z = _z_like(ins, seed)
+    recv2 = em.bwd2_receiver(nbl.idx, a, cts, z, **kw)
+    hs4, bpre, bpret = recv2[7], recv2[8], recv2[9]
+    got = em.bwd2_source(nbl.idx, nbl.transpose_perm, a, cts, z, hs4, **kw)
+    want = em.bwd2_source_reference(nbl.idx, nbl.transpose_perm, a, cts, z, hs4, heads=heads, act="silu")
+    rel["bwd2_src"] = max(_rel(x, y) for x, y in zip(got, want))
+    pairs = [(ins["ea"].reshape(-1, ins["ea"].shape[-1]), bpre), (z[6].reshape(bpre.shape[0], -1), bpret)]
+    rel["bwd2_dw"] = _rel(em.weight_grads(pairs, ins["ea"].shape[-1]),
+                          em.weight_grads_reference(pairs, ins["ea"].shape[-1]))
+    torch.cuda.synchronize()
+    return rel
 
 
 def _event_ms(fn, reps=20, warmup=3, flush=None):
@@ -387,6 +453,28 @@ def _bounds(n, kk, h, rbf, kind):
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def log_et_resources():
+    """The backward's and second order's kernels' resources (registers and
+    spills from the compiled code, shared memory and resident blocks per SM
+    from the CUDA runtime's occupancy calculator) at the DHFR and training
+    shapes."""
+    from torchmdnet_tpu_torch.ops.kernels import et_message as em
+
+    names = {1: "et_bwd_kernel", 2: "et_bwd2_kernel", 3: "et_bwd_src_kernel", 4: "et_bwd2_src_kernel",
+             5: "et_dw_kernel"}
+    a = TRAIN_ARGS
+    parts = []
+    for label, (n, k, h, heads, rbf) in (("DHFR", (2496, 81, 128, 8, 50)),
+                                         ("training", (2304, 33, a["embedding_dimension"], a["num_heads"],
+                                                       a["num_rbf"]))):
+        for kind, name in names.items():
+            r = em.kernel_resources(kind, n, k, h, heads, rbf)
+            parts.append(f"{name} at {label} H={h}: {r['registers']} registers, {r['spill_bytes']} B spilled, "
+                         f"{r['threads']} threads, {r['smem']} B shared, {r['blocks_per_sm']} blocks/SM "
+                         f"({r['blocks_per_sm'] * r['threads'] // 32} warps)")
+    log("ET backward kernel resources: " + "; ".join(parts))
+
+
 def time_kernels(seed):
     """Each kernel's time at the DHFR shapes, its plain version's, its bound."""
     import torch
@@ -417,11 +505,41 @@ def time_kernels(seed):
     fb, fby = _bounds(n, kk, 128, 50, "fwd")
     bb, bby = _bounds(n, kk, 128, 50, "bwd")
     bwb, bwby = _bounds(n, kk, 128, 50, "bwd_w")
+    del x, vec, t, leaves
+    # #2 at ET MD's STMV skin list (no weight cotangents: MD freezes them)
+    snbl, sins, scts = _stmv_kernel_inputs(seed)
+    sn, skk = snbl.idx.shape
+    scommon = [sins[n] for n in ("q", "k", "v", "vec0", "vec1", "vec2", "ea", "cutm", "msk")]
+    stmv_ms = _event_ms(lambda: em.run_bwd(
+        snbl.idx, snbl.transpose_perm, *scommon, (sins["dir0"], sins["dir1"], sins["dir2"]),
+        *[sins[n] for n in ("wdk", "bdk", "wdv", "bdv")], scts[0], scts[1], want_weight_grads=False, **kw),
+        flush=flush, reps=5)
+    sb, sby = _bounds(sn, skk, 128, 50, "bwd")
+    del snbl, sins, scts, scommon
     log(f"kernel times at DHFR shapes (N={n} K={kk} H=128 RBF=50, L2 flushed, median of 20): "
         f"fwd {fwd_ms:.4f} ms (plain {plain_fwd_ms:.4f} ms, bound {fb:.4f} ms by {fby}); "
         f"bwd {bwd_ms:.4f} ms (plain {plain_bwd_ms:.4f} ms, bound {bb:.4f} ms by {bby}); "
-        f"bwd with weight cotangents {bwd_w_ms:.4f} ms (bound {bwb:.4f} ms by {bwby})")
+        f"bwd with weight cotangents {bwd_w_ms:.4f} ms (bound {bwb:.4f} ms by {bwby}); "
+        f"bwd at the STMV skin shape (N={sn} K={skk}, median of 5) {stmv_ms:.4f} ms (bound {sb:.4f} ms by {sby})")
     return dict(fwd=(fwd_ms, plain_fwd_ms, fb, fby), bwd=(bwd_ms, plain_bwd_ms, bb, bby))
+
+
+# launches of the ET backward's and second order's helper kernels on each
+# ET main path, by path name, filled as the paths run
+ET_PART_LAUNCHES = {}
+
+
+def _check_et_parts(path, bwd, bwd2):
+    """Each backward launch ran one source pass, each second-order launch
+    one (counted since the last reset); records the helpers' launches."""
+    from torchmdnet_tpu_torch.ops.kernels import et_message as em
+
+    parts = {"et_message_bwd_src": em.bwd_source.launches, "et_message_bwd2_src": em.bwd2_source.launches,
+             "et_message_dw": em.weight_grads.launches}
+    if (parts["et_message_bwd_src"], parts["et_message_bwd2_src"]) != (bwd, bwd2):
+        raise AssertionError(f"{path}: expected {bwd} + {bwd2} source-pass launches, got {parts}")
+    ET_PART_LAUNCHES[path] = parts
+    return parts
 
 
 def main_path(args, km, label):
@@ -459,6 +577,8 @@ def main_path(args, km, label):
     if launches != (layers * REQUESTS, layers * REQUESTS, REQUESTS + 1):
         raise AssertionError(f"expected {layers} fwd + {layers} bwd launches per request and "
                              f"{REQUESTS + 1} select_topk launches, got {launches}")
+    if args["model"] == "equivariant-transformer":
+        _check_et_parts("external_dhfr", launches[1], 0)
     if not torch.equal(results[-1][1], results[-2][1]):
         raise AssertionError("forces of two identical requests differ")
 
@@ -542,7 +662,7 @@ def _shares(groups, other, busy):
     return ", ".join(parts + [f"other kernels {other:.3f} ms ({100 * other / busy:.1f}%)"])
 
 
-ET_SERVE_KERNELS = ("et_fwd_kernel", "et_bwd_kernel", "ell_transpose_sum_kernel")
+ET_SERVE_KERNELS = ("et_fwd_kernel", "et_bwd_kernel", "et_bwd_src_kernel")
 TN_SERVE_KERNELS = ("tn_fwd_kernel", "tn_bwd_kernel")
 
 
@@ -812,6 +932,7 @@ def md_stmv(select_ms):
     if launches != (layers * evaluations, layers * evaluations, rebuilds):
         raise AssertionError(f"expected {layers}+{layers} ET launches per force evaluation "
                              f"({evaluations}) and one select_topk per rebuild ({rebuilds}), got {launches}")
+    _check_et_parts("md_stmv", launches[1], 0)
     state = sim.state
     if not (torch.isfinite(state.pos).all() and torch.isfinite(state.energy).all()):
         raise AssertionError("non-finite positions or energies in MD")
@@ -900,7 +1021,8 @@ def _train_cfg(kind):
     if kind == "et":
         return dict(fused, args=TRAIN_ARGS, batch=TRAIN_BATCH, split=TRAIN_SPLIT, km=em, lr=1e-4,
                     weights=(1.0, 1.0), label=f"ET {TRAIN_ARGS['num_layers']}x{TRAIN_ARGS['embedding_dimension']}",
-                    kernels=("et_fwd_kernel", "et_bwd_kernel", "et_bwd2_kernel", "ell_transpose_sum_kernel"),
+                    kernels=("et_fwd_kernel", "et_bwd_kernel", "et_bwd2_kernel", "et_bwd_src_kernel",
+                             "et_bwd2_src_kernel", "et_dw_kernel"),
                     flags=["--num-heads", str(TRAIN_ARGS["num_heads"]), "--neighbor-embedding", "true",
                            "--fused-attention", "true"])
     if kind == "t":
@@ -1093,6 +1215,7 @@ def train_cli(workdir, cfg):
     import torch
 
     from torchmdnet_tpu_torch.models.potential import load_model
+    from torchmdnet_tpu_torch.ops.kernels import et_message as et_kernels
     from torchmdnet_tpu_torch.scripts import train as cli
     from torchmdnet_tpu_torch.train.checkpoints import load_checkpoint
 
@@ -1120,6 +1243,9 @@ def train_cli(workdir, cfg):
     if launches != expected or trainer.state.global_step != steps:
         raise AssertionError(f"expected launches {expected} for {steps} steps and {evals} evaluation "
                              f"batches, got {launches} after {trainer.state.global_step} steps")
+    if cfg["km"] is et_kernels:
+        if _check_et_parts("train", launches[1], launches[2])["et_message_dw"] < launches[2]:
+            raise AssertionError("the second order's weight reduction did not run once per launch")
     best = trainer.best_model_path
     ckpt = load_checkpoint(best)
     reloaded = load_model(best)
@@ -2216,6 +2342,7 @@ def main():
     seconds = time.perf_counter() - t0
     usage = [ln.strip() for out in logs.values() for ln in out.splitlines() if "registers" in ln or "spill" in ln]
     log(f"built {list(build.SOURCES)} for sm_90a in {seconds:.1f} s; ptxas: {' | '.join(usage)}")
+    log_et_resources()
 
     check_kernels("medium", 512, 40, 64, 4, 32, 3.5, seed=1)
     fwd_abs, bwd_abs, _ = check_kernels("DHFR", 2489, 80, 128, 8, 50, 5.0, seed=2)
@@ -2334,6 +2461,8 @@ def main():
         "t_md_brute_pallas": dict(zip(("t_message_fwd", "t_message_bwd", "compaction", "select_topk"),
                                       t_md_launches)),
     }
+    for path, parts in ET_PART_LAUNCHES.items():
+        paths[path].update(parts)
     gn_rows = {kind: (t[0], t[1], t[3], t[4], t[2]) for kind, t in gn_times["DHFR"].items() if kind != "shape"}
     bwd2_row = (train_ms["bwd2"], train_plain["bwd2"]) + train_bounds["bwd2"] + (None,)
     t_rows = {k: t_times[(where, k)][:4] + (None,)
@@ -2355,7 +2484,12 @@ def main():
         ("t_message_bwd2", "t_message.cu", "t_message.py:519", t_rows["bwd2"], t_bwd2_abs),
     ):
         by_path = {path: counts.get(name, 0) for path, counts in paths.items()}
+        # the helper kernels a row's kernel launches with it (the ET backward's
+        # and second order's source passes and weight reduction)
+        helpers = {"et_message_bwd": ("et_message_bwd_src", "et_message_dw"),
+                   "et_message_bwd2": ("et_message_bwd2_src", "et_message_dw")}.get(name, ())
         kernels.append(dict(
+            helper_launches={h: sum(c.get(h, 0) for c in paths.values()) for h in helpers},
             name=name, route="cuda", source=f"torchmdnet_tpu_torch/csrc/{source}",
             replaces=f"torchmdnet_tpu/ops/pallas/{line}",
             launches=sum(by_path.values()), launches_by_path=by_path,

@@ -17,19 +17,26 @@ in the forward,
 
 with the JAX kernel's layout (vectors as three (N, H) components, v and dv in
 global thirds) and precision (bf16 operands, products rounded to bf16, f32
-sums, f32 outputs).  Its gradient is the backward kernel: one reverse pass
-(forces) runs exactly one forward and one backward launch per layer.  The
-backward is itself differentiable once (``_EtMessagesBwd``): its gradient is
-the second-order kernel, so a force-loss training step runs per layer one
-forward, two backward (the inner force pass and the outer energy term) and
-one second-order launch.  A third derivative raises.
+sums, f32 outputs).  Its gradient is the backward (``run_bwd``): a receiver
+pass (``et_bwd_kernel``) that leaves per edge and head only the scalars the
+source side needs, a source pass (``bwd_source``) that sums each atom's K
+slots of the transpose permutation in gather form, and, when the weights
+want a gradient, a reduction of the per-edge filter cotangents
+(``weight_grads``).  The backward is itself differentiable once
+(``_EtMessagesBwd``): its gradient is the second order (``run_bwd2``, the
+same three parts), so a force-loss training step runs per layer one
+forward, two backward and one second-order call.  A third derivative raises.
 
 ``et_messages_reference`` is the plain PyTorch version of the same function
 (the counterpart of ``_composable_reference``, et_message.py:932), with
 gradients from autograd; ``et_messages_bwd2_reference`` is the plain version
-of the second-order kernel (the counterpart of ``_composable_bwd_vjp``,
-:1069).  ``fused_et_messages`` uses the plain version only for tensors on the
-CPU.
+of the second order (the counterpart of ``_composable_bwd_vjp``, :1069).
+Each pass has its plain twin in the kernels' arithmetic
+(``bwd_receiver_reference``, ``bwd_source_reference``,
+``bwd2_receiver_reference``, ``bwd2_source_reference``,
+``weight_grads_reference``): ``run_bwd`` and ``run_bwd2`` run them for CPU
+tensors, and ``chip_smoke.py`` holds each helper kernel against its twin.
+``fused_et_messages`` uses the plain version only for tensors on the CPU.
 """
 
 import ctypes
@@ -58,10 +65,18 @@ def _lib() -> ctypes.CDLL:
         lib.et_fwd.restype = _I
         lib.et_bwd.argtypes = _COMMON + [_P] * 12
         lib.et_bwd.restype = _I
-        lib.et_bwd2.argtypes = _COMMON + [_P] * 30
+        lib.et_bwd_src.argtypes = _COMMON + [_P] * 10
+        lib.et_bwd_src.restype = _I
+        lib.et_bwd2.argtypes = _COMMON + [_P] * 31
         lib.et_bwd2.restype = _I
+        lib.et_bwd2_src.argtypes = _COMMON + [_P] * 24
+        lib.et_bwd2_src.restype = _I
+        lib.et_dw.argtypes = [_P] * 4 + [_I] * 5 + [_P, _P]
+        lib.et_dw.restype = _I
         lib.et_plan.argtypes = [_I] * 6 + [_P, _P]
         lib.et_plan.restype = _I
+        lib.et_resources.argtypes = [_I] * 6 + [_P]
+        lib.et_resources.restype = _I
         lib.ell_transpose_sum.argtypes = [_P, _I, _P, _I, _I, _I, _P, _P]
         lib.ell_transpose_sum.restype = _I
         lib._argtypes_set = True
@@ -209,27 +224,28 @@ def run_fwd(idx, q, k, v, vec0, vec1, vec2, ea, cutm, msk, dirs, wdk, bdk, wdv, 
 run_fwd.launches = 0
 
 
+def _stream(dev):
+    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+
+
 def _plan(lib, kind, n, kk, h, heads, rbf):
-    """(blocks, row groups per block) of a kernel's grid (kind 1 backward,
-    2 second order): the shape of its per-block weight-gradient partials."""
+    """(blocks, row groups per block) of a receiver pass's grid (kind 1 the
+    backward's, 2 the second order's): the shape of its per-group bias
+    partials."""
     blocks, groups = ctypes.c_int(0), ctypes.c_int(0)
     err = lib.et_plan(kind, n, kk, h, heads, rbf, ctypes.byref(blocks), ctypes.byref(groups))
     _raise_on(lib, err, "et_plan")
     return blocks.value, groups.value
 
 
-def _weight_partials(lib, kind, n, kk, h, heads, rbf, dev):
+def _db_partials(lib, kind, n, kk, h, heads, rbf, dev):
     blocks, groups = _plan(lib, kind, n, kk, h, heads, rbf)
-    rbfp = -(-rbf // 16) * 16
-    return (torch.empty((blocks, rbfp, 4 * h), dtype=torch.float32, device=dev),
-            torch.empty((blocks * groups, 4 * h), dtype=torch.float32, device=dev))
+    return torch.empty((blocks * groups, 4 * h), dtype=torch.float32, device=dev)
 
 
-def _sum_partials(dw_part, db_part, rbf, h, wdk, bdk, wdv, bdv):
-    """The per-block f32 partials summed once and rounded once to the
+def _split_weights(dw, db, h, wdk, bdk, wdv, bdv):
+    """The filters' (RBF, 4H) and (4H,) cotangents, rounded once to the
     weights' dtype: (dwdk, dbdk, dwdv, dbdv), None for an absent filter."""
-    dw = dw_part.sum(dim=0)[:rbf]
-    db = db_part.sum(dim=0)
     dwdk = dbdk = dwdv = dbdv = None
     if wdk is not None:
         dwdk = dw[:, :h].to(wdk.dtype)
@@ -242,7 +258,8 @@ def _sum_partials(dw_part, db_part, rbf, h, wdk, bdk, wdv, bdv):
 
 def _transpose_sum_rows(lib, g_edge, perm, n, kk, f, dev, stream):
     """(N, F) bf16 = the per-edge rows g_edge (N*K, F) summed onto their
-    source atoms through ``perm`` in f32, rounded once (no atomics)."""
+    source atoms through ``perm`` in f32, rounded once (no atomics).  The
+    Transformer's kernels use it (ops/kernels/t_message.py)."""
     out = torch.empty((n, f), dtype=torch.bfloat16, device=dev)
     err = lib.ell_transpose_sum(_ptr(g_edge), int(g_edge.dtype == torch.float32), _ptr(perm),
                                 n, kk, f, _ptr(out), stream)
@@ -250,83 +267,615 @@ def _transpose_sum_rows(lib, g_edge, perm, n, kk, f, dev, stream):
     return out
 
 
-def _split_src(src, h):
+# --- the plain versions of the backward's and second order's passes: the
+# kernels' arithmetic (rounding points included) in composable ops
+
+
+def _wdt(dtype):
+    """The accumulation dtype of an operand dtype."""
+    return torch.float32 if dtype in (torch.bfloat16, torch.float16) else dtype
+
+
+def _dact(name, x):
+    """f'(x) of an activation, as the kernels compute it."""
+    if name == "silu":
+        s = torch.sigmoid(x)
+        return s * (1 + x * (1 - s))
+    if name == "ssp":
+        return torch.sigmoid(x)
+    if name == "tanh":
+        t = torch.tanh(x)
+        return 1 - t * t
+    s = torch.sigmoid(x)
+    return s * (1 - s)
+
+
+def _act3(name, x):
+    """(f, f', f'') of an activation, as the second-order kernels compute them."""
+    from torchmdnet_tpu_torch.ops.activations import act_fn_mapping
+
+    if name == "tanh":
+        t = torch.tanh(x)
+        return t, 1 - t * t, -2 * t * (1 - t * t)
+    s = torch.sigmoid(x)
+    if name == "silu":
+        return x * s, s * (1 + x * (1 - s)), s * (1 - s) * (2 + x * (1 - 2 * s))
+    if name == "ssp":
+        return act_fn_mapping["ssp"](x), s, s * (1 - s)
+    return s, s * (1 - s), s * (1 - s) * (1 - 2 * s)
+
+
+def _filters_rows(wdk, wdv, h, dtype, device, cols=None):
+    """(4H, cols) (cols defaults to RBF): the dk filter's columns, then the
+    dv filter's, as rows; zero rows for an absent filter, zero padding
+    columns."""
+    rbf = (wdk if wdk is not None else wdv).shape[0]
+    out = torch.zeros((4 * h, cols or rbf), dtype=dtype, device=device)
+    if wdk is not None:
+        out[:h, :rbf] = wdk.t()
+    if wdv is not None:
+        out[h:, :rbf] = wdv.t()
+    return out
+
+
+class _Edges:
+    """The per-edge operands of a list of edges ``e`` (flat indices i*K + k)
+    whose source atoms are ``src``, in the kernels' precision: ``bf`` the
+    operand dtype, ``acc`` its accumulation dtype, ``r`` the rounding to
+    ``bf`` (the identity in f64).  Receiver rows are gathered by e // K."""
+
+    def __init__(self, idx, e, src, q, ea, msk, dirs, heads):
+        n, kk = idx.shape
+        self.h = q.shape[1]
+        self.heads = heads
+        self.bf = q.dtype
+        self.acc = _wdt(q.dtype)
+        self.e, self.src, self.recv = e, src, torch.div(e, kk, rounding_mode="floor")
+        self.ea = ea.reshape(n * kk, -1)[e]
+        self.m = self.r(msk.reshape(-1)[e].to(self.acc))[:, None]
+        self.dirs = [self.r(d.reshape(-1)[e].to(self.acc))[:, None] for d in dirs]
+
+    def r(self, x):
+        return x.to(self.bf).to(self.acc)
+
+    def rows(self, t, which):
+        """rows of an (N, F) table at the receivers or the sources, wide."""
+        return t[self.recv if which == "recv" else self.src].to(self.acc)
+
+    def heads_to_channels(self, x):
+        """(E, heads) per-head values -> (E, H)."""
+        return x.repeat_interleave(self.h // self.heads, dim=1)
+
+    def head_sum(self, x):
+        e = x.shape[0]
+        hd = self.h // self.heads
+        return x.reshape(e, self.heads, hd).sum(-1, keepdim=True).expand(e, self.heads, hd).reshape(e, self.h)
+
+    def filters(self, wdk, bdk, wdv, bdv, act):
+        """[(pre-activation, value)] of dk and the dv thirds (None where absent),
+        as filter_val computes them: bf16(bf16(ea . W) + b), bf16(act(.))."""
+        from torchmdnet_tpu_torch.ops.activations import act_fn_mapping
+
+        h, out = self.h, [None] * 4
+        for w, b, cols in ((wdk, bdk, [0]), (wdv, bdv, [1, 2, 3])):
+            if w is None:
+                continue
+            pre = self.r(self.ea.to(self.acc) @ w.to(self.acc))
+            for t, c in enumerate(cols):
+                p = self.r(pre[:, t * h : (t + 1) * h] + b.reshape(-1)[t * h : (t + 1) * h].to(self.acc))
+                out[c] = (p, self.r(act_fn_mapping[act](p)))
+        return out
+
+
+def bwd_receiver_reference(idx, q, k, v, vec0, vec1, vec2, ea, cutm, msk, dirs, wdk, bdk, wdv, bdv,
+                           ct_x, ct_vec, *, heads, act, attn_act, want_dpre):
+    """Plain version of the backward's receiver pass (``et_bwd_kernel``).
+
+    Returns (dq (N, H), dea (N, K, RBF), dcutm (N, K), [ddir0..2] (N, K),
+    hs (N*K, 2, heads): each edge's head-summed d_prod and attn, dpre (N*K,
+    4H) the filter cotangents and db (4H,) their sum over the edges, both
+    None unless ``want_dpre``); dq, dcutm, ddir, db in the accumulation
+    dtype, the rest in the operands'."""
+    n, kk = idx.shape
+    e = torch.arange(n * kk, device=idx.device)
+    x = _Edges(idx, e, idx.reshape(-1).long(), q, ea, msk, dirs, heads)
+    r, bf, acc, h = x.r, x.bf, x.acc, q.shape[1]
+    kj, vj = x.rows(k, "src"), x.rows(v, "src")
+    vecj = [x.rows(t, "src") for t in (vec0, vec1, vec2)]
+    qi, ctx = x.rows(q, "recv"), r(x.rows(ct_x, "recv"))
+    ctv = r(x.rows(ct_vec, "recv"))
+    ctv = [ctv[:, c * h : (c + 1) * h] for c in range(3)]
+    filt = x.filters(wdk, bdk, wdv, bdv, act)
+    cm = r(cutm.reshape(-1, 1).to(acc))
+    vdv = [r(vj[:, c * h : (c + 1) * h] * filt[1 + c][1]) if filt[1] else vj[:, c * h : (c + 1) * h]
+           for c in range(3)]
+    prod = r(qi * kj)
+    if filt[0]:
+        prod = r(prod * filt[0][1])
+    pre_a = r(x.head_sum(prod))
+    from torchmdnet_tpu_torch.ops.activations import act_fn_mapping
+
+    a_act = r(act_fn_mapping[attn_act](pre_a))
+    attn = r(a_act * cm)
+    d_attn = r(ctx * vdv[0])
+    d_xm = r(ctx * attn)
+    d_prea = r(r(r(_dact(attn_act, pre_a)) * cm) * d_attn)
+    dcutm = r(a_act * d_attn).sum(-1)
+    d_prod = r(x.head_sum(d_prea))
+    qk = r(d_prod * qi)
+    dq = r(r(d_prod * kj) * filt[0][1]) if filt[0] else r(d_prod * kj)
+    d_vw1 = torch.zeros_like(qi)
+    d_vw2 = torch.zeros_like(qi)
+    ddirs = []
+    for c in range(3):
+        d_vw1 = r(d_vw1 + r(r(ctv[c] * vecj[c]) * x.m))
+        d_vw2 = r(d_vw2 + r(ctv[c] * x.dirs[c]))
+        ddirs.append(r(ctv[c] * vdv[2]).sum(-1).reshape(n, kk))
+    d_vdv = [d_xm, d_vw1, d_vw2]
+    zero = torch.zeros_like(qi)
+    d_pre = [r(r(_dact(act, filt[0][0])) * r(qk * kj)) if filt[0] else zero]
+    d_pre += [r(r(_dact(act, filt[1 + c][0])) * r(d_vdv[c] * vj[:, c * h : (c + 1) * h])) if filt[1] else zero
+              for c in range(3)]
+    d_pre = torch.cat(d_pre, dim=-1)
+    if filt[0] or filt[1]:
+        dea = (d_pre @ _filters_rows(wdk, wdv, h, acc, d_pre.device)).to(ea.dtype).reshape(ea.shape)
+    else:
+        dea = torch.zeros_like(ea)
+    hd = h // heads
+    hs = torch.stack([d_prod[:, ::hd], attn[:, ::hd]], dim=1).to(bf)
+    dpre = db = None
+    if want_dpre:
+        dpre = d_pre.to(bf)
+        db = dpre.to(acc).sum(0)
+    return (dq.reshape(n, kk, h).sum(1), dea, dcutm.reshape(n, kk), ddirs, hs, dpre, db)
+
+
+def _bwd_source_terms(x, q, k, v, vec0, vec1, vec2, ct_x, ct_vec, hs, filt):
+    """The backward's per-edge source-row cotangents (E, 7H) of the edges of
+    ``x`` (an ``_Edges``), [k | v | vec0 | vec1 | vec2]: bf16 values (in
+    bf16), wide, from ``filt`` (``_Edges.filters``) and hs's d_prod, attn."""
+    r, h = x.r, x.h
+    vj = x.rows(v, "src")
+    vecj = [x.rows(t, "src") for t in (vec0, vec1, vec2)]
+    qi, ctx = x.rows(q, "recv"), r(x.rows(ct_x, "recv"))
+    ctv = r(x.rows(ct_vec, "recv"))
+    ctv = [ctv[:, c * h : (c + 1) * h] for c in range(3)]
+    hs_e = hs.reshape(-1, 2, x.heads)[x.e].to(x.acc)
+    d_prod, attn = x.heads_to_channels(hs_e[:, 0]), x.heads_to_channels(hs_e[:, 1])
+    vdv = [r(vj[:, c * h : (c + 1) * h] * filt[1 + c][1]) if filt[1] else vj[:, c * h : (c + 1) * h]
+           for c in range(3)]
+    qk = r(d_prod * qi)
+    d_k = r(qk * filt[0][1]) if filt[0] else qk
+    vm1 = r(vdv[1] * x.m)
+    d_vw1 = torch.zeros_like(qi)
+    d_vw2 = torch.zeros_like(qi)
+    d_vec = []
+    for c in range(3):
+        d_vw1 = r(d_vw1 + r(r(ctv[c] * vecj[c]) * x.m))
+        d_vw2 = r(d_vw2 + r(ctv[c] * x.dirs[c]))
+        d_vec.append(r(ctv[c] * vm1))
+    d_vdv = [r(ctx * attn), d_vw1, d_vw2]
+    d_v = [r(d_vdv[c] * filt[1 + c][1]) if filt[1] else d_vdv[c] for c in range(3)]
+    return torch.cat([d_k, *d_v, *d_vec], dim=-1)
+
+
+def _slots(idx, perm):
+    """The source pass's edges: perm, and each slot's source atom."""
+    n, kk = idx.shape
+    return perm.long(), torch.arange(n, device=idx.device).repeat_interleave(kk)
+
+
+def _split_rows(src, h):
     """(N, 7H) source-row gradients -> (k, v, vec0, vec1, vec2), each contiguous."""
     return (src[:, :h].contiguous(), src[:, h : 4 * h].contiguous(),
             src[:, 4 * h : 5 * h].contiguous(), src[:, 5 * h : 6 * h].contiguous(),
             src[:, 6 * h :].contiguous())
 
 
-def run_bwd(idx, perm, q, k, v, vec0, vec1, vec2, ea, cutm, msk, dirs, wdk, bdk, wdv, bdv,
-            ct_x, ct_vec, *, heads, act, attn_act, want_weight_grads: bool):
-    """Launch the backward kernel and the transpose-sum of its source-row
-    cotangents.  The weight cotangents, when wanted, are accumulated by the
-    kernel into per-block f32 partials, summed here once.
+def bwd_source_reference(idx, perm, q, k, v, vec0, vec1, vec2, ea, msk, dirs, wdk, bdk, wdv, bdv,
+                         ct_x, ct_vec, hs, *, heads, act):
+    """Plain version of the backward's source pass (``et_bwd_src_kernel``):
+    per atom j, the per-edge source-row cotangents of the K edges that
+    ``perm`` lists for j, recomputed from their ea rows, the receivers' rows
+    and hs, summed in slot order in the accumulation dtype and rounded once.
+    Returns (dk, dv, dvec0, dvec1, dvec2) in the operands' dtype."""
+    n, kk = idx.shape
+    e, src = _slots(idx, perm)
+    x = _Edges(idx, e, src, q, ea, msk, dirs, heads)
+    terms = _bwd_source_terms(x, q, k, v, vec0, vec1, vec2, ct_x, ct_vec, hs,
+                              x.filters(wdk, bdk, wdv, bdv, act))
+    return _split_rows(terms.reshape(n, kk, -1).sum(1).to(q.dtype), q.shape[1])
 
-    Returns (dq, dk, dv, dvec0, dvec1, dvec2, dea, dcutm, ddir0, ddir1,
-    ddir2, dwdk, dbdk, dwdv, dbdv) in the operands' dtypes; the weight
-    cotangents are None unless ``want_weight_grads``."""
+
+def weight_grads_reference(pairs, rbf):
+    """Plain version of ``et_dw_kernel``: (RBF, F) = sum over the pairs of
+    a^T . b over the edges, in the accumulation dtype."""
+    acc = _wdt(pairs[0][0].dtype)
+    return sum(a.to(acc).t() @ b.to(acc) for a, b in pairs)[:rbf]
+
+
+def weight_grads(pairs, rbf):
+    """The filters' weight cotangents from per-edge filter cotangents: (RBF,
+    F) f32 = sum over the edges of a^T . b for each (a, b) in ``pairs``, a
+    (E, RBF) edge rows (ea, z_ea), b (E, F) bf16 filter cotangents.  CUDA
+    tensors run ``et_dw_kernel`` (a fixed split of the edges, its partials
+    summed once); CPU tensors the plain version."""
+    a0, b0 = pairs[0]
+    if a0.device.type == "cpu":
+        return weight_grads_reference(pairs, rbf)
+    lib = _lib()
+    dev = a0.device
+    ne, f = b0.shape
+    for a, b in pairs:
+        _check(a, "edge rows", torch.bfloat16, (ne, rbf), dev)
+        _check(b, "filter cotangents", torch.bfloat16, (ne, f), dev)
+    rbfp = -(-rbf // 16) * 16
+    # about four blocks an SM (the kernel's resident count), each a split
+    # of 64-edge tiles
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    want = max(1, -(-4 * sms // ((f // 128) * -(-rbfp // 64))))
+    per_split = -(-(-(-ne // want)) // 64) * 64
+    part = torch.empty((-(-ne // per_split), rbfp, f), dtype=torch.float32, device=dev)
+    a1, b1 = pairs[1] if len(pairs) > 1 else (None, None)
+    with torch.cuda.device(dev):
+        err = lib.et_dw(_ptr(a0), _ptr(b0), _ptr(a1), _ptr(b1), len(pairs), ne, rbf, f, per_split,
+                        _ptr(part), _stream(dev))
+    _raise_on(lib, err, "et_dw launch")
+    weight_grads.launches += 1
+    return part.sum(dim=0)[:rbf]
+
+
+weight_grads.launches = 0
+
+
+def bwd_source(idx, perm, q, k, v, vec0, vec1, vec2, ea, cutm, msk, dirs, wdk, bdk, wdv, bdv,
+               ct_x, ct_vec, hs, *, heads, act, attn_act):
+    """The backward's source pass: (dk, dv, dvec0, dvec1, dvec2) bf16 from
+    the receiver pass's hs.  CUDA tensors run ``et_bwd_src_kernel``, CPU
+    tensors ``bwd_source_reference``."""
+    if q.device.type == "cpu":
+        return bwd_source_reference(idx, perm, q, k, v, vec0, vec1, vec2, ea, msk, dirs,
+                                    wdk, bdk, wdv, bdv, ct_x, ct_vec, hs, heads=heads, act=act)
     lib = _lib()
     (n, kk, h, rbf), tensors = _prepare(
         idx, q, k, v, vec0, vec1, vec2, ea, cutm, msk, dirs, wdk, bdk, wdv, bdv, heads
     )
     dev = q.device
     _check(perm, "perm", torch.int32, (n * kk,), dev)
+    _check(hs, "hs", torch.bfloat16, (n * kk, 2, heads), dev)
+    outs = [torch.empty((n, w * h), dtype=torch.bfloat16, device=dev) for w in (1, 3, 1, 1, 1)]
+    with torch.cuda.device(dev):
+        err = lib.et_bwd_src(
+            _ptr(idx), n, kk, h, heads, rbf, *[_ptr(t) for t in tensors],
+            _ACT_CODE[act], _ACT_CODE[attn_act], _ptr(perm), _ptr(ct_x), _ptr(ct_vec), _ptr(hs),
+            *[_ptr(t) for t in outs], _stream(dev),
+        )
+    _raise_on(lib, err, "et_bwd_src launch")
+    bwd_source.launches += 1
+    return tuple(outs)
+
+
+bwd_source.launches = 0
+
+
+def bwd_receiver(idx, q, k, v, vec0, vec1, vec2, ea, cutm, msk, dirs, wdk, bdk, wdv, bdv, ct_x, ct_vec,
+                 *, heads, act, attn_act, want_dpre):
+    """The backward's receiver pass: (dq, dea, dcutm, [ddir0..2], hs, dpre,
+    db) as ``bwd_receiver_reference`` returns them (dq, dcutm, ddir, db f32
+    on the card).  CUDA tensors run ``et_bwd_kernel`` (counted by
+    ``run_bwd.launches``), CPU tensors the plain version."""
+    if q.device.type == "cpu":
+        return bwd_receiver_reference(idx, q, k, v, vec0, vec1, vec2, ea, cutm, msk, dirs, wdk, bdk,
+                                      wdv, bdv, ct_x, ct_vec, heads=heads, act=act, attn_act=attn_act,
+                                      want_dpre=want_dpre)
+    lib = _lib()
+    (n, kk, h, rbf), tensors = _prepare(
+        idx, q, k, v, vec0, vec1, vec2, ea, cutm, msk, dirs, wdk, bdk, wdv, bdv, heads
+    )
+    dev = q.device
     _check(ct_x, "ct_x", torch.float32, (n, h), dev)
     _check(ct_vec, "ct_vec", torch.float32, (n, 3 * h), dev)
-    f32 = torch.float32
-    want_dw = want_weight_grads and (wdk is not None or wdv is not None)
+    f32, bf = torch.float32, torch.bfloat16
     dq = torch.empty((n, h), dtype=f32, device=dev)
-    dea = torch.empty((n, kk, rbf), dtype=torch.bfloat16, device=dev)
+    dea = torch.empty((n, kk, rbf), dtype=bf, device=dev)
     dcutm = torch.empty((n, kk), dtype=f32, device=dev)
     ddirs = [torch.empty((n, kk), dtype=f32, device=dev) for _ in range(3)]
-    dsrc_edge = torch.empty((n, kk, 7 * h), dtype=torch.bfloat16, device=dev)
-    dw_part = db_part = None
+    hs = torch.empty((n * kk, 2, heads), dtype=bf, device=dev)
+    dpre = db_part = None
     with torch.cuda.device(dev):
-        if want_dw:
-            dw_part, db_part = _weight_partials(lib, 1, n, kk, h, heads, rbf, dev)
-        stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+        if want_dpre and (wdk is not None or wdv is not None):
+            dpre = torch.empty((n * kk, 4 * h), dtype=bf, device=dev)
+            db_part = _db_partials(lib, 1, n, kk, h, heads, rbf, dev)
         err = lib.et_bwd(
             _ptr(idx), n, kk, h, heads, rbf, *[_ptr(t) for t in tensors],
             _ACT_CODE[act], _ACT_CODE[attn_act], _ptr(ct_x), _ptr(ct_vec),
-            _ptr(dq), _ptr(dea), _ptr(dcutm), *[_ptr(t) for t in ddirs],
-            _ptr(dsrc_edge), _ptr(dw_part), _ptr(db_part), stream,
+            _ptr(dq), _ptr(dea), _ptr(dcutm), *[_ptr(t) for t in ddirs], _ptr(hs),
+            _ptr(dpre), _ptr(db_part), _stream(dev),
         )
-        _raise_on(lib, err, "et_bwd launch")
-        dsrc = _transpose_sum_rows(lib, dsrc_edge, perm, n, kk, 7 * h, dev, stream)
+    _raise_on(lib, err, "et_bwd launch")
     run_bwd.launches += 1
-    dwdk = dbdk = dwdv = dbdv = None
+    return dq, dea, dcutm, ddirs, hs, dpre, None if db_part is None else db_part.sum(dim=0)
+
+
+def run_bwd(idx, perm, q, k, v, vec0, vec1, vec2, ea, cutm, msk, dirs, wdk, bdk, wdv, bdv,
+            ct_x, ct_vec, *, heads, act, attn_act, want_weight_grads: bool):
+    """The backward: its receiver pass (``bwd_receiver``), its source pass
+    (``bwd_source``) and, when wanted, the weight cotangents from the
+    receiver pass's per-edge filter cotangents (``weight_grads``).  CPU
+    tensors take the passes' plain versions.
+
+    Returns (dq, dk, dv, dvec0, dvec1, dvec2, dea, dcutm, ddir0, ddir1,
+    ddir2, dwdk, dbdk, dwdv, dbdv) in the operands' dtypes; the weight
+    cotangents are None unless ``want_weight_grads``."""
+    want_dw = want_weight_grads and (wdk is not None or wdv is not None)
+    n, kk = idx.shape
+    if q.device.type != "cpu":
+        _check(perm, "perm", torch.int32, (n * kk,), q.device)
+    dq, dea, dcutm, ddirs, hs, dpre, db = bwd_receiver(
+        idx, q, k, v, vec0, vec1, vec2, ea, cutm, msk, dirs, wdk, bdk, wdv, bdv, ct_x, ct_vec,
+        heads=heads, act=act, attn_act=attn_act, want_dpre=want_dw)
+    src = bwd_source(idx, perm, q, k, v, vec0, vec1, vec2, ea, cutm, msk, dirs, wdk, bdk, wdv, bdv,
+                     ct_x, ct_vec, hs, heads=heads, act=act, attn_act=attn_act)
+    gw = (None,) * 4
     if want_dw:
-        dwdk, dbdk, dwdv, dbdv = _sum_partials(dw_part, db_part, rbf, h, wdk, bdk, wdv, bdv)
-    return (dq.to(q.dtype), *_split_src(dsrc, h), dea, dcutm, *ddirs, dwdk, dbdk, dwdv, dbdv)
+        dw = weight_grads([(ea.reshape(n * kk, -1), dpre)], ea.shape[-1])
+        gw = _split_weights(dw, db, q.shape[1], wdk, bdk, wdv, bdv)
+    return (dq.to(q.dtype), *src, dea, dcutm, *ddirs, *gw)
 
 
 run_bwd.launches = 0
 
 
-def _filters_all(wdk, wdv, h, rbf, like):
-    """(4H, RBFP) bf16: the dk filter's columns, then the dv filter's, as
-    rows; zero rows for an absent filter, zero padding columns."""
-    rbfp = -(-rbf // 16) * 16
-    w = torch.zeros((4 * h, rbfp), dtype=torch.bfloat16, device=like.device)
-    if wdk is not None:
-        w[:h, :rbf] = wdk.t()
-    if wdv is not None:
-        w[h:, :rbf] = wdv.t()
-    return w
+def _z_operands(inputs, Z, bf, f32):
+    """The Z operands of the second order's passes, in the kernels' order
+    (zq, zk, zv, zvec0..2, zea, zcutm, zdir0..2): None becomes zeros."""
+    def z(i, dtype):
+        t, like = Z[i], inputs[i]
+        return torch.zeros(like.shape, dtype=dtype, device=like.device) if t is None else t.to(dtype).contiguous()
+
+    return [z(0, bf), z(1, bf), z(2, bf), z(3, bf), z(4, bf), z(5, bf), z(6, bf), z(7, f32),
+            z(9, f32), z(10, f32), z(11, f32)]
 
 
-def run_bwd2(idx, perm, inputs, ct, Z, *, heads, act, attn_act):
-    """Launch the second-order kernel and the transpose-sum of its source-row
-    gradients.
+class _Dual:
+    """The second order's per-edge dual forward of an ``_Edges``: filters
+    and their tangents (pre' = z_ea.W + ea.Z_W + z_b) with the activations'
+    derivatives, as the kernels compute them."""
 
-    ``inputs`` are the fused op's 16 operands (filters None where absent),
-    ``ct`` = (ct_x, ct_vec) f32, ``Z`` the 16 cotangents on ``run_bwd``'s
-    outputs (the msk slot is ignored; None means zero).  Returns (g_inputs,
-    g_ct): the 16 gradients in the inputs' dtypes (None for absent filters)
-    and (g_ct_x, g_ct_vec) f32."""
+    def __init__(self, x, zea, inputs, Z, act):
+        h, r, acc = x.h, x.r, x.acc
+        wdk, bdk, wdv, bdv = inputs[12:16]
+        one, zero = torch.ones_like(x.ea[:, :1], dtype=acc), torch.zeros_like(x.ea[:, :1], dtype=acc)
+        self.dk, self.dk1, self.dk2, self.pkt, self.dkt = one, zero, zero, zero, zero
+        self.dv = [one] * 3
+        self.dv1, self.dv2, self.pvt, self.dvt = [zero] * 3, [zero] * 3, [zero] * 3, [zero] * 3
+        self.has_dk, self.has_dv = wdk is not None, wdv is not None
+        if not (self.has_dk or self.has_dv):
+            return
+        w = _filters_rows(wdk, wdv, h, acc, x.ea.device).t()
+        zwm = _filters_rows(None if wdk is None else _zero_if_none(Z[12], wdk),
+                            None if wdv is None else _zero_if_none(Z[14], wdv), h, acc, x.ea.device).t()
+        ea, zea = x.ea.to(acc), zea.reshape(-1, zea.shape[-1])[x.e].to(acc)
+        pre = r(ea @ w)
+        pret = r(zea @ w + ea @ zwm)
+        if self.has_dk:
+            pk = r(pre[:, :h] + bdk.reshape(-1).to(acc))
+            f, self.dk1, self.dk2 = _act3(act, pk)
+            self.dk = r(f)
+            self.pkt = r(pret[:, :h] + _zero_if_none(Z[13], bdk).reshape(-1).to(acc))
+            self.dkt = self.dk1 * self.pkt
+        if self.has_dv:
+            for c in range(3):
+                cols = slice((1 + c) * h, (2 + c) * h)
+                pv = r(pre[:, cols] + bdv.reshape(-1)[c * h : (c + 1) * h].to(acc))
+                f, self.dv1[c], self.dv2[c] = _act3(act, pv)
+                self.dv[c] = r(f)
+                self.pvt[c] = r(pret[:, cols] + _zero_if_none(Z[15], bdv).reshape(-1)[c * h : (c + 1) * h].to(acc))
+                self.dvt[c] = self.dv1[c] * self.pvt[c]
+
+
+def _zero_if_none(t, like):
+    return torch.zeros_like(like) if t is None else t
+
+
+def bwd2_receiver_reference(idx, inputs, ct, Z, *, heads, act, attn_act):
+    """Plain version of the second order's receiver pass (``et_bwd2_kernel``).
+
+    Returns (gq (N, H), gea (N, K, RBF), gcutm, gmsk (N, K), [gdir0..2] (N,
+    K), gctx (N, H), gctvec (N, 3H), hs4 (N*K, 4, heads): attn, attn' and the
+    head-summed reverse seeds of prod' and prod, bpre and bpret (N*K, 4H) the
+    filter cotangents and their tangents' and db (4H,), the last three None
+    without filters); gea, bpre, bpret in the operands' dtype, the rest in
+    the accumulation dtype."""
+    q, k, v, vec0, vec1, vec2, ea, cutm, msk, dir0, dir1, dir2, wdk, bdk, wdv, bdv = inputs
+    n, kk = idx.shape
+    h = q.shape[1]
+    x = _Edges(idx, torch.arange(n * kk, device=idx.device), idx.reshape(-1).long(), q, ea, msk,
+               (dir0, dir1, dir2), heads)
+    r, acc = x.r, x.acc
+    z = [_zero_if_none(Z[i], inputs[i]) for i in range(12)]
+    d = _Dual(x, z[6], inputs, Z, act)
+    xk, xv = x.rows(k, "src"), x.rows(v, "src")
+    xv = [xv[:, c * h : (c + 1) * h] for c in range(3)]
+    xvec = [x.rows(t, "src") for t in (vec0, vec1, vec2)]
+    zk, zv = x.rows(z[1], "src"), x.rows(z[2], "src")
+    zv = [zv[:, c * h : (c + 1) * h] for c in range(3)]
+    zvec = [x.rows(z[3 + c], "src") for c in range(3)]
+    qi, zqi = x.rows(q, "recv"), x.rows(z[0], "recv")
+    ctx = r(x.rows(ct[0], "recv"))
+    ctv = r(x.rows(ct[1], "recv"))
+    ctv = [ctv[:, c * h : (c + 1) * h] for c in range(3)]
+    cm = r(cutm.reshape(-1, 1).to(acc))
+    zcm = z[7].reshape(-1, 1).to(acc)
+    zdir = [z[9 + c].reshape(-1, 1).to(acc) for c in range(3)]
+    m, dirs = x.m, x.dirs
+    qk = r(qi * xk)
+    prod = r(qk * d.dk) if d.has_dk else qk
+    prodt = (zqi * xk + qi * zk) * d.dk + qi * xk * d.dkt
+    pa = r(x.head_sum(prod))
+    pat = x.head_sum(prodt)
+    aa, a1, a2 = _act3(attn_act, pa)
+    aa = r(aa)
+    attn = r(aa * cm)
+    attnt = a1 * pat * cm + aa * zcm
+    vdv = [r(xv[c] * d.dv[c]) if d.has_dv else xv[c] for c in range(3)]
+    vdvt = [zv[c] * d.dv[c] + xv[c] * d.dvt[c] for c in range(3)]
+    gx = vdvt[0] * attn + vdv[0] * attnt
+    gv = [(zvec[c] * vdv[1] + xvec[c] * vdvt[1]) * m + vdvt[2] * dirs[c] + vdv[2] * zdir[c] for c in range(3)]
+    cv = sum(ctv[c] * xvec[c] for c in range(3))
+    czv = sum(ctv[c] * zvec[c] for c in range(3))
+    cd = sum(ctv[c] * dirs[c] for c in range(3))
+    czd = sum(ctv[c] * zdir[c] for c in range(3))
+    b_vdvt = [ctx * attn, m * cv, cd]
+    b_vdv = [ctx * attnt, m * czv, czd]
+    b_attnt, b_attn = ctx * vdv[0], ctx * vdvt[0]
+    gdirs = [(ctv[c] * vdvt[2]).sum(-1).reshape(n, kk) for c in range(3)]
+    gmsk = (czv * vdv[1] + cv * vdvt[1]).sum(-1).reshape(n, kk)
+    gcutm = (b_attnt * a1 * pat + b_attn * aa).sum(-1).reshape(n, kk)
+    b_prodt = x.head_sum(b_attnt * a1 * cm)
+    b_prod = x.head_sum(b_attnt * (a2 * pat * cm + a1 * zcm) + b_attn * a1 * cm)
+    hd = h // heads
+    hs4 = torch.stack([attn[:, ::hd], attnt[:, ::hd], b_prodt[:, ::hd], b_prod[:, ::hd]], dim=1)
+    gq = b_prodt * (zk * d.dk + xk * d.dkt) + b_prod * xk * d.dk
+    zero = torch.zeros_like(qi)
+    bpre, bpret = [zero] * 4, [zero] * 4
+    if d.has_dk:
+        b_dk = b_prodt * (zqi * xk + qi * zk) + b_prod * qi * xk
+        b_dkt = b_prodt * qi * xk
+        bpret[0] = b_dkt * d.dk1
+        bpre[0] = b_dkt * d.dk2 * d.pkt + b_dk * d.dk1
+    if d.has_dv:
+        for c in range(3):
+            b_dv = b_vdvt[c] * zv[c] + b_vdv[c] * xv[c]
+            b_dvt = b_vdvt[c] * xv[c]
+            bpret[1 + c] = b_dvt * d.dv1[c]
+            bpre[1 + c] = b_dvt * d.dv2[c] * d.pvt[c] + b_dv * d.dv1[c]
+    bpre_b = bpret_b = db = None
+    if d.has_dk or d.has_dv:
+        bpre_b, bpret_b = torch.cat(bpre, -1).to(x.bf), torch.cat(bpret, -1).to(x.bf)
+        wm = _filters_rows(wdk, wdv, h, acc, ea.device)
+        zwm = _filters_rows(None if wdk is None else _zero_if_none(Z[12], wdk),
+                            None if wdv is None else _zero_if_none(Z[14], wdv), h, acc, ea.device)
+        gea = (bpre_b.to(acc) @ wm + bpret_b.to(acc) @ zwm).to(ea.dtype).reshape(ea.shape)
+        db = bpre_b.to(acc).sum(0)
+    else:
+        gea = torch.zeros_like(ea)
+    return (gq.reshape(n, kk, h).sum(1), gea, gcutm, gmsk, gdirs, gx.reshape(n, kk, h).sum(1),
+            torch.cat([g.reshape(n, kk, h).sum(1) for g in gv], -1), hs4, bpre_b, bpret_b, db)
+
+
+def _bwd2_source_terms(x, d, inputs, ct, z, hs4):
+    """The second order's per-edge source-row gradients (E, 7H) of the edges
+    of ``x``, [k | v | vec0 | vec1 | vec2], wide, from ``d`` (``_Dual``) and
+    hs4."""
+    q, k, v, vec0, vec1, vec2 = inputs[:6]
+    r, h = x.r, x.h
+    xv = x.rows(v, "src")
+    xv = [xv[:, c * h : (c + 1) * h] for c in range(3)]
+    xvec = [x.rows(t, "src") for t in (vec0, vec1, vec2)]
+    zv = x.rows(z[2], "src")
+    zv = [zv[:, c * h : (c + 1) * h] for c in range(3)]
+    zvec = [x.rows(z[3 + c], "src") for c in range(3)]
+    qi, zqi = x.rows(q, "recv"), x.rows(z[0], "recv")
+    ctx = r(x.rows(ct[0], "recv"))
+    ctv = r(x.rows(ct[1], "recv"))
+    ctv = [ctv[:, c * h : (c + 1) * h] for c in range(3)]
+    zdir = [z[9 + c].reshape(-1)[x.e].to(x.acc)[:, None] for c in range(3)]
+    hs_e = hs4.reshape(-1, 4, x.heads)[x.e].to(x.acc)
+    attn, attnt, b_prodt, b_prod = (x.heads_to_channels(hs_e[:, s]) for s in range(4))
+    m = x.m
+    vdvt1 = zv[1] * d.dv[1] + xv[1] * d.dvt[1]
+    g_vec = [ctv[c] * vdvt1 * m for c in range(3)]
+    cv = sum(ctv[c] * xvec[c] for c in range(3))
+    czv = sum(ctv[c] * zvec[c] for c in range(3))
+    cd = sum(ctv[c] * x.dirs[c] for c in range(3))
+    czd = sum(ctv[c] * zdir[c] for c in range(3))
+    b_vdvt = [ctx * attn, m * cv, cd]
+    b_vdv = [ctx * attnt, m * czv, czd]
+    g_v = [b_vdvt[c] * d.dvt[c] + b_vdv[c] * d.dv[c] for c in range(3)]
+    g_k = b_prodt * (zqi * d.dk + qi * d.dkt) + b_prod * qi * d.dk
+    return torch.cat([g_k, *g_v, *g_vec], dim=-1)
+
+
+def bwd2_source_reference(idx, perm, inputs, ct, Z, hs4, *, heads, act):
+    """Plain version of the second order's source pass
+    (``et_bwd2_src_kernel``): per atom j, the per-edge gradients of k_j, v_j
+    and vec_j over the K edges ``perm`` lists for j, summed in slot order in
+    the accumulation dtype and rounded once to the operands' dtype.
+    Returns (gk, gv, gvec0, gvec1, gvec2)."""
+    q, ea, msk = inputs[0], inputs[6], inputs[8]
+    n, kk = idx.shape
+    e, src = _slots(idx, perm)
+    x = _Edges(idx, e, src, q, ea, msk, inputs[9:12], heads)
+    z = [_zero_if_none(Z[i], inputs[i]) for i in range(12)]
+    terms = _bwd2_source_terms(x, _Dual(x, z[6], inputs, Z, act), inputs, ct, z, hs4)
+    return _split_rows(terms.reshape(n, kk, -1).sum(1).to(q.dtype), q.shape[1])
+
+
+def bwd2_source(idx, perm, inputs, ct, Z, hs4, *, heads, act, attn_act):
+    """The second order's source pass: (gk, gv, gvec0, gvec1, gvec2) bf16
+    from the receiver pass's hs4.  CUDA tensors run ``et_bwd2_src_kernel``,
+    CPU tensors ``bwd2_source_reference``."""
+    q = inputs[0]
+    if q.device.type == "cpu":
+        return bwd2_source_reference(idx, perm, inputs, ct, Z, hs4, heads=heads, act=act)
     lib = _lib()
     (q, k, v, vec0, vec1, vec2, ea, cutm, msk, dir0, dir1, dir2, wdk, bdk, wdv, bdv) = inputs
+    (n, kk, h, rbf), tensors = _prepare(
+        idx, q, k, v, vec0, vec1, vec2, ea, cutm, msk, (dir0, dir1, dir2), wdk, bdk, wdv, bdv, heads
+    )
+    dev = q.device
+    f32, bf = torch.float32, torch.bfloat16
+    ct_x, ct_vec = (c.to(f32).contiguous() for c in ct)
+    _check(perm, "perm", torch.int32, (n * kk,), dev)
+    _check(hs4, "hs4", f32, (n * kk, 4, heads), dev)
+    zs = _z_operands(inputs, Z, bf, f32)
+    w_all, zw_all, zbk, zbv = _z_filters(inputs, Z, h, rbf)
+    outs = [torch.empty((n, w * h), dtype=bf, device=dev) for w in (1, 3, 1, 1, 1)]
+    with torch.cuda.device(dev):
+        err = lib.et_bwd2_src(
+            _ptr(idx), n, kk, h, heads, rbf, *[_ptr(t) for t in tensors],
+            _ACT_CODE[act], _ACT_CODE[attn_act], _ptr(perm), _ptr(ct_x), _ptr(ct_vec),
+            *[_ptr(t) for t in zs[:7]], *[_ptr(t) for t in zs[8:]], _ptr(w_all), _ptr(zw_all),
+            _ptr(zbk), _ptr(zbv), _ptr(hs4), *[_ptr(t) for t in outs], _stream(dev),
+        )
+    _raise_on(lib, err, "et_bwd2_src launch")
+    bwd2_source.launches += 1
+    return tuple(outs)
+
+
+bwd2_source.launches = 0
+
+
+def _z_filters(inputs, Z, h, rbf):
+    """(w_all, zw_all, zbk, zbv) of the second order's kernels: the filters
+    and their Z as (4H, RBFP) bf16 rows, the Z biases flat (None without
+    filters / for an absent filter)."""
+    wdk, bdk, wdv, bdv = inputs[12:16]
+    q = inputs[0]
+    bf = torch.bfloat16
+    if wdk is None and wdv is None:
+        return None, None, None, None
+    zt = lambda i, like: (torch.zeros(like.shape, dtype=bf, device=like.device) if Z[i] is None
+                          else Z[i].to(bf).contiguous())
+    rbfp = -(-rbf // 16) * 16  # the kernels' (4H, RBFP) bf16 layout
+    w_all = _filters_rows(wdk, wdv, h, bf, q.device, rbfp)
+    zw_all = _filters_rows(None if wdk is None else zt(12, wdk), None if wdv is None else zt(14, wdv), h,
+                           bf, q.device, rbfp)
+    zbk = None if wdk is None else zt(13, bdk).reshape(-1)
+    zbv = None if wdv is None else zt(15, bdv).reshape(-1)
+    return w_all, zw_all, zbk, zbv
+
+
+def bwd2_receiver(idx, inputs, ct, Z, *, heads, act, attn_act):
+    """The second order's receiver pass: (gq, gea, gcutm, gmsk, [gdir0..2],
+    gctx, gctvec, hs4, bpre, bpret, db) as ``bwd2_receiver_reference``
+    returns them.  CUDA tensors run ``et_bwd2_kernel`` (counted by
+    ``run_bwd2.launches``), CPU tensors the plain version."""
+    (q, k, v, vec0, vec1, vec2, ea, cutm, msk, dir0, dir1, dir2, wdk, bdk, wdv, bdv) = inputs
+    if q.device.type == "cpu":
+        return bwd2_receiver_reference(idx, inputs, ct, Z, heads=heads, act=act, attn_act=attn_act)
+    lib = _lib()
     (n, kk, h, rbf), tensors = _prepare(
         idx, q, k, v, vec0, vec1, vec2, ea, cutm, msk, (dir0, dir1, dir2), wdk, bdk, wdv, bdv, heads
     )
@@ -335,61 +884,85 @@ def run_bwd2(idx, perm, inputs, ct, Z, *, heads, act, attn_act):
     dev = q.device
     f32, bf = torch.float32, torch.bfloat16
     ct_x, ct_vec = (c.to(f32).contiguous() for c in ct)
-    _check(perm, "perm", torch.int32, (n * kk,), dev)
     _check(ct_x, "ct_x", f32, (n, h), dev)
     _check(ct_vec, "ct_vec", f32, (n, 3 * h), dev)
-
-    def z(i, like, dtype):
-        t = Z[i]
-        return torch.zeros(like.shape, dtype=dtype, device=dev) if t is None else t.to(dtype).contiguous()
-
-    zs = [z(0, q, bf), z(1, k, bf), z(2, v, bf), z(3, vec0, bf), z(4, vec1, bf), z(5, vec2, bf),
-          z(6, ea, bf), z(7, cutm, f32), z(9, dir0, f32), z(10, dir1, f32), z(11, dir2, f32)]
-    has_w = wdk is not None or wdv is not None
-    w_all = zw_all = zbk = zbv = None
-    if has_w:
-        w_all = _filters_all(wdk, wdv, h, rbf, q)
-        zw_all = _filters_all(None if wdk is None else z(12, wdk, bf),
-                              None if wdv is None else z(14, wdv, bf), h, rbf, q)
-        if wdk is not None:
-            zbk = z(13, bdk, bf).reshape(-1)
-        if wdv is not None:
-            zbv = z(15, bdv, bf).reshape(-1)
+    zs = _z_operands(inputs, Z, bf, f32)
+    w_all, zw_all, zbk, zbv = _z_filters(inputs, Z, h, rbf)
     gq = torch.empty((n, h), dtype=f32, device=dev)
     gea = torch.empty((n, kk, rbf), dtype=bf, device=dev)
     gsc = [torch.empty((n, kk), dtype=f32, device=dev) for _ in range(5)]  # cutm, msk, dir0..2
-    gsrc_edge = torch.empty((n, kk, 7 * h), dtype=f32, device=dev)
     gctx = torch.empty((n, h), dtype=f32, device=dev)
     gctvec = torch.empty((n, 3 * h), dtype=f32, device=dev)
-    dw_part = db_part = None
+    hs4 = torch.empty((n * kk, 4, heads), dtype=f32, device=dev)
+    bpre = bpret = db_part = None
     with torch.cuda.device(dev):
-        if has_w:
-            dw_part, db_part = _weight_partials(lib, 2, n, kk, h, heads, rbf, dev)
-        stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+        if w_all is not None:
+            bpre = torch.empty((n * kk, 4 * h), dtype=bf, device=dev)
+            bpret = torch.empty((n * kk, 4 * h), dtype=bf, device=dev)
+            db_part = _db_partials(lib, 2, n, kk, h, heads, rbf, dev)
         err = lib.et_bwd2(
             _ptr(idx), n, kk, h, heads, rbf, *[_ptr(t) for t in tensors],
             _ACT_CODE[act], _ACT_CODE[attn_act], _ptr(ct_x), _ptr(ct_vec),
             *[_ptr(t) for t in zs], _ptr(w_all), _ptr(zw_all), _ptr(zbk), _ptr(zbv),
-            _ptr(gq), _ptr(gea), *[_ptr(t) for t in gsc], _ptr(gsrc_edge), _ptr(gctx), _ptr(gctvec),
-            _ptr(dw_part), _ptr(db_part), stream,
+            _ptr(gq), _ptr(gea), *[_ptr(t) for t in gsc], _ptr(gctx), _ptr(gctvec), _ptr(hs4),
+            _ptr(bpre), _ptr(bpret), _ptr(db_part), _stream(dev),
         )
-        _raise_on(lib, err, "et_bwd2 launch")
-        gsrc = _transpose_sum_rows(lib, gsrc_edge, perm, n, kk, 7 * h, dev, stream)
+    _raise_on(lib, err, "et_bwd2 launch")
     run_bwd2.launches += 1
+    db = None if db_part is None else db_part.sum(dim=0)
+    return gq, gea, gsc[0], gsc[1], gsc[2:], gctx, gctvec, hs4, bpre, bpret, db
+
+
+def run_bwd2(idx, perm, inputs, ct, Z, *, heads, act, attn_act):
+    """The second order: its receiver pass (``bwd2_receiver``), its source
+    pass (``bwd2_source``) and the weight gradients from the receiver pass's
+    per-edge filter cotangents (``weight_grads``).  CPU tensors take the
+    passes' plain versions.
+
+    ``inputs`` are the fused op's 16 operands (filters None where absent),
+    ``ct`` = (ct_x, ct_vec), ``Z`` the 16 cotangents on ``run_bwd``'s
+    outputs (the msk slot is ignored; None means zero).  Returns (g_inputs,
+    g_ct): the 16 gradients in the inputs' dtypes (None for absent filters)
+    and (g_ct_x, g_ct_vec) f32 (the accumulation dtype on the CPU)."""
+    q, ea, wdk, bdk, wdv, bdv = inputs[0], inputs[6], *inputs[12:16]
+    n, kk = idx.shape
+    if q.device.type != "cpu":
+        _check(perm, "perm", torch.int32, (n * kk,), q.device)
+        ct = tuple(c.to(torch.float32).contiguous() for c in ct)
+    gq, gea, gcutm, gmsk, gdirs, gctx, gctvec, hs4, bpre, bpret, db = bwd2_receiver(
+        idx, inputs, ct, Z, heads=heads, act=act, attn_act=attn_act)
+    src = bwd2_source(idx, perm, inputs, ct, Z, hs4, heads=heads, act=act, attn_act=attn_act)
     gw = (None,) * 4
-    if has_w:
-        gw = _sum_partials(dw_part, db_part, rbf, h, wdk, bdk, wdv, bdv)
-    g_inputs = (gq.to(q.dtype), *_split_src(gsrc, h), gea, *gsc, *gw)
+    if bpre is not None:
+        zea = _zero_if_none(Z[6], ea).to(ea.dtype).reshape(n * kk, -1).contiguous()
+        dw = weight_grads([(ea.reshape(n * kk, -1), bpre), (zea, bpret)], ea.shape[-1])
+        gw = _split_weights(dw, db, q.shape[1], wdk, bdk, wdv, bdv)
+    g_inputs = (gq.to(q.dtype), *src, gea, gcutm, gmsk, *gdirs, *gw)
     return g_inputs, (gctx, gctvec)
 
 
 run_bwd2.launches = 0
 
 
+def kernel_resources(kind, n, kk, h, heads, rbf):
+    """A backward or second-order kernel's resources at a shape, from the
+    CUDA runtime (kind 1 ``et_bwd_kernel``, 2 ``et_bwd2_kernel``, 3
+    ``et_bwd_src_kernel``, 4 ``et_bwd2_src_kernel``, 5 ``et_dw_kernel``):
+    {registers, spill_bytes (local memory a thread), threads, smem (dynamic
+    shared memory a block), blocks_per_sm (resident)}.  Needs a CUDA device."""
+    lib = _lib()
+    out = (ctypes.c_int * 5)()
+    _raise_on(lib, lib.et_resources(kind, n, kk, h, heads, rbf, out), "et_resources")
+    return dict(zip(("registers", "spill_bytes", "threads", "smem", "blocks_per_sm"), out))
+
+
 def reset_launch_counts():
     run_fwd.launches = 0
     run_bwd.launches = 0
     run_bwd2.launches = 0
+    bwd_source.launches = 0
+    bwd2_source.launches = 0
+    weight_grads.launches = 0
 
 
 def _wide(t):

@@ -2,7 +2,8 @@
 cotangents, and the second-order kernel (#3) where the tree has it, for the
 port in a given checkout.
 
-    python3 torchmdnet_tpu_torch/tools/time_bwd.py [--tree DIR] [--label NAME]
+    python3 torchmdnet_tpu_torch/tools/time_bwd.py [--tree DIR] [--label NAME] [--dump DIR]
+    python3 torchmdnet_tpu_torch/tools/time_bwd.py --compare DIR LABEL_A LABEL_B
 
 ``--tree`` names the root of a checkout whose ``torchmdnet_tpu_torch`` is
 imported and built (default: the checkout holding this file), so that two
@@ -12,9 +13,14 @@ operands are chip_smoke.py's (the chip_smoke.py beside this package): the
 DHFR shapes (N = 2496, K = 81, H = 128, RBF = 50) and the training shapes
 (N = 2304, K = 33, H = 256, RBF = 64, a batch of 128 SyntheticMorse
 molecules, drawn with this checkout's package, so that a tree without the
-datasets is timed on the same batch).  Prints the card's name and power
-limit, then one JSON line of CUDA-event medians of 20 launches with the L2
-flushed.  Needs a CUDA device.
+datasets is timed on the same batch), and #2 without weight cotangents at
+ET MD's STMV skin list (N = 30,336, K = 112, H = 128, RBF = 50).  Prints the
+card's name and power limit, then one JSON line of CUDA-event medians of 20
+launches (5 at STMV) with the L2 flushed.  ``--dump DIR`` also saves one
+call's outputs per shape and kernel to DIR/LABEL.pt; ``--compare DIR A B``
+then prints, per output, whether two labels' outputs are bitwise equal and
+their largest difference over the largest value.  Needs a CUDA device
+(``--compare`` does not).
 """
 
 import argparse
@@ -38,7 +44,11 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Time the fused ET backward and second-order kernels.")
     ap.add_argument("--tree", default=ROOT, help="root of the checkout to time")
     ap.add_argument("--label", default=None, help="name printed with the result")
+    ap.add_argument("--dump", default=None, help="directory for one call's outputs per shape")
+    ap.add_argument("--compare", nargs=3, metavar=("DIR", "A", "B"), help="compare two dumps")
     args = ap.parse_args(argv)
+    if args.compare:
+        return compare(*args.compare)
     tree = os.path.abspath(args.tree)
     here = os.path.dirname(os.path.abspath(__file__))
     rest = [p for p in sys.path if os.path.abspath(p or os.curdir) != here]
@@ -73,11 +83,17 @@ def main(argv=None) -> int:
         "train": dict(n_atoms=None, k=a["max_num_neighbors"], h=a["embedding_dimension"],
                       heads=a["num_heads"], rbf=a["num_rbf"], cutoff=a["cutoff_upper"],
                       batch=cs._train_batch(train_mols, "cuda")),
+        "stmv": dict(heads=cs.ET_ARGS["num_heads"]),
     }
-    result = dict(label=args.label or tree, tree=tree)
+    label = args.label or tree
+    result = dict(label=label, tree=tree)
+    dumped = {}
     for name, s in shapes.items():
-        nbl, ins, cts = cs._kernel_inputs(s["n_atoms"], s["k"], s["h"], s["rbf"], s["cutoff"], cs.SEED,
-                                          batch=s["batch"])
+        if name == "stmv":
+            nbl, ins, cts = cs._stmv_kernel_inputs(cs.SEED)
+        else:
+            nbl, ins, cts = cs._kernel_inputs(s["n_atoms"], s["k"], s["h"], s["rbf"], s["cutoff"], cs.SEED,
+                                              batch=s["batch"])
         kw = dict(heads=s["heads"], act="silu", attn_act="silu")
         ops = [ins[x] for x in ("q", "k", "v", "vec0", "vec1", "vec2", "ea", "cutm", "msk")]
         dirs = (ins["dir0"], ins["dir1"], ins["dir2"])
@@ -87,15 +103,60 @@ def main(argv=None) -> int:
             return lambda: em.run_bwd(nbl.idx, nbl.transpose_perm, *ops, dirs, *w, cts[0], cts[1],
                                       want_weight_grads=want, **kw)
 
-        row = dict(bwd_ms=cs._event_ms(bwd(False), flush=flush),
-                   bwd_weights_ms=cs._event_ms(bwd(True), flush=flush))
-        if hasattr(em, "run_bwd2"):
+        def bwd2():
             z = cs._z_like(ins, cs.SEED)
-            row["bwd2_ms"] = cs._event_ms(
-                lambda: em.run_bwd2(nbl.idx, nbl.transpose_perm, [ins[x] for x in cs.ORDER], cts, z, **kw),
-                flush=flush)
+            return lambda: em.run_bwd2(nbl.idx, nbl.transpose_perm, [ins[x] for x in cs.ORDER], cts, z, **kw)
+
+        if name == "stmv":  # MD freezes the weights: no weight cotangents, no second order
+            calls = dict(bwd=bwd(False))
+            row = dict(bwd_ms=cs._event_ms(calls["bwd"], flush=flush, reps=5))
+        else:
+            calls = dict(bwd=bwd(False), bwd_weights=bwd(True))
+            if hasattr(em, "run_bwd2"):
+                calls["bwd2"] = bwd2()
+            row = {f"{k}_ms": cs._event_ms(fn, flush=flush) for k, fn in calls.items()}
         result[name] = row
+        if args.dump:
+            for k, fn in calls.items():
+                dumped[f"{name}/{k}"] = _flat_cpu(fn())
+        del nbl, ins, cts, calls
+        torch.cuda.empty_cache()
     print(json.dumps(result), flush=True)
+    if args.dump:
+        os.makedirs(args.dump, exist_ok=True)
+        torch.save(dumped, os.path.join(args.dump, f"{label}.pt"))
+    return 0
+
+
+def _flat_cpu(out):
+    """A call's outputs as a flat list of CPU tensors (None kept)."""
+    flat = []
+    for o in out:
+        if isinstance(o, (tuple, list)):
+            flat.extend(_flat_cpu(o))
+        else:
+            flat.append(None if o is None else o.detach().cpu())
+    return flat
+
+
+def compare(directory, a, b):
+    """Per shape, kernel and output: bitwise equal, or max|a - b| / max|b|."""
+    import torch
+
+    da = torch.load(os.path.join(directory, f"{a}.pt"))
+    db = torch.load(os.path.join(directory, f"{b}.pt"))
+    for key in sorted(set(da) & set(db)):
+        parts = []
+        for i, (x, y) in enumerate(zip(da[key], db[key])):
+            if x is None or y is None:
+                continue
+            if torch.equal(x, y):
+                parts.append(f"{i}: equal")
+            else:
+                diff = (x.double() - y.double()).abs()
+                parts.append(f"{i}: {float(diff.max() / y.double().abs().max().clamp_min(1e-300)):.2e} "
+                             f"({int((diff > 0).sum())} of {y.numel()} differ)")
+        print(f"{key} {a} vs {b}: " + ", ".join(parts), flush=True)
     return 0
 
 
