@@ -453,26 +453,44 @@ def _bounds(n, kk, h, rbf, kind):
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def _resource_parts(km, names, shapes):
+    """Each of a kernel module's backward and second-order kernels'
+    resources (registers and spills from the compiled code, shared memory
+    and resident blocks per SM from the CUDA runtime's occupancy
+    calculator) at each shape."""
+    parts = []
+    for label, (n, k, h, heads, rbf) in shapes:
+        for kind, name in names.items():
+            r = km.kernel_resources(kind, n, k, h, heads, rbf)
+            parts.append(f"{name} at {label} H={h}: {r['registers']} registers, {r['spill_bytes']} B spilled, "
+                         f"{r['threads']} threads, {r['smem']} B shared, {r['blocks_per_sm']} blocks/SM "
+                         f"({r['blocks_per_sm'] * r['threads'] // 32} warps)")
+    return parts
+
+
+def _resource_shapes(a):
+    return (("DHFR", (2496, 81, 128, 8, 50)),
+            ("training", (2304, 33, a["embedding_dimension"], a["num_heads"], a["num_rbf"])))
+
+
 def log_et_resources():
-    """The backward's and second order's kernels' resources (registers and
-    spills from the compiled code, shared memory and resident blocks per SM
-    from the CUDA runtime's occupancy calculator) at the DHFR and training
-    shapes."""
+    """The ET backward's and second order's kernels' resources at the DHFR
+    and training shapes."""
     from torchmdnet_tpu_torch.ops.kernels import et_message as em
 
     names = {1: "et_bwd_kernel", 2: "et_bwd2_kernel", 3: "et_bwd_src_kernel", 4: "et_bwd2_src_kernel",
              5: "et_dw_kernel"}
-    a = TRAIN_ARGS
-    parts = []
-    for label, (n, k, h, heads, rbf) in (("DHFR", (2496, 81, 128, 8, 50)),
-                                         ("training", (2304, 33, a["embedding_dimension"], a["num_heads"],
-                                                       a["num_rbf"]))):
-        for kind, name in names.items():
-            r = em.kernel_resources(kind, n, k, h, heads, rbf)
-            parts.append(f"{name} at {label} H={h}: {r['registers']} registers, {r['spill_bytes']} B spilled, "
-                         f"{r['threads']} threads, {r['smem']} B shared, {r['blocks_per_sm']} blocks/SM "
-                         f"({r['blocks_per_sm'] * r['threads'] // 32} warps)")
-    log("ET backward kernel resources: " + "; ".join(parts))
+    log("ET backward kernel resources: " + "; ".join(_resource_parts(em, names, _resource_shapes(TRAIN_ARGS))))
+
+
+def log_t_resources():
+    """The Transformer backward's and second order's passes' resources at
+    the DHFR and training shapes (the weight reduction is ET's et_dw_kernel)."""
+    from torchmdnet_tpu_torch.ops.kernels import t_message as tmk
+
+    names = {1: "t_bwd_kernel", 2: "t_bwd2_kernel", 3: "t_bwd_src_kernel", 4: "t_bwd2_src_kernel"}
+    log("Transformer backward kernel resources: " + "; ".join(
+        _resource_parts(tmk, names, _resource_shapes(T_TRAIN_ARGS))))
 
 
 def time_kernels(seed):
@@ -524,9 +542,10 @@ def time_kernels(seed):
     return dict(fwd=(fwd_ms, plain_fwd_ms, fb, fby), bwd=(bwd_ms, plain_bwd_ms, bb, bby))
 
 
-# launches of the ET backward's and second order's helper kernels on each
-# ET main path, by path name, filled as the paths run
-ET_PART_LAUNCHES = {}
+# launches of the ET and Transformer backward's and second order's helper
+# kernels (source passes, weight reduction) on each of their main paths, by
+# path name, filled as the paths run
+PART_LAUNCHES = {}
 
 
 def _check_et_parts(path, bwd, bwd2):
@@ -538,7 +557,22 @@ def _check_et_parts(path, bwd, bwd2):
              "et_message_dw": em.weight_grads.launches}
     if (parts["et_message_bwd_src"], parts["et_message_bwd2_src"]) != (bwd, bwd2):
         raise AssertionError(f"{path}: expected {bwd} + {bwd2} source-pass launches, got {parts}")
-    ET_PART_LAUNCHES[path] = parts
+    PART_LAUNCHES[path] = parts
+    return parts
+
+
+def _check_t_parts(path, bwd, bwd2):
+    """The Transformer's: each #12 launch ran one source pass, each #13
+    launch one; the weight reductions are ET's kernel (et_dw_kernel, counted
+    by its wrapper), which only the Transformer runs on its paths."""
+    from torchmdnet_tpu_torch.ops.kernels import et_message as em
+    from torchmdnet_tpu_torch.ops.kernels import t_message as tmk
+
+    parts = {"t_message_bwd_src": tmk.bwd_source.launches, "t_message_bwd2_src": tmk.bwd2_source.launches,
+             "t_message_dw": em.weight_grads.launches}
+    if (parts["t_message_bwd_src"], parts["t_message_bwd2_src"]) != (bwd, bwd2):
+        raise AssertionError(f"{path}: expected {bwd} + {bwd2} Transformer source-pass launches, got {parts}")
+    PART_LAUNCHES[path] = parts
     return parts
 
 
@@ -579,6 +613,8 @@ def main_path(args, km, label):
                              f"{REQUESTS + 1} select_topk launches, got {launches}")
     if args["model"] == "equivariant-transformer":
         _check_et_parts("external_dhfr", launches[1], 0)
+    elif args["model"] == "transformer":
+        _check_t_parts("t_external_dhfr", launches[1], 0)
     if not torch.equal(results[-1][1], results[-2][1]):
         raise AssertionError("forces of two identical requests differ")
 
@@ -1216,6 +1252,7 @@ def train_cli(workdir, cfg):
 
     from torchmdnet_tpu_torch.models.potential import load_model
     from torchmdnet_tpu_torch.ops.kernels import et_message as et_kernels
+    from torchmdnet_tpu_torch.ops.kernels import t_message as t_kernels
     from torchmdnet_tpu_torch.scripts import train as cli
     from torchmdnet_tpu_torch.train.checkpoints import load_checkpoint
 
@@ -1246,6 +1283,9 @@ def train_cli(workdir, cfg):
     if cfg["km"] is et_kernels:
         if _check_et_parts("train", launches[1], launches[2])["et_message_dw"] < launches[2]:
             raise AssertionError("the second order's weight reduction did not run once per launch")
+    elif cfg["km"] is t_kernels:
+        if _check_t_parts("t_train", launches[1], launches[2])["t_message_dw"] < launches[2]:
+            raise AssertionError("the Transformer second order's weight reduction did not run once per launch")
     best = trainer.best_model_path
     ckpt = load_checkpoint(best)
     reloaded = load_model(best)
@@ -1927,7 +1967,9 @@ T_ARGS = dict(ET_ARGS, model="transformer")
 # 18 atoms), NeighborEmbedding, 8 heads
 T_TRAIN_ARGS = dict(TRAIN_ARGS, model="transformer")
 T_ORDER = ["q", "k", "v", "ea", "cutm", "wdk", "bdk", "wdv", "bdv"]
-T_KERNELS = ("t_fwd_kernel", "t_bwd_kernel", "t_bwd2_kernel", "ell_transpose_sum_kernel")
+T_KERNELS = ("t_fwd_kernel", "t_bwd_kernel", "t_bwd_src_kernel", "t_bwd2_kernel", "t_bwd2_src_kernel",
+             "et_dw_kernel")
+T_SERVE_KERNELS = ("t_fwd_kernel", "t_bwd_kernel", "t_bwd_src_kernel")
 # Transformer MD at DHFR size on the brute-pallas search: a rebuild every
 # MD_VALID_EVERY steps, T_MD_STEPS steps.  The random weights' forces moved
 # atoms 0.540 A in 2 fs on an H100 at std 1, past skin/2 = 0.25 A, so the
@@ -1961,12 +2003,61 @@ def _t_z_like(ins, seed):
             for n in T_ORDER]
 
 
+def check_t_parts(nbl, ins, ct, heads, seed):
+    """The Transformer's source passes (t_bwd_src_kernel, t_bwd2_src_kernel)
+    and its weight reductions (et_dw_kernel at F = 2H) against their plain
+    versions, fed the receiver kernels' outputs: {name: max rel err}.  And
+    #12's dk/dv against the buffer form the source pass replaces, bitwise:
+    the per-edge values (the source kernel on a one-slot view, each edge its
+    own atom with its receiver's q and ct: the kernels' filters, which the
+    plain twin's exp differs from in a bf16 rounding now and then) summed in
+    f32 in slot order through perm and rounded once; {"bwd_src_buffer_differ":
+    the elements that differ}."""
+    import torch
+
+    from torchmdnet_tpu_torch.ops.kernels import et_message as em
+    from torchmdnet_tpu_torch.ops.kernels import t_message as tmk
+
+    kw = dict(heads=heads, act="silu", attn_act="silu")
+    idx, perm = nbl.idx, nbl.transpose_perm
+    n, kk = idx.shape
+    e, rbf = n * kk, ins["ea"].shape[-1]
+    a = [ins[x] for x in T_ORDER]
+    w = a[5:]
+    has_w = ins["wdk"] is not None or ins["wdv"] is not None
+    _, _, _, hs, dpre, _ = tmk.bwd_receiver(idx, *a, ct, want_dpre=True, **kw)
+    got = tmk.bwd_source(idx, perm, *a, ct, hs, **kw)
+    want = tmk.bwd_source_reference(idx, perm, ins["q"], ins["ea"], *w, ct, hs, heads=heads, act="silu")
+    rel = {"bwd_src": max(_rel(x, y) for x, y in zip(got, want))}
+    rows = torch.arange(n, device=idx.device).repeat_interleave(kk)
+    one = lambda t: t.index_select(0, rows)  # each edge's receiver row
+    edge = tmk.bwd_source(torch.zeros((e, 1), dtype=torch.int32, device=idx.device),
+                          torch.arange(e, dtype=torch.int32, device=idx.device), one(ins["q"]), one(ins["k"]),
+                          one(ins["v"]), ins["ea"].reshape(e, 1, rbf), ins["cutm"].reshape(e, 1), *w, one(ct),
+                          hs, **kw)
+    buffer = [_slot_order_sum(t, perm, kk)[0] for t in edge]
+    rel["bwd_src_buffer_differ"] = sum(int((g != b).sum()) for g, b in zip(got, buffer))
+    if has_w:
+        pairs = [(ins["ea"].reshape(e, rbf), dpre)]
+        rel["bwd_dw"] = _rel(em.weight_grads(pairs, rbf), em.weight_grads_reference(pairs, rbf))
+    z = _t_z_like(ins, seed)
+    _, _, _, _, hs4, bpre, bpret, _ = tmk.bwd2_receiver(idx, a, ct, z, **kw)
+    got = tmk.bwd2_source(idx, perm, a, ct, z, hs4, **kw)
+    want = tmk.bwd2_source_reference(idx, perm, a, ct, z, hs4, heads=heads, act="silu")
+    rel["bwd2_src"] = max(_rel(x, y) for x, y in zip(got, want))
+    if has_w:
+        pairs = [(ins["ea"].reshape(e, rbf), bpre), (z[3].reshape(e, rbf), bpret)]
+        rel["bwd2_dw"] = _rel(em.weight_grads(pairs, rbf), em.weight_grads_reference(pairs, rbf))
+    torch.cuda.synchronize()
+    return rel
+
+
 def check_t_kernels(label, n_atoms, k, h, heads, rbf, cutoff, seed, batch=None, influence="both"):
     """#11, #12 and #13 against their plain versions: the forward output, the
     nine input cotangents through autograd (the weight cotangents from the
-    backward kernel's partials), and the second order's nine + 1 gradients;
-    a third derivative must raise.  Returns the max abs errors (fwd, bwd,
-    bwd2)."""
+    weight reduction), the second order's nine + 1 gradients, and the
+    helper kernels (``check_t_parts``); a third derivative must raise.
+    Returns the max abs errors (fwd, bwd, bwd2)."""
     import torch
 
     from torchmdnet_tpu_torch.ops.kernels import t_message as tmk
@@ -2000,6 +2091,7 @@ def check_t_kernels(label, n_atoms, k, h, heads, rbf, cutoff, seed, batch=None, 
         pass
     else:
         raise AssertionError("a third derivative through the fused Transformer kernels did not raise")
+    parts = check_t_parts(nbl, ins, ct, heads, seed)
     fwd = _rel(outs["kernel"], outs["plain"])
     bwd = {n: _rel(grads["kernel"][n], grads["plain"][n]) for n in names}
     fwd_abs = float((outs["kernel"] - outs["plain"]).abs().max())
@@ -2008,13 +2100,22 @@ def check_t_kernels(label, n_atoms, k, h, heads, rbf, cutoff, seed, batch=None, 
     log(f"Transformer kernel check {label} (N={n} K={kk} H={h} heads={heads} RBF={rbf}, influence "
         f"{influence}): fwd max rel err {fwd:.3e} (tol {FWD_TOL}); bwd max rel err {max(bwd.values()):.3e} "
         f"(tol {BWD_TOL}) {_fmt(bwd)}; bwd2 max rel err {max(bwd2.values()):.3e} (tol {BWD2_TOL}) "
-        f"{_fmt(bwd2)}; a third derivative raises")
+        f"{_fmt(bwd2)}; helper kernels against their plain versions "
+        f"{_fmt({x: v for x, v in parts.items() if x != 'bwd_src_buffer_differ'})} (source passes tol {PART_TOL}, "
+        f"weight reductions tol {WGRAD_TOL}); #12's dk/dv against the buffer form (per-edge values summed in slot "
+        f"order): {parts['bwd_src_buffer_differ']} of {2 * idx.shape[0] * h} elements differ; a third derivative "
+        f"raises")
     if fwd > FWD_TOL:
         raise AssertionError(f"Transformer forward kernel disagrees with the plain version at {label}: {fwd}")
     if max(bwd.values()) > BWD_TOL:
         raise AssertionError(f"Transformer backward kernel disagrees with the plain version at {label}: {bwd}")
     if max(bwd2.values()) > BWD2_TOL:
         raise AssertionError(f"Transformer second-order kernel disagrees with the plain version at {label}: {bwd2}")
+    if max(v for x, v in parts.items() if "src" in x and "differ" not in x) > PART_TOL or \
+            max([v for x, v in parts.items() if "dw" in x] or [0.0]) > WGRAD_TOL:
+        raise AssertionError(f"a Transformer helper kernel disagrees with its plain version at {label}: {parts}")
+    if parts["bwd_src_buffer_differ"]:
+        raise AssertionError(f"#12's source pass differs from the buffer form at {label}: {parts}")
     return fwd_abs, bwd_abs, bwd2_abs
 
 
@@ -2098,10 +2199,37 @@ def time_t_kernels(train_batch):
                 plain = _event_ms(lambda: tmk.t_messages_bwd2_reference(idx, perm, args, ct, z, heads=heads),
                                   flush=flush, reps=5)
             out[(where, k)] = (ms, plain) + _t_bounds(n, kk, h, rbf, k) + ((n, kk, h),)
+        split = _t_pass_split(idx, perm, args, ct, z, heads, flush)
+        log(f"Transformer passes at {where} (N={n} K={kk} H={h}; L2 flushed, median of 20): "
+            + "; ".join(f"{name} {ms:.4f} ms" for name, ms in split.items()))
     log("Transformer kernel times (L2 flushed, median of 20; plain second order of 5): " + "; ".join(
         f"{k} at {where} (N={v[4][0]} K={v[4][1]} H={v[4][2]}) {v[0]:.4f} ms (plain {v[1]:.4f} ms, bound "
         f"{v[2]:.4f} ms by {v[3]}, {100 * v[2] / v[0]:.1f}% of it reached)" for (where, k), v in out.items()))
     return out
+
+
+def _t_pass_split(idx, perm, args, ct, z, heads, flush):
+    """#12 (with weight cotangents) and #13 pass by pass: each pass's time
+    alone (L2 flushed, median of 20), fed the receiver passes' outputs."""
+    from torchmdnet_tpu_torch.ops.kernels import et_message as em
+    from torchmdnet_tpu_torch.ops.kernels import t_message as tmk
+
+    kw = dict(heads=heads, act="silu", attn_act="silu")
+    n, kk = idx.shape
+    ea = args[3].reshape(n * kk, -1)
+    rbf = ea.shape[-1]
+    _, _, _, hs, dpre, _ = tmk.bwd_receiver(idx, *args, ct, want_dpre=True, **kw)
+    _, _, _, _, hs4, bpre, bpret, _ = tmk.bwd2_receiver(idx, args, ct, z, **kw)
+    zea = z[3].reshape(n * kk, -1)
+    calls = {
+        "t_bwd_kernel": lambda: tmk.bwd_receiver(idx, *args, ct, want_dpre=True, **kw),
+        "t_bwd_src_kernel": lambda: tmk.bwd_source(idx, perm, *args, ct, hs, **kw),
+        "et_dw_kernel (#12)": lambda: em.weight_grads([(ea, dpre)], rbf),
+        "t_bwd2_kernel": lambda: tmk.bwd2_receiver(idx, args, ct, z, **kw),
+        "t_bwd2_src_kernel": lambda: tmk.bwd2_source(idx, perm, args, ct, z, hs4, **kw),
+        "et_dw_kernel (#13)": lambda: em.weight_grads([(ea, bpre), (zea, bpret)], rbf),
+    }
+    return {name: _event_ms(fn, flush=flush) for name, fn in calls.items()}
 
 
 def _zero_t_messages(rep):
@@ -2278,6 +2406,7 @@ def t_md_brute_pallas():
         if r == 0:
             launches = (tmk.run_fwd.launches, tmk.run_bwd.launches, compact_neighbors.launches,
                         select_topk.launches)
+            _check_t_parts("t_md_brute_pallas", launches[1], 0)
         runs.append((sim, starts, ms_step))
     (sim, starts, ms_step), (other, _, _) = runs
     evaluations, rebuilds, layers = T_MD_STEPS + 1, T_MD_STEPS // every, T_ARGS["num_layers"]
@@ -2343,6 +2472,7 @@ def main():
     usage = [ln.strip() for out in logs.values() for ln in out.splitlines() if "registers" in ln or "spill" in ln]
     log(f"built {list(build.SOURCES)} for sm_90a in {seconds:.1f} s; ptxas: {' | '.join(usage)}")
     log_et_resources()
+    log_t_resources()
 
     check_kernels("medium", 512, 40, 64, 4, 32, 3.5, seed=1)
     fwd_abs, bwd_abs, _ = check_kernels("DHFR", 2489, 80, 128, 8, 50, 5.0, seed=2)
@@ -2359,6 +2489,8 @@ def main():
     _, _, tn_bwd2_abs = check_tn_kernels("training", tn_batch, seed=4)
     for influence in ("keys", "values", "none"):
         check_t_kernels("medium", 512, 40, 64, 4, 32, 3.5, seed=1, influence=influence)
+    # 2H = 192: the weight reduction's partial last block of 128 columns
+    check_t_kernels("narrow", 512, 40, 96, 3, 32, 3.5, seed=3)
     t_fwd_abs, t_bwd_abs, _ = check_t_kernels("DHFR", 2489, T_ARGS["max_num_neighbors"], 128, 8, 50, 5.0, seed=2)
     ta = T_TRAIN_ARGS
     _, _, t_bwd2_abs = check_t_kernels("training", None, ta["max_num_neighbors"], ta["embedding_dimension"],
@@ -2425,7 +2557,7 @@ def main():
     profile_calls(ext, pos, ET_SERVE_KERNELS, "fused ET")
     profile_calls(tn_ext, tn_pos, TN_SERVE_KERNELS, "fused TensorNet")
     profile_calls(gn_ext, gn_pos, GN_KERNELS, "GN")
-    profile_calls(t_ext, t_pos, T_KERNELS[:2] + T_KERNELS[3:], "fused Transformer")
+    profile_calls(t_ext, t_pos, T_SERVE_KERNELS, "fused Transformer")
     profile_md(sim)
     profile_md(gn_sim, GN_KERNELS, "GN", steps=2 * MD_VALID_EVERY)
     profile_train(trainer, train_batch, et_cfg)
@@ -2461,7 +2593,7 @@ def main():
         "t_md_brute_pallas": dict(zip(("t_message_fwd", "t_message_bwd", "compaction", "select_topk"),
                                       t_md_launches)),
     }
-    for path, parts in ET_PART_LAUNCHES.items():
+    for path, parts in PART_LAUNCHES.items():
         paths[path].update(parts)
     gn_rows = {kind: (t[0], t[1], t[3], t[4], t[2]) for kind, t in gn_times["DHFR"].items() if kind != "shape"}
     bwd2_row = (train_ms["bwd2"], train_plain["bwd2"]) + train_bounds["bwd2"] + (None,)
@@ -2484,10 +2616,13 @@ def main():
         ("t_message_bwd2", "t_message.cu", "t_message.py:519", t_rows["bwd2"], t_bwd2_abs),
     ):
         by_path = {path: counts.get(name, 0) for path, counts in paths.items()}
-        # the helper kernels a row's kernel launches with it (the ET backward's
-        # and second order's source passes and weight reduction)
+        # the helper kernels a row's kernel launches with it (the ET and
+        # Transformer backward's and second order's source passes and weight
+        # reduction)
         helpers = {"et_message_bwd": ("et_message_bwd_src", "et_message_dw"),
-                   "et_message_bwd2": ("et_message_bwd2_src", "et_message_dw")}.get(name, ())
+                   "et_message_bwd2": ("et_message_bwd2_src", "et_message_dw"),
+                   "t_message_bwd": ("t_message_bwd_src", "t_message_dw"),
+                   "t_message_bwd2": ("t_message_bwd2_src", "t_message_dw")}.get(name, ())
         kernels.append(dict(
             helper_launches={h: sum(c.get(h, 0) for c in paths.values()) for h in helpers},
             name=name, route="cuda", source=f"torchmdnet_tpu_torch/csrc/{source}",

@@ -3,11 +3,15 @@
 //
 // Replaces the Pallas TPU kernels of torchmdnet_tpu/ops/pallas/t_message.py:
 //   t_fwd_kernel  <- _fwd_kernel (:66, launched by _run_fwd at :267)
-//   t_bwd_kernel  <- _bwd_kernel (:113, launched by _run_bwd at :304)
-//   t_bwd2_kernel <- _t_bwd2_kernel (:519, launched by _t_bwd2_op at :668)
-// The per-edge source-row cotangents the backward and second-order kernels
-// write are summed onto the atoms by ell_transpose_sum (csrc/et_message.cu),
-// the counterpart of the JAX kernels' dxw partials and _table_scatter.
+//   t_bwd_kernel + t_bwd_src_kernel <- _bwd_kernel (:113, launched by
+//                    _run_bwd at :304) with its dxw partials and
+//                    _table_scatter, the sum of the per-edge source-row
+//                    cotangents onto the atoms
+//   t_bwd2_kernel + t_bwd2_src_kernel <- _t_bwd2_kernel (:519, launched by
+//                    _t_bwd2_op at :668)
+// The weight cotangents of both come from et_dw_kernel (et_message.cu), the
+// tensor-core reduction of the per-edge filter cotangents over the edges.
+// The device helpers are common.cuh's.
 //
 // What one layer computes, per receiver atom i and neighbor slot k (j = idx[i, k]):
 //   dk = act(ea[i,k] . Wdk + bdk)            (H)   distance filters, RBF -> H
@@ -31,172 +35,104 @@
 // the kernel is bound by operations, and in practice by the latency of its
 // row gathers and of the per-edge elementwise chain.
 //
-// What the design does about it (the ET kernels' design, see et_message.cu):
-//   * no (N, K, F) tensor in device memory in the forward: a group of H
-//     threads owns one receiver row, one channel per thread, gathers k_j and
-//     v_j directly by index (no block plan, no one-hot product: TPU layout
-//     workarounds) and keeps its f32 accumulator in a register; the next
-//     edge's source values load while the current edge computes;
+// The forward's design (as ET's forward):
+//   * no (N, K, F) tensor in device memory: a group of H threads owns one
+//     receiver row, one channel per thread, gathers k_j and v_j directly by
+//     index and keeps its f32 accumulator in a register; the next edge's
+//     source values load while the current edge computes;
 //   * the filter products run on the tensor cores (wmma bf16 16x16x16, f32
 //     accumulation) for KC = 16 edges at a time against the filter weights
 //     (2H x RBF bf16) in shared memory, loaded once per block and shared by
 //     its row groups; the next chunk's ea rows, ids and cutm are copied
 //     asynchronously into a second buffer while the current chunk computes;
 //   * the per-head sum is a warp butterfly over the head's lanes (H/heads a
-//     power of two <= 32), no ones-block product;
-//   * the backward recomputes each chunk, as the TPU kernel does; d ea =
-//     d_pre . W runs on the tensor cores.  It writes per-edge source
-//     cotangents (N, K, 2H) bf16, summed onto the atoms through the list's
-//     transpose permutation (no float atomics: forces are bitwise
-//     repeatable).  Weight cotangents, when wanted, go into per-block f32
-//     partials (RBFP x 2H) that the caller sums once;
+//     power of two <= 32), no ones-block product.
+//
+// The backward (#12) and the second order (#13) take the design of ET's #2
+// and #3 (et_message.cu's header has the measurements behind each point):
+//   * two passes in gather form, no per-edge (N, K, 2H) source-row buffer.
+//     The receiver pass (the row owner) recomputes each edge and writes dq,
+//     d ea, d cutm, and per edge and head only what the source side needs:
+//     the head-summed d_prod and attn (bf16; the second order: attn, its
+//     tangent and the two head-summed reverse seeds, f32).  The source pass
+//     owns atom j and walks the K slots of the transpose permutation
+//     (perm[j*K + s] = the edge (i, k') with idx[i, k'] = j, in ascending
+//     i), gathers that edge's ea row and the receiver's q and ct, recomputes
+//     the edge's filters on the tensor cores in the receiver pass's k order,
+//     and sums the per-edge k_j and v_j values in f32 in slot order, rounded
+//     once: the old buffer's values in its transpose-sum's order, so the
+//     backward's dk and dv are bitwise the buffer form's.  Padding and self
+//     slots add exact zeros, as in the buffer form;
+//   * no weight-gradient partial in device memory: when the weights want a
+//     gradient the receiver pass writes each edge's filter cotangents d_pre
+//     (2H bf16, the values the old per-chunk partial summed) and sums the
+//     bias cotangents per row group; et_dw_kernel reduces ea^T . d_pre;
+//   * a named barrier per row group (bar.sync g+1) instead of block-wide
+//     barriers, so one group's tensor-core phase overlaps another's per-edge
+//     work; mma.sync m16n8k16 with ldmatrix loads, straight to the bf16
+//     filter tile (no f32 scratch tile); a group owns a contiguous range of
+//     rows (or atoms) and cuts its flattened edges (slots) into chunks of 16
+//     that run across rows, the per-row sums kept sequential in one thread
+//     (no float atomics: every result is bitwise the same from run to run);
+//     the per-edge chain rounds two values at a time with the packed
+//     conversion; the passes are compiled for silu in both activations
+//     beside a build that reads them at run time; block sizes from ptxas's
+//     register counts (RECV_MAX_THREADS etc. below);
+//   * the backward's receiver pass takes two edges at a time: their chains
+//     interleave, and their head and warp sums share shuffles (group_sum2,
+//     the butterfly's pairs, so the same bits), 8-15 % faster than one at
+//     a time in the same 96 registers; prefetching the next edge's rows in
+//     the second order's passes did not pay (measured);
 //   * the second order is the VJP of the backward with respect to (inputs,
 //     ct) given cotangents Z on its outputs, written as a dual-number
 //     forward (g_ct = J_f(a) . Z) plus its hand-written reverse seeded with
-//     ct (g_inputs), as for ET's second-order kernel; its three filter
-//     products, two for g ea and two for g W run on the tensor cores, with W
-//     and Z_W read from device memory (L2).
-#include <cuda_bf16.h>
-#include <cuda_pipeline.h>
-#include <cuda_runtime.h>
+//     ct (g_inputs), as for ET's; its filter products read W from shared
+//     memory and Z_W from device memory (L2): both do not fit in shared
+//     memory beside two row groups at H = 256.
 #include <mma.h>
-#include <stdint.h>
 
-typedef __nv_bfloat16 bf16;
+#include "common.cuh"
+
 using namespace nvcuda;
 
 namespace {
 
-constexpr int KC = 16;  // edges per chunk: the M of one wmma tile
 constexpr int FWD_MAX_THREADS = 512;
-constexpr int BWD_MAX_THREADS = 512;
-// the second-order kernel keeps about three times the backward's per-edge
-// state: at most 256 threads, so that each may use up to 255 registers
-constexpr int BWD2_MAX_THREADS = 256;
-constexpr float kLog2 = 0.69314718055994530942f;
+// Threads a block of the backward's and second order's passes (one block an
+// SM), from ptxas's register counts: the backward's fit 96 registers a
+// thread at 640 threads (5 row groups at H = 128, 2 at H = 256); the second
+// order's passes hold about twice the per-edge state: 512 threads at 128
+// registers (2 row groups at H = 256).
+constexpr int RECV_MAX_THREADS = 640;
+constexpr int SRC_MAX_THREADS = 640;
+constexpr int RECV2_MAX_THREADS = 512;
+constexpr int SRC2_MAX_THREADS = 512;
 
-enum { ACT_SILU = 0, ACT_SSP = 1, ACT_TANH = 2, ACT_SIGMOID = 3 };
-
-__device__ __forceinline__ float bfr(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-__device__ __forceinline__ float ldb(const bf16* p) { return __bfloat162float(*p); }
-
-// fast exp and reciprocal (MUFU): ~2 ulp in f32, far below the bf16
-// rounding every activation goes through
-__device__ __forceinline__ float sigmoid_f(float x) { return __fdividef(1.0f, 1.0f + __expf(-x)); }
-
-__device__ __forceinline__ float act_fn(int a, float x) {
-  switch (a) {
-    case ACT_SILU: return x * sigmoid_f(x);
-    case ACT_SSP: return fmaxf(x, 0.0f) + log1pf(expf(-fabsf(x))) - kLog2;
-    case ACT_TANH: return tanhf(x);
-    default: return sigmoid_f(x);
-  }
-}
-
-// f(x), f'(x) and f''(x) of an activation, in f32
-__device__ __forceinline__ void act3(int a, float x, float* f, float* f1, float* f2) {
-  switch (a) {
-    case ACT_SILU: {
-      const float s = sigmoid_f(x);
-      *f = x * s;
-      *f1 = s * (1.0f + x * (1.0f - s));
-      *f2 = s * (1.0f - s) * (2.0f + x * (1.0f - 2.0f * s));
-      return;
-    }
-    case ACT_SSP: {
-      const float s = sigmoid_f(x);
-      *f = fmaxf(x, 0.0f) + log1pf(expf(-fabsf(x))) - kLog2;
-      *f1 = s;
-      *f2 = s * (1.0f - s);
-      return;
-    }
-    case ACT_TANH: {
-      const float t = tanhf(x);
-      *f = t;
-      *f1 = 1.0f - t * t;
-      *f2 = -2.0f * t * (1.0f - t * t);
-      return;
-    }
-    default: {
-      const float s = sigmoid_f(x);
-      *f = s;
-      *f1 = s * (1.0f - s);
-      *f2 = s * (1.0f - s) * (1.0f - 2.0f * s);
-    }
-  }
-}
-
-__device__ __forceinline__ float dact_fn(int a, float x) {
-  switch (a) {
-    case ACT_SILU: {
-      const float s = sigmoid_f(x);
-      return s * (1.0f + x * (1.0f - s));
-    }
-    case ACT_SSP: return sigmoid_f(x);
-    case ACT_TANH: {
-      const float t = tanhf(x);
-      return 1.0f - t * t;
-    }
-    default: {
-      const float s = sigmoid_f(x);
-      return s * (1.0f - s);
-    }
-  }
-}
-
-// Sum over an aligned group of `width` lanes (a power of two <= 32).  The
-// butterfly gives every lane of the group the same bits.
-__device__ __forceinline__ float group_sum(float v, int width) {
-  for (int off = width >> 1; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-__host__ __device__ inline int rbf_pad(int rbf) { return (rbf + 15) / 16 * 16; }
-// row stride (bf16 elements) of the weight and ea tiles: a multiple of 8, as
-// wmma wants, and 8 past the padded RBF so rows start on different banks
-__host__ __device__ inline int w_ld(int rbf) { return rbf_pad(rbf) + 8; }
-// row stride of the per-edge filter tile (KC, 2H): 2H + 8, for the same reason
+// row stride (bf16 elements) of the per-edge filter tile (KC, 2H): 2H + 8,
+// so the rows of a tensor-core load start on different banks
 __host__ __device__ inline int pre_ld(int h) { return 2 * h + 8; }
-__host__ __device__ inline size_t align32(size_t x) { return (x + 31) & ~size_t(31); }
 
-enum Kind { FWD = 0, BWD = 1, BWD2 = 2 };
-
-// Shared memory: the filter weights (forward and backward), then one slice
-// per row group.  The second-order kernel keeps no weights here; it stages
-// z_ea beside ea, the filter tangents beside the filters, and two edge
-// scalars (cutm, z_cutm) instead of one.
+// The forward's shared memory: the filter weights, then one slice per row
+// group.
 struct Smem {
   size_t groups_base, group_stride, total;
-  size_t ea, zea, pre, pret, scratch, idx, sc, red;
-  int nsc;
+  size_t ea, pre, scratch, idx, sc;
 };
 
-__host__ __device__ inline Smem smem_layout(int h, int rbf, int groups, int kind) {
+__host__ __device__ inline Smem smem_layout(int h, int rbf, int groups) {
   Smem s;
-  s.groups_base = kind == BWD2 ? 0 : align32((size_t)2 * h * w_ld(rbf) * sizeof(bf16));
-  s.nsc = kind == BWD2 ? 2 : 1;
+  s.groups_base = align32((size_t)2 * h * w_ld(rbf) * sizeof(bf16));
   size_t o = 0;
   s.ea = o;  // two (KC, ldw) buffers: one is filled while the other is used
   o = align32(o + (size_t)2 * KC * w_ld(rbf) * sizeof(bf16));
-  s.zea = o;
-  if (kind == BWD2) o = align32(o + (size_t)2 * KC * w_ld(rbf) * sizeof(bf16));
-  // (KC, 2H) bf16 filter accumulators; the backward overwrites them in
-  // place with the filter cotangents
-  s.pre = o;
+  s.pre = o;  // (KC, 2H) bf16 filter accumulators
   o = align32(o + (size_t)KC * pre_ld(h) * sizeof(bf16));
-  s.pret = o;  // second order: the filter tangents, then their cotangents
-  if (kind == BWD2) o = align32(o + (size_t)KC * pre_ld(h) * sizeof(bf16));
   s.scratch = o;  // one 16x16 f32 tile per warp: the wmma epilogue
   o = align32(o + (size_t)(h / 32) * 256 * sizeof(float));
   s.idx = o;  // two buffers of KC neighbor ids
   o = align32(o + 2 * KC * sizeof(int));
-  s.sc = o;  // two (nsc, KC) f32 buffers of edge scalars
-  o = align32(o + (size_t)2 * s.nsc * KC * sizeof(float));
-  s.red = o;  // (KC, H/32) f32 warp partials of the cutm cotangent
-  if (kind != FWD) o = align32(o + (size_t)KC * (h / 32) * sizeof(float));
+  s.sc = o;  // two buffers of KC cutm values
+  o = align32(o + (size_t)2 * KC * sizeof(float));
   s.group_stride = o;
   s.total = s.groups_base + (size_t)groups * o;
   return s;
@@ -212,9 +148,11 @@ struct Params {
   // second order only: the Z cotangents (tangents of the dual forward)
   const bf16 *zq, *zk, *zv, *zea;
   const float* zcutm;
-  const bf16 *w_all, *zw_all;  // (2H, RBFP) bf16, zero rows for absent filters
+  const bf16* zw_all;  // Z_W as (2H, RBFP) bf16, zero rows for absent filters
   const bf16 *zbk, *zbv;
-  int groups, iters;  // row groups per block; rows per group
+  // row groups per block; the forward's rows per group and grid step, the
+  // other passes' contiguous rows (atoms) per group
+  int groups, iters;
 };
 
 // Filter weights into shared memory as (2H, ldw) bf16, one row per filter
@@ -237,28 +175,23 @@ __device__ void load_weights(const Params& p, bf16* w_s) {
   }
 }
 
-// Start copying chunk c0 of row i into one staging buffer (asynchronous:
-// it lands while the current chunk computes): ea rows as 4-byte words (RBF
-// is even), neighbor ids, edge scalars.  The RBF padding columns are zeroed
-// once per block and never written; rows past the chunk's end keep stale
-// values, which only reach filter rows nobody reads.
-__device__ void stage_async(const Params& p, int i, int c0, int hh, bf16* ea_s, int* idx_s,
-                            float* sc_s, bf16* zea_s = nullptr) {
+// The forward: start copying chunk c0 of row i into one staging buffer
+// (asynchronous: it lands while the current chunk computes): ea rows as
+// 4-byte words (RBF is even), neighbor ids, cutm.  The RBF padding columns
+// are zeroed once per block and never written; rows past the chunk's end
+// keep stale values, which only reach filter rows nobody reads.
+__device__ void stage_async(const Params& p, int i, int c0, int hh, bf16* ea_s, int* idx_s, float* sc_s) {
   const int ldw = w_ld(p.rbf), words = p.rbf / 2, nw = p.h / 32;
   const int kn = min(KC, p.k - c0);
   const int warp = hh / 32, lane = hh % 32;
   const size_t off = ((size_t)i * p.k + c0) * p.rbf;
   for (int kc = warp; kc < kn; kc += nw)
-    for (int w = lane; w < words; w += 32) {
+    for (int w = lane; w < words; w += 32)
       __pipeline_memcpy_async(ea_s + kc * ldw + 2 * w, p.ea + off + (size_t)kc * p.rbf + 2 * w, 4);
-      if (zea_s)
-        __pipeline_memcpy_async(zea_s + kc * ldw + 2 * w, p.zea + off + (size_t)kc * p.rbf + 2 * w, 4);
-    }
   if (hh < kn) {
     const size_t e = (size_t)i * p.k + c0 + hh;
     __pipeline_memcpy_async(idx_s + hh, p.idx + e, 4);
     __pipeline_memcpy_async(sc_s + hh, p.cutm + e, 4);
-    if (zea_s) __pipeline_memcpy_async(sc_s + KC + hh, p.zcutm + e, 4);
   }
   __pipeline_commit();
 }
@@ -311,59 +244,6 @@ __device__ void filter_mma(const Params& p, const bf16* w_s, const bf16* ea_s, b
   }
 }
 
-// The block's weight-gradient partial (RBFP, 2H) f32 in device memory,
-// += A_g^T . B_g over the first `nact` row groups of the block and over one
-// or two (A, B) operand pairs: A the chunk's (KC, ldw) edge rows (ea, or
-// z_ea), B its (KC, 2H) filter cotangents (rows past the chunk's end are
-// zero).  Every warp of the block takes whole 16x16 tiles, TILES at a time
-// so that their loads from L2 overlap; `first` starts the partial from zero.
-// Called by all threads of the block.
-template <int TILES>
-__device__ void accumulate_dw(const Smem& L, unsigned char* smem, int buf, int h, int rbf,
-                              int nact, bool two, bool first, float* part) {
-  const int F = 2 * h, ldw = w_ld(rbf), ldp = pre_ld(h), rbfp = rbf_pad(rbf);
-  const int ftiles = F / 16, tiles = (rbfp / 16) * ftiles;
-  const int warp = threadIdx.x / 32, nwarps = blockDim.x / 32;
-  for (int t0 = warp; t0 < tiles; t0 += TILES * nwarps) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> c[TILES];
-#pragma unroll
-    for (int q = 0; q < TILES; ++q) {
-      const int t = t0 + q * nwarps;
-      if (t >= tiles) continue;
-      if (first)
-        wmma::fill_fragment(c[q], 0.0f);
-      else
-        wmma::load_matrix_sync(c[q], part + (size_t)(t / ftiles) * 16 * F + (t % ftiles) * 16, F,
-                               wmma::mem_row_major);
-    }
-    for (int g = 0; g < nact; ++g) {
-      unsigned char* gs = smem + L.groups_base + g * L.group_stride;
-      for (int pr = 0; pr < (two ? 2 : 1); ++pr) {
-        const bf16* a0 = reinterpret_cast<const bf16*>(gs + (pr ? L.zea : L.ea)) + buf * KC * ldw;
-        const bf16* b0 = reinterpret_cast<const bf16*>(gs + (pr ? L.pret : L.pre));
-#pragma unroll
-        for (int q = 0; q < TILES; ++q) {
-          const int t = t0 + q * nwarps;
-          if (t >= tiles) continue;
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> fa;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-          wmma::load_matrix_sync(fa, a0 + (t / ftiles) * 16, ldw);
-          wmma::load_matrix_sync(fb, b0 + (t % ftiles) * 16, ldp);
-          wmma::mma_sync(c[q], fa, fb, c[q]);
-        }
-      }
-    }
-#pragma unroll
-    for (int q = 0; q < TILES; ++q) {
-      const int t = t0 + q * nwarps;
-      if (t < tiles)
-        wmma::store_matrix_sync(part + (size_t)(t / ftiles) * 16 * F + (t % ftiles) * 16, c[q], F,
-                                wmma::mem_row_major);
-    }
-    __syncwarp();
-  }
-}
-
 // filter value act(bf16(acc + b)) from the bf16-rounded accumulator acc;
 // its bf16 pre-activation in *pre
 __device__ __forceinline__ float filter_val(int act, bf16 acc, float b, float* pre) {
@@ -387,7 +267,7 @@ __global__ void __launch_bounds__(FWD_MAX_THREADS, 1)
   const int H = p.h;
   const int g = threadIdx.x / H, hh = threadIdx.x % H, warp = hh / 32, lane = hh % 32;
   const int ldp = pre_ld(H);
-  const Smem L = smem_layout(H, p.rbf, p.groups, FWD);
+  const Smem L = smem_layout(H, p.rbf, p.groups);
   bf16* w_s = reinterpret_cast<bf16*>(smem);
   unsigned char* gs = smem + L.groups_base + g * L.group_stride;
   bf16* ea_buf = reinterpret_cast<bf16*>(gs + L.ea);
@@ -448,219 +328,466 @@ __global__ void __launch_bounds__(FWD_MAX_THREADS, 1)
   }
 }
 
-__global__ void __launch_bounds__(BWD_MAX_THREADS, 1)
-    t_bwd_kernel(Params p, const float* __restrict__ ct, float* __restrict__ dq,
-                 bf16* __restrict__ dea, float* __restrict__ dcutm, bf16* __restrict__ dsrc,
-                 float* __restrict__ dw_part, float* __restrict__ db_part) {
+// ---------------------------------------------------------------------------
+// The backward (#12) and second order (#13): receiver passes and source
+// passes (the weight-gradient reduction is et_message.cu's et_dw_kernel).
+
+enum Pass { RECV = 0, RECV2 = 1, SRC = 2, SRC2 = 3 };
+
+// One pass's shared memory: the filter weights W, then one slice per row
+// group: two staging buffers of ea rows (and z_ea), the
+// (KC, 2H) bf16 filter tile (and the tangent tile), two buffers of edge ids
+// (and the source pass's receiver rows), of cutm (and z_cutm) and of the
+// source pass's per-edge head scalars, and the warp partials of the cutm
+// cotangent.
+struct GLayout {
+  size_t base, stride, total;
+  size_t ea, zea, pre, pret, ids, sc, hs, red;
+  int nsc, hsw;  // edge scalars staged; 4-byte words a staged head-scalar row
+};
+
+__host__ __device__ inline GLayout pass_layout(int h, int heads, int rbf, int groups, int pass) {
+  GLayout s;
+  const bool dual = pass == RECV2 || pass == SRC2;
+  const size_t ea_bytes = (size_t)2 * KC * w_ld(rbf) * sizeof(bf16);
+  const size_t tile_bytes = (size_t)KC * pre_ld(h) * sizeof(bf16);
+  s.base = align32((size_t)2 * h * w_ld(rbf) * sizeof(bf16));
+  s.nsc = pass == RECV ? 1 : (pass == RECV2 ? 2 : 0);  // cutm, then z_cutm
+  s.hsw = pass == SRC ? heads : (pass == SRC2 ? 4 * heads : 0);
+  size_t o = 0;
+  s.ea = o;
+  o = align32(o + ea_bytes);
+  s.zea = o;
+  if (dual) o = align32(o + ea_bytes);
+  s.pre = o;
+  o = align32(o + tile_bytes);
+  s.pret = o;
+  if (dual) o = align32(o + tile_bytes);
+  s.ids = o;
+  o = align32(o + (size_t)2 * 2 * KC * sizeof(int));
+  s.sc = o;
+  o = align32(o + (size_t)2 * s.nsc * KC * sizeof(float));
+  s.hs = o;
+  o = align32(o + (size_t)2 * s.hsw * KC * sizeof(float));
+  s.red = o;
+  if (pass == RECV || pass == RECV2) o = align32(o + (size_t)KC * (h / 32) * sizeof(float));
+  s.stride = o;
+  s.total = s.base + (size_t)groups * o;
+  return s;
+}
+
+// Receiver pass: start copying the kn edges e0.. (contiguous: ea rows and
+// z_ea, neighbor ids, cutm and z_cutm) into a staging buffer.  Called by all
+// H threads of a group.
+__device__ void stage_edges(const Params& p, size_t e0, int kn, int hh, int nw, int nsc, bf16* ea_s,
+                            bf16* zea_s, int* ids_s, float* sc_s) {
+  const int ldw = w_ld(p.rbf), words = p.rbf / 2;
+  const int warp = hh >> 5, lane = hh & 31;
+  for (int kc = warp; kc < kn; kc += nw) {
+    const size_t off = (e0 + kc) * p.rbf;
+    for (int w = lane; w < words; w += 32) {
+      __pipeline_memcpy_async(ea_s + kc * ldw + 2 * w, p.ea + off + 2 * w, 4);
+      if (zea_s) __pipeline_memcpy_async(zea_s + kc * ldw + 2 * w, p.zea + off + 2 * w, 4);
+    }
+  }
+  if (hh < kn) {
+    const size_t e = e0 + hh;
+    __pipeline_memcpy_async(ids_s + hh, p.idx + e, 4);
+    __pipeline_memcpy_async(sc_s + hh, p.cutm + e, 4);
+    if (nsc > 1) __pipeline_memcpy_async(sc_s + KC + hh, p.zcutm + e, 4);
+  }
+  __pipeline_commit();
+}
+
+// Source pass: start copying the kn slots whose edges are pv (lane s of
+// every warp holds perm of slot s): the edges' ea rows (and z_ea) and their
+// hsw-word rows of per-edge head scalars; the edge ids and receiver rows go
+// to ids_s.  Called by all H threads of a group.
+__device__ void stage_slots(const Params& p, int pv, int kn, int hh, int nw, int hsw, const float* hs,
+                            bf16* ea_s, bf16* zea_s, int* ids_s, float* hs_s) {
+  const int ldw = w_ld(p.rbf), words = p.rbf / 2;
+  const int warp = hh >> 5, lane = hh & 31;
+  for (int kc = warp; kc < kn; kc += nw) {
+    const int e = __shfl_sync(0xffffffffu, pv, kc);
+    const size_t off = (size_t)e * p.rbf;
+    for (int w = lane; w < words; w += 32) {
+      __pipeline_memcpy_async(ea_s + kc * ldw + 2 * w, p.ea + off + 2 * w, 4);
+      if (zea_s) __pipeline_memcpy_async(zea_s + kc * ldw + 2 * w, p.zea + off + 2 * w, 4);
+    }
+    for (int w = lane; w < hsw; w += 32)
+      __pipeline_memcpy_async(hs_s + kc * hsw + w, hs + (size_t)e * hsw + w, 4);
+  }
+  if (warp == 0 && lane < kn) {
+    ids_s[lane] = pv;
+    ids_s[KC + lane] = pv / p.k;
+  }
+  __pipeline_commit();
+}
+
+// The two filters of an edge for this thread's channel, from the tile's
+// bf16 accumulators a[0] (dk) and a[H] (dv): pre-activations bf16(acc + b)
+// and values bf16(act(pre)) (filter_val's arithmetic, rounded two at a
+// time).  Absent filters give values the caller ignores.
+__device__ __forceinline__ void edge_filters(int act, const bf16* a, int H, float bk, float bv, float pre[2],
+                                             float val[2]) {
+  pre[0] = ldb(a) + bk;
+  pre[1] = ldb(a + H) + bv;
+  bfr2(pre[0], pre[1]);
+  val[0] = act_fn(act, pre[0]);
+  val[1] = act_fn(act, pre[1]);
+  bfr2(val[0], val[1]);
+}
+
+// The second order's dual filters of an edge for this thread's channel,
+// from the filter tile a and the tangent tile at: f = bf16(act(pre)), its
+// first and second derivatives f1, f2 at pre = bf16(acc + b), and the
+// tangent pre-activation pt = bf16(acc' + z_b).  Absent filters give f = 1
+// and zeros.
+__device__ __forceinline__ void dual_filters(int act, const bf16* a, const bf16* at, int H, float bk,
+                                             float zbk, float bv, float zbv, bool has_dk, bool has_dv,
+                                             float f[2], float f1[2], float f2[2], float pt[2]) {
+  float x[2] = {ldb(a) + bk, ldb(a + H) + bv};
+  pt[0] = ldb(at) + zbk;
+  pt[1] = ldb(at + H) + zbv;
+  bfr2(x[0], x[1]);
+  bfr2(pt[0], pt[1]);
+#pragma unroll
+  for (int c = 0; c < 2; ++c) act3(act, x[c], &f[c], &f1[c], &f2[c]);
+  bfr2(f[0], f[1]);
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+    if (c == 0 ? has_dk : has_dv) continue;
+    f[c] = 1.0f;
+    f1[c] = f2[c] = pt[c] = 0.0f;
+  }
+}
+
+// the receiver row values the source passes read: q and ct (rounded to bf16)
+struct Recv {
+  float q, ct;
+};
+
+__device__ __forceinline__ Recv load_recv(const Params& p, const float* ct, int i, int hh) {
+  const size_t row = (size_t)i * p.h + hh;
+  return Recv{ldb(p.q + row), bfr(ct[row])};
+}
+
+// The backward's receiver pass (#12): per edge the forward recomputed and
+// its reverse on the receiver's side: dq, d ea, d cutm, the filter
+// cotangents d_pre (written per edge when dpre is not null, for
+// et_dw_kernel; the bias cotangents summed per group into db_part), and per
+// edge and head the bf16 d_prod and attn (hs, (E, 2, heads)) that the source
+// pass needs.
+template <int ACT, int ATT>
+__global__ void __launch_bounds__(RECV_MAX_THREADS, 1)
+    t_bwd_kernel(Params p, const float* __restrict__ ct, float* __restrict__ dq, bf16* __restrict__ dea,
+                 float* __restrict__ dcutm, bf16* __restrict__ hs, bf16* __restrict__ dpre,
+                 float* __restrict__ db_part) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const int H = p.h, F = 2 * p.h, ldp = pre_ld(p.h);
+  // the activations: compile-time constants where the instantiation names them
+  const int act = ACT >= 0 ? ACT : p.act, attn_act = ATT >= 0 ? ATT : p.attn_act;
+  const int H = p.h, F = 2 * H, ldp = pre_ld(H), ldw = w_ld(p.rbf), rbfp = rbf_pad(p.rbf);
   const int g = threadIdx.x / H, hh = threadIdx.x % H;
   const int nw = H / 32, warp = hh / 32, lane = hh % 32;
-  const int ldw = w_ld(p.rbf), rbfp = rbf_pad(p.rbf);
-  const Smem L = smem_layout(H, p.rbf, p.groups, BWD);
-  bf16* w_s = reinterpret_cast<bf16*>(smem);
-  unsigned char* gs = smem + L.groups_base + g * L.group_stride;
+  const int heads = H / p.hd, head = hh / p.hd;
+  const GLayout L = pass_layout(H, heads, p.rbf, p.groups, RECV);
+  const bf16* w_s = reinterpret_cast<const bf16*>(smem);
+  unsigned char* gs = smem + L.base + g * L.stride;
   bf16* ea_buf = reinterpret_cast<bf16*>(gs + L.ea);
-  bf16* pre_s = reinterpret_cast<bf16*>(gs + L.pre);  // then d_pre, in place
-  float* scratch = reinterpret_cast<float*>(gs + L.scratch) + warp * 256;
-  int* idx_buf = reinterpret_cast<int*>(gs + L.idx);
+  bf16* pre_s = reinterpret_cast<bf16*>(gs + L.pre);  // the filters, then d_pre in place
+  int* ids_buf = reinterpret_cast<int*>(gs + L.ids);
   float* sc_buf = reinterpret_cast<float*>(gs + L.sc);
   float* red_s = reinterpret_cast<float*>(gs + L.red);
-  const bool has_dk = p.wk != nullptr, has_dv = p.wv != nullptr;
-  const bool want_dw = dw_part != nullptr && (has_dk || has_dv);
+  const bool has_dk = p.wk != nullptr, has_dv = p.wv != nullptr, has_w = has_dk || has_dv;
   float db_acc[2] = {0.0f, 0.0f};  // this thread's filter columns
 
   for (int e = hh; e < 2 * KC * ldw; e += H) ea_buf[e] = __float2bfloat16_rn(0.0f);
-  load_weights(p, w_s);
+  load_weights(p, reinterpret_cast<bf16*>(smem));
   const float bk = has_dk ? ldb(p.bk + hh) : 0.0f;
   const float bv = has_dv ? ldb(p.bv + hh) : 0.0f;
-  __syncthreads();  // zero padding in place before any copy lands
-  const int first = blockIdx.x * p.iters * p.groups + g;
-  if (first < p.n) stage_async(p, first, 0, hh, ea_buf, idx_buf, sc_buf);
-  int buf = 0;
+  __syncthreads();  // weights and zero padding in place before any copy lands
 
-  for (int t = 0; t < p.iters; ++t) {
-    const int i = (blockIdx.x * p.iters + t) * p.groups + g;
-    const bool active = i < p.n;
-    float qi = 0.0f, cti = 0.0f;
-    if (active) {
-      qi = ldb(p.q + (size_t)i * H + hh);
-      cti = bfr(ct[(size_t)i * H + hh]);
-    }
+  const int r0 = ((int)blockIdx.x * p.groups + g) * p.iters;
+  const int r1 = min(r0 + p.iters, p.n);
+  if (r0 < r1) {  // the same for the whole group
+    const size_t eb = (size_t)r0 * p.k;
+    const int ne = (r1 - r0) * p.k, nch = (ne + KC - 1) / KC;
+    stage_edges(p, eb, min(KC, ne), hh, nw, 1, ea_buf, nullptr, ids_buf, sc_buf);
+    int i = r0, slot = 0;
+    Recv rc = load_recv(p, ct, i, hh);
     float dq_acc = 0.0f;
-    for (int c0 = 0; c0 < p.k; c0 += KC) {
-      const int kn = min(KC, p.k - c0);
-      const int cur_buf = buf;
+    for (int ch = 0; ch < nch; ++ch) {
+      const int buf = ch & 1;
+      const size_t e0 = eb + (size_t)ch * KC;
+      const int kn = min(KC, ne - ch * KC);
       const bf16* ea_s = ea_buf + buf * KC * ldw;
-      const int* idx_s = idx_buf + buf * KC;
+      const int* idx_s = ids_buf + buf * 2 * KC;
       const float* sc_s = sc_buf + buf * KC;
       __pipeline_wait_prior(0);
-      __syncthreads();  // this chunk has landed; the last one is done with the other buffer
-      if (active && (has_dk || has_dv)) filter_mma(p, w_s, ea_s, pre_s, scratch, warp, lane);
-      int i2, c2;
-      next_chunk(p, t, i, c0, &i2, &c2);
-      buf ^= 1;
-      if (i2 < p.n) stage_async(p, i2, c2, hh, ea_buf + buf * KC * ldw, idx_buf + buf * KC, sc_buf + buf * KC);
-      __syncthreads();  // the filter tile is complete
-      if (active) {
-        Src cur = load_src(p.kx, p.v, idx_s[0], H, hh);
-        for (int kc = 0; kc < kn; ++kc) {
-          Src nxt = cur;
-          if (kc + 1 < kn) nxt = load_src(p.kx, p.v, idx_s[kc + 1], H, hh);
-          const size_t e = (size_t)i * p.k + c0 + kc;
-          // ---- recompute the forward edge
-          bf16* a = pre_s + kc * ldp + hh;
-          float pre_k = 0.0f, dk = 1.0f, pre_v = 0.0f, dv = 1.0f;
-          if (has_dk) dk = filter_val(p.act, a[0], bk, &pre_k);
-          if (has_dv) dv = filter_val(p.act, a[H], bv, &pre_v);
-          const float vdv = has_dv ? bfr(cur.v * dv) : cur.v;
-          float prod = bfr(qi * cur.k);
-          if (has_dk) prod = bfr(prod * dk);
-          const float pre_a = bfr(group_sum(prod, p.hd));
-          const float a_act = bfr(act_fn(p.attn_act, pre_a));
-          const float cm = bfr(sc_s[kc]);
-          const float attn = bfr(a_act * cm);
-          // ---- backward through the edge (t_message.py:165-228)
-          const float d_attn = bfr(cti * vdv);
-          const float d_vdv = bfr(cti * attn);
-          const float d_prea = bfr(bfr(bfr(dact_fn(p.attn_act, pre_a)) * cm) * d_attn);
-          const float r0 = group_sum(bfr(a_act * d_attn), 32);
-          if (lane == 0) red_s[kc * nw + warp] = r0;
-          const float d_prod = bfr(group_sum(d_prea, p.hd));
-          const float qk = bfr(d_prod * qi);
-          float d_kj, d_dk = 0.0f;
-          if (has_dk) {
-            d_kj = bfr(qk * dk);
-            d_dk = bfr(qk * cur.k);
-            dq_acc += bfr(bfr(d_prod * cur.k) * dk);
-          } else {
-            d_kj = qk;
-            dq_acc += bfr(d_prod * cur.k);
-          }
-          bf16* ds = dsrc + e * 2 * H;
-          ds[hh] = __float2bfloat16_rn(d_kj);
-          ds[H + hh] = __float2bfloat16_rn(has_dv ? bfr(d_vdv * dv) : d_vdv);
-          float d_pre[2];
-          d_pre[0] = has_dk ? bfr(bfr(dact_fn(p.act, pre_k)) * d_dk) : 0.0f;
-          d_pre[1] = has_dv ? bfr(bfr(dact_fn(p.act, pre_v)) * bfr(d_vdv * cur.v)) : 0.0f;
+      group_sync(g, H);  // this chunk has landed; the last one is done with the other buffers
+      if (ch + 1 < nch)
+        stage_edges(p, e0 + KC, min(KC, ne - (ch + 1) * KC), hh, nw, 1, ea_buf + (buf ^ 1) * KC * ldw,
+                    nullptr, ids_buf + (buf ^ 1) * 2 * KC, sc_buf + (buf ^ 1) * KC);
+      round_scalars(sc_buf + buf * KC, 1, hh, H);  // cutm
+      if (has_w) filter_tile(1, ea_s, w_s, nullptr, nullptr, nullptr, ldw, rbfp, F, pre_s, ldp, warp, nw, lane);
+      group_sync(g, H);  // the filter tile and the rounded cutm are complete
+      // two edges at a time (a = kc, b = kc + 1): their chains interleave,
+      // and their head and warp sums share shuffles (group_sum2, the same
+      // pairs as one sum at a time, so the same bits)
+      Src s0 = load_src(p.kx, p.v, idx_s[0], H, hh);
+      Src s1 = kn > 1 ? load_src(p.kx, p.v, idx_s[1], H, hh) : s0;
+      for (int kc = 0; kc < kn; kc += 2) {
+        const bool two = kc + 1 < kn;
+        Src n0 = s0, n1 = s1;  // the next pair's source rows, in flight while this pair computes
+        if (kc + 2 < kn) n0 = load_src(p.kx, p.v, idx_s[kc + 2], H, hh);
+        if (kc + 3 < kn) n1 = load_src(p.kx, p.v, idx_s[kc + 3], H, hh);
+        if (slot == p.k) {  // edge a starts the next receiver row
+          dq[(size_t)i * H + hh] = dq_acc;
+          dq_acc = 0.0f;
+          rc = load_recv(p, ct, ++i, hh);
+          slot = 0;
+        }
+        ++slot;
+        const bool b_row = two && slot == p.k;  // edge b starts the next receiver row
+        const Recv r[2] = {rc, b_row ? load_recv(p, ct, i + 1, hh) : rc};
+        const Src x[2] = {s0, s1};
+        // ---- recompute the forward edges (the first port's rounding points,
+        // two roundings per conversion where two values are ready)
+        bf16* a[2] = {pre_s + kc * ldp + hh, pre_s + (kc + 1) * ldp + hh};
+        float pre[2][2], dk[2], dv[2], vdv[2], prod[2];
 #pragma unroll
-          for (int c = 0; c < 2; ++c) {
-            // this thread read a[c * H] above: overwrite it with d_pre
-            const bf16 d = __float2bfloat16_rn(d_pre[c]);
-            a[c * H] = d;
-            db_acc[c] += __bfloat162float(d);
-          }
-          cur = nxt;
+        for (int u = 0; u < 2; ++u) {
+          float val[2];
+          edge_filters(act, a[u], H, bk, bv, pre[u], val);
+          dk[u] = has_dk ? val[0] : 1.0f;
+          dv[u] = has_dv ? val[1] : 1.0f;
+          // bf16(v * dv) is v where dv is absent (1), bf16(bf16(q k) * dk) is bf16(q k)
+          float qk = r[u].q * x[u].k;
+          vdv[u] = x[u].v * dv[u];
+          bfr2(vdv[u], qk);
+          prod[u] = qk * dk[u];
         }
-        // rows past the chunk's end take no part in the weight gradient
-        for (int kc = kn; kc < KC; ++kc)
-          for (int c = 0; c < 2; ++c) pre_s[kc * ldp + c * H + hh] = __float2bfloat16_rn(0.0f);
-      }
-      __syncthreads();
-      if (active) {
-        // the cutm cotangent: a fixed-order sum of the warp partials
-        for (int s = hh; s < kn; s += H) {
-          float sum = 0.0f;
-          for (int w = 0; w < nw; ++w) sum += red_s[s * nw + w];
-          dcutm[(size_t)i * p.k + c0 + s] = sum;
+        bfr2(prod[0], prod[1]);
+        float pre_a[2] = {prod[0], prod[1]};
+        group_sum2(pre_a[0], pre_a[1], p.hd, lane);
+        bfr2(pre_a[0], pre_a[1]);
+        float a_act[2], attn[2], d_vdv[2], r_arg[2], d_prea[2];
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          float da = dact_fn(attn_act, pre_a[u]);
+          a_act[u] = act_fn(attn_act, pre_a[u]);
+          bfr2(a_act[u], da);
+          const float cm = sc_s[kc + u];
+          attn[u] = bfr(a_act[u] * cm);
+          // ---- backward through the edge (the receiver's side)
+          float d_attn = r[u].ct * vdv[u];
+          d_vdv[u] = r[u].ct * attn[u];
+          bfr2(d_attn, d_vdv[u]);
+          float t_cm = da * cm;
+          r_arg[u] = a_act[u] * d_attn;
+          bfr2(t_cm, r_arg[u]);
+          d_prea[u] = t_cm * d_attn;
         }
-        // d ea (KC, RBFP) = d_pre (KC, 2H) . W (2H, RBFP) on the tensor cores,
-        // one 16-column tile per warp, written out from the warp's scratch
-        for (int tile = warp; tile < rbfp / 16; tile += nw) {
-          wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
-          wmma::fill_fragment(c, 0.0f);
-          if (has_dk || has_dv) {
-            for (int k0 = 0; k0 < F; k0 += 16) {
-              wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-              wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-              wmma::load_matrix_sync(a, pre_s + k0, ldp);
-              wmma::load_matrix_sync(b, w_s + (size_t)k0 * ldw + tile * 16, ldw);
-              wmma::mma_sync(c, a, b, c);
+        bfr2(d_prea[0], d_prea[1]);
+        group_sum2(r_arg[0], r_arg[1], 32, lane);  // the warp's partials of d cutm
+        group_sum2(d_prea[0], d_prea[1], p.hd, lane);
+        bfr2(d_prea[0], d_prea[1]);  // d_prod of each edge
+        if (lane == 0) {
+          red_s[kc * nw + warp] = r_arg[0];
+          if (two) red_s[(kc + 1) * nw + warp] = r_arg[1];
+        }
+        float t[2];
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const float d_prod = d_prea[u];
+          float dqk = d_prod * r[u].q, pk = d_prod * x[u].k;
+          bfr2(dqk, pk);
+          float d_dk = dqk * x[u].k;
+          t[u] = pk * dk[u];  // bf16(pk * 1) is pk where dk is absent
+          bfr2(d_dk, t[u]);
+          if (u == 0 || two) {
+            const size_t e = e0 + kc + u;
+            if (hh % p.hd == 0) {  // the source pass's per-edge head scalars
+              hs[e * 2 * heads + head] = bf16_exact(d_prod);
+              hs[e * 2 * heads + heads + head] = bf16_exact(attn[u]);
             }
           }
-          wmma::store_matrix_sync(scratch, c, 16, wmma::mem_row_major);
-          __syncwarp();
-          for (int s = lane; s < 256; s += 32) {
-            const int kc = s / 16, r = tile * 16 + s % 16;
-            if (kc < kn && r < p.rbf)
-              dea[((size_t)i * p.k + c0 + kc) * p.rbf + r] = __float2bfloat16_rn(scratch[s]);
+          // the filter cotangents d_pre = bf16(bf16(act'(pre)) * bf16(d_filter))
+          float dd[2] = {dact_fn(act, pre[u][0]), dact_fn(act, pre[u][1])};
+          bfr2(dd[0], dd[1]);
+          const float dvv = bfr(d_vdv[u] * x[u].v);
+          float d_pre[2] = {dd[0] * d_dk, dd[1] * dvv};
+          bfr2(d_pre[0], d_pre[1]);
+          if (!has_dk) d_pre[0] = 0.0f;
+          if (!has_dv) d_pre[1] = 0.0f;
+          if (u == 0 || two) {
+#pragma unroll
+            for (int c = 0; c < 2; ++c) {
+              // this thread read a[u][c * H] above: overwrite it with d_pre
+              a[u][c * H] = bf16_exact(d_pre[c]);
+              db_acc[c] += d_pre[c];
+            }
           }
-          __syncwarp();
         }
+        dq_acc += t[0];
+        if (two) {
+          if (b_row) {
+            dq[(size_t)i * H + hh] = dq_acc;
+            dq_acc = 0.0f;
+            rc = r[1];
+            ++i;
+            slot = 0;
+          }
+          ++slot;
+          dq_acc += t[1];
+        }
+        s0 = n0;
+        s1 = n1;
       }
-      if (want_dw) {
-        // signed: past the last row the count is negative (an unsigned
-        // blockIdx.x would wrap it to p.groups and re-add stale rows)
-        const int nact = min(p.groups, p.n - ((int)blockIdx.x * p.iters + t) * p.groups);
-        accumulate_dw<2>(L, smem, cur_buf, H, p.rbf, nact, false, t == 0 && c0 == 0,
-                         dw_part + (size_t)blockIdx.x * rbfp * F);
+      group_sync(g, H);  // d_pre and the warp partials are complete
+      // the cutm cotangent: a fixed-order sum of the warp partials
+      for (int s = hh; s < kn; s += H) {
+        float sum = 0.0f;
+        for (int w = 0; w < nw; ++w) sum += red_s[s * nw + w];
+        dcutm[e0 + s] = sum;
+      }
+      if (has_w) {
+        dea_tile(1, pre_s, w_s, nullptr, nullptr, nullptr, F, ldp, ldw, p.rbf, rbfp, dea, e0, kn, warp, nw, lane);
+        if (dpre) store_tile(pre_s, ldp, F, dpre, e0, kn, hh, H);
+      } else {
+        for (int x = hh; x < kn * p.rbf; x += H) dea[e0 * p.rbf + x] = __float2bfloat16_rn(0.0f);
       }
     }
-    if (active) dq[(size_t)i * H + hh] = dq_acc;
+    dq[(size_t)i * H + hh] = dq_acc;
   }
-  if (want_dw) {
+  if (dpre) {
 #pragma unroll
     for (int c = 0; c < 2; ++c) db_part[((size_t)blockIdx.x * p.groups + g) * F + c * H + hh] = db_acc[c];
   }
 }
 
-// out (KC, 2H) bf16 = sum over the pairs of A (KC, RBFP; shared, ld ldw) .
-// B^T, B (2H, RBFP) bf16 in device memory; the group's warps split the 2H/16
-// column tiles.
-__device__ void dual_filter_mma(const Params& p, int npairs, const bf16* a0, const bf16* b0,
-                                const bf16* a1, const bf16* b1, bf16* out, float* scratch,
-                                int warp, int lane) {
-  const int ldw = w_ld(p.rbf), rbfp = rbf_pad(p.rbf), ldp = pre_ld(p.h);
-  const int tiles = 2 * p.h / 16, nw = p.h / 32;
-  for (int t = warp; t < tiles; t += nw) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
-    wmma::fill_fragment(c, 0.0f);
-    for (int pr = 0; pr < npairs; ++pr) {
-      const bf16* a = pr ? a1 : a0;
-      const bf16* b = (pr ? b1 : b0) + (size_t)t * 16 * rbfp;
-      for (int k0 = 0; k0 < rbfp; k0 += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-        wmma::load_matrix_sync(fa, a + k0, ldw);
-        wmma::load_matrix_sync(fb, b + k0, rbfp);
-        wmma::mma_sync(c, fa, fb, c);
-      }
+// The backward's source pass (#12): per atom j, the source-row cotangents
+// d k_j = sum of bf16(bf16(d_prod q_i) dk) and d v_j = sum of bf16(bf16(ct_i
+// attn) dv) over the K slots s of perm (the edges (i, k') with idx[i, k'] =
+// j), from the edge's recomputed filters, the receiver's q and ct, and hs's
+// d_prod and attn.  f32 sums in slot order, rounded once.
+template <int ACT, int ATT>
+__global__ void __launch_bounds__(SRC_MAX_THREADS, 1)
+    t_bwd_src_kernel(Params p, const int32_t* __restrict__ perm, const float* __restrict__ ct,
+                     const bf16* __restrict__ hs, bf16* __restrict__ dk_out, bf16* __restrict__ dv_out) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int act = ACT >= 0 ? ACT : p.act;
+  const int H = p.h, F = 2 * H, ldp = pre_ld(H), ldw = w_ld(p.rbf), rbfp = rbf_pad(p.rbf);
+  const int g = threadIdx.x / H, hh = threadIdx.x % H;
+  const int nw = H / 32, warp = hh / 32, lane = hh % 32;
+  const int heads = H / p.hd, head = hh / p.hd;
+  const GLayout L = pass_layout(H, heads, p.rbf, p.groups, SRC);
+  const bf16* w_s = reinterpret_cast<const bf16*>(smem);
+  unsigned char* gs = smem + L.base + g * L.stride;
+  bf16* ea_buf = reinterpret_cast<bf16*>(gs + L.ea);
+  bf16* pre_s = reinterpret_cast<bf16*>(gs + L.pre);
+  int* ids_buf = reinterpret_cast<int*>(gs + L.ids);
+  float* hs_buf = reinterpret_cast<float*>(gs + L.hs);
+  const bool has_dk = p.wk != nullptr, has_dv = p.wv != nullptr, has_w = has_dk || has_dv;
+  const float* hs_words = reinterpret_cast<const float*>(hs);  // (E, heads) words of two bf16
+
+  for (int e = hh; e < 2 * KC * ldw; e += H) ea_buf[e] = __float2bfloat16_rn(0.0f);
+  load_weights(p, reinterpret_cast<bf16*>(smem));
+  const float bk = has_dk ? ldb(p.bk + hh) : 0.0f;
+  const float bv = has_dv ? ldb(p.bv + hh) : 0.0f;
+  __syncthreads();
+
+  const int a0 = ((int)blockIdx.x * p.groups + g) * p.iters;
+  const int a1 = min(a0 + p.iters, p.n);
+  if (a0 >= a1) return;  // the same for the whole group
+  const size_t sb = (size_t)a0 * p.k;
+  const int ns = (a1 - a0) * p.k, nch = (ns + KC - 1) / KC;
+  // perm of the next chunks, lane s holding slot s: one chunk ahead of its staging
+  int pv = lane < min(KC, ns) ? __ldg(perm + sb + lane) : 0;
+  stage_slots(p, pv, min(KC, ns), hh, nw, heads, hs_words, ea_buf, nullptr, ids_buf, hs_buf);
+  pv = (nch > 1 && lane < min(KC, ns - KC)) ? __ldg(perm + sb + KC + lane) : 0;
+  int j = a0, slot = 0;
+  float acc_k = 0.0f, acc_v = 0.0f;
+  for (int ch = 0; ch < nch; ++ch) {
+    const int buf = ch & 1;
+    const int kn = min(KC, ns - ch * KC);
+    const int* eid_s = ids_buf + buf * 2 * KC;
+    const bf16* hs_s = reinterpret_cast<const bf16*>(hs_buf + buf * heads * KC);
+    __pipeline_wait_prior(0);
+    group_sync(g, H);  // this chunk has landed; the last one is done with the other buffers
+    if (ch + 1 < nch) {
+      stage_slots(p, pv, min(KC, ns - (ch + 1) * KC), hh, nw, heads, hs_words, ea_buf + (buf ^ 1) * KC * ldw,
+                  nullptr, ids_buf + (buf ^ 1) * 2 * KC, hs_buf + (buf ^ 1) * heads * KC);
+      const int rest = ns - (ch + 2) * KC;
+      pv = (rest > 0 && lane < min(KC, rest)) ? __ldg(perm + sb + (size_t)(ch + 2) * KC + lane) : 0;
     }
-    wmma::store_matrix_sync(scratch, c, 16, wmma::mem_row_major);
-    __syncwarp();
-    for (int e = lane; e < 256; e += 32)
-      out[(e / 16) * ldp + t * 16 + e % 16] = __float2bfloat16_rn(scratch[e]);
-    __syncwarp();
+    if (has_w)
+      filter_tile(1, ea_buf + buf * KC * ldw, w_s, nullptr, nullptr, nullptr, ldw, rbfp, F, pre_s, ldp, warp,
+                  nw, lane);
+    group_sync(g, H);  // the filter tile and the chunk's ids are complete
+    Recv cur = load_recv(p, ct, eid_s[KC], hh);
+    for (int kc = 0; kc < kn; ++kc) {
+      Recv nxt = cur;
+      if (kc + 1 < kn) nxt = load_recv(p, ct, eid_s[KC + kc + 1], hh);
+      if (slot == p.k) {  // the next source atom
+        dk_out[(size_t)j * H + hh] = __float2bfloat16_rn(acc_k);
+        dv_out[(size_t)j * H + hh] = __float2bfloat16_rn(acc_v);
+        acc_k = acc_v = 0.0f;
+        ++j;
+        slot = 0;
+      }
+      ++slot;
+      float pre[2], val[2];
+      edge_filters(act, pre_s + kc * ldp + hh, H, bk, bv, pre, val);
+      const float dk = has_dk ? val[0] : 1.0f, dv = has_dv ? val[1] : 1.0f;
+      const float d_prod = __bfloat162float(hs_s[kc * 2 * heads + head]);
+      const float attn = __bfloat162float(hs_s[kc * 2 * heads + heads + head]);
+      // the receiver pass's rounding points: bf16(x * 1) is x where a filter is absent
+      float qk = d_prod * cur.q, d_vdv = cur.ct * attn;
+      bfr2(qk, d_vdv);
+      float d_k = qk * dk, d_v = d_vdv * dv;
+      bfr2(d_k, d_v);
+      acc_k += d_k;
+      acc_v += d_v;
+      cur = nxt;
+    }
   }
+  dk_out[(size_t)j * H + hh] = __float2bfloat16_rn(acc_k);
+  dv_out[(size_t)j * H + hh] = __float2bfloat16_rn(acc_v);
 }
 
-// Second order: the VJP of t_bwd with respect to (inputs, ct), given the
-// cotangents Z on its outputs (see the header).  Per edge, with primes for
-// tangents (the Z values):
+// The second order's receiver pass (#13): the VJP of the backward with
+// respect to (inputs, ct) given the cotangents Z on its outputs (see the
+// header).  Per edge, with primes for tangents (the Z values):
 //   pre' = z_ea.W + ea.Z_W + z_b, dk' = act'(pre_k) pre_k', prod' = z_q k dk
 //   + q z_k dk + q k dk', pa' = head sum of prod', attn' = attn_act'(pa) pa'
 //   cutm + attn_act(pa) z_cutm, vdv' = z_v dv + v dv',
 //   out' += vdv' attn + vdv attn'
 // g_ct = out' summed over the slots; g_inputs is the reverse pass of these
-// lines seeded with ct on out'.
-__global__ void __launch_bounds__(BWD2_MAX_THREADS, 1)
-    t_bwd2_kernel(Params p, const float* __restrict__ ct, float* __restrict__ gq,
-                  bf16* __restrict__ gea, float* __restrict__ gcutm, float* __restrict__ gsrc,
-                  float* __restrict__ gct, float* __restrict__ dw_part,
-                  float* __restrict__ db_part) {
+// lines seeded with ct on out'.  This pass computes the receiver's side (g
+// q, g ea, g cutm, g_ct, the filter cotangents bpre and bpre' per edge for
+// et_dw_kernel and the bias sums per group); per edge and head it writes
+// attn, attn', and the head sums of the reverse seeds of prod' and prod
+// (hs4, (E, 4, heads) f32) for the source pass.
+template <int ACT, int ATT>
+__global__ void __launch_bounds__(RECV2_MAX_THREADS, 1)
+    t_bwd2_kernel(Params p, const float* __restrict__ ct, float* __restrict__ gq, bf16* __restrict__ gea,
+                  float* __restrict__ gcutm, float* __restrict__ gct, float* __restrict__ hs4,
+                  bf16* __restrict__ bpre_out, bf16* __restrict__ bpret_out, float* __restrict__ db_part) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const int H = p.h, F = 2 * p.h, ldp = pre_ld(p.h);
+  const int act = ACT >= 0 ? ACT : p.act, attn_act = ATT >= 0 ? ATT : p.attn_act;
+  const int H = p.h, F = 2 * H, ldp = pre_ld(H), ldw = w_ld(p.rbf), rbfp = rbf_pad(p.rbf);
   const int g = threadIdx.x / H, hh = threadIdx.x % H;
   const int nw = H / 32, warp = hh / 32, lane = hh % 32;
-  const int ldw = w_ld(p.rbf), rbfp = rbf_pad(p.rbf);
-  const Smem L = smem_layout(H, p.rbf, p.groups, BWD2);
-  unsigned char* gs = smem + L.groups_base + g * L.group_stride;
+  const int heads = H / p.hd, head = hh / p.hd;
+  const GLayout L = pass_layout(H, heads, p.rbf, p.groups, RECV2);
+  const bf16* w_s = reinterpret_cast<const bf16*>(smem);
+  unsigned char* gs = smem + L.base + g * L.stride;
   bf16* ea_buf = reinterpret_cast<bf16*>(gs + L.ea);
   bf16* zea_buf = reinterpret_cast<bf16*>(gs + L.zea);
   bf16* pre_s = reinterpret_cast<bf16*>(gs + L.pre);    // pre, then its cotangent
   bf16* pret_s = reinterpret_cast<bf16*>(gs + L.pret);  // pre', then its cotangent
-  float* scratch = reinterpret_cast<float*>(gs + L.scratch) + warp * 256;
-  int* idx_buf = reinterpret_cast<int*>(gs + L.idx);
+  int* ids_buf = reinterpret_cast<int*>(gs + L.ids);
   float* sc_buf = reinterpret_cast<float*>(gs + L.sc);
   float* red_s = reinterpret_cast<float*>(gs + L.red);
   const bool has_dk = p.wk != nullptr, has_dv = p.wv != nullptr, has_w = has_dk || has_dv;
@@ -670,6 +797,7 @@ __global__ void __launch_bounds__(BWD2_MAX_THREADS, 1)
     ea_buf[e] = __float2bfloat16_rn(0.0f);
     zea_buf[e] = __float2bfloat16_rn(0.0f);
   }
+  load_weights(p, reinterpret_cast<bf16*>(smem));
   float bk = 0.0f, zbk = 0.0f, bv = 0.0f, zbv = 0.0f;
   if (has_dk) {
     bk = ldb(p.bk + hh);
@@ -680,173 +808,241 @@ __global__ void __launch_bounds__(BWD2_MAX_THREADS, 1)
     zbv = ldb(p.zbv + hh);
   }
   __syncthreads();  // zero padding in place before any copy lands
-  const int first = blockIdx.x * p.iters * p.groups + g;
-  if (first < p.n) stage_async(p, first, 0, hh, ea_buf, idx_buf, sc_buf, zea_buf);
-  int buf = 0;
 
-  for (int t = 0; t < p.iters; ++t) {
-    const int i = (blockIdx.x * p.iters + t) * p.groups + g;
-    const bool active = i < p.n;
+  const int r0 = ((int)blockIdx.x * p.groups + g) * p.iters;
+  const int r1 = min(r0 + p.iters, p.n);
+  if (r0 < r1) {
+    const size_t eb = (size_t)r0 * p.k;
+    const int ne = (r1 - r0) * p.k, nch = (ne + KC - 1) / KC;
+    stage_edges(p, eb, min(KC, ne), hh, nw, 2, ea_buf, zea_buf, ids_buf, sc_buf);
+    int i = r0, slot = 0;
     float qi = 0.0f, zqi = 0.0f, cti = 0.0f;
-    if (active) {
-      qi = ldb(p.q + (size_t)i * H + hh);
-      zqi = ldb(p.zq + (size_t)i * H + hh);
-      cti = bfr(ct[(size_t)i * H + hh]);
-    }
     float gq_acc = 0.0f, gct_acc = 0.0f;
-    for (int c0 = 0; c0 < p.k; c0 += KC) {
-      const int kn = min(KC, p.k - c0);
-      const int cur_buf = buf;
+    for (int ch = 0; ch < nch; ++ch) {
+      const int buf = ch & 1;
+      const size_t e0 = eb + (size_t)ch * KC;
+      const int kn = min(KC, ne - ch * KC);
       const bf16* ea_s = ea_buf + buf * KC * ldw;
       const bf16* zea_s = zea_buf + buf * KC * ldw;
-      const int* idx_s = idx_buf + buf * KC;
+      const int* idx_s = ids_buf + buf * 2 * KC;
       const float* sc_s = sc_buf + buf * 2 * KC;
       __pipeline_wait_prior(0);
-      __syncthreads();  // this chunk has landed; the last one is done with the other buffer
-      if (active && has_w) {
-        dual_filter_mma(p, 1, ea_s, p.w_all, nullptr, nullptr, pre_s, scratch, warp, lane);
-        dual_filter_mma(p, 2, zea_s, p.w_all, ea_s, p.zw_all, pret_s, scratch, warp, lane);
+      group_sync(g, H);  // this chunk has landed; the last one is done with the other buffers
+      if (ch + 1 < nch)
+        stage_edges(p, e0 + KC, min(KC, ne - (ch + 1) * KC), hh, nw, 2, ea_buf + (buf ^ 1) * KC * ldw,
+                    zea_buf + (buf ^ 1) * KC * ldw, ids_buf + (buf ^ 1) * 2 * KC, sc_buf + (buf ^ 1) * 2 * KC);
+      round_scalars(sc_buf + buf * 2 * KC, 1, hh, H);  // cutm (not z_cutm)
+      if (has_w) {
+        filter_tile(1, ea_s, w_s, nullptr, nullptr, nullptr, ldw, rbfp, F, pre_s, ldp, warp, nw, lane);
+        filter_tile(2, zea_s, w_s, nullptr, ea_s, p.zw_all, ldw, rbfp, F, pret_s, ldp, warp, nw, lane);
       }
-      int i2, c2;
-      next_chunk(p, t, i, c0, &i2, &c2);
-      buf ^= 1;
-      if (i2 < p.n)
-        stage_async(p, i2, c2, hh, ea_buf + buf * KC * ldw, idx_buf + buf * KC,
-                    sc_buf + buf * 2 * KC, zea_buf + buf * KC * ldw);
-      __syncthreads();  // the filter tiles are complete
-      if (active) {
-        for (int kc = 0; kc < kn; ++kc) {
-          const int j = idx_s[kc];
-          const Src x = load_src(p.kx, p.v, j, H, hh);
-          const Src z = load_src(p.zk, p.zv, j, H, hh);
-          const size_t e = (size_t)i * p.k + c0 + kc;
-          const float cm = bfr(sc_s[kc]);
-          const float zcm = sc_s[KC + kc];
-          // ---- the dual forward of the edge
-          bf16* a = pre_s + kc * ldp + hh;
-          bf16* at = pret_s + kc * ldp + hh;
-          float dk = 1.0f, dk1 = 0.0f, dk2 = 0.0f, pkt = 0.0f, dkt = 0.0f;
-          if (has_dk) {
-            const float pk = bfr(ldb(a) + bk);
-            act3(p.act, pk, &dk, &dk1, &dk2);
-            dk = bfr(dk);
-            pkt = bfr(ldb(at) + zbk);
-            dkt = dk1 * pkt;
+      group_sync(g, H);  // the filter tiles and the rounded cutm are complete
+      for (int kc = 0; kc < kn; ++kc) {
+        if (slot == 0 || slot == p.k) {  // a new receiver row
+          if (slot == p.k) {
+            gq[(size_t)i * H + hh] = gq_acc;
+            gct[(size_t)i * H + hh] = gct_acc;
+            gq_acc = gct_acc = 0.0f;
+            ++i;
           }
-          float dv = 1.0f, dv1 = 0.0f, dv2 = 0.0f, pvt = 0.0f, dvt = 0.0f;
-          if (has_dv) {
-            const float pv = bfr(ldb(a + H) + bv);
-            act3(p.act, pv, &dv, &dv1, &dv2);
-            dv = bfr(dv);
-            pvt = bfr(ldb(at + H) + zbv);
-            dvt = dv1 * pvt;
-          }
-          const float qk = bfr(qi * x.k);
-          const float prod = has_dk ? bfr(qk * dk) : qk;
-          const float prodt = (zqi * x.k + qi * z.k) * dk + qi * x.k * dkt;
-          const float pa = bfr(group_sum(prod, p.hd));
-          const float pat = group_sum(prodt, p.hd);
-          float aa, a1, a2;
-          act3(p.attn_act, pa, &aa, &a1, &a2);
-          aa = bfr(aa);
-          const float attn = bfr(aa * cm);
-          const float attnt = a1 * pat * cm + aa * zcm;
-          const float vdv = has_dv ? bfr(x.v * dv) : x.v;
-          const float vdvt = z.v * dv + x.v * dvt;
-          gct_acc += vdvt * attn + vdv * attnt;
-          // ---- its reverse, seeded with ct on the tangent output
-          const float b_vdvt = cti * attn, b_vdv = cti * attnt;
-          const float b_attnt = cti * vdv, b_attn = cti * vdvt;
-          const float r_cm = group_sum(b_attnt * a1 * pat + b_attn * aa, 32);
-          if (lane == 0) red_s[kc * nw + warp] = r_cm;
-          const float b_pat = b_attnt * a1 * cm;
-          const float b_pa = b_attnt * (a2 * pat * cm + a1 * zcm) + b_attn * a1 * cm;
-          const float b_prodt = group_sum(b_pat, p.hd);
-          const float b_prod = group_sum(b_pa, p.hd);
-          float bpre[2] = {0.0f, 0.0f}, bpret[2] = {0.0f, 0.0f};
-          float* gs_e = gsrc + e * 2 * H;
-          gs_e[H + hh] = b_vdvt * dvt + b_vdv * dv;  // v_j
-          if (has_dv) {
-            const float b_dv = b_vdvt * z.v + b_vdv * x.v;
-            const float b_dvt = b_vdvt * x.v;
-            bpret[1] = b_dvt * dv1;
-            bpre[1] = b_dvt * dv2 * pvt + b_dv * dv1;
-          }
-          gs_e[hh] = b_prodt * (zqi * dk + qi * dkt) + b_prod * qi * dk;  // k_j
-          gq_acc += b_prodt * (z.k * dk + x.k * dkt) + b_prod * x.k * dk;
-          if (has_dk) {
-            const float b_dk = b_prodt * (zqi * x.k + qi * z.k) + b_prod * qi * x.k;
-            const float b_dkt = b_prodt * qi * x.k;
-            bpret[0] = b_dkt * dk1;
-            bpre[0] = b_dkt * dk2 * pkt + b_dk * dk1;
-          }
+          qi = ldb(p.q + (size_t)i * H + hh);
+          zqi = ldb(p.zq + (size_t)i * H + hh);
+          cti = bfr(ct[(size_t)i * H + hh]);
+          slot = 0;
+        }
+        ++slot;
+        const int j = idx_s[kc];
+        const Src x = load_src(p.kx, p.v, j, H, hh);
+        const Src z = load_src(p.zk, p.zv, j, H, hh);
+        const size_t e = e0 + kc;
+        const float cm = sc_s[kc], zcm = sc_s[KC + kc];
+        // ---- the dual forward of the edge
+        bf16* a = pre_s + kc * ldp + hh;
+        bf16* at = pret_s + kc * ldp + hh;
+        float f[2], f1[2], f2[2], pt[2];
+        dual_filters(act, a, at, H, bk, zbk, bv, zbv, has_dk, has_dv, f, f1, f2, pt);
+        const float dk = f[0], dk1 = f1[0], dk2 = f2[0], pkt = pt[0], dkt = dk1 * pkt;
+        const float dv = f[1], dv1 = f1[1], dv2 = f2[1], pvt = pt[1], dvt = dv1 * pvt;
+        const float qk = bfr(qi * x.k);
+        const float prod = has_dk ? bfr(qk * dk) : qk;
+        const float prodt = (zqi * x.k + qi * z.k) * dk + qi * x.k * dkt;
+        float pa = prod, pat = prodt;  // their head sums, two at once
+        group_sum2(pa, pat, p.hd, lane);
+        pa = bfr(pa);
+        float aa, a1, a2;
+        act3(attn_act, pa, &aa, &a1, &a2);
+        aa = bfr(aa);
+        const float attn = bfr(aa * cm);
+        const float attnt = a1 * pat * cm + aa * zcm;
+        const float vdv = has_dv ? bfr(x.v * dv) : x.v;
+        const float vdvt = z.v * dv + x.v * dvt;
+        gct_acc += vdvt * attn + vdv * attnt;
+        // ---- its reverse, seeded with ct on the tangent output
+        const float b_vdvt = cti * attn, b_vdv = cti * attnt;
+        const float b_attnt = cti * vdv, b_attn = cti * vdvt;
+        const float r_cm = group_sum(b_attnt * a1 * pat + b_attn * aa, 32);
+        if (lane == 0) red_s[kc * nw + warp] = r_cm;
+        const float b_pat = b_attnt * a1 * cm;
+        const float b_pa = b_attnt * (a2 * pat * cm + a1 * zcm) + b_attn * a1 * cm;
+        float b_prodt = b_pat, b_prod = b_pa;  // their head sums, two at once
+        group_sum2(b_prodt, b_prod, p.hd, lane);
+        if (hh % p.hd == 0) {  // the source pass's per-edge head scalars
+          float* hrow = hs4 + e * 4 * heads + head;
+          hrow[0] = attn;
+          hrow[heads] = attnt;
+          hrow[2 * heads] = b_prodt;
+          hrow[3 * heads] = b_prod;
+        }
+        float bpre[2] = {0.0f, 0.0f}, bpret[2] = {0.0f, 0.0f};
+        if (has_dv) {
+          const float b_dv = b_vdvt * z.v + b_vdv * x.v;
+          const float b_dvt = b_vdvt * x.v;
+          bpret[1] = b_dvt * dv1;
+          bpre[1] = b_dvt * dv2 * pvt + b_dv * dv1;
+        }
+        gq_acc += b_prodt * (z.k * dk + x.k * dkt) + b_prod * x.k * dk;
+        if (has_dk) {
+          const float b_dk = b_prodt * (zqi * x.k + qi * z.k) + b_prod * qi * x.k;
+          const float b_dkt = b_prodt * qi * x.k;
+          bpret[0] = b_dkt * dk1;
+          bpre[0] = b_dkt * dk2 * pkt + b_dk * dk1;
+        }
 #pragma unroll
-          for (int c = 0; c < 2; ++c) {
-            // this thread read a[c * H] and at[c * H] above: overwrite them
-            const bf16 d = __float2bfloat16_rn(bpre[c]);
-            a[c * H] = d;
-            at[c * H] = __float2bfloat16_rn(bpret[c]);
-            db_acc[c] += __bfloat162float(d);
-          }
+        for (int c = 0; c < 2; ++c) {
+          // this thread read a[c * H] and at[c * H] above: overwrite them
+          bfr2(bpre[c], bpret[c]);
+          a[c * H] = bf16_exact(bpre[c]);
+          at[c * H] = bf16_exact(bpret[c]);
+          db_acc[c] += bpre[c];
         }
-        for (int kc = kn; kc < KC; ++kc)
-          for (int c = 0; c < 2; ++c) {
-            pre_s[kc * ldp + c * H + hh] = __float2bfloat16_rn(0.0f);
-            pret_s[kc * ldp + c * H + hh] = __float2bfloat16_rn(0.0f);
-          }
       }
-      __syncthreads();
-      if (active) {
-        // the cutm gradient: a fixed-order sum of the warp partials
-        for (int s = hh; s < kn; s += H) {
-          float sum = 0.0f;
-          for (int w = 0; w < nw; ++w) sum += red_s[s * nw + w];
-          gcutm[(size_t)i * p.k + c0 + s] = sum;
-        }
-        // g ea (KC, RBFP) = pre-bar . W + pre'-bar . Z_W on the tensor cores
-        for (int tile = warp; tile < rbfp / 16; tile += nw) {
-          wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
-          wmma::fill_fragment(c, 0.0f);
-          if (has_w) {
-            for (int pr = 0; pr < 2; ++pr) {
-              const bf16* a = pr ? pret_s : pre_s;
-              const bf16* b = (pr ? p.zw_all : p.w_all) + tile * 16;
-              for (int k0 = 0; k0 < F; k0 += 16) {
-                wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-                wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-                wmma::load_matrix_sync(fa, a + k0, ldp);
-                wmma::load_matrix_sync(fb, b + (size_t)k0 * rbfp, rbfp);
-                wmma::mma_sync(c, fa, fb, c);
-              }
-            }
-          }
-          wmma::store_matrix_sync(scratch, c, 16, wmma::mem_row_major);
-          __syncwarp();
-          for (int s = lane; s < 256; s += 32) {
-            const int kc = s / 16, r = tile * 16 + s % 16;
-            if (kc < kn && r < p.rbf)
-              gea[((size_t)i * p.k + c0 + kc) * p.rbf + r] = __float2bfloat16_rn(scratch[s]);
-          }
-          __syncwarp();
-        }
+      group_sync(g, H);
+      // the cutm gradient: a fixed-order sum of the warp partials
+      for (int s = hh; s < kn; s += H) {
+        float sum = 0.0f;
+        for (int w = 0; w < nw; ++w) sum += red_s[s * nw + w];
+        gcutm[e0 + s] = sum;
       }
       if (has_w) {
-        // signed: past the last row the count is negative (an unsigned
-        // blockIdx.x would wrap it to p.groups and re-add stale rows)
-        const int nact = min(p.groups, p.n - ((int)blockIdx.x * p.iters + t) * p.groups);
-        accumulate_dw<4>(L, smem, cur_buf, H, p.rbf, nact, true, t == 0 && c0 == 0,
-                         dw_part + (size_t)blockIdx.x * rbfp * F);
+        // g ea (KC, RBFP) = pre-bar . W + pre'-bar . Z_W on the tensor cores
+        dea_tile(2, pre_s, w_s, nullptr, pret_s, p.zw_all, F, ldp, ldw, p.rbf, rbfp, gea, e0, kn, warp, nw,
+                 lane);
+        store_tile(pre_s, ldp, F, bpre_out, e0, kn, hh, H);
+        store_tile(pret_s, ldp, F, bpret_out, e0, kn, hh, H);
+      } else {
+        for (int x = hh; x < kn * p.rbf; x += H) gea[e0 * p.rbf + x] = __float2bfloat16_rn(0.0f);
       }
     }
-    if (active) {
-      gq[(size_t)i * H + hh] = gq_acc;
-      gct[(size_t)i * H + hh] = gct_acc;
-    }
+    gq[(size_t)i * H + hh] = gq_acc;
+    gct[(size_t)i * H + hh] = gct_acc;
   }
   if (has_w) {
 #pragma unroll
     for (int c = 0; c < 2; ++c) db_part[((size_t)blockIdx.x * p.groups + g) * F + c * H + hh] = db_acc[c];
   }
+}
+
+// The second order's source pass (#13): per atom j, the gradients of k_j
+// and v_j summed over the K slots of perm from the edge's recomputed
+// filters and filter tangents, the receiver's q, z_q and ct, and hs4's
+// attn, attn' and reverse seeds.  f32 sums in slot order, rounded once to
+// bf16.
+template <int ACT, int ATT>
+__global__ void __launch_bounds__(SRC2_MAX_THREADS, 1)
+    t_bwd2_src_kernel(Params p, const int32_t* __restrict__ perm, const float* __restrict__ ct,
+                      const float* __restrict__ hs4, bf16* __restrict__ gk_out, bf16* __restrict__ gv_out) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int act = ACT >= 0 ? ACT : p.act;
+  const int H = p.h, F = 2 * H, ldp = pre_ld(H), ldw = w_ld(p.rbf), rbfp = rbf_pad(p.rbf);
+  const int g = threadIdx.x / H, hh = threadIdx.x % H;
+  const int nw = H / 32, warp = hh / 32, lane = hh % 32;
+  const int heads = H / p.hd, head = hh / p.hd;
+  const GLayout L = pass_layout(H, heads, p.rbf, p.groups, SRC2);
+  const bf16* w_s = reinterpret_cast<const bf16*>(smem);
+  unsigned char* gs = smem + L.base + g * L.stride;
+  bf16* ea_buf = reinterpret_cast<bf16*>(gs + L.ea);
+  bf16* zea_buf = reinterpret_cast<bf16*>(gs + L.zea);
+  bf16* pre_s = reinterpret_cast<bf16*>(gs + L.pre);
+  bf16* pret_s = reinterpret_cast<bf16*>(gs + L.pret);
+  int* ids_buf = reinterpret_cast<int*>(gs + L.ids);
+  float* hs_buf = reinterpret_cast<float*>(gs + L.hs);
+  const bool has_dk = p.wk != nullptr, has_dv = p.wv != nullptr, has_w = has_dk || has_dv;
+  const int hsw = 4 * heads;
+
+  for (int e = hh; e < 2 * KC * ldw; e += H) {
+    ea_buf[e] = __float2bfloat16_rn(0.0f);
+    zea_buf[e] = __float2bfloat16_rn(0.0f);
+  }
+  load_weights(p, reinterpret_cast<bf16*>(smem));
+  float bk = 0.0f, zbk = 0.0f, bv = 0.0f, zbv = 0.0f;
+  if (has_dk) {
+    bk = ldb(p.bk + hh);
+    zbk = ldb(p.zbk + hh);
+  }
+  if (has_dv) {
+    bv = ldb(p.bv + hh);
+    zbv = ldb(p.zbv + hh);
+  }
+  __syncthreads();
+
+  const int a0 = ((int)blockIdx.x * p.groups + g) * p.iters;
+  const int a1 = min(a0 + p.iters, p.n);
+  if (a0 >= a1) return;
+  const size_t sb = (size_t)a0 * p.k;
+  const int ns = (a1 - a0) * p.k, nch = (ns + KC - 1) / KC;
+  int pv = lane < min(KC, ns) ? __ldg(perm + sb + lane) : 0;
+  stage_slots(p, pv, min(KC, ns), hh, nw, hsw, hs4, ea_buf, zea_buf, ids_buf, hs_buf);
+  pv = (nch > 1 && lane < min(KC, ns - KC)) ? __ldg(perm + sb + KC + lane) : 0;
+  int j = a0, slot = 0;
+  float acc_k = 0.0f, acc_v = 0.0f;
+  for (int ch = 0; ch < nch; ++ch) {
+    const int buf = ch & 1;
+    const int kn = min(KC, ns - ch * KC);
+    const int* eid_s = ids_buf + buf * 2 * KC;
+    const float* hs_s = hs_buf + buf * hsw * KC;
+    const bf16* ea_s = ea_buf + buf * KC * ldw;
+    __pipeline_wait_prior(0);
+    group_sync(g, H);
+    if (ch + 1 < nch) {
+      stage_slots(p, pv, min(KC, ns - (ch + 1) * KC), hh, nw, hsw, hs4, ea_buf + (buf ^ 1) * KC * ldw,
+                  zea_buf + (buf ^ 1) * KC * ldw, ids_buf + (buf ^ 1) * 2 * KC, hs_buf + (buf ^ 1) * hsw * KC);
+      const int rest = ns - (ch + 2) * KC;
+      pv = (rest > 0 && lane < min(KC, rest)) ? __ldg(perm + sb + (size_t)(ch + 2) * KC + lane) : 0;
+    }
+    if (has_w) {
+      filter_tile(1, ea_s, w_s, nullptr, nullptr, nullptr, ldw, rbfp, F, pre_s, ldp, warp, nw, lane);
+      filter_tile(2, zea_buf + buf * KC * ldw, w_s, nullptr, ea_s, p.zw_all, ldw, rbfp, F, pret_s, ldp, warp,
+                  nw, lane);
+    }
+    group_sync(g, H);
+    for (int kc = 0; kc < kn; ++kc) {
+      if (slot == p.k) {  // the next source atom
+        gk_out[(size_t)j * H + hh] = __float2bfloat16_rn(acc_k);
+        gv_out[(size_t)j * H + hh] = __float2bfloat16_rn(acc_v);
+        acc_k = acc_v = 0.0f;
+        ++j;
+        slot = 0;
+      }
+      ++slot;
+      const int i = eid_s[KC + kc];
+      const float qi = ldb(p.q + (size_t)i * H + hh);
+      const float zqi = ldb(p.zq + (size_t)i * H + hh);
+      const float cti = bfr(ct[(size_t)i * H + hh]);
+      const float attn = hs_s[kc * hsw + head];
+      const float attnt = hs_s[kc * hsw + heads + head];
+      const float b_prodt = hs_s[kc * hsw + 2 * heads + head];
+      const float b_prod = hs_s[kc * hsw + 3 * heads + head];
+      float f[2], f1[2], f2[2], pt[2];
+      dual_filters(act, pre_s + kc * ldp + hh, pret_s + kc * ldp + hh, H, bk, zbk, bv, zbv, has_dk, has_dv, f,
+                   f1, f2, pt);
+      const float dk = f[0], dkt = f1[0] * pt[0], dv = f[1], dvt = f1[1] * pt[1];
+      const float b_vdvt = cti * attn, b_vdv = cti * attnt;
+      acc_k += b_prodt * (zqi * dk + qi * dkt) + b_prod * qi * dk;
+      acc_v += b_vdvt * dvt + b_vdv * dv;
+    }
+  }
+  gk_out[(size_t)j * H + hh] = __float2bfloat16_rn(acc_k);
+  gv_out[(size_t)j * H + hh] = __float2bfloat16_rn(acc_v);
 }
 
 bool valid_shape(int n, int k, int h, int heads, int rbf) {
@@ -857,21 +1053,25 @@ bool valid_shape(int n, int k, int h, int heads, int rbf) {
   return hd <= 32 && (hd & (hd - 1)) == 0;
 }
 
-// Row groups per block (the most that fit in threads and shared memory) and
-// rows per group, so that the grid is about one block per SM.
-cudaError_t plan_grid(Params* p, int kind, size_t* smem, int* blocks) {
-  int dev = 0, sms = 0, smem_max = 0;
+cudaError_t device_limits(int* sms, int* smem_max) {
+  int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    err = cudaDeviceGetAttribute(smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  return err;
+}
+
+// The forward: row groups per block (the most that fit in threads and
+// shared memory) and rows per group, so that the grid is about one block
+// per SM.
+cudaError_t plan_grid(Params* p, size_t* smem, int* blocks) {
+  int sms = 0, smem_max = 0;
+  cudaError_t err = device_limits(&sms, &smem_max);
   if (err != cudaSuccess) return err;
-  const int max_threads =
-      kind == BWD2 ? BWD2_MAX_THREADS : (kind == BWD ? BWD_MAX_THREADS : FWD_MAX_THREADS);
   int groups = 0;
   for (int gcount = 4; gcount >= 1; gcount /= 2) {
-    if (gcount * p->h <= max_threads &&
-        smem_layout(p->h, p->rbf, gcount, kind).total <= (size_t)smem_max) {
+    if (gcount * p->h <= FWD_MAX_THREADS && smem_layout(p->h, p->rbf, gcount).total <= (size_t)smem_max) {
       groups = gcount;
       break;
     }
@@ -880,7 +1080,35 @@ cudaError_t plan_grid(Params* p, int kind, size_t* smem, int* blocks) {
   p->groups = groups;
   p->iters = (p->n + groups * sms - 1) / (groups * sms);
   *blocks = (p->n + groups * p->iters - 1) / (groups * p->iters);
-  *smem = smem_layout(p->h, p->rbf, groups, kind).total;
+  *smem = smem_layout(p->h, p->rbf, groups).total;
+  return cudaSuccess;
+}
+
+// A backward or second-order pass: the most row groups that fit in a
+// block's threads and shared memory, and contiguous rows (atoms) per group
+// so that the grid fills every SM about once (one block an SM).
+cudaError_t plan_pass(Params* p, int pass, size_t* smem, int* blocks) {
+  int sms = 0, smem_max = 0;
+  cudaError_t err = device_limits(&sms, &smem_max);
+  if (err != cudaSuccess) return err;
+  const int max_threads = pass == RECV ? RECV_MAX_THREADS
+                          : pass == SRC ? SRC_MAX_THREADS
+                          : pass == RECV2 ? RECV2_MAX_THREADS
+                                          : SRC2_MAX_THREADS;
+  const int heads = p->h / p->hd;
+  int groups = 0;
+  for (int gcount = min(MAX_GROUPS, max_threads / p->h); gcount >= 1; --gcount) {
+    if (pass_layout(p->h, heads, p->rbf, gcount, pass).total <= (size_t)smem_max) {
+      groups = gcount;
+      break;
+    }
+  }
+  if (groups == 0) return cudaErrorInvalidValue;  // too wide for one block
+  p->groups = groups;
+  const int slots = groups * sms;
+  p->iters = (p->n + slots - 1) / slots;
+  *blocks = (p->n + groups * p->iters - 1) / (groups * p->iters);
+  *smem = pass_layout(p->h, heads, p->rbf, groups, pass).total;
   return cudaSuccess;
 }
 
@@ -907,9 +1135,62 @@ Params make_params(const void* idx, int n, int k, int h, int heads, int rbf, con
   p.attn_act = attn_act;
   p.zq = p.zk = p.zv = p.zea = nullptr;
   p.zcutm = nullptr;
-  p.w_all = p.zw_all = p.zbk = p.zbv = nullptr;
+  p.zw_all = p.zbk = p.zbv = nullptr;
   p.groups = p.iters = 0;
   return p;
+}
+
+// the Z operands of the second order's passes
+void set_z(Params* p, const void* zq, const void* zk, const void* zv, const void* zea, const void* zcutm,
+           const void* zw_all, const void* zbk, const void* zbv) {
+  p->zq = static_cast<const bf16*>(zq);
+  p->zk = static_cast<const bf16*>(zk);
+  p->zv = static_cast<const bf16*>(zv);
+  p->zea = static_cast<const bf16*>(zea);
+  p->zcutm = static_cast<const float*>(zcutm);
+  p->zw_all = static_cast<const bf16*>(zw_all);
+  p->zbk = static_cast<const bf16*>(zbk);
+  p->zbv = static_cast<const bf16*>(zbv);
+}
+
+// The passes are compiled twice: for silu in both activations (the
+// configurations' choice), with the activations' arithmetic folded into the
+// per-edge chain, and for any activations read at run time (A = -1).
+template <int A>
+const void* pass_kernel_as(int pass) {
+  switch (pass) {
+    case RECV: return reinterpret_cast<const void*>(t_bwd_kernel<A, A>);
+    case RECV2: return reinterpret_cast<const void*>(t_bwd2_kernel<A, A>);
+    case SRC: return reinterpret_cast<const void*>(t_bwd_src_kernel<A, A>);
+    default: return reinterpret_cast<const void*>(t_bwd2_src_kernel<A, A>);
+  }
+}
+
+bool silu_pair(const Params& p) { return p.act == ACT_SILU && p.attn_act == ACT_SILU; }
+
+const void* pass_kernel(int pass, const Params& p) {
+  return silu_pair(p) ? pass_kernel_as<ACT_SILU>(pass) : pass_kernel_as<-1>(pass);
+}
+
+#define LAUNCH_PASS(kernel, blocks, threads, smem, stream, ...)                       \
+  do {                                                                               \
+    if (silu_pair(p))                                                                \
+      kernel<ACT_SILU, ACT_SILU><<<blocks, threads, smem, stream>>>(__VA_ARGS__);    \
+    else                                                                             \
+      kernel<-1, -1><<<blocks, threads, smem, stream>>>(__VA_ARGS__);                \
+  } while (0)
+
+#define T_OPERANDS                                                                               \
+  const void *idx, int n, int k, int h, int heads, int rbf, const void *q, const void *kx,       \
+      const void *v, const void *ea, const void *cutm, const void *wk, const void *bk,           \
+      const void *wv, const void *bv, int act, int attn_act
+#define T_PARAMS make_params(idx, n, k, h, heads, rbf, q, kx, v, ea, cutm, wk, bk, wv, bv, act, attn_act)
+
+// plan a pass and allow its shared memory
+cudaError_t prepare_pass(Params* p, int pass, size_t* smem, int* blocks) {
+  cudaError_t err = plan_pass(p, pass, smem, blocks);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(pass_kernel(pass, *p), cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
 }
 
 }  // namespace
@@ -920,93 +1201,132 @@ const char* t_error_string(int err) { return cudaGetErrorString(static_cast<cuda
 
 // Returns a cudaError_t (0 on success).  Pointers to absent filters (wk/bk,
 // wv/bv) are null.  Launches on `stream` and does not synchronise.
-int t_fwd(const void* idx, int n, int k, int h, int heads, int rbf, const void* q, const void* kx,
-          const void* v, const void* ea, const void* cutm, const void* wk, const void* bk,
-          const void* wv, const void* bv, int act, int attn_act, void* out, void* stream) {
+int t_fwd(T_OPERANDS, void* out, void* stream) {
   if (!valid_shape(n, k, h, heads, rbf)) return (int)cudaErrorInvalidValue;
-  Params p = make_params(idx, n, k, h, heads, rbf, q, kx, v, ea, cutm, wk, bk, wv, bv, act, attn_act);
+  Params p = T_PARAMS;
   size_t smem = 0;
   int blocks = 0;
-  cudaError_t err = plan_grid(&p, FWD, &smem, &blocks);
+  cudaError_t err = plan_grid(&p, &smem, &blocks);
   if (err != cudaSuccess) return (int)err;
   err = cudaFuncSetAttribute(t_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  t_fwd_kernel<<<blocks, p.groups * h, smem, static_cast<cudaStream_t>(stream)>>>(
-      p, static_cast<float*>(out));
+  t_fwd_kernel<<<blocks, p.groups * h, smem, static_cast<cudaStream_t>(stream)>>>(p, static_cast<float*>(out));
   return (int)cudaGetLastError();
 }
 
-// The grid a kernel would launch (kind 0 forward, 1 backward, 2 second
-// order): its block count and row groups per block, which size the
-// per-block weight-gradient partials.
+// The grid of a receiver pass (kind 1 the backward's, 2 the second
+// order's): its block count and row groups per block, which size the
+// per-group bias-gradient partials (blocks * groups, 2H).
 int t_plan(int kind, int n, int k, int h, int heads, int rbf, int* blocks, int* groups) {
-  if (!valid_shape(n, k, h, heads, rbf)) return (int)cudaErrorInvalidValue;
-  Params p = make_params(nullptr, n, k, h, heads, rbf, nullptr, nullptr, nullptr, nullptr, nullptr,
-                         nullptr, nullptr, nullptr, nullptr, 0, 0);
+  if (!valid_shape(n, k, h, heads, rbf) || (kind != 1 && kind != 2)) return (int)cudaErrorInvalidValue;
+  Params p = make_params(nullptr, n, k, h, heads, rbf, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                         nullptr, nullptr, nullptr, 0, 0);
   size_t smem = 0;
-  cudaError_t err = plan_grid(&p, kind, &smem, blocks);
+  cudaError_t err = plan_pass(&p, kind == 1 ? RECV : RECV2, &smem, blocks);
   *groups = p.groups;
   return (int)err;
 }
 
-// dsrc is (N, K, 2H) bf16: per edge, the cotangents of k_j then v_j.
-// dw_part (blocks, RBFP, 2H) and db_part (blocks * groups, 2H) f32 (t_plan's
-// grid) receive the per-block weight cotangent partials; both null when the
-// weights need no gradient.
-int t_bwd(const void* idx, int n, int k, int h, int heads, int rbf, const void* q, const void* kx,
-          const void* v, const void* ea, const void* cutm, const void* wk, const void* bk,
-          const void* wv, const void* bv, int act, int attn_act, const void* ct, void* dq,
-          void* dea, void* dcutm, void* dsrc, void* dw_part, void* db_part, void* stream) {
+// The backward's receiver pass.  Outputs: dq (N, H) f32, dea (N, K, RBF)
+// bf16, dcutm (N, K) f32, hs (N*K, 2, heads) bf16 for the source pass; dpre
+// (N*K, 2H) bf16 and db_part (blocks * groups, 2H) f32 (t_plan's grid) when
+// the weights want a gradient, else both null.
+int t_bwd(T_OPERANDS, const void* ct, void* dq, void* dea, void* dcutm, void* hs, void* dpre, void* db_part,
+          void* stream) {
   if (!valid_shape(n, k, h, heads, rbf)) return (int)cudaErrorInvalidValue;
-  Params p = make_params(idx, n, k, h, heads, rbf, q, kx, v, ea, cutm, wk, bk, wv, bv, act, attn_act);
+  Params p = T_PARAMS;
   size_t smem = 0;
   int blocks = 0;
-  cudaError_t err = plan_grid(&p, BWD, &smem, &blocks);
+  cudaError_t err = prepare_pass(&p, RECV, &smem, &blocks);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(t_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  t_bwd_kernel<<<blocks, p.groups * h, smem, static_cast<cudaStream_t>(stream)>>>(
+  LAUNCH_PASS(t_bwd_kernel, blocks, p.groups * h, smem, static_cast<cudaStream_t>(stream),
       p, static_cast<const float*>(ct), static_cast<float*>(dq), static_cast<bf16*>(dea),
-      static_cast<float*>(dcutm), static_cast<bf16*>(dsrc), static_cast<float*>(dw_part),
-      static_cast<float*>(db_part));
+      static_cast<float*>(dcutm), static_cast<bf16*>(hs), static_cast<bf16*>(dpre), static_cast<float*>(db_part));
   return (int)cudaGetLastError();
 }
 
-// The second-order kernel.  z_* are the cotangents on t_bwd's outputs (all
-// non-null: absent ones are zeros), w_all/zw_all the filters and their Z as
-// (2H, RBFP) bf16 with zero rows for absent filters and zero padding
-// columns.  Outputs: gq (N, H), gea (N, K, RBF) bf16, gcutm (N, K), gsrc
-// (N, K, 2H) per-edge source-row gradients, gct (N, H), and the weight
-// partials as for t_bwd (null without filters).  All f32 unless noted.
-int t_bwd2(const void* idx, int n, int k, int h, int heads, int rbf, const void* q,
-           const void* kx, const void* v, const void* ea, const void* cutm, const void* wk,
-           const void* bk, const void* wv, const void* bv, int act, int attn_act, const void* ct,
-           const void* zq, const void* zk, const void* zv, const void* zea, const void* zcutm,
-           const void* w_all, const void* zw_all, const void* zbk, const void* zbv, void* gq,
-           void* gea, void* gcutm, void* gsrc, void* gct, void* dw_part, void* db_part,
-           void* stream) {
-  if (!valid_shape(n, k, h, heads, rbf) || h > BWD2_MAX_THREADS) return (int)cudaErrorInvalidValue;
-  Params p = make_params(idx, n, k, h, heads, rbf, q, kx, v, ea, cutm, wk, bk, wv, bv, act, attn_act);
-  p.zq = static_cast<const bf16*>(zq);
-  p.zk = static_cast<const bf16*>(zk);
-  p.zv = static_cast<const bf16*>(zv);
-  p.zea = static_cast<const bf16*>(zea);
-  p.zcutm = static_cast<const float*>(zcutm);
-  p.w_all = static_cast<const bf16*>(w_all);
-  p.zw_all = static_cast<const bf16*>(zw_all);
-  p.zbk = static_cast<const bf16*>(zbk);
-  p.zbv = static_cast<const bf16*>(zbv);
+// The backward's source pass: dk, dv (N, H) bf16 from t_bwd's hs and the
+// transpose permutation perm (N*K) int32.
+int t_bwd_src(T_OPERANDS, const void* perm, const void* ct, const void* hs, void* dk, void* dv, void* stream) {
+  if (!valid_shape(n, k, h, heads, rbf)) return (int)cudaErrorInvalidValue;
+  Params p = T_PARAMS;
   size_t smem = 0;
   int blocks = 0;
-  cudaError_t err = plan_grid(&p, BWD2, &smem, &blocks);
+  cudaError_t err = prepare_pass(&p, SRC, &smem, &blocks);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(t_bwd2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  t_bwd2_kernel<<<blocks, p.groups * h, smem, static_cast<cudaStream_t>(stream)>>>(
-      p, static_cast<const float*>(ct), static_cast<float*>(gq), static_cast<bf16*>(gea),
-      static_cast<float*>(gcutm), static_cast<float*>(gsrc), static_cast<float*>(gct),
-      static_cast<float*>(dw_part), static_cast<float*>(db_part));
+  LAUNCH_PASS(t_bwd_src_kernel, blocks, p.groups * h, smem, static_cast<cudaStream_t>(stream),
+      p, static_cast<const int32_t*>(perm), static_cast<const float*>(ct), static_cast<const bf16*>(hs),
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv));
   return (int)cudaGetLastError();
+}
+
+// The second order's receiver pass.  z_* are the cotangents on t_bwd's
+// outputs (all non-null: absent ones are zeros), zw_all the filters' Z as
+// (2H, RBFP) bf16 with zero rows for absent filters and zero padding
+// columns.  Outputs: gq (N, H), gea (N, K, RBF) bf16, gcutm (N, K),
+// gct (N, H), hs4 (N*K, 4, heads) for the source pass; with filters, bpre
+// and bpret (N*K, 2H) bf16 and db_part as for t_bwd (null without
+// filters).  All f32 unless noted.
+int t_bwd2(T_OPERANDS, const void* ct, const void* zq, const void* zk, const void* zv, const void* zea,
+           const void* zcutm, const void* zw_all, const void* zbk, const void* zbv, void* gq,
+           void* gea, void* gcutm, void* gct, void* hs4, void* bpre, void* bpret, void* db_part, void* stream) {
+  if (!valid_shape(n, k, h, heads, rbf) || h > RECV2_MAX_THREADS) return (int)cudaErrorInvalidValue;
+  Params p = T_PARAMS;
+  set_z(&p, zq, zk, zv, zea, zcutm, zw_all, zbk, zbv);
+  size_t smem = 0;
+  int blocks = 0;
+  cudaError_t err = prepare_pass(&p, RECV2, &smem, &blocks);
+  if (err != cudaSuccess) return (int)err;
+  LAUNCH_PASS(t_bwd2_kernel, blocks, p.groups * h, smem, static_cast<cudaStream_t>(stream),
+      p, static_cast<const float*>(ct), static_cast<float*>(gq), static_cast<bf16*>(gea),
+      static_cast<float*>(gcutm), static_cast<float*>(gct), static_cast<float*>(hs4), static_cast<bf16*>(bpre),
+      static_cast<bf16*>(bpret), static_cast<float*>(db_part));
+  return (int)cudaGetLastError();
+}
+
+// The second order's source pass: gk, gv (N, H) bf16 from t_bwd2's hs4 and
+// perm; operands as for t_bwd2 (z_k, z_v and z_cutm are not read).
+int t_bwd2_src(T_OPERANDS, const void* perm, const void* ct, const void* zq, const void* zea, const void* zw_all,
+               const void* zbk, const void* zbv, const void* hs4, void* gk, void* gv, void* stream) {
+  if (!valid_shape(n, k, h, heads, rbf) || h > SRC2_MAX_THREADS) return (int)cudaErrorInvalidValue;
+  Params p = T_PARAMS;
+  set_z(&p, zq, nullptr, nullptr, zea, nullptr, zw_all, zbk, zbv);
+  size_t smem = 0;
+  int blocks = 0;
+  cudaError_t err = prepare_pass(&p, SRC2, &smem, &blocks);
+  if (err != cudaSuccess) return (int)err;
+  LAUNCH_PASS(t_bwd2_src_kernel, blocks, p.groups * h, smem, static_cast<cudaStream_t>(stream),
+      p, static_cast<const int32_t*>(perm), static_cast<const float*>(ct), static_cast<const float*>(hs4),
+      static_cast<bf16*>(gk), static_cast<bf16*>(gv));
+  return (int)cudaGetLastError();
+}
+
+// A pass's resources at a shape (kind 1 the backward's receiver pass, 2 the
+// second order's, 3 the backward's source pass, 4 the second order's): out
+// = registers a thread, local (spill) bytes a thread, threads a block,
+// dynamic shared memory a block, resident blocks an SM.
+int t_resources(int kind, int n, int k, int h, int heads, int rbf, int* out) {
+  if (!valid_shape(n, k, h, heads, rbf) || kind < 1 || kind > 4) return (int)cudaErrorInvalidValue;
+  const int pass = kind == 1 ? RECV : (kind == 2 ? RECV2 : (kind == 3 ? SRC : SRC2));
+  Params p = make_params(nullptr, n, k, h, heads, rbf, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                         nullptr, nullptr, nullptr, ACT_SILU, ACT_SILU);  // the instantiation the configurations run
+  size_t smem = 0;
+  int blocks = 0;
+  cudaError_t err = plan_pass(&p, pass, &smem, &blocks);
+  const void* fn = pass_kernel(pass, p);
+  const int threads = p.groups * h;
+  if (err == cudaSuccess) err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaFuncAttributes attr;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, fn);
+  int per_sm = 0;
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, threads, smem);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.localSizeBytes;
+  out[2] = threads;
+  out[3] = (int)smem;
+  out[4] = per_sm;
+  return 0;
 }
 
 }  // extern "C"

@@ -4,13 +4,15 @@ Each ``.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface, loaded with ``ctypes``.  No PyTorch headers are
 included, so a build takes seconds.  Libraries go to
 ``torchmdnet_tpu_torch/_build/`` (listed in ``.gitignore``), named by a hash of
-the source and the flags, so an edited source is rebuilt.  ``build`` starts one
-``nvcc`` per source, all at once.
+the source, of every header under ``csrc/`` it includes (``#include "..."``,
+followed through headers) and of the flags, so an edited source or header is
+rebuilt.  ``build`` starts one ``nvcc`` per source, all at once.
 """
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -43,9 +45,32 @@ def nvcc_path() -> str:
     )
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _sources_of(source: str):
+    """``source`` and the headers under ``csrc/`` it includes, each once, in
+    the order first reached."""
+    seen, order, todo = set(), [], [source]
+    while todo:
+        name = todo.pop(0)
+        if name in seen:
+            continue
+        seen.add(name)
+        with open(os.path.join(CSRC_DIR, name), "rb") as f:
+            text = f.read()
+        order.append(text)
+        todo += [h.decode() for h in _INCLUDE.findall(text)
+                 if os.path.isfile(os.path.join(CSRC_DIR, h.decode()))]
+    return order
+
+
 def library_path(source: str) -> str:
-    with open(os.path.join(CSRC_DIR, source), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256()
+    for text in _sources_of(source):
+        h.update(hashlib.sha256(text).digest())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     stem = os.path.splitext(source)[0]
     return os.path.join(BUILD_DIR, f"lib{stem}-{digest}.so")
 

@@ -77,8 +77,6 @@ def _lib() -> ctypes.CDLL:
         lib.et_plan.restype = _I
         lib.et_resources.argtypes = [_I] * 6 + [_P]
         lib.et_resources.restype = _I
-        lib.ell_transpose_sum.argtypes = [_P, _I, _P, _I, _I, _I, _P, _P]
-        lib.ell_transpose_sum.restype = _I
         lib._argtypes_set = True
     return lib
 
@@ -244,8 +242,9 @@ def _db_partials(lib, kind, n, kk, h, heads, rbf, dev):
 
 
 def _split_weights(dw, db, h, wdk, bdk, wdv, bdv):
-    """The filters' (RBF, 4H) and (4H,) cotangents, rounded once to the
-    weights' dtype: (dwdk, dbdk, dwdv, dbdv), None for an absent filter."""
+    """The filters' (RBF, F) and (F,) cotangents (dk's H columns, then
+    dv's: ET's 4H, the Transformer's 2H), rounded once to the weights' dtype:
+    (dwdk, dbdk, dwdv, dbdv), None for an absent filter."""
     dwdk = dbdk = dwdv = dbdv = None
     if wdk is not None:
         dwdk = dw[:, :h].to(wdk.dtype)
@@ -254,17 +253,6 @@ def _split_weights(dw, db, h, wdk, bdk, wdv, bdv):
         dwdv = dw[:, h:].contiguous().to(wdv.dtype)
         dbdv = db[h:].reshape(bdv.shape).to(bdv.dtype)
     return dwdk, dbdk, dwdv, dbdv
-
-
-def _transpose_sum_rows(lib, g_edge, perm, n, kk, f, dev, stream):
-    """(N, F) bf16 = the per-edge rows g_edge (N*K, F) summed onto their
-    source atoms through ``perm`` in f32, rounded once (no atomics).  The
-    Transformer's kernels use it (ops/kernels/t_message.py)."""
-    out = torch.empty((n, f), dtype=torch.bfloat16, device=dev)
-    err = lib.ell_transpose_sum(_ptr(g_edge), int(g_edge.dtype == torch.float32), _ptr(perm),
-                                n, kk, f, _ptr(out), stream)
-    _raise_on(lib, err, "ell_transpose_sum launch")
-    return out
 
 
 # --- the plain versions of the backward's and second order's passes: the
@@ -497,9 +485,10 @@ def weight_grads_reference(pairs, rbf):
 def weight_grads(pairs, rbf):
     """The filters' weight cotangents from per-edge filter cotangents: (RBF,
     F) f32 = sum over the edges of a^T . b for each (a, b) in ``pairs``, a
-    (E, RBF) edge rows (ea, z_ea), b (E, F) bf16 filter cotangents.  CUDA
-    tensors run ``et_dw_kernel`` (a fixed split of the edges, its partials
-    summed once); CPU tensors the plain version."""
+    (E, RBF) edge rows (ea, z_ea), b (E, F) bf16 filter cotangents, F a
+    multiple of 8 (ET's 4H, the Transformer's 2H).  CUDA tensors run
+    ``et_dw_kernel`` (a fixed split of the edges, its partials summed once);
+    CPU tensors the plain version."""
     a0, b0 = pairs[0]
     if a0.device.type == "cpu":
         return weight_grads_reference(pairs, rbf)
@@ -513,7 +502,7 @@ def weight_grads(pairs, rbf):
     # about four blocks an SM (the kernel's resident count), each a split
     # of 64-edge tiles
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    want = max(1, -(-4 * sms // ((f // 128) * -(-rbfp // 64))))
+    want = max(1, -(-4 * sms // (-(-f // 128) * -(-rbfp // 64))))
     per_split = -(-(-(-ne // want)) // 64) * 64
     part = torch.empty((-(-ne // per_split), rbfp, f), dtype=torch.float32, device=dev)
     a1, b1 = pairs[1] if len(pairs) > 1 else (None, None)

@@ -17,18 +17,26 @@ in the forward,
 with the JAX kernel's precision (bf16 operands, products rounded to bf16,
 the filter pre-activation rounded to bf16 before the bias, f32 sums, f32
 output).  It is ``et_message.py``'s edge phase without the vector features,
-wired the same way: its gradient is the backward kernel (one forward and one
-backward launch per layer in a reverse pass); the backward is differentiable
-once more through ``_TMessagesBwd``, whose gradient is the second-order
-kernel, so a force-loss training step runs per layer one forward, two
-backward and one second-order launch; a third derivative raises.  The
-per-edge source-row cotangents go onto the atoms through ``et_message.cu``'s
-transpose-sum, with no float atomics.
+wired the same way.  Its gradient is the backward (``run_bwd``): a receiver
+pass (``t_bwd_kernel``) that leaves per edge and head only the scalars the
+source side needs, a source pass (``bwd_source``) that sums each atom's K
+slots of the transpose permutation in gather form (no per-edge source-row
+buffer, no float atomics), and, when the weights want a gradient, ET's
+reduction of the per-edge filter cotangents (``em.weight_grads``).  The
+backward is differentiable once more through ``_TMessagesBwd``, whose
+gradient is the second order (``run_bwd2``, the same three parts), so a
+force-loss training step runs per layer one forward, two backward and one
+second-order call; a third derivative raises.
 
 ``t_messages_reference`` is the plain PyTorch version (the counterpart of
 ``_composable_t_reference``, t_message.py:354), with gradients from
 autograd; ``t_messages_bwd2_reference`` is the plain version of the
-second-order kernel (the counterpart of ``_composable_t_bwd_vjp``, :443).
+second order (the counterpart of ``_composable_t_bwd_vjp``, :443).  Each
+pass has its plain twin in the kernels' arithmetic
+(``bwd_receiver_reference``, ``bwd_source_reference``,
+``bwd2_receiver_reference``, ``bwd2_source_reference``; the reduction's is
+``em.weight_grads_reference``): ``run_bwd`` and ``run_bwd2`` run them for
+CPU tensors, and ``chip_smoke.py`` holds each kernel against its twin.
 ``fused_t_messages`` uses the plain version only for tensors on the CPU.
 """
 
@@ -57,10 +65,16 @@ def _lib() -> ctypes.CDLL:
         lib.t_fwd.restype = _I
         lib.t_bwd.argtypes = _COMMON + [_P] * 8
         lib.t_bwd.restype = _I
+        lib.t_bwd_src.argtypes = _COMMON + [_P] * 6
+        lib.t_bwd_src.restype = _I
         lib.t_bwd2.argtypes = _COMMON + [_P] * 18
         lib.t_bwd2.restype = _I
+        lib.t_bwd2_src.argtypes = _COMMON + [_P] * 11
+        lib.t_bwd2_src.restype = _I
         lib.t_plan.argtypes = [_I] * 6 + [_P, _P]
         lib.t_plan.restype = _I
+        lib.t_resources.argtypes = [_I] * 6 + [_P]
+        lib.t_resources.restype = _I
         lib._argtypes_set = True
     return lib
 
@@ -169,154 +183,518 @@ def run_fwd(idx, q, k, v, ea, cutm, wdk, bdk, wdv, bdv, *, heads, act, attn_act)
 run_fwd.launches = 0
 
 
-def _weight_partials(lib, kind, n, kk, h, heads, rbf, dev):
-    """Per-block f32 weight-gradient partials of a kernel's grid (kind 1
-    backward, 2 second order): (blocks, RBFP, 2H) and (blocks * groups, 2H)."""
-    blocks, groups = ctypes.c_int(0), ctypes.c_int(0)
-    err = lib.t_plan(kind, n, kk, h, heads, rbf, ctypes.byref(blocks), ctypes.byref(groups))
-    _raise_on(lib, err, "t_plan")
-    rbfp = -(-rbf // 16) * 16
-    return (torch.empty((blocks.value, rbfp, 2 * h), dtype=torch.float32, device=dev),
-            torch.empty((blocks.value * groups.value, 2 * h), dtype=torch.float32, device=dev))
-
-
-def _sum_partials(dw_part, db_part, rbf, h, wdk, bdk, wdv, bdv):
-    """The per-block f32 partials summed once and rounded once to the
-    weights' dtype: (dwdk, dbdk, dwdv, dbdv), None for an absent filter."""
-    dw = dw_part.sum(dim=0)[:rbf]
-    db = db_part.sum(dim=0)
-    dwdk = dbdk = dwdv = dbdv = None
+def _filters_rows(wdk, wdv, h, dtype, device, cols=None):
+    """(2H, cols) (cols defaults to RBF): the dk filter's columns, then the
+    dv filter's, as rows; zero rows for an absent filter, zero padding
+    columns."""
+    rbf = (wdk if wdk is not None else wdv).shape[0]
+    out = torch.zeros((2 * h, cols or rbf), dtype=dtype, device=device)
     if wdk is not None:
-        dwdk = dw[:, :h].to(wdk.dtype)
-        dbdk = db[:h].reshape(bdk.shape).to(bdk.dtype)
+        out[:h, :rbf] = wdk.t()
     if wdv is not None:
-        dwdv = dw[:, h:].contiguous().to(wdv.dtype)
-        dbdv = db[h:].reshape(bdv.shape).to(bdv.dtype)
-    return dwdk, dbdk, dwdv, dbdv
+        out[h:, :rbf] = wdv.t()
+    return out
 
 
-def run_bwd(idx, perm, q, k, v, ea, cutm, wdk, bdk, wdv, bdv, ct, *, heads, act, attn_act,
-            want_weight_grads: bool):
-    """Launch the backward kernel and the transpose-sum of its source-row
-    cotangents.  The weight cotangents, when wanted, are accumulated by the
-    kernel into per-block f32 partials, summed here once.
+# --- the plain versions of the backward's and second order's passes: the
+# kernels' arithmetic (rounding points included) in composable ops
 
-    Returns (dq, dk, dv, dea, dcutm, dwdk, dbdk, dwdv, dbdv) in the operands'
-    dtypes; the weight cotangents are None unless ``want_weight_grads``."""
+
+class _Edges(em._Edges):
+    """The per-edge operands of a list of edges ``e`` (flat indices i*K + k)
+    whose source atoms are ``src``, in the kernels' precision (ET's
+    ``_Edges`` without the vector features)."""
+
+    def __init__(self, idx, e, src, q, ea, heads):
+        n, kk = idx.shape
+        self.h = q.shape[1]
+        self.heads = heads
+        self.bf = q.dtype
+        self.acc = em._wdt(q.dtype)
+        self.e, self.src, self.recv = e, src, torch.div(e, kk, rounding_mode="floor")
+        self.ea = ea.reshape(n * kk, -1)[e]
+
+    def filters(self, wdk, bdk, wdv, bdv, act):
+        """[(pre-activation, value)] of dk and dv (None where absent), as
+        the kernels compute them: bf16(bf16(ea . W) + b), bf16(act(.))."""
+        from torchmdnet_tpu_torch.ops.activations import act_fn_mapping
+
+        out = []
+        for w, b in ((wdk, bdk), (wdv, bdv)):
+            if w is None:
+                out.append(None)
+                continue
+            p = self.r(self.r(self.ea.to(self.acc) @ w.to(self.acc)) + b.reshape(-1).to(self.acc))
+            out.append((p, self.r(act_fn_mapping[act](p))))
+        return out
+
+
+def _all_edges(idx, q, ea, heads):
+    """``_Edges`` of every edge in row-major order (the receiver passes')."""
+    return _Edges(idx, torch.arange(idx.numel(), device=idx.device), idx.reshape(-1).long(), q, ea, heads)
+
+
+def _slot_sum(terms, n, kk):
+    """(N, F) = each atom's K per-edge rows (rows of ``terms``, slot-major per
+    atom) added one by one in slot order from 0: the order of the source
+    passes' sums and of the buffer form's transpose-sum."""
+    rows = terms.reshape(n, kk, -1)
+    acc = torch.zeros_like(rows[:, 0])
+    for s in range(kk):
+        acc = acc + rows[:, s]
+    return acc
+
+
+def bwd_receiver_reference(idx, q, k, v, ea, cutm, wdk, bdk, wdv, bdv, ct, *, heads, act, attn_act,
+                           want_dpre):
+    """Plain version of the backward's receiver pass (``t_bwd_kernel``).
+
+    Returns (dq (N, H), dea (N, K, RBF), dcutm (N, K), hs (N*K, 2, heads):
+    each edge's head-summed d_prod and attn, dpre (N*K, 2H) the filter
+    cotangents and db (2H,) their sum over the edges, both None unless
+    ``want_dpre``); dq, dcutm, db in the accumulation dtype, the rest in the
+    operands'."""
+    from torchmdnet_tpu_torch.ops.activations import act_fn_mapping
+
+    n, kk = idx.shape
+    x = _all_edges(idx, q, ea, heads)
+    r, bf, acc, h = x.r, x.bf, x.acc, q.shape[1]
+    kj, vj = x.rows(k, "src"), x.rows(v, "src")
+    qi, cti = x.rows(q, "recv"), r(x.rows(ct, "recv"))
+    fk, fv = x.filters(wdk, bdk, wdv, bdv, act)
+    cm = r(cutm.reshape(-1, 1).to(acc))
+    vdv = r(vj * fv[1]) if fv else vj
+    prod = r(qi * kj)
+    if fk:
+        prod = r(prod * fk[1])
+    pre_a = r(x.head_sum(prod))
+    a_act = r(act_fn_mapping[attn_act](pre_a))
+    attn = r(a_act * cm)
+    d_attn = r(cti * vdv)
+    d_vdv = r(cti * attn)
+    d_prea = r(r(r(em._dact(attn_act, pre_a)) * cm) * d_attn)
+    dcutm = r(a_act * d_attn).sum(-1)
+    d_prod = r(x.head_sum(d_prea))
+    qk = r(d_prod * qi)
+    dq = r(r(d_prod * kj) * fk[1]) if fk else r(d_prod * kj)
+    zero = torch.zeros_like(qi)
+    d_pre = torch.cat([r(r(em._dact(act, fk[0])) * r(qk * kj)) if fk else zero,
+                       r(r(em._dact(act, fv[0])) * r(d_vdv * vj)) if fv else zero], dim=-1)
+    if fk or fv:
+        dea = (d_pre @ _filters_rows(wdk, wdv, h, acc, d_pre.device)).to(ea.dtype).reshape(ea.shape)
+    else:
+        dea = torch.zeros_like(ea)
+    hd = h // heads
+    hs = torch.stack([d_prod[:, ::hd], attn[:, ::hd]], dim=1).to(bf)
+    dpre = db = None
+    if want_dpre:
+        dpre = d_pre.to(bf)
+        db = dpre.to(acc).sum(0)
+    return _slot_sum(dq, n, kk), dea, dcutm.reshape(n, kk), hs, dpre, db
+
+
+def _bwd_source_terms(x, q, ct, hs, filt):
+    """The backward's per-edge source-row cotangents (E, 2H) of the edges of
+    ``x`` (an ``_Edges``), [k | v]: bf16 values (in bf16), wide, from
+    ``filt`` (``_Edges.filters``) and hs's d_prod and attn:
+    bf16(bf16(d_prod q_i) dk) and bf16(bf16(ct_i attn) dv)."""
+    r = x.r
+    qi, cti = x.rows(q, "recv"), r(x.rows(ct, "recv"))
+    hs_e = hs.reshape(-1, 2, x.heads)[x.e].to(x.acc)
+    d_prod, attn = x.heads_to_channels(hs_e[:, 0]), x.heads_to_channels(hs_e[:, 1])
+    fk, fv = filt
+    qk = r(d_prod * qi)
+    d_vdv = r(cti * attn)
+    return torch.cat([r(qk * fk[1]) if fk else qk, r(d_vdv * fv[1]) if fv else d_vdv], dim=-1)
+
+
+def _split_kv(src, h):
+    """(N, 2H) source-row gradients -> (k, v), each contiguous."""
+    return src[:, :h].contiguous(), src[:, h:].contiguous()
+
+
+def bwd_source_reference(idx, perm, q, ea, wdk, bdk, wdv, bdv, ct, hs, *, heads, act):
+    """Plain version of the backward's source pass (``t_bwd_src_kernel``):
+    per atom j, the per-edge source-row cotangents of the K edges that
+    ``perm`` lists for j, recomputed from their ea rows, the receivers' rows
+    and hs, summed in slot order in the accumulation dtype and rounded once.
+    Returns (dk, dv) in the operands' dtype."""
+    n, kk = idx.shape
+    e, src = em._slots(idx, perm)
+    x = _Edges(idx, e, src, q, ea, heads)
+    terms = _bwd_source_terms(x, q, ct, hs, x.filters(wdk, bdk, wdv, bdv, act))
+    return _split_kv(_slot_sum(terms, n, kk).to(q.dtype), q.shape[1])
+
+
+def bwd_receiver(idx, q, k, v, ea, cutm, wdk, bdk, wdv, bdv, ct, *, heads, act, attn_act, want_dpre):
+    """The backward's receiver pass: (dq, dea, dcutm, hs, dpre, db) as
+    ``bwd_receiver_reference`` returns them (dq, dcutm, db f32 on the card).
+    CUDA tensors run ``t_bwd_kernel`` (counted by ``run_bwd.launches``), CPU
+    tensors the plain version."""
+    if q.device.type == "cpu":
+        return bwd_receiver_reference(idx, q, k, v, ea, cutm, wdk, bdk, wdv, bdv, ct, heads=heads, act=act,
+                                      attn_act=attn_act, want_dpre=want_dpre)
+    lib = _lib()
+    (n, kk, h, rbf), tensors = _prepare(idx, q, k, v, ea, cutm, wdk, bdk, wdv, bdv, heads)
+    dev = q.device
+    em._check(ct, "ct", torch.float32, (n, h), dev)
+    f32, bf = torch.float32, torch.bfloat16
+    dq = torch.empty((n, h), dtype=f32, device=dev)
+    dea = torch.empty((n, kk, rbf), dtype=bf, device=dev)
+    dcutm = torch.empty((n, kk), dtype=f32, device=dev)
+    hs = torch.empty((n * kk, 2, heads), dtype=bf, device=dev)
+    dpre = db_part = None
+    with torch.cuda.device(dev):
+        if want_dpre and (wdk is not None or wdv is not None):
+            dpre = torch.empty((n * kk, 2 * h), dtype=bf, device=dev)
+            db_part = _db_partials(lib, 1, n, kk, h, heads, rbf, dev)
+        err = lib.t_bwd(
+            em._ptr(idx), n, kk, h, heads, rbf, *[em._ptr(t) for t in tensors],
+            em._ACT_CODE[act], em._ACT_CODE[attn_act], em._ptr(ct), em._ptr(dq), em._ptr(dea),
+            em._ptr(dcutm), em._ptr(hs), em._ptr(dpre), em._ptr(db_part), _stream(dev),
+        )
+    _raise_on(lib, err, "t_bwd launch")
+    run_bwd.launches += 1
+    return dq, dea, dcutm, hs, dpre, None if db_part is None else db_part.sum(dim=0)
+
+
+def bwd_source(idx, perm, q, k, v, ea, cutm, wdk, bdk, wdv, bdv, ct, hs, *, heads, act, attn_act):
+    """The backward's source pass: (dk, dv) bf16 from the receiver pass's
+    hs.  CUDA tensors run ``t_bwd_src_kernel``, CPU tensors
+    ``bwd_source_reference``."""
+    if q.device.type == "cpu":
+        return bwd_source_reference(idx, perm, q, ea, wdk, bdk, wdv, bdv, ct, hs, heads=heads, act=act)
     lib = _lib()
     (n, kk, h, rbf), tensors = _prepare(idx, q, k, v, ea, cutm, wdk, bdk, wdv, bdv, heads)
     dev = q.device
     em._check(perm, "perm", torch.int32, (n * kk,), dev)
     em._check(ct, "ct", torch.float32, (n, h), dev)
-    f32 = torch.float32
-    want_dw = want_weight_grads and (wdk is not None or wdv is not None)
-    dq = torch.empty((n, h), dtype=f32, device=dev)
-    dea = torch.empty((n, kk, rbf), dtype=torch.bfloat16, device=dev)
-    dcutm = torch.empty((n, kk), dtype=f32, device=dev)
-    dsrc_edge = torch.empty((n, kk, 2 * h), dtype=torch.bfloat16, device=dev)
-    dw_part = db_part = None
+    em._check(hs, "hs", torch.bfloat16, (n * kk, 2, heads), dev)
+    outs = [torch.empty((n, h), dtype=torch.bfloat16, device=dev) for _ in range(2)]
     with torch.cuda.device(dev):
-        if want_dw:
-            dw_part, db_part = _weight_partials(lib, 1, n, kk, h, heads, rbf, dev)
-        stream = _stream(dev)
-        err = lib.t_bwd(
+        err = lib.t_bwd_src(
             em._ptr(idx), n, kk, h, heads, rbf, *[em._ptr(t) for t in tensors],
-            em._ACT_CODE[act], em._ACT_CODE[attn_act], em._ptr(ct), em._ptr(dq), em._ptr(dea),
-            em._ptr(dcutm), em._ptr(dsrc_edge), em._ptr(dw_part), em._ptr(db_part), stream,
+            em._ACT_CODE[act], em._ACT_CODE[attn_act], em._ptr(perm), em._ptr(ct), em._ptr(hs),
+            *[em._ptr(t) for t in outs], _stream(dev),
         )
-        _raise_on(lib, err, "t_bwd launch")
-        dsrc = em._transpose_sum_rows(em._lib(), dsrc_edge, perm, n, kk, 2 * h, dev, stream)
-    run_bwd.launches += 1
-    dwdk = dbdk = dwdv = dbdv = None
+    _raise_on(lib, err, "t_bwd_src launch")
+    bwd_source.launches += 1
+    return tuple(outs)
+
+
+bwd_source.launches = 0
+
+
+def _db_partials(lib, kind, n, kk, h, heads, rbf, dev):
+    """The per-group f32 bias-gradient partials of a receiver pass's grid
+    (kind 1 the backward's, 2 the second order's): (blocks * groups, 2H)."""
+    blocks, groups = ctypes.c_int(0), ctypes.c_int(0)
+    err = lib.t_plan(kind, n, kk, h, heads, rbf, ctypes.byref(blocks), ctypes.byref(groups))
+    _raise_on(lib, err, "t_plan")
+    return torch.empty((blocks.value * groups.value, 2 * h), dtype=torch.float32, device=dev)
+
+
+def run_bwd(idx, perm, q, k, v, ea, cutm, wdk, bdk, wdv, bdv, ct, *, heads, act, attn_act,
+            want_weight_grads: bool):
+    """The backward: its receiver pass (``bwd_receiver``), its source pass
+    (``bwd_source``) and, when wanted, the weight cotangents from the
+    receiver pass's per-edge filter cotangents (``em.weight_grads``, ET's
+    reduction kernel).  CPU tensors take the passes' plain versions.
+
+    Returns (dq, dk, dv, dea, dcutm, dwdk, dbdk, dwdv, dbdv) in the operands'
+    dtypes; the weight cotangents are None unless ``want_weight_grads``."""
+    want_dw = want_weight_grads and (wdk is not None or wdv is not None)
+    n, kk = idx.shape
+    if q.device.type != "cpu":
+        em._check(perm, "perm", torch.int32, (n * kk,), q.device)
+    dq, dea, dcutm, hs, dpre, db = bwd_receiver(idx, q, k, v, ea, cutm, wdk, bdk, wdv, bdv, ct, heads=heads,
+                                                act=act, attn_act=attn_act, want_dpre=want_dw)
+    dk, dv = bwd_source(idx, perm, q, k, v, ea, cutm, wdk, bdk, wdv, bdv, ct, hs, heads=heads, act=act,
+                        attn_act=attn_act)
+    gw = (None,) * 4
     if want_dw:
-        dwdk, dbdk, dwdv, dbdv = _sum_partials(dw_part, db_part, rbf, h, wdk, bdk, wdv, bdv)
-    return (dq.to(q.dtype), dsrc[:, :h].contiguous(), dsrc[:, h:].contiguous(), dea, dcutm,
-            dwdk, dbdk, dwdv, dbdv)
+        dw = em.weight_grads([(ea.reshape(n * kk, -1), dpre)], ea.shape[-1])
+        gw = em._split_weights(dw, db, q.shape[1], wdk, bdk, wdv, bdv)
+    return (dq.to(q.dtype), dk, dv, dea, dcutm, *gw)
 
 
 run_bwd.launches = 0
 
 
-def _filters_all(wdk, wdv, h, rbf, like):
-    """(2H, RBFP) bf16: the dk filter's columns, then the dv filter's, as
-    rows; zero rows for an absent filter, zero padding columns."""
-    rbfp = -(-rbf // 16) * 16
-    w = torch.zeros((2 * h, rbfp), dtype=torch.bfloat16, device=like.device)
-    if wdk is not None:
-        w[:h, :rbf] = wdk.t()
-    if wdv is not None:
-        w[h:, :rbf] = wdv.t()
-    return w
+def _z_operands(inputs, Z):
+    """The Z operands of the second order's passes (zq, zk, zv, zea bf16,
+    zcutm f32): None becomes zeros."""
+    def z(i, dtype):
+        t, like = Z[i], inputs[i]
+        return torch.zeros(like.shape, dtype=dtype, device=like.device) if t is None else t.to(dtype).contiguous()
+
+    bf = torch.bfloat16
+    return [z(0, bf), z(1, bf), z(2, bf), z(3, bf), z(4, torch.float32)]
 
 
-def run_bwd2(idx, perm, inputs, ct, Z, *, heads, act, attn_act):
-    """Launch the second-order kernel and the transpose-sum of its source-row
-    gradients.
+def _z_filters(inputs, Z, h, rbf):
+    """(zw_all, zbk, zbv) of the second order's kernels: the filters' Z as
+    (2H, RBFP) bf16 rows, the Z biases flat (None without filters / for an
+    absent filter)."""
+    q, wdk, bdk, wdv, bdv = inputs[0], *inputs[5:9]
+    bf = torch.bfloat16
+    if wdk is None and wdv is None:
+        return None, None, None
+    zt = lambda i, like: (torch.zeros(like.shape, dtype=bf, device=like.device) if Z[i] is None
+                          else Z[i].to(bf).contiguous())
+    rbfp = -(-rbf // 16) * 16  # the kernels' (2H, RBFP) bf16 layout
+    zw_all = _filters_rows(None if wdk is None else zt(5, wdk), None if wdv is None else zt(7, wdv), h, bf,
+                           q.device, rbfp)
+    zbk = None if wdk is None else zt(6, bdk).reshape(-1)
+    zbv = None if wdv is None else zt(8, bdv).reshape(-1)
+    return zw_all, zbk, zbv
 
-    ``inputs`` are the fused op's 9 operands (filters None where absent),
-    ``ct`` the f32 (N, H) cotangent, ``Z`` the 9 cotangents on ``run_bwd``'s
-    outputs (None means zero).  Returns (g_inputs, g_ct): the 9 gradients in
-    the inputs' dtypes (None for absent filters) and g_ct f32."""
-    lib = _lib()
+
+class _Dual:
+    """The second order's per-edge dual forward of an ``_Edges``: filters
+    and their tangents (pre' = z_ea.W + ea.Z_W + z_b) with the activations'
+    derivatives, as the kernels compute them."""
+
+    def __init__(self, x, zea, inputs, Z, act):
+        h, r, acc = x.h, x.r, x.acc
+        wdk, bdk, wdv, bdv = inputs[5:9]
+        one, zero = torch.ones_like(x.ea[:, :1], dtype=acc), torch.zeros_like(x.ea[:, :1], dtype=acc)
+        self.dk, self.dk1, self.dk2, self.pkt, self.dkt = one, zero, zero, zero, zero
+        self.dv, self.dv1, self.dv2, self.pvt, self.dvt = one, zero, zero, zero, zero
+        self.has_dk, self.has_dv = wdk is not None, wdv is not None
+        if not (self.has_dk or self.has_dv):
+            return
+        w = _filters_rows(wdk, wdv, h, acc, x.ea.device).t()
+        zwm = _filters_rows(None if wdk is None else em._zero_if_none(Z[5], wdk),
+                            None if wdv is None else em._zero_if_none(Z[7], wdv), h, acc, x.ea.device).t()
+        ea, zea = x.ea.to(acc), zea.reshape(-1, zea.shape[-1])[x.e].to(acc)
+        pre = r(ea @ w)
+        pret = r(zea @ w + ea @ zwm)
+        if self.has_dk:
+            pk = r(pre[:, :h] + bdk.reshape(-1).to(acc))
+            f, self.dk1, self.dk2 = em._act3(act, pk)
+            self.dk = r(f)
+            self.pkt = r(pret[:, :h] + em._zero_if_none(Z[6], bdk).reshape(-1).to(acc))
+            self.dkt = self.dk1 * self.pkt
+        if self.has_dv:
+            pv = r(pre[:, h:] + bdv.reshape(-1).to(acc))
+            f, self.dv1, self.dv2 = em._act3(act, pv)
+            self.dv = r(f)
+            self.pvt = r(pret[:, h:] + em._zero_if_none(Z[8], bdv).reshape(-1).to(acc))
+            self.dvt = self.dv1 * self.pvt
+
+
+def bwd2_receiver_reference(idx, inputs, ct, Z, *, heads, act, attn_act):
+    """Plain version of the second order's receiver pass (``t_bwd2_kernel``).
+
+    Returns (gq (N, H), gea (N, K, RBF), gcutm (N, K), gct (N, H), hs4 (N*K,
+    4, heads): attn, attn' and the head-summed reverse seeds of prod' and
+    prod, bpre and bpret (N*K, 2H) the filter cotangents and their
+    tangents', and db (2H,), the last three None without filters); gea,
+    bpre, bpret in the operands' dtype, the rest in the accumulation dtype."""
     q, k, v, ea, cutm, wdk, bdk, wdv, bdv = inputs
+    n, kk = idx.shape
+    h = q.shape[1]
+    x = _all_edges(idx, q, ea, heads)
+    r, acc = x.r, x.acc
+    z = [em._zero_if_none(Z[i], inputs[i]) for i in range(5)]
+    d = _Dual(x, z[3], inputs, Z, act)
+    xk, xv, zk, zv = x.rows(k, "src"), x.rows(v, "src"), x.rows(z[1], "src"), x.rows(z[2], "src")
+    qi, zqi, cti = x.rows(q, "recv"), x.rows(z[0], "recv"), r(x.rows(ct, "recv"))
+    cm = r(cutm.reshape(-1, 1).to(acc))
+    zcm = z[4].reshape(-1, 1).to(acc)
+    qk = r(qi * xk)
+    prod = r(qk * d.dk) if d.has_dk else qk
+    prodt = (zqi * xk + qi * zk) * d.dk + qi * xk * d.dkt
+    pa = r(x.head_sum(prod))
+    pat = x.head_sum(prodt)
+    aa, a1, a2 = em._act3(attn_act, pa)
+    aa = r(aa)
+    attn = r(aa * cm)
+    attnt = a1 * pat * cm + aa * zcm
+    vdv = r(xv * d.dv) if d.has_dv else xv
+    vdvt = zv * d.dv + xv * d.dvt
+    gct = vdvt * attn + vdv * attnt
+    b_vdvt, b_vdv = cti * attn, cti * attnt
+    b_attnt, b_attn = cti * vdv, cti * vdvt
+    gcutm = (b_attnt * a1 * pat + b_attn * aa).sum(-1).reshape(n, kk)
+    b_prodt = x.head_sum(b_attnt * a1 * cm)
+    b_prod = x.head_sum(b_attnt * (a2 * pat * cm + a1 * zcm) + b_attn * a1 * cm)
+    hd = h // heads
+    hs4 = torch.stack([attn[:, ::hd], attnt[:, ::hd], b_prodt[:, ::hd], b_prod[:, ::hd]], dim=1)
+    gq = b_prodt * (zk * d.dk + xk * d.dkt) + b_prod * xk * d.dk
+    zero = torch.zeros_like(qi)
+    bpre, bpret = [zero, zero], [zero, zero]
+    if d.has_dk:
+        b_dk = b_prodt * (zqi * xk + qi * zk) + b_prod * qi * xk
+        b_dkt = b_prodt * qi * xk
+        bpret[0] = b_dkt * d.dk1
+        bpre[0] = b_dkt * d.dk2 * d.pkt + b_dk * d.dk1
+    if d.has_dv:
+        b_dv = b_vdvt * zv + b_vdv * xv
+        b_dvt = b_vdvt * xv
+        bpret[1] = b_dvt * d.dv1
+        bpre[1] = b_dvt * d.dv2 * d.pvt + b_dv * d.dv1
+    bpre_b = bpret_b = db = None
+    if d.has_dk or d.has_dv:
+        bpre_b, bpret_b = torch.cat(bpre, -1).to(x.bf), torch.cat(bpret, -1).to(x.bf)
+        wm = _filters_rows(wdk, wdv, h, acc, ea.device)
+        zwm = _filters_rows(None if wdk is None else em._zero_if_none(Z[5], wdk),
+                            None if wdv is None else em._zero_if_none(Z[7], wdv), h, acc, ea.device)
+        gea = (bpre_b.to(acc) @ wm + bpret_b.to(acc) @ zwm).to(ea.dtype).reshape(ea.shape)
+        db = bpre_b.to(acc).sum(0)
+    else:
+        gea = torch.zeros_like(ea)
+    return (_slot_sum(gq, n, kk), gea, gcutm, _slot_sum(gct, n, kk), hs4, bpre_b, bpret_b, db)
+
+
+def _bwd2_source_terms(x, d, q, ct, z, hs4):
+    """The second order's per-edge source-row gradients (E, 2H) of the edges
+    of ``x``, [k | v], wide, from ``d`` (``_Dual``) and hs4."""
+    qi, zqi, cti = x.rows(q, "recv"), x.rows(z[0], "recv"), x.r(x.rows(ct, "recv"))
+    hs_e = hs4.reshape(-1, 4, x.heads)[x.e].to(x.acc)
+    attn, attnt, b_prodt, b_prod = (x.heads_to_channels(hs_e[:, s]) for s in range(4))
+    g_k = b_prodt * (zqi * d.dk + qi * d.dkt) + b_prod * qi * d.dk
+    g_v = cti * attn * d.dvt + cti * attnt * d.dv
+    return torch.cat([g_k, g_v], dim=-1)
+
+
+def bwd2_source_reference(idx, perm, inputs, ct, Z, hs4, *, heads, act):
+    """Plain version of the second order's source pass
+    (``t_bwd2_src_kernel``): per atom j, the per-edge gradients of k_j and
+    v_j over the K edges ``perm`` lists for j, summed in slot order in the
+    accumulation dtype and rounded once to the operands' dtype.  Returns
+    (gk, gv)."""
+    q, ea = inputs[0], inputs[3]
+    n, kk = idx.shape
+    e, src = em._slots(idx, perm)
+    x = _Edges(idx, e, src, q, ea, heads)
+    z = [em._zero_if_none(Z[i], inputs[i]) for i in range(5)]
+    terms = _bwd2_source_terms(x, _Dual(x, z[3], inputs, Z, act), q, ct, z, hs4)
+    return _split_kv(_slot_sum(terms, n, kk).to(q.dtype), q.shape[1])
+
+
+def bwd2_receiver(idx, inputs, ct, Z, *, heads, act, attn_act):
+    """The second order's receiver pass: (gq, gea, gcutm, gct, hs4, bpre,
+    bpret, db) as ``bwd2_receiver_reference`` returns them.  CUDA tensors
+    run ``t_bwd2_kernel`` (counted by ``run_bwd2.launches``), CPU tensors
+    the plain version."""
+    q, k, v, ea, cutm, wdk, bdk, wdv, bdv = inputs
+    if q.device.type == "cpu":
+        return bwd2_receiver_reference(idx, inputs, ct, Z, heads=heads, act=act, attn_act=attn_act)
+    lib = _lib()
     (n, kk, h, rbf), tensors = _prepare(idx, q, k, v, ea, cutm, wdk, bdk, wdv, bdv, heads)
     if h > 256:
         raise ValueError(f"the second-order Transformer kernel takes H <= 256; got H={h}")
     dev = q.device
     f32, bf = torch.float32, torch.bfloat16
-    ct = ct.to(f32).contiguous()
-    em._check(perm, "perm", torch.int32, (n * kk,), dev)
     em._check(ct, "ct", f32, (n, h), dev)
-
-    def z(i, like, dtype):
-        t = Z[i]
-        return torch.zeros(like.shape, dtype=dtype, device=dev) if t is None else t.to(dtype).contiguous()
-
-    zs = [z(0, q, bf), z(1, k, bf), z(2, v, bf), z(3, ea, bf), z(4, cutm, f32)]
-    has_w = wdk is not None or wdv is not None
-    w_all = zw_all = zbk = zbv = None
-    if has_w:
-        w_all = _filters_all(wdk, wdv, h, rbf, q)
-        zw_all = _filters_all(None if wdk is None else z(5, wdk, bf),
-                              None if wdv is None else z(7, wdv, bf), h, rbf, q)
-        if wdk is not None:
-            zbk = z(6, bdk, bf).reshape(-1)
-        if wdv is not None:
-            zbv = z(8, bdv, bf).reshape(-1)
+    zs = _z_operands(inputs, Z)
+    zw_all, zbk, zbv = _z_filters(inputs, Z, h, rbf)
     gq = torch.empty((n, h), dtype=f32, device=dev)
     gea = torch.empty((n, kk, rbf), dtype=bf, device=dev)
     gcutm = torch.empty((n, kk), dtype=f32, device=dev)
-    gsrc_edge = torch.empty((n, kk, 2 * h), dtype=f32, device=dev)
     gct = torch.empty((n, h), dtype=f32, device=dev)
-    dw_part = db_part = None
+    hs4 = torch.empty((n * kk, 4, heads), dtype=f32, device=dev)
+    bpre = bpret = db_part = None
     with torch.cuda.device(dev):
-        if has_w:
-            dw_part, db_part = _weight_partials(lib, 2, n, kk, h, heads, rbf, dev)
-        stream = _stream(dev)
+        if zw_all is not None:
+            bpre = torch.empty((n * kk, 2 * h), dtype=bf, device=dev)
+            bpret = torch.empty((n * kk, 2 * h), dtype=bf, device=dev)
+            db_part = _db_partials(lib, 2, n, kk, h, heads, rbf, dev)
         err = lib.t_bwd2(
             em._ptr(idx), n, kk, h, heads, rbf, *[em._ptr(t) for t in tensors],
-            em._ACT_CODE[act], em._ACT_CODE[attn_act], em._ptr(ct),
-            *[em._ptr(t) for t in zs], em._ptr(w_all), em._ptr(zw_all), em._ptr(zbk), em._ptr(zbv),
-            em._ptr(gq), em._ptr(gea), em._ptr(gcutm), em._ptr(gsrc_edge), em._ptr(gct),
-            em._ptr(dw_part), em._ptr(db_part), stream,
+            em._ACT_CODE[act], em._ACT_CODE[attn_act], em._ptr(ct), *[em._ptr(t) for t in zs],
+            em._ptr(zw_all), em._ptr(zbk), em._ptr(zbv), em._ptr(gq), em._ptr(gea),
+            em._ptr(gcutm), em._ptr(gct), em._ptr(hs4), em._ptr(bpre), em._ptr(bpret), em._ptr(db_part),
+            _stream(dev),
         )
-        _raise_on(lib, err, "t_bwd2 launch")
-        gsrc = em._transpose_sum_rows(em._lib(), gsrc_edge, perm, n, kk, 2 * h, dev, stream)
+    _raise_on(lib, err, "t_bwd2 launch")
     run_bwd2.launches += 1
+    db = None if db_part is None else db_part.sum(dim=0)
+    return gq, gea, gcutm, gct, hs4, bpre, bpret, db
+
+
+def bwd2_source(idx, perm, inputs, ct, Z, hs4, *, heads, act, attn_act):
+    """The second order's source pass: (gk, gv) bf16 from the receiver
+    pass's hs4.  CUDA tensors run ``t_bwd2_src_kernel``, CPU tensors
+    ``bwd2_source_reference``."""
+    q = inputs[0]
+    if q.device.type == "cpu":
+        return bwd2_source_reference(idx, perm, inputs, ct, Z, hs4, heads=heads, act=act)
+    lib = _lib()
+    (n, kk, h, rbf), tensors = _prepare(idx, *inputs, heads)
+    dev = q.device
+    f32, bf = torch.float32, torch.bfloat16
+    em._check(perm, "perm", torch.int32, (n * kk,), dev)
+    em._check(ct, "ct", f32, (n, h), dev)
+    em._check(hs4, "hs4", f32, (n * kk, 4, heads), dev)
+    zs = _z_operands(inputs, Z)
+    zw_all, zbk, zbv = _z_filters(inputs, Z, h, rbf)
+    outs = [torch.empty((n, h), dtype=bf, device=dev) for _ in range(2)]
+    with torch.cuda.device(dev):
+        err = lib.t_bwd2_src(
+            em._ptr(idx), n, kk, h, heads, rbf, *[em._ptr(t) for t in tensors],
+            em._ACT_CODE[act], em._ACT_CODE[attn_act], em._ptr(perm), em._ptr(ct), em._ptr(zs[0]),
+            em._ptr(zs[3]), em._ptr(zw_all), em._ptr(zbk), em._ptr(zbv), em._ptr(hs4),
+            *[em._ptr(t) for t in outs], _stream(dev),
+        )
+    _raise_on(lib, err, "t_bwd2_src launch")
+    bwd2_source.launches += 1
+    return tuple(outs)
+
+
+bwd2_source.launches = 0
+
+
+def run_bwd2(idx, perm, inputs, ct, Z, *, heads, act, attn_act):
+    """The second order: its receiver pass (``bwd2_receiver``), its source
+    pass (``bwd2_source``) and the weight gradients from the receiver pass's
+    per-edge filter cotangents (``em.weight_grads``).  CPU tensors take the
+    passes' plain versions.
+
+    ``inputs`` are the fused op's 9 operands (filters None where absent),
+    ``ct`` the (N, H) cotangent, ``Z`` the 9 cotangents on ``run_bwd``'s
+    outputs (None means zero).  Returns (g_inputs, g_ct): the 9 gradients in
+    the inputs' dtypes (None for absent filters) and g_ct f32 (the
+    accumulation dtype on the CPU)."""
+    q, ea, wdk, bdk, wdv, bdv = inputs[0], inputs[3], *inputs[5:9]
+    n, kk = idx.shape
+    if q.device.type != "cpu":
+        em._check(perm, "perm", torch.int32, (n * kk,), q.device)
+        ct = ct.to(torch.float32).contiguous()
+    gq, gea, gcutm, gct, hs4, bpre, bpret, db = bwd2_receiver(idx, inputs, ct, Z, heads=heads, act=act,
+                                                              attn_act=attn_act)
+    gk, gv = bwd2_source(idx, perm, inputs, ct, Z, hs4, heads=heads, act=act, attn_act=attn_act)
     gw = (None,) * 4
-    if has_w:
-        gw = _sum_partials(dw_part, db_part, rbf, h, wdk, bdk, wdv, bdv)
-    g_inputs = (gq.to(q.dtype), gsrc[:, :h].contiguous(), gsrc[:, h:].contiguous(), gea, gcutm, *gw)
-    return g_inputs, gct
+    if bpre is not None:
+        zea = em._zero_if_none(Z[3], ea).to(ea.dtype).reshape(n * kk, -1).contiguous()
+        dw = em.weight_grads([(ea.reshape(n * kk, -1), bpre), (zea, bpret)], ea.shape[-1])
+        gw = em._split_weights(dw, db, q.shape[1], wdk, bdk, wdv, bdv)
+    return (gq.to(q.dtype), gk, gv, gea, gcutm, *gw), gct
 
 
 run_bwd2.launches = 0
+
+
+def kernel_resources(kind, n, kk, h, heads, rbf):
+    """A backward or second-order pass's resources at a shape, from the CUDA
+    runtime (kind 1 ``t_bwd_kernel``, 2 ``t_bwd2_kernel``, 3
+    ``t_bwd_src_kernel``, 4 ``t_bwd2_src_kernel``): {registers, spill_bytes
+    (local memory a thread), threads, smem (dynamic shared memory a block),
+    blocks_per_sm (resident)}.  Needs a CUDA device."""
+    lib = _lib()
+    out = (ctypes.c_int * 5)()
+    _raise_on(lib, lib.t_resources(kind, n, kk, h, heads, rbf, out), "t_resources")
+    return dict(zip(("registers", "spill_bytes", "threads", "smem", "blocks_per_sm"), out))
 
 
 def reset_launch_counts():
     run_fwd.launches = 0
     run_bwd.launches = 0
     run_bwd2.launches = 0
+    bwd_source.launches = 0
+    bwd2_source.launches = 0
 
 
 def t_messages_bwd2_reference(idx, perm, inputs, ct, Z, *, heads: int, act: str = "silu",

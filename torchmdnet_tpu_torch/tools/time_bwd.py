@@ -1,6 +1,6 @@
-"""Time the fused ET backward kernel (#2) with and without weight
-cotangents, and the second-order kernel (#3) where the tree has it, for the
-port in a given checkout.
+"""Time the fused ET backward (#2) with and without weight cotangents and
+its second order (#3), and the Transformer's (#12, #13), for the port in a
+given checkout.
 
     python3 torchmdnet_tpu_torch/tools/time_bwd.py [--tree DIR] [--label NAME] [--dump DIR]
     python3 torchmdnet_tpu_torch/tools/time_bwd.py --compare DIR LABEL_A LABEL_B
@@ -14,10 +14,14 @@ DHFR shapes (N = 2496, K = 81, H = 128, RBF = 50) and the training shapes
 (N = 2304, K = 33, H = 256, RBF = 64, a batch of 128 SyntheticMorse
 molecules, drawn with this checkout's package, so that a tree without the
 datasets is timed on the same batch), and #2 without weight cotangents at
-ET MD's STMV skin list (N = 30,336, K = 112, H = 128, RBF = 50).  Prints the
+ET MD's STMV skin list (N = 30,336, K = 112, H = 128, RBF = 50).  The
+Transformer's operands are chip_smoke.py's too (``_t_kernel_inputs``): #12
+with and without weight cotangents at DHFR (K = 81, H = 128, RBF = 50), #12
+with weight cotangents and #13 at the training shapes.  Prints the
 card's name and power limit, then one JSON line of CUDA-event medians of 20
 launches (5 at STMV) with the L2 flushed.  ``--dump DIR`` also saves one
-call's outputs per shape and kernel to DIR/LABEL.pt; ``--compare DIR A B``
+call's outputs per shape and kernel (the forwards #1 and #11 too) to
+DIR/LABEL.pt; ``--compare DIR A B``
 then prints, per output, whether two labels' outputs are bitwise equal and
 their largest difference over the largest value.  Needs a CUDA device
 (``--compare`` does not).
@@ -30,6 +34,8 @@ import os
 import subprocess
 import sys
 
+import torch
+
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
@@ -41,7 +47,7 @@ def _chip_smoke():
 
 
 def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description="Time the fused ET backward and second-order kernels.")
+    ap = argparse.ArgumentParser(description="Time the fused ET and Transformer backward and second-order kernels.")
     ap.add_argument("--tree", default=ROOT, help="root of the checkout to time")
     ap.add_argument("--label", default=None, help="name printed with the result")
     ap.add_argument("--dump", default=None, help="directory for one call's outputs per shape")
@@ -60,8 +66,6 @@ def main(argv=None) -> int:
     for name in [m for m in sys.modules if m.split(".")[0] == "torchmdnet_tpu_torch"]:
         del sys.modules[name]
     sys.path[:] = [tree] + rest
-
-    import torch
 
     if not torch.cuda.is_available():
         print("time_bwd: no CUDA device", file=sys.stderr)
@@ -84,11 +88,25 @@ def main(argv=None) -> int:
                       heads=a["num_heads"], rbf=a["num_rbf"], cutoff=a["cutoff_upper"],
                       batch=cs._train_batch(train_mols, "cuda")),
         "stmv": dict(heads=cs.ET_ARGS["num_heads"]),
+        "t_dhfr": dict(n_atoms=2489, k=cs.T_ARGS["max_num_neighbors"], h=128, heads=8, rbf=50, cutoff=5.0,
+                       batch=None),
+        "t_train": dict(n_atoms=None, k=cs.T_TRAIN_ARGS["max_num_neighbors"], h=a["embedding_dimension"],
+                        heads=a["num_heads"], rbf=a["num_rbf"], cutoff=a["cutoff_upper"],
+                        batch=cs._train_batch(train_mols, "cuda")),
     }
     label = args.label or tree
     result = dict(label=label, tree=tree)
     dumped = {}
     for name, s in shapes.items():
+        if name.startswith("t_"):
+            row, calls = _time_t(cs, name, s, flush)
+            result[name] = row
+            if args.dump:
+                for k, fn in calls.items():
+                    dumped[f"{name}/{k}"] = _flat_cpu(fn())
+            del calls
+            torch.cuda.empty_cache()
+            continue
         if name == "stmv":
             nbl, ins, cts = cs._stmv_kernel_inputs(cs.SEED)
         else:
@@ -111,7 +129,8 @@ def main(argv=None) -> int:
             calls = dict(bwd=bwd(False))
             row = dict(bwd_ms=cs._event_ms(calls["bwd"], flush=flush, reps=5))
         else:
-            calls = dict(bwd=bwd(False), bwd_weights=bwd(True))
+            calls = dict(fwd=lambda: em.run_fwd(nbl.idx, *ops, dirs, *w, **kw), bwd=bwd(False),
+                         bwd_weights=bwd(True))
             if hasattr(em, "run_bwd2"):
                 calls["bwd2"] = bwd2()
             row = {f"{k}_ms": cs._event_ms(fn, flush=flush) for k, fn in calls.items()}
@@ -128,8 +147,34 @@ def main(argv=None) -> int:
     return 0
 
 
+def _time_t(cs, name, s, flush):
+    """The Transformer's #11, #12 (with and without weight cotangents at
+    DHFR, with them at training) and #13 (training): ({kernel_ms: median},
+    the calls)."""
+    from torchmdnet_tpu_torch.ops.kernels import t_message as tmk
+
+    nbl, ins, ct = cs._t_kernel_inputs(s["n_atoms"], s["k"], s["h"], s["rbf"], s["cutoff"], cs.SEED,
+                                       batch=s["batch"])
+    kw = dict(heads=s["heads"], act="silu", attn_act="silu")
+    args = [ins[x] for x in cs.T_ORDER]
+    idx, perm = nbl.idx, nbl.transpose_perm
+
+    def bwd(want):
+        return lambda: tmk.run_bwd(idx, perm, *args, ct, want_weight_grads=want, **kw)
+
+    calls = dict(fwd=lambda: tmk.run_fwd(idx, *args, **kw))
+    if name == "t_dhfr":
+        calls.update(bwd=bwd(False), bwd_weights=bwd(True))
+    else:
+        z = cs._t_z_like(ins, cs.SEED)
+        calls.update(bwd_weights=bwd(True), bwd2=lambda: tmk.run_bwd2(idx, perm, args, ct, z, **kw))
+    return {f"{k}_ms": cs._event_ms(fn, flush=flush) for k, fn in calls.items()}, calls
+
+
 def _flat_cpu(out):
     """A call's outputs as a flat list of CPU tensors (None kept)."""
+    if isinstance(out, torch.Tensor):
+        return [out.detach().cpu()]
     flat = []
     for o in out:
         if isinstance(o, (tuple, list)):
@@ -141,8 +186,6 @@ def _flat_cpu(out):
 
 def compare(directory, a, b):
     """Per shape, kernel and output: bitwise equal, or max|a - b| / max|b|."""
-    import torch
-
     da = torch.load(os.path.join(directory, f"{a}.pt"))
     db = torch.load(os.path.join(directory, f"{b}.pt"))
     for key in sorted(set(da) & set(db)):

@@ -1,19 +1,24 @@
 """Time ``External.calculate`` at DHFR size for the port in a given checkout.
 
     python3 torchmdnet_tpu_torch/tools/time_external.py [--tree DIR] [--label NAME]
+        [--model et|transformer] [--train]
 
 ``--tree`` names the root of a checkout whose ``torchmdnet_tpu_torch`` is
 imported and built (default: the checkout holding this file), so that two
 commits are timed on one card back to back: unpack the other commit with
 ``git archive`` into a git-ignored directory and run parent, change, change,
 parent, one process each.  The request is chip_smoke.py's first one (its
-``ET_ARGS``, the synthetic 2489-atom system, seed 0), taken from the
-chip_smoke.py beside this package.  Prints the card's name and power limit,
+``ET_ARGS``, or ``T_ARGS`` with ``--model transformer``, the synthetic
+2489-atom system, seed 0), taken from the chip_smoke.py beside this package.  Prints the card's name and power limit,
 then one JSON line: the host time of ``External.calculate`` (median of 20,
 each call ended by a sync), the device time and kernel launches per call
 (torch.profiler over 3 calls), and for each neighbor strategy the tree
 offers, the list build alone and ``energy_and_forces`` on a list built in
-the call (host clock, median of 20).  Needs a CUDA device.
+the call (host clock, median of 20).  ``--train`` adds a force-loss
+``Trainer`` step of chip_smoke.py's training configuration (``TRAIN_ARGS``
+or ``T_TRAIN_ARGS``, a batch of 128 SyntheticMorse molecules of 18 atoms):
+host ms per step (median of 20 after 3, each ended by a sync) and device ms
+per step (torch.profiler over 3 steps).  Needs a CUDA device.
 """
 
 import argparse
@@ -46,10 +51,44 @@ def _device_ms_per_call(fn, calls=3):
     return sum(ev.device_time for ev in events) / 1e3 / calls, len(events) / calls
 
 
+def _train_step_ms(cs, model_args):
+    """A force-loss Trainer step on one training batch: host ms (median of
+    20 after 3) and device ms per step (profiler, 3 steps)."""
+    import statistics
+    import tempfile
+    import time
+
+    import torch
+
+    from torchmdnet_tpu_torch import create_model
+    from torchmdnet_tpu_torch.train.trainer import Trainer
+
+    with tempfile.TemporaryDirectory() as workdir:
+        trainer = Trainer(create_model(model_args, seed=cs.SEED),
+                          dict(model_args, lr=1e-4, log_dir=workdir, y_weight=1.0, neg_dy_weight=1.0))
+        batch = trainer._prepare_batch(cs._train_batch(cs._train_dataset(), "cpu"))
+        acc = torch.zeros(4, dtype=trainer.dtype, device="cuda")
+        ema = torch.zeros((), dtype=trainer.dtype, device="cuda")
+        step = lambda: trainer._train_step(batch, acc, ema, ema)
+        for _ in range(cs.TRAIN_WARMUP_STEPS):
+            step()
+        times = []
+        for _ in range(cs.TRAIN_TIMED_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        device_ms, launches = _device_ms_per_call(step)
+    return dict(step_ms=statistics.median(times), device_ms_per_step=device_ms, launches_per_step=launches)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Time External.calculate at DHFR size.")
     ap.add_argument("--tree", default=ROOT, help="root of the checkout to time")
     ap.add_argument("--label", default=None, help="name printed with the result")
+    ap.add_argument("--model", default="et", choices=("et", "transformer"), help="chip_smoke.py's configuration")
+    ap.add_argument("--train", action="store_true", help="also time a force-loss training step")
     args = ap.parse_args(argv)
     tree = os.path.abspath(args.tree)
     here = os.path.dirname(os.path.abspath(__file__))
@@ -77,7 +116,7 @@ def main(argv=None) -> int:
 
     z, pos, _ = cs._synthetic_batch(DHFR_ATOMS, cs.SEED, "cpu")
     request = pos + np.random.default_rng(cs.SEED).normal(scale=0.02, size=pos.shape).astype(np.float32)
-    potential = create_model(cs.ET_ARGS, seed=cs.SEED)
+    potential = create_model(cs.T_ARGS if args.model == "transformer" else cs.ET_ARGS, seed=cs.SEED)
     ext = External((potential, None), z[None])
     result = dict(label=args.label or tree, tree=tree,
                   external_ms=cs._host_ms(lambda: ext.calculate(request)))
@@ -99,6 +138,8 @@ def main(argv=None) -> int:
                 lambda: potential.energy_and_forces(batch, nbl=potential.neighbors(batch, strategy=strategy))),
         )
     result["by_strategy"] = by_strategy
+    if args.train:
+        result["train"] = _train_step_ms(cs, cs.T_TRAIN_ARGS if args.model == "transformer" else cs.TRAIN_ARGS)
     print(json.dumps(result), flush=True)
     return 0
 
