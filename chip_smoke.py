@@ -474,13 +474,32 @@ def _resource_shapes(a):
 
 
 def log_et_resources():
-    """The ET backward's and second order's kernels' resources at the DHFR
-    and training shapes."""
+    """The ET kernels' resources at the DHFR, training and STMV skin shapes
+    (the weight reduction's with and without TensorNet's bias sums)."""
     from torchmdnet_tpu_torch.ops.kernels import et_message as em
 
-    names = {1: "et_bwd_kernel", 2: "et_bwd2_kernel", 3: "et_bwd_src_kernel", 4: "et_bwd2_src_kernel",
-             5: "et_dw_kernel"}
-    log("ET backward kernel resources: " + "; ".join(_resource_parts(em, names, _resource_shapes(TRAIN_ARGS))))
+    names = {6: "et_fwd_kernel", 1: "et_bwd_kernel", 2: "et_bwd2_kernel", 3: "et_bwd_src_kernel",
+             4: "et_bwd2_src_kernel", 5: "et_dw_kernel", 7: "et_dw_kernel with bias sums"}
+    shapes = _resource_shapes(TRAIN_ARGS) + (("STMV skin", (30336, 112, 128, 8, 50)),)
+    log("ET kernel resources: " + "; ".join(_resource_parts(em, names, shapes)))
+
+
+def log_tn_resources():
+    """The TensorNet backward's kernel at the DHFR and training shapes (K =
+    65 and 33, H = 128, RBF = 32); its weight reduction is ET's et_dw_kernel,
+    whose resources do not depend on the shape (log_et_resources)."""
+    from torchmdnet_tpu_torch.ops.kernels import tn_message as tm
+
+    h, rbf = TN_ARGS["embedding_dimension"], TN_ARGS["num_rbf"]
+    shapes = (("DHFR", (2496, TN_ARGS["max_num_neighbors"] + 1)),
+              ("training", (TN_TRAIN_BATCH * TRAIN_MOL["num_atoms"], TN_TRAIN_ARGS["max_num_neighbors"] + 1)))
+    parts = []
+    for label, (n, k) in shapes:
+        r = tm.kernel_resources(n, k, h, rbf)
+        parts.append(f"tn_bwd_kernel at {label} N={n} K={k} H={h}: {r['registers']} registers, {r['spill_bytes']} B "
+                     f"spilled, {r['threads']} threads, {r['smem']} B shared, {r['blocks_per_sm']} blocks/SM "
+                     f"({r['blocks_per_sm'] * r['threads'] // 32} warps)")
+    log("TensorNet backward kernel resources: " + "; ".join(parts))
 
 
 def log_t_resources():
@@ -493,8 +512,110 @@ def log_t_resources():
         _resource_parts(tmk, names, _resource_shapes(T_TRAIN_ARGS))))
 
 
+# #1 and #2 at the STMV skin list against their plain versions: the
+# forward's plain version runs over chunks of this many receiver rows; the
+# backward's on the cotangents of this many atoms drawn at random
+STMV_CHECK_ROWS = 4096
+STMV_CHECK_ATOMS = 384
+
+
+def _no_perm():
+    raise AssertionError("a forward over a chunk of rows needs no transpose permutation")
+
+
+def _max_rel(pairs):
+    """max|kernel - plain| / max|plain| over (kernel, plain) chunks of one output."""
+    diff = max(float((a.float() - b.float()).abs().max()) for a, b in pairs)
+    return diff / max(max(float(b.float().abs().max()) for _, b in pairs), 1e-30)
+
+
+def check_stmv(nbl, ins, cts, heads, seed):
+    """#1 and #2 (frozen weights, as MD runs it) at the STMV skin list
+    against their plain versions, which take the whole list at once beyond
+    the card's memory.  The forward: every receiver row, the plain version
+    over chunks of STMV_CHECK_ROWS rows (their slots gather from all atoms).
+    The backward: the cotangents of STMV_CHECK_ATOMS random atoms S;
+    receiver side (dq, dea, dcutm, ddir) from autograd through the plain
+    version of S's rows, source side (dk, dv, dvec) from autograd through
+    the K edges pointing at each atom of S (``transpose_perm``'s groups, in
+    slot order), each edge a row of an identity list, summed per atom in
+    f32.  Returns ({output: max rel err}, max abs err of the forward, of
+    the backward); raises past FWD_TOL or BWD_TOL."""
+    import torch
+
+    from torchmdnet_tpu_torch.ops.kernels import et_message as em
+
+    kw = dict(heads=heads, act="silu", attn_act="silu")
+    idx, perm = nbl.idx, nbl.transpose_perm
+    n, kk = idx.shape
+    w = [ins[x] for x in ("wdk", "bdk", "wdv", "bdv")]
+    src_names = ("k", "v", "vec0", "vec1", "vec2")
+    row_names = ("q", "ea", "cutm", "msk", "dir0", "dir1", "dir2")
+    common = [ins[x] for x in ("q", "k", "v", "vec0", "vec1", "vec2", "ea", "cutm", "msk")]
+    dirs = (ins["dir0"], ins["dir1"], ins["dir2"])
+    x, vec = em.run_fwd(idx, *common, dirs, *w, **kw)
+    fwd = {"x_agg": [], "vec_agg": []}
+    for r0 in range(0, n, STMV_CHECK_ROWS):
+        r = slice(r0, min(n, r0 + STMV_CHECK_ROWS))
+        rows = {x_: ins[x_][r] for x_ in row_names}
+        px, pv = em.et_messages_reference(
+            idx[r], rows["q"], *[ins[x_] for x_ in src_names], rows["ea"], rows["cutm"], rows["msk"],
+            rows["dir0"], rows["dir1"], rows["dir2"], *w, perm=_no_perm, **kw)
+        fwd["x_agg"].append((x[r], px))
+        fwd["vec_agg"].append((vec[r], pv))
+    fwd_abs = max(float((a - b).abs().max()) for p_ in fwd.values() for a, b in p_)
+    rel = {f"fwd_{k_}": _max_rel(v_) for k_, v_ in fwd.items()}
+    del x, vec, fwd
+
+    got = em.run_bwd(idx, perm, *common, dirs, *w, cts[0], cts[1], want_weight_grads=False, **kw)
+    got = dict(zip(("q", "k", "v", "vec0", "vec1", "vec2", "ea", "cutm", "dir0", "dir1", "dir2"), got))
+    g = torch.Generator().manual_seed(seed)
+    atoms = torch.randperm(n, generator=g)[:STMV_CHECK_ATOMS].sort().values.to(idx.device)
+    # receiver side: the rows of S
+    t = {x_: ins[x_][atoms].clone().requires_grad_(x_ != "msk") for x_ in row_names}
+    px, pv = em.et_messages_reference(
+        idx[atoms], t["q"], *[ins[x_] for x_ in src_names], t["ea"], t["cutm"], t["msk"],
+        t["dir0"], t["dir1"], t["dir2"], *w, perm=_no_perm, **kw)
+    leaves = [x_ for x_ in row_names if x_ != "msk"]
+    want = dict(zip(leaves, torch.autograd.grad((px, pv), [t[x_] for x_ in leaves],
+                                                 (cts[0][atoms], cts[1][atoms]))))
+    # source side: the K edges pointing at each atom of S, one a row
+    edges = perm.reshape(n, kk)[atoms].reshape(-1).long()
+    recv, m = torch.div(edges, kk, rounding_mode="floor"), edges.numel()
+    if not torch.equal(idx.reshape(-1)[edges].reshape(-1, kk)[:, 0], atoms):
+        raise AssertionError("transpose_perm's groups do not point at their atoms")
+    ident = torch.arange(m, dtype=torch.int32, device=idx.device)
+    s_ = {x_: ins[x_][atoms].repeat_interleave(kk, dim=0).clone().requires_grad_() for x_ in src_names}
+    e_ = {x_: ins[x_].reshape(n * kk, *ins[x_].shape[2:])[edges].reshape(m, 1, *ins[x_].shape[2:])
+          for x_ in ("ea", "cutm", "msk", "dir0", "dir1", "dir2")}
+    px, pv = em.et_messages_reference(
+        ident.reshape(m, 1), ins["q"][recv], *[s_[x_] for x_ in src_names], e_["ea"], e_["cutm"], e_["msk"],
+        e_["dir0"], e_["dir1"], e_["dir2"], *w, perm=ident, **kw)
+    gs = torch.autograd.grad((px, pv), [s_[x_] for x_ in src_names], (cts[0][recv], cts[1][recv]))
+    for x_, gx in zip(src_names, gs):
+        want[x_] = gx.to(torch.promote_types(gx.dtype, torch.float32)).reshape(len(atoms), kk, -1).sum(1)
+    bwd_abs = 0.0
+    for x_, b in want.items():
+        a = got[x_][atoms]
+        rel[f"bwd_{x_}"] = _rel(a, b)
+        bwd_abs = max(bwd_abs, float((a.float() - b.float()).abs().max()))
+    torch.cuda.synchronize()
+    log(f"kernel check at the STMV skin list (N={n} K={kk} H={ins['q'].shape[1]} heads={heads} "
+        f"RBF={ins['ea'].shape[-1]}; #1 on every row in chunks of {STMV_CHECK_ROWS}, #2 frozen on {len(atoms)} "
+        f"random atoms, both sides): fwd max rel err {max(v_ for k_, v_ in rel.items() if 'fwd' in k_):.3e} "
+        f"(tol {FWD_TOL}), bwd max rel err {max(v_ for k_, v_ in rel.items() if 'bwd' in k_):.3e} "
+        f"(tol {BWD_TOL}) {_fmt(rel)}")
+    if max(v_ for k_, v_ in rel.items() if "fwd" in k_) > FWD_TOL:
+        raise AssertionError(f"forward kernel disagrees with the plain version at the STMV skin list: {rel}")
+    if max(v_ for k_, v_ in rel.items() if "bwd" in k_) > BWD_TOL:
+        raise AssertionError(f"backward kernel disagrees with the plain version at the STMV skin list: {rel}")
+    return rel, fwd_abs, bwd_abs
+
+
 def time_kernels(seed):
-    """Each kernel's time at the DHFR shapes, its plain version's, its bound."""
+    """Each kernel's time at the DHFR shapes, its plain version's, its bound;
+    #1 and #2 at the STMV skin list checked against their plain versions
+    (``check_stmv``) and timed."""
     import torch
 
     from torchmdnet_tpu_torch.ops.kernels import et_message as em
@@ -527,19 +648,24 @@ def time_kernels(seed):
     # #2 at ET MD's STMV skin list (no weight cotangents: MD freezes them)
     snbl, sins, scts = _stmv_kernel_inputs(seed)
     sn, skk = snbl.idx.shape
+    _, stmv_fwd_abs, stmv_bwd_abs = check_stmv(snbl, sins, scts, heads, seed)
     scommon = [sins[n] for n in ("q", "k", "v", "vec0", "vec1", "vec2", "ea", "cutm", "msk")]
+    sdirs, sw = (sins["dir0"], sins["dir1"], sins["dir2"]), [sins[n] for n in ("wdk", "bdk", "wdv", "bdv")]
     stmv_ms = _event_ms(lambda: em.run_bwd(
-        snbl.idx, snbl.transpose_perm, *scommon, (sins["dir0"], sins["dir1"], sins["dir2"]),
-        *[sins[n] for n in ("wdk", "bdk", "wdv", "bdv")], scts[0], scts[1], want_weight_grads=False, **kw),
+        snbl.idx, snbl.transpose_perm, *scommon, sdirs, *sw, scts[0], scts[1], want_weight_grads=False, **kw),
         flush=flush, reps=5)
+    stmv_fwd_ms = _event_ms(lambda: em.run_fwd(snbl.idx, *scommon, sdirs, *sw, **kw), flush=flush, reps=5)
     sb, sby = _bounds(sn, skk, 128, 50, "bwd")
-    del snbl, sins, scts, scommon
+    sfb, sfby = _bounds(sn, skk, 128, 50, "fwd")
+    del snbl, sins, scts, scommon, sdirs, sw
     log(f"kernel times at DHFR shapes (N={n} K={kk} H=128 RBF=50, L2 flushed, median of 20): "
         f"fwd {fwd_ms:.4f} ms (plain {plain_fwd_ms:.4f} ms, bound {fb:.4f} ms by {fby}); "
         f"bwd {bwd_ms:.4f} ms (plain {plain_bwd_ms:.4f} ms, bound {bb:.4f} ms by {bby}); "
         f"bwd with weight cotangents {bwd_w_ms:.4f} ms (bound {bwb:.4f} ms by {bwby}); "
-        f"bwd at the STMV skin shape (N={sn} K={skk}, median of 5) {stmv_ms:.4f} ms (bound {sb:.4f} ms by {sby})")
-    return dict(fwd=(fwd_ms, plain_fwd_ms, fb, fby), bwd=(bwd_ms, plain_bwd_ms, bb, bby))
+        f"at the STMV skin shape (N={sn} K={skk}, median of 5): fwd {stmv_fwd_ms:.4f} ms (bound {sfb:.4f} ms "
+        f"by {sfby}), bwd {stmv_ms:.4f} ms (bound {sb:.4f} ms by {sby})")
+    return dict(fwd=(fwd_ms, plain_fwd_ms, fb, fby), bwd=(bwd_ms, plain_bwd_ms, bb, bby),
+                stmv_fwd=(stmv_fwd_ms, sfb), stmv_bwd=(stmv_ms, sb), stmv_abs=(stmv_fwd_abs, stmv_bwd_abs))
 
 
 # launches of the ET and Transformer backward's and second order's helper
@@ -572,6 +698,19 @@ def _check_t_parts(path, bwd, bwd2):
              "t_message_dw": em.weight_grads.launches}
     if (parts["t_message_bwd_src"], parts["t_message_bwd2_src"]) != (bwd, bwd2):
         raise AssertionError(f"{path}: expected {bwd} + {bwd2} Transformer source-pass launches, got {parts}")
+    PART_LAUNCHES[path] = parts
+    return parts
+
+
+def _check_tn_parts(path, least, most):
+    """TensorNet's weight reduction (et_dw_kernel, once per #9 launch that
+    wants the weights' cotangents and once per #10 launch) ran between
+    ``least`` and ``most`` times since the last reset; records it."""
+    from torchmdnet_tpu_torch.ops.kernels import tn_message as tm
+
+    parts = {"tn_message_dw": tm.weight_grads.launches}
+    if not least <= parts["tn_message_dw"] <= most:
+        raise AssertionError(f"{path}: expected {least} to {most} TensorNet weight-reduction launches, got {parts}")
     PART_LAUNCHES[path] = parts
     return parts
 
@@ -615,6 +754,8 @@ def main_path(args, km, label):
         _check_et_parts("external_dhfr", launches[1], 0)
     elif args["model"] == "transformer":
         _check_t_parts("t_external_dhfr", launches[1], 0)
+    elif args["model"] == "tensornet":
+        _check_tn_parts("tn_external_dhfr", 0, 0)  # serving freezes the weights
     if not torch.equal(results[-1][1], results[-2][1]):
         raise AssertionError("forces of two identical requests differ")
 
@@ -1072,7 +1213,7 @@ def _train_cfg(kind):
         return dict(fused, args=TN_TRAIN_ARGS, batch=TN_TRAIN_BATCH, split=TN_TRAIN_SPLIT, km=tm,
                     lr=TN_TRAIN_LR, weights=TN_TRAIN_WEIGHTS, label="TensorNet-ANI1X 2x128",
                     kernels=("tn_fwd_kernel", "tn_bwd_kernel", "tn_bwd2_kernel", "tn_src_sum_kernel",
-                             "tn_wgrad_kernel", "tn_colsum_kernel"),
+                             "et_dw_kernel"),
                     flags=["--equivariance-invariance-group", TN_TRAIN_ARGS["equivariance_invariance_group"],
                            "--fused-message", "true"])
     # a force-loss step gathers twice per layer (the forward and the outer
@@ -1286,6 +1427,8 @@ def train_cli(workdir, cfg):
     elif cfg["km"] is t_kernels:
         if _check_t_parts("t_train", launches[1], launches[2])["t_message_dw"] < launches[2]:
             raise AssertionError("the Transformer second order's weight reduction did not run once per launch")
+    elif cfg["args"]["model"] == "tensornet":
+        _check_tn_parts("tn_train", launches[2], launches[1] + launches[2])
     best = trainer.best_model_path
     ckpt = load_checkpoint(best)
     reloaded = load_model(best)
@@ -1494,6 +1637,7 @@ def check_tn_kernels(label, kind, seed):
     got, want = list(got[0]) + [got[1]], list(want[0]) + [want[1]]
     bwd2 = {nm: _rel(a, b) for nm, a, b in zip(names, got, want)}
     bwd2_abs = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, want))
+    parts = check_tn_parts(idx, perm, inputs, ct, z)
     # keeping the second derivative's graph (the way to a third) must raise
     t = {n: v.clone().requires_grad_(n in ("cat", "ea")) for n, v in ins.items()}
     m = tm.fused_tn_messages(idx, *[t[n] for n in TN_ORDER], perm=perm)
@@ -1515,7 +1659,8 @@ def check_tn_kernels(label, kind, seed):
         f"fwd max rel err {fwd:.3e} (tol {TN_FWD_TOL}; from f32 without intermediate rounding: kernel "
         f"{k_exact:.3e}, plain {p_exact:.3e}); bwd max rel err {max(bwd.values()):.3e} "
         f"(tol {BWD_TOL}) {_fmt(bwd)}; bwd2 max rel err {max(bwd2.values()):.3e} (tol {BWD2_TOL}) "
-        f"{_fmt(bwd2)}; frozen-weight backward equal; a third derivative raises")
+        f"{_fmt(bwd2)}; weight reduction (et_dw_kernel) against its plain version on #9's and #10's rows "
+        f"{_fmt(parts)} (tol {WGRAD_TOL}); frozen-weight backward equal; a third derivative raises")
     if fwd > TN_FWD_TOL or k_exact > 2 * p_exact:
         raise AssertionError(f"TensorNet forward kernel disagrees with the plain version at {label}: {fwd} "
                              f"(from unrounded f32: kernel {k_exact}, plain {p_exact})")
@@ -1523,7 +1668,32 @@ def check_tn_kernels(label, kind, seed):
         raise AssertionError(f"TensorNet backward kernel disagrees with the plain version at {label}: {bwd}")
     if max(bwd2.values()) > BWD2_TOL:
         raise AssertionError(f"TensorNet second-order kernel disagrees with the plain version at {label}: {bwd2}")
+    if max(parts.values()) > WGRAD_TOL:
+        raise AssertionError(f"TensorNet weight reduction disagrees with its plain version at {label}: {parts}")
     return fwd_abs, bwd_abs, bwd2_abs
+
+
+def check_tn_parts(idx, perm, inputs, ct, z):
+    """TensorNet's weight reduction (et_dw_kernel with the bias sums) against
+    its plain version on the rows the backward (#9) and the second order
+    (#10) wrote, split as the kernel splits them: {product: max rel err}."""
+    import torch
+
+    from torchmdnet_tpu_torch.ops.kernels import tn_message as tm
+
+    h, rbfp = inputs[0].shape[1] // 9, tm._rbfp(inputs[1].shape[-1])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rel = {}
+    for name, rows, jobs in (
+            ("bwd", tm.bwd_rows(idx, *inputs, ct, act="silu", want_rows=True)[3], tm._bwd_jobs(h, rbfp)),
+            ("bwd2", tm.bwd2_rows(idx, perm, inputs, ct, z, act="silu")[4], tm._bwd2_jobs(h, rbfp))):
+        got = tm.weight_grads(rows, jobs)
+        want = tm.weight_grads_reference(rows, jobs, tm._per_split(rows.shape[0], jobs, sms))
+        for layer, ((gw, gb), (ww, wb)) in enumerate(zip(got, want), 1):
+            rel[f"{name}_dw{layer}"] = _rel(gw, ww)
+            rel[f"{name}_db{layer}"] = _rel(gb, wb)
+    torch.cuda.synchronize()
+    return rel
 
 
 def _tn_bounds(n, kk, h, rbf, kind):
@@ -1575,7 +1745,7 @@ def time_tn_kernels(train_batch):
     h, rbf = TN_ARGS["embedding_dimension"], TN_ARGS["num_rbf"]
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")  # 256 MB > L2
     out = {}
-    for where, kind, kinds in (("DHFR", "DHFR", ("fwd", "bwd")), ("training", train_batch, ("bwd_w", "bwd2"))):
+    for where, kind, kinds in (("DHFR", "DHFR", ("fwd", "bwd")), ("training", train_batch, ("fwd", "bwd_w", "bwd2"))):
         nbl, pos, box = _tn_system(kind, SEED)
         ins, ct = _tn_kernel_inputs(nbl, pos, h, rbf, TN_ARGS["cutoff_upper"], SEED, box=box)
         idx, perm = nbl.idx, nbl.transpose_perm
@@ -1597,11 +1767,31 @@ def time_tn_kernels(train_batch):
             else:
                 ms = _event_ms(lambda: tm.run_bwd2(idx, perm, args, ct, z, act="silu"), flush=flush)
                 plain = _event_ms(lambda: tm.tn_messages_bwd2_reference(idx, perm, args, ct, z), flush=flush, reps=5)
-            out[k] = (ms, plain) + _tn_bounds(n, kk, h, rbf, k) + ((n, kk),)
+            out[(where, k)] = (ms, plain) + _tn_bounds(n, kk, h, rbf, k) + ((n, kk),)
+        if where == "training":
+            split = _tn_pass_split(idx, args, ct, flush)
+            log(f"TensorNet passes at training (N={n} K={kk} H={h}; L2 flushed, median of 20): "
+                + "; ".join(f"{name} {ms:.4f} ms" for name, ms in split.items()))
     log("TensorNet kernel times (L2 flushed, median of 20; plain second order of 5): " + "; ".join(
-        f"{k} at N={v[4][0]} K={v[4][1]} {v[0]:.4f} ms (plain {v[1]:.4f} ms, bound {v[2]:.4f} ms by {v[3]}, "
-        f"{100 * v[2] / v[0]:.1f}% of it reached)" for k, v in out.items()))
+        f"{k} at {where} N={v[4][0]} K={v[4][1]} {v[0]:.4f} ms (plain {v[1]:.4f} ms, bound {v[2]:.4f} ms by "
+        f"{v[3]}, {100 * v[2] / v[0]:.1f}% of it reached)" for (where, k), v in out.items()))
     return out
+
+
+def _tn_pass_split(idx, args, ct, flush):
+    """#9 at the training shapes pass by pass: the edge kernel alone (no
+    per-edge rows), with the rows and their reduction, and the reduction
+    (et_dw_kernel) alone on the rows of one launch."""
+    from torchmdnet_tpu_torch.ops.kernels import tn_message as tm
+
+    def bwd(want):
+        return lambda: tm.run_bwd(idx, *args, ct, act="silu", want_weight_grads=want)
+
+    rows = tm.bwd_rows(idx, *args, ct, act="silu", want_rows=True)[3]
+    jobs = tm._bwd_jobs(TN_ARGS["embedding_dimension"], tm._rbfp(TN_ARGS["num_rbf"]))
+    return {"edge kernel": _event_ms(bwd(False), flush=flush),
+            "edge kernel + rows + reduction": _event_ms(bwd(True), flush=flush),
+            "reduction (et_dw_kernel)": _event_ms(lambda: tm.weight_grads(rows, jobs), flush=flush)}
 
 
 # --- The graph network: kernels #4/#5, serving, the fp32 forward, STMV MD, training ---
@@ -2473,6 +2663,7 @@ def main():
     log(f"built {list(build.SOURCES)} for sm_90a in {seconds:.1f} s; ptxas: {' | '.join(usage)}")
     log_et_resources()
     log_t_resources()
+    log_tn_resources()
 
     check_kernels("medium", 512, 40, 64, 4, 32, 3.5, seed=1)
     fwd_abs, bwd_abs, _ = check_kernels("DHFR", 2489, 80, 128, 8, 50, 5.0, seed=2)
@@ -2599,15 +2790,34 @@ def main():
     bwd2_row = (train_ms["bwd2"], train_plain["bwd2"]) + train_bounds["bwd2"] + (None,)
     t_rows = {k: t_times[(where, k)][:4] + (None,)
               for where, k in (("DHFR", "fwd"), ("DHFR", "bwd"), ("training", "bwd2"))}
+    # (ms, bound) at the shape each path runs, where that shape was timed:
+    # MD at the STMV skin list, training at the training shapes; a path not
+    # named here takes its row's (ms, bound_ms)
+    gn_stmv = {kind: (t[0], t[3]) for kind, t in gn_times["STMV skin"].items() if kind != "shape"}
+    timed_at = {
+        "et_message_fwd": {"md_stmv": times["stmv_fwd"], "train": (train_ms["fwd"], train_bounds["fwd"][0])},
+        "et_message_bwd": {"md_stmv": times["stmv_bwd"], "train": (train_ms["bwd_w"], train_bounds["bwd_w"][0])},
+        "tn_message_fwd": {"tn_train": tn_times[("training", "fwd")][::2][:2]},
+        "tn_message_bwd": {"tn_train": tn_times[("training", "bwd_w")][::2][:2]},
+        "t_message_fwd": {"t_train": t_times[("training", "fwd")][::2][:2]},
+        "t_message_bwd": {"t_train": t_times[("training", "bwd_w")][::2][:2]},
+        "ell_gather": {"gn_forward_stmv": gn_stmv["gather"], "gn_md_stmv": gn_stmv["gather"]},
+        "ell_transpose_sum": {"gn_forward_stmv": gn_stmv["transpose"], "gn_md_stmv": gn_stmv["transpose"]},
+    }
     kernels = []
     for name, source, line, (ms, plain_ms, bound_ms, bound_by, lib_ms), err in (
-        ("et_message_fwd", "et_message.cu", "et_message.py:227", times["fwd"] + (None,), fwd_abs),
-        ("et_message_bwd", "et_message.cu", "et_message.py:296", times["bwd"] + (None,), bwd_abs),
+        ("et_message_fwd", "et_message.cu", "et_message.py:227", times["fwd"] + (None,),
+         max(fwd_abs, times["stmv_abs"][0])),
+        ("et_message_bwd", "et_message.cu", "et_message.py:296", times["bwd"] + (None,),
+         max(bwd_abs, times["stmv_abs"][1])),
         ("et_message_bwd2", "et_message.cu", "et_message.py:685", bwd2_row, bwd2_abs),
         ("select_topk", "select_topk.cu", "select_topk.py:32", sel_time, sel_abs),
-        ("tn_message_fwd", "tn_message.cu", "tn_message.py:77", tn_times["fwd"][:4] + (None,), tn_fwd_abs),
-        ("tn_message_bwd", "tn_message.cu", "tn_message.py:107", tn_times["bwd"][:4] + (None,), tn_bwd_abs),
-        ("tn_message_bwd2", "tn_message.cu", "tn_message.py:455", tn_times["bwd2"][:4] + (None,), tn_bwd2_abs),
+        ("tn_message_fwd", "tn_message.cu", "tn_message.py:77", tn_times[("DHFR", "fwd")][:4] + (None,),
+         tn_fwd_abs),
+        ("tn_message_bwd", "tn_message.cu", "tn_message.py:107", tn_times[("DHFR", "bwd")][:4] + (None,),
+         tn_bwd_abs),
+        ("tn_message_bwd2", "tn_message.cu", "tn_message.py:455", tn_times[("training", "bwd2")][:4] + (None,),
+         tn_bwd2_abs),
         ("ell_gather", "ell_gather.cu", "onehot_gather.py:178", gn_rows["gather"], gn_errs[0]),
         ("ell_transpose_sum", "ell_gather.cu", "onehot_gather.py:227", gn_rows["transpose"], gn_errs[1]),
         ("compaction", "compaction.cu", "compaction.py:31", comp_time, 0.0),
@@ -2621,8 +2831,14 @@ def main():
         # reduction)
         helpers = {"et_message_bwd": ("et_message_bwd_src", "et_message_dw"),
                    "et_message_bwd2": ("et_message_bwd2_src", "et_message_dw"),
+                   "tn_message_bwd": ("tn_message_dw",),
+                   "tn_message_bwd2": ("tn_message_dw",),
                    "t_message_bwd": ("t_message_bwd_src", "t_message_dw"),
                    "t_message_bwd2": ("t_message_bwd2_src", "t_message_dw")}.get(name, ())
+        # the redesign queue's order (ROADMAP.md): the device time this run's
+        # launches spent above the bound, each path's at its own timed shape
+        at = {path: timed_at.get(name, {}).get(path, (ms, bound_ms)) for path in by_path}
+        excess = {path: n * (at[path][0] - at[path][1]) for path, n in by_path.items() if n}
         kernels.append(dict(
             helper_launches={h: sum(c.get(h, 0) for c in paths.values()) for h in helpers},
             name=name, route="cuda", source=f"torchmdnet_tpu_torch/csrc/{source}",
@@ -2630,9 +2846,8 @@ def main():
             launches=sum(by_path.values()), launches_by_path=by_path,
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
             library_ms=lib_ms,
-            # the redesign queue's order (ROADMAP.md): the device time this
-            # run's launches spent above the bound, at the timed shapes
-            excess_ms=sum(by_path.values()) * (ms - bound_ms),
+            ms_by_path={path: at[path][0] for path in excess}, excess_by_path=excess,
+            excess_ms=sum(excess.values()),
         ))
         if max(by_path.values()) < 1:
             raise AssertionError(f"{name} was not launched on a main path")

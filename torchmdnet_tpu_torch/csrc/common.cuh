@@ -1,5 +1,5 @@
 // Device helpers shared by the fused edge-phase kernels (et_message.cu,
-// t_message.cu): bf16 rounding, the activations and their first and second
+// t_message.cu, tn_message.cu): bf16 rounding, the activations and their first and second
 // derivatives, head and warp sums, the tensor-core (mma.sync, ldmatrix)
 // tiles of the filter products, and the per-group named barrier.  Each
 // source includes it once; ops/kernels/build.py hashes it with every source

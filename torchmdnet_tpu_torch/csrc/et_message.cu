@@ -10,7 +10,8 @@
 //                    _run_bwd2 at :895) with its inverse scatter
 //   et_dw_kernel   <- the weight-gradient accumulators of _bwd_kernel and
 //                    _bwd2_kernel (dw_acc/db_acc), as a reduction over edges
-//                    (the Transformer's backward and second order use it too)
+//                    (the Transformer's and TensorNet's backward and second
+//                    order use it too, with its bias sums for TensorNet)
 // The device helpers they share with t_message.cu are in common.cuh.
 //
 // What one layer computes, per receiver atom i and neighbor slot k (j = idx[i, k]):
@@ -32,21 +33,42 @@
 // CUDA cores).  So the kernel is bound by operations, and in practice by the
 // latency of its row gathers and the per-edge elementwise chain.
 //
-// The forward's design:
-//   * no (N, K, F) tensor in device memory: a group of H threads owns one
-//     receiver row, one channel per thread, gathers the source rows k/v/vec
-//     directly by index (no block plan, no one-hot product: those were TPU
-//     layout workarounds) and keeps its f32 accumulators in registers; each
-//     thread loads the next edge's source values before it computes the
-//     current edge, so gathers overlap work;
-//   * the filter products run on the tensor cores (wmma bf16 16x16x16, f32
-//     accumulation) for KC = 16 edges at a time, against the filter weights
-//     (4H x RBF bf16, 72 KB at DHFR) loaded into shared memory once per
-//     block and shared by the block's row groups (4 at H = 128); the next
-//     chunk's ea rows, neighbor ids and edge scalars are copied into a
-//     second buffer asynchronously while the current chunk computes;
-//   * the per-head sum is a butterfly over the head's lanes of one warp
-//     (H/heads must be a power of two <= 32), no ones-block product.
+// The forward (#1).  What bounded its first port on this card (0.68 ms at
+// DHFR, 5 % of its bound on ET MD's STMV skin list) and what this design
+// does about each, the levers of the backward's receiver pass:
+//   * no (N, K, F) tensor in device memory, as before: a group of H threads
+//     owns receiver rows, one channel per thread, gathers the source rows
+//     k/v/vec directly by index (no block plan, no one-hot product: those
+//     were TPU layout workarounds), keeps its f32 sums in registers and
+//     loads the next edge's source values before it computes the current
+//     one; the per-head sum is a butterfly over the head's lanes of one
+//     warp (H/heads a power of two <= 32), no ones-block product;
+//   * chunks padded per row: a chunk was KC = 16 slots of one row, so K = 33
+//     (training) filled 48 chunk rows, K = 81 (DHFR) 96 and K = 112 (STMV)
+//     128.  Now a group owns a contiguous range of rows and cuts its
+//     flattened slots into chunks of 16 that run across rows; each row's
+//     sums stay sequential in one thread, in slot order;
+//   * block-wide barriers (two __syncthreads a chunk across all of a block's
+//     row groups, which ran in lockstep): now a named barrier per group;
+//   * an f32 round trip for the filters (wmma -> f32 scratch tile -> scalar
+//     conversion per element): now filter_tile, mma.sync + ldmatrix
+//     straight to the bf16 tile, in the k order of the old wmma products, so
+//     the filters are bitwise the same;
+//   * scalar conversions and a run-time activation: now packed conversions
+//     (two values a cvt where two are ready), each chunk's edge scalars
+//     rounded once for the group in shared memory, and a silu/silu build
+//     beside the run-time one;
+//   * few warps in flight (512 threads, 16 warps at H = 128): now 640
+//     threads (5 row groups at H = 128, 2 at H = 256) at 96 registers;
+//   * one edge's chain at a time: now two edges' chains interleave, their
+//     head sums paired (group_sum2, the pairs of group_sum, so the same
+//     bits), with the next two edges' source values in flight (as the
+//     Transformer's #12 receiver pass);
+//   * the next chunk's ea rows, ids and edge scalars are still staged with
+//     cp.async while the current chunk computes.
+// Every rounding point and every sum's order is the first port's, so the
+// outputs are bitwise its outputs (checked on the card at the DHFR,
+// training and STMV shapes, tools/time_bwd.py --compare).
 //
 // The backward (#2) and the second order (#3).  Both recompute each edge
 // from the same inputs, as the TPU kernels do.  What bounded their first
@@ -140,58 +162,26 @@
 // included); the three filter products of the dual forward (ea.W, z_ea.W +
 // ea.Z_W), the two of g ea and the two of the weight gradient run on the
 // tensor cores.
-#include <mma.h>
-
 #include "common.cuh"
-
-using namespace nvcuda;
 
 namespace {
 
-constexpr int FWD_MAX_THREADS = 512;
 // Threads a block (one block an SM unless noted), from ptxas's register
-// counts: the backward's receiver and source passes fit 96 registers a
-// thread, so 640 threads (20 warps; 5 row groups at H = 128, 2 at H = 256,
-// where shared memory takes 2).  The second order's receiver pass holds
+// counts: the forward and the backward's receiver and source passes fit 96
+// registers a thread, so 640 threads (20 warps; 5 row groups at H = 128, 2
+// at H = 256, where shared memory takes 2).  The second order's receiver pass holds
 // about twice the backward's per-edge state: blocks of at most 256 threads
 // at 128 registers, two blocks an SM (W and Z_W stay in device memory, so
 // the shared memory allows it); its source pass 512 at 128.
+constexpr int FWD_MAX_THREADS = 640;
 constexpr int RECV_MAX_THREADS = 640;
 constexpr int SRC_MAX_THREADS = 640;
 constexpr int RECV2_MAX_THREADS = 256;
 constexpr int SRC2_MAX_THREADS = 512;
 
-// The forward's shared memory: the filter weights, then one slice per row
-// group.
-struct Smem {
-  size_t groups_base, group_stride, total;
-  size_t ea, pre, scratch, idx, sc;
-};
-
 // row stride (bf16 elements) of the per-edge filter tile: 4H + 8, so the
 // rows of a wmma load start on different banks
 __host__ __device__ inline int pre_ld(int h) { return 4 * h + 8; }
-
-__host__ __device__ inline Smem smem_layout(int h, int rbf, int groups) {
-  Smem s;
-  s.groups_base = align32((size_t)4 * h * w_ld(rbf) * sizeof(bf16));
-  size_t o = 0;
-  s.ea = o;  // two (KC, ldw) buffers: one is filled while the other is used
-  o = align32(o + (size_t)2 * KC * w_ld(rbf) * sizeof(bf16));
-  // (KC, 4H) bf16 filter accumulators (the kernel only ever uses them
-  // rounded to bf16)
-  s.pre = o;
-  o = align32(o + (size_t)KC * pre_ld(h) * sizeof(bf16));
-  s.scratch = o;  // one 16x16 f32 tile per warp: the wmma epilogue
-  o = align32(o + (size_t)(h / 32) * 256 * sizeof(float));
-  s.idx = o;  // two buffers of KC neighbor ids
-  o = align32(o + 2 * KC * sizeof(int));
-  s.sc = o;  // two (5, KC) f32 buffers of edge scalars
-  o = align32(o + (size_t)2 * 5 * KC * sizeof(float));
-  s.group_stride = o;
-  s.total = s.groups_base + (size_t)groups * o;
-  return s;
-}
 
 struct Params {
   const int32_t* idx;
@@ -205,8 +195,7 @@ struct Params {
   const float *zcutm, *zdir0, *zdir1, *zdir2;
   const bf16 *w_all, *zw_all;  // (4H, RBFP) bf16, zero rows for absent filters
   const bf16 *zbk, *zbv;
-  // row groups per block; the forward's rows per group and grid step, the
-  // other passes' contiguous rows (atoms) per group
+  // row groups per block, contiguous rows (atoms) per group
   int groups, iters;
 };
 
@@ -230,85 +219,6 @@ __device__ void load_weights(const Params& p, bf16* w_s) {
   }
 }
 
-// Start copying chunk c0 of row i into one staging buffer (asynchronous:
-// it lands while the current chunk computes): ea rows as 4-byte words (RBF
-// is even), neighbor ids, edge scalars.  The RBF padding columns are zeroed
-// once per block and never written; rows past the chunk's end keep stale
-// values, which only reach filter rows nobody reads.
-__device__ void stage_async(const Params& p, int i, int c0, int hh, bf16* ea_s, int* idx_s,
-                            float* sc_s) {
-  const int ldw = w_ld(p.rbf), words = p.rbf / 2, nw = p.h / 32;
-  const int kn = min(KC, p.k - c0);
-  const int warp = hh / 32, lane = hh % 32;
-  const size_t off = ((size_t)i * p.k + c0) * p.rbf;
-  for (int kc = warp; kc < kn; kc += nw)
-    for (int w = lane; w < words; w += 32)
-      __pipeline_memcpy_async(ea_s + kc * ldw + 2 * w, p.ea + off + (size_t)kc * p.rbf + 2 * w, 4);
-  if (hh < kn) {
-    const size_t e = (size_t)i * p.k + c0 + hh;
-    __pipeline_memcpy_async(idx_s + hh, p.idx + e, 4);
-    const float* scalars[5] = {p.cutm, p.msk, p.dir0, p.dir1, p.dir2};
-    for (int c = 0; c < 5; ++c) __pipeline_memcpy_async(sc_s + c * KC + hh, scalars[c] + e, 4);
-  }
-  __pipeline_commit();
-}
-
-// The chunk a group works on after (i, c0): the next chunk of the row, else
-// the first chunk of its next row (rows step by the block's group count).
-__device__ __forceinline__ void next_chunk(const Params& p, int t, int i, int c0, int* i2, int* c2) {
-  if (c0 + KC < p.k) {
-    *i2 = i;
-    *c2 = c0 + KC;
-  } else {
-    *i2 = t + 1 < p.iters ? i + p.groups : p.n;  // p.n: no more rows
-    *c2 = 0;
-  }
-}
-
-// pre_s (KC, 4H) = bf16(ea_s (KC, RBFP) . W^T) on the tensor cores; the
-// group's H/32 warps split the 4H/16 column tiles.
-__device__ void filter_mma(const Params& p, const bf16* w_s, const bf16* ea_s, bf16* pre_s,
-                           float* scratch, int warp, int lane) {
-  const int ldw = w_ld(p.rbf), rbfp = rbf_pad(p.rbf), ldp = pre_ld(p.h);
-  const int tiles = 4 * p.h / 16, nw = p.h / 32;
-  // 4 independent accumulators per warp (it owns 8 tiles in all)
-  for (int t0 = warp; t0 < tiles; t0 += 4 * nw) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> c[4];
-#pragma unroll
-    for (int q = 0; q < 4; ++q) wmma::fill_fragment(c[q], 0.0f);
-    for (int k0 = 0; k0 < rbfp; k0 += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::load_matrix_sync(a, ea_s + k0, ldw);
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int t = t0 + q * nw;
-        if (t < tiles) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
-          wmma::load_matrix_sync(b, w_s + (size_t)t * 16 * ldw + k0, ldw);
-          wmma::mma_sync(c[q], a, b, c[q]);
-        }
-      }
-    }
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int t = t0 + q * nw;
-      if (t >= tiles) continue;
-      wmma::store_matrix_sync(scratch, c[q], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32)
-        pre_s[(e / 16) * ldp + t * 16 + e % 16] = __float2bfloat16_rn(scratch[e]);
-      __syncwarp();
-    }
-  }
-}
-
-// filter value act(bf16(acc + b)) from the bf16-rounded accumulator acc;
-// its bf16 pre-activation in *pre
-__device__ __forceinline__ float filter_val(int act, bf16 acc, float b, float* pre) {
-  *pre = bfr(__bfloat162float(acc) + b);
-  return bfr(act_fn(act, *pre));
-}
-
 // the source-row values one thread reads for one edge
 struct Src {
   float k, v[3], vec[3];
@@ -326,90 +236,6 @@ __device__ __forceinline__ Src load_src(const Params& p, int j, int hh) {
   s.vec[1] = ldb(p.vec1 + row);
   s.vec[2] = ldb(p.vec2 + row);
   return s;
-}
-
-__global__ void __launch_bounds__(FWD_MAX_THREADS, 1)
-    et_fwd_kernel(Params p, float* __restrict__ x_out, float* __restrict__ vec_out) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int H = p.h;
-  const int g = threadIdx.x / H, hh = threadIdx.x % H, warp = hh / 32, lane = hh % 32;
-  const int ldp = pre_ld(H);
-  const Smem L = smem_layout(H, p.rbf, p.groups);
-  bf16* w_s = reinterpret_cast<bf16*>(smem);
-  unsigned char* gs = smem + L.groups_base + g * L.group_stride;
-  bf16* ea_buf = reinterpret_cast<bf16*>(gs + L.ea);
-  bf16* pre_s = reinterpret_cast<bf16*>(gs + L.pre);
-  float* scratch = reinterpret_cast<float*>(gs + L.scratch) + warp * 256;
-  int* idx_buf = reinterpret_cast<int*>(gs + L.idx);
-  float* sc_buf = reinterpret_cast<float*>(gs + L.sc);
-  const int ldw = w_ld(p.rbf);
-  const bool has_dk = p.wk != nullptr, has_dv = p.wv != nullptr;
-
-  for (int e = hh; e < 2 * KC * ldw; e += H) ea_buf[e] = __float2bfloat16_rn(0.0f);
-  load_weights(p, w_s);
-  const float bk = has_dk ? ldb(p.bk + hh) : 0.0f;
-  float bv[3];
-#pragma unroll
-  for (int c = 0; c < 3; ++c) bv[c] = has_dv ? ldb(p.bv + c * H + hh) : 0.0f;
-  __syncthreads();  // zero padding in place before any copy lands
-  const int first = blockIdx.x * p.iters * p.groups + g;
-  if (first < p.n) stage_async(p, first, 0, hh, ea_buf, idx_buf, sc_buf);
-  int buf = 0;
-
-  for (int t = 0; t < p.iters; ++t) {
-    const int i = (blockIdx.x * p.iters + t) * p.groups + g;
-    const bool active = i < p.n;  // the same for the whole group (whole warps)
-    const float qi = active ? ldb(p.q + (size_t)i * H + hh) : 0.0f;
-    float x_acc = 0.0f, v_acc[3] = {0.0f, 0.0f, 0.0f};
-    for (int c0 = 0; c0 < p.k; c0 += KC) {
-      const int kn = min(KC, p.k - c0);
-      const bf16* ea_s = ea_buf + buf * KC * ldw;
-      const int* idx_s = idx_buf + buf * KC;
-      const float* sc_s = sc_buf + buf * 5 * KC;
-      __pipeline_wait_prior(0);
-      __syncthreads();  // this chunk has landed; the last one is done with the other buffer
-      if (active && (has_dk || has_dv)) filter_mma(p, w_s, ea_s, pre_s, scratch, warp, lane);
-      int i2, c2;
-      next_chunk(p, t, i, c0, &i2, &c2);
-      buf ^= 1;
-      if (i2 < p.n) stage_async(p, i2, c2, hh, ea_buf + buf * KC * ldw, idx_buf + buf * KC, sc_buf + buf * 5 * KC);
-      __syncthreads();  // the filter tile is complete
-      if (!active) continue;
-      Src cur = load_src(p, idx_s[0], hh);
-      for (int kc = 0; kc < kn; ++kc) {
-        Src nxt = cur;
-        if (kc + 1 < kn) nxt = load_src(p, idx_s[kc + 1], hh);  // in flight while this edge computes
-        const bf16* a = pre_s + kc * ldp + hh;
-        float pre, dk = 1.0f, dv[3] = {1.0f, 1.0f, 1.0f};
-        if (has_dk) dk = filter_val(p.act, a[0], bk, &pre);
-        if (has_dv) {
-#pragma unroll
-          for (int c = 0; c < 3; ++c) dv[c] = filter_val(p.act, a[(1 + c) * H], bv[c], &pre);
-        }
-        float vdv[3];
-#pragma unroll
-        for (int c = 0; c < 3; ++c) vdv[c] = has_dv ? bfr(cur.v[c] * dv[c]) : cur.v[c];
-        float prod = bfr(qi * cur.k);
-        if (has_dk) prod = bfr(prod * dk);
-        const float pre_a = bfr(group_sum(prod, p.hd));
-        const float cm = bfr(sc_s[0 * KC + kc]);
-        const float attn = bfr(bfr(act_fn(p.attn_act, pre_a)) * cm);
-        x_acc += bfr(vdv[0] * attn);
-        const float vm1 = bfr(vdv[1] * bfr(sc_s[1 * KC + kc]));
-#pragma unroll
-        for (int c = 0; c < 3; ++c) {
-          // vw2 * dir needs no mask: dir == 0 on self/invalid slots
-          v_acc[c] += bfr(bfr(cur.vec[c] * vm1) + bfr(vdv[2] * bfr(sc_s[(2 + c) * KC + kc])));
-        }
-        cur = nxt;
-      }
-    }
-    if (active) {
-      x_out[(size_t)i * H + hh] = x_acc;
-#pragma unroll
-      for (int c = 0; c < 3; ++c) vec_out[(size_t)i * 3 * H + c * H + hh] = v_acc[c];
-    }
-  }
 }
 
 // the Z (tangent) values of one source row, one channel
@@ -432,12 +258,12 @@ __device__ __forceinline__ ZSrc load_zsrc(const Params& p, int j, int hh) {
 }
 
 // ---------------------------------------------------------------------------
-// The backward (#2) and second order (#3): receiver passes, source passes and
-// the weight-gradient reduction.
+// The forward (#1), and the backward (#2) and second order (#3): receiver
+// passes, source passes and the weight-gradient reduction.
 
-enum Pass { RECV = 0, RECV2 = 1, SRC = 2, SRC2 = 3 };
+enum Pass { RECV = 0, RECV2 = 1, SRC = 2, SRC2 = 3, FWD = 4 };
 
-// One pass's shared memory: the filter weights (the backward's passes), then
+// One pass's shared memory: the filter weights (all but the second order's), then
 // one slice per row group: two staging buffers of ea rows (and z_ea), the
 // (KC, 4H) bf16 filter tile (and the tangent tile), two buffers of edge ids
 // (and the source pass's receiver rows), of edge scalars and of the source
@@ -455,9 +281,9 @@ __host__ __device__ inline GLayout pass_layout(int h, int heads, int rbf, int gr
   const size_t ea_bytes = (size_t)2 * KC * w_ld(rbf) * sizeof(bf16);
   const size_t tile_bytes = (size_t)KC * pre_ld(h) * sizeof(bf16);
   s.base = dual ? 0 : align32((size_t)4 * h * w_ld(rbf) * sizeof(bf16));
-  // RECV: cutm, msk, dir0..2; RECV2: and z_cutm, z_dir0..2; SRC: msk,
-  // dir0..2; SRC2: and z_dir0..2
-  s.nsc = pass == RECV ? 5 : (pass == RECV2 ? 9 : (pass == SRC ? 4 : 7));
+  // FWD and RECV: cutm, msk, dir0..2; RECV2: and z_cutm, z_dir0..2; SRC:
+  // msk, dir0..2; SRC2: and z_dir0..2
+  s.nsc = pass == RECV || pass == FWD ? 5 : (pass == RECV2 ? 9 : (pass == SRC ? 4 : 7));
   s.nred = pass == RECV ? 4 : (pass == RECV2 ? 5 : 0);
   s.hsw = pass == SRC ? heads : (pass == SRC2 ? 4 * heads : 0);
   size_t o = 0;
@@ -549,6 +375,144 @@ __device__ __forceinline__ void edge_filters(int act, const bf16* a, int H, floa
   for (int c = 0; c < 4; ++c) val[c] = act_fn(act, pre[c]);
   bfr2(val[0], val[1]);
   bfr2(val[2], val[3]);
+}
+
+// The forward (#1): per receiver row i, x_agg[i] and vec_agg[i] (see the
+// header), the group's rows walked in chunks of KC slots that run across
+// rows, each row's sums sequential in its thread.
+template <int ACT, int ATT>
+__global__ void __launch_bounds__(FWD_MAX_THREADS, 1)
+    et_fwd_kernel(Params p, float* __restrict__ x_out, float* __restrict__ vec_out) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  // the activations: compile-time constants where the instantiation names them
+  const int act = ACT >= 0 ? ACT : p.act, attn_act = ATT >= 0 ? ATT : p.attn_act;
+  const int H = p.h, F = 4 * H, ldp = pre_ld(H), ldw = w_ld(p.rbf), rbfp = rbf_pad(p.rbf);
+  const int g = threadIdx.x / H, hh = threadIdx.x % H;
+  const int nw = H / 32, warp = hh / 32, lane = hh % 32;
+  const GLayout L = pass_layout(H, H / p.hd, p.rbf, p.groups, FWD);
+  const bf16* w_s = reinterpret_cast<const bf16*>(smem);
+  unsigned char* gs = smem + L.base + g * L.stride;
+  bf16* ea_buf = reinterpret_cast<bf16*>(gs + L.ea);
+  bf16* pre_s = reinterpret_cast<bf16*>(gs + L.pre);
+  int* ids_buf = reinterpret_cast<int*>(gs + L.ids);
+  float* sc_buf = reinterpret_cast<float*>(gs + L.sc);
+  const bool has_dk = p.wk != nullptr, has_dv = p.wv != nullptr, has_w = has_dk || has_dv;
+
+  for (int e = hh; e < 2 * KC * ldw; e += H) ea_buf[e] = __float2bfloat16_rn(0.0f);
+  load_weights(p, reinterpret_cast<bf16*>(smem));
+  const float bk = has_dk ? ldb(p.bk + hh) : 0.0f;
+  float bv[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) bv[c] = has_dv ? ldb(p.bv + c * H + hh) : 0.0f;
+  __syncthreads();  // weights and zero padding in place before any copy lands
+
+  const int r0 = ((int)blockIdx.x * p.groups + g) * p.iters;
+  const int r1 = min(r0 + p.iters, p.n);
+  if (r0 >= r1) return;  // the same for the whole group
+  const size_t eb = (size_t)r0 * p.k;
+  const int ne = (r1 - r0) * p.k, nch = (ne + KC - 1) / KC;
+  stage_edges(p, eb, min(KC, ne), hh, nw, 5, ea_buf, nullptr, ids_buf, sc_buf);
+  int i = r0, slot = 0;
+  float qi = ldb(p.q + (size_t)i * H + hh);
+  float x_acc = 0.0f, v_acc[3] = {0.0f, 0.0f, 0.0f};
+  for (int ch = 0; ch < nch; ++ch) {
+    const int buf = ch & 1;
+    const int kn = min(KC, ne - ch * KC);
+    const bf16* ea_s = ea_buf + buf * KC * ldw;
+    const int* idx_s = ids_buf + buf * 2 * KC;
+    const float* sc_s = sc_buf + buf * 5 * KC;
+    __pipeline_wait_prior(0);
+    group_sync(g, H);  // this chunk has landed; the last one is done with the other buffers
+    if (ch + 1 < nch)
+      stage_edges(p, eb + (size_t)(ch + 1) * KC, min(KC, ne - (ch + 1) * KC), hh, nw, 5,
+                  ea_buf + (buf ^ 1) * KC * ldw, nullptr, ids_buf + (buf ^ 1) * 2 * KC,
+                  sc_buf + (buf ^ 1) * 5 * KC);
+    round_scalars(sc_buf + buf * 5 * KC, 5, hh, H);  // cutm, msk, dir0..2
+    if (has_w) filter_tile(1, ea_s, w_s, nullptr, nullptr, nullptr, ldw, rbfp, F, pre_s, ldp, warp, nw, lane);
+    group_sync(g, H);  // the filter tile and the rounded scalars are complete
+    // two edges at a time: their chains interleave and their head sums pair
+    // (group_sum2, group_sum's pairs, so the same bits); the next two edges'
+    // source values are in flight meanwhile
+    Src cur[2] = {load_src(p, idx_s[0], hh), load_src(p, idx_s[min(1, kn - 1)], hh)};
+    for (int kc = 0; kc < kn; kc += 2) {
+      const bool two = kc + 1 < kn;  // the same for the whole group
+      Src nxt[2] = {cur[0], cur[1]};
+      if (kc + 2 < kn) nxt[0] = load_src(p, idx_s[kc + 2], hh);
+      if (kc + 3 < kn) nxt[1] = load_src(p, idx_s[kc + 3], hh);
+      // the receiver rows: edge a opens row i + 1 when row i is full, edge b
+      // the row after a's
+      const bool new_a = slot == p.k, new_b = two && (new_a ? 1 : slot + 1) == p.k;
+      const float qa = new_a ? ldb(p.q + (size_t)(i + 1) * H + hh) : qi;
+      const float qb = new_b ? ldb(p.q + (size_t)(i + 1 + new_a) * H + hh) : qa;
+      float xm[2], u[2][3];
+      float prod[2], vdv[2][3], dk[2];
+#pragma unroll
+      for (int x = 0; x < 2; ++x) {
+        float pre[4], val[4];
+        edge_filters(act, pre_s + (kc + x) * ldp + hh, H, bk, bv, pre, val);
+        dk[x] = has_dk ? val[0] : 1.0f;
+        float dv[3];
+#pragma unroll
+        for (int c = 0; c < 3; ++c) dv[c] = has_dv ? val[1 + c] : 1.0f;
+        // bf16(v * dv) is v where dv is absent (1)
+        vdv[x][0] = cur[x].v[0] * dv[0];
+        vdv[x][1] = cur[x].v[1] * dv[1];
+        vdv[x][2] = bfr(cur[x].v[2] * dv[2]);
+        bfr2(vdv[x][0], vdv[x][1]);
+        prod[x] = (x ? qb : qa) * cur[x].k;
+      }
+      bfr2(prod[0], prod[1]);
+      if (has_dk) {
+        prod[0] *= dk[0];
+        prod[1] *= dk[1];
+        bfr2(prod[0], prod[1]);
+      }
+      group_sum2(prod[0], prod[1], p.hd, lane);
+#pragma unroll
+      for (int x = 0; x < 2; ++x) {
+        const int e = kc + x;
+        const float pre_a = bfr(prod[x]);
+        const float cm = sc_s[0 * KC + e], m = sc_s[1 * KC + e];
+        const float attn = bfr(bfr(act_fn(attn_act, pre_a)) * cm);
+        float vm1 = vdv[x][1] * m;
+        xm[x] = vdv[x][0] * attn;
+        bfr2(xm[x], vm1);
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          // vw2 * dir needs no mask: dir == 0 on self/invalid slots
+          float y = cur[x].vec[c] * vm1, z = vdv[x][2] * sc_s[(2 + c) * KC + e];
+          bfr2(y, z);
+          u[x][c] = bfr(y + z);
+        }
+      }
+      // the sums, in slot order
+#pragma unroll
+      for (int x = 0; x < 2; ++x) {
+        if (x == 1 && !two) break;
+        if (x ? new_b : new_a) {  // the next receiver row
+          x_out[(size_t)i * H + hh] = x_acc;
+#pragma unroll
+          for (int c = 0; c < 3; ++c) {
+            vec_out[(size_t)i * 3 * H + c * H + hh] = v_acc[c];
+            v_acc[c] = 0.0f;
+          }
+          x_acc = 0.0f;
+          ++i;
+          slot = 0;
+        }
+        ++slot;
+        x_acc += xm[x];
+#pragma unroll
+        for (int c = 0; c < 3; ++c) v_acc[c] += u[x][c];
+      }
+      qi = two ? qb : qa;
+      cur[0] = nxt[0];
+      cur[1] = nxt[1];
+    }
+  }
+  x_out[(size_t)i * H + hh] = x_acc;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) vec_out[(size_t)i * 3 * H + c * H + hh] = v_acc[c];
 }
 
 // The second order's dual filters of an edge for this thread's channel,
@@ -1313,61 +1277,113 @@ __global__ void __launch_bounds__(SRC2_MAX_THREADS, 1)
   }
 }
 
-// The weight-gradient reduction: part[s] (RBFP, F) f32 = sum over the edges
-// of split s of sum over npairs of A_p^T . B_p, A_p (E, RBF) bf16 edge rows
-// (ea, z_ea), B_p (E, F) bf16 filter cotangents.  A block takes DW_COLS
-// columns and DW_ROWS rows of RBF (grid z) of one split (grid y) and walks
-// its edges in tiles of DW_EDGES, staged by cp.async into a ring of two
-// (edges past the split's end are zero-filled); each warp keeps its
-// (DW_ROWS, 32) f32 accumulators in registers for the whole range and
-// writes them once.  The caller sums the splits.
-constexpr int DW_COLS = 128, DW_ROWS = 64, DW_EDGES = 64, DW_THREADS = 128;
+// The weight-gradient reduction of per-edge rows (ET's, the Transformer's
+// and TensorNet's): for each of up to DW_MAX_JOBS products, part[s] + out
+// (pn, qn) f32 = the sum over the edges of split s of A^T . B (+ A2^T . B2),
+// A (E, pk) bf16 edge rows (ea, z_ea, a layer's inputs; columns pk..pn
+// count as zero) and B (E, qn) bf16 cotangents, each at its own row stride;
+// with bias >= 0 also part[s] + bias (qn) = the column sums of B.  A block
+// takes DW_ROWS rows and DW_COLS columns of one product (grid x: the
+// products' blocks one after another) and one split (grid y) and walks its
+// edges in tiles of DW_EDGES, staged by cp.async into a ring of two (edges
+// past the split's end are zero-filled); each warp keeps its (DW_ROWS, 32)
+// f32 accumulators in registers for the whole range and writes them once.
+// The bias sums are a tile of ones times B on the tensor cores, in the
+// blocks of a product's first row block, so no other pass reads the rows;
+// BIAS compiles them in (TensorNet's), a build without keeps ET's and the
+// Transformer's accumulators within the 128 registers of four resident
+// blocks an SM, the count the callers' edge splits are planned for.  The
+// caller sums the splits.
+constexpr int DW_COLS = 128, DW_ROWS = 64, DW_EDGES = 64, DW_THREADS = 128, DW_MAX_JOBS = 3;
 constexpr int DW_LDA = DW_ROWS + 8, DW_LDB = DW_COLS + 8;  // row strides: no bank conflicts
 constexpr size_t DW_SMEM = (size_t)2 * DW_EDGES * (DW_LDA + DW_LDB) * sizeof(bf16);
 
-__global__ void __launch_bounds__(DW_THREADS)
-    et_dw_kernel(const bf16* __restrict__ a0, const bf16* __restrict__ b0,
-                 const bf16* __restrict__ a1, const bf16* __restrict__ b1, int npairs, int ne,
-                 int rbf, int rbfp, int f, int per_split, float* __restrict__ part) {
+// one product: its operands and row strides; A's columns present, output
+// rows and columns; offsets of its (pn, qn) and (qn) results in a split's
+// partial (bias < 0: no bias sums); A copied 16 bytes at a time (else 4);
+// its first block of grid x
+struct DwJob {
+  const bf16 *a, *b, *a2, *b2;
+  int lda, ldb, pk, pn, qn, out, bias, vec, first;
+};
+
+struct DwJobs {
+  DwJob j[DW_MAX_JOBS];
+  int njobs, npairs, ne, per_split, total;  // total: floats in a split's partial
+};
+
+__host__ __device__ inline int dw_blocks(const DwJob& j) {
+  return ((j.pn + DW_ROWS - 1) / DW_ROWS) * ((j.qn + DW_COLS - 1) / DW_COLS);
+}
+
+template <bool BIAS>
+__global__ void __launch_bounds__(DW_THREADS, 4) et_dw_kernel(DwJobs jobs, float* __restrict__ part) {
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* a_s = reinterpret_cast<bf16*>(smem);      // 2 x (DW_EDGES, DW_LDA)
-  bf16* b_s = a_s + 2 * DW_EDGES * DW_LDA;        // 2 x (DW_EDGES, DW_LDB)
-  const int n0 = blockIdx.x * DW_COLS, split = blockIdx.y, m0 = blockIdx.z * DW_ROWS;
+  bf16* a_s = reinterpret_cast<bf16*>(smem);  // 2 x (DW_EDGES, DW_LDA)
+  bf16* b_s = a_s + 2 * DW_EDGES * DW_LDA;    // 2 x (DW_EDGES, DW_LDB)
+  // this block's product (constant indices: the parameters stay in constant space)
+  DwJob J = jobs.j[0];
+  if (jobs.njobs > 2 && (int)blockIdx.x >= jobs.j[2].first) {
+    J = jobs.j[2];
+  } else if (jobs.njobs > 1 && (int)blockIdx.x >= jobs.j[1].first) {
+    J = jobs.j[1];
+  }
+  const int cblocks = (J.qn + DW_COLS - 1) / DW_COLS, local = (int)blockIdx.x - J.first;
+  const int m0 = (local / cblocks) * DW_ROWS, n0 = (local % cblocks) * DW_COLS, split = blockIdx.y;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int e_begin = split * per_split, e_end = min(ne, e_begin + per_split);
-  const int words = min(DW_ROWS, rbf - m0) / 2;  // A's columns in this block, as bf16 pairs
-  const int mrows = min(DW_ROWS, rbfp - m0);     // output rows (a multiple of 16)
+  const int e_begin = split * jobs.per_split, e_end = min(jobs.ne, e_begin + jobs.per_split);
+  const int acols = max(0, min(DW_ROWS, J.pk - m0));  // A's columns present in this block
+  const int mrows = min(DW_ROWS, J.pn - m0);          // output rows (a multiple of 16)
   const int ntiles = e_end > e_begin ? (e_end - e_begin + DW_EDGES - 1) / DW_EDGES : 0;
-  const int steps = npairs * ntiles;
-  for (int x = threadIdx.x; x < 2 * DW_EDGES * DW_LDA; x += DW_THREADS) a_s[x] = __float2bfloat16_rn(0.0f);
-  __syncthreads();  // A's padding columns stay zero: no copy writes them
+  const int steps = jobs.npairs * ntiles;
+  const bool bias = BIAS && J.bias >= 0 && m0 == 0;
+  if (acols < mrows) {  // A's padding columns stay zero: no copy writes them
+    for (int x = threadIdx.x; x < 2 * DW_EDGES * DW_LDA; x += DW_THREADS) a_s[x] = __float2bfloat16_rn(0.0f);
+    __syncthreads();
+  }
 
   auto stage = [&](int st, int buf) {
     const int pr = st / ntiles, e0 = e_begin + (st % ntiles) * DW_EDGES;
-    const bf16* a = pr ? a1 : a0;
-    const bf16* b = pr ? b1 : b0;
+    const bf16* a = (pr ? J.a2 : J.a) + m0;
+    const bf16* b = (pr ? J.b2 : J.b) + n0;
     bf16* as = a_s + buf * DW_EDGES * DW_LDA;
     bf16* bs = b_s + buf * DW_EDGES * DW_LDB;
-    for (int x = threadIdx.x; x < DW_EDGES * words; x += DW_THREADS) {
-      const int r = x / words, w = x % words;
-      const bool ok = e0 + r < e_end;
-      __pipeline_memcpy_async(as + r * DW_LDA + 2 * w, ok ? a + (size_t)(e0 + r) * rbf + m0 + 2 * w : a,
-                              4, ok ? 0 : 4);
+    if (J.vec) {
+      const int ach = acols / 8;
+      for (int x = threadIdx.x; x < DW_EDGES * ach; x += DW_THREADS) {
+        const int r = x / ach, c8 = x % ach;
+        const bool ok = e0 + r < e_end;
+        __pipeline_memcpy_async(as + r * DW_LDA + c8 * 8, ok ? a + (size_t)(e0 + r) * J.lda + c8 * 8 : a, 16,
+                                ok ? 0 : 16);
+      }
+    } else {
+      const int words = acols / 2;
+      for (int x = threadIdx.x; x < DW_EDGES * words; x += DW_THREADS) {
+        const int r = x / words, w = x % words;
+        const bool ok = e0 + r < e_end;
+        __pipeline_memcpy_async(as + r * DW_LDA + 2 * w, ok ? a + (size_t)(e0 + r) * J.lda + 2 * w : a, 4,
+                                ok ? 0 : 4);
+      }
     }
     for (int x = threadIdx.x; x < DW_EDGES * (DW_COLS / 8); x += DW_THREADS) {
       const int r = x / (DW_COLS / 8), c8 = x % (DW_COLS / 8);
-      const bool ok = e0 + r < e_end && n0 + c8 * 8 < f;  // past F: zero columns
-      __pipeline_memcpy_async(bs + r * DW_LDB + c8 * 8, ok ? b + (size_t)(e0 + r) * f + n0 + c8 * 8 : b,
-                              16, ok ? 0 : 16);
+      const bool ok = e0 + r < e_end && n0 + c8 * 8 < J.qn;  // past qn: zero columns
+      __pipeline_memcpy_async(bs + r * DW_LDB + c8 * 8, ok ? b + (size_t)(e0 + r) * J.ldb + c8 * 8 : b, 16,
+                              ok ? 0 : 16);
     }
     __pipeline_commit();
   };
 
-  float acc[4][4][4];
+  float acc[4][4][4], bacc[4][4];
 #pragma unroll
   for (int mt = 0; mt < 4; ++mt)
 #pragma unroll
     for (int x = 0; x < 16; ++x) acc[mt][x / 4][x % 4] = 0.0f;
+#pragma unroll
+  for (int x = 0; x < 16; ++x) bacc[x / 4][x % 4] = 0.0f;
+  // the A fragment of a 16x16 tile whose row 0 is ones (bf16 1.0 pairs)
+  const unsigned one = g == 0 ? 0x3f803f80u : 0u;
+  const unsigned ones[4] = {one, 0u, one, 0u};
   if (steps > 0) stage(0, 0);
   for (int st = 0; st < steps; ++st) {
     if (st + 1 < steps) {
@@ -1379,39 +1395,54 @@ __global__ void __launch_bounds__(DW_THREADS)
     __syncthreads();  // tile st has landed for every thread
     const bf16* as = a_s + (st & 1) * DW_EDGES * DW_LDA;
     const bf16* bs = b_s + (st & 1) * DW_EDGES * DW_LDB;
+    const bool with_bias = bias && st < ntiles;  // the first pair's B
 #pragma unroll
     for (int kk = 0; kk < DW_EDGES; kk += 16) {
-      unsigned bfr2[2][4];
+      unsigned bq[2][4];
 #pragma unroll
       for (int q = 0; q < 2; ++q)
         ldsm_x4_t(bs + (kk + (lane & 7) + (((lane >> 3) & 1) << 3)) * DW_LDB + warp * 32 + q * 16 +
                       ((lane >> 4) << 3),
-                  bfr2[q]);
+                  bq[q]);
 #pragma unroll
       for (int mt = 0; mt < 4; ++mt) {
         if (mt * 16 >= mrows) continue;
         unsigned af[4];
         ldsm_x4_t(as + (kk + (lane & 7) + ((lane >> 4) << 3)) * DW_LDA + mt * 16 + (((lane >> 3) & 1) << 3), af);
-        mma_bf16(acc[mt][0], af, bfr2[0][0], bfr2[0][1]);
-        mma_bf16(acc[mt][1], af, bfr2[0][2], bfr2[0][3]);
-        mma_bf16(acc[mt][2], af, bfr2[1][0], bfr2[1][1]);
-        mma_bf16(acc[mt][3], af, bfr2[1][2], bfr2[1][3]);
+        mma_bf16(acc[mt][0], af, bq[0][0], bq[0][1]);
+        mma_bf16(acc[mt][1], af, bq[0][2], bq[0][3]);
+        mma_bf16(acc[mt][2], af, bq[1][0], bq[1][1]);
+        mma_bf16(acc[mt][3], af, bq[1][2], bq[1][3]);
+      }
+      if (BIAS && with_bias) {
+        mma_bf16(bacc[0], ones, bq[0][0], bq[0][1]);
+        mma_bf16(bacc[1], ones, bq[0][2], bq[0][3]);
+        mma_bf16(bacc[2], ones, bq[1][0], bq[1][1]);
+        mma_bf16(bacc[3], ones, bq[1][2], bq[1][3]);
       }
     }
     __syncthreads();  // every warp is done with this buffer before it is refilled
   }
+  float* out = part + (size_t)split * jobs.total;
 #pragma unroll
-  for (int mt = 0; mt < 4; ++mt) {
-    if (mt * 16 >= mrows) continue;
+  for (int nt = 0; nt < 4; ++nt) {
+    const int col = n0 + warp * 32 + nt * 8 + 2 * t;
+    if (col >= J.qn) continue;  // a partial last block of columns
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      const int col = n0 + warp * 32 + nt * 8 + 2 * t;
-      if (col >= f) continue;  // a partial last block of columns
-      float* row = part + ((size_t)split * rbfp + m0 + mt * 16 + g) * f + col;
+    for (int mt = 0; mt < 4; ++mt) {
+      if (mt * 16 >= mrows) continue;
+      float* row = out + J.out + (size_t)(m0 + mt * 16 + g) * J.qn + col;
       *reinterpret_cast<float2*>(row) = make_float2(acc[mt][nt][0], acc[mt][nt][1]);
-      *reinterpret_cast<float2*>(row + (size_t)8 * f) = make_float2(acc[mt][nt][2], acc[mt][nt][3]);
+      *reinterpret_cast<float2*>(row + (size_t)8 * J.qn) = make_float2(acc[mt][nt][2], acc[mt][nt][3]);
     }
+    if (BIAS && bias && g == 0)
+      *reinterpret_cast<float2*>(out + J.bias + col) = make_float2(bacc[nt][0], bacc[nt][1]);
   }
+}
+
+// the weight reduction with the bias sums compiled in, or without
+const void* dw_kernel(bool bias) {
+  return bias ? reinterpret_cast<const void*>(et_dw_kernel<true>) : reinterpret_cast<const void*>(et_dw_kernel<false>);
 }
 
 bool valid_shape(int n, int k, int h, int heads, int rbf) {
@@ -1432,36 +1463,16 @@ cudaError_t device_limits(int* sms, int* smem_max) {
   return err;
 }
 
-// The forward: row groups per block (the most that fit in threads and
-// shared memory) and rows per group, so that the grid is about one block
-// per SM.
-cudaError_t plan_grid(Params* p, size_t* smem, int* blocks) {
-  int sms = 0, smem_max = 0;
-  cudaError_t err = device_limits(&sms, &smem_max);
-  if (err != cudaSuccess) return err;
-  int groups = 0;
-  for (int gcount = 4; gcount >= 1; gcount /= 2) {
-    if (gcount * p->h <= FWD_MAX_THREADS && smem_layout(p->h, p->rbf, gcount).total <= (size_t)smem_max) {
-      groups = gcount;
-      break;
-    }
-  }
-  if (groups == 0) return cudaErrorInvalidValue;  // too wide for one block
-  p->groups = groups;
-  p->iters = (p->n + groups * sms - 1) / (groups * sms);
-  *blocks = (p->n + groups * p->iters - 1) / (groups * p->iters);
-  *smem = smem_layout(p->h, p->rbf, groups).total;
-  return cudaSuccess;
-}
-
-// A backward or second-order pass: the most row groups that fit in a
-// block's threads and shared memory, and contiguous rows (atoms) per group
-// so that the grid fills every SM's resident blocks about once.
+// A pass (the forward, a backward or second-order pass): the most row
+// groups that fit in a block's threads and shared memory, and contiguous
+// rows (atoms) per group so that the grid fills every SM's resident blocks
+// about once.
 cudaError_t plan_pass(Params* p, int pass, size_t* smem, int* blocks) {
   int sms = 0, smem_max = 0;
   cudaError_t err = device_limits(&sms, &smem_max);
   if (err != cudaSuccess) return err;
-  const int max_threads = pass == RECV ? RECV_MAX_THREADS
+  const int max_threads = pass == FWD ? FWD_MAX_THREADS
+                          : pass == RECV ? RECV_MAX_THREADS
                           : pass == SRC ? SRC_MAX_THREADS
                           : pass == RECV2 ? RECV2_MAX_THREADS
                                           : SRC2_MAX_THREADS;
@@ -1551,6 +1562,7 @@ const void* pass_kernel_as(int pass) {
     case RECV: return reinterpret_cast<const void*>(et_bwd_kernel<A, A>);
     case RECV2: return reinterpret_cast<const void*>(et_bwd2_kernel<A, A>);
     case SRC: return reinterpret_cast<const void*>(et_bwd_src_kernel<A, A>);
+    case FWD: return reinterpret_cast<const void*>(et_fwd_kernel<A, A>);
     default: return reinterpret_cast<const void*>(et_bwd2_src_kernel<A, A>);
   }
 }
@@ -1598,11 +1610,9 @@ int et_fwd(ET_OPERANDS, void* x_out, void* vec_out, void* stream) {
   Params p = ET_PARAMS;
   size_t smem = 0;
   int blocks = 0;
-  cudaError_t err = plan_grid(&p, &smem, &blocks);
+  cudaError_t err = prepare_pass(&p, FWD, &smem, &blocks);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(et_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  et_fwd_kernel<<<blocks, p.groups * h, smem, static_cast<cudaStream_t>(stream)>>>(
+  LAUNCH_PASS(et_fwd_kernel, blocks, p.groups * h, smem, static_cast<cudaStream_t>(stream),
       p, static_cast<float*>(x_out), static_cast<float*>(vec_out));
   return (int)cudaGetLastError();
 }
@@ -1712,37 +1722,69 @@ int et_bwd2_src(ET_OPERANDS, const void* perm, const void* ct_x, const void* ct_
   return (int)cudaGetLastError();
 }
 
-// part (splits, RBFP, F) f32 = per split of per_split edges (a multiple of
-// 64), sum of a0^T . b0 (+ a1^T . b1 when npairs is 2): a (ne, RBF) bf16,
-// b (ne, F) bf16, F a multiple of 8 (the last block of 128 columns may be
-// partial: the Transformer's F = 2H at H = 32 or 96).
-int et_dw(const void* a0, const void* b0, const void* a1, const void* b1, int npairs, int ne,
-          int rbf, int f, int per_split, void* part, void* stream) {
-  if (ne <= 0 || rbf <= 0 || rbf % 2 != 0 || f <= 0 || f % 8 != 0 || per_split <= 0 ||
-      per_split % DW_EDGES != 0 || npairs < 1 || npairs > 2)
+// The weight reduction (et_dw_kernel).  njobs (<= 3) products, each four
+// pointers in ptrs (A, B, A2, B2: bf16 (ne, .) column blocks, the second
+// pair's read when npairs is 2) and seven ints in spec (lda, ldb: row
+// strides in elements; pk: A's columns, even; pn: output rows, a multiple
+// of 16 not below pk; qn: B's columns, a multiple of 8; out, bias: the
+// offsets of the (pn, qn) result and the (qn) column sums of B in a split's
+// partial of `total` floats, bias -1 for none).  part (splits, total) f32
+// with splits = ceil(ne / per_split), per_split a multiple of 64.
+int et_dw(const void* const* ptrs, const int* spec, int njobs, int npairs, int ne, int per_split, int total,
+          void* part, void* stream) {
+  if (njobs < 1 || njobs > DW_MAX_JOBS || npairs < 1 || npairs > 2 || ne <= 0 || per_split <= 0 ||
+      per_split % DW_EDGES != 0 || total <= 0)
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(et_dw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)DW_SMEM);
+  DwJobs jobs = {};
+  int blocks = 0;
+  bool bias = false;
+  for (int i = 0; i < njobs; ++i) {
+    const int* q = spec + 7 * i;
+    const void* const* pp = ptrs + 4 * i;
+    DwJob j = {static_cast<const bf16*>(pp[0]), static_cast<const bf16*>(pp[1]), static_cast<const bf16*>(pp[2]),
+               static_cast<const bf16*>(pp[3]), q[0], q[1], q[2], q[3], q[4], q[5], q[6], 0, blocks};
+    const uintptr_t a_bits = reinterpret_cast<uintptr_t>(j.a) | (npairs > 1 ? reinterpret_cast<uintptr_t>(j.a2) : 0);
+    const uintptr_t b_bits = reinterpret_cast<uintptr_t>(j.b) | (npairs > 1 ? reinterpret_cast<uintptr_t>(j.b2) : 0);
+    if (!j.a || !j.b || (npairs > 1 && (!j.a2 || !j.b2)) || j.pk <= 0 || j.pk % 2 || j.pn < j.pk || j.pn % 16 ||
+        j.qn <= 0 || j.qn % 8 || j.lda < j.pk || j.lda % 2 || j.ldb < j.qn || j.ldb % 8 || a_bits % 4 ||
+        b_bits % 16 || j.out < 0 || j.out % 2 || j.bias < -1 || (j.bias >= 0 && j.bias % 2) ||
+        j.out + j.pn * j.qn > total || j.bias + j.qn > total)
+      return (int)cudaErrorInvalidValue;
+    j.vec = j.lda % 8 == 0 && j.pk % 8 == 0 && a_bits % 16 == 0;
+    bias = bias || j.bias >= 0;
+    jobs.j[i] = j;
+    blocks += dw_blocks(j);
+  }
+  jobs.njobs = njobs;
+  jobs.npairs = npairs;
+  jobs.ne = ne;
+  jobs.per_split = per_split;
+  jobs.total = total;
+  const void* fn = dw_kernel(bias);
+  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)DW_SMEM);
   if (err != cudaSuccess) return (int)err;
-  const int rbfp = rbf_pad(rbf);
-  const dim3 grid((f + DW_COLS - 1) / DW_COLS, (ne + per_split - 1) / per_split, (rbfp + DW_ROWS - 1) / DW_ROWS);
-  et_dw_kernel<<<grid, DW_THREADS, DW_SMEM, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(a0), static_cast<const bf16*>(b0), static_cast<const bf16*>(a1),
-      static_cast<const bf16*>(b1), npairs, ne, rbf, rbfp, f, per_split, static_cast<float*>(part));
+  const dim3 grid(blocks, (ne + per_split - 1) / per_split);
+  if (bias) {
+    et_dw_kernel<true><<<grid, DW_THREADS, DW_SMEM, static_cast<cudaStream_t>(stream)>>>(jobs, static_cast<float*>(part));
+  } else {
+    et_dw_kernel<false><<<grid, DW_THREADS, DW_SMEM, static_cast<cudaStream_t>(stream)>>>(jobs, static_cast<float*>(part));
+  }
   return (int)cudaGetLastError();
 }
 
 // A kernel's resources at a shape (kind 1 the backward's receiver pass, 2
 // the second order's, 3 the backward's source pass, 4 the second order's,
-// 5 et_dw_kernel): out = registers a thread, local (spill) bytes a thread,
-// threads a block, dynamic shared memory a block, resident blocks an SM.
+// 5 et_dw_kernel, 6 the forward, 7 et_dw_kernel with the bias sums): out =
+// registers a thread, local (spill) bytes a thread, threads a block,
+// dynamic shared memory a block, resident blocks an SM.
 int et_resources(int kind, int n, int k, int h, int heads, int rbf, int* out) {
-  if (!valid_shape(n, k, h, heads, rbf) || kind < 1 || kind > 5) return (int)cudaErrorInvalidValue;
-  const void* fn = reinterpret_cast<const void*>(et_dw_kernel);
+  if (!valid_shape(n, k, h, heads, rbf) || kind < 1 || kind > 7) return (int)cudaErrorInvalidValue;
+  const void* fn = dw_kernel(kind == 7);
   size_t smem = DW_SMEM;
   int threads = DW_THREADS;
   cudaError_t err = cudaSuccess;
-  if (kind < 5) {
-    const int pass = kind == 1 ? RECV : (kind == 2 ? RECV2 : (kind == 3 ? SRC : SRC2));
+  if (kind != 5 && kind != 7) {
+    const int pass = kind == 1 ? RECV : (kind == 2 ? RECV2 : (kind == 3 ? SRC : (kind == 4 ? SRC2 : FWD)));
     Params p = make_params(nullptr, n, k, h, heads, rbf, nullptr, nullptr, nullptr, nullptr,
                            nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
                            nullptr, nullptr, nullptr, nullptr, 0, 0);

@@ -6,8 +6,11 @@
 //   tn_bwd_kernel  <- _bwd_kernel (:107, launched by _tn_bwd_op at :302)
 //   tn_bwd2_kernel <- _tn_bwd2_kernel (:455, launched by _tn_bwd2_op at :624)
 //   tn_src_sum_kernel <- _table_scatter, the second order's source-row sum
-//   tn_wgrad_kernel, tn_colsum_kernel <- the kernels' weight-gradient
-//                    accumulators (dw*_acc, db*_acc), as a reduction over edges
+// The kernels' weight-gradient accumulators (dw*_acc, db*_acc) become a
+// reduction over edges, et_message.cu's et_dw_kernel, as for ET and the
+// Transformer.
+// The device helpers they share with et_message.cu and t_message.cu are in
+// common.cuh.
 //
 // What one layer computes, per receiver atom i and neighbor slot k (j = idx[i, k]):
 //   w  = act(L3(act(L2(act(L1(ea[i,k])))))) * cutm[i,k]      (3H: thirds I, A, S)
@@ -22,28 +25,21 @@
 // RBF = 32): the edge MLP is 2 * (32*128 + 128*256 + 256*384) = 0.27 MFLOP
 // per edge, 44 GFLOP per forward: 0.044 ms on the bf16 tensor cores; the
 // bytes are ~28 MB (ea 10 MB, the gathered rows from L2), 0.009 ms.  So it
-// is bound by operations.
+// is bound by operations, the backward (twice the products) most of all.
 //
-// What the design does about it (a first, simple design):
+// The forward and the second order (the first port's design):
 //   * a block owns a contiguous range of receiver rows and walks their edges
 //     (flattened i*K + k) in tiles of M edges; the three layers of each tile
 //     run on the tensor cores (wmma bf16 16x16x16, f32 accumulation), the
 //     activations live in shared memory between layers, and nothing of the
-//     MLP goes to device memory.  The weights (W2 64 KB and W3 192 KB in
-//     bf16 at H = 128: more than a block's shared memory next to the tile)
-//     are read by the wmma loads from L2, where they stay resident;
+//     MLP goes to device memory; the weights are read by the wmma loads
+//     from L2, where they stay resident;
 //   * 3H threads: thread (third, h) owns channel h of one third of w and the
 //     components that third multiplies (1, 3 or 5), gathers those source
 //     values by index (no block plan, no one-hot product: TPU layout
 //     workarounds) and keeps its f32 row sums in registers, written when the
 //     row ends.  No float atomics anywhere: every result is bitwise the same
 //     from run to run;
-//   * the backward recomputes the MLP per tile, as the TPU kernel does.  Its
-//     source-row cotangent d_cat[j] = sum over slots pointing at j of
-//     ct_i * w[i,k] needs no scatter: w depends only on the edge's distance
-//     and cutoff, the same for (i, j) and (j, i), so on the symmetric list
-//     the port requires d_cat[j] = sum_k' ct[idx[j,k']] * w[j,k'], the
-//     forward's gather form with ct as the source table;
 //   * the second order is the VJP of the backward with respect to (inputs,
 //     ct) given cotangents Z on its outputs: S = <vjp_f(a)(ct), Z> =
 //     <ct, J_f(a) . Z>, so g_ct = J_f(a) . Z is a dual-number forward (every
@@ -52,102 +48,67 @@
 //     activations' second derivatives.  Its source-row gradient depends on Z
 //     (not symmetric), so the kernel writes the tangent of w per edge (3H
 //     f32) and tn_src_sum_kernel sums ct_i * w_dot through the transpose
-//     permutation;
-//   * weight cotangents, when wanted, are not accumulated in the kernels
-//     (W3's alone is 384 KB in f32): the kernels write each edge's layer
-//     inputs and pre-activation cotangents (bf16, as they are already) and
-//     tn_wgrad_kernel reduces A^T B over the edges on the tensor cores in
-//     a few edge splits, whose f32 partials the caller sums once.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+//     permutation.
+//
+// The backward recomputes the MLP per tile, as the TPU kernel does.  Its
+// source-row cotangent d_cat[j] = sum over slots pointing at j of ct_i *
+// w[i,k] needs no scatter: w depends only on the edge's distance and
+// cutoff, the same for (i, j) and (j, i), so on the symmetric list the port
+// requires d_cat[j] = sum_k' ct[idx[j,k']] * w[j,k'], the forward's gather
+// form with ct as the source table.  Its first port ran at 4.5 % of its
+// bound at DHFR (2.9 ms); what bounded it, and what this design does:
+//   * the weights read from L2 in every wmma load of every 32-edge tile
+//     (528 KB a tile at H = 128, 2.7 GB a launch at DHFR), each load
+//     serialised in front of its mma.  Now tiles of 64 edges; W1 stays in
+//     shared memory for the launch, W2 and W3 stream through a two-slice
+//     cp.async ring of 32 k rows (forward) or k columns (reverse), 512 KB a
+//     64-edge tile (1.3 GB a launch), copied while the previous slice
+//     computes.  W2 whole does not fit beside the 64-edge tiles at H = 128
+//     (157 KB of tiles + 66 KB): the ring lives in tiles that are dead at the
+//     time (p3 in the forward products and L2's reverse, t1..t2 in L3's
+//     reverse), and L3's forward holds its outputs in registers until the
+//     ring in p3 is free.  The products are mma.sync m16n8k16 with ldmatrix
+//     from shared memory, in the k order of the old wmma products;
+//   * idle warps and block-wide barriers: 384 threads, and layers narrower
+//     than 12 column tiles left warps waiting (L1 8 tiles, d_ea 2).  Now 512
+//     threads; every layer of width N splits into H/8 items of 32 rows by
+//     N/(H/16) columns (16, 32 or 48), one a warp at H = 128, so every warp
+//     works in every layer but d_ea's;
+//   * an f32 scratch epilogue with a global bias load and scalar conversions
+//     per element: now the epilogue works on the mma fragments in registers,
+//     biases from shared memory (f32), two values a packed conversion;
+//   * a slow per-edge loop: now the next edge's ct/cat values are loaded
+//     while the current one computes, four edges' d_cutm terms are summed
+//     over the warp at once (warp_sum4, the same pairs as a warp sum), the
+//     conversions are packed, and the kernel is compiled for silu beside a
+//     build that reads the activation at run time;
+//   * weight cotangents: the kernel writes each edge's layer inputs and
+//     pre-activation cotangents (bf16, as they are already; W3's f32
+//     cotangent alone is 384 KB, too large to keep on chip) and
+//     et_dw_kernel (et_message.cu) reduces them: cp.async-staged 64-edge
+//     tiles, f32 accumulators in registers for a whole split, all three
+//     products in one launch, the bias sums folded in as a tile of ones on
+//     the tensor cores.  The first port re-read its strips
+//     from device memory once per 64x64 output tile with direct wmma loads
+//     and summed the biases one thread a column at a 2,368-byte stride.
+// Every rounding point and every f32 sum's order is the first port's, so
+// d_cat, d_ea and d_cutm are bitwise the first port's (checked on the card
+// at the DHFR and training shapes, tools/time_bwd.py --compare); the weight
+// cotangents are summed in another order.
 #include <mma.h>
-#include <stdint.h>
 
-#include <type_traits>
+#include "common.cuh"
 
-typedef __nv_bfloat16 bf16;
 using namespace nvcuda;
 
 namespace {
 
 constexpr int FWD_M = 64;   // edges per tile: forward
-constexpr int BWD_M = 32;   // backward and second order
-constexpr int MAX_H = 128;  // 3H threads per block
+constexpr int BWD_M = 32;   // second order
+constexpr int MAX_H = 128;  // 3H threads per block (forward, second order)
 constexpr int MAX_RBFP = 128;
-constexpr float kLog2 = 0.69314718055994530942f;
 
-enum { ACT_SILU = 0, ACT_SSP = 1, ACT_TANH = 2, ACT_SIGMOID = 3 };
-
-__device__ __forceinline__ float bfr(float x) { return __bfloat162float(__float2bfloat16_rn(x)); }
-__device__ __forceinline__ float ldb(const bf16* p) { return __bfloat162float(*p); }
 __device__ __forceinline__ bf16 f2b(float x) { return __float2bfloat16_rn(x); }
-
-__device__ __forceinline__ float sigmoid_f(float x) { return __fdividef(1.0f, 1.0f + __expf(-x)); }
-
-__device__ __forceinline__ float act_fn(int a, float x) {
-  switch (a) {
-    case ACT_SILU: return x * sigmoid_f(x);
-    case ACT_SSP: return fmaxf(x, 0.0f) + log1pf(expf(-fabsf(x))) - kLog2;
-    case ACT_TANH: return tanhf(x);
-    default: return sigmoid_f(x);
-  }
-}
-
-__device__ __forceinline__ float dact_fn(int a, float x) {
-  switch (a) {
-    case ACT_SILU: {
-      const float s = sigmoid_f(x);
-      return s * (1.0f + x * (1.0f - s));
-    }
-    case ACT_SSP: return sigmoid_f(x);
-    case ACT_TANH: {
-      const float t = tanhf(x);
-      return 1.0f - t * t;
-    }
-    default: {
-      const float s = sigmoid_f(x);
-      return s * (1.0f - s);
-    }
-  }
-}
-
-// f(x), f'(x) and f''(x) of an activation, in f32
-__device__ __forceinline__ void act3(int a, float x, float* f, float* f1, float* f2) {
-  switch (a) {
-    case ACT_SILU: {
-      const float s = sigmoid_f(x);
-      *f = x * s;
-      *f1 = s * (1.0f + x * (1.0f - s));
-      *f2 = s * (1.0f - s) * (2.0f + x * (1.0f - 2.0f * s));
-      return;
-    }
-    case ACT_SSP: {
-      const float s = sigmoid_f(x);
-      *f = fmaxf(x, 0.0f) + log1pf(expf(-fabsf(x))) - kLog2;
-      *f1 = s;
-      *f2 = s * (1.0f - s);
-      return;
-    }
-    case ACT_TANH: {
-      const float t = tanhf(x);
-      *f = t;
-      *f1 = 1.0f - t * t;
-      *f2 = -2.0f * t * (1.0f - t * t);
-      return;
-    }
-    default: {
-      const float s = sigmoid_f(x);
-      *f = s;
-      *f1 = s * (1.0f - s);
-      *f2 = s * (1.0f - s) * (1.0f - 2.0f * s);
-    }
-  }
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
 
 __host__ __device__ inline int pad16(int x) { return (x + 15) / 16 * 16; }
 // shared-memory row stride (bf16 elements) of a tile `w` wide: a multiple of
@@ -268,7 +229,7 @@ __device__ void save_rows(const bf16* tile, int w, int mv, bf16* save, int ld_sa
 // Shared-memory layout of a kernel's tile: bf16 tiles (M rows each, row
 // stride sld(width)), then the warps' f32 epilogue scratch, the per-edge
 // warp partials of the edge scalars, neighbor ids and edge scalars.
-enum Kind { FWD = 0, BWD = 1, BWD2 = 2 };
+enum Kind { FWD = 0, BWD2 = 2 };
 
 struct Smem {
   // offsets in bytes; 0-width tiles are absent
@@ -384,144 +345,422 @@ __global__ void __launch_bounds__(3 * MAX_H, 1) tn_fwd_kernel(Args p, float* __r
   for (int c = 0; c < cc; ++c) m_out[(size_t)cur * F9 + (cf + c) * H + hh] = acc[c];
 }
 
+// ---------------------------------------------------------------------------
+// The backward (#9): see the header for its design.
+
+constexpr int BWD_TILE = 64;      // edges a tile
+constexpr int BWD_THREADS = 512;  // 16 warps; the first 3H threads run the per-edge phase
+constexpr int KS = 32;            // k rows (forward) or columns (reverse) of a weight slice
+
+// The backward's shared memory (bytes): W1 as (RBFP, H + 8) bf16 and the
+// three biases in f32, for the whole launch; two staging buffers of ea rows,
+// neighbor ids and cutm; the activation tiles (BWD_TILE rows of row stride
+// sld(width); t1 and t2 adjacent); the warp partials of d_cutm.  The ring of
+// W2/W3 slices lives in tiles that are dead at the time: p3 in L2's and
+// L3's forward products and L2's reverse, t1..t2 in L3's reverse.
+struct BLayout {
+  size_t w1, bias, ea, idx, cm, p1, t1, t2, p2, p3, red, total;
+};
+
+__host__ __device__ inline BLayout bwd_layout(int h, int rbfp) {
+  BLayout s;
+  const size_t m = BWD_TILE;
+  size_t o = 0;
+  auto take = [&](size_t bytes) {
+    const size_t at = o;
+    o = align128(o + bytes);
+    return at;
+  };
+  s.w1 = take((size_t)rbfp * sld(h) * sizeof(bf16));
+  s.bias = take((size_t)6 * h * sizeof(float));
+  s.ea = take(2 * m * sld(rbfp) * sizeof(bf16));
+  s.idx = take(2 * m * sizeof(int));
+  s.cm = take(2 * m * sizeof(float));
+  s.p1 = take(m * sld(h) * sizeof(bf16));
+  s.t1 = take(m * sld(h) * sizeof(bf16));  // a multiple of 128 bytes: t2 follows at once
+  s.t2 = take(m * sld(2 * h) * sizeof(bf16));
+  s.p2 = take(m * sld(2 * h) * sizeof(bf16));
+  s.p3 = take(m * sld(3 * h) * sizeof(bf16));
+  s.red = take(m * (3 * h / 32) * sizeof(float));
+  s.total = o;
+  return s;
+}
+
+// two bf16-valued f32 as a bf16 pair (a at the lower address), no conversion
+__device__ __forceinline__ unsigned pack_exact(float a, float b) {
+  return (__float_as_uint(a) >> 16) | (__float_as_uint(b) & 0xffff0000u);
+}
+
+// A warp's item of a product: 32 rows (two m16 tiles) by 16 CW columns of a
+// (BWD_TILE, ncols) output.  acc += A (rows row0.., ld lda) . B over ksteps
+// k steps of 16 in order (the old wmma products' order), B in shared
+// memory: TRANS, stored k-major (row k, ld ldb; ldmatrix.trans), else
+// n-major (row n, ld ldb: the rows of a row-major weight used transposed).
+template <int CW, bool TRANS>
+__device__ __forceinline__ void mma_steps(float (&acc)[2][2 * CW][4], const bf16* A, int lda, const bf16* B,
+                                          int ldb, int ksteps, int row0, int col0, int lane) {
+  for (int ks = 0; ks < ksteps; ++ks) {
+    const int k = ks * 16;
+    unsigned af[2][4];
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      ldsm_x4(A + (size_t)(row0 + r * 16 + (lane & 15)) * lda + k + ((lane >> 4) << 3), af[r]);
+#pragma unroll
+    for (int q = 0; q < CW; ++q) {
+      unsigned b[4];
+      if (TRANS)
+        ldsm_x4_t(B + (size_t)(k + (lane & 7) + (((lane >> 3) & 1) << 3)) * ldb + col0 + q * 16 + ((lane >> 4) << 3),
+                  b);
+      else
+        ldsm_x4(B + (size_t)(col0 + q * 16 + (lane & 7) + ((lane >> 4) << 3)) * ldb + k + (((lane >> 3) & 1) << 3),
+                b);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mma_bf16(acc[r][2 * q], af[r], b[0], b[1]);
+        mma_bf16(acc[r][2 * q + 1], af[r], b[2], b[3]);
+      }
+    }
+  }
+}
+
+// epi(row, col, v0, v1) for each pair of adjacent columns of the item's
+// accumulators (col even), in registers
+template <int CW, class Epi>
+__device__ __forceinline__ void item_epilogue(float (&acc)[2][2 * CW][4], int row0, int col0, int lane, Epi epi) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int j = 0; j < 2 * CW; ++j) {
+      const int row = row0 + r * 16 + g, col = col0 + j * 8 + 2 * t;
+      epi(row, col, acc[r][j][0], acc[r][j][1]);
+      epi(row + 8, col, acc[r][j][2], acc[r][j][3]);
+    }
+}
+
+// acc += A (BWD_TILE, kdim) . W over kdim in slices of KS, each slice staged
+// by all threads with cp.async into a ring of two at `ring`: TRANS, slice s
+// is rows [s KS, (s+1) KS) of a row-major (kdim, ncols) W, stored (KS,
+// ncols + 8); else columns [s KS, (s+1) KS) of a row-major (ncols, kdim) W,
+// stored (ncols, KS + 8).  Warps with an item accumulate; all threads stage
+// and synchronise; the ring is free again on return.
+template <int CW, bool TRANS>
+__device__ void ring_product(float (&acc)[2][2 * CW][4], bool has_item, const bf16* A, int lda,
+                             const bf16* __restrict__ W, int kdim, int ncols, bf16* ring, int row0, int col0,
+                             int lane) {
+  const int slices = kdim / KS;
+  const int ld = TRANS ? ncols + 8 : KS + 8;
+  const size_t slice_elems = TRANS ? (size_t)KS * ld : (size_t)ncols * ld;
+  auto stage = [&](int s) {
+    bf16* dst = ring + (s & 1) * slice_elems;
+    if (TRANS) {
+      const int per_row = ncols / 8;
+      for (int x = threadIdx.x; x < KS * per_row; x += blockDim.x) {
+        const int r = x / per_row, c8 = x % per_row;
+        __pipeline_memcpy_async(dst + r * ld + c8 * 8, W + (size_t)(s * KS + r) * ncols + c8 * 8, 16);
+      }
+    } else {
+      constexpr int per_row = KS / 8;
+      for (int x = threadIdx.x; x < ncols * per_row; x += blockDim.x) {
+        const int r = x / per_row, c8 = x % per_row;
+        __pipeline_memcpy_async(dst + r * ld + c8 * 8, W + (size_t)r * kdim + s * KS + c8 * 8, 16);
+      }
+    }
+    __pipeline_commit();
+  };
+  stage(0);
+  for (int s = 0; s < slices; ++s) {
+    if (s + 1 < slices) {
+      stage(s + 1);
+      __pipeline_wait_prior(1);
+    } else {
+      __pipeline_wait_prior(0);
+    }
+    __syncthreads();  // slice s has landed for every thread
+    if (has_item)
+      mma_steps<CW, TRANS>(acc, A + s * KS, lda, ring + (s & 1) * slice_elems, ld, KS / 16, row0, col0, lane);
+    __syncthreads();  // every warp is done with this slice's buffer before it is refilled
+  }
+}
+
+// a forward layer's epilogue for two columns: pre = bf16(bf16(acc) + b),
+// t = bf16(act(pre)), stored to pp and tt
+__device__ __forceinline__ void fwd_epi(int act, float v0, float v1, const float* b, bf16* pp, bf16* tt) {
+  bfr2(v0, v1);
+  v0 += b[0];
+  v1 += b[1];
+  bfr2(v0, v1);
+  float f0 = act_fn(act, v0), f1 = act_fn(act, v1);
+  bfr2(f0, f1);
+  *reinterpret_cast<unsigned*>(pp) = pack_exact(v0, v1);
+  *reinterpret_cast<unsigned*>(tt) = pack_exact(f0, f1);
+}
+
+// a reverse layer's epilogue for two columns: the pre-activations at pp
+// become their cotangents bf16(bf16(act'(pre)) * bf16(acc))
+__device__ __forceinline__ void rev_epi(int act, float v0, float v1, bf16* pp) {
+  const unsigned w = *reinterpret_cast<const unsigned*>(pp);
+  float d0 = dact_fn(act, __uint_as_float(w << 16)), d1 = dact_fn(act, __uint_as_float(w & 0xffff0000u));
+  bfr2(d0, d1);
+  bfr2(v0, v1);
+  *reinterpret_cast<__nv_bfloat162*>(pp) = __floats2bfloat162_rn(d0 * v0, d1 * v1);
+}
+
+// mv rows of a (BWD_TILE, w) tile (row stride w + 8) to columns [col, col +
+// w) of the per-edge rows of `save` from edge t0, 16 bytes at a time
+__device__ __forceinline__ void save_tile(const bf16* tile, int w, int mv, bf16* save, int ld_save, long t0,
+                                          int col) {
+  const int per_row = w / 8, ld = sld(w);
+  for (int x = threadIdx.x; x < mv * per_row; x += blockDim.x) {
+    const int r = x / per_row, c8 = x % per_row;
+    *reinterpret_cast<uint4*>(save + (size_t)(t0 + r) * ld_save + col + c8 * 8) =
+        *reinterpret_cast<const uint4*>(tile + r * ld + c8 * 8);
+  }
+}
+
+// the gathered values of one edge for one thread: ct[j] rounded to bf16 and
+// cat[j] on the thread's components
+struct Gath {
+  float ct[5], cat[5];
+};
+
+__device__ __forceinline__ Gath gather(const Args& p, int j, int cf, int cc, int hh) {
+  Gath v;
+  const size_t row = (size_t)j * 9 * p.h + cf * p.h + hh;
+#pragma unroll
+  for (int c = 0; c < 5; ++c) {
+    v.ct[c] = c < cc ? p.ct[row + c * p.h] : 0.0f;
+    v.cat[c] = c < cc ? ldb(p.cat + row + c * p.h) : 0.0f;
+  }
+  bfr2(v.ct[0], v.ct[1]);
+  bfr2(v.ct[2], v.ct[3]);
+  v.ct[4] = bfr(v.ct[4]);
+  return v;
+}
+
 // The backward: d_cat (N, 9H) bf16, d_ea (N, K, RBF) bf16, d_cutm (N, K)
 // f32; with `save` (per-edge rows [ea | t1 | d_p1 | t2 | d_p2 | d_p3], bf16,
-// row stride rbfp + 9H) the operands of the weight cotangents.
-__global__ void __launch_bounds__(3 * MAX_H, 1)
+// row stride rbfp + 9H) the operands of the weight cotangents
+// (et_dw_kernel).  A block owns a contiguous range of receiver rows and
+// walks their edges in tiles of BWD_TILE.
+template <int ACT>
+__global__ void __launch_bounds__(BWD_THREADS, 1)
     tn_bwd_kernel(Args p, bf16* __restrict__ dcat, bf16* __restrict__ dea, float* __restrict__ dcutm,
                   bf16* __restrict__ save) {
   extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int M = BWD_M, MT = M / 16;
-  const int H = p.h, F9 = 9 * H;
-  const int third = threadIdx.x / H, hh = threadIdx.x % H, col = threadIdx.x;
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32, nwarps = blockDim.x / 32;
-  const Smem L = smem_layout(BWD, H, p.rbfp);
-  bf16 *ea_s = TILE(ea), *p1 = TILE(p1), *t1 = TILE(t1), *p2 = TILE(p2), *t2 = TILE(t2), *p3 = TILE(p3);
-  float* scratch = reinterpret_cast<float*>(smem + L.scratch);
+  // the activation: a compile-time constant where the instantiation names it
+  const int act = ACT >= 0 ? ACT : p.act;
+  const int H = p.h, F9 = 9 * H, tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const BLayout L = bwd_layout(H, p.rbfp);
+  bf16* w1_s = reinterpret_cast<bf16*>(smem + L.w1);
+  float* b_s = reinterpret_cast<float*>(smem + L.bias);  // b1 | b2 | b3
+  bf16* ea_buf = reinterpret_cast<bf16*>(smem + L.ea);
+  int* idx_buf = reinterpret_cast<int*>(smem + L.idx);
+  float* cm_buf = reinterpret_cast<float*>(smem + L.cm);
+  bf16 *p1 = TILE(p1), *t1 = TILE(t1), *t2 = TILE(t2), *p2 = TILE(p2), *p3 = TILE(p3);
   float* red = reinterpret_cast<float*>(smem + L.red);
-  int* idx_s = reinterpret_cast<int*>(smem + L.idx);
-  float* cm_s = reinterpret_cast<float*>(smem + L.cm);
   const int lde = sld(p.rbfp), ld1 = sld(H), ld2 = sld(2 * H), ld3 = sld(3 * H);
   const int ld_save = p.rbfp + 9 * H;
-  const int row0 = blockIdx.x * p.rows_per_block;
-  const int row1 = min(p.n, row0 + p.rows_per_block);
-  if (row0 >= row1) return;
-  const long e0 = (long)row0 * p.k, e1 = (long)row1 * p.k;
+  const int nw3 = 3 * H / 32;
+  // the products' items: warp w takes rows (w & 1) * 32 and column group w >> 1
+  const int row0 = (warp & 1) * 32, cg = warp >> 1;
+  const bool big_item = warp < H / 8;  // H/8 items in L1-L3 forward and reverse
+
+  for (int x = tid; x < p.rbfp * H; x += blockDim.x) w1_s[(x / H) * ld1 + x % H] = p.w1[x];
+  for (int x = tid; x < 6 * H; x += blockDim.x)
+    b_s[x] = x < H ? ldb(p.b1 + x) : (x < 3 * H ? ldb(p.b2 + x - H) : ldb(p.b3 + x - 3 * H));
+  for (int x = tid; x < 2 * BWD_TILE * lde; x += blockDim.x) ea_buf[x] = f2b(0.0f);
+  __syncthreads();  // the RBF padding is zero before any copy lands
+
+  const int r0 = blockIdx.x * p.rows_per_block, r1 = min(p.n, r0 + p.rows_per_block);
+  if (r0 >= r1) return;  // the whole block
+  const long e0 = (long)r0 * p.k, e1 = (long)r1 * p.k;
+  const int ntiles = (int)((e1 - e0 + BWD_TILE - 1) / BWD_TILE);
+  // start copying tile t (ea rows, ids, cutm) into staging buffer t & 1
+  auto stage = [&](int t) {
+    const long t0 = e0 + (long)t * BWD_TILE;
+    const int mv = (int)min((long)BWD_TILE, e1 - t0);
+    bf16* ea_s = ea_buf + (t & 1) * BWD_TILE * lde;
+    if (p.rbf % 2 == 0) {
+      const int words = p.rbf / 2;
+      for (int x = tid; x < mv * words; x += blockDim.x) {
+        const int r = x / words, w = x % words;
+        __pipeline_memcpy_async(ea_s + r * lde + 2 * w, p.ea + (size_t)(t0 + r) * p.rbf + 2 * w, 4);
+      }
+    } else {  // rows not 4-byte aligned: plain copies
+      for (int x = tid; x < mv * p.rbf; x += blockDim.x) {
+        const int r = x / p.rbf, c = x % p.rbf;
+        ea_s[r * lde + c] = p.ea[(size_t)(t0 + r) * p.rbf + c];
+      }
+    }
+    for (int r = tid; r < mv; r += blockDim.x) {
+      __pipeline_memcpy_async(idx_buf + (t & 1) * BWD_TILE + r, p.idx + t0 + r, 4);
+      __pipeline_memcpy_async(cm_buf + (t & 1) * BWD_TILE + r, p.cutm + t0 + r, 4);
+    }
+    __pipeline_commit();
+  };
+
+  // the per-edge phase's thread: channel hh of third `third` (the first 3H
+  // threads, whole warps); its receiver row `cur`, at slot `slot`
+  const bool edge_thread = tid < 3 * H;
+  const int third = edge_thread ? tid / H : 0, hh = tid % H;
   const int cf = comp_first(third), cc = comp_count(third);
-  float acc[5] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-  float cti[5];
-  int cur = row0;
+  int cur = r0, slot = 0;
+  float acc[5] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f}, cti[5];
+  auto load_cti = [&]() {
 #pragma unroll
-  for (int c = 0; c < 5; ++c) cti[c] = c < cc ? bfr(p.ct[(size_t)cur * F9 + (cf + c) * H + hh]) : 0.0f;
-  for (long t0 = e0; t0 < e1; t0 += M) {
-    const int mv = (int)min((long)M, e1 - t0);
-    stage_tile(p, t0, mv, M, ea_s, nullptr, idx_s, cm_s, nullptr);
-    __syncthreads();
-    // the forward, recomputed: pre-activations and activations of L1, L2; L3's pre-activation
-    mma_layer<MT, false, SINGLE>(ea_s, nullptr, lde, p.w1, nullptr, H, p.rbfp, H, scratch,
-                                 [&](int rt, int ct, const float* s0, const float*) {
-                                   for (int q = lane; q < 256; q += 32) {
-                                     const int r = rt * 16 + q / 16, c = ct * 16 + q % 16;
-                                     const float pre = bfr(bfr(s0[q]) + ldb(p.b1 + c));
-                                     p1[r * ld1 + c] = f2b(pre);
-                                     t1[r * ld1 + c] = f2b(act_fn(p.act, pre));
-                                   }
-                                 });
-    __syncthreads();
-    mma_layer<MT, false, SINGLE>(t1, nullptr, ld1, p.w2, nullptr, 2 * H, H, 2 * H, scratch,
-                                 [&](int rt, int ct, const float* s0, const float*) {
-                                   for (int q = lane; q < 256; q += 32) {
-                                     const int r = rt * 16 + q / 16, c = ct * 16 + q % 16;
-                                     const float pre = bfr(bfr(s0[q]) + ldb(p.b2 + c));
-                                     p2[r * ld2 + c] = f2b(pre);
-                                     t2[r * ld2 + c] = f2b(act_fn(p.act, pre));
-                                   }
-                                 });
-    __syncthreads();
-    mma_layer<MT, false, SINGLE>(t2, nullptr, ld2, p.w3, nullptr, 3 * H, 2 * H, 3 * H, scratch,
-                                 [&](int rt, int ct, const float* s0, const float*) {
-                                   for (int q = lane; q < 256; q += 32) {
-                                     const int r = rt * 16 + q / 16, c = ct * 16 + q % 16;
-                                     p3[r * ld3 + c] = f2b(bfr(s0[q]) + ldb(p.b3 + c));
-                                   }
-                                 });
-    __syncthreads();
-    // per edge: d_cat (symmetric gather form), d_w, d_cutm's terms, d_p3 in place of p3
-    for (int e = 0; e < mv; ++e) {
-      const int row = (int)((t0 + e) / p.k);
-      if (row != cur) {
-        for (int c = 0; c < cc; ++c) dcat[(size_t)cur * F9 + (cf + c) * H + hh] = f2b(acc[c]);
-        cur = row;
-#pragma unroll
-        for (int c = 0; c < 5; ++c) {
-          acc[c] = 0.0f;
-          cti[c] = c < cc ? bfr(p.ct[(size_t)cur * F9 + (cf + c) * H + hh]) : 0.0f;
-        }
+    for (int c = 0; c < 5; ++c) cti[c] = c < cc ? bfr(p.ct[(size_t)cur * F9 + (cf + c) * H + hh]) : 0.0f;
+  };
+  if (edge_thread) load_cti();
+
+  stage(0);
+  for (int t = 0; t < ntiles; ++t) {
+    const long t0 = e0 + (long)t * BWD_TILE;
+    const int mv = (int)min((long)BWD_TILE, e1 - t0);
+    const bf16* ea_s = ea_buf + (t & 1) * BWD_TILE * lde;
+    const int* idx_s = idx_buf + (t & 1) * BWD_TILE;
+    float* cm_s = cm_buf + (t & 1) * BWD_TILE;
+    __pipeline_wait_prior(0);
+    __syncthreads();  // tile t has landed; the last tile is done with every tile buffer
+    if (t + 1 < ntiles) stage(t + 1);
+    for (int r = tid; r < mv; r += blockDim.x) cm_s[r] = bfr(cm_s[r]);
+    if (save) save_tile(ea_s, p.rbfp, mv, save, ld_save, t0, 0);
+
+    // the forward, recomputed.  L1 (W1 resident): p1 = bf16(bf16(ea . W1) + b1), t1 = bf16(act(p1))
+    {
+      float a[2][2][4] = {};
+      if (big_item) {
+        mma_steps<1, true>(a, ea_s, lde, w1_s, ld1, p.rbfp / 16, row0, cg * 16, lane);
+        item_epilogue<1>(a, row0, cg * 16, lane, [&](int r, int c, float v0, float v1) {
+          fwd_epi(act, v0, v1, b_s + c, p1 + r * ld1 + c, t1 + r * ld1 + c);
+        });
       }
-      const int j = idx_s[e];
-      const float pre = __bfloat162float(p3[e * ld3 + col]);
-      const float t3 = bfr(act_fn(p.act, pre));
-      const float cmb = bfr(cm_s[e]);
-      const float wb = bfr(t3 * cmb);
-      const bf16* src = p.cat + (size_t)j * F9 + cf * H + hh;
-      const float* ctj = p.ct + (size_t)j * F9 + cf * H + hh;
-      float dw = 0.0f;
-#pragma unroll
-      for (int c = 0; c < 5; ++c) {
-        if (c < cc) {
-          acc[c] += bfr(bfr(ctj[c * H]) * wb);
-          dw += bfr(cti[c] * ldb(src + c * H));
-        }
-      }
-      dw = bfr(dw);
-      const float term = warp_sum(bfr(dw * t3));
-      if (lane == 0) red[e * nwarps + warp] = term;
-      const float dt3 = bfr(dw * cmb);
-      p3[e * ld3 + col] = f2b(bfr(dact_fn(p.act, pre)) * dt3);
     }
     __syncthreads();
-    if ((int)threadIdx.x < mv) {
+    // L2 (W2 through the ring in p3): p2, t2
+    {
+      float a[2][4][4] = {};
+      ring_product<2, true>(a, big_item, t1, ld1, p.w2, H, 2 * H, p3, row0, cg * 32, lane);
+      if (big_item)
+        item_epilogue<2>(a, row0, cg * 32, lane, [&](int r, int c, float v0, float v1) {
+          fwd_epi(act, v0, v1, b_s + H + c, p2 + r * ld2 + c, t2 + r * ld2 + c);
+        });
+    }
+    __syncthreads();
+    if (save) save_tile(t1, H, mv, save, ld_save, t0, p.rbfp);
+    // L3 (W3 through the ring in p3, the outputs held in registers until it
+    // is free): p3 = bf16(bf16(t2 . W3) + b3)
+    {
+      float a[2][6][4] = {};
+      ring_product<3, true>(a, big_item, t2, ld2, p.w3, 2 * H, 3 * H, p3, row0, cg * 48, lane);
+      if (big_item)
+        item_epilogue<3>(a, row0, cg * 48, lane, [&](int r, int c, float v0, float v1) {
+          bfr2(v0, v1);
+          v0 += b_s[3 * H + c];
+          v1 += b_s[3 * H + c + 1];
+          bfr2(v0, v1);
+          *reinterpret_cast<unsigned*>(p3 + r * ld3 + c) = pack_exact(v0, v1);
+        });
+    }
+    if (save) save_tile(t2, 2 * H, mv, save, ld_save, t0, p.rbfp + 2 * H);
+    __syncthreads();  // p3 is complete
+
+    // per edge: d_cat (symmetric gather form, each row's sums in slot
+    // order), d_w, d_cutm's terms (four edges' warp sums at once), d_p3 in
+    // place of p3; the next edge's gathered values in flight
+    if (edge_thread) {
+      Gath g = gather(p, idx_s[0], cf, cc, hh);
+      for (int eb = 0; eb < mv; eb += 4) {
+        float term[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int e = eb + u;
+          term[u] = 0.0f;
+          if (e >= mv) continue;  // the same for the whole warp
+          Gath nxt = g;
+          if (e + 1 < mv) nxt = gather(p, idx_s[e + 1], cf, cc, hh);
+          if (slot == p.k) {  // the next receiver row
+#pragma unroll
+            for (int c = 0; c < 5; ++c) {
+              if (c < cc) dcat[(size_t)cur * F9 + (cf + c) * H + hh] = f2b(acc[c]);
+              acc[c] = 0.0f;
+            }
+            ++cur;
+            slot = 0;
+            load_cti();
+          }
+          ++slot;
+          const float pre = ldb(p3 + e * ld3 + tid);
+          float t3 = act_fn(act, pre), d3 = dact_fn(act, pre);
+          bfr2(t3, d3);
+          const float cmb = cm_s[e];
+          const float wb = bfr(t3 * cmb);
+          float dw = 0.0f;
+#pragma unroll
+          for (int c = 0; c < 5; ++c) {
+            if (c < cc) {
+              float x = g.ct[c] * wb, y = cti[c] * g.cat[c];
+              bfr2(x, y);
+              acc[c] += x;
+              dw += y;
+            }
+          }
+          dw = bfr(dw);
+          float tm = dw * t3, dt3 = dw * cmb;
+          bfr2(tm, dt3);
+          term[u] = tm;
+          p3[e * ld3 + tid] = f2b(d3 * dt3);
+          g = nxt;
+        }
+        const float r = warp_sum4(term[0], term[1], term[2], term[3], lane);
+        if ((lane & 7) == 0 && eb + (lane >> 3) < mv) red[(eb + (lane >> 3)) * nw3 + warp] = r;
+      }
+    }
+    __syncthreads();  // d_p3 and the warp partials are complete
+    if (tid < mv) {
       float s = 0.0f;
-      for (int w = 0; w < nwarps; ++w) s += red[threadIdx.x * nwarps + w];
-      dcutm[t0 + threadIdx.x] = s;
+      for (int w = 0; w < nw3; ++w) s += red[tid * nw3 + w];
+      dcutm[t0 + tid] = s;
     }
-    // the MLP's reverse: d_t2 = d_p3 . W3^T, d_t1 = d_p2 . W2^T, d_ea = d_p1 . W1^T
-    mma_layer<MT, true, SINGLE>(p3, nullptr, ld3, p.w3, nullptr, 3 * H, 3 * H, 2 * H, scratch,
-                                [&](int rt, int ct, const float* s0, const float*) {
-                                  for (int q = lane; q < 256; q += 32) {
-                                    const int r = rt * 16 + q / 16, c = ct * 16 + q % 16;
-                                    const float pre2 = __bfloat162float(p2[r * ld2 + c]);
-                                    p2[r * ld2 + c] = f2b(bfr(dact_fn(p.act, pre2)) * bfr(s0[q]));
-                                  }
-                                });
-    __syncthreads();
-    mma_layer<MT, true, SINGLE>(p2, nullptr, ld2, p.w2, nullptr, 2 * H, 2 * H, H, scratch,
-                                [&](int rt, int ct, const float* s0, const float*) {
-                                  for (int q = lane; q < 256; q += 32) {
-                                    const int r = rt * 16 + q / 16, c = ct * 16 + q % 16;
-                                    const float pre1 = __bfloat162float(p1[r * ld1 + c]);
-                                    p1[r * ld1 + c] = f2b(bfr(dact_fn(p.act, pre1)) * bfr(s0[q]));
-                                  }
-                                });
-    __syncthreads();
-    mma_layer<MT, true, SINGLE>(p1, nullptr, ld1, p.w1, nullptr, H, H, p.rbfp, scratch,
-                                [&](int rt, int ct, const float* s0, const float*) {
-                                  for (int q = lane; q < 256; q += 32) {
-                                    const int r = rt * 16 + q / 16, c = ct * 16 + q % 16;
-                                    if (r < mv && c < p.rbf) dea[(size_t)(t0 + r) * p.rbf + c] = f2b(s0[q]);
-                                  }
-                                });
-    if (save) {
-      save_rows(ea_s, p.rbfp, mv, save, ld_save, t0, 0);
-      save_rows(t1, H, mv, save, ld_save, t0, p.rbfp);
-      save_rows(p1, H, mv, save, ld_save, t0, p.rbfp + H);
-      save_rows(t2, 2 * H, mv, save, ld_save, t0, p.rbfp + 2 * H);
-      save_rows(p2, 2 * H, mv, save, ld_save, t0, p.rbfp + 4 * H);
-      save_rows(p3, 3 * H, mv, save, ld_save, t0, p.rbfp + 6 * H);
+    if (save) save_tile(p3, 3 * H, mv, save, ld_save, t0, p.rbfp + 6 * H);
+
+    // the MLP's reverse.  L3 (W3^T through the ring in t1..t2): d_p2 in place of p2
+    {
+      float a[2][4][4] = {};
+      ring_product<2, false>(a, big_item, p3, ld3, p.w3, 3 * H, 2 * H, t1, row0, cg * 32, lane);
+      if (big_item)
+        item_epilogue<2>(a, row0, cg * 32, lane,
+                         [&](int r, int c, float v0, float v1) { rev_epi(act, v0, v1, p2 + r * ld2 + c); });
     }
     __syncthreads();
+    if (save) save_tile(p2, 2 * H, mv, save, ld_save, t0, p.rbfp + 4 * H);
+    // L2 (W2^T through the ring in p3): d_p1 in place of p1
+    {
+      float a[2][2][4] = {};
+      ring_product<1, false>(a, big_item, p2, ld2, p.w2, 2 * H, H, p3, row0, cg * 16, lane);
+      if (big_item)
+        item_epilogue<1>(a, row0, cg * 16, lane,
+                         [&](int r, int c, float v0, float v1) { rev_epi(act, v0, v1, p1 + r * ld1 + c); });
+    }
+    __syncthreads();
+    if (save) save_tile(p1, H, mv, save, ld_save, t0, p.rbfp + H);
+    // L1 (W1^T resident): d_ea
+    if (warp < p.rbfp / 8) {
+      float a[2][2][4] = {};
+      mma_steps<1, false>(a, p1, ld1, w1_s, ld1, H / 16, row0, cg * 16, lane);
+      item_epilogue<1>(a, row0, cg * 16, lane, [&](int r, int c, float v0, float v1) {
+        if (r >= mv) return;
+        bf16* o = dea + (size_t)(t0 + r) * p.rbf + c;
+        if (c < p.rbf) o[0] = f2b(v0);
+        if (c + 1 < p.rbf) o[1] = f2b(v1);
+      });
+    }
   }
-  for (int c = 0; c < cc; ++c) dcat[(size_t)cur * F9 + (cf + c) * H + hh] = f2b(acc[c]);
+  if (edge_thread) {
+#pragma unroll
+    for (int c = 0; c < 5; ++c)
+      if (c < cc) dcat[(size_t)cur * F9 + (cf + c) * H + hh] = f2b(acc[c]);
+  }
 }
 
 // The second order: g_ea (N, K, RBF) bf16, g_cutm (N, K) f32, g_ct (N, 9H)
@@ -648,7 +887,7 @@ __global__ void __launch_bounds__(3 * MAX_H, 1)
       wdot[(size_t)(t0 + e) * 3 * H + col] = wd;
       const float t3bar = wbar * cmb + wdbar * zcmb;
       const float td3bar = wdbar * cmb;
-      const float term = warp_sum(wbar * t3 + wdbar * td3);
+      const float term = group_sum(wbar * t3 + wdbar * td3, 32);
       if (lane == 0) red[e * nwarps + warp] = term;
       p3[e * ld3 + col] = f2b(t3bar * f1 + td3bar * f2 * pred);
       pd3[e * ld3 + col] = f2b(td3bar * f1);
@@ -714,65 +953,6 @@ __global__ void tn_src_sum_kernel(const int32_t* __restrict__ perm, int k, int h
   for (int c = 0; c < cc; ++c) gcat[(size_t)j * F9 + (cf + c) * h + hh] = f2b(acc[c]);
 }
 
-// part[s] (P, Q) f32 = sum over the edges of split s of a1[e]^T b1[e] (+
-// a2[e]^T b2[e]): a (E_pad, P) and b (E_pad, Q) bf16 rows of strides lda
-// and ldb (zero rows past the last edge).  A block of 4 warps computes a
-// 64 x 64 output tile, each warp a 16-row strip of four 16x16 tiles,
-// reading its operands through L1/L2 straight into wmma fragments.
-__global__ void __launch_bounds__(128) tn_wgrad_kernel(const bf16* __restrict__ a1, const bf16* __restrict__ b1,
-                                                      const bf16* __restrict__ a2, const bf16* __restrict__ b2,
-                                                      int lda, int ldb, int e_pad, int per_split, int pn,
-                                                      int qn, float* __restrict__ part) {
-  const int warp = threadIdx.x / 32;
-  const int prow = blockIdx.x * 64 + warp * 16;
-  const int q0 = blockIdx.y * 64;
-  const int s = blockIdx.z;
-  if (prow >= pn) return;  // whole warps
-  const int eb = s * per_split, ee = min(e_pad, eb + per_split);
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4];
-#pragma unroll
-  for (int c = 0; c < 4; ++c) wmma::fill_fragment(acc[c], 0.0f);
-  for (int e = eb; e < ee; e += 16) {
-#pragma unroll
-    for (int pair = 0; pair < 2; ++pair) {
-      const bf16* a = pair ? a2 : a1;
-      const bf16* b = pair ? b2 : b1;
-      if (a == nullptr) continue;
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> fa;
-      wmma::load_matrix_sync(fa, a + (size_t)e * lda + prow, lda);
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int qc = q0 + 16 * c;
-        if (qc < qn) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-          wmma::load_matrix_sync(fb, b + (size_t)e * ldb + qc, ldb);
-          wmma::mma_sync(acc[c], fa, fb, acc[c]);
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    const int qc = q0 + 16 * c;
-    if (qc < qn)
-      wmma::store_matrix_sync(part + (size_t)s * pn * qn + (size_t)prow * qn + qc, acc[c], qn,
-                              wmma::mem_row_major);
-  }
-}
-
-// part[s] (Q) f32 = sum over the edges of split s of b[e] (bf16 rows of
-// stride ldb): the bias cotangents.  One thread per column.
-__global__ void tn_colsum_kernel(const bf16* __restrict__ b, int ldb, int e_n, int per_split, int qn,
-                                 float* __restrict__ part) {
-  const int q = blockIdx.x * blockDim.x + threadIdx.x;
-  const int s = blockIdx.y;
-  if (q >= qn) return;
-  const int eb = s * per_split, ee = min(e_n, eb + per_split);
-  float acc = 0.0f;
-  for (int e = eb; e < ee; ++e) acc += __bfloat162float(b[(size_t)e * ldb + q]);
-  part[(size_t)s * qn + q] = acc;
-}
-
 bool valid_shape(int n, int k, int h, int rbf) {
   return n > 0 && k > 0 && h >= 32 && h <= MAX_H && h % 32 == 0 && rbf > 0 && pad16(rbf) <= MAX_RBFP;
 }
@@ -797,6 +977,29 @@ cudaError_t plan_rows(int kind, Args* p, size_t* smem, int* blocks) {
   p->rows_per_block = (p->n + target - 1) / target;
   *blocks = (p->n + p->rows_per_block - 1) / p->rows_per_block;
   return cudaSuccess;
+}
+
+// The backward's grid: one block an SM (its shared memory), each block a
+// contiguous range of rows.
+cudaError_t plan_bwd(Args* p, size_t* smem, int* blocks) {
+  int dev = 0, sms = 0, smem_max = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return err;
+  *smem = bwd_layout(p->h, p->rbfp).total;
+  if (*smem > (size_t)smem_max) return cudaErrorInvalidValue;
+  p->rows_per_block = (p->n + sms - 1) / sms;
+  *blocks = (p->n + p->rows_per_block - 1) / p->rows_per_block;
+  return cudaSuccess;
+}
+
+// the backward compiled for silu (the configurations' choice), with the
+// activation folded into its arithmetic, and for any activation read at
+// run time
+const void* bwd_kernel(int act) {
+  return act == ACT_SILU ? reinterpret_cast<const void*>(tn_bwd_kernel<ACT_SILU>)
+                         : reinterpret_cast<const void*>(tn_bwd_kernel<-1>);
 }
 
 Args make_args(const void* idx, int n, int k, int h, int rbf, const void* cat, const void* ea,
@@ -859,13 +1062,17 @@ int tn_bwd(const void* idx, int n, int k, int h, int rbf, const void* cat, const
   p.ct = static_cast<const float*>(ct);
   size_t smem = 0;
   int blocks = 0;
-  cudaError_t err = plan_rows(BWD, &p, &smem, &blocks);
+  cudaError_t err = plan_bwd(&p, &smem, &blocks);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(tn_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  err = cudaFuncSetAttribute(bwd_kernel(act), cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  tn_bwd_kernel<<<blocks, 3 * h, smem, static_cast<cudaStream_t>(stream)>>>(
-      p, static_cast<bf16*>(dcat), static_cast<bf16*>(dea), static_cast<float*>(dcutm),
-      static_cast<bf16*>(save));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  bf16 *o_dcat = static_cast<bf16*>(dcat), *o_dea = static_cast<bf16*>(dea), *o_save = static_cast<bf16*>(save);
+  float* o_dcutm = static_cast<float*>(dcutm);
+  if (act == ACT_SILU)
+    tn_bwd_kernel<ACT_SILU><<<blocks, BWD_THREADS, smem, st>>>(p, o_dcat, o_dea, o_dcutm, o_save);
+  else
+    tn_bwd_kernel<-1><<<blocks, BWD_THREADS, smem, st>>>(p, o_dcat, o_dea, o_dcutm, o_save);
   return (int)cudaGetLastError();
 }
 
@@ -914,29 +1121,29 @@ int tn_src_sum(const void* perm, int n, int k, int h, const void* ct, const void
   return (int)cudaGetLastError();
 }
 
-// part (splits, P, Q) f32: see tn_wgrad_kernel.  a2/b2 null for one pair.
-// P, Q, lda, ldb and the column offsets of a and b are multiples of 16;
-// e_pad is a multiple of 16 and the rows past the last edge are zero.
-int tn_wgrad(const void* a1, const void* b1, const void* a2, const void* b2, int lda, int ldb, int e_pad,
-             int pn, int qn, int splits, void* part, void* stream) {
-  if (pn <= 0 || qn <= 0 || pn % 16 || qn % 16 || lda % 16 || ldb % 16 || e_pad % 16 || splits <= 0)
-    return (int)cudaErrorInvalidValue;
-  const int per_split = ((e_pad / 16 + splits - 1) / splits) * 16;
-  dim3 grid((pn + 63) / 64, (qn + 63) / 64, splits);
-  tn_wgrad_kernel<<<grid, 128, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(a1), static_cast<const bf16*>(b1), static_cast<const bf16*>(a2),
-      static_cast<const bf16*>(b2), lda, ldb, e_pad, per_split, pn, qn, static_cast<float*>(part));
-  return (int)cudaGetLastError();
-}
-
-// part (splits, Q) f32: see tn_colsum_kernel.
-int tn_colsum(const void* b, int ldb, int e_n, int qn, int splits, void* part, void* stream) {
-  if (qn <= 0 || e_n <= 0 || splits <= 0) return (int)cudaErrorInvalidValue;
-  const int per_split = (e_n + splits - 1) / splits;
-  dim3 grid((qn + 127) / 128, splits);
-  tn_colsum_kernel<<<grid, 128, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(b), ldb, e_n, per_split, qn, static_cast<float*>(part));
-  return (int)cudaGetLastError();
+// The backward's (tn_bwd_kernel for silu) resources at a shape: out =
+// registers a thread, local (spill) bytes a thread, threads a block, dynamic
+// shared memory a block, resident blocks an SM.
+int tn_resources(int n, int k, int h, int rbf, int* out) {
+  if (!valid_shape(n, k, h, rbf)) return (int)cudaErrorInvalidValue;
+  Args p = make_args(nullptr, n, k, h, rbf, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                     nullptr, nullptr, ACT_SILU);
+  size_t smem = 0;
+  int blocks = 0;
+  const void* fn = bwd_kernel(ACT_SILU);
+  cudaError_t err = plan_bwd(&p, &smem, &blocks);
+  if (err == cudaSuccess) err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaFuncAttributes attr;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, fn);
+  int per_sm = 0;
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, BWD_THREADS, smem);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.localSizeBytes;
+  out[2] = BWD_THREADS;
+  out[3] = (int)smem;
+  out[4] = per_sm;
+  return 0;
 }
 
 }  // extern "C"

@@ -71,7 +71,7 @@ def _lib() -> ctypes.CDLL:
         lib.et_bwd2.restype = _I
         lib.et_bwd2_src.argtypes = _COMMON + [_P] * 24
         lib.et_bwd2_src.restype = _I
-        lib.et_dw.argtypes = [_P] * 4 + [_I] * 5 + [_P, _P]
+        lib.et_dw.argtypes = [_P, _P] + [_I] * 5 + [_P, _P]
         lib.et_dw.restype = _I
         lib.et_plan.argtypes = [_I] * 6 + [_P, _P]
         lib.et_plan.restype = _I
@@ -482,6 +482,43 @@ def weight_grads_reference(pairs, rbf):
     return sum(a.to(acc).t() @ b.to(acc) for a, b in pairs)[:rbf]
 
 
+def dw_per_split(ne, blocks, sms):
+    """Edges a split of ``et_dw_kernel`` takes: about four of its 128-thread
+    blocks an SM (its resident count) over ``blocks`` blocks a split, in
+    whole 64-edge tiles."""
+    want = max(1, -(-4 * sms // blocks))
+    return -(-(-(-ne // want)) // 64) * 64
+
+
+def dw_partials(products, npairs, per_split, total):
+    """Launch ``et_dw_kernel`` (uncounted: each caller counts its own
+    launches).  ``products`` (at most three) are (a, b, a2, b2, pn, out,
+    bias): a (E, pk) and b (E, qn) bf16 CUDA views with unit column stride
+    (a2, b2 the second pair's, read when ``npairs`` is 2), pn >= pk the
+    output rows (A's columns past pk count as zero), out and bias the
+    offsets of the (pn, qn) product and of b's (qn) column sums in a split's
+    partial (bias -1: none).  Returns the partials (splits, total) f32, one a
+    split of ``per_split`` edges."""
+    lib = _lib()
+    a0 = products[0][0]
+    dev, ne = a0.device, a0.shape[0]
+    ptrs, spec = [], []
+    for a, b, a2, b2, pn, out, bias in products:
+        for t, name in ((a, "edge rows"), (b, "cotangents"), (a2, "edge rows"), (b2, "cotangents")):
+            if t is not None and (t.device != dev or t.dtype != torch.bfloat16 or t.dim() != 2
+                                  or t.shape[0] != ne or t.stride(1) != 1):
+                raise ValueError(f"{name} of the weight reduction: want ({ne}, .) bf16 rows on {dev}, got "
+                                 f"{tuple(t.shape)} {t.dtype} stride {t.stride()} on {t.device}")
+        ptrs += [_ptr(a), _ptr(b), _ptr(a2), _ptr(b2)]
+        spec += [a.stride(0), b.stride(0), a.shape[1], pn, b.shape[1], out, bias]
+    part = torch.empty((-(-ne // per_split), total), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.et_dw((_P * len(ptrs))(*ptrs), (_I * len(spec))(*spec), len(products), npairs, ne, per_split,
+                        total, _ptr(part), _stream(dev))
+    _raise_on(lib, err, "et_dw launch")
+    return part
+
+
 def weight_grads(pairs, rbf):
     """The filters' weight cotangents from per-edge filter cotangents: (RBF,
     F) f32 = sum over the edges of a^T . b for each (a, b) in ``pairs``, a
@@ -492,26 +529,18 @@ def weight_grads(pairs, rbf):
     a0, b0 = pairs[0]
     if a0.device.type == "cpu":
         return weight_grads_reference(pairs, rbf)
-    lib = _lib()
     dev = a0.device
     ne, f = b0.shape
     for a, b in pairs:
         _check(a, "edge rows", torch.bfloat16, (ne, rbf), dev)
         _check(b, "filter cotangents", torch.bfloat16, (ne, f), dev)
     rbfp = -(-rbf // 16) * 16
-    # about four blocks an SM (the kernel's resident count), each a split
-    # of 64-edge tiles
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    want = max(1, -(-4 * sms // (-(-f // 128) * -(-rbfp // 64))))
-    per_split = -(-(-(-ne // want)) // 64) * 64
-    part = torch.empty((-(-ne // per_split), rbfp, f), dtype=torch.float32, device=dev)
+    per_split = dw_per_split(ne, -(-f // 128) * -(-rbfp // 64), sms)
     a1, b1 = pairs[1] if len(pairs) > 1 else (None, None)
-    with torch.cuda.device(dev):
-        err = lib.et_dw(_ptr(a0), _ptr(b0), _ptr(a1), _ptr(b1), len(pairs), ne, rbf, f, per_split,
-                        _ptr(part), _stream(dev))
-    _raise_on(lib, err, "et_dw launch")
+    part = dw_partials([(a0, b0, a1, b1, rbfp, 0, -1)], len(pairs), per_split, rbfp * f)
     weight_grads.launches += 1
-    return part.sum(dim=0)[:rbf]
+    return part.sum(dim=0).reshape(rbfp, f)[:rbf]
 
 
 weight_grads.launches = 0
@@ -934,9 +963,10 @@ run_bwd2.launches = 0
 
 
 def kernel_resources(kind, n, kk, h, heads, rbf):
-    """A backward or second-order kernel's resources at a shape, from the
-    CUDA runtime (kind 1 ``et_bwd_kernel``, 2 ``et_bwd2_kernel``, 3
-    ``et_bwd_src_kernel``, 4 ``et_bwd2_src_kernel``, 5 ``et_dw_kernel``):
+    """A kernel's resources at a shape, from the CUDA runtime (kind 1
+    ``et_bwd_kernel``, 2 ``et_bwd2_kernel``, 3 ``et_bwd_src_kernel``, 4
+    ``et_bwd2_src_kernel``, 5 ``et_dw_kernel``, 6 ``et_fwd_kernel``, 7
+    ``et_dw_kernel`` with the bias sums, TensorNet's):
     {registers, spill_bytes (local memory a thread), threads, smem (dynamic
     shared memory a block), blocks_per_sm (resident)}.  Needs a CUDA device."""
     lib = _lib()

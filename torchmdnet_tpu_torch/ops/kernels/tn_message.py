@@ -29,7 +29,12 @@ derivative raises.
 gradients from autograd; ``tn_messages_bwd2_reference`` is the plain version
 of the second-order kernel (the counterpart of ``_composable_tn_bwd_vjp``,
 :380).  ``fused_tn_messages`` uses the plain version only for tensors on the
-CPU.
+CPU.  The weight cotangents of the backward and the second order are
+reduced from per-edge rows the kernels write (``weight_grads``, a launch of
+ET's ``et_dw_kernel``, which sums the biases too); ``bwd_reference`` (the
+backward's outputs and rows in its arithmetic) and
+``weight_grads_reference`` are their plain twins, which ``bwd_rows`` and
+``weight_grads`` run for CPU tensors.
 
 The backward kernel's source-row cotangent uses the symmetry of the list:
 ``w[i, k]`` depends only on the edge's distance and cutoff, equal for (i, j)
@@ -45,7 +50,7 @@ from typing import Optional
 import torch
 
 from torchmdnet_tpu_torch.ops.kernels import build
-from torchmdnet_tpu_torch.ops.kernels.et_message import _act_v, _check, _ptr
+from torchmdnet_tpu_torch.ops.kernels.et_message import _act_v, _check, _dact, _ptr, dw_partials, dw_per_split
 from torchmdnet_tpu_torch.ops.neighbors import ell_gather, transpose_perm
 
 SOURCE = "tn_message.cu"
@@ -66,9 +71,8 @@ def _lib() -> ctypes.CDLL:
         lib.tn_bwd.argtypes = _COMMON + [_P] * 6
         lib.tn_bwd2.argtypes = _COMMON + [_P] * 16
         lib.tn_src_sum.argtypes = [_P, _I, _I, _I, _P, _P, _P, _P]
-        lib.tn_wgrad.argtypes = [_P] * 4 + [_I] * 6 + [_P, _P]
-        lib.tn_colsum.argtypes = [_P] + [_I] * 4 + [_P, _P]
-        for fn in (lib.tn_fwd, lib.tn_bwd, lib.tn_bwd2, lib.tn_src_sum, lib.tn_wgrad, lib.tn_colsum):
+        lib.tn_resources.argtypes = [_I] * 4 + [_P]
+        for fn in (lib.tn_fwd, lib.tn_bwd, lib.tn_bwd2, lib.tn_src_sum, lib.tn_resources):
             fn.restype = _I
         lib._argtypes_set = True
     return lib
@@ -166,102 +170,211 @@ def run_fwd(idx, cat, ea, cutm, w1, b1, w2, b2, w3, b3, *, act):
 run_fwd.launches = 0
 
 
-def _splits(tiles, e_pad):
-    """Edge splits of a weight-gradient reduction: about two waves of blocks."""
-    return max(1, min(e_pad // 16, -(-264 // tiles)))
+# --- the weight reduction: per-edge rows (E, width) bf16 -> each product's
+# (pn, qn) and (qn,) f32 cotangents
 
 
-def _weight_grad(lib, pairs, pn, qn, e_pad, dev, stream):
-    """(P, Q) f32 = sum over edges of a^T b for the given (a, b, lda, ldb)
-    pairs (one or two), on the tensor cores in edge splits summed here once."""
-    splits = _splits(-(-pn // 64) * -(-qn // 64), e_pad)
-    part = torch.empty((splits, pn, qn), dtype=torch.float32, device=dev)
-    (a1, b1, lda, ldb), *rest = pairs
-    a2, b2 = (rest[0][0], rest[0][1]) if rest else (None, None)
-    err = lib.tn_wgrad(_ptr(a1), _ptr(b1), _ptr(a2), _ptr(b2), lda, ldb, e_pad, pn, qn, splits,
-                       _ptr(part), stream)
-    _raise_on(lib, err, "tn_wgrad launch")
-    return part.sum(dim=0)
+def _rbfp(rbf):
+    return -(-rbf // 16) * 16
 
 
-def _bias_grad(lib, b, ldb, e, qn, dev, stream):
-    splits = max(1, min(e, 64))
-    part = torch.empty((splits, qn), dtype=torch.float32, device=dev)
-    err = lib.tn_colsum(_ptr(b), ldb, e, qn, splits, _ptr(part), stream)
-    _raise_on(lib, err, "tn_colsum launch")
-    return part.sum(dim=0)
+def _bwd_jobs(h, rbfp):
+    """The backward's rows [ea | t1 | d_p1 | t2 | d_p2 | d_p3]: (a_off, pn,
+    b_off, qn) of dW1 = ea^T d_p1, dW2 = t1^T d_p2, dW3 = t2^T d_p3 (and the
+    biases, the column sums of the d_p)."""
+    return [(0, rbfp, rbfp + h, h), (rbfp, h, rbfp + 4 * h, 2 * h), (rbfp + 2 * h, 2 * h, rbfp + 6 * h, 3 * h)]
 
 
-def _save_buffer(e, width, dev):
-    """(E_pad, width) bf16 per-edge rows, E_pad = E rounded up to 16, the
-    padding rows zero."""
-    e_pad = -(-e // 16) * 16
-    save = torch.empty((e_pad, width), dtype=torch.bfloat16, device=dev)
-    save[e:].zero_()
-    return save, e_pad
+def _bwd2_jobs(h, rbfp):
+    """The second order's rows [ea | z_ea | t1 | t1' | p1_bar | p1'_bar | t2 |
+    t2' | p2_bar | p2'_bar | p3_bar | p3'_bar]: per product (a_off, pn,
+    b_off, qn) of the value pair and of the tangent pair (the biases: the
+    column sums of the value pair's B)."""
+    o = 2 * rbfp
+    return [((0, rbfp, o + 2 * h, h), (rbfp, rbfp, o + 3 * h, h)),
+            ((o, h, o + 8 * h, 2 * h), (o + h, h, o + 10 * h, 2 * h)),
+            ((o + 4 * h, 2 * h, o + 12 * h, 3 * h), (o + 6 * h, 2 * h, o + 15 * h, 3 * h))]
 
 
-def _cols(save, start, width):
-    """A column block of the per-edge rows (a view; the kernels take its
-    pointer with the full row stride)."""
-    return save[:, start:start + width]
+# streaming multiprocessors the reduction's splits are planned for on the
+# CPU, where the plain version runs (an H100's count)
+_PLAN_SMS = 132
 
 
-def run_bwd(idx, cat, ea, cutm, w1, b1, w2, b2, w3, b3, ct, *, act, want_weight_grads: bool):
-    """Launch the backward kernel (and, when the weight cotangents are
-    wanted, their reductions over the edges).
+def _pairs(job):
+    """A product's (a_off, pn, b_off, qn) pairs: one, or the second order's two."""
+    return job if isinstance(job[0], tuple) else (job,)
 
-    Returns (d_cat, d_ea, d_cutm, dw1, db1, dw2, db2, dw3, db3) in the
-    operands' dtypes; the weight cotangents are None unless
-    ``want_weight_grads``."""
+
+def _per_split(ne, jobs, sms):
+    """Edges a split of the reduction (``dw_per_split``) over all the
+    products' blocks."""
+    return dw_per_split(ne, sum(-(-pn // 64) * -(-qn // 128) for (_, pn, _, qn), *_ in map(_pairs, jobs)), sms)
+
+
+def weight_grads_reference(rows, jobs, per_split):
+    """Plain version of the reduction (``et_dw_kernel``): for each product
+    (a pair of column blocks (a_off, pn, b_off, qn) of ``rows``, or two
+    pairs), (dw (pn, qn), db (qn,)) = the sums over the edge splits of
+    ``per_split`` rows (the last one ragged) of A^T B (+ A2^T B2) and of B's
+    column sums (the first pair's), in the accumulation dtype."""
+    acc = _wide(rows[:1]).dtype
+    out = []
+    for job in jobs:
+        pairs = _pairs(job)
+        dw = db = 0
+        for s0 in range(0, rows.shape[0], per_split):
+            part = rows[s0:s0 + per_split].to(acc)
+            for i, (ao, pn, bo, qn) in enumerate(pairs):
+                b = part[:, bo:bo + qn]
+                dw = dw + part[:, ao:ao + pn].t() @ b
+                if i == 0:
+                    db = db + b.sum(dim=0)
+        out.append((dw, db))
+    return out
+
+
+def weight_grads(rows, jobs):
+    """The weight cotangents from the per-edge rows ``rows`` (E, width) of
+    the backward (``_bwd_jobs``) or the second order (``_bwd2_jobs``): per
+    product (dw (pn, qn), db (qn,)) f32.  CUDA tensors run ET's
+    ``et_dw_kernel`` (fixed edge splits, their partials summed here once);
+    CPU tensors the plain version, split as the kernel would be on an H100."""
+    ne, width = rows.shape
+    if rows.device.type == "cpu":
+        return weight_grads_reference(rows, jobs, _per_split(ne, jobs, _PLAN_SMS))
+    _check(rows, "per-edge rows", torch.bfloat16, (ne, width), rows.device)
+    npairs = len(_pairs(jobs[0]))
+    second = npairs == 2
+    products, shapes, at = [], [], 0
+    for job in jobs:
+        (ao, pn, bo, qn), (ao2, _, bo2, _) = _pairs(job)[0], _pairs(job)[-1]
+        products.append((rows[:, ao:ao + pn], rows[:, bo:bo + qn], rows[:, ao2:ao2 + pn] if second else None,
+                         rows[:, bo2:bo2 + qn] if second else None, pn, at, at + pn * qn))
+        shapes.append((at, pn, qn))
+        at += pn * qn + qn
+    sms = torch.cuda.get_device_properties(rows.device).multi_processor_count
+    part = dw_partials(products, npairs, _per_split(ne, jobs, sms), at)
+    weight_grads.launches += 1
+    total = part.sum(dim=0)
+    return [(total[o:o + pn * qn].reshape(pn, qn), total[o + pn * qn:o + pn * qn + qn]) for o, pn, qn in shapes]
+
+
+weight_grads.launches = 0
+
+
+def bwd_reference(idx, cat, ea, cutm, w1, b1, w2, b2, w3, b3, ct, *, act, want_rows):
+    """Plain version of ``tn_bwd_kernel``, in its arithmetic (rounding points
+    and f32 sums; none of the roundings in f64): (d_cat (N, 9H), d_ea (N, K,
+    RBF), d_cutm (N, K) in the accumulation dtype, and with ``want_rows``
+    the per-edge rows (E, RBFP + 9H) [ea | t1 | d_p1 | t2 | d_p2 | d_p3] the
+    weight reduction reads, else None).  d_cat is the gather form: it needs
+    a symmetric list with ea and cutm functions of the distance."""
+    n, kk = idx.shape
+    h = cat.shape[1] // 9
+    rbf = ea.shape[-1]
+    bf = cat.dtype
+    acc = _wide(cat[:1]).dtype
+    e = n * kk
+    ea2 = ea.reshape(e, rbf)
+
+    def layer(x, w, b):
+        pre = torch.matmul(x.to(acc), w.to(acc)).to(bf) + b.reshape(-1)
+        return pre, _act_v(act, pre)
+
+    p1, t1 = layer(ea2, w1, b1)
+    p2, t2 = layer(t1, w2, b2)
+    p3, t3 = layer(t2, w3, b3)
+    cmb = cutm.reshape(e, 1).to(bf)
+    wb = (t3 * cmb).reshape(n, kk, 3, h)
+    comp = [0, 1, 1, 1, 2, 2, 2, 2, 2]
+    ctb = ct.to(bf).reshape(n, 9, h)
+    lidx = idx.long()
+    # d_cat[i] = sum_k bf16(ct[idx[i, k]] * w[i, k]), the thirds on their components
+    dcat = (ctb[lidx] * wb[:, :, comp]).to(acc).sum(dim=1).reshape(n, 9 * h)
+    # d_w[third] = bf16(sum over its components of bf16(ct[i] * cat[j]))
+    cat_j = cat.reshape(n, 9, h)[lidx]  # (N, K, 9, H)
+    prod = (ctb[:, None] * cat_j).to(acc)
+    dw = torch.stack([prod[:, :, 0], prod[:, :, 1:4].sum(2), prod[:, :, 4:].sum(2)], dim=2).to(bf)
+    dw = dw.reshape(e, 3 * h)
+    dcutm = (dw * t3).to(acc).sum(dim=1).reshape(n, kk)
+    dp3 = _dact(act, p3.to(acc)).to(bf) * (dw * cmb)
+
+    def back(d, w, pre):
+        return _dact(act, pre.to(acc)).to(bf) * torch.matmul(d.to(acc), w.to(acc).t()).to(bf)
+
+    dp2 = back(dp3, w3, p2)
+    dp1 = back(dp2, w2, p1)
+    dea = torch.matmul(dp1.to(acc), w1.to(acc).t()).to(bf).reshape(n, kk, rbf)
+    rows = None
+    if want_rows:
+        pad = torch.zeros((e, _rbfp(rbf) - rbf), dtype=bf)
+        rows = torch.cat([ea2, pad, t1, dp1, t2, dp2, dp3], dim=1)
+    return dcat, dea, dcutm, rows
+
+
+def bwd_rows(idx, cat, ea, cutm, w1, b1, w2, b2, w3, b3, ct, *, act, want_rows: bool):
+    """The backward's edge kernel, ``tn_bwd_kernel`` (counted in
+    ``run_bwd.launches``); CPU tensors take its plain twin
+    (``bwd_reference``).  Returns (d_cat (N, 9H) bf16, d_ea (N, K, RBF)
+    bf16, d_cutm (N, K) f32, and with ``want_rows`` the per-edge rows (E,
+    RBFP + 9H) bf16 the weight reduction reads, else None)."""
+    if cat.device.type == "cpu":
+        dcat, dea, dcutm, rows = bwd_reference(idx, cat, ea, cutm, w1, b1, w2, b2, w3, b3, ct, act=act,
+                                               want_rows=want_rows)
+        return dcat, dea, dcutm.to(cutm.dtype), rows
     lib = _lib()
     (n, kk, h, rbf), ops = _prepare(idx, cat, ea, cutm, w1, b1, w2, b2, w3, b3)
     dev = cat.device
     f32 = torch.float32
     _check(ct, "ct", f32, (n, 9 * h), dev)
-    rbfp = -(-rbf // 16) * 16
-    e = n * kk
     dcat = torch.empty((n, 9 * h), dtype=torch.bfloat16, device=dev)
     dea = torch.empty((n, kk, rbf), dtype=torch.bfloat16, device=dev)
     dcutm = torch.empty((n, kk), dtype=f32, device=dev)
-    wgrads = (None,) * 6
+    rows = None
+    if want_rows:
+        rows = torch.empty((n * kk, _rbfp(rbf) + 9 * h), dtype=torch.bfloat16, device=dev)
     with torch.cuda.device(dev):
-        stream = _stream(dev)
-        save = None
-        if want_weight_grads:
-            width = rbfp + 9 * h
-            save, e_pad = _save_buffer(e, width, dev)
         err = lib.tn_bwd(_ptr(idx), n, kk, h, rbf, *[_ptr(t) for t in ops], _ACT_CODE[act], _ptr(ct),
-                         _ptr(dcat), _ptr(dea), _ptr(dcutm), _ptr(save), stream)
-        _raise_on(lib, err, "tn_bwd launch")
-        if want_weight_grads:
-            # rows [ea | t1 | d_p1 | t2 | d_p2 | d_p3]
-            o_t1, o_p1, o_t2, o_p2, o_p3 = rbfp, rbfp + h, rbfp + 2 * h, rbfp + 4 * h, rbfp + 6 * h
-            c = lambda o, w: _cols(save, o, w)
-            g = lambda a, wa, b, wb, pn, qn: _weight_grad(
-                lib, [(c(a, wa), c(b, wb), width, width)], pn, qn, e_pad, dev, stream)
-            dw1 = g(0, rbfp, o_p1, h, rbfp, h)[:rbf]
-            dw2 = g(o_t1, h, o_p2, 2 * h, h, 2 * h)
-            dw3 = g(o_t2, 2 * h, o_p3, 3 * h, 2 * h, 3 * h)
-            db = [_bias_grad(lib, c(o, w), width, e, w, dev, stream)
-                  for o, w in ((o_p1, h), (o_p2, 2 * h), (o_p3, 3 * h))]
-            wgrads = (dw1.to(w1.dtype), db[0].reshape(b1.shape).to(b1.dtype),
-                      dw2.to(w2.dtype), db[1].reshape(b2.shape).to(b2.dtype),
-                      dw3.to(w3.dtype), db[2].reshape(b3.shape).to(b3.dtype))
+                         _ptr(dcat), _ptr(dea), _ptr(dcutm), _ptr(rows), _stream(dev))
+    _raise_on(lib, err, "tn_bwd launch")
     run_bwd.launches += 1
-    return (dcat.to(cat.dtype), dea, dcutm) + wgrads
+    return dcat, dea, dcutm, rows
+
+
+def run_bwd(idx, cat, ea, cutm, w1, b1, w2, b2, w3, b3, ct, *, act, want_weight_grads: bool):
+    """The backward: ``tn_bwd_kernel`` (``bwd_rows``) and, when the weight
+    cotangents are wanted, the reduction of its per-edge rows
+    (``weight_grads``).  CPU tensors take the plain versions.
+
+    Returns (d_cat, d_ea, d_cutm, dw1, db1, dw2, db2, dw3, db3) in the
+    operands' dtypes; the weight cotangents are None unless
+    ``want_weight_grads``."""
+    rbf = ea.shape[-1]
+    h = cat.shape[1] // 9
+    dcat, dea, dcutm, rows = bwd_rows(idx, cat, ea, cutm, w1, b1, w2, b2, w3, b3, ct, act=act,
+                                      want_rows=want_weight_grads)
+    wgrads = (None,) * 6
+    if want_weight_grads:
+        (dw1, db1), (dw2, db2), (dw3, db3) = weight_grads(rows, _bwd_jobs(h, _rbfp(rbf)))
+        wgrads = (dw1[:rbf].to(w1.dtype), db1.reshape(b1.shape).to(b1.dtype),
+                  dw2.to(w2.dtype), db2.reshape(b2.shape).to(b2.dtype),
+                  dw3.to(w3.dtype), db3.reshape(b3.shape).to(b3.dtype))
+    return (dcat.to(cat.dtype), dea.to(ea.dtype), dcutm) + wgrads
 
 
 run_bwd.launches = 0
 
 
-def run_bwd2(idx, perm, inputs, ct, Z, *, act):
-    """Launch the second-order kernel, the source-row sum of its g_cat, and
-    the reductions of its weight gradients.
+def bwd2_rows(idx, perm, inputs, ct, Z, *, act):
+    """Launch the second-order kernel and the source-row sum of its g_cat
+    (counted once in ``run_bwd2.launches``).
 
     ``inputs`` are the nine operands, ``ct`` (N, 9H), ``Z`` the nine
-    cotangents on ``run_bwd``'s outputs (None means zero).  Returns
-    (g_inputs (9, in the inputs' dtypes), g_ct (N, 9H) f32)."""
+    cotangents on ``run_bwd``'s outputs (None means zero).  Returns (g_cat
+    (N, 9H) bf16, g_ea (N, K, RBF) bf16, g_cutm (N, K) f32, g_ct (N, 9H)
+    f32, the per-edge rows (E, 2 RBFP + 18H) bf16 of the weight
+    reduction)."""
     lib = _lib()
     cat, ea, cutm, w1, b1, w2, b2, w3, b3 = inputs
     (n, kk, h, rbf), ops = _prepare(idx, *inputs)
@@ -270,7 +383,7 @@ def run_bwd2(idx, perm, inputs, ct, Z, *, act):
     ct = ct.to(f32).contiguous()
     _check(ct, "ct", f32, (n, 9 * h), dev)
     _check(perm, "perm", torch.int32, (n * kk,), dev)
-    rbfp = -(-rbf // 16) * 16
+    rbfp = _rbfp(rbf)
 
     def z(i, like, dtype):
         t = Z[i]
@@ -286,39 +399,31 @@ def run_bwd2(idx, perm, inputs, ct, Z, *, act):
     gct = torch.empty((n, 9 * h), dtype=f32, device=dev)
     wdot = torch.empty((e, 3 * h), dtype=f32, device=dev)
     gcat = torch.empty((n, 9 * h), dtype=bf, device=dev)
-    width = 2 * rbfp + 18 * h
+    rows = torch.empty((e, 2 * rbfp + 18 * h), dtype=bf, device=dev)
     with torch.cuda.device(dev):
         stream = _stream(dev)
-        save, e_pad = _save_buffer(e, width, dev)
         err = lib.tn_bwd2(_ptr(idx), n, kk, h, rbf, *[_ptr(t) for t in ops], _ACT_CODE[act], _ptr(ct),
                           *[_ptr(t) for t in zs], _ptr(gea), _ptr(gcutm), _ptr(gct), _ptr(wdot),
-                          _ptr(save), stream)
+                          _ptr(rows), stream)
         _raise_on(lib, err, "tn_bwd2 launch")
         err = lib.tn_src_sum(_ptr(perm), n, kk, h, _ptr(ct), _ptr(wdot), _ptr(gcat), stream)
         _raise_on(lib, err, "tn_src_sum launch")
-        # rows [ea | z_ea | t1 | t1' | p1_bar | p1'_bar | t2 | t2' | p2_bar | p2'_bar | p3_bar | p3'_bar]
-        o = {}
-        at = 0
-        for name, w in (("ea", rbfp), ("zea", rbfp), ("t1", h), ("td1", h), ("p1", h), ("pd1", h),
-                        ("t2", 2 * h), ("td2", 2 * h), ("p2", 2 * h), ("pd2", 2 * h),
-                        ("p3", 3 * h), ("pd3", 3 * h)):
-            o[name] = (_cols(save, at, w), w)
-            at += w
-
-        def g(a, b, ad, bd):
-            (ca, wa), (cb, wb) = o[a], o[b]
-            return _weight_grad(lib, [(ca, cb, width, width), (o[ad][0], o[bd][0], width, width)],
-                                wa, wb, e_pad, dev, stream)
-
-        gw1 = g("ea", "p1", "zea", "pd1")[:rbf]
-        gw2 = g("t1", "p2", "td1", "pd2")
-        gw3 = g("t2", "p3", "td2", "pd3")
-        gb = [_bias_grad(lib, o[nm][0], width, e, o[nm][1], dev, stream) for nm in ("p1", "p2", "p3")]
     run_bwd2.launches += 1
+    return gcat, gea, gcutm, gct, rows
+
+
+def run_bwd2(idx, perm, inputs, ct, Z, *, act):
+    """The second order: ``bwd2_rows`` and the reduction of its weight
+    gradients (``weight_grads``).  Returns (g_inputs (9, in the inputs'
+    dtypes), g_ct (N, 9H) f32)."""
+    cat, ea, cutm, w1, b1, w2, b2, w3, b3 = inputs
+    rbf, h = ea.shape[-1], cat.shape[1] // 9
+    gcat, gea, gcutm, gct, rows = bwd2_rows(idx, perm, inputs, ct, Z, act=act)
+    (gw1, gb1), (gw2, gb2), (gw3, gb3) = weight_grads(rows, _bwd2_jobs(h, _rbfp(rbf)))
     g_inputs = (gcat.to(cat.dtype), gea.to(ea.dtype), gcutm,
-                gw1.to(w1.dtype), gb[0].reshape(b1.shape).to(b1.dtype),
-                gw2.to(w2.dtype), gb[1].reshape(b2.shape).to(b2.dtype),
-                gw3.to(w3.dtype), gb[2].reshape(b3.shape).to(b3.dtype))
+                gw1[:rbf].to(w1.dtype), gb1.reshape(b1.shape).to(b1.dtype),
+                gw2.to(w2.dtype), gb2.reshape(b2.shape).to(b2.dtype),
+                gw3.to(w3.dtype), gb3.reshape(b3.shape).to(b3.dtype))
     return g_inputs, gct
 
 
@@ -329,6 +434,18 @@ def reset_launch_counts():
     run_fwd.launches = 0
     run_bwd.launches = 0
     run_bwd2.launches = 0
+    weight_grads.launches = 0
+
+
+def kernel_resources(n, kk, h, rbf):
+    """``tn_bwd_kernel``'s resources at a shape, from the CUDA runtime:
+    {registers, spill_bytes (local memory a thread), threads, smem (dynamic
+    shared memory a block), blocks_per_sm (resident)}.  Needs a CUDA device;
+    the weight reduction's are ET's (``et_message.kernel_resources``)."""
+    lib = _lib()
+    out = (ctypes.c_int * 5)()
+    _raise_on(lib, lib.tn_resources(n, kk, h, rbf, out), "tn_resources")
+    return dict(zip(("registers", "spill_bytes", "threads", "smem", "blocks_per_sm"), out))
 
 
 def _wide(t):

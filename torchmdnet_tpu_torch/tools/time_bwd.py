@@ -1,8 +1,8 @@
-"""Time the fused ET backward (#2) with and without weight cotangents and
-its second order (#3), and the Transformer's (#12, #13), for the port in a
-given checkout.
+"""Time the fused ET forward (#1), backward (#2) with and without weight
+cotangents and second order (#3), the Transformer's (#11-#13) and
+TensorNet's (#8-#10), for the port in a given checkout.
 
-    python3 torchmdnet_tpu_torch/tools/time_bwd.py [--tree DIR] [--label NAME] [--dump DIR]
+    python3 torchmdnet_tpu_torch/tools/time_bwd.py [--tree DIR] [--label NAME] [--dump DIR] [--shapes A,B]
     python3 torchmdnet_tpu_torch/tools/time_bwd.py --compare DIR LABEL_A LABEL_B
 
 ``--tree`` names the root of a checkout whose ``torchmdnet_tpu_torch`` is
@@ -13,17 +13,28 @@ operands are chip_smoke.py's (the chip_smoke.py beside this package): the
 DHFR shapes (N = 2496, K = 81, H = 128, RBF = 50) and the training shapes
 (N = 2304, K = 33, H = 256, RBF = 64, a batch of 128 SyntheticMorse
 molecules, drawn with this checkout's package, so that a tree without the
-datasets is timed on the same batch), and #2 without weight cotangents at
-ET MD's STMV skin list (N = 30,336, K = 112, H = 128, RBF = 50).  The
-Transformer's operands are chip_smoke.py's too (``_t_kernel_inputs``): #12
-with and without weight cotangents at DHFR (K = 81, H = 128, RBF = 50), #12
-with weight cotangents and #13 at the training shapes.  Prints the
-card's name and power limit, then one JSON line of CUDA-event medians of 20
-launches (5 at STMV) with the L2 flushed.  ``--dump DIR`` also saves one
+datasets is timed on the same batch), and #1 and #2 without weight
+cotangents at ET MD's STMV skin list (N = 30,336, K = 112, H = 128, RBF =
+50).  The Transformer's operands are chip_smoke.py's too
+(``_t_kernel_inputs``): #12 with and without weight cotangents at DHFR (K =
+81, H = 128, RBF = 50), #12 with weight cotangents and #13 at the training
+shapes.  TensorNet's (``_tn_system``, ``_tn_kernel_inputs``): #8 and #9
+without weight cotangents at DHFR (N = 2496, K = 65, H = 128, RBF = 32);
+#9 without and with them (the edge kernel, then with its weight
+reduction), the reduction alone where the tree has one
+(``bwd_rows``, the edge kernel apart from it), and #10 at the
+TensorNet-ANI1X training shapes (64 molecules of 18 atoms, K = 33).  ``md_stmv``
+is chip_smoke.py's ET MD at STMV size in bench.py's configuration
+(``MD_ARGS``) through the tree's ``Simulation``: after its warm-up, three
+windows of ``MD_TIMED_STEPS`` steps, each a mean ms/step on the host clock
+with the card synchronised.  Prints the card's name and power limit, then one
+JSON line of CUDA-event medians of 20 launches (5 at STMV) with the L2
+flushed.  ``--dump DIR`` also saves one
 call's outputs per shape and kernel (the forwards #1 and #11 too) to
 DIR/LABEL.pt; ``--compare DIR A B``
 then prints, per output, whether two labels' outputs are bitwise equal and
-their largest difference over the largest value.  Needs a CUDA device
+their largest difference over the largest value.  ``--shapes`` times only
+the named shapes (dhfr, train, stmv, t_dhfr, t_train, tn_dhfr, tn_train, md_stmv).  Needs a CUDA device
 (``--compare`` does not).
 """
 
@@ -52,6 +63,7 @@ def main(argv=None) -> int:
     ap.add_argument("--label", default=None, help="name printed with the result")
     ap.add_argument("--dump", default=None, help="directory for one call's outputs per shape")
     ap.add_argument("--compare", nargs=3, metavar=("DIR", "A", "B"), help="compare two dumps")
+    ap.add_argument("--shapes", default=None, help="comma-separated shapes to time (default: all)")
     args = ap.parse_args(argv)
     if args.compare:
         return compare(*args.compare)
@@ -63,6 +75,8 @@ def main(argv=None) -> int:
     sys.path[:] = [ROOT] + rest
     train_ds = cs._train_dataset()
     train_mols = [train_ds[i] for i in range(cs.TRAIN_BATCH)]
+    tn_ds = cs._train_dataset(cs.TN_TRAIN_SPLIT)
+    tn_mols = [tn_ds[i] for i in range(cs.TN_TRAIN_BATCH)]
     for name in [m for m in sys.modules if m.split(".")[0] == "torchmdnet_tpu_torch"]:
         del sys.modules[name]
     sys.path[:] = [tree] + rest
@@ -93,13 +107,24 @@ def main(argv=None) -> int:
         "t_train": dict(n_atoms=None, k=cs.T_TRAIN_ARGS["max_num_neighbors"], h=a["embedding_dimension"],
                         heads=a["num_heads"], rbf=a["num_rbf"], cutoff=a["cutoff_upper"],
                         batch=cs._train_batch(train_mols, "cuda")),
+        "tn_dhfr": dict(system="DHFR"),
+        "tn_train": dict(system=cs._train_batch(tn_mols, "cuda", cs.TN_TRAIN_BATCH,
+                                                cs.TN_TRAIN_ARGS["cutoff_upper"])),
+        "md_stmv": {},
     }
     label = args.label or tree
     result = dict(label=label, tree=tree)
     dumped = {}
+    only = set(args.shapes.split(",")) if args.shapes else set(shapes)
     for name, s in shapes.items():
-        if name.startswith("t_"):
-            row, calls = _time_t(cs, name, s, flush)
+        if name not in only:
+            continue
+        if name == "md_stmv":
+            result[name] = _time_md(cs)
+            torch.cuda.empty_cache()
+            continue
+        if name.startswith("t_") or name.startswith("tn_"):
+            row, calls = (_time_t if name.startswith("t_") else _time_tn)(cs, name, s, flush)
             result[name] = row
             if args.dump:
                 for k, fn in calls.items():
@@ -126,8 +151,8 @@ def main(argv=None) -> int:
             return lambda: em.run_bwd2(nbl.idx, nbl.transpose_perm, [ins[x] for x in cs.ORDER], cts, z, **kw)
 
         if name == "stmv":  # MD freezes the weights: no weight cotangents, no second order
-            calls = dict(bwd=bwd(False))
-            row = dict(bwd_ms=cs._event_ms(calls["bwd"], flush=flush, reps=5))
+            calls = dict(fwd=lambda: em.run_fwd(nbl.idx, *ops, dirs, *w, **kw), bwd=bwd(False))
+            row = {f"{k}_ms": cs._event_ms(fn, flush=flush, reps=5) for k, fn in calls.items()}
         else:
             calls = dict(fwd=lambda: em.run_fwd(nbl.idx, *ops, dirs, *w, **kw), bwd=bwd(False),
                          bwd_weights=bwd(True))
@@ -169,6 +194,57 @@ def _time_t(cs, name, s, flush):
         z = cs._t_z_like(ins, cs.SEED)
         calls.update(bwd_weights=bwd(True), bwd2=lambda: tmk.run_bwd2(idx, perm, args, ct, z, **kw))
     return {f"{k}_ms": cs._event_ms(fn, flush=flush) for k, fn in calls.items()}, calls
+
+
+def _time_tn(cs, name, s, flush):
+    """TensorNet's #8 and #9 (frozen weights) at DHFR; #9 without and with
+    weight cotangents, its reduction alone (where the tree has
+    ``bwd_rows``) and #10 at the training shapes: ({kernel_ms:
+    median}, the calls)."""
+    from torchmdnet_tpu_torch.ops.kernels import tn_message as tm
+
+    h, rbf = cs.TN_ARGS["embedding_dimension"], cs.TN_ARGS["num_rbf"]
+    nbl, pos, box = cs._tn_system(s["system"], cs.SEED)
+    ins, ct = cs._tn_kernel_inputs(nbl, pos, h, rbf, cs.TN_ARGS["cutoff_upper"], cs.SEED, box=box)
+    args = [ins[x] for x in cs.TN_ORDER]
+    idx, perm = nbl.idx, nbl.transpose_perm
+
+    def bwd(want):
+        return lambda: tm.run_bwd(idx, *args, ct, act="silu", want_weight_grads=want)
+
+    if name == "tn_dhfr":
+        calls = dict(fwd=lambda: tm.run_fwd(idx, *args, act="silu"), bwd=bwd(False))
+        return {f"{k}_ms": cs._event_ms(fn, flush=flush) for k, fn in calls.items()}, calls
+    z = cs._tn_z_like(ins, cs.SEED)
+    calls = dict(bwd=bwd(False), bwd_weights=bwd(True), bwd2=lambda: tm.run_bwd2(idx, perm, args, ct, z, act="silu"))
+    row = {f"{k}_ms": cs._event_ms(fn, flush=flush) for k, fn in calls.items()}
+    if hasattr(tm, "bwd_rows"):  # the reduction alone, on the rows of one backward
+        row["bwd_reduction_ms"] = cs._tn_pass_split(idx, args, ct, flush)["reduction (et_dw_kernel)"]
+    return row, calls
+
+
+def _time_md(cs, windows=3):
+    """ET MD at STMV size (chip_smoke.py's md_stmv configuration): ms/step
+    of each timed window and their median."""
+    import statistics
+    import time
+
+    from torchmdnet_tpu_torch import Simulation, create_model
+
+    sim = Simulation(create_model(cs.ET_ARGS, seed=cs.SEED), cs._stmv_batch(), seed=cs.SEED, **cs.MD_ARGS)
+    sim.set_velocities_from_temperature(300.0)
+    every = cs.MD_ARGS["rebuild_every"]
+    for _ in range(cs.MD_WARMUP_STEPS // every):
+        sim.step(every)
+    ms = []
+    for _ in range(windows):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(cs.MD_TIMED_STEPS // every):
+            sim.step(every)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0) / cs.MD_TIMED_STEPS)
+    return {"ms_per_step": ms, "median_ms_per_step": statistics.median(ms)}
 
 
 def _flat_cpu(out):
