@@ -16,8 +16,8 @@ benchmark's ET (8 x 256) through the training CLI
 (``torchmdnet_tpu_torch.scripts.train.main``), whose second-order pass runs
 the second-order kernel. The same for TensorNet: its three message-phase
 kernels against their plain versions (a periodic box, DHFR and training
-shapes), energy and forces at DHFR size through ``External.calculate``
-(bench.py's TensorNet 2 x 128), and force-loss training of
+shapes, and the widths 64 and 96), energy and forces at DHFR size through
+``External.calculate`` (bench.py's TensorNet 2 x 128), and force-loss training of
 examples/TensorNet-ANI1X.yaml through the CLI, and a DHFR check at weights
 where TensorNet's message phase carries at least 10 % of the energy. The
 same for the graph network: the ELL gather and its transpose-sum (kernels #4
@@ -486,29 +486,36 @@ def log_et_resources():
 
 def log_tn_resources():
     """The TensorNet backward's kernel at the DHFR and training shapes (K =
-    65 and 33, H = 128, RBF = 32); its weight reduction is ET's et_dw_kernel,
-    whose resources do not depend on the shape (log_et_resources)."""
+    65 and 33, H = 128, RBF = 32) and the second order's at the training
+    shapes, at 64 RBFs and at the narrow checks' widths; the weight
+    reduction is ET's et_dw_kernel, whose resources do not depend on the
+    shape (log_et_resources)."""
     from torchmdnet_tpu_torch.ops.kernels import tn_message as tm
 
     h, rbf = TN_ARGS["embedding_dimension"], TN_ARGS["num_rbf"]
-    shapes = (("DHFR", (2496, TN_ARGS["max_num_neighbors"] + 1)),
-              ("training", (TN_TRAIN_BATCH * TRAIN_MOL["num_atoms"], TN_TRAIN_ARGS["max_num_neighbors"] + 1)))
+    train = (TN_TRAIN_BATCH * TRAIN_MOL["num_atoms"], TN_TRAIN_ARGS["max_num_neighbors"] + 1)
+    shapes = ((1, "DHFR", (2496, TN_ARGS["max_num_neighbors"] + 1), h, rbf), (1, "training", train, h, rbf),
+              (2, "training", train, h, rbf), (2, "training", train, h, TN_WIDE_RBF))
+    shapes += tuple((2, "training", train, w, rbf) for w in TN_NARROW_WIDTHS)
     parts = []
-    for label, (n, k) in shapes:
-        r = tm.kernel_resources(n, k, h, rbf)
-        parts.append(f"tn_bwd_kernel at {label} N={n} K={k} H={h}: {r['registers']} registers, {r['spill_bytes']} B "
-                     f"spilled, {r['threads']} threads, {r['smem']} B shared, {r['blocks_per_sm']} blocks/SM "
+    for kind, label, (n, k), w, nr in shapes:
+        r = tm.kernel_resources(n, k, w, nr, kind=kind)
+        parts.append(f"{('tn_bwd_kernel', 'tn_bwd2_kernel')[kind - 1]} at {label} N={n} K={k} H={w} RBF={nr}: "
+                     f"{r['registers']} registers, {r['spill_bytes']} B spilled, {r['threads']} threads, "
+                     f"{r['smem']} B shared, {r['blocks_per_sm']} blocks/SM "
                      f"({r['blocks_per_sm'] * r['threads'] // 32} warps)")
-    log("TensorNet backward kernel resources: " + "; ".join(parts))
+    log("TensorNet backward and second-order kernel resources: " + "; ".join(parts))
 
 
 def log_t_resources():
-    """The Transformer backward's and second order's passes' resources at
-    the DHFR and training shapes (the weight reduction is ET's et_dw_kernel)."""
+    """The Transformer forward's, backward's and second order's passes'
+    resources at the DHFR and training shapes (the weight reduction is ET's
+    et_dw_kernel)."""
     from torchmdnet_tpu_torch.ops.kernels import t_message as tmk
 
-    names = {1: "t_bwd_kernel", 2: "t_bwd2_kernel", 3: "t_bwd_src_kernel", 4: "t_bwd2_src_kernel"}
-    log("Transformer backward kernel resources: " + "; ".join(
+    names = {5: "t_fwd_kernel", 1: "t_bwd_kernel", 2: "t_bwd2_kernel", 3: "t_bwd_src_kernel",
+             4: "t_bwd2_src_kernel"}
+    log("Transformer kernel resources: " + "; ".join(
         _resource_parts(tmk, names, _resource_shapes(T_TRAIN_ARGS))))
 
 
@@ -1527,6 +1534,11 @@ TN_ORDER = ["cat", "ea", "cutm", "w1", "b1", "w2", "b2", "w3", "b3"]
 TN_FWD_TOL = 5e-3
 # a periodic cube of random atoms at about water's number density (0.1 / A^3)
 TN_BOX_ATOMS = 512
+# the narrow checks: widths below TN_ARGS's 128 that the kernels take, on a
+# training batch of this many molecules (K = 33)
+TN_NARROW_WIDTHS = (64, 96)
+TN_NARROW_MOLECULES = 16
+TN_WIDE_RBF = 64
 
 
 def _tn_kernel_inputs(nbl, pos, h, rbf, cutoff, seed, box=None):
@@ -1600,17 +1612,17 @@ def _tn_z_like(ins, seed):
     return [(torch.randn(ins[n].shape, generator=g) * 0.5).to("cuda", ins[n].dtype) for n in TN_ORDER]
 
 
-def check_tn_kernels(label, kind, seed):
-    """#8, #9 and #10 against their plain versions: the forward output, all
-    nine input cotangents through autograd (the weight cotangents from the
-    edge reductions), the backward without weight cotangents (serving's),
-    and the second order's nine + 1 gradients; a third derivative must
-    raise.  Returns the max abs errors (fwd, bwd, bwd2)."""
+def check_tn_kernels(label, kind, seed, h=TN_ARGS["embedding_dimension"], rbf=TN_ARGS["num_rbf"]):
+    """#8, #9 and #10 against their plain versions at width ``h`` and ``rbf``
+    RBFs: the forward output, all nine input cotangents through autograd
+    (the weight cotangents from the edge reductions), the backward without
+    weight cotangents (serving's), and the second order's nine + 1
+    gradients; a third derivative must raise.  Returns the max abs errors
+    (fwd, bwd, bwd2)."""
     import torch
 
     from torchmdnet_tpu_torch.ops.kernels import tn_message as tm
 
-    h, rbf = TN_ARGS["embedding_dimension"], TN_ARGS["num_rbf"]
     nbl, pos, box = _tn_system(kind, seed)
     ins, ct = _tn_kernel_inputs(nbl, pos, h, rbf, TN_ARGS["cutoff_upper"], seed, box=box)
     idx, perm = nbl.idx, nbl.transpose_perm
@@ -1770,8 +1782,11 @@ def time_tn_kernels(train_batch):
             out[(where, k)] = (ms, plain) + _tn_bounds(n, kk, h, rbf, k) + ((n, kk),)
         if where == "training":
             split = _tn_pass_split(idx, args, ct, flush)
-            log(f"TensorNet passes at training (N={n} K={kk} H={h}; L2 flushed, median of 20): "
-                + "; ".join(f"{name} {ms:.4f} ms" for name, ms in split.items()))
+            split2 = _tn_bwd2_split(idx, perm, args, ct, z, flush)
+            log(f"TensorNet passes at training (N={n} K={kk} H={h}; L2 flushed; #9: CUDA events, median of 20: "
+                + "; ".join(f"{name} {ms:.4f} ms" for name, ms in split.items())
+                + "; #10, each kernel's device time in run_bwd2's calls (torch.profiler, mean of 20): "
+                + "; ".join(f"{name} {ms:.4f} ms" for name, ms in split2.items()) + ")")
     log("TensorNet kernel times (L2 flushed, median of 20; plain second order of 5): " + "; ".join(
         f"{k} at {where} N={v[4][0]} K={v[4][1]} {v[0]:.4f} ms (plain {v[1]:.4f} ms, bound {v[2]:.4f} ms by "
         f"{v[3]}, {100 * v[2] / v[0]:.1f}% of it reached)" for (where, k), v in out.items()))
@@ -1792,6 +1807,24 @@ def _tn_pass_split(idx, args, ct, flush):
     return {"edge kernel": _event_ms(bwd(False), flush=flush),
             "edge kernel + rows + reduction": _event_ms(bwd(True), flush=flush),
             "reduction (et_dw_kernel)": _event_ms(lambda: tm.weight_grads(rows, jobs), flush=flush)}
+
+
+TN_BWD2_KERNELS = ("tn_bwd2_kernel", "tn_src_sum_kernel", "et_dw_kernel")
+
+
+def _tn_bwd2_split(idx, perm, args, ct, z, flush, reps=20):
+    """#10 kernel by kernel: the device time a launch of each of run_bwd2's
+    kernels takes (the edge kernel, the source-row sum of g_cat, the weight
+    reduction), from torch.profiler over ``reps`` calls with the L2 flushed
+    before each: {name: ms}."""
+    from torchmdnet_tpu_torch.ops.kernels import tn_message as tm
+
+    def call():
+        flush.zero_()
+        tm.run_bwd2(idx, perm, args, ct, z, act="silu")
+
+    call()
+    return _profile(call, reps, TN_BWD2_KERNELS)[2]
 
 
 # --- The graph network: kernels #4/#5, serving, the fp32 forward, STMV MD, training ---
@@ -2678,6 +2711,14 @@ def main():
     check_tn_kernels("medium, periodic box", "box", seed=1)
     tn_fwd_abs, tn_bwd_abs, _ = check_tn_kernels("DHFR", "DHFR", seed=2)
     _, _, tn_bwd2_abs = check_tn_kernels("training", tn_batch, seed=4)
+    # the widths below 128 that the kernels take (their products split into
+    # H/8 items), and 64 RBFs at 128 (#10's g_ea product in RBFP/8 items,
+    # its tiles at 213 KB of shared memory), on 16 training molecules
+    narrow_batch = _train_batch(tn_ds, "cuda", TN_NARROW_MOLECULES, TN_TRAIN_ARGS["cutoff_upper"])
+    for h in TN_NARROW_WIDTHS:
+        check_tn_kernels("narrow", narrow_batch, seed=5, h=h)
+    check_tn_kernels("64 RBFs", narrow_batch, seed=6, rbf=TN_WIDE_RBF)
+    del narrow_batch
     for influence in ("keys", "values", "none"):
         check_t_kernels("medium", 512, 40, 64, 4, 32, 3.5, seed=1, influence=influence)
     # 2H = 192: the weight reduction's partial last block of 128 columns

@@ -35,18 +35,40 @@
 // the kernel is bound by operations, and in practice by the latency of its
 // row gathers and of the per-edge elementwise chain.
 //
-// The forward's design (as ET's forward):
-//   * no (N, K, F) tensor in device memory: a group of H threads owns one
-//     receiver row, one channel per thread, gathers k_j and v_j directly by
-//     index and keeps its f32 accumulator in a register; the next edge's
-//     source values load while the current edge computes;
-//   * the filter products run on the tensor cores (wmma bf16 16x16x16, f32
-//     accumulation) for KC = 16 edges at a time against the filter weights
-//     (2H x RBF bf16) in shared memory, loaded once per block and shared by
-//     its row groups; the next chunk's ea rows, ids and cutm are copied
-//     asynchronously into a second buffer while the current chunk computes;
-//   * the per-head sum is a warp butterfly over the head's lanes (H/heads a
-//     power of two <= 32), no ones-block product.
+// The forward (#11) takes the design of ET's forward (#1, et_message.cu's
+// header has the measurements behind each point).  What bounded its first
+// port on this card (0.42 ms at DHFR, 3 % of its bound) and what this design
+// does about each:
+//   * no (N, K, F) tensor in device memory, as before: a group of H threads
+//     owns receiver rows, one channel per thread, gathers k_j and v_j
+//     directly by index and keeps its f32 sum in a register; the per-head
+//     sum is a butterfly over the head's lanes of one warp (H/heads a power
+//     of two <= 32), no ones-block product;
+//   * chunks padded per row: a chunk was KC = 16 slots of one row, so K = 33
+//     (training) filled 48 chunk rows and K = 81 (DHFR) 96.  Now a group owns
+//     a contiguous range of rows and cuts its flattened slots into chunks of
+//     16 that run across rows; each row's sum stays sequential in one
+//     thread, in slot order;
+//   * block-wide barriers (two __syncthreads a chunk across all of a block's
+//     row groups, which ran in lockstep): now a named barrier per group;
+//   * an f32 round trip for the filters (wmma -> f32 scratch tile -> one
+//     scalar conversion per element): now filter_tile, mma.sync + ldmatrix
+//     straight to the bf16 tile, in the k order of the old wmma products, so
+//     the filters are bitwise the same;
+//   * one edge's chain at a time: now two edges' chains interleave, their
+//     head sums paired (group_sum2, the pairs of group_sum, so the same
+//     bits), with the next two edges' k/v rows in flight; two values a
+//     packed conversion where two are ready; each chunk's cutm rounded once
+//     for the group in shared memory;
+//   * activations read at run time and 512 threads (4 row groups at H =
+//     128, 2 at H = 256): now a silu/silu build beside the run-time one, and
+//     up to 768 threads at ptxas's 80 registers: 3 row groups at H = 256,
+//     and at H = 128 the count that gives an SM the fewest rows (5 at DHFR,
+//     where 6 would leave a fifth of the SMs without a block);
+//   * the next chunk's ea rows, ids and cutm are still staged with cp.async
+//     while the current chunk computes.
+// Every rounding point and every sum's order is the first port's, so the
+// output is bitwise its output (tools/time_bwd.py --compare on the card).
 //
 // The backward (#12) and the second order (#13) take the design of ET's #2
 // and #3 (et_message.cu's header has the measurements behind each point):
@@ -89,20 +111,17 @@
 //     ct (g_inputs), as for ET's; its filter products read W from shared
 //     memory and Z_W from device memory (L2): both do not fit in shared
 //     memory beside two row groups at H = 256.
-#include <mma.h>
-
 #include "common.cuh"
-
-using namespace nvcuda;
 
 namespace {
 
-constexpr int FWD_MAX_THREADS = 512;
-// Threads a block of the backward's and second order's passes (one block an
-// SM), from ptxas's register counts: the backward's fit 96 registers a
-// thread at 640 threads (5 row groups at H = 128, 2 at H = 256); the second
-// order's passes hold about twice the per-edge state: 512 threads at 128
-// registers (2 row groups at H = 256).
+// Threads a block of each pass (one block an SM), from ptxas's register
+// counts: the forward fits 80 registers a thread at 768 threads (3 row
+// groups at H = 256, faster than 2 at the training shapes); the backward's
+// passes fit 96 registers at 640 threads (5 row groups at H = 128, 2 at H =
+// 256); the second order's passes hold about twice the per-edge state: 512
+// threads at 128 registers (2 row groups at H = 256).
+constexpr int FWD_MAX_THREADS = 768;
 constexpr int RECV_MAX_THREADS = 640;
 constexpr int SRC_MAX_THREADS = 640;
 constexpr int RECV2_MAX_THREADS = 512;
@@ -111,32 +130,6 @@ constexpr int SRC2_MAX_THREADS = 512;
 // row stride (bf16 elements) of the per-edge filter tile (KC, 2H): 2H + 8,
 // so the rows of a tensor-core load start on different banks
 __host__ __device__ inline int pre_ld(int h) { return 2 * h + 8; }
-
-// The forward's shared memory: the filter weights, then one slice per row
-// group.
-struct Smem {
-  size_t groups_base, group_stride, total;
-  size_t ea, pre, scratch, idx, sc;
-};
-
-__host__ __device__ inline Smem smem_layout(int h, int rbf, int groups) {
-  Smem s;
-  s.groups_base = align32((size_t)2 * h * w_ld(rbf) * sizeof(bf16));
-  size_t o = 0;
-  s.ea = o;  // two (KC, ldw) buffers: one is filled while the other is used
-  o = align32(o + (size_t)2 * KC * w_ld(rbf) * sizeof(bf16));
-  s.pre = o;  // (KC, 2H) bf16 filter accumulators
-  o = align32(o + (size_t)KC * pre_ld(h) * sizeof(bf16));
-  s.scratch = o;  // one 16x16 f32 tile per warp: the wmma epilogue
-  o = align32(o + (size_t)(h / 32) * 256 * sizeof(float));
-  s.idx = o;  // two buffers of KC neighbor ids
-  o = align32(o + 2 * KC * sizeof(int));
-  s.sc = o;  // two buffers of KC cutm values
-  o = align32(o + (size_t)2 * KC * sizeof(float));
-  s.group_stride = o;
-  s.total = s.groups_base + (size_t)groups * o;
-  return s;
-}
 
 struct Params {
   const int32_t* idx;
@@ -150,8 +143,7 @@ struct Params {
   const float* zcutm;
   const bf16* zw_all;  // Z_W as (2H, RBFP) bf16, zero rows for absent filters
   const bf16 *zbk, *zbv;
-  // row groups per block; the forward's rows per group and grid step, the
-  // other passes' contiguous rows (atoms) per group
+  // row groups per block, contiguous rows (atoms) per group
   int groups, iters;
 };
 
@@ -175,82 +167,6 @@ __device__ void load_weights(const Params& p, bf16* w_s) {
   }
 }
 
-// The forward: start copying chunk c0 of row i into one staging buffer
-// (asynchronous: it lands while the current chunk computes): ea rows as
-// 4-byte words (RBF is even), neighbor ids, cutm.  The RBF padding columns
-// are zeroed once per block and never written; rows past the chunk's end
-// keep stale values, which only reach filter rows nobody reads.
-__device__ void stage_async(const Params& p, int i, int c0, int hh, bf16* ea_s, int* idx_s, float* sc_s) {
-  const int ldw = w_ld(p.rbf), words = p.rbf / 2, nw = p.h / 32;
-  const int kn = min(KC, p.k - c0);
-  const int warp = hh / 32, lane = hh % 32;
-  const size_t off = ((size_t)i * p.k + c0) * p.rbf;
-  for (int kc = warp; kc < kn; kc += nw)
-    for (int w = lane; w < words; w += 32)
-      __pipeline_memcpy_async(ea_s + kc * ldw + 2 * w, p.ea + off + (size_t)kc * p.rbf + 2 * w, 4);
-  if (hh < kn) {
-    const size_t e = (size_t)i * p.k + c0 + hh;
-    __pipeline_memcpy_async(idx_s + hh, p.idx + e, 4);
-    __pipeline_memcpy_async(sc_s + hh, p.cutm + e, 4);
-  }
-  __pipeline_commit();
-}
-
-// The chunk a group works on after (i, c0): the next chunk of the row, else
-// the first chunk of its next row (rows step by the block's group count).
-__device__ __forceinline__ void next_chunk(const Params& p, int t, int i, int c0, int* i2, int* c2) {
-  if (c0 + KC < p.k) {
-    *i2 = i;
-    *c2 = c0 + KC;
-  } else {
-    *i2 = t + 1 < p.iters ? i + p.groups : p.n;  // p.n: no more rows
-    *c2 = 0;
-  }
-}
-
-// pre_s (KC, 2H) = bf16(ea_s (KC, RBFP) . W^T) on the tensor cores; the
-// group's H/32 warps split the 2H/16 column tiles, four each.
-__device__ void filter_mma(const Params& p, const bf16* w_s, const bf16* ea_s, bf16* pre_s,
-                           float* scratch, int warp, int lane) {
-  const int ldw = w_ld(p.rbf), rbfp = rbf_pad(p.rbf), ldp = pre_ld(p.h);
-  const int tiles = 2 * p.h / 16, nw = p.h / 32;
-  for (int t0 = warp; t0 < tiles; t0 += 4 * nw) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> c[4];
-#pragma unroll
-    for (int q = 0; q < 4; ++q) wmma::fill_fragment(c[q], 0.0f);
-    for (int k0 = 0; k0 < rbfp; k0 += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::load_matrix_sync(a, ea_s + k0, ldw);
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int t = t0 + q * nw;
-        if (t < tiles) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
-          wmma::load_matrix_sync(b, w_s + (size_t)t * 16 * ldw + k0, ldw);
-          wmma::mma_sync(c[q], a, b, c[q]);
-        }
-      }
-    }
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int t = t0 + q * nw;
-      if (t >= tiles) continue;
-      wmma::store_matrix_sync(scratch, c[q], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32)
-        pre_s[(e / 16) * ldp + t * 16 + e % 16] = __float2bfloat16_rn(scratch[e]);
-      __syncwarp();
-    }
-  }
-}
-
-// filter value act(bf16(acc + b)) from the bf16-rounded accumulator acc;
-// its bf16 pre-activation in *pre
-__device__ __forceinline__ float filter_val(int act, bf16 acc, float b, float* pre) {
-  *pre = bfr(__bfloat162float(acc) + b);
-  return bfr(act_fn(act, *pre));
-}
-
 // the source-row values (or their Z tangents) one thread reads for one edge
 struct Src {
   float k, v;
@@ -261,85 +177,19 @@ __device__ __forceinline__ Src load_src(const bf16* kx, const bf16* v, int j, in
   return Src{ldb(kx + row), ldb(v + row)};
 }
 
-__global__ void __launch_bounds__(FWD_MAX_THREADS, 1)
-    t_fwd_kernel(Params p, float* __restrict__ out) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int H = p.h;
-  const int g = threadIdx.x / H, hh = threadIdx.x % H, warp = hh / 32, lane = hh % 32;
-  const int ldp = pre_ld(H);
-  const Smem L = smem_layout(H, p.rbf, p.groups);
-  bf16* w_s = reinterpret_cast<bf16*>(smem);
-  unsigned char* gs = smem + L.groups_base + g * L.group_stride;
-  bf16* ea_buf = reinterpret_cast<bf16*>(gs + L.ea);
-  bf16* pre_s = reinterpret_cast<bf16*>(gs + L.pre);
-  float* scratch = reinterpret_cast<float*>(gs + L.scratch) + warp * 256;
-  int* idx_buf = reinterpret_cast<int*>(gs + L.idx);
-  float* sc_buf = reinterpret_cast<float*>(gs + L.sc);
-  const int ldw = w_ld(p.rbf);
-  const bool has_dk = p.wk != nullptr, has_dv = p.wv != nullptr;
-
-  for (int e = hh; e < 2 * KC * ldw; e += H) ea_buf[e] = __float2bfloat16_rn(0.0f);
-  load_weights(p, w_s);
-  const float bk = has_dk ? ldb(p.bk + hh) : 0.0f;
-  const float bv = has_dv ? ldb(p.bv + hh) : 0.0f;
-  __syncthreads();  // zero padding in place before any copy lands
-  const int first = blockIdx.x * p.iters * p.groups + g;
-  if (first < p.n) stage_async(p, first, 0, hh, ea_buf, idx_buf, sc_buf);
-  int buf = 0;
-
-  for (int t = 0; t < p.iters; ++t) {
-    const int i = (blockIdx.x * p.iters + t) * p.groups + g;
-    const bool active = i < p.n;  // the same for the whole group (whole warps)
-    const float qi = active ? ldb(p.q + (size_t)i * H + hh) : 0.0f;
-    float acc = 0.0f;
-    for (int c0 = 0; c0 < p.k; c0 += KC) {
-      const int kn = min(KC, p.k - c0);
-      const bf16* ea_s = ea_buf + buf * KC * ldw;
-      const int* idx_s = idx_buf + buf * KC;
-      const float* sc_s = sc_buf + buf * KC;
-      __pipeline_wait_prior(0);
-      __syncthreads();  // this chunk has landed; the last one is done with the other buffer
-      if (active && (has_dk || has_dv)) filter_mma(p, w_s, ea_s, pre_s, scratch, warp, lane);
-      int i2, c2;
-      next_chunk(p, t, i, c0, &i2, &c2);
-      buf ^= 1;
-      if (i2 < p.n) stage_async(p, i2, c2, hh, ea_buf + buf * KC * ldw, idx_buf + buf * KC, sc_buf + buf * KC);
-      __syncthreads();  // the filter tile is complete
-      if (!active) continue;
-      Src cur = load_src(p.kx, p.v, idx_s[0], H, hh);
-      for (int kc = 0; kc < kn; ++kc) {
-        Src nxt = cur;
-        if (kc + 1 < kn) nxt = load_src(p.kx, p.v, idx_s[kc + 1], H, hh);  // in flight while this edge computes
-        const bf16* a = pre_s + kc * ldp + hh;
-        float pre, dk = 1.0f, dv = 1.0f;
-        if (has_dk) dk = filter_val(p.act, a[0], bk, &pre);
-        if (has_dv) dv = filter_val(p.act, a[H], bv, &pre);
-        const float vdv = has_dv ? bfr(cur.v * dv) : cur.v;
-        float prod = bfr(qi * cur.k);
-        if (has_dk) prod = bfr(prod * dk);
-        const float pre_a = bfr(group_sum(prod, p.hd));
-        const float cm = bfr(sc_s[kc]);
-        const float attn = bfr(bfr(act_fn(p.attn_act, pre_a)) * cm);
-        acc += bfr(vdv * attn);
-        cur = nxt;
-      }
-    }
-    if (active) out[(size_t)i * H + hh] = acc;
-  }
-}
-
 // ---------------------------------------------------------------------------
-// The backward (#12) and second order (#13): receiver passes and source
-// passes (the weight-gradient reduction is et_message.cu's et_dw_kernel).
+// The forward (#11), and the backward (#12) and second order (#13):
+// receiver passes and source passes (the weight-gradient reduction is
+// et_message.cu's et_dw_kernel).
 
-enum Pass { RECV = 0, RECV2 = 1, SRC = 2, SRC2 = 3 };
+enum Pass { RECV = 0, RECV2 = 1, SRC = 2, SRC2 = 3, FWD = 4 };
 
 // One pass's shared memory: the filter weights W, then one slice per row
 // group: two staging buffers of ea rows (and z_ea), the
 // (KC, 2H) bf16 filter tile (and the tangent tile), two buffers of edge ids
 // (and the source pass's receiver rows), of cutm (and z_cutm) and of the
-// source pass's per-edge head scalars, and the warp partials of the cutm
-// cotangent.
+// source pass's per-edge head scalars, and the receiver passes' warp
+// partials of the cutm cotangent.
 struct GLayout {
   size_t base, stride, total;
   size_t ea, zea, pre, pret, ids, sc, hs, red;
@@ -352,7 +202,7 @@ __host__ __device__ inline GLayout pass_layout(int h, int heads, int rbf, int gr
   const size_t ea_bytes = (size_t)2 * KC * w_ld(rbf) * sizeof(bf16);
   const size_t tile_bytes = (size_t)KC * pre_ld(h) * sizeof(bf16);
   s.base = align32((size_t)2 * h * w_ld(rbf) * sizeof(bf16));
-  s.nsc = pass == RECV ? 1 : (pass == RECV2 ? 2 : 0);  // cutm, then z_cutm
+  s.nsc = pass == RECV || pass == FWD ? 1 : (pass == RECV2 ? 2 : 0);  // cutm, then z_cutm
   s.hsw = pass == SRC ? heads : (pass == SRC2 ? 4 * heads : 0);
   size_t o = 0;
   s.ea = o;
@@ -376,9 +226,9 @@ __host__ __device__ inline GLayout pass_layout(int h, int heads, int rbf, int gr
   return s;
 }
 
-// Receiver pass: start copying the kn edges e0.. (contiguous: ea rows and
-// z_ea, neighbor ids, cutm and z_cutm) into a staging buffer.  Called by all
-// H threads of a group.
+// Forward and receiver pass: start copying the kn edges e0.. (contiguous:
+// ea rows and z_ea, neighbor ids, cutm and z_cutm) into a staging buffer.
+// Called by all H threads of a group.
 __device__ void stage_edges(const Params& p, size_t e0, int kn, int hh, int nw, int nsc, bf16* ea_s,
                             bf16* zea_s, int* ids_s, float* sc_s) {
   const int ldw = w_ld(p.rbf), words = p.rbf / 2;
@@ -426,7 +276,7 @@ __device__ void stage_slots(const Params& p, int pv, int kn, int hh, int nw, int
 
 // The two filters of an edge for this thread's channel, from the tile's
 // bf16 accumulators a[0] (dk) and a[H] (dv): pre-activations bf16(acc + b)
-// and values bf16(act(pre)) (filter_val's arithmetic, rounded two at a
+// and values bf16(act(pre)) (the first port's arithmetic, rounded two at a
 // time).  Absent filters give values the caller ignores.
 __device__ __forceinline__ void edge_filters(int act, const bf16* a, int H, float bk, float bv, float pre[2],
                                              float val[2]) {
@@ -436,6 +286,117 @@ __device__ __forceinline__ void edge_filters(int act, const bf16* a, int H, floa
   val[0] = act_fn(act, pre[0]);
   val[1] = act_fn(act, pre[1]);
   bfr2(val[0], val[1]);
+}
+
+// The forward (#11): per receiver row i, out[i] (see the header), the
+// group's rows walked in chunks of KC slots that run across rows, each row's
+// sum sequential in its thread.
+template <int ACT, int ATT>
+__global__ void __launch_bounds__(FWD_MAX_THREADS, 1)
+    t_fwd_kernel(Params p, float* __restrict__ out) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  // the activations: compile-time constants where the instantiation names them
+  const int act = ACT >= 0 ? ACT : p.act, attn_act = ATT >= 0 ? ATT : p.attn_act;
+  const int H = p.h, F = 2 * H, ldp = pre_ld(H), ldw = w_ld(p.rbf), rbfp = rbf_pad(p.rbf);
+  const int g = threadIdx.x / H, hh = threadIdx.x % H;
+  const int nw = H / 32, warp = hh / 32, lane = hh % 32;
+  const GLayout L = pass_layout(H, H / p.hd, p.rbf, p.groups, FWD);
+  const bf16* w_s = reinterpret_cast<const bf16*>(smem);
+  unsigned char* gs = smem + L.base + g * L.stride;
+  bf16* ea_buf = reinterpret_cast<bf16*>(gs + L.ea);
+  bf16* pre_s = reinterpret_cast<bf16*>(gs + L.pre);
+  int* ids_buf = reinterpret_cast<int*>(gs + L.ids);
+  float* sc_buf = reinterpret_cast<float*>(gs + L.sc);
+  const bool has_dk = p.wk != nullptr, has_dv = p.wv != nullptr, has_w = has_dk || has_dv;
+
+  for (int e = hh; e < 2 * KC * ldw; e += H) ea_buf[e] = __float2bfloat16_rn(0.0f);
+  load_weights(p, reinterpret_cast<bf16*>(smem));
+  const float bk = has_dk ? ldb(p.bk + hh) : 0.0f;
+  const float bv = has_dv ? ldb(p.bv + hh) : 0.0f;
+  __syncthreads();  // weights and zero padding in place before any copy lands
+
+  const int r0 = ((int)blockIdx.x * p.groups + g) * p.iters;
+  const int r1 = min(r0 + p.iters, p.n);
+  if (r0 >= r1) return;  // the same for the whole group
+  const size_t eb = (size_t)r0 * p.k;
+  const int ne = (r1 - r0) * p.k, nch = (ne + KC - 1) / KC;
+  stage_edges(p, eb, min(KC, ne), hh, nw, 1, ea_buf, nullptr, ids_buf, sc_buf);
+  int i = r0, slot = 0;
+  float qi = ldb(p.q + (size_t)i * H + hh);
+  float acc = 0.0f;
+  for (int ch = 0; ch < nch; ++ch) {
+    const int buf = ch & 1;
+    const int kn = min(KC, ne - ch * KC);
+    const int* idx_s = ids_buf + buf * 2 * KC;
+    const float* sc_s = sc_buf + buf * KC;
+    __pipeline_wait_prior(0);
+    group_sync(g, H);  // this chunk has landed; the last one is done with the other buffers
+    if (ch + 1 < nch)
+      stage_edges(p, eb + (size_t)(ch + 1) * KC, min(KC, ne - (ch + 1) * KC), hh, nw, 1,
+                  ea_buf + (buf ^ 1) * KC * ldw, nullptr, ids_buf + (buf ^ 1) * 2 * KC, sc_buf + (buf ^ 1) * KC);
+    round_scalars(sc_buf + buf * KC, 1, hh, H);  // cutm
+    if (has_w)
+      filter_tile(1, ea_buf + buf * KC * ldw, w_s, nullptr, nullptr, nullptr, ldw, rbfp, F, pre_s, ldp, warp, nw,
+                  lane);
+    group_sync(g, H);  // the filter tile and the rounded cutm are complete
+    // two edges at a time (a = kc, b = kc + 1): their chains interleave and
+    // their head sums pair (group_sum2, group_sum's pairs, so the same bits);
+    // the next two edges' source rows are in flight meanwhile
+    Src cur[2] = {load_src(p.kx, p.v, idx_s[0], H, hh), load_src(p.kx, p.v, idx_s[min(1, kn - 1)], H, hh)};
+    for (int kc = 0; kc < kn; kc += 2) {
+      const bool two = kc + 1 < kn;  // the same for the whole group
+      Src nxt[2] = {cur[0], cur[1]};
+      if (kc + 2 < kn) nxt[0] = load_src(p.kx, p.v, idx_s[kc + 2], H, hh);
+      if (kc + 3 < kn) nxt[1] = load_src(p.kx, p.v, idx_s[kc + 3], H, hh);
+      // the receiver rows: edge a opens row i + 1 when row i is full, edge b
+      // the row after a's
+      const bool new_a = slot == p.k, new_b = two && (new_a ? 1 : slot + 1) == p.k;
+      const float qa = new_a ? ldb(p.q + (size_t)(i + 1) * H + hh) : qi;
+      const float qb = new_b ? ldb(p.q + (size_t)(i + 1 + new_a) * H + hh) : qa;
+      float vdv[2], prod[2], dk[2];
+#pragma unroll
+      for (int x = 0; x < 2; ++x) {
+        float pre[2], val[2];
+        edge_filters(act, pre_s + (kc + x) * ldp + hh, H, bk, bv, pre, val);
+        dk[x] = has_dk ? val[0] : 1.0f;
+        // bf16(v * dv) is v where dv is absent (1)
+        vdv[x] = cur[x].v * (has_dv ? val[1] : 1.0f);
+        prod[x] = (x ? qb : qa) * cur[x].k;
+      }
+      bfr2(vdv[0], vdv[1]);
+      bfr2(prod[0], prod[1]);
+      if (has_dk) {
+        prod[0] *= dk[0];
+        prod[1] *= dk[1];
+        bfr2(prod[0], prod[1]);
+      }
+      group_sum2(prod[0], prod[1], p.hd, lane);
+      bfr2(prod[0], prod[1]);  // the attention pre-activations
+      float a_act[2] = {act_fn(attn_act, prod[0]), act_fn(attn_act, prod[1])};
+      bfr2(a_act[0], a_act[1]);
+      float attn[2] = {a_act[0] * sc_s[kc], a_act[1] * sc_s[kc + 1]};
+      bfr2(attn[0], attn[1]);
+      float msg[2] = {vdv[0] * attn[0], vdv[1] * attn[1]};
+      bfr2(msg[0], msg[1]);
+      // the sums, in slot order
+#pragma unroll
+      for (int x = 0; x < 2; ++x) {
+        if (x == 1 && !two) break;
+        if (x ? new_b : new_a) {  // the next receiver row
+          out[(size_t)i * H + hh] = acc;
+          acc = 0.0f;
+          ++i;
+          slot = 0;
+        }
+        ++slot;
+        acc += msg[x];
+      }
+      qi = two ? qb : qa;
+      cur[0] = nxt[0];
+      cur[1] = nxt[1];
+    }
+  }
+  out[(size_t)i * H + hh] = acc;
 }
 
 // The second order's dual filters of an edge for this thread's channel,
@@ -1062,37 +1023,16 @@ cudaError_t device_limits(int* sms, int* smem_max) {
   return err;
 }
 
-// The forward: row groups per block (the most that fit in threads and
-// shared memory) and rows per group, so that the grid is about one block
-// per SM.
-cudaError_t plan_grid(Params* p, size_t* smem, int* blocks) {
-  int sms = 0, smem_max = 0;
-  cudaError_t err = device_limits(&sms, &smem_max);
-  if (err != cudaSuccess) return err;
-  int groups = 0;
-  for (int gcount = 4; gcount >= 1; gcount /= 2) {
-    if (gcount * p->h <= FWD_MAX_THREADS && smem_layout(p->h, p->rbf, gcount).total <= (size_t)smem_max) {
-      groups = gcount;
-      break;
-    }
-  }
-  if (groups == 0) return cudaErrorInvalidValue;  // too wide for one block
-  p->groups = groups;
-  p->iters = (p->n + groups * sms - 1) / (groups * sms);
-  *blocks = (p->n + groups * p->iters - 1) / (groups * p->iters);
-  *smem = smem_layout(p->h, p->rbf, groups).total;
-  return cudaSuccess;
-}
-
-// A backward or second-order pass: the most row groups that fit in a
-// block's threads and shared memory, and contiguous rows (atoms) per group
-// so that the grid fills every SM about once (one block an SM).
+// A pass: the most row groups that fit in a block's threads and shared
+// memory, and contiguous rows (atoms) per group so that the grid fills
+// every SM about once (one block an SM).
 cudaError_t plan_pass(Params* p, int pass, size_t* smem, int* blocks) {
   int sms = 0, smem_max = 0;
   cudaError_t err = device_limits(&sms, &smem_max);
   if (err != cudaSuccess) return err;
-  const int max_threads = pass == RECV ? RECV_MAX_THREADS
-                          : pass == SRC ? SRC_MAX_THREADS
+  const int max_threads = pass == FWD    ? FWD_MAX_THREADS
+                          : pass == RECV ? RECV_MAX_THREADS
+                          : pass == SRC  ? SRC_MAX_THREADS
                           : pass == RECV2 ? RECV2_MAX_THREADS
                                           : SRC2_MAX_THREADS;
   const int heads = p->h / p->hd;
@@ -1104,6 +1044,16 @@ cudaError_t plan_pass(Params* p, int pass, size_t* smem, int* blocks) {
     }
   }
   if (groups == 0) return cudaErrorInvalidValue;  // too wide for one block
+  if (pass == FWD) {
+    // the forward is paced by its issue rate: of the counts that keep at
+    // least half the most row groups in flight, the one that gives an SM the
+    // fewest rows (groups x rows a group), then the most groups
+    auto rows_an_sm = [&](int g) { return g * ((p->n + g * sms - 1) / (g * sms)); };
+    int best = groups;
+    for (int gcount = groups - 1; 2 * gcount >= groups; --gcount)
+      if (rows_an_sm(gcount) < rows_an_sm(best)) best = gcount;
+    groups = best;
+  }
   p->groups = groups;
   const int slots = groups * sms;
   p->iters = (p->n + slots - 1) / slots;
@@ -1162,7 +1112,8 @@ const void* pass_kernel_as(int pass) {
     case RECV: return reinterpret_cast<const void*>(t_bwd_kernel<A, A>);
     case RECV2: return reinterpret_cast<const void*>(t_bwd2_kernel<A, A>);
     case SRC: return reinterpret_cast<const void*>(t_bwd_src_kernel<A, A>);
-    default: return reinterpret_cast<const void*>(t_bwd2_src_kernel<A, A>);
+    case SRC2: return reinterpret_cast<const void*>(t_bwd2_src_kernel<A, A>);
+    default: return reinterpret_cast<const void*>(t_fwd_kernel<A, A>);
   }
 }
 
@@ -1206,11 +1157,10 @@ int t_fwd(T_OPERANDS, void* out, void* stream) {
   Params p = T_PARAMS;
   size_t smem = 0;
   int blocks = 0;
-  cudaError_t err = plan_grid(&p, &smem, &blocks);
+  cudaError_t err = prepare_pass(&p, FWD, &smem, &blocks);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(t_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  t_fwd_kernel<<<blocks, p.groups * h, smem, static_cast<cudaStream_t>(stream)>>>(p, static_cast<float*>(out));
+  LAUNCH_PASS(t_fwd_kernel, blocks, p.groups * h, smem, static_cast<cudaStream_t>(stream), p,
+              static_cast<float*>(out));
   return (int)cudaGetLastError();
 }
 
@@ -1302,12 +1252,13 @@ int t_bwd2_src(T_OPERANDS, const void* perm, const void* ct, const void* zq, con
 }
 
 // A pass's resources at a shape (kind 1 the backward's receiver pass, 2 the
-// second order's, 3 the backward's source pass, 4 the second order's): out
+// second order's, 3 the backward's source pass, 4 the second order's, 5 the
+// forward): out
 // = registers a thread, local (spill) bytes a thread, threads a block,
 // dynamic shared memory a block, resident blocks an SM.
 int t_resources(int kind, int n, int k, int h, int heads, int rbf, int* out) {
-  if (!valid_shape(n, k, h, heads, rbf) || kind < 1 || kind > 4) return (int)cudaErrorInvalidValue;
-  const int pass = kind == 1 ? RECV : (kind == 2 ? RECV2 : (kind == 3 ? SRC : SRC2));
+  if (!valid_shape(n, k, h, heads, rbf) || kind < 1 || kind > 5) return (int)cudaErrorInvalidValue;
+  const int pass = kind == 1 ? RECV : (kind == 2 ? RECV2 : (kind == 3 ? SRC : (kind == 4 ? SRC2 : FWD)));
   Params p = make_params(nullptr, n, k, h, heads, rbf, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
                          nullptr, nullptr, nullptr, ACT_SILU, ACT_SILU);  // the instantiation the configurations run
   size_t smem = 0;

@@ -27,28 +27,19 @@
 // bytes are ~28 MB (ea 10 MB, the gathered rows from L2), 0.009 ms.  So it
 // is bound by operations, the backward (twice the products) most of all.
 //
-// The forward and the second order (the first port's design):
+// The forward (the first port's design):
 //   * a block owns a contiguous range of receiver rows and walks their edges
-//     (flattened i*K + k) in tiles of M edges; the three layers of each tile
-//     run on the tensor cores (wmma bf16 16x16x16, f32 accumulation), the
-//     activations live in shared memory between layers, and nothing of the
-//     MLP goes to device memory; the weights are read by the wmma loads
+//     (flattened i*K + k) in tiles of 64 edges; the three layers of each
+//     tile run on the tensor cores (wmma bf16 16x16x16, f32 accumulation),
+//     the activations live in shared memory between layers, and nothing of
+//     the MLP goes to device memory; the weights are read by the wmma loads
 //     from L2, where they stay resident;
 //   * 3H threads: thread (third, h) owns channel h of one third of w and the
 //     components that third multiplies (1, 3 or 5), gathers those source
 //     values by index (no block plan, no one-hot product: TPU layout
 //     workarounds) and keeps its f32 row sums in registers, written when the
 //     row ends.  No float atomics anywhere: every result is bitwise the same
-//     from run to run;
-//   * the second order is the VJP of the backward with respect to (inputs,
-//     ct) given cotangents Z on its outputs: S = <vjp_f(a)(ct), Z> =
-//     <ct, J_f(a) . Z>, so g_ct = J_f(a) . Z is a dual-number forward (every
-//     MLP value carries a tangent driven by Z) and g_inputs is the reverse of
-//     that forward seeded with ct, written out per layer with the
-//     activations' second derivatives.  Its source-row gradient depends on Z
-//     (not symmetric), so the kernel writes the tangent of w per edge (3H
-//     f32) and tn_src_sum_kernel sums ct_i * w_dot through the transpose
-//     permutation.
+//     from run to run.
 //
 // The backward recomputes the MLP per tile, as the TPU kernel does.  Its
 // source-row cotangent d_cat[j] = sum over slots pointing at j of ct_i *
@@ -95,6 +86,52 @@
 // d_cat, d_ea and d_cutm are bitwise the first port's (checked on the card
 // at the DHFR and training shapes, tools/time_bwd.py --compare); the weight
 // cotangents are summed in another order.
+//
+// The second order (#10) is the VJP of the backward with respect to
+// (inputs, ct) given cotangents Z on its outputs: S = <vjp_f(a)(ct), Z> =
+// <ct, J_f(a) . Z>, so g_ct = J_f(a) . Z is a dual-number forward (every MLP
+// value carries a tangent driven by Z) and g_inputs is the reverse of that
+// forward seeded with ct, written out per layer with the activations'
+// second derivatives.  Its source-row gradient depends on Z (not
+// symmetric), so the kernel writes the tangent of w per edge (3H f32) and
+// tn_src_sum_kernel sums ct_i * w_dot through the transpose permutation.
+// Its first port ran at 1.71 ms at the training shapes (N = 1152, K = 33,
+// H = 128), 7 % of its bound; what bounded it, and what this design does
+// (the backward's machinery, with a tangent beside every value):
+//   * W and Z_W read from L2 in every wmma load of all six dual products of
+//     every 32-edge tile (about 1.1 MB a tile, 1.3 GB a launch), each load in
+//     front of its mma.  Now W1 and Z_W1 stay in shared memory for the
+//     launch, and W2/Z_W2 and W3/Z_W3 stream through a two-slice cp.async
+//     ring whose slices of 16 k rows (forward) or k columns (reverse) hold
+//     W and Z_W together, copied while the previous slice computes.  The
+//     value and tangent tiles of the layers would take 153 KB at H = 128,
+//     so tiles whose lives do not overlap share shared memory, and the ring
+//     lives in what is dead at the time: one region holds L2's forward
+//     ring, then t2/t2', then p3/p3'; another t1/t1', then the rings of
+//     L3's forward and of the reverse (188 KB in all at RBF = 32; the
+//     second order takes RBF <= 80 at H = 128);
+//   * 3H threads (384 at H = 128, 96 at H = 32) and an f32 scratch epilogue
+//     (24 KB) with a global bias load per element: now 512 threads, every
+//     layer split into H/8 items of 16 rows by N/(H/16) columns (one a warp
+//     at H = 128), mma.sync m16n8k16 with ldmatrix in the k order of the old
+//     wmma products, dual accumulators in registers with register
+//     epilogues, biases in f32 shared memory, two values a packed
+//     conversion;
+//   * ten __syncthreads a tile with synchronous scalar staging: now the next
+//     tile's ea/z_ea rows, ids, cutm and z_cutm are staged with cp.async
+//     while the current one computes;
+//   * a per-edge loop of one edge at a time with one warp sum each: now the
+//     next edge's cat/z_cat values are gathered while the current one
+//     computes, four edges' g_cutm terms are summed over the warp at once
+//     (warp_sum4, the same pairs), and the kernel is compiled for silu
+//     beside a build that reads the activation at run time;
+//   * per-edge rows saved 2 bytes at a time with a division per element
+//     (2 RBFP + 18H = 2368 columns an edge): now 16 bytes at a time, each
+//     tile's columns saved as soon as they are final.
+// Every rounding point and every f32 sum's order is the first port's, so
+// g_cat, g_ea, g_cutm, g_ct and the per-edge rows are bitwise the first
+// port's (tools/time_bwd.py --compare on the card), and with them the
+// weight gradients et_dw_kernel reduces.
 #include <mma.h>
 
 #include "common.cuh"
@@ -104,8 +141,7 @@ using namespace nvcuda;
 namespace {
 
 constexpr int FWD_M = 64;   // edges per tile: forward
-constexpr int BWD_M = 32;   // second order
-constexpr int MAX_H = 128;  // 3H threads per block (forward, second order)
+constexpr int MAX_H = 128;  // 3H threads per block (forward)
 constexpr int MAX_RBFP = 128;
 
 __device__ __forceinline__ bf16 f2b(float x) { return __float2bfloat16_rn(x); }
@@ -120,65 +156,38 @@ __host__ __device__ inline size_t align128(size_t x) { return (x + 127) & ~size_
 __device__ __forceinline__ int comp_first(int third) { return third == 0 ? 0 : (third == 1 ? 1 : 4); }
 __device__ __forceinline__ int comp_count(int third) { return third == 0 ? 1 : (third == 1 ? 3 : 5); }
 
-enum Mode {
-  SINGLE = 0,    // c0 = A.B
-  DUAL_FWD = 1,  // c0 = A.B, c1 = Ad.B + A.ZB   (a value and its tangent)
-  DUAL_REV = 2,  // c0 = A.B + Ad.ZB, c1 = Ad.B (a cotangent and the tangent's)
-  DUAL_REV0 = 3  // c0 = A.B + Ad.ZB only
-};
-
-// One dense layer of an MT*16-row tile on the tensor cores.  A (and Ad) are
-// (MT*16, kdim) bf16 row-major tiles in shared memory with row stride lda;
-// B (and ZB) are read from device memory (L2): row-major (kdim, ncols) with
-// row stride ldb, or with BCOL the transpose of a row-major (ncols, kdim)
-// matrix of row stride ldb.  The block's warps split the 16-column tiles;
-// each warp keeps MT accumulators (two sets for the dual modes) and hands
-// each finished 16x16 tile, stored row-major in its f32 scratch (s0, and s1
-// for the second set), to epi(rt, ct, s0, s1).  Called by all threads.
-template <int MT, bool BCOL, int MODE, class Epi>
-__device__ void mma_layer(const bf16* A, const bf16* Ad, int lda, const bf16* B, const bf16* ZB,
-                          int ldb, int kdim, int ncols, float* scratch, Epi epi) {
-  using BL = typename std::conditional<BCOL, wmma::col_major, wmma::row_major>::type;
-  constexpr bool TWO = MODE == DUAL_FWD || MODE == DUAL_REV;
+// One dense layer of an MT*16-row tile on the tensor cores (the forward's).
+// A is an (MT*16, kdim) bf16 row-major tile in shared memory with row
+// stride lda; B is read from device memory (L2), row-major (kdim, ncols)
+// with row stride ldb.  The block's warps split the 16-column tiles; each
+// warp keeps MT accumulators and hands each finished 16x16 tile, stored
+// row-major in its f32 scratch s0, to epi(rt, ct, s0).  Called by all
+// threads.
+template <int MT, class Epi>
+__device__ void mma_layer(const bf16* A, int lda, const bf16* B, int ldb, int kdim, int ncols, float* scratch,
+                          Epi epi) {
   const int warp = threadIdx.x / 32, nwarps = blockDim.x / 32;
-  float* s0 = scratch + warp * 512;
-  float* s1 = s0 + 256;
+  float* s0 = scratch + warp * 256;
   const int ctiles = ncols / 16;
   for (int ct = warp; ct < ctiles; ct += nwarps) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> c0[MT], c1[TWO ? MT : 1];
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> c0[MT];
 #pragma unroll
     for (int r = 0; r < MT; ++r) wmma::fill_fragment(c0[r], 0.0f);
-#pragma unroll
-    for (int r = 0; r < (TWO ? MT : 1); ++r) wmma::fill_fragment(c1[r], 0.0f);
     for (int k0 = 0; k0 < kdim; k0 += 16) {
-      const size_t boff = BCOL ? (size_t)ct * 16 * ldb + k0 : (size_t)k0 * ldb + ct * 16;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, BL> fb, fz;
-      wmma::load_matrix_sync(fb, B + boff, ldb);
-      if (MODE != SINGLE) wmma::load_matrix_sync(fz, ZB + boff, ldb);
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
+      wmma::load_matrix_sync(fb, B + (size_t)k0 * ldb + ct * 16, ldb);
 #pragma unroll
       for (int r = 0; r < MT; ++r) {
         wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
         wmma::load_matrix_sync(fa, A + (size_t)r * 16 * lda + k0, lda);
         wmma::mma_sync(c0[r], fa, fb, c0[r]);
-        if (MODE != SINGLE) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fd;
-          wmma::load_matrix_sync(fd, Ad + (size_t)r * 16 * lda + k0, lda);
-          if (MODE == DUAL_FWD) {
-            wmma::mma_sync(c1[r], fd, fb, c1[r]);
-            wmma::mma_sync(c1[r], fa, fz, c1[r]);
-          } else {
-            wmma::mma_sync(c0[r], fd, fz, c0[r]);
-            if (MODE == DUAL_REV) wmma::mma_sync(c1[TWO ? r : 0], fd, fb, c1[TWO ? r : 0]);
-          }
-        }
       }
     }
 #pragma unroll
     for (int r = 0; r < MT; ++r) {
       wmma::store_matrix_sync(s0, c0[r], 16, wmma::mem_row_major);
-      if (TWO) wmma::store_matrix_sync(s1, c1[TWO ? r : 0], 16, wmma::mem_row_major);
       __syncwarp();
-      epi(r, ct, s0, s1);
+      epi(r, ct, s0);
       __syncwarp();
     }
   }
@@ -197,78 +206,46 @@ struct Args {
   const bf16 *zw1, *zb1, *zw2, *zb2, *zw3, *zb3;
 };
 
-// Stage a tile of `mv` edges from edge t0: ea rows (and z_ea) into (M, RBFP)
-// tiles, zero past RBF and past mv; neighbor ids and edge scalars.
-__device__ void stage_tile(const Args& p, long t0, int mv, int M, bf16* ea_s, bf16* zea_s,
-                           int* idx_s, float* cm_s, float* zcm_s) {
+// The forward: stage a tile of `mv` edges from edge t0: ea rows into an
+// (M, RBFP) tile, zero past RBF and past mv; neighbor ids and cutm.
+__device__ void stage_tile(const Args& p, long t0, int mv, int M, bf16* ea_s, int* idx_s, float* cm_s) {
   const int ld = sld(p.rbfp);
   for (int q = threadIdx.x; q < M * p.rbfp; q += blockDim.x) {
     const int r = q / p.rbfp, c = q % p.rbfp;
-    const bool in = r < mv && c < p.rbf;
-    const size_t src = (size_t)(t0 + r) * p.rbf + c;
-    ea_s[r * ld + c] = in ? p.ea[src] : f2b(0.0f);
-    if (zea_s) zea_s[r * ld + c] = in ? p.zea[src] : f2b(0.0f);
+    ea_s[r * ld + c] = r < mv && c < p.rbf ? p.ea[(size_t)(t0 + r) * p.rbf + c] : f2b(0.0f);
   }
   for (int r = threadIdx.x; r < M; r += blockDim.x) {
     idx_s[r] = r < mv ? p.idx[t0 + r] : 0;
     cm_s[r] = r < mv ? p.cutm[t0 + r] : 0.0f;
-    if (zcm_s) zcm_s[r] = r < mv ? p.zcutm[t0 + r] : 0.0f;
   }
 }
 
-// Copy `mv` rows of a (M, w) shared tile into columns [col, col + w) of the
-// per-edge rows of `save` (row stride ld_save), starting at edge t0.
-__device__ void save_rows(const bf16* tile, int w, int mv, bf16* save, int ld_save, long t0, int col) {
-  const int ld = sld(w);
-  for (int q = threadIdx.x; q < mv * w; q += blockDim.x) {
-    const int r = q / w, c = q % w;
-    save[(size_t)(t0 + r) * ld_save + col + c] = tile[r * ld + c];
-  }
-}
-
-// Shared-memory layout of a kernel's tile: bf16 tiles (M rows each, row
-// stride sld(width)), then the warps' f32 epilogue scratch, the per-edge
-// warp partials of the edge scalars, neighbor ids and edge scalars.
-enum Kind { FWD = 0, BWD2 = 2 };
-
+// The forward's shared memory (bytes): the ea tile, the activation tiles
+// t1, t2 and w (in p3), the warps' f32 epilogue scratch, neighbor ids and
+// cutm.
 struct Smem {
-  // offsets in bytes; 0-width tiles are absent
-  size_t ea, zea, p1, pd1, t1, td1, p2, pd2, t2, td2, p3, pd3, scratch, red, idx, cm, zcm, total;
+  size_t ea, t1, t2, p3, scratch, idx, cm, total;
 };
 
-__host__ __device__ inline Smem smem_layout(int kind, int h, int rbfp) {
-  const int M = kind == FWD ? FWD_M : BWD_M;
+__host__ __device__ inline Smem smem_layout(int h, int rbfp) {
   const int nwarps = 3 * h / 32;
   Smem s;
   size_t o = 0;
-  auto tile = [&](int w, bool present) {
+  auto tile = [&](int w) {
     const size_t at = o;
-    if (present) o = align128(o + (size_t)M * sld(w) * sizeof(bf16));
+    o = align128(o + (size_t)FWD_M * sld(w) * sizeof(bf16));
     return at;
   };
-  const bool two = kind == BWD2;
-  s.ea = tile(rbfp, true);
-  s.zea = tile(rbfp, two);
-  s.p1 = tile(h, kind != FWD);
-  s.pd1 = tile(h, two);
-  s.t1 = tile(h, true);
-  s.td1 = tile(h, two);
-  s.p2 = tile(2 * h, kind != FWD);
-  s.pd2 = tile(2 * h, two);
-  s.t2 = tile(2 * h, true);
-  s.td2 = tile(2 * h, two);
-  s.p3 = tile(3 * h, true);  // the forward keeps w here
-  s.pd3 = tile(3 * h, two);
+  s.ea = tile(rbfp);
+  s.t1 = tile(h);
+  s.t2 = tile(2 * h);
+  s.p3 = tile(3 * h);
   s.scratch = o;
-  o = align128(o + (size_t)nwarps * 512 * sizeof(float));
-  s.red = o;
-  o = align128(o + (size_t)M * nwarps * sizeof(float));
+  o = align128(o + (size_t)nwarps * 256 * sizeof(float));
   s.idx = o;
-  o = align128(o + (size_t)M * sizeof(int));
+  o = align128(o + (size_t)FWD_M * sizeof(int));
   s.cm = o;
-  o = align128(o + (size_t)M * sizeof(float));
-  s.zcm = o;
-  o = align128(o + (size_t)M * sizeof(float));
+  o = align128(o + (size_t)FWD_M * sizeof(float));
   s.total = o;
   return s;
 }
@@ -281,7 +258,7 @@ __global__ void __launch_bounds__(3 * MAX_H, 1) tn_fwd_kernel(Args p, float* __r
   const int H = p.h, F9 = 9 * H;
   const int third = threadIdx.x / H, hh = threadIdx.x % H;
   const int lane = threadIdx.x % 32;
-  const Smem L = smem_layout(FWD, H, p.rbfp);
+  const Smem L = smem_layout(H, p.rbfp);
   bf16 *ea_s = TILE(ea), *t1 = TILE(t1), *t2 = TILE(t2), *w_s = TILE(p3);
   float* scratch = reinterpret_cast<float*>(smem + L.scratch);
   int* idx_s = reinterpret_cast<int*>(smem + L.idx);
@@ -296,35 +273,32 @@ __global__ void __launch_bounds__(3 * MAX_H, 1) tn_fwd_kernel(Args p, float* __r
   int cur = row0;
   for (long t0 = e0; t0 < e1; t0 += M) {
     const int mv = (int)min((long)M, e1 - t0);
-    stage_tile(p, t0, mv, M, ea_s, nullptr, idx_s, cm_s, nullptr);
+    stage_tile(p, t0, mv, M, ea_s, idx_s, cm_s);
     __syncthreads();
-    mma_layer<MT, false, SINGLE>(ea_s, nullptr, sld(p.rbfp), p.w1, nullptr, H, p.rbfp, H, scratch,
-                                 [&](int rt, int ct, const float* s0, const float*) {
-                                   for (int q = lane; q < 256; q += 32) {
-                                     const int r = rt * 16 + q / 16, c = ct * 16 + q % 16;
-                                     const float pre = bfr(bfr(s0[q]) + ldb(p.b1 + c));
-                                     t1[r * ld1 + c] = f2b(act_fn(p.act, pre));
-                                   }
-                                 });
+    mma_layer<MT>(ea_s, sld(p.rbfp), p.w1, H, p.rbfp, H, scratch, [&](int rt, int ct, const float* s0) {
+      for (int q = lane; q < 256; q += 32) {
+        const int r = rt * 16 + q / 16, c = ct * 16 + q % 16;
+        const float pre = bfr(bfr(s0[q]) + ldb(p.b1 + c));
+        t1[r * ld1 + c] = f2b(act_fn(p.act, pre));
+      }
+    });
     __syncthreads();
-    mma_layer<MT, false, SINGLE>(t1, nullptr, ld1, p.w2, nullptr, 2 * H, H, 2 * H, scratch,
-                                 [&](int rt, int ct, const float* s0, const float*) {
-                                   for (int q = lane; q < 256; q += 32) {
-                                     const int r = rt * 16 + q / 16, c = ct * 16 + q % 16;
-                                     const float pre = bfr(bfr(s0[q]) + ldb(p.b2 + c));
-                                     t2[r * ld2 + c] = f2b(act_fn(p.act, pre));
-                                   }
-                                 });
+    mma_layer<MT>(t1, ld1, p.w2, 2 * H, H, 2 * H, scratch, [&](int rt, int ct, const float* s0) {
+      for (int q = lane; q < 256; q += 32) {
+        const int r = rt * 16 + q / 16, c = ct * 16 + q % 16;
+        const float pre = bfr(bfr(s0[q]) + ldb(p.b2 + c));
+        t2[r * ld2 + c] = f2b(act_fn(p.act, pre));
+      }
+    });
     __syncthreads();
-    mma_layer<MT, false, SINGLE>(t2, nullptr, ld2, p.w3, nullptr, 3 * H, 2 * H, 3 * H, scratch,
-                                 [&](int rt, int ct, const float* s0, const float*) {
-                                   for (int q = lane; q < 256; q += 32) {
-                                     const int r = rt * 16 + q / 16, c = ct * 16 + q % 16;
-                                     const float pre = bfr(bfr(s0[q]) + ldb(p.b3 + c));
-                                     const float t3 = bfr(act_fn(p.act, pre));
-                                     w_s[r * ld3 + c] = f2b(t3 * bfr(cm_s[r]));
-                                   }
-                                 });
+    mma_layer<MT>(t2, ld2, p.w3, 3 * H, 2 * H, 3 * H, scratch, [&](int rt, int ct, const float* s0) {
+      for (int q = lane; q < 256; q += 32) {
+        const int r = rt * 16 + q / 16, c = ct * 16 + q % 16;
+        const float pre = bfr(bfr(s0[q]) + ldb(p.b3 + c));
+        const float t3 = bfr(act_fn(p.act, pre));
+        w_s[r * ld3 + c] = f2b(t3 * bfr(cm_s[r]));
+      }
+    });
     __syncthreads();
     for (int e = 0; e < mv; ++e) {
       const int row = (int)((t0 + e) / p.k);
@@ -763,172 +737,524 @@ __global__ void __launch_bounds__(BWD_THREADS, 1)
   }
 }
 
+// ---------------------------------------------------------------------------
+// The second order (#10): see the header for its design.
+
+constexpr int BWD2_TILE = 32;      // edges a tile
+constexpr int BWD2_THREADS = 512;  // 16 warps; the first 3H threads run the per-edge phase
+constexpr int KS2 = 16;            // k rows (forward) or columns (reverse) of a dual weight slice
+
+// bytes of a dual ring: two slices, each of W and Z_W, stored (KS2, ncols + 8)
+// (TRANS: rows of a (kdim, ncols) weight) or (ncols, KS2 + 8) (columns of an
+// (ncols, kdim) weight)
+__host__ __device__ inline size_t dual_ring_bytes(int ncols, bool trans) {
+  return (size_t)4 * (trans ? (size_t)KS2 * (ncols + 8) : (size_t)ncols * (KS2 + 8)) * sizeof(bf16);
+}
+
+// The second order's shared memory (bytes): W1 and Z_W1 as (RBFP, H + 8)
+// bf16 and the six biases in f32 (b1 | b2 | b3 | z_b1 | z_b2 | z_b3), for
+// the whole launch; two staging buffers of ea and z_ea rows, neighbor ids,
+// cutm and z_cutm; the value and tangent tiles of each layer (BWD2_TILE
+// rows of row stride sld(width)), where tiles whose lives do not overlap
+// share a region: p1 | p1' and p2 | p2' for the tile; a region y that holds
+// L2's forward ring, then t2 | t2' (L2's outputs, L3's inputs), then p3 |
+// p3' (L3's outputs, the reverse's first input); a region x that holds t1 |
+// t1' (L1's outputs, L2's inputs), then the ring of L3's forward and of the
+// reverse; the warp partials of g_cutm.
+struct B2Layout {
+  size_t w1, zw1, bias, ea, zea, idx, cm, zcm, p1, pd1, p2, pd2, y, x, red, total;
+};
+
+__host__ __device__ inline B2Layout bwd2_layout(int h, int rbfp) {
+  B2Layout s;
+  const size_t m = BWD2_TILE;
+  size_t o = 0;
+  auto take = [&](size_t bytes) {
+    const size_t at = o;
+    o = align128(o + bytes);
+    return at;
+  };
+  s.w1 = take((size_t)rbfp * sld(h) * sizeof(bf16));
+  s.zw1 = take((size_t)rbfp * sld(h) * sizeof(bf16));
+  s.bias = take((size_t)12 * h * sizeof(float));
+  s.ea = take(2 * m * sld(rbfp) * sizeof(bf16));
+  s.zea = take(2 * m * sld(rbfp) * sizeof(bf16));
+  s.idx = take(2 * m * sizeof(int));
+  s.cm = take(2 * m * sizeof(float));
+  s.zcm = take(2 * m * sizeof(float));
+  s.p1 = take(m * sld(h) * sizeof(bf16));
+  s.pd1 = take(m * sld(h) * sizeof(bf16));
+  s.p2 = take(m * sld(2 * h) * sizeof(bf16));
+  s.pd2 = take(m * sld(2 * h) * sizeof(bf16));
+  // each value tile is a multiple of 128 bytes, so its tangent follows at once;
+  // p3 | p3' holds t2 | t2' and L2's forward ring
+  s.y = take(2 * m * sld(3 * h) * sizeof(bf16));
+  size_t x = 2 * m * sld(h) * sizeof(bf16);  // t1 | t1'
+  const size_t fwd3 = dual_ring_bytes(3 * h, true), rev3 = dual_ring_bytes(2 * h, false);
+  x = x > fwd3 ? x : fwd3;
+  x = x > rev3 ? x : rev3;
+  s.x = take(x);
+  s.red = take(m * (3 * h / 32) * sizeof(float));
+  s.total = o;
+  return s;
+}
+
+enum Dual {
+  DUAL_FWD = 0,  // c0 += A.B, then c1 += Ad.B, c1 += A.ZB  (a value and its tangent)
+  DUAL_REV = 1,  // c0 += A.B, c0 += Ad.ZB, and c1 += Ad.B  (a cotangent and the tangent's)
+  DUAL_REV0 = 2  // c0 += A.B, c0 += Ad.ZB
+};
+
+// A warp's item of a dual product: 16 rows by 16 CW columns of a
+// (BWD2_TILE, ncols) output, from a value A and its tangent Ad (rows row0..,
+// ld lda) against a weight B and its Z (ZB), both in shared memory with the
+// layouts of mma_steps (TRANS: k-major; else n-major, ld ldb).  Per k step
+// of 16, in order, the products of MODE in the order the first port's wmma
+// products ran them, so every sum is bitwise its sum.
+template <int CW, bool TRANS, int MODE>
+__device__ __forceinline__ void dual_steps(float (&c0)[2 * CW][4], float (&c1)[2 * CW][4], const bf16* A,
+                                           const bf16* Ad, int lda, const bf16* B, const bf16* ZB, int ldb,
+                                           int ksteps, int row0, int col0, int lane) {
+  for (int ks = 0; ks < ksteps; ++ks) {
+    const int k = ks * 16;
+    const size_t aoff = (size_t)(row0 + (lane & 15)) * lda + k + ((lane >> 4) << 3);
+    unsigned a[4], ad[4];
+    ldsm_x4(A + aoff, a);
+    ldsm_x4(Ad + aoff, ad);
+#pragma unroll
+    for (int q = 0; q < CW; ++q) {
+      unsigned b[4], zb[4];
+      if (TRANS) {
+        const size_t boff = (size_t)(k + (lane & 7) + (((lane >> 3) & 1) << 3)) * ldb + col0 + q * 16 +
+                            ((lane >> 4) << 3);
+        ldsm_x4_t(B + boff, b);
+        ldsm_x4_t(ZB + boff, zb);
+      } else {
+        const size_t boff = (size_t)(col0 + q * 16 + (lane & 7) + ((lane >> 4) << 3)) * ldb + k +
+                            (((lane >> 3) & 1) << 3);
+        ldsm_x4(B + boff, b);
+        ldsm_x4(ZB + boff, zb);
+      }
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {  // the two 8-column halves
+        const int j = 2 * q + hf;
+        mma_bf16(c0[j], a, b[2 * hf], b[2 * hf + 1]);
+        if (MODE == DUAL_FWD) {
+          mma_bf16(c1[j], ad, b[2 * hf], b[2 * hf + 1]);
+          mma_bf16(c1[j], a, zb[2 * hf], zb[2 * hf + 1]);
+        } else {
+          mma_bf16(c0[j], ad, zb[2 * hf], zb[2 * hf + 1]);
+          if (MODE == DUAL_REV) mma_bf16(c1[j], ad, b[2 * hf], b[2 * hf + 1]);
+        }
+      }
+    }
+  }
+}
+
+// epi(row, col, v0, v1, u0, u1) for each pair of adjacent columns (col even)
+// of a dual item's accumulators (v from c0, u from c1), in registers
+template <int CW, class Epi>
+__device__ __forceinline__ void dual_epilogue(float (&c0)[2 * CW][4], float (&c1)[2 * CW][4], int row0, int col0,
+                                              int lane, Epi epi) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < 2 * CW; ++j) {
+    const int row = row0 + g, col = col0 + j * 8 + 2 * t;
+    epi(row, col, c0[j][0], c0[j][1], c1[j][0], c1[j][1]);
+    epi(row + 8, col, c0[j][2], c0[j][3], c1[j][2], c1[j][3]);
+  }
+}
+
+// The dual product of (A, Ad) (BWD2_TILE, kdim) and (W, Z_W) over kdim in
+// slices of KS2, each slice of both weights staged by all threads with
+// cp.async into a ring of two at `ring` (dual_ring_bytes): TRANS, slice s is
+// rows [s KS2, (s+1) KS2) of row-major (kdim, ncols) weights; else columns
+// [s KS2, (s+1) KS2) of row-major (ncols, kdim) ones.  Warps with an item
+// accumulate; all threads stage and synchronise; the ring is free again on
+// return.
+template <int CW, bool TRANS, int MODE>
+__device__ void ring_dual(float (&c0)[2 * CW][4], float (&c1)[2 * CW][4], bool has_item, const bf16* A,
+                          const bf16* Ad, int lda, const bf16* __restrict__ W, const bf16* __restrict__ ZW, int kdim,
+                          int ncols, bf16* ring, int row0, int col0, int lane) {
+  const int slices = kdim / KS2;
+  const int ld = TRANS ? ncols + 8 : KS2 + 8;
+  const size_t mat = TRANS ? (size_t)KS2 * ld : (size_t)ncols * ld;  // one weight's part of a slice
+  auto stage = [&](int s) {
+    bf16* dst = ring + (s & 1) * 2 * mat;
+    const int per_row = TRANS ? ncols / 8 : KS2 / 8, rows = TRANS ? KS2 : ncols;
+    const int per_w = rows * per_row;
+    for (int x = threadIdx.x; x < 2 * per_w; x += blockDim.x) {
+      const int z = x >= per_w, y = x - z * per_w;
+      const int r = y / per_row, c8 = y % per_row;
+      const bf16* src = (z ? ZW : W) + (TRANS ? (size_t)(s * KS2 + r) * ncols : (size_t)r * kdim + s * KS2);
+      __pipeline_memcpy_async(dst + z * mat + r * ld + c8 * 8, src + c8 * 8, 16);
+    }
+    __pipeline_commit();
+  };
+  stage(0);
+  for (int s = 0; s < slices; ++s) {
+    if (s + 1 < slices) {
+      stage(s + 1);
+      __pipeline_wait_prior(1);
+    } else {
+      __pipeline_wait_prior(0);
+    }
+    __syncthreads();  // slice s has landed for every thread
+    if (has_item) {
+      const bf16* b = ring + (s & 1) * 2 * mat;
+      dual_steps<CW, TRANS, MODE>(c0, c1, A + s * KS2, Ad + s * KS2, lda, b, b + mat, ld, 1, row0, col0, lane);
+    }
+    __syncthreads();  // every warp is done with this slice's buffer before it is refilled
+  }
+}
+
+// The dual forward's epilogue of L1 and L2 for two columns, from the value
+// (v) and tangent (u) accumulators: pre = bf16(bf16(v) + b), pre' =
+// bf16(bf16(u) + z_b), t = bf16(act(pre)) and t' = bf16(act'(pre) pre'),
+// stored to pp, ppd, tt and ttd
+__device__ __forceinline__ void dual_fwd_epi(int act, float v0, float v1, float u0, float u1, const float* b,
+                                             const float* zb, bf16* pp, bf16* ppd, bf16* tt, bf16* ttd) {
+  bfr2(v0, v1);
+  bfr2(u0, u1);
+  v0 += b[0];
+  v1 += b[1];
+  u0 += zb[0];
+  u1 += zb[1];
+  bfr2(v0, v1);
+  bfr2(u0, u1);
+  float f[2], f1[2], f2[2];
+  act3(act, v0, &f[0], &f1[0], &f2[0]);
+  act3(act, v1, &f[1], &f1[1], &f2[1]);
+  float d0 = f1[0] * u0, d1 = f1[1] * u1;
+  bfr2(f[0], f[1]);
+  bfr2(d0, d1);
+  *reinterpret_cast<unsigned*>(pp) = pack_exact(v0, v1);
+  *reinterpret_cast<unsigned*>(ppd) = pack_exact(u0, u1);
+  *reinterpret_cast<unsigned*>(tt) = pack_exact(f[0], f[1]);
+  *reinterpret_cast<unsigned*>(ttd) = pack_exact(d0, d1);
+}
+
+// A reverse layer's epilogue for two columns, through the activation: from
+// the cotangents of its value (v) and of its tangent (u) to those of the
+// pre-activation, bf16(v act'(pre) + u act''(pre) pre'), and of its
+// tangent, bf16(u act'(pre)), in place of pre at pp and pre' at ppd
+__device__ __forceinline__ void dual_rev_epi(int act, float v0, float v1, float u0, float u1, bf16* pp,
+                                             bf16* ppd) {
+  const unsigned w = *reinterpret_cast<const unsigned*>(pp), wd = *reinterpret_cast<const unsigned*>(ppd);
+  const float pre0 = __uint_as_float(w << 16), pre1 = __uint_as_float(w & 0xffff0000u);
+  const float pred0 = __uint_as_float(wd << 16), pred1 = __uint_as_float(wd & 0xffff0000u);
+  float f, f1[2], f2[2];
+  act3(act, pre0, &f, &f1[0], &f2[0]);
+  act3(act, pre1, &f, &f1[1], &f2[1]);
+  float a0 = v0 * f1[0] + u0 * f2[0] * pred0, a1 = v1 * f1[1] + u1 * f2[1] * pred1;
+  float d0 = u0 * f1[0], d1 = u1 * f1[1];
+  bfr2(a0, a1);
+  bfr2(d0, d1);
+  *reinterpret_cast<unsigned*>(pp) = pack_exact(a0, a1);
+  *reinterpret_cast<unsigned*>(ppd) = pack_exact(d0, d1);
+}
+
+// the gathered source values of one edge for one thread: cat[j] and z_cat[j]
+// on the thread's components
+struct Gath2 {
+  float cat[5], zcat[5];
+};
+
+__device__ __forceinline__ Gath2 gather2(const Args& p, int j, int cf, int cc, int hh) {
+  Gath2 v;
+  const size_t row = (size_t)j * 9 * p.h + cf * p.h + hh;
+#pragma unroll
+  for (int c = 0; c < 5; ++c) {
+    v.cat[c] = c < cc ? ldb(p.cat + row + c * p.h) : 0.0f;
+    v.zcat[c] = c < cc ? ldb(p.zcat + row + c * p.h) : 0.0f;
+  }
+  return v;
+}
+
 // The second order: g_ea (N, K, RBF) bf16, g_cutm (N, K) f32, g_ct (N, 9H)
 // f32, the tangent of w per edge wdot (N*K, 3H) f32 (tn_src_sum_kernel turns
 // it into g_cat), and with `save` (per-edge rows [ea | z_ea | t1 | t1' |
 // p1_bar | p1'_bar | t2 | t2' | p2_bar | p2'_bar | p3_bar | p3'_bar], bf16,
 // row stride 2 rbfp + 18H; x' is the tangent of x, x_bar its cotangent) the
-// operands of the weight gradients.
-__global__ void __launch_bounds__(3 * MAX_H, 1)
+// operands of the weight gradients.  A block owns a contiguous range of
+// receiver rows and walks their edges in tiles of BWD2_TILE.
+template <int ACT>
+__global__ void __launch_bounds__(BWD2_THREADS, 1)
     tn_bwd2_kernel(Args p, bf16* __restrict__ gea, float* __restrict__ gcutm, float* __restrict__ gct,
                    float* __restrict__ wdot, bf16* __restrict__ save) {
   extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int M = BWD_M, MT = M / 16;
-  const int H = p.h, F9 = 9 * H;
-  const int third = threadIdx.x / H, hh = threadIdx.x % H, col = threadIdx.x;
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32, nwarps = blockDim.x / 32;
-  const Smem L = smem_layout(BWD2, H, p.rbfp);
-  bf16 *ea_s = TILE(ea), *zea_s = TILE(zea);
-  bf16 *p1 = TILE(p1), *pd1 = TILE(pd1), *t1 = TILE(t1), *td1 = TILE(td1);
-  bf16 *p2 = TILE(p2), *pd2 = TILE(pd2), *t2 = TILE(t2), *td2 = TILE(td2);
-  bf16 *p3 = TILE(p3), *pd3 = TILE(pd3);
-  float* scratch = reinterpret_cast<float*>(smem + L.scratch);
+  // the activation: a compile-time constant where the instantiation names it
+  const int act = ACT >= 0 ? ACT : p.act;
+  constexpr int M = BWD2_TILE;
+  const int H = p.h, F9 = 9 * H, tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const B2Layout L = bwd2_layout(H, p.rbfp);
+  bf16 *w1_s = TILE(w1), *zw1_s = TILE(zw1), *ea_buf = TILE(ea), *zea_buf = TILE(zea);
+  float* b_s = reinterpret_cast<float*>(smem + L.bias);  // b1 | b2 | b3 | z_b1 | z_b2 | z_b3
+  int* idx_buf = reinterpret_cast<int*>(smem + L.idx);
+  float* cm_buf = reinterpret_cast<float*>(smem + L.cm);
+  float* zcm_buf = reinterpret_cast<float*>(smem + L.zcm);
+  bf16 *p1 = TILE(p1), *pd1 = TILE(pd1), *p2 = TILE(p2), *pd2 = TILE(pd2), *yr = TILE(y), *xr = TILE(x);
+  bf16 *t1 = xr, *td1 = xr + M * sld(H);                    // in x until L3's forward
+  bf16 *t2 = yr, *td2 = yr + M * sld(2 * H);                // in y from L2's forward epilogue
+  bf16 *p3 = yr, *pd3 = yr + M * sld(3 * H);                // to the reverse of L3
   float* red = reinterpret_cast<float*>(smem + L.red);
-  int* idx_s = reinterpret_cast<int*>(smem + L.idx);
-  float* cm_s = reinterpret_cast<float*>(smem + L.cm);
-  float* zcm_s = reinterpret_cast<float*>(smem + L.zcm);
   const int lde = sld(p.rbfp), ld1 = sld(H), ld2 = sld(2 * H), ld3 = sld(3 * H);
-  const int ld_save = 2 * p.rbfp + 18 * H;
-  const int row0 = blockIdx.x * p.rows_per_block;
-  const int row1 = min(p.n, row0 + p.rows_per_block);
-  if (row0 >= row1) return;
-  const long e0 = (long)row0 * p.k, e1 = (long)row1 * p.k;
-  const int cf = comp_first(third), cc = comp_count(third);
-  float acc[5] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-  float cti[5];
-  int cur = row0;
-#pragma unroll
-  for (int c = 0; c < 5; ++c) cti[c] = c < cc ? bfr(p.ct[(size_t)cur * F9 + (cf + c) * H + hh]) : 0.0f;
-  // the dual forward's epilogue of L1 and L2: value and tangent of the
-  // pre-activation, then of the activation
-  auto dual_epi = [&](bf16* pp, bf16* ppd, bf16* tt, bf16* ttd, int ld, const bf16* b, const bf16* zb) {
-    return [=, &p](int rt, int ct, const float* s0, const float* s1) {
-      for (int q = lane; q < 256; q += 32) {
-        const int r = rt * 16 + q / 16, c = ct * 16 + q % 16;
-        const float pre = bfr(bfr(s0[q]) + ldb(b + c));
-        const float pred = bfr(bfr(s1[q]) + ldb(zb + c));
-        float f, f1, f2;
-        act3(p.act, pre, &f, &f1, &f2);
-        pp[r * ld + c] = f2b(pre);
-        ppd[r * ld + c] = f2b(pred);
-        tt[r * ld + c] = f2b(f);
-        ttd[r * ld + c] = f2b(f1 * pred);
-      }
-    };
-  };
-  // the reverse's epilogue through a layer's activation: from the cotangents
-  // of its value (s0) and its tangent (s1) to those of its pre-activation
-  auto rev_epi = [&](bf16* pp, bf16* ppd, int ld) {
-    return [=, &p](int rt, int ct, const float* s0, const float* s1) {
-      for (int q = lane; q < 256; q += 32) {
-        const int r = rt * 16 + q / 16, c = ct * 16 + q % 16;
-        const float pre = __bfloat162float(pp[r * ld + c]);
-        const float pred = __bfloat162float(ppd[r * ld + c]);
-        float f, f1, f2;
-        act3(p.act, pre, &f, &f1, &f2);
-        pp[r * ld + c] = f2b(s0[q] * f1 + s1[q] * f2 * pred);
-        ppd[r * ld + c] = f2b(s1[q] * f1);
-      }
-    };
-  };
-  for (long t0 = e0; t0 < e1; t0 += M) {
-    const int mv = (int)min((long)M, e1 - t0);
-    stage_tile(p, t0, mv, M, ea_s, zea_s, idx_s, cm_s, zcm_s);
-    __syncthreads();
-    mma_layer<MT, false, DUAL_FWD>(ea_s, zea_s, lde, p.w1, p.zw1, H, p.rbfp, H, scratch,
-                                   dual_epi(p1, pd1, t1, td1, ld1, p.b1, p.zb1));
-    __syncthreads();
-    mma_layer<MT, false, DUAL_FWD>(t1, td1, ld1, p.w2, p.zw2, 2 * H, H, 2 * H, scratch,
-                                   dual_epi(p2, pd2, t2, td2, ld2, p.b2, p.zb2));
-    __syncthreads();
-    mma_layer<MT, false, DUAL_FWD>(t2, td2, ld2, p.w3, p.zw3, 3 * H, 2 * H, 3 * H, scratch,
-                                   [&](int rt, int ct, const float* s0, const float* s1) {
-                                     for (int q = lane; q < 256; q += 32) {
-                                       const int r = rt * 16 + q / 16, c = ct * 16 + q % 16;
-                                       p3[r * ld3 + c] = f2b(bfr(s0[q]) + ldb(p.b3 + c));
-                                       pd3[r * ld3 + c] = f2b(bfr(s1[q]) + ldb(p.zb3 + c));
-                                     }
-                                   });
-    __syncthreads();
-    // per edge: g_ct (the tangent of the messages), the cotangents of w and
-    // of its tangent, g_cutm's terms, and the cotangents of p3 and p3'
-    for (int e = 0; e < mv; ++e) {
-      const int row = (int)((t0 + e) / p.k);
-      if (row != cur) {
-        for (int c = 0; c < cc; ++c) gct[(size_t)cur * F9 + (cf + c) * H + hh] = acc[c];
-        cur = row;
-#pragma unroll
-        for (int c = 0; c < 5; ++c) {
-          acc[c] = 0.0f;
-          cti[c] = c < cc ? bfr(p.ct[(size_t)cur * F9 + (cf + c) * H + hh]) : 0.0f;
-        }
-      }
-      const int j = idx_s[e];
-      const float pre = __bfloat162float(p3[e * ld3 + col]);
-      const float pred = __bfloat162float(pd3[e * ld3 + col]);
-      float f, f1, f2;
-      act3(p.act, pre, &f, &f1, &f2);
-      const float t3 = bfr(f), td3 = bfr(f1 * pred);
-      const float cmb = bfr(cm_s[e]), zcmb = bfr(zcm_s[e]);
-      const float w = bfr(t3 * cmb);
-      const float wd = bfr(td3 * cmb + t3 * zcmb);
-      const bf16* src = p.cat + (size_t)j * F9 + cf * H + hh;
-      const bf16* zsrc = p.zcat + (size_t)j * F9 + cf * H + hh;
-      float wbar = 0.0f, wdbar = 0.0f;
-#pragma unroll
-      for (int c = 0; c < 5; ++c) {
-        if (c < cc) {
-          const float g = ldb(src + c * H), zg = ldb(zsrc + c * H);
-          acc[c] += bfr(zg * w) + bfr(g * wd);
-          wbar += cti[c] * zg;
-          wdbar += cti[c] * g;
-        }
-      }
-      wdot[(size_t)(t0 + e) * 3 * H + col] = wd;
-      const float t3bar = wbar * cmb + wdbar * zcmb;
-      const float td3bar = wdbar * cmb;
-      const float term = group_sum(wbar * t3 + wdbar * td3, 32);
-      if (lane == 0) red[e * nwarps + warp] = term;
-      p3[e * ld3 + col] = f2b(t3bar * f1 + td3bar * f2 * pred);
-      pd3[e * ld3 + col] = f2b(td3bar * f1);
-    }
-    __syncthreads();
-    if ((int)threadIdx.x < mv) {
-      float s = 0.0f;
-      for (int w = 0; w < nwarps; ++w) s += red[threadIdx.x * nwarps + w];
-      gcutm[t0 + threadIdx.x] = s;
-    }
-    mma_layer<MT, true, DUAL_REV>(p3, pd3, ld3, p.w3, p.zw3, 3 * H, 3 * H, 2 * H, scratch,
-                                  rev_epi(p2, pd2, ld2));
-    __syncthreads();
-    mma_layer<MT, true, DUAL_REV>(p2, pd2, ld2, p.w2, p.zw2, 2 * H, 2 * H, H, scratch,
-                                  rev_epi(p1, pd1, ld1));
-    __syncthreads();
-    mma_layer<MT, true, DUAL_REV0>(p1, pd1, ld1, p.w1, p.zw1, H, H, p.rbfp, scratch,
-                                   [&](int rt, int ct, const float* s0, const float*) {
-                                     for (int q = lane; q < 256; q += 32) {
-                                       const int r = rt * 16 + q / 16, c = ct * 16 + q % 16;
-                                       if (r < mv && c < p.rbf) gea[(size_t)(t0 + r) * p.rbf + c] = f2b(s0[q]);
-                                     }
-                                   });
-    if (save) {
-      const int w1 = p.rbfp;
-      save_rows(ea_s, w1, mv, save, ld_save, t0, 0);
-      save_rows(zea_s, w1, mv, save, ld_save, t0, w1);
-      save_rows(t1, H, mv, save, ld_save, t0, 2 * w1);
-      save_rows(td1, H, mv, save, ld_save, t0, 2 * w1 + H);
-      save_rows(p1, H, mv, save, ld_save, t0, 2 * w1 + 2 * H);
-      save_rows(pd1, H, mv, save, ld_save, t0, 2 * w1 + 3 * H);
-      save_rows(t2, 2 * H, mv, save, ld_save, t0, 2 * w1 + 4 * H);
-      save_rows(td2, 2 * H, mv, save, ld_save, t0, 2 * w1 + 6 * H);
-      save_rows(p2, 2 * H, mv, save, ld_save, t0, 2 * w1 + 8 * H);
-      save_rows(pd2, 2 * H, mv, save, ld_save, t0, 2 * w1 + 10 * H);
-      save_rows(p3, 3 * H, mv, save, ld_save, t0, 2 * w1 + 12 * H);
-      save_rows(pd3, 3 * H, mv, save, ld_save, t0, 2 * w1 + 15 * H);
-    }
-    __syncthreads();
+  const int ld_save = 2 * p.rbfp + 18 * H, o = 2 * p.rbfp;  // the rows' activation columns start at o
+  const int nw3 = 3 * H / 32;
+  // the products' items: warp w takes rows (w & 1) * 16 and column group w >> 1
+  const int row0 = (warp & 1) * 16, cg = warp >> 1;
+  const bool item = warp < H / 8;  // H/8 items in every layer but g_ea's
+
+  for (int x = tid; x < p.rbfp * H; x += blockDim.x) {
+    w1_s[(x / H) * ld1 + x % H] = p.w1[x];
+    zw1_s[(x / H) * ld1 + x % H] = p.zw1[x];
   }
-  for (int c = 0; c < cc; ++c) gct[(size_t)cur * F9 + (cf + c) * H + hh] = acc[c];
+  for (int x = tid; x < 6 * H; x += blockDim.x) {
+    b_s[x] = x < H ? ldb(p.b1 + x) : (x < 3 * H ? ldb(p.b2 + x - H) : ldb(p.b3 + x - 3 * H));
+    b_s[6 * H + x] = x < H ? ldb(p.zb1 + x) : (x < 3 * H ? ldb(p.zb2 + x - H) : ldb(p.zb3 + x - 3 * H));
+  }
+  for (int x = tid; x < 2 * M * lde; x += blockDim.x) {
+    ea_buf[x] = f2b(0.0f);
+    zea_buf[x] = f2b(0.0f);
+  }
+  __syncthreads();  // the RBF padding is zero before any copy lands
+
+  const int r0 = blockIdx.x * p.rows_per_block, r1 = min(p.n, r0 + p.rows_per_block);
+  if (r0 >= r1) return;  // the whole block
+  const long e0 = (long)r0 * p.k, e1 = (long)r1 * p.k;
+  const int ntiles = (int)((e1 - e0 + M - 1) / M);
+  // start copying tile t (ea and z_ea rows, ids, cutm and z_cutm) into staging buffer t & 1
+  auto stage = [&](int t) {
+    const long t0 = e0 + (long)t * M;
+    const int mv = (int)min((long)M, e1 - t0);
+    bf16* ea_s = ea_buf + (t & 1) * M * lde;
+    bf16* zea_s = zea_buf + (t & 1) * M * lde;
+    if (p.rbf % 2 == 0) {
+      const int words = p.rbf / 2, per_w = mv * words;
+      for (int x = tid; x < 2 * per_w; x += blockDim.x) {
+        const int z = x >= per_w, y = x - z * per_w;
+        const int r = y / words, w = y % words;
+        __pipeline_memcpy_async((z ? zea_s : ea_s) + r * lde + 2 * w,
+                                (z ? p.zea : p.ea) + (size_t)(t0 + r) * p.rbf + 2 * w, 4);
+      }
+    } else {  // rows not 4-byte aligned: plain copies
+      for (int x = tid; x < mv * p.rbf; x += blockDim.x) {
+        const int r = x / p.rbf, c = x % p.rbf;
+        ea_s[r * lde + c] = p.ea[(size_t)(t0 + r) * p.rbf + c];
+        zea_s[r * lde + c] = p.zea[(size_t)(t0 + r) * p.rbf + c];
+      }
+    }
+    for (int r = tid; r < mv; r += blockDim.x) {
+      __pipeline_memcpy_async(idx_buf + (t & 1) * M + r, p.idx + t0 + r, 4);
+      __pipeline_memcpy_async(cm_buf + (t & 1) * M + r, p.cutm + t0 + r, 4);
+      __pipeline_memcpy_async(zcm_buf + (t & 1) * M + r, p.zcutm + t0 + r, 4);
+    }
+    __pipeline_commit();
+  };
+
+  // the per-edge phase's thread: channel hh of third `third` (the first 3H
+  // threads, whole warps); its receiver row `cur`, at slot `slot`
+  const bool edge_thread = tid < 3 * H;
+  const int third = edge_thread ? tid / H : 0, hh = tid % H;
+  const int cf = comp_first(third), cc = comp_count(third);
+  int cur = r0, slot = 0;
+  float acc[5] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f}, cti[5];
+  auto load_cti = [&]() {
+#pragma unroll
+    for (int c = 0; c < 5; ++c) cti[c] = c < cc ? bfr(p.ct[(size_t)cur * F9 + (cf + c) * H + hh]) : 0.0f;
+  };
+  if (edge_thread) load_cti();
+
+  stage(0);
+  for (int t = 0; t < ntiles; ++t) {
+    const long t0 = e0 + (long)t * M;
+    const int mv = (int)min((long)M, e1 - t0);
+    const bf16* ea_s = ea_buf + (t & 1) * M * lde;
+    const bf16* zea_s = zea_buf + (t & 1) * M * lde;
+    const int* idx_s = idx_buf + (t & 1) * M;
+    float* cm_s = cm_buf + (t & 1) * M;
+    float* zcm_s = zcm_buf + (t & 1) * M;
+    __pipeline_wait_prior(0);
+    __syncthreads();  // tile t has landed; the last tile is done with every tile buffer
+    if (t + 1 < ntiles) stage(t + 1);
+    for (int r = tid; r < mv; r += blockDim.x) {
+      cm_s[r] = bfr(cm_s[r]);
+      zcm_s[r] = bfr(zcm_s[r]);
+    }
+    if (save) {
+      save_tile(ea_s, p.rbfp, mv, save, ld_save, t0, 0);
+      save_tile(zea_s, p.rbfp, mv, save, ld_save, t0, p.rbfp);
+    }
+
+    // the dual forward.  L1 (W1 and Z_W1 resident): p1, p1', t1, t1' (t1 | t1' in x)
+    if (item) {
+      float c0[2][4] = {}, c1[2][4] = {};
+      dual_steps<1, true, DUAL_FWD>(c0, c1, ea_s, zea_s, lde, w1_s, zw1_s, ld1, p.rbfp / 16, row0, cg * 16, lane);
+      dual_epilogue<1>(c0, c1, row0, cg * 16, lane, [&](int r, int c, float v0, float v1, float u0, float u1) {
+        const int at = r * ld1 + c;
+        dual_fwd_epi(act, v0, v1, u0, u1, b_s + c, b_s + 6 * H + c, p1 + at, pd1 + at, t1 + at, td1 + at);
+      });
+    }
+    __syncthreads();
+    if (save) {
+      save_tile(t1, H, mv, save, ld_save, t0, o);
+      save_tile(td1, H, mv, save, ld_save, t0, o + H);
+    }
+    // L2 (W2 and Z_W2 through the ring in y; the epilogue after the ring is
+    // done): p2, p2', t2, t2' (in y)
+    {
+      float c0[4][4] = {}, c1[4][4] = {};
+      ring_dual<2, true, DUAL_FWD>(c0, c1, item, t1, td1, ld1, p.w2, p.zw2, H, 2 * H, yr, row0, cg * 32, lane);
+      if (item)
+        dual_epilogue<2>(c0, c1, row0, cg * 32, lane, [&](int r, int c, float v0, float v1, float u0, float u1) {
+          const int at = r * ld2 + c;
+          dual_fwd_epi(act, v0, v1, u0, u1, b_s + H + c, b_s + 7 * H + c, p2 + at, pd2 + at, t2 + at, td2 + at);
+        });
+    }
+    __syncthreads();  // t2 and t2' are complete; x is free (t1 | t1' saved before L2)
+    if (save) {  // before L3's epilogue overwrites them
+      save_tile(t2, 2 * H, mv, save, ld_save, t0, o + 4 * H);
+      save_tile(td2, 2 * H, mv, save, ld_save, t0, o + 6 * H);
+    }
+    // L3 (W3 and Z_W3 through the ring in x): p3 = bf16(bf16(t2 . W3) + b3)
+    // and p3', in y once the ring is done with t2 and t2'
+    {
+      float c0[6][4] = {}, c1[6][4] = {};
+      ring_dual<3, true, DUAL_FWD>(c0, c1, item, t2, td2, ld2, p.w3, p.zw3, 2 * H, 3 * H, xr, row0, cg * 48, lane);
+      if (item)
+        dual_epilogue<3>(c0, c1, row0, cg * 48, lane, [&](int r, int c, float v0, float v1, float u0, float u1) {
+          bfr2(v0, v1);
+          bfr2(u0, u1);
+          v0 += b_s[3 * H + c];
+          v1 += b_s[3 * H + c + 1];
+          u0 += b_s[9 * H + c];
+          u1 += b_s[9 * H + c + 1];
+          bfr2(v0, v1);
+          bfr2(u0, u1);
+          *reinterpret_cast<unsigned*>(p3 + r * ld3 + c) = pack_exact(v0, v1);
+          *reinterpret_cast<unsigned*>(pd3 + r * ld3 + c) = pack_exact(u0, u1);
+        });
+    }
+    __syncthreads();  // p3 and p3' are complete
+
+    // per edge: g_ct (the tangent of the messages, each row's sums in slot
+    // order), the cotangents of w and of its tangent, g_cutm's terms (four
+    // edges' warp sums at once) and the cotangents of p3 and p3' in their
+    // place; the next edge's gathered values in flight
+    if (edge_thread) {
+      Gath2 g = gather2(p, idx_s[0], cf, cc, hh);
+      for (int eb = 0; eb < mv; eb += 4) {
+        float term[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int e = eb + u;
+          term[u] = 0.0f;
+          if (e >= mv) continue;  // the same for the whole warp
+          Gath2 nxt = g;
+          if (e + 1 < mv) nxt = gather2(p, idx_s[e + 1], cf, cc, hh);
+          if (slot == p.k) {  // the next receiver row
+#pragma unroll
+            for (int c = 0; c < 5; ++c) {
+              if (c < cc) gct[(size_t)cur * F9 + (cf + c) * H + hh] = acc[c];
+              acc[c] = 0.0f;
+            }
+            ++cur;
+            slot = 0;
+            load_cti();
+          }
+          ++slot;
+          const float pre = ldb(p3 + e * ld3 + tid), pred = ldb(pd3 + e * ld3 + tid);
+          float f, f1, f2;
+          act3(act, pre, &f, &f1, &f2);
+          float t3 = f, td3 = f1 * pred;
+          bfr2(t3, td3);
+          const float cmb = cm_s[e], zcmb = zcm_s[e];
+          float w = t3 * cmb, wd = td3 * cmb + t3 * zcmb;
+          bfr2(w, wd);
+          float wbar = 0.0f, wdbar = 0.0f;
+#pragma unroll
+          for (int c = 0; c < 5; ++c) {
+            if (c < cc) {
+              float x = g.zcat[c] * w, y = g.cat[c] * wd;
+              bfr2(x, y);
+              acc[c] += x + y;
+              wbar += cti[c] * g.zcat[c];
+              wdbar += cti[c] * g.cat[c];
+            }
+          }
+          wdot[(size_t)(t0 + e) * 3 * H + tid] = wd;
+          const float t3bar = wbar * cmb + wdbar * zcmb;
+          const float td3bar = wdbar * cmb;
+          term[u] = wbar * t3 + wdbar * td3;
+          float pb = t3bar * f1 + td3bar * f2 * pred, pdb = td3bar * f1;
+          bfr2(pb, pdb);
+          p3[e * ld3 + tid] = bf16_exact(pb);
+          pd3[e * ld3 + tid] = bf16_exact(pdb);
+          g = nxt;
+        }
+        const float r = warp_sum4(term[0], term[1], term[2], term[3], lane);
+        if ((lane & 7) == 0 && eb + (lane >> 3) < mv) red[(eb + (lane >> 3)) * nw3 + warp] = r;
+      }
+    }
+    __syncthreads();  // p3_bar, p3'_bar and the warp partials are complete
+    if (tid < mv) {
+      float sm = 0.0f;
+      for (int w = 0; w < nw3; ++w) sm += red[tid * nw3 + w];
+      gcutm[t0 + tid] = sm;
+    }
+    if (save) {
+      save_tile(p3, 3 * H, mv, save, ld_save, t0, o + 12 * H);
+      save_tile(pd3, 3 * H, mv, save, ld_save, t0, o + 15 * H);
+    }
+
+    // the reverse.  L3 (W3^T and Z_W3^T through the ring in x): p2_bar and
+    // p2'_bar in place of p2 and p2'
+    {
+      float c0[4][4] = {}, c1[4][4] = {};
+      ring_dual<2, false, DUAL_REV>(c0, c1, item, p3, pd3, ld3, p.w3, p.zw3, 3 * H, 2 * H, xr, row0, cg * 32,
+                                    lane);
+      if (item)
+        dual_epilogue<2>(c0, c1, row0, cg * 32, lane, [&](int r, int c, float v0, float v1, float u0, float u1) {
+          dual_rev_epi(act, v0, v1, u0, u1, p2 + r * ld2 + c, pd2 + r * ld2 + c);
+        });
+    }
+    __syncthreads();
+    if (save) {
+      save_tile(p2, 2 * H, mv, save, ld_save, t0, o + 8 * H);
+      save_tile(pd2, 2 * H, mv, save, ld_save, t0, o + 10 * H);
+    }
+    // L2 (W2^T and Z_W2^T through the ring in x): p1_bar and p1'_bar in place of p1 and p1'
+    {
+      float c0[2][4] = {}, c1[2][4] = {};
+      ring_dual<1, false, DUAL_REV>(c0, c1, item, p2, pd2, ld2, p.w2, p.zw2, 2 * H, H, xr, row0, cg * 16, lane);
+      if (item)
+        dual_epilogue<1>(c0, c1, row0, cg * 16, lane, [&](int r, int c, float v0, float v1, float u0, float u1) {
+          dual_rev_epi(act, v0, v1, u0, u1, p1 + r * ld1 + c, pd1 + r * ld1 + c);
+        });
+    }
+    __syncthreads();
+    if (save) {
+      save_tile(p1, H, mv, save, ld_save, t0, o + 2 * H);
+      save_tile(pd1, H, mv, save, ld_save, t0, o + 3 * H);
+    }
+    // L1 (W1^T and Z_W1^T resident): g_ea = p1_bar . W1^T + p1'_bar . Z_W1^T,
+    // RBFP/8 items of 16 rows by 16 columns
+    if (warp < p.rbfp / 8) {
+      float c0[2][4] = {}, c1[2][4] = {};
+      dual_steps<1, false, DUAL_REV0>(c0, c1, p1, pd1, ld1, w1_s, zw1_s, ld1, H / 16, row0, cg * 16, lane);
+      dual_epilogue<1>(c0, c1, row0, cg * 16, lane, [&](int r, int c, float v0, float v1, float, float) {
+        if (r >= mv) return;
+        bf16* out = gea + (size_t)(t0 + r) * p.rbf + c;
+        if (c < p.rbf) out[0] = f2b(v0);
+        if (c + 1 < p.rbf) out[1] = f2b(v1);
+      });
+    }
+  }
+  if (edge_thread) {
+#pragma unroll
+    for (int c = 0; c < 5; ++c)
+      if (c < cc) gct[(size_t)cur * F9 + (cf + c) * H + hh] = acc[c];
+  }
 }
 
 // g_cat (N, 9H) bf16: g_cat[j, c] = sum over the K slots (i, k) pointing at
@@ -957,9 +1283,9 @@ bool valid_shape(int n, int k, int h, int rbf) {
   return n > 0 && k > 0 && h >= 32 && h <= MAX_H && h % 32 == 0 && rbf > 0 && pad16(rbf) <= MAX_RBFP;
 }
 
-// The grid of a row kernel: rows per block such that every SM gets as many
-// blocks as its shared memory and threads hold, each block its own rows.
-cudaError_t plan_rows(int kind, Args* p, size_t* smem, int* blocks) {
+// The forward's grid: rows per block such that every SM gets as many blocks
+// as its shared memory and threads hold, each block its own rows.
+cudaError_t plan_rows(Args* p, size_t* smem, int* blocks) {
   int dev = 0, sms = 0, smem_max = 0, smem_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -967,7 +1293,7 @@ cudaError_t plan_rows(int kind, Args* p, size_t* smem, int* blocks) {
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&smem_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
   if (err != cudaSuccess) return err;
-  *smem = smem_layout(kind, p->h, p->rbfp).total;
+  *smem = smem_layout(p->h, p->rbfp).total;
   if (*smem > (size_t)smem_max) return cudaErrorInvalidValue;
   int per_sm = (int)(smem_sm / (*smem + 1024));  // 1 KB reserved per block
   per_sm = per_sm < 1 ? 1 : per_sm;
@@ -979,27 +1305,32 @@ cudaError_t plan_rows(int kind, Args* p, size_t* smem, int* blocks) {
   return cudaSuccess;
 }
 
-// The backward's grid: one block an SM (its shared memory), each block a
-// contiguous range of rows.
-cudaError_t plan_bwd(Args* p, size_t* smem, int* blocks) {
+// The backward's and second order's grid (kind 1 or 2): one block an SM
+// (their shared memory), each block a contiguous range of rows.  A shape
+// whose tiles do not fit in a block's shared memory (the second order past
+// RBF = 80 at H = 128) is refused.
+cudaError_t plan_bwd(int kind, Args* p, size_t* smem, int* blocks) {
   int dev = 0, sms = 0, smem_max = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return err;
-  *smem = bwd_layout(p->h, p->rbfp).total;
+  *smem = kind == 1 ? bwd_layout(p->h, p->rbfp).total : bwd2_layout(p->h, p->rbfp).total;
   if (*smem > (size_t)smem_max) return cudaErrorInvalidValue;
   p->rows_per_block = (p->n + sms - 1) / sms;
   *blocks = (p->n + p->rows_per_block - 1) / p->rows_per_block;
   return cudaSuccess;
 }
 
-// the backward compiled for silu (the configurations' choice), with the
-// activation folded into its arithmetic, and for any activation read at
-// run time
-const void* bwd_kernel(int act) {
-  return act == ACT_SILU ? reinterpret_cast<const void*>(tn_bwd_kernel<ACT_SILU>)
-                         : reinterpret_cast<const void*>(tn_bwd_kernel<-1>);
+// the backward (kind 1) or the second order (2), compiled for silu (the
+// configurations' choice), with the activation folded into its arithmetic,
+// and for any activation read at run time
+const void* bwd_kernel(int kind, int act) {
+  if (kind == 1)
+    return act == ACT_SILU ? reinterpret_cast<const void*>(tn_bwd_kernel<ACT_SILU>)
+                           : reinterpret_cast<const void*>(tn_bwd_kernel<-1>);
+  return act == ACT_SILU ? reinterpret_cast<const void*>(tn_bwd2_kernel<ACT_SILU>)
+                         : reinterpret_cast<const void*>(tn_bwd2_kernel<-1>);
 }
 
 Args make_args(const void* idx, int n, int k, int h, int rbf, const void* cat, const void* ea,
@@ -1043,7 +1374,7 @@ int tn_fwd(const void* idx, int n, int k, int h, int rbf, const void* cat, const
   Args p = make_args(idx, n, k, h, rbf, cat, ea, cutm, w1, b1, w2, b2, w3, b3, act);
   size_t smem = 0;
   int blocks = 0;
-  cudaError_t err = plan_rows(FWD, &p, &smem, &blocks);
+  cudaError_t err = plan_rows(&p, &smem, &blocks);
   if (err != cudaSuccess) return (int)err;
   err = cudaFuncSetAttribute(tn_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -1062,9 +1393,9 @@ int tn_bwd(const void* idx, int n, int k, int h, int rbf, const void* cat, const
   p.ct = static_cast<const float*>(ct);
   size_t smem = 0;
   int blocks = 0;
-  cudaError_t err = plan_bwd(&p, &smem, &blocks);
+  cudaError_t err = plan_bwd(1, &p, &smem, &blocks);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(bwd_kernel(act), cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  err = cudaFuncSetAttribute(bwd_kernel(1, act), cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   bf16 *o_dcat = static_cast<bf16*>(dcat), *o_dea = static_cast<bf16*>(dea), *o_save = static_cast<bf16*>(save);
@@ -1100,13 +1431,17 @@ int tn_bwd2(const void* idx, int n, int k, int h, int rbf, const void* cat, cons
   p.zb3 = static_cast<const bf16*>(zb3);
   size_t smem = 0;
   int blocks = 0;
-  cudaError_t err = plan_rows(BWD2, &p, &smem, &blocks);
+  cudaError_t err = plan_bwd(2, &p, &smem, &blocks);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(tn_bwd2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  err = cudaFuncSetAttribute(bwd_kernel(2, act), cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  tn_bwd2_kernel<<<blocks, 3 * h, smem, static_cast<cudaStream_t>(stream)>>>(
-      p, static_cast<bf16*>(gea), static_cast<float*>(gcutm), static_cast<float*>(gct),
-      static_cast<float*>(wdot), static_cast<bf16*>(save));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  bf16 *o_gea = static_cast<bf16*>(gea), *o_save = static_cast<bf16*>(save);
+  float *o_gcutm = static_cast<float*>(gcutm), *o_gct = static_cast<float*>(gct), *o_wdot = static_cast<float*>(wdot);
+  if (act == ACT_SILU)
+    tn_bwd2_kernel<ACT_SILU><<<blocks, BWD2_THREADS, smem, st>>>(p, o_gea, o_gcutm, o_gct, o_wdot, o_save);
+  else
+    tn_bwd2_kernel<-1><<<blocks, BWD2_THREADS, smem, st>>>(p, o_gea, o_gcutm, o_gct, o_wdot, o_save);
   return (int)cudaGetLastError();
 }
 
@@ -1121,26 +1456,28 @@ int tn_src_sum(const void* perm, int n, int k, int h, const void* ct, const void
   return (int)cudaGetLastError();
 }
 
-// The backward's (tn_bwd_kernel for silu) resources at a shape: out =
-// registers a thread, local (spill) bytes a thread, threads a block, dynamic
-// shared memory a block, resident blocks an SM.
-int tn_resources(int n, int k, int h, int rbf, int* out) {
-  if (!valid_shape(n, k, h, rbf)) return (int)cudaErrorInvalidValue;
+// The resources of the backward (kind 1) or the second order (kind 2), as
+// compiled for silu, at a shape: out = registers a thread, local (spill)
+// bytes a thread, threads a block, dynamic shared memory a block, resident
+// blocks an SM.
+int tn_resources(int kind, int n, int k, int h, int rbf, int* out) {
+  if (!valid_shape(n, k, h, rbf) || (kind != 1 && kind != 2)) return (int)cudaErrorInvalidValue;
   Args p = make_args(nullptr, n, k, h, rbf, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
                      nullptr, nullptr, ACT_SILU);
   size_t smem = 0;
   int blocks = 0;
-  const void* fn = bwd_kernel(ACT_SILU);
-  cudaError_t err = plan_bwd(&p, &smem, &blocks);
+  const void* fn = bwd_kernel(kind, ACT_SILU);
+  const int threads = kind == 1 ? BWD_THREADS : BWD2_THREADS;
+  cudaError_t err = plan_bwd(kind, &p, &smem, &blocks);
   if (err == cudaSuccess) err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   cudaFuncAttributes attr;
   if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, fn);
   int per_sm = 0;
-  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, BWD_THREADS, smem);
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, threads, smem);
   if (err != cudaSuccess) return (int)err;
   out[0] = attr.numRegs;
   out[1] = (int)attr.localSizeBytes;
-  out[2] = BWD_THREADS;
+  out[2] = threads;
   out[3] = (int)smem;
   out[4] = per_sm;
   return 0;

@@ -13,7 +13,7 @@ from torchmdnet_tpu_torch.data.datasets.synthetic import SyntheticMorse  # noqa:
 DATASETS_TODO = (
     "is not ported yet: its files need a download, and the port trains on the "
     "in-repo DummyDataset and SyntheticMorse so far (ROADMAP.md, 'Modules to "
-    "port', slice D)"
+    "port', item 6)"
 )
 
 

@@ -47,7 +47,7 @@ _KB = 8.617333262e-5
 
 _PARALLEL_TODO = (
     "MD over a device mesh (mesh / edge_partition) is not ported yet "
-    "(ROADMAP.md, 'Modules to port', slice F)"
+    "(ROADMAP.md, 'Modules to port', item 9: slice G, the parallel layer)"
 )
 
 

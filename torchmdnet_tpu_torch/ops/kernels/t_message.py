@@ -678,9 +678,9 @@ run_bwd2.launches = 0
 
 
 def kernel_resources(kind, n, kk, h, heads, rbf):
-    """A backward or second-order pass's resources at a shape, from the CUDA
-    runtime (kind 1 ``t_bwd_kernel``, 2 ``t_bwd2_kernel``, 3
-    ``t_bwd_src_kernel``, 4 ``t_bwd2_src_kernel``): {registers, spill_bytes
+    """A pass's resources at a shape, from the CUDA runtime (kind 1
+    ``t_bwd_kernel``, 2 ``t_bwd2_kernel``, 3 ``t_bwd_src_kernel``, 4
+    ``t_bwd2_src_kernel``, 5 ``t_fwd_kernel``): {registers, spill_bytes
     (local memory a thread), threads, smem (dynamic shared memory a block),
     blocks_per_sm (resident)}.  Needs a CUDA device."""
     lib = _lib()

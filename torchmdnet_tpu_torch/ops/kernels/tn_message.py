@@ -71,7 +71,7 @@ def _lib() -> ctypes.CDLL:
         lib.tn_bwd.argtypes = _COMMON + [_P] * 6
         lib.tn_bwd2.argtypes = _COMMON + [_P] * 16
         lib.tn_src_sum.argtypes = [_P, _I, _I, _I, _P, _P, _P, _P]
-        lib.tn_resources.argtypes = [_I] * 4 + [_P]
+        lib.tn_resources.argtypes = [_I] * 5 + [_P]
         for fn in (lib.tn_fwd, lib.tn_bwd, lib.tn_bwd2, lib.tn_src_sum, lib.tn_resources):
             fn.restype = _I
         lib._argtypes_set = True
@@ -374,7 +374,8 @@ def bwd2_rows(idx, perm, inputs, ct, Z, *, act):
     cotangents on ``run_bwd``'s outputs (None means zero).  Returns (g_cat
     (N, 9H) bf16, g_ea (N, K, RBF) bf16, g_cutm (N, K) f32, g_ct (N, 9H)
     f32, the per-edge rows (E, 2 RBFP + 18H) bf16 of the weight
-    reduction)."""
+    reduction).  The kernel's tiles take RBF <= 80 at H = 128 (any RBF <=
+    128 below); a wider shape raises."""
     lib = _lib()
     cat, ea, cutm, w1, b1, w2, b2, w3, b3 = inputs
     (n, kk, h, rbf), ops = _prepare(idx, *inputs)
@@ -393,6 +394,10 @@ def bwd2_rows(idx, perm, inputs, ct, Z, *, act):
     zw1[:rbf] = z(3, w1, bf)
     zs = [z(0, cat, bf), z(1, ea, bf), z(2, cutm, f32), zw1, z(4, b1, bf).reshape(-1),
           z(5, w2, bf), z(6, b2, bf).reshape(-1), z(7, w3, bf), z(8, b3, bf).reshape(-1)]
+    # the kernel copies W2, W3 and their Z 16 bytes at a time
+    for ts, i in ((ops, 5), (ops, 7), (zs, 5), (zs, 7)):
+        if ts[i].data_ptr() % 16:
+            ts[i] = ts[i].clone()
     e = n * kk
     gea = torch.empty((n, kk, rbf), dtype=bf, device=dev)
     gcutm = torch.empty((n, kk), dtype=f32, device=dev)
@@ -437,14 +442,15 @@ def reset_launch_counts():
     weight_grads.launches = 0
 
 
-def kernel_resources(n, kk, h, rbf):
-    """``tn_bwd_kernel``'s resources at a shape, from the CUDA runtime:
-    {registers, spill_bytes (local memory a thread), threads, smem (dynamic
-    shared memory a block), blocks_per_sm (resident)}.  Needs a CUDA device;
-    the weight reduction's are ET's (``et_message.kernel_resources``)."""
+def kernel_resources(n, kk, h, rbf, kind=1):
+    """The resources of ``tn_bwd_kernel`` (kind 1) or ``tn_bwd2_kernel``
+    (kind 2) at a shape, from the CUDA runtime: {registers, spill_bytes
+    (local memory a thread), threads, smem (dynamic shared memory a block),
+    blocks_per_sm (resident)}.  Needs a CUDA device; the weight reduction's
+    are ET's (``et_message.kernel_resources``)."""
     lib = _lib()
     out = (ctypes.c_int * 5)()
-    _raise_on(lib, lib.tn_resources(n, kk, h, rbf, out), "tn_resources")
+    _raise_on(lib, lib.tn_resources(kind, n, kk, h, rbf, out), "tn_resources")
     return dict(zip(("registers", "spill_bytes", "threads", "smem", "blocks_per_sm"), out))
 
 

@@ -6,7 +6,7 @@ from torchmdnet_tpu_torch.priors.base import BasePrior  # noqa: F401
 
 PRIORS_TODO = (
     "only the Atomref prior is ported so far; ZBL, Coulomb and D2 follow "
-    "(ROADMAP.md, 'Modules to port', slice D)"
+    "(ROADMAP.md, 'Modules to port', item 5)"
 )
 
 

@@ -23,7 +23,9 @@ without weight cotangents at DHFR (N = 2496, K = 65, H = 128, RBF = 32);
 #9 without and with them (the edge kernel, then with its weight
 reduction), the reduction alone where the tree has one
 (``bwd_rows``, the edge kernel apart from it), and #10 at the
-TensorNet-ANI1X training shapes (64 molecules of 18 atoms, K = 33).  ``md_stmv``
+TensorNet-ANI1X training shapes (64 molecules of 18 atoms, K = 33), with
+each of its kernels' device time apart (the edge kernel, the source-row
+sum, the weight reduction; torch.profiler, mean of 20).  ``md_stmv``
 is chip_smoke.py's ET MD at STMV size in bench.py's configuration
 (``MD_ARGS``) through the tree's ``Simulation``: after its warm-up, three
 windows of ``MD_TIMED_STEPS`` steps, each a mean ms/step on the host clock
@@ -220,6 +222,8 @@ def _time_tn(cs, name, s, flush):
     row = {f"{k}_ms": cs._event_ms(fn, flush=flush) for k, fn in calls.items()}
     if hasattr(tm, "bwd_rows"):  # the reduction alone, on the rows of one backward
         row["bwd_reduction_ms"] = cs._tn_pass_split(idx, args, ct, flush)["reduction (et_dw_kernel)"]
+    # #10 kernel by kernel (device time from the profiler, mean of 20)
+    row.update({f"bwd2_{k}_ms": v for k, v in cs._tn_bwd2_split(idx, perm, args, ct, z, flush).items()})
     return row, calls
 
 

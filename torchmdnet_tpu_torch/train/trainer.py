@@ -40,10 +40,11 @@ from torchmdnet_tpu_torch.train.loggers import make_loggers
 
 _LATER_SLICES = {
     "force_grad_mode": "force_grad_mode='jvp' (forward-over-reverse) is not ported; the port "
-                       "trains force losses by grad-of-grad (ROADMAP.md, slice D)",
-    "edge_partition": "edge partitioning needs the parallel layer (ROADMAP.md, slice F)",
-    "ndevices": "training on more than one device needs the parallel layer (ROADMAP.md, slice F)",
-    "num_nodes": "multi-host training needs the parallel layer (ROADMAP.md, slice F)",
+                       "trains force losses by grad-of-grad (ROADMAP.md, queue 1 item 8, training leftovers)",
+    "edge_partition": "edge partitioning needs the parallel layer (ROADMAP.md, queue 1 item 9, slice G)",
+    "ndevices": "training on more than one device needs the parallel layer (ROADMAP.md, queue 1 item 9, "
+                "slice G)",
+    "num_nodes": "multi-host training needs the parallel layer (ROADMAP.md, queue 1 item 9, slice G)",
 }
 
 
