@@ -485,26 +485,31 @@ def log_et_resources():
 
 
 def log_tn_resources():
-    """The TensorNet backward's kernel at the DHFR and training shapes (K =
-    65 and 33, H = 128, RBF = 32) and the second order's at the training
-    shapes, at 64 RBFs and at the narrow checks' widths; the weight
+    """The TensorNet forward's kernel at the DHFR and training shapes (K = 65
+    and 33, H = 128, RBF = 32), at 64 RBFs and at the narrow checks' widths;
+    the backward's at the DHFR and training shapes; the second order's at the
+    training shapes, at 64 RBFs and at the narrow widths.  The weight
     reduction is ET's et_dw_kernel, whose resources do not depend on the
     shape (log_et_resources)."""
     from torchmdnet_tpu_torch.ops.kernels import tn_message as tm
 
     h, rbf = TN_ARGS["embedding_dimension"], TN_ARGS["num_rbf"]
+    dhfr = (2496, TN_ARGS["max_num_neighbors"] + 1)
     train = (TN_TRAIN_BATCH * TRAIN_MOL["num_atoms"], TN_TRAIN_ARGS["max_num_neighbors"] + 1)
-    shapes = ((1, "DHFR", (2496, TN_ARGS["max_num_neighbors"] + 1), h, rbf), (1, "training", train, h, rbf),
-              (2, "training", train, h, rbf), (2, "training", train, h, TN_WIDE_RBF))
+    shapes = ((0, "DHFR", dhfr, h, rbf), (0, "training", train, h, rbf), (0, "training", train, h, TN_WIDE_RBF))
+    shapes += tuple((0, "training", train, w, rbf) for w in TN_NARROW_WIDTHS)
+    shapes += ((1, "DHFR", dhfr, h, rbf), (1, "training", train, h, rbf),
+               (2, "training", train, h, rbf), (2, "training", train, h, TN_WIDE_RBF))
     shapes += tuple((2, "training", train, w, rbf) for w in TN_NARROW_WIDTHS)
     parts = []
     for kind, label, (n, k), w, nr in shapes:
         r = tm.kernel_resources(n, k, w, nr, kind=kind)
-        parts.append(f"{('tn_bwd_kernel', 'tn_bwd2_kernel')[kind - 1]} at {label} N={n} K={k} H={w} RBF={nr}: "
+        parts.append(f"{('tn_fwd_kernel', 'tn_bwd_kernel', 'tn_bwd2_kernel')[kind]} at {label} N={n} K={k} H={w} "
+                     f"RBF={nr}: "
                      f"{r['registers']} registers, {r['spill_bytes']} B spilled, {r['threads']} threads, "
                      f"{r['smem']} B shared, {r['blocks_per_sm']} blocks/SM "
                      f"({r['blocks_per_sm'] * r['threads'] // 32} warps)")
-    log("TensorNet backward and second-order kernel resources: " + "; ".join(parts))
+    log("TensorNet kernel resources: " + "; ".join(parts))
 
 
 def log_t_resources():
@@ -869,21 +874,53 @@ def _stmv_batch():
     return spatial_sort(batch)[0]
 
 
-def stmv_skin_keys(batch):
-    """The selection kernel's input at an STMV skin rebuild: the candidate
-    key matrix of the cell list with the probed sizes ``md.Simulation``
-    uses, and the skin list's k (``Potential.neighbors``' rule)."""
+def cell_keys(args, batch, skin=0.0):
+    """The selection kernel's input at a cell-list build of ``args``' model
+    on ``batch``: the candidate key matrix with the cell sizes probed as
+    External, md.Simulation and the GN forward probe them, and the k the
+    build selects (``Potential.neighbors``' rule, the skin list's k scaled by
+    the skin volume).  Returns (keys, k, the probed sizes)."""
     from torchmdnet_tpu_torch.ops.cell_list import cell_candidate_keys, probe_cell_kwargs
 
-    skin = MD_ARGS["neighbor_skin"]
-    hi = ET_ARGS["cutoff_upper"]
-    sizes = probe_cell_kwargs(batch, cutoff_upper=hi + skin)
+    cut = args["cutoff_upper"]
+    sizes = probe_cell_kwargs(batch, cutoff_upper=cut + skin)
     keys, _, overflow = cell_candidate_keys(
-        batch.pos, batch.batch, batch.atom_mask, cutoff_upper=hi + skin, **sizes)
+        batch.pos, batch.batch, batch.atom_mask, cutoff_lower=max(0.0, args["cutoff_lower"] - skin),
+        cutoff_upper=cut + skin, **sizes)
     if bool(overflow):
-        raise AssertionError(f"the STMV skin build overflowed its probed cell sizes {sizes}")
-    k = int(math.ceil(ET_ARGS["max_num_neighbors"] * ((hi + skin) / hi) ** 3 / 8.0)) * 8
-    return keys, k, sizes
+        raise AssertionError(f"a cell-list build at cutoff {cut + skin} overflowed its probed sizes {sizes}")
+    k = args["max_num_neighbors"]
+    if skin > 0.0:
+        k = int(math.ceil(k * ((cut + skin) / cut) ** 3 / 8.0)) * 8
+    return keys, min(k, keys.shape[1]), sizes
+
+
+def stmv_skin_keys(batch):
+    """The selection kernel's input at an STMV skin rebuild of ET MD (and GN
+    MD, whose cutoff, k and skin are ET's): ``cell_keys`` with the skin."""
+    return cell_keys(ET_ARGS, batch, skin=MD_ARGS["neighbor_skin"])
+
+
+def select_cases(dhfr, stmv, skin_keys, skin_k):
+    """{label: (keys, k, sentinel)} for each cell-list build a path runs,
+    and {path: label}: the DHFR builds of External's four models (cutoff
+    and k; the ET, GN and Transformer builds are one), GN's STMV forward
+    (cutoff 5 A, K = 32) and the STMV skin build of MD."""
+    models = {"external_dhfr": ET_ARGS, "tn_external_dhfr": TN_ARGS, "gn_external_dhfr": GN_ARGS,
+              "t_external_dhfr": T_ARGS, "gn_forward_stmv": GN_STMV_FWD_ARGS}
+    cases, label_of = {}, {}
+    for path, args in models.items():
+        batch = dhfr if path.endswith("_dhfr") else stmv
+        where = "DHFR" if batch is dhfr else "STMV"
+        label = f"{where} build (cutoff {args['cutoff_lower']}-{args['cutoff_upper']} A, K={args['max_num_neighbors']})"
+        if label not in cases:
+            keys, k, _ = cell_keys(args, batch)
+            cases[label] = (keys, k, keys.shape[0])
+        label_of[path] = label
+    label = "STMV skin build"
+    cases[label] = (skin_keys, skin_k, skin_keys.shape[0])
+    label_of.update(md_stmv=label, gn_md_stmv=label)
+    return cases, label_of
 
 
 def _unique_keys(rng, n, w, sentinel, invalid_share):
@@ -896,13 +933,16 @@ def _unique_keys(rng, n, w, sentinel, invalid_share):
     return keys
 
 
-def check_select_topk(keys, k):
+def check_select_topk(path_cases):
     """Kernel #6 against its plain version, one case for each keys-per-lane
-    variant the kernel compiles: a ragged case (W not a multiple of 32, N not
-    a multiple of the rows per block, rows with fewer real keys than k, an
-    all-sentinel row), the DHFR build's keys (External's list, default cell
-    capacity), the STMV skin build's keys, a capacity of up to 75 and a row
-    wider than the register budget.  Integers: bitwise equal."""
+    rung the kernel compiles and each edge of its threshold search: a ragged
+    case (W not a multiple of 32, N not a multiple of the rows per block,
+    rows with fewer real keys than k, an all-sentinel row), the DHFR build's
+    keys at the default cell capacity, a capacity of up to 75, a row wider
+    than the register budget, rows with exactly k real keys under a
+    power-of-two sentinel, keys 0 and sentinel - 1 beside k = W, and each
+    path's own build (``path_cases``: label -> (keys, k, sentinel); the STMV
+    skin build's among them).  Integers: bitwise equal."""
     import numpy as np
     import torch
 
@@ -921,11 +961,23 @@ def check_select_topk(keys, k):
         raise AssertionError("the DHFR build overflowed the default cell sizes")
     cap66 = _unique_keys(rng, 500, 27 * 66, 5000, 0.6)
     wide = _unique_keys(rng, 37, 2100, 5000, 0.5)
+    # exactly k = 64 real keys a row (the threshold a real key, no sentinel
+    # selected) under the power-of-two sentinel 4096 (a 12- or 13-bit search)
+    exact = np.full((333, 27 * 19), 4096, dtype=np.int32)
+    for i in range(exact.shape[0]):
+        exact[i, rng.choice(exact.shape[1], 64, replace=False)] = rng.choice(4096, 64, replace=False)
+    # every row holds 0 and sentinel - 1; k = W takes both and every sentinel slot
+    ends = _unique_keys(rng, 257, 100, 3000, 0.5)
+    ends[:, 0], ends[:, 99] = 0, 2999
+    ends[:, 1:99][(ends[:, 1:99] == 0) | (ends[:, 1:99] == 2999)] = 3000
     cases = [("ragged", torch.as_tensor(ragged, device="cuda"), 20, 5000),
              ("DHFR build", dhfr_keys, ET_ARGS["max_num_neighbors"], dhfr_keys.shape[0]),
-             ("STMV skin build", keys, k, keys.shape[0]),
              ("capacity 66", torch.as_tensor(cap66, device="cuda"), 112, 5000),
-             ("wide", torch.as_tensor(wide, device="cuda"), 50, 5000)]
+             ("wide", torch.as_tensor(wide, device="cuda"), 50, 5000),
+             ("exactly k real keys, sentinel 4096", torch.as_tensor(exact, device="cuda"), 64, 4096),
+             ("keys 0 and sentinel - 1, k = W", torch.as_tensor(ends, device="cuda"), 100, 3000),
+             ("keys 0 and sentinel - 1, k = 7", torch.as_tensor(ends, device="cuda"), 7, 3000)]
+    cases += [(label, kk, k_sel, sentinel) for label, (kk, k_sel, sentinel) in path_cases.items()]
     parts = []
     err = 0
     for label, kk, k_sel, sentinel in cases:
@@ -939,6 +991,20 @@ def check_select_topk(keys, k):
         parts.append(f"{label} N={kk.shape[0]} W={kk.shape[1]} k={k_sel}: equal")
     log("select_topk check (kernel vs plain, bitwise): " + "; ".join(parts))
     return err
+
+
+def log_select_topk_resources(path_cases):
+    """The selection kernel's resources at each path's build (its rung of
+    keys per lane, its shared memory for k)."""
+    from torchmdnet_tpu_torch.ops.kernels.select_topk import kernel_resources
+
+    parts = []
+    for label, (keys, k, _) in path_cases.items():
+        r = kernel_resources(keys.shape[1], k)
+        parts.append(f"{label} W={keys.shape[1]} k={k}: {r['registers']} registers, {r['spill_bytes']} B spilled, "
+                     f"{r['threads']} threads, {r['smem']} B shared, {r['blocks_per_sm']} blocks/SM "
+                     f"({r['blocks_per_sm'] * r['threads'] // 32} warps)")
+    log("select_topk_kernel resources: " + "; ".join(parts))
 
 
 def check_cell_vs_brute(n_atoms):
@@ -995,43 +1061,54 @@ def check_cell_vs_brute(n_atoms):
         f"with sync, median of 20) brute {build_ms['brute']:.3f} ms, cell {build_ms['cell']:.3f} ms")
 
 
-def _select_topk_bounds(keys, k):
+def _select_topk_bounds(keys, k, sentinel):
     """Least time for the selection: max(bytes / HBM rate, operations / int32
     peak).  Bytes: the keys read once, the output written once.  Operations:
-    what the function needs, one per key (a radix select, or a merge of the
-    cells' already-ascending runs, looks at each key a bounded number of
-    times).  Also returns what this kernel's design does, as a note: one
-    compare/select and one min per key for each pass this data needs (a pass
-    per real key of the row up to k, plus the pass that finds the sentinel
-    when a row has fewer than k), at the int32 peak."""
+    what the function needs, one per key (a radix select looks at each key a
+    bounded number of times).  Also returns what this kernel's design does,
+    as a note: per row, a compare and an add per key for the count of real
+    keys and, where a row has k or more, for each step of the threshold
+    search (32 - clz(sentinel - the row's minimum) steps), one operation per
+    key for the compaction, and a compare and an add of each kept key
+    against every other for the ranks, at the int32 peak."""
+    import torch
+
     n, w = keys.shape
-    passes = int(((keys < n).sum(dim=1) + 1).clamp(max=k).sum())
+    top = sentinel - keys.min(dim=1).values.long()
+    bits = torch.where(top > 0, torch.floor(torch.log2(top.double().clamp(min=1))) + 1, torch.zeros_like(top.double()))
+    real = (keys < sentinel).sum(dim=1)
+    steps = 1 + bits * (real >= k).double()
+    m = real.clamp(max=k).double()
+    design_ops = float((2 * steps * w).sum() + n * w + (2 * m * m).sum())
     t_bytes = (4 * n * w + 4 * n * k) / HBM_BYTES_PER_S
     t_ops = n * w / INT32_CUDA_CORE_OPS
-    design_ops = 2 * passes * w
     bound = (1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
     return bound + (design_ops, 1e3 * design_ops / INT32_CUDA_CORE_OPS)
 
 
-def time_select_topk(keys, k):
-    """Kernel #6 at the STMV skin shapes: its time, the plain version's, one
-    torch.topk call's, and the bound (L2 flushed, median of 20)."""
+def time_select_topk(cases):
+    """Kernel #6 at each path's build (``cases``: label -> (keys, k,
+    sentinel)): its time, the plain version's, one torch.topk call's, and
+    the bound (L2 flushed, median of 20).  Returns {label: (ms, plain_ms,
+    bound_ms, bound_by, library_ms)}."""
     import torch
 
     from torchmdnet_tpu_torch.ops.kernels.select_topk import select_topk, select_topk_reference
 
-    n = keys.shape[0]
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")  # 256 MB > L2
-    ms = _event_ms(lambda: select_topk(keys, k, n), flush=flush)
-    plain_ms = _event_ms(lambda: select_topk_reference(keys, k), flush=flush)
-    lib_ms = _event_ms(lambda: torch.topk(keys, k, dim=1, largest=False, sorted=True), flush=flush)
-    bound_ms, bound_by, design_ops, design_ms = _select_topk_bounds(keys, k)
-    log(f"select_topk time at the STMV skin shapes (N={n} W={keys.shape[1]} k={k}, L2 flushed, "
-        f"median of 20): {ms:.4f} ms (plain sort {plain_ms:.4f} ms, torch.topk {lib_ms:.4f} ms, "
-        f"bound {bound_ms:.4f} ms by {bound_by}, {100 * bound_ms / ms:.1f}% of it reached); this "
-        f"design's min-extraction passes do {design_ops:.3e} int32 operations, {design_ms:.4f} ms "
-        f"at the int32 peak")
-    return ms, plain_ms, bound_ms, bound_by, lib_ms
+    out, parts = {}, []
+    for label, (keys, k, sentinel) in cases.items():
+        ms = _event_ms(lambda: select_topk(keys, k, sentinel), flush=flush)
+        plain_ms = _event_ms(lambda: select_topk_reference(keys, k), flush=flush)
+        lib_ms = _event_ms(lambda: torch.topk(keys, k, dim=1, largest=False, sorted=True), flush=flush)
+        bound_ms, bound_by, design_ops, design_ms = _select_topk_bounds(keys, k, sentinel)
+        out[label] = (ms, plain_ms, bound_ms, bound_by, lib_ms)
+        parts.append(f"{label} N={keys.shape[0]} W={keys.shape[1]} k={k}: {ms:.4f} ms (plain sort {plain_ms:.4f} ms, "
+                     f"torch.topk {lib_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by}, "
+                     f"{100 * bound_ms / ms:.1f}% of it reached; this design's search, compaction and ranks do "
+                     f"{design_ops:.3e} int32 operations, {design_ms:.4f} ms at the int32 peak)")
+    log("select_topk times (L2 flushed, median of 20): " + "; ".join(parts))
+    return out
 
 
 def _pairs_against_fresh(sim, model, batch, built_at):
@@ -1878,8 +1955,11 @@ GN_ODD_F = 13
 
 
 def _gn_lists():
-    """GN's lists on the card: External's at DHFR (cell list, probed sizes,
-    K = 80) and the STMV skin list of MD (cutoff 5.5 A, K = 112)."""
+    """GN's lists on the card, one for each shape a GN path runs #4/#5 at:
+    External's at DHFR (cell list, probed sizes, K = 80), the STMV skin list
+    of MD (cutoff 5.5 A, K = 112), the STMV forward's (bench.py's K = 32,
+    truncated) and a GN-aspirin training batch's (8 molecules of 21 atoms,
+    brute, K = 32)."""
     from torchmdnet_tpu_torch import create_model
     from torchmdnet_tpu_torch.data.systems import DHFR_ATOMS
     from torchmdnet_tpu_torch.ops.cell_list import probe_cell_kwargs
@@ -1887,12 +1967,21 @@ def _gn_lists():
     model = create_model(GN_ARGS, seed=SEED)
     _, _, dhfr = _synthetic_batch(DHFR_ATOMS, SEED, "cuda")
     stmv = _stmv_batch()
-    skin = MD_ARGS["neighbor_skin"]
-    dhfr_nbl = model.neighbors(dhfr, **probe_cell_kwargs(dhfr, cutoff_upper=GN_ARGS["cutoff_upper"]))
-    stmv_nbl = model.neighbors(stmv, skin=skin, **probe_cell_kwargs(stmv, cutoff_upper=GN_ARGS["cutoff_upper"] + skin))
-    for name, nbl in (("DHFR", dhfr_nbl), ("STMV skin", stmv_nbl)):
-        nbl.raise_on_overflow(f"chip_smoke GN {name} list")
-    return dhfr_nbl, stmv_nbl
+    skin, cut = MD_ARGS["neighbor_skin"], GN_ARGS["cutoff_upper"]
+    train = _train_batch(_train_dataset(GN_TRAIN_SPLIT, GN_TRAIN_MOL), "cuda", GN_TRAIN_BATCH,
+                         GN_TRAIN_ARGS["cutoff_upper"], GN_TRAIN_MOL)
+    lists = {
+        "DHFR": model.neighbors(dhfr, **probe_cell_kwargs(dhfr, cutoff_upper=cut)),
+        "STMV skin": model.neighbors(stmv, skin=skin, **probe_cell_kwargs(stmv, cutoff_upper=cut + skin)),
+        "STMV forward": create_model(GN_STMV_FWD_ARGS, seed=SEED).neighbors(
+            stmv, **probe_cell_kwargs(stmv, cutoff_upper=GN_STMV_FWD_ARGS["cutoff_upper"])),
+        "training": create_model(GN_TRAIN_ARGS, seed=SEED).neighbors(train),
+    }
+    if bool(lists["STMV forward"].cell_overflow):  # truncated at K = 32 by design, as bench.py's
+        raise AssertionError("the GN STMV forward's cell list overflowed its probed sizes")
+    for name in ("DHFR", "STMV skin", "training"):
+        lists[name].raise_on_overflow(f"chip_smoke GN {name} list")
+    return lists
 
 
 def _bf16_ulp(x):
@@ -1978,12 +2067,13 @@ def _ell_bounds(n, k, f, kind):
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def time_ell_gather(dhfr_nbl, stmv_nbl):
-    """#4 and #5 at the DHFR serving shapes and the STMV skin shapes (F =
-    128): kernel, plain version, the one PyTorch call that computes the same
-    function (``index_select`` for #4, ``index_add_`` into f32 of the rows in
-    f32 for #5: its atomics add in no fixed order), bound (L2 flushed,
-    median of 20)."""
+def time_ell_gather(lists):
+    """#4 and #5 (F = 128) on each of ``_gn_lists``: the DHFR serving shapes,
+    the STMV skin shapes, the STMV forward's (#4 only: it transposes
+    nothing) and GN-aspirin training's: kernel, plain version, the one
+    PyTorch call that computes the same function (``index_select`` for #4,
+    ``index_add_`` into f32 of the rows in f32 for #5: its atomics add in no
+    fixed order), bound (L2 flushed, median of 20)."""
     import torch
 
     from torchmdnet_tpu_torch.ops import neighbors as nb
@@ -1992,25 +2082,29 @@ def time_ell_gather(dhfr_nbl, stmv_nbl):
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")  # 256 MB > L2
     g = torch.Generator().manual_seed(SEED)
     out = {}
-    for where, nbl in (("DHFR", dhfr_nbl), ("STMV skin", stmv_nbl)):
+    for where, nbl in lists.items():
         n, k = nbl.idx.shape
         f = GN_ARGS["embedding_dimension"]
-        idx, perm, flat = nbl.idx, nbl.transpose_perm, nbl.idx.reshape(-1).long()
+        idx, flat = nbl.idx, nbl.idx.reshape(-1).long()
         x = torch.randn(n, f, generator=g).to("cuda", torch.bfloat16)
-        ct = torch.randn(n, k, f, generator=g).to("cuda", torch.bfloat16)
-        rows32 = ct.reshape(n * k, f).float()
-        acc = torch.zeros(n, f, device="cuda")
         out[where] = dict(
             gather=(_event_ms(lambda: eg.gather_rows(x, idx), flush=flush),
                     _event_ms(lambda: nb._gather_rows(x, idx), flush=flush),
                     _event_ms(lambda: x.index_select(0, flat), flush=flush)) + _ell_bounds(n, k, f, "gather"),
-            transpose=(_event_ms(lambda: eg.transpose_sum_rows(ct, idx, perm), flush=flush),
-                       _event_ms(lambda: nb._transpose_sum(ct, idx, perm), flush=flush),
-                       _event_ms(lambda: acc.index_add_(0, flat, rows32), flush=flush))
-            + _ell_bounds(n, k, f, "transpose"),
             shape=(n, k, f),
         )
-        del x, ct, rows32, acc
+        if where != "STMV forward":  # its truncated list has no transpose (and the forward needs none)
+            perm = nbl.transpose_perm
+            ct = torch.randn(n, k, f, generator=g).to("cuda", torch.bfloat16)
+            rows32 = ct.reshape(n * k, f).float()
+            acc = torch.zeros(n, f, device="cuda")
+            out[where]["transpose"] = (
+                (_event_ms(lambda: eg.transpose_sum_rows(ct, idx, perm), flush=flush),
+                 _event_ms(lambda: nb._transpose_sum(ct, idx, perm), flush=flush),
+                 _event_ms(lambda: acc.index_add_(0, flat, rows32), flush=flush))
+                + _ell_bounds(n, k, f, "transpose"))
+            del ct, rows32, acc
+        del x
     log("ell_gather kernel times (L2 flushed, median of 20): " + "; ".join(
         f"{kind} at {where} N={v['shape'][0]} K={v['shape'][1]} F={v['shape'][2]} {t[0]:.4f} ms (plain "
         f"{t[1]:.4f} ms, library {t[2]:.4f} ms, bound {t[3]:.4f} ms by {t[4]}, {100 * t[3] / t[0]:.1f}% of it "
@@ -2730,7 +2824,9 @@ def main():
                                        batch=_train_batch(train_ds, "cuda"))
     stmv = _stmv_batch()
     keys, k, _ = stmv_skin_keys(stmv)
-    sel_abs = check_select_topk(keys, k)
+    sel_cases, sel_label_of = select_cases(_synthetic_batch(DHFR_ATOMS, SEED, "cuda")[2], stmv, keys, k)
+    log_select_topk_resources(sel_cases)
+    sel_abs = check_select_topk(sel_cases)
     check_cell_vs_brute(DHFR_ATOMS)
     check_cell_vs_brute(FACTOR_IX_ATOMS)
     from torchmdnet_tpu_torch.ops.kernels import et_message as em
@@ -2745,7 +2841,7 @@ def main():
                      T_TRAIN_ARGS["cutoff_upper"])
     del t_model
     gn_nbls = _gn_lists()
-    gn_errs = check_ell_gather(*gn_nbls)
+    gn_errs = check_ell_gather(gn_nbls["DHFR"], gn_nbls["STMV skin"])
     ext_launches, ext, pos, _, _ = main_path(ET_ARGS, em, "ET 6x128 fused")
     tn_ext_launches, tn_ext, tn_pos, tn_call_ms, _ = main_path(TN_ARGS, tm, "TensorNet 2x128 fused")
     tn_strong_messages()
@@ -2756,12 +2852,13 @@ def main():
     times = time_kernels(seed=SEED)
     train_ms, train_plain, train_bounds = time_train_kernels(_train_batch(train_ds, "cuda"))
     tn_times = time_tn_kernels(tn_batch)
-    gn_times = time_ell_gather(*gn_nbls)
-    sel_time = time_select_topk(keys, k)
+    gn_times = time_ell_gather(gn_nbls)
+    sel_times = time_select_topk(sel_cases)
+    sel_time = sel_times["STMV skin build"]
     t_times = time_t_kernels(_train_batch(train_ds, "cuda"))
     comp_time = time_compaction(dhfr_batch, T_ARGS["max_num_neighbors"], T_ARGS["cutoff_upper"])
     del dhfr_batch, train_batch_gpu
-    del keys, stmv, gn_nbls
+    del keys, stmv, gn_nbls, sel_cases
     md_launches, sim = md_stmv(sel_time[0])
     gn_md_launches, gn_sim, gn_md_ms, _ = gn_md_stmv()
     t_md_launches, t_md_ms = t_md_brute_pallas()
@@ -2831,10 +2928,11 @@ def main():
     bwd2_row = (train_ms["bwd2"], train_plain["bwd2"]) + train_bounds["bwd2"] + (None,)
     t_rows = {k: t_times[(where, k)][:4] + (None,)
               for where, k in (("DHFR", "fwd"), ("DHFR", "bwd"), ("training", "bwd2"))}
-    # (ms, bound) at the shape each path runs, where that shape was timed:
-    # MD at the STMV skin list, training at the training shapes; a path not
-    # named here takes its row's (ms, bound_ms)
-    gn_stmv = {kind: (t[0], t[3]) for kind, t in gn_times["STMV skin"].items() if kind != "shape"}
+    # (ms, bound) at the shape each path runs: MD at the STMV skin list,
+    # training at the training shapes, GN's STMV forward at its K = 32 list,
+    # the selection at each path's own cell-list build; a path not named
+    # here runs its row's shape and takes its row's (ms, bound_ms)
+    gn_at = {where: {kind: (t[0], t[3]) for kind, t in v.items() if kind != "shape"} for where, v in gn_times.items()}
     timed_at = {
         "et_message_fwd": {"md_stmv": times["stmv_fwd"], "train": (train_ms["fwd"], train_bounds["fwd"][0])},
         "et_message_bwd": {"md_stmv": times["stmv_bwd"], "train": (train_ms["bwd_w"], train_bounds["bwd_w"][0])},
@@ -2842,8 +2940,11 @@ def main():
         "tn_message_bwd": {"tn_train": tn_times[("training", "bwd_w")][::2][:2]},
         "t_message_fwd": {"t_train": t_times[("training", "fwd")][::2][:2]},
         "t_message_bwd": {"t_train": t_times[("training", "bwd_w")][::2][:2]},
-        "ell_gather": {"gn_forward_stmv": gn_stmv["gather"], "gn_md_stmv": gn_stmv["gather"]},
-        "ell_transpose_sum": {"gn_forward_stmv": gn_stmv["transpose"], "gn_md_stmv": gn_stmv["transpose"]},
+        "ell_gather": {"gn_forward_stmv": gn_at["STMV forward"]["gather"], "gn_md_stmv": gn_at["STMV skin"]["gather"],
+                       "gn_train": gn_at["training"]["gather"]},
+        "ell_transpose_sum": {"gn_md_stmv": gn_at["STMV skin"]["transpose"],
+                              "gn_train": gn_at["training"]["transpose"]},
+        "select_topk": {path: sel_times[label][::2][:2] for path, label in sel_label_of.items()},
     }
     kernels = []
     for name, source, line, (ms, plain_ms, bound_ms, bound_by, lib_ms), err in (

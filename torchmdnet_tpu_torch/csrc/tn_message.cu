@@ -27,19 +27,43 @@
 // bytes are ~28 MB (ea 10 MB, the gathered rows from L2), 0.009 ms.  So it
 // is bound by operations, the backward (twice the products) most of all.
 //
-// The forward (the first port's design):
-//   * a block owns a contiguous range of receiver rows and walks their edges
-//     (flattened i*K + k) in tiles of 64 edges; the three layers of each
-//     tile run on the tensor cores (wmma bf16 16x16x16, f32 accumulation),
-//     the activations live in shared memory between layers, and nothing of
-//     the MLP goes to device memory; the weights are read by the wmma loads
-//     from L2, where they stay resident;
-//   * 3H threads: thread (third, h) owns channel h of one third of w and the
-//     components that third multiplies (1, 3 or 5), gathers those source
-//     values by index (no block plan, no one-hot product: TPU layout
-//     workarounds) and keeps its f32 row sums in registers, written when the
-//     row ends.  No float atomics anywhere: every result is bitwise the same
-//     from run to run.
+// The forward (#8).  Its first port ran at 4.4 % of its bound at DHFR (1.32
+// ms; the backward, which recomputes this forward with the machinery below
+// and then runs its reverse, took 1.31).  What bounded it, and what this
+// design does:
+//   * the weights read from L2 by the wmma B loads at every k step of every
+//     64-edge tile (about 270 KB a tile, 0.7 GB a launch at DHFR), each load
+//     serialised in front of its mma.  Now the backward's products: W1
+//     resident in shared memory for the launch, W2 and W3 through the
+//     two-slice cp.async ring of 32 k rows in the tile that holds w (dead
+//     until L3's epilogue; L3's outputs wait in registers until the ring is
+//     done), mma.sync m16n8k16 items with ldmatrix in the old wmma k order;
+//   * an f32 scratch epilogue with a global bias load and a scalar
+//     conversion per element: now the register epilogues, biases in f32
+//     shared memory, two values a packed conversion, w = bf16(t3 * cutm)
+//     written straight from L3's fragments;
+//   * synchronous scalar staging and four block barriers a tile: now the next
+//     tile's ea rows, ids and cutm are staged with cp.async (the backward's
+//     stage_edges) while the current one computes;
+//   * 3H = 384 threads, one block an SM, where L1's 8 column tiles left 4
+//     of 12 warps idle and the per-edge thread of channel h of third S did
+//     five products an edge to third I's one: now 9H/2 = 576 threads at H
+//     = 128 (18 warps), every layer split into H/8 items (one a warp for 16
+//     of them);
+//   * a per-edge loop that walked one edge at a time with 2-byte gathers of
+//     cat, nothing loaded ahead: now the phase's units are (component,
+//     channel pair), one a thread, so every thread gathers 4 bytes of one
+//     component an edge and the work is even across the components; the
+//     next FWD_AHEAD edges' pairs are in flight in a register ring, refilled
+//     without a condition (a predicated refill is loaded into a temporary
+//     and moved into the ring, and the move waits for the load: an L2
+//     round trip an edge); the pair's two products are one mul.rn.bf16x2
+//     (the exact product rounded once, as bf16(f32 product)).  Each (row,
+//     channel) sum stays in one thread in ascending slot order.
+// Every rounding point and every f32 sum's order is the first port's, so m
+// is bitwise the first port's (tools/time_bwd.py --compare on the card at
+// the DHFR and training shapes).  No float atomics anywhere: every result is
+// bitwise the same from run to run.
 //
 // The backward recomputes the MLP per tile, as the TPU kernel does.  Its
 // source-row cotangent d_cat[j] = sum over slots pointing at j of ct_i *
@@ -132,66 +156,27 @@
 // g_cat, g_ea, g_cutm, g_ct and the per-edge rows are bitwise the first
 // port's (tools/time_bwd.py --compare on the card), and with them the
 // weight gradients et_dw_kernel reduces.
-#include <mma.h>
-
 #include "common.cuh"
-
-using namespace nvcuda;
 
 namespace {
 
-constexpr int FWD_M = 64;   // edges per tile: forward
-constexpr int MAX_H = 128;  // 3H threads per block (forward)
+constexpr int MAX_H = 128;
 constexpr int MAX_RBFP = 128;
 
 __device__ __forceinline__ bf16 f2b(float x) { return __float2bfloat16_rn(x); }
 
 __host__ __device__ inline int pad16(int x) { return (x + 15) / 16 * 16; }
 // shared-memory row stride (bf16 elements) of a tile `w` wide: a multiple of
-// 8, as wmma wants, and 8 past it so that rows start on different banks
+// 8 (16-byte rows, as ldmatrix and cp.async want), and 8 past it so that
+// rows start on different banks
 __host__ __device__ inline int sld(int w) { return w + 8; }
 __host__ __device__ inline size_t align128(size_t x) { return (x + 127) & ~size_t(127); }
 
 // the components thread `third` owns: I -> [0], A -> [1, 4), S -> [4, 9)
 __device__ __forceinline__ int comp_first(int third) { return third == 0 ? 0 : (third == 1 ? 1 : 4); }
 __device__ __forceinline__ int comp_count(int third) { return third == 0 ? 1 : (third == 1 ? 3 : 5); }
-
-// One dense layer of an MT*16-row tile on the tensor cores (the forward's).
-// A is an (MT*16, kdim) bf16 row-major tile in shared memory with row
-// stride lda; B is read from device memory (L2), row-major (kdim, ncols)
-// with row stride ldb.  The block's warps split the 16-column tiles; each
-// warp keeps MT accumulators and hands each finished 16x16 tile, stored
-// row-major in its f32 scratch s0, to epi(rt, ct, s0).  Called by all
-// threads.
-template <int MT, class Epi>
-__device__ void mma_layer(const bf16* A, int lda, const bf16* B, int ldb, int kdim, int ncols, float* scratch,
-                          Epi epi) {
-  const int warp = threadIdx.x / 32, nwarps = blockDim.x / 32;
-  float* s0 = scratch + warp * 256;
-  const int ctiles = ncols / 16;
-  for (int ct = warp; ct < ctiles; ct += nwarps) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> c0[MT];
-#pragma unroll
-    for (int r = 0; r < MT; ++r) wmma::fill_fragment(c0[r], 0.0f);
-    for (int k0 = 0; k0 < kdim; k0 += 16) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-      wmma::load_matrix_sync(fb, B + (size_t)k0 * ldb + ct * 16, ldb);
-#pragma unroll
-      for (int r = 0; r < MT; ++r) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-        wmma::load_matrix_sync(fa, A + (size_t)r * 16 * lda + k0, lda);
-        wmma::mma_sync(c0[r], fa, fb, c0[r]);
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < MT; ++r) {
-      wmma::store_matrix_sync(s0, c0[r], 16, wmma::mem_row_major);
-      __syncwarp();
-      epi(r, ct, s0);
-      __syncwarp();
-    }
-  }
-}
+// the third of w that component c multiplies
+__device__ __forceinline__ int third_of(int c) { return c == 0 ? 0 : (c < 4 ? 1 : 2); }
 
 struct Args {
   const int32_t* idx;
@@ -206,139 +191,32 @@ struct Args {
   const bf16 *zw1, *zb1, *zw2, *zb2, *zw3, *zb3;
 };
 
-// The forward: stage a tile of `mv` edges from edge t0: ea rows into an
-// (M, RBFP) tile, zero past RBF and past mv; neighbor ids and cutm.
-__device__ void stage_tile(const Args& p, long t0, int mv, int M, bf16* ea_s, int* idx_s, float* cm_s) {
-  const int ld = sld(p.rbfp);
-  for (int q = threadIdx.x; q < M * p.rbfp; q += blockDim.x) {
-    const int r = q / p.rbfp, c = q % p.rbfp;
-    ea_s[r * ld + c] = r < mv && c < p.rbf ? p.ea[(size_t)(t0 + r) * p.rbf + c] : f2b(0.0f);
-  }
-  for (int r = threadIdx.x; r < M; r += blockDim.x) {
-    idx_s[r] = r < mv ? p.idx[t0 + r] : 0;
-    cm_s[r] = r < mv ? p.cutm[t0 + r] : 0.0f;
-  }
-}
-
-// The forward's shared memory (bytes): the ea tile, the activation tiles
-// t1, t2 and w (in p3), the warps' f32 epilogue scratch, neighbor ids and
-// cutm.
-struct Smem {
-  size_t ea, t1, t2, p3, scratch, idx, cm, total;
-};
-
-__host__ __device__ inline Smem smem_layout(int h, int rbfp) {
-  const int nwarps = 3 * h / 32;
-  Smem s;
-  size_t o = 0;
-  auto tile = [&](int w) {
-    const size_t at = o;
-    o = align128(o + (size_t)FWD_M * sld(w) * sizeof(bf16));
-    return at;
-  };
-  s.ea = tile(rbfp);
-  s.t1 = tile(h);
-  s.t2 = tile(2 * h);
-  s.p3 = tile(3 * h);
-  s.scratch = o;
-  o = align128(o + (size_t)nwarps * 256 * sizeof(float));
-  s.idx = o;
-  o = align128(o + (size_t)FWD_M * sizeof(int));
-  s.cm = o;
-  o = align128(o + (size_t)FWD_M * sizeof(float));
-  s.total = o;
-  return s;
-}
-
 #define TILE(name) reinterpret_cast<bf16*>(smem + L.name)
 
-__global__ void __launch_bounds__(3 * MAX_H, 1) tn_fwd_kernel(Args p, float* __restrict__ m_out) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int M = FWD_M, MT = M / 16;
-  const int H = p.h, F9 = 9 * H;
-  const int third = threadIdx.x / H, hh = threadIdx.x % H;
-  const int lane = threadIdx.x % 32;
-  const Smem L = smem_layout(H, p.rbfp);
-  bf16 *ea_s = TILE(ea), *t1 = TILE(t1), *t2 = TILE(t2), *w_s = TILE(p3);
-  float* scratch = reinterpret_cast<float*>(smem + L.scratch);
-  int* idx_s = reinterpret_cast<int*>(smem + L.idx);
-  float* cm_s = reinterpret_cast<float*>(smem + L.cm);
-  const int ld1 = sld(H), ld2 = sld(2 * H), ld3 = sld(3 * H);
-  const int row0 = blockIdx.x * p.rows_per_block;
-  const int row1 = min(p.n, row0 + p.rows_per_block);
-  if (row0 >= row1) return;
-  const long e0 = (long)row0 * p.k, e1 = (long)row1 * p.k;
-  const int cf = comp_first(third), cc = comp_count(third);
-  float acc[5] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-  int cur = row0;
-  for (long t0 = e0; t0 < e1; t0 += M) {
-    const int mv = (int)min((long)M, e1 - t0);
-    stage_tile(p, t0, mv, M, ea_s, idx_s, cm_s);
-    __syncthreads();
-    mma_layer<MT>(ea_s, sld(p.rbfp), p.w1, H, p.rbfp, H, scratch, [&](int rt, int ct, const float* s0) {
-      for (int q = lane; q < 256; q += 32) {
-        const int r = rt * 16 + q / 16, c = ct * 16 + q % 16;
-        const float pre = bfr(bfr(s0[q]) + ldb(p.b1 + c));
-        t1[r * ld1 + c] = f2b(act_fn(p.act, pre));
-      }
-    });
-    __syncthreads();
-    mma_layer<MT>(t1, ld1, p.w2, 2 * H, H, 2 * H, scratch, [&](int rt, int ct, const float* s0) {
-      for (int q = lane; q < 256; q += 32) {
-        const int r = rt * 16 + q / 16, c = ct * 16 + q % 16;
-        const float pre = bfr(bfr(s0[q]) + ldb(p.b2 + c));
-        t2[r * ld2 + c] = f2b(act_fn(p.act, pre));
-      }
-    });
-    __syncthreads();
-    mma_layer<MT>(t2, ld2, p.w3, 3 * H, 2 * H, 3 * H, scratch, [&](int rt, int ct, const float* s0) {
-      for (int q = lane; q < 256; q += 32) {
-        const int r = rt * 16 + q / 16, c = ct * 16 + q % 16;
-        const float pre = bfr(bfr(s0[q]) + ldb(p.b3 + c));
-        const float t3 = bfr(act_fn(p.act, pre));
-        w_s[r * ld3 + c] = f2b(t3 * bfr(cm_s[r]));
-      }
-    });
-    __syncthreads();
-    for (int e = 0; e < mv; ++e) {
-      const int row = (int)((t0 + e) / p.k);
-      if (row != cur) {
-        for (int c = 0; c < cc; ++c) m_out[(size_t)cur * F9 + (cf + c) * H + hh] = acc[c];
-#pragma unroll
-        for (int c = 0; c < 5; ++c) acc[c] = 0.0f;
-        cur = row;
-      }
-      const float w = __bfloat162float(w_s[e * ld3 + third * H + hh]);
-      const bf16* src = p.cat + (size_t)idx_s[e] * F9 + cf * H + hh;
-#pragma unroll
-      for (int c = 0; c < 5; ++c)
-        if (c < cc) acc[c] += bfr(ldb(src + c * H) * w);
-    }
-    __syncthreads();  // the next tile's staging overwrites this one
-  }
-  for (int c = 0; c < cc; ++c) m_out[(size_t)cur * F9 + (cf + c) * H + hh] = acc[c];
-}
-
 // ---------------------------------------------------------------------------
-// The backward (#9): see the header for its design.
+// The forward (#8) and the backward (#9): see the header for their design.
 
-constexpr int BWD_TILE = 64;      // edges a tile
-constexpr int BWD_THREADS = 512;  // 16 warps; the first 3H threads run the per-edge phase
-constexpr int KS = 32;            // k rows (forward) or columns (reverse) of a weight slice
+constexpr int EDGE_TILE = 64;                  // edges a tile
+constexpr int EDGE_THREADS = 512;              // the backward's: 16 warps
+constexpr int FWD_THREADS = 9 * MAX_H / 2;     // the forward's: one per-edge unit a thread at H = 128
+constexpr int KS = 32;                         // k rows (forward) or columns (reverse) of a weight slice
+constexpr int FWD_AHEAD = 4;                   // edges whose gathered cat pairs are in flight (forward)
 
-// The backward's shared memory (bytes): W1 as (RBFP, H + 8) bf16 and the
-// three biases in f32, for the whole launch; two staging buffers of ea rows,
-// neighbor ids and cutm; the activation tiles (BWD_TILE rows of row stride
-// sld(width); t1 and t2 adjacent); the warp partials of d_cutm.  The ring of
-// W2/W3 slices lives in tiles that are dead at the time: p3 in L2's and
-// L3's forward products and L2's reverse, t1..t2 in L3's reverse.
+// The forward's (fwd) and the backward's shared memory (bytes): W1 as (RBFP,
+// H + 8) bf16 and the three biases in f32, for the whole launch; two staging
+// buffers of ea rows, neighbor ids and cutm; the activation tiles (EDGE_TILE
+// rows of row stride sld(width); t1 and t2 adjacent; p3 holds the forward's
+// w); the backward's pre-activation tiles p1 and p2 and the warp partials of
+// d_cutm (none in the forward).  The ring of W2/W3 slices lives in tiles
+// that are dead at the time: p3 in L2's and L3's forward products and L2's
+// reverse, t1..t2 in L3's reverse.
 struct BLayout {
   size_t w1, bias, ea, idx, cm, p1, t1, t2, p2, p3, red, total;
 };
 
-__host__ __device__ inline BLayout bwd_layout(int h, int rbfp) {
+__host__ __device__ inline BLayout edge_layout(int h, int rbfp, bool fwd) {
   BLayout s;
-  const size_t m = BWD_TILE;
+  const size_t m = EDGE_TILE;
   size_t o = 0;
   auto take = [&](size_t bytes) {
     const size_t at = o;
@@ -350,14 +228,62 @@ __host__ __device__ inline BLayout bwd_layout(int h, int rbfp) {
   s.ea = take(2 * m * sld(rbfp) * sizeof(bf16));
   s.idx = take(2 * m * sizeof(int));
   s.cm = take(2 * m * sizeof(float));
-  s.p1 = take(m * sld(h) * sizeof(bf16));
+  s.p1 = take(fwd ? 0 : m * sld(h) * sizeof(bf16));
   s.t1 = take(m * sld(h) * sizeof(bf16));  // a multiple of 128 bytes: t2 follows at once
   s.t2 = take(m * sld(2 * h) * sizeof(bf16));
-  s.p2 = take(m * sld(2 * h) * sizeof(bf16));
+  s.p2 = take(fwd ? 0 : m * sld(2 * h) * sizeof(bf16));
   s.p3 = take(m * sld(3 * h) * sizeof(bf16));
-  s.red = take(m * (3 * h / 32) * sizeof(float));
+  s.red = take(fwd ? 0 : m * (3 * h / 32) * sizeof(float));
   s.total = o;
   return s;
+}
+
+// W1 (RBFP, H) into rows of H + 8 and the biases b1 | b2 | b3 in f32 for
+// the whole launch, and both ea staging buffers zeroed, so that their RBF
+// padding columns stay zero.  Called by all threads; ends with a barrier.
+__device__ void load_resident(const Args& p, bf16* w1_s, float* b_s, bf16* ea_buf, int lde) {
+  const int H = p.h, ld1 = sld(H);
+  for (int x = threadIdx.x; x < p.rbfp * H; x += blockDim.x) w1_s[(x / H) * ld1 + x % H] = p.w1[x];
+  for (int x = threadIdx.x; x < 6 * H; x += blockDim.x)
+    b_s[x] = x < H ? ldb(p.b1 + x) : (x < 3 * H ? ldb(p.b2 + x - H) : ldb(p.b3 + x - 3 * H));
+  for (int x = threadIdx.x; x < 2 * EDGE_TILE * lde; x += blockDim.x) ea_buf[x] = f2b(0.0f);
+  __syncthreads();  // the RBF padding is zero before any copy lands
+}
+
+// Start copying tile t of the edges [e0, e1) (ea rows, neighbor ids, cutm)
+// into staging buffer t & 1 with cp.async, one commit group.  Called by all
+// threads.
+__device__ void stage_edges(const Args& p, long e0, long e1, int t, bf16* ea_buf, int* idx_buf, float* cm_buf,
+                            int lde) {
+  const int tid = threadIdx.x;
+  const long t0 = e0 + (long)t * EDGE_TILE;
+  const int mv = (int)min((long)EDGE_TILE, e1 - t0);
+  bf16* ea_s = ea_buf + (t & 1) * EDGE_TILE * lde;
+  if (p.rbf % 2 == 0) {
+    const int words = p.rbf / 2;
+    for (int x = tid; x < mv * words; x += blockDim.x) {
+      const int r = x / words, w = x % words;
+      __pipeline_memcpy_async(ea_s + r * lde + 2 * w, p.ea + (size_t)(t0 + r) * p.rbf + 2 * w, 4);
+    }
+  } else {  // rows not 4-byte aligned: plain copies
+    for (int x = tid; x < mv * p.rbf; x += blockDim.x) {
+      const int r = x / p.rbf, c = x % p.rbf;
+      ea_s[r * lde + c] = p.ea[(size_t)(t0 + r) * p.rbf + c];
+    }
+  }
+  for (int r = tid; r < mv; r += blockDim.x) {
+    __pipeline_memcpy_async(idx_buf + (t & 1) * EDGE_TILE + r, p.idx + t0 + r, 4);
+    __pipeline_memcpy_async(cm_buf + (t & 1) * EDGE_TILE + r, p.cutm + t0 + r, 4);
+  }
+  __pipeline_commit();
+}
+
+// the two products of bf16 pairs, each rounded once to bf16 (an exact
+// product rounded to nearest even: bf16(f32(a) * f32(b)) for bf16 a, b)
+__device__ __forceinline__ unsigned mul_bf16x2(unsigned a, unsigned b) {
+  unsigned d;
+  asm("mul.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
 }
 
 // two bf16-valued f32 as a bf16 pair (a at the lower address), no conversion
@@ -366,7 +292,7 @@ __device__ __forceinline__ unsigned pack_exact(float a, float b) {
 }
 
 // A warp's item of a product: 32 rows (two m16 tiles) by 16 CW columns of a
-// (BWD_TILE, ncols) output.  acc += A (rows row0.., ld lda) . B over ksteps
+// (EDGE_TILE, ncols) output.  acc += A (rows row0.., ld lda) . B over ksteps
 // k steps of 16 in order (the old wmma products' order), B in shared
 // memory: TRANS, stored k-major (row k, ld ldb; ldmatrix.trans), else
 // n-major (row n, ld ldb: the rows of a row-major weight used transposed).
@@ -412,7 +338,7 @@ __device__ __forceinline__ void item_epilogue(float (&acc)[2][2 * CW][4], int ro
     }
 }
 
-// acc += A (BWD_TILE, kdim) . W over kdim in slices of KS, each slice staged
+// acc += A (EDGE_TILE, kdim) . W over kdim in slices of KS, each slice staged
 // by all threads with cp.async into a ring of two at `ring`: TRANS, slice s
 // is rows [s KS, (s+1) KS) of a row-major (kdim, ncols) W, stored (KS,
 // ncols + 8); else columns [s KS, (s+1) KS) of a row-major (ncols, kdim) W,
@@ -457,16 +383,21 @@ __device__ void ring_product(float (&acc)[2][2 * CW][4], bool has_item, const bf
   }
 }
 
-// a forward layer's epilogue for two columns: pre = bf16(bf16(acc) + b),
-// t = bf16(act(pre)), stored to pp and tt
-__device__ __forceinline__ void fwd_epi(int act, float v0, float v1, const float* b, bf16* pp, bf16* tt) {
+// a layer's pre-activations for two columns: pre = bf16(bf16(acc) + b)
+__device__ __forceinline__ void pre_epi(float& v0, float& v1, const float* b) {
   bfr2(v0, v1);
   v0 += b[0];
   v1 += b[1];
   bfr2(v0, v1);
+}
+
+// a forward layer's epilogue for two columns: pre = bf16(bf16(acc) + b),
+// t = bf16(act(pre)), stored to tt and, unless it is null, pre to pp
+__device__ __forceinline__ void fwd_epi(int act, float v0, float v1, const float* b, bf16* pp, bf16* tt) {
+  pre_epi(v0, v1, b);
   float f0 = act_fn(act, v0), f1 = act_fn(act, v1);
   bfr2(f0, f1);
-  *reinterpret_cast<unsigned*>(pp) = pack_exact(v0, v1);
+  if (pp) *reinterpret_cast<unsigned*>(pp) = pack_exact(v0, v1);
   *reinterpret_cast<unsigned*>(tt) = pack_exact(f0, f1);
 }
 
@@ -480,7 +411,7 @@ __device__ __forceinline__ void rev_epi(int act, float v0, float v1, bf16* pp) {
   *reinterpret_cast<__nv_bfloat162*>(pp) = __floats2bfloat162_rn(d0 * v0, d1 * v1);
 }
 
-// mv rows of a (BWD_TILE, w) tile (row stride w + 8) to columns [col, col +
+// mv rows of a (EDGE_TILE, w) tile (row stride w + 8) to columns [col, col +
 // w) of the per-edge rows of `save` from edge t0, 16 bytes at a time
 __device__ __forceinline__ void save_tile(const bf16* tile, int w, int mv, bf16* save, int ld_save, long t0,
                                           int col) {
@@ -490,6 +421,127 @@ __device__ __forceinline__ void save_tile(const bf16* tile, int w, int mv, bf16*
     *reinterpret_cast<uint4*>(save + (size_t)(t0 + r) * ld_save + col + c8 * 8) =
         *reinterpret_cast<const uint4*>(tile + r * ld + c8 * 8);
   }
+}
+
+// The forward: m (N, 9H) f32.  A block owns a contiguous range of receiver
+// rows and walks their edges in tiles of EDGE_TILE: the edge MLP as the
+// backward recomputes it, w = bf16(t3 * cutm) in p3, then the per-edge
+// phase.  Its units are (component c, channel pair q), 9H/2 of them, one a
+// thread; a unit sums bf16(cat[j, c, pair] * w[third(c), pair]) over its
+// row's slots in ascending order, the next FWD_AHEAD edges' cat pairs in
+// flight.
+template <int ACT>
+__global__ void __launch_bounds__(FWD_THREADS, 1) tn_fwd_kernel(Args p, float* __restrict__ m_out) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  // the activation: a compile-time constant where the instantiation names it
+  const int act = ACT >= 0 ? ACT : p.act;
+  const int H = p.h, F9 = 9 * H, tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const BLayout L = edge_layout(H, p.rbfp, true);
+  bf16* w1_s = TILE(w1);
+  float* b_s = reinterpret_cast<float*>(smem + L.bias);  // b1 | b2 | b3
+  bf16* ea_buf = TILE(ea);
+  int* idx_buf = reinterpret_cast<int*>(smem + L.idx);
+  float* cm_buf = reinterpret_cast<float*>(smem + L.cm);
+  bf16 *t1 = TILE(t1), *t2 = TILE(t2), *w_s = TILE(p3);
+  const int lde = sld(p.rbfp), ld1 = sld(H), ld2 = sld(2 * H), ld3 = sld(3 * H);
+  // the products' items: warp w takes rows (w & 1) * 32 and column group w >> 1
+  const int row0 = (warp & 1) * 32, cg = warp >> 1;
+  const bool big_item = warp < H / 8;  // H/8 items in L1-L3
+  load_resident(p, w1_s, b_s, ea_buf, lde);
+
+  const int r0 = blockIdx.x * p.rows_per_block, r1 = min(p.n, r0 + p.rows_per_block);
+  if (r0 >= r1) return;  // the whole block
+  const long e0 = (long)r0 * p.k, e1 = (long)r1 * p.k;
+  const int ntiles = (int)((e1 - e0 + EDGE_TILE - 1) / EDGE_TILE);
+
+  // this thread's unit (none past 9H/2): component c, pair q; its receiver
+  // row `cur`, at slot `slot`, and the row's two f32 sums
+  const bool unit = tid < 9 * H / 2;
+  const int comp = tid / (H / 2), q = tid % (H / 2);
+  const int ccol = comp * H + 2 * q, wcol = third_of(comp) * H + 2 * q;
+  int cur = r0, slot = 0;
+  float acc0 = 0.0f, acc1 = 0.0f;
+
+  stage_edges(p, e0, e1, 0, ea_buf, idx_buf, cm_buf, lde);
+  for (int t = 0; t < ntiles; ++t) {
+    const long t0 = e0 + (long)t * EDGE_TILE;
+    const int mv = (int)min((long)EDGE_TILE, e1 - t0);
+    const bf16* ea_s = ea_buf + (t & 1) * EDGE_TILE * lde;
+    const int* idx_s = idx_buf + (t & 1) * EDGE_TILE;
+    float* cm_s = cm_buf + (t & 1) * EDGE_TILE;
+    __pipeline_wait_prior(0);
+    __syncthreads();  // tile t has landed; the last tile is done with every tile buffer
+    if (t + 1 < ntiles) stage_edges(p, e0, e1, t + 1, ea_buf, idx_buf, cm_buf, lde);
+    for (int r = tid; r < mv; r += blockDim.x) cm_s[r] = bfr(cm_s[r]);
+
+    // L1 (W1 resident): t1 = bf16(act(bf16(bf16(ea . W1) + b1)))
+    if (big_item) {
+      float a[2][2][4] = {};
+      mma_steps<1, true>(a, ea_s, lde, w1_s, ld1, p.rbfp / 16, row0, cg * 16, lane);
+      item_epilogue<1>(a, row0, cg * 16, lane, [&](int r, int c, float v0, float v1) {
+        fwd_epi(act, v0, v1, b_s + c, nullptr, t1 + r * ld1 + c);
+      });
+    }
+    __syncthreads();
+    // L2 (W2 through the ring in p3): t2
+    {
+      float a[2][4][4] = {};
+      ring_product<2, true>(a, big_item, t1, ld1, p.w2, H, 2 * H, w_s, row0, cg * 32, lane);
+      if (big_item)
+        item_epilogue<2>(a, row0, cg * 32, lane, [&](int r, int c, float v0, float v1) {
+          fwd_epi(act, v0, v1, b_s + H + c, nullptr, t2 + r * ld2 + c);
+        });
+    }
+    __syncthreads();
+    // L3 (W3 through the ring in p3, the outputs held in registers until it
+    // is free): w = bf16(bf16(act(bf16(bf16(t2 . W3) + b3))) * bf16(cutm)) in p3
+    {
+      float a[2][6][4] = {};
+      ring_product<3, true>(a, big_item, t2, ld2, p.w3, 2 * H, 3 * H, w_s, row0, cg * 48, lane);
+      if (big_item)
+        item_epilogue<3>(a, row0, cg * 48, lane, [&](int r, int c, float v0, float v1) {
+          pre_epi(v0, v1, b_s + 3 * H + c);
+          float f0 = act_fn(act, v0), f1 = act_fn(act, v1);
+          bfr2(f0, f1);
+          const float cm = cm_s[r];
+          *reinterpret_cast<__nv_bfloat162*>(w_s + r * ld3 + c) = __floats2bfloat162_rn(f0 * cm, f1 * cm);
+        });
+    }
+    __syncthreads();  // w is complete
+
+    // per edge, in slot order: the unit's two products, rounded to bf16,
+    // into its row's f32 sums; the cat pairs of the next FWD_AHEAD edges in
+    // flight (a register ring, slot u holding edge eb + u).  The refill is
+    // unconditional (past the tile it re-reads the tile's last edge), so
+    // each load lands in its ring register with nothing waiting on it.
+    if (unit) {
+      const bf16* cat_u = p.cat + ccol;
+      auto fetch = [&](int e) { return ldg_u32(cat_u + (size_t)idx_s[min(e, mv - 1)] * F9); };
+      const bf16* w_u = w_s + wcol;
+      unsigned g[FWD_AHEAD];
+#pragma unroll
+      for (int u = 0; u < FWD_AHEAD; ++u) g[u] = fetch(u);
+      for (int eb = 0; eb < mv; eb += FWD_AHEAD) {
+#pragma unroll
+        for (int u = 0; u < FWD_AHEAD; ++u) {
+          const int e = eb + u;
+          if (e >= mv) break;  // the same for the whole block
+          if (slot == p.k) {   // the next receiver row
+            *reinterpret_cast<float2*>(m_out + (size_t)cur * F9 + ccol) = make_float2(acc0, acc1);
+            acc0 = acc1 = 0.0f;
+            ++cur;
+            slot = 0;
+          }
+          ++slot;
+          const unsigned x = mul_bf16x2(g[u], *reinterpret_cast<const unsigned*>(w_u + e * ld3));
+          g[u] = fetch(e + FWD_AHEAD);
+          acc0 += __uint_as_float(x << 16);
+          acc1 += __uint_as_float(x & 0xffff0000u);
+        }
+      }
+    }
+  }
+  if (unit) *reinterpret_cast<float2*>(m_out + (size_t)cur * F9 + ccol) = make_float2(acc0, acc1);
 }
 
 // the gathered values of one edge for one thread: ct[j] rounded to bf16 and
@@ -516,16 +568,16 @@ __device__ __forceinline__ Gath gather(const Args& p, int j, int cf, int cc, int
 // f32; with `save` (per-edge rows [ea | t1 | d_p1 | t2 | d_p2 | d_p3], bf16,
 // row stride rbfp + 9H) the operands of the weight cotangents
 // (et_dw_kernel).  A block owns a contiguous range of receiver rows and
-// walks their edges in tiles of BWD_TILE.
+// walks their edges in tiles of EDGE_TILE.
 template <int ACT>
-__global__ void __launch_bounds__(BWD_THREADS, 1)
+__global__ void __launch_bounds__(EDGE_THREADS, 1)
     tn_bwd_kernel(Args p, bf16* __restrict__ dcat, bf16* __restrict__ dea, float* __restrict__ dcutm,
                   bf16* __restrict__ save) {
   extern __shared__ __align__(128) unsigned char smem[];
   // the activation: a compile-time constant where the instantiation names it
   const int act = ACT >= 0 ? ACT : p.act;
   const int H = p.h, F9 = 9 * H, tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const BLayout L = bwd_layout(H, p.rbfp);
+  const BLayout L = edge_layout(H, p.rbfp, false);
   bf16* w1_s = reinterpret_cast<bf16*>(smem + L.w1);
   float* b_s = reinterpret_cast<float*>(smem + L.bias);  // b1 | b2 | b3
   bf16* ea_buf = reinterpret_cast<bf16*>(smem + L.ea);
@@ -540,39 +592,13 @@ __global__ void __launch_bounds__(BWD_THREADS, 1)
   const int row0 = (warp & 1) * 32, cg = warp >> 1;
   const bool big_item = warp < H / 8;  // H/8 items in L1-L3 forward and reverse
 
-  for (int x = tid; x < p.rbfp * H; x += blockDim.x) w1_s[(x / H) * ld1 + x % H] = p.w1[x];
-  for (int x = tid; x < 6 * H; x += blockDim.x)
-    b_s[x] = x < H ? ldb(p.b1 + x) : (x < 3 * H ? ldb(p.b2 + x - H) : ldb(p.b3 + x - 3 * H));
-  for (int x = tid; x < 2 * BWD_TILE * lde; x += blockDim.x) ea_buf[x] = f2b(0.0f);
-  __syncthreads();  // the RBF padding is zero before any copy lands
+  load_resident(p, w1_s, b_s, ea_buf, lde);
 
   const int r0 = blockIdx.x * p.rows_per_block, r1 = min(p.n, r0 + p.rows_per_block);
   if (r0 >= r1) return;  // the whole block
   const long e0 = (long)r0 * p.k, e1 = (long)r1 * p.k;
-  const int ntiles = (int)((e1 - e0 + BWD_TILE - 1) / BWD_TILE);
-  // start copying tile t (ea rows, ids, cutm) into staging buffer t & 1
-  auto stage = [&](int t) {
-    const long t0 = e0 + (long)t * BWD_TILE;
-    const int mv = (int)min((long)BWD_TILE, e1 - t0);
-    bf16* ea_s = ea_buf + (t & 1) * BWD_TILE * lde;
-    if (p.rbf % 2 == 0) {
-      const int words = p.rbf / 2;
-      for (int x = tid; x < mv * words; x += blockDim.x) {
-        const int r = x / words, w = x % words;
-        __pipeline_memcpy_async(ea_s + r * lde + 2 * w, p.ea + (size_t)(t0 + r) * p.rbf + 2 * w, 4);
-      }
-    } else {  // rows not 4-byte aligned: plain copies
-      for (int x = tid; x < mv * p.rbf; x += blockDim.x) {
-        const int r = x / p.rbf, c = x % p.rbf;
-        ea_s[r * lde + c] = p.ea[(size_t)(t0 + r) * p.rbf + c];
-      }
-    }
-    for (int r = tid; r < mv; r += blockDim.x) {
-      __pipeline_memcpy_async(idx_buf + (t & 1) * BWD_TILE + r, p.idx + t0 + r, 4);
-      __pipeline_memcpy_async(cm_buf + (t & 1) * BWD_TILE + r, p.cutm + t0 + r, 4);
-    }
-    __pipeline_commit();
-  };
+  const int ntiles = (int)((e1 - e0 + EDGE_TILE - 1) / EDGE_TILE);
+  auto stage = [&](int t) { stage_edges(p, e0, e1, t, ea_buf, idx_buf, cm_buf, lde); };
 
   // the per-edge phase's thread: channel hh of third `third` (the first 3H
   // threads, whole warps); its receiver row `cur`, at slot `slot`
@@ -589,11 +615,11 @@ __global__ void __launch_bounds__(BWD_THREADS, 1)
 
   stage(0);
   for (int t = 0; t < ntiles; ++t) {
-    const long t0 = e0 + (long)t * BWD_TILE;
-    const int mv = (int)min((long)BWD_TILE, e1 - t0);
-    const bf16* ea_s = ea_buf + (t & 1) * BWD_TILE * lde;
-    const int* idx_s = idx_buf + (t & 1) * BWD_TILE;
-    float* cm_s = cm_buf + (t & 1) * BWD_TILE;
+    const long t0 = e0 + (long)t * EDGE_TILE;
+    const int mv = (int)min((long)EDGE_TILE, e1 - t0);
+    const bf16* ea_s = ea_buf + (t & 1) * EDGE_TILE * lde;
+    const int* idx_s = idx_buf + (t & 1) * EDGE_TILE;
+    float* cm_s = cm_buf + (t & 1) * EDGE_TILE;
     __pipeline_wait_prior(0);
     __syncthreads();  // tile t has landed; the last tile is done with every tile buffer
     if (t + 1 < ntiles) stage(t + 1);
@@ -629,10 +655,7 @@ __global__ void __launch_bounds__(BWD_THREADS, 1)
       ring_product<3, true>(a, big_item, t2, ld2, p.w3, 2 * H, 3 * H, p3, row0, cg * 48, lane);
       if (big_item)
         item_epilogue<3>(a, row0, cg * 48, lane, [&](int r, int c, float v0, float v1) {
-          bfr2(v0, v1);
-          v0 += b_s[3 * H + c];
-          v1 += b_s[3 * H + c + 1];
-          bfr2(v0, v1);
+          pre_epi(v0, v1, b_s + 3 * H + c);
           *reinterpret_cast<unsigned*>(p3 + r * ld3 + c) = pack_exact(v0, v1);
         });
     }
@@ -1283,54 +1306,36 @@ bool valid_shape(int n, int k, int h, int rbf) {
   return n > 0 && k > 0 && h >= 32 && h <= MAX_H && h % 32 == 0 && rbf > 0 && pad16(rbf) <= MAX_RBFP;
 }
 
-// The forward's grid: rows per block such that every SM gets as many blocks
-// as its shared memory and threads hold, each block its own rows.
-cudaError_t plan_rows(Args* p, size_t* smem, int* blocks) {
-  int dev = 0, sms = 0, smem_max = 0, smem_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&smem_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
-  if (err != cudaSuccess) return err;
-  *smem = smem_layout(p->h, p->rbfp).total;
-  if (*smem > (size_t)smem_max) return cudaErrorInvalidValue;
-  int per_sm = (int)(smem_sm / (*smem + 1024));  // 1 KB reserved per block
-  per_sm = per_sm < 1 ? 1 : per_sm;
-  const int by_threads = 2048 / (3 * p->h);
-  per_sm = per_sm < by_threads ? per_sm : by_threads;
-  const int target = sms * per_sm;
-  p->rows_per_block = (p->n + target - 1) / target;
-  *blocks = (p->n + p->rows_per_block - 1) / p->rows_per_block;
-  return cudaSuccess;
-}
-
-// The backward's and second order's grid (kind 1 or 2): one block an SM
-// (their shared memory), each block a contiguous range of rows.  A shape
-// whose tiles do not fit in a block's shared memory (the second order past
-// RBF = 80 at H = 128) is refused.
-cudaError_t plan_bwd(int kind, Args* p, size_t* smem, int* blocks) {
+// The grid of the forward (kind 0), the backward (1) and the second order
+// (2): one block an SM (their shared memory), each block a contiguous range
+// of rows.  A shape whose tiles do not fit in a block's shared memory (the
+// second order past RBF = 80 at H = 128) is refused.
+cudaError_t plan_tiles(int kind, Args* p, size_t* smem, int* blocks) {
   int dev = 0, sms = 0, smem_max = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return err;
-  *smem = kind == 1 ? bwd_layout(p->h, p->rbfp).total : bwd2_layout(p->h, p->rbfp).total;
+  *smem = kind == 2 ? bwd2_layout(p->h, p->rbfp).total : edge_layout(p->h, p->rbfp, kind == 0).total;
   if (*smem > (size_t)smem_max) return cudaErrorInvalidValue;
   p->rows_per_block = (p->n + sms - 1) / sms;
   *blocks = (p->n + p->rows_per_block - 1) / p->rows_per_block;
   return cudaSuccess;
 }
 
-// the backward (kind 1) or the second order (2), compiled for silu (the
-// configurations' choice), with the activation folded into its arithmetic,
-// and for any activation read at run time
-const void* bwd_kernel(int kind, int act) {
+// the forward (kind 0), the backward (1) or the second order (2), compiled
+// for silu (the configurations' choice), with the activation folded into
+// its arithmetic, and for any activation read at run time
+const void* edge_kernel(int kind, int act) {
+  const bool silu = act == ACT_SILU;
+  if (kind == 0)
+    return silu ? reinterpret_cast<const void*>(tn_fwd_kernel<ACT_SILU>)
+                : reinterpret_cast<const void*>(tn_fwd_kernel<-1>);
   if (kind == 1)
-    return act == ACT_SILU ? reinterpret_cast<const void*>(tn_bwd_kernel<ACT_SILU>)
-                           : reinterpret_cast<const void*>(tn_bwd_kernel<-1>);
-  return act == ACT_SILU ? reinterpret_cast<const void*>(tn_bwd2_kernel<ACT_SILU>)
-                         : reinterpret_cast<const void*>(tn_bwd2_kernel<-1>);
+    return silu ? reinterpret_cast<const void*>(tn_bwd_kernel<ACT_SILU>)
+                : reinterpret_cast<const void*>(tn_bwd_kernel<-1>);
+  return silu ? reinterpret_cast<const void*>(tn_bwd2_kernel<ACT_SILU>)
+              : reinterpret_cast<const void*>(tn_bwd2_kernel<-1>);
 }
 
 Args make_args(const void* idx, int n, int k, int h, int rbf, const void* cat, const void* ea,
@@ -1374,11 +1379,16 @@ int tn_fwd(const void* idx, int n, int k, int h, int rbf, const void* cat, const
   Args p = make_args(idx, n, k, h, rbf, cat, ea, cutm, w1, b1, w2, b2, w3, b3, act);
   size_t smem = 0;
   int blocks = 0;
-  cudaError_t err = plan_rows(&p, &smem, &blocks);
+  cudaError_t err = plan_tiles(0, &p, &smem, &blocks);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(tn_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  err = cudaFuncSetAttribute(edge_kernel(0, act), cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  tn_fwd_kernel<<<blocks, 3 * h, smem, static_cast<cudaStream_t>(stream)>>>(p, static_cast<float*>(m_out));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* o_m = static_cast<float*>(m_out);
+  if (act == ACT_SILU)
+    tn_fwd_kernel<ACT_SILU><<<blocks, FWD_THREADS, smem, st>>>(p, o_m);
+  else
+    tn_fwd_kernel<-1><<<blocks, FWD_THREADS, smem, st>>>(p, o_m);
   return (int)cudaGetLastError();
 }
 
@@ -1393,17 +1403,17 @@ int tn_bwd(const void* idx, int n, int k, int h, int rbf, const void* cat, const
   p.ct = static_cast<const float*>(ct);
   size_t smem = 0;
   int blocks = 0;
-  cudaError_t err = plan_bwd(1, &p, &smem, &blocks);
+  cudaError_t err = plan_tiles(1, &p, &smem, &blocks);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(bwd_kernel(1, act), cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  err = cudaFuncSetAttribute(edge_kernel(1, act), cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   bf16 *o_dcat = static_cast<bf16*>(dcat), *o_dea = static_cast<bf16*>(dea), *o_save = static_cast<bf16*>(save);
   float* o_dcutm = static_cast<float*>(dcutm);
   if (act == ACT_SILU)
-    tn_bwd_kernel<ACT_SILU><<<blocks, BWD_THREADS, smem, st>>>(p, o_dcat, o_dea, o_dcutm, o_save);
+    tn_bwd_kernel<ACT_SILU><<<blocks, EDGE_THREADS, smem, st>>>(p, o_dcat, o_dea, o_dcutm, o_save);
   else
-    tn_bwd_kernel<-1><<<blocks, BWD_THREADS, smem, st>>>(p, o_dcat, o_dea, o_dcutm, o_save);
+    tn_bwd_kernel<-1><<<blocks, EDGE_THREADS, smem, st>>>(p, o_dcat, o_dea, o_dcutm, o_save);
   return (int)cudaGetLastError();
 }
 
@@ -1431,9 +1441,9 @@ int tn_bwd2(const void* idx, int n, int k, int h, int rbf, const void* cat, cons
   p.zb3 = static_cast<const bf16*>(zb3);
   size_t smem = 0;
   int blocks = 0;
-  cudaError_t err = plan_bwd(2, &p, &smem, &blocks);
+  cudaError_t err = plan_tiles(2, &p, &smem, &blocks);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(bwd_kernel(2, act), cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  err = cudaFuncSetAttribute(edge_kernel(2, act), cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   bf16 *o_gea = static_cast<bf16*>(gea), *o_save = static_cast<bf16*>(save);
@@ -1456,19 +1466,19 @@ int tn_src_sum(const void* perm, int n, int k, int h, const void* ct, const void
   return (int)cudaGetLastError();
 }
 
-// The resources of the backward (kind 1) or the second order (kind 2), as
-// compiled for silu, at a shape: out = registers a thread, local (spill)
-// bytes a thread, threads a block, dynamic shared memory a block, resident
-// blocks an SM.
+// The resources of the forward (kind 0), the backward (1) or the second
+// order (2), as compiled for silu, at a shape: out = registers a thread,
+// local (spill) bytes a thread, threads a block, dynamic shared memory a
+// block, resident blocks an SM.
 int tn_resources(int kind, int n, int k, int h, int rbf, int* out) {
-  if (!valid_shape(n, k, h, rbf) || (kind != 1 && kind != 2)) return (int)cudaErrorInvalidValue;
+  if (!valid_shape(n, k, h, rbf) || kind < 0 || kind > 2) return (int)cudaErrorInvalidValue;
   Args p = make_args(nullptr, n, k, h, rbf, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
                      nullptr, nullptr, ACT_SILU);
   size_t smem = 0;
   int blocks = 0;
-  const void* fn = bwd_kernel(kind, ACT_SILU);
-  const int threads = kind == 1 ? BWD_THREADS : BWD2_THREADS;
-  cudaError_t err = plan_bwd(kind, &p, &smem, &blocks);
+  const void* fn = edge_kernel(kind, ACT_SILU);
+  const int threads = kind == 0 ? FWD_THREADS : (kind == 1 ? EDGE_THREADS : BWD2_THREADS);
+  cudaError_t err = plan_tiles(kind, &p, &smem, &blocks);
   if (err == cudaSuccess) err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   cudaFuncAttributes attr;
   if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, fn);

@@ -32,6 +32,8 @@ def _lib() -> ctypes.CDLL:
             ctypes.c_void_p, ctypes.c_void_p,
         ]
         lib.select_topk.restype = ctypes.c_int
+        lib.select_topk_resources.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        lib.select_topk_resources.restype = ctypes.c_int
         lib._argtypes_set = True
     return lib
 
@@ -81,3 +83,17 @@ def select_topk(keys: torch.Tensor, k: int, sentinel: int) -> torch.Tensor:
 
 
 select_topk.launches = 0
+
+
+def kernel_resources(w: int, k: int) -> dict:
+    """The kernel's resources for rows of width ``w`` and ``k`` slots, from
+    the CUDA runtime: {registers, spill_bytes (local memory a thread),
+    threads, smem (dynamic shared memory a block), blocks_per_sm
+    (resident)}.  Needs a CUDA device."""
+    lib = _lib()
+    out = (ctypes.c_int * 5)()
+    err = lib.select_topk_resources(int(w), int(k), out)
+    if err != 0:
+        raise RuntimeError(f"select_topk_resources failed: CUDA error {err} "
+                           f"({lib.select_topk_error_string(err).decode()})")
+    return dict(zip(("registers", "spill_bytes", "threads", "smem", "blocks_per_sm"), out))

@@ -147,6 +147,12 @@ def _prepare(idx, cat, ea, cutm, w1, b1, w2, b2, w3, b3):
     for t, name, shape in zip(ws, ("w1", "b1", "w2", "b2", "w3", "b3"),
                               ((rbfp, h), (h,), (h, 2 * h), (2 * h,), (2 * h, 3 * h), (3 * h,))):
         _check(t, name, bf, shape, dev)
+    # the kernels gather cat 4 bytes at a time and copy W2 and W3 16 bytes at a time
+    if cat.data_ptr() % 4:
+        cat = cat.clone()
+    for i in (2, 4):
+        if ws[i].data_ptr() % 16:
+            ws[i] = ws[i].clone()
     return (n, kk, h, rbf), [cat, ea, cutm] + ws
 
 
@@ -394,10 +400,10 @@ def bwd2_rows(idx, perm, inputs, ct, Z, *, act):
     zw1[:rbf] = z(3, w1, bf)
     zs = [z(0, cat, bf), z(1, ea, bf), z(2, cutm, f32), zw1, z(4, b1, bf).reshape(-1),
           z(5, w2, bf), z(6, b2, bf).reshape(-1), z(7, w3, bf), z(8, b3, bf).reshape(-1)]
-    # the kernel copies W2, W3 and their Z 16 bytes at a time
-    for ts, i in ((ops, 5), (ops, 7), (zs, 5), (zs, 7)):
-        if ts[i].data_ptr() % 16:
-            ts[i] = ts[i].clone()
+    # the kernel copies the Z of W2 and W3 16 bytes at a time, as W2 and W3 (_prepare)
+    for i in (5, 7):
+        if zs[i].data_ptr() % 16:
+            zs[i] = zs[i].clone()
     e = n * kk
     gea = torch.empty((n, kk, rbf), dtype=bf, device=dev)
     gcutm = torch.empty((n, kk), dtype=f32, device=dev)
@@ -443,10 +449,10 @@ def reset_launch_counts():
 
 
 def kernel_resources(n, kk, h, rbf, kind=1):
-    """The resources of ``tn_bwd_kernel`` (kind 1) or ``tn_bwd2_kernel``
-    (kind 2) at a shape, from the CUDA runtime: {registers, spill_bytes
-    (local memory a thread), threads, smem (dynamic shared memory a block),
-    blocks_per_sm (resident)}.  Needs a CUDA device; the weight reduction's
+    """The resources of ``tn_fwd_kernel`` (kind 0), ``tn_bwd_kernel`` (kind
+    1) or ``tn_bwd2_kernel`` (kind 2) at a shape, from the CUDA runtime:
+    {registers, spill_bytes (local memory a thread), threads, smem (dynamic
+    shared memory a block), blocks_per_sm (resident)}.  Needs a CUDA device; the weight reduction's
     are ET's (``et_message.kernel_resources``)."""
     lib = _lib()
     out = (ctypes.c_int * 5)()

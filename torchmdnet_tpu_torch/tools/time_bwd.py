@@ -20,23 +20,26 @@ cotangents at ET MD's STMV skin list (N = 30,336, K = 112, H = 128, RBF =
 81, H = 128, RBF = 50), #12 with weight cotangents and #13 at the training
 shapes.  TensorNet's (``_tn_system``, ``_tn_kernel_inputs``): #8 and #9
 without weight cotangents at DHFR (N = 2496, K = 65, H = 128, RBF = 32);
-#9 without and with them (the edge kernel, then with its weight
+#8, #9 without and with them (the edge kernel, then with its weight
 reduction), the reduction alone where the tree has one
 (``bwd_rows``, the edge kernel apart from it), and #10 at the
 TensorNet-ANI1X training shapes (64 molecules of 18 atoms, K = 33), with
 each of its kernels' device time apart (the edge kernel, the source-row
-sum, the weight reduction; torch.profiler, mean of 20).  ``md_stmv``
+sum, the weight reduction; torch.profiler, mean of 20).  ``topk`` is #6
+at each cell-list build a path runs (chip_smoke.py's ``select_cases``:
+the DHFR builds of External's models, GN's STMV forward, the STMV skin
+build of MD).  ``md_stmv``
 is chip_smoke.py's ET MD at STMV size in bench.py's configuration
 (``MD_ARGS``) through the tree's ``Simulation``: after its warm-up, three
 windows of ``MD_TIMED_STEPS`` steps, each a mean ms/step on the host clock
 with the card synchronised.  Prints the card's name and power limit, then one
 JSON line of CUDA-event medians of 20 launches (5 at STMV) with the L2
 flushed.  ``--dump DIR`` also saves one
-call's outputs per shape and kernel (the forwards #1 and #11 too) to
-DIR/LABEL.pt; ``--compare DIR A B``
+call's outputs per shape and kernel (the forwards #1, #8 and #11 and the
+selections too) to DIR/LABEL.pt; ``--compare DIR A B``
 then prints, per output, whether two labels' outputs are bitwise equal and
 their largest difference over the largest value.  ``--shapes`` times only
-the named shapes (dhfr, train, stmv, t_dhfr, t_train, tn_dhfr, tn_train, md_stmv).  Needs a CUDA device
+the named shapes (dhfr, train, stmv, t_dhfr, t_train, tn_dhfr, tn_train, md_stmv, topk).  Needs a CUDA device
 (``--compare`` does not).
 """
 
@@ -60,7 +63,7 @@ def _chip_smoke():
 
 
 def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description="Time the fused ET and Transformer backward and second-order kernels.")
+    ap = argparse.ArgumentParser(description="Time the port's fused edge kernels and the cell list's selection.")
     ap.add_argument("--tree", default=ROOT, help="root of the checkout to time")
     ap.add_argument("--label", default=None, help="name printed with the result")
     ap.add_argument("--dump", default=None, help="directory for one call's outputs per shape")
@@ -113,6 +116,7 @@ def main(argv=None) -> int:
         "tn_train": dict(system=cs._train_batch(tn_mols, "cuda", cs.TN_TRAIN_BATCH,
                                                 cs.TN_TRAIN_ARGS["cutoff_upper"])),
         "md_stmv": {},
+        "topk": {},
     }
     label = args.label or tree
     result = dict(label=label, tree=tree)
@@ -123,6 +127,14 @@ def main(argv=None) -> int:
             continue
         if name == "md_stmv":
             result[name] = _time_md(cs)
+            torch.cuda.empty_cache()
+            continue
+        if name == "topk":
+            result[name], calls = _time_topk(cs, flush)
+            if args.dump:
+                for k, fn in calls.items():
+                    dumped[f"{name}/{k}"] = _flat_cpu(fn())
+            del calls
             torch.cuda.empty_cache()
             continue
         if name.startswith("t_") or name.startswith("tn_"):
@@ -199,10 +211,10 @@ def _time_t(cs, name, s, flush):
 
 
 def _time_tn(cs, name, s, flush):
-    """TensorNet's #8 and #9 (frozen weights) at DHFR; #9 without and with
-    weight cotangents, its reduction alone (where the tree has
-    ``bwd_rows``) and #10 at the training shapes: ({kernel_ms:
-    median}, the calls)."""
+    """TensorNet's #8 and #9 (frozen weights) at DHFR; #8, #9 without and
+    with weight cotangents, #9's reduction alone (where the tree has
+    ``bwd_rows``) and #10 at the training shapes: ({kernel_ms: median}, the
+    calls)."""
     from torchmdnet_tpu_torch.ops.kernels import tn_message as tm
 
     h, rbf = cs.TN_ARGS["embedding_dimension"], cs.TN_ARGS["num_rbf"]
@@ -218,13 +230,28 @@ def _time_tn(cs, name, s, flush):
         calls = dict(fwd=lambda: tm.run_fwd(idx, *args, act="silu"), bwd=bwd(False))
         return {f"{k}_ms": cs._event_ms(fn, flush=flush) for k, fn in calls.items()}, calls
     z = cs._tn_z_like(ins, cs.SEED)
-    calls = dict(bwd=bwd(False), bwd_weights=bwd(True), bwd2=lambda: tm.run_bwd2(idx, perm, args, ct, z, act="silu"))
+    calls = dict(fwd=lambda: tm.run_fwd(idx, *args, act="silu"), bwd=bwd(False), bwd_weights=bwd(True),
+                 bwd2=lambda: tm.run_bwd2(idx, perm, args, ct, z, act="silu"))
     row = {f"{k}_ms": cs._event_ms(fn, flush=flush) for k, fn in calls.items()}
     if hasattr(tm, "bwd_rows"):  # the reduction alone, on the rows of one backward
         row["bwd_reduction_ms"] = cs._tn_pass_split(idx, args, ct, flush)["reduction (et_dw_kernel)"]
     # #10 kernel by kernel (device time from the profiler, mean of 20)
     row.update({f"bwd2_{k}_ms": v for k, v in cs._tn_bwd2_split(idx, perm, args, ct, z, flush).items()})
     return row, calls
+
+
+def _time_topk(cs, flush):
+    """#6 at each cell-list build a path runs (chip_smoke.py's
+    ``select_cases``: the DHFR builds at 5 and 4.5 A, GN's STMV forward
+    and the STMV skin build): ({label_ms: median}, the calls)."""
+    from torchmdnet_tpu_torch.data.systems import DHFR_ATOMS
+    from torchmdnet_tpu_torch.ops.kernels.select_topk import select_topk
+
+    stmv = cs._stmv_batch()
+    keys, k, _ = cs.stmv_skin_keys(stmv)
+    cases, _ = cs.select_cases(cs._synthetic_batch(DHFR_ATOMS, cs.SEED, "cuda")[2], stmv, keys, k)
+    calls = {label: (lambda c=c: select_topk(*c)) for label, c in cases.items()}
+    return {f"{label}_ms": cs._event_ms(fn, flush=flush) for label, fn in calls.items()}, calls
 
 
 def _time_md(cs, windows=3):
