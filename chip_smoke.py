@@ -1950,7 +1950,9 @@ GN_TRAIN_SPLIT = (96, 16, 16)  # 12 training batches, two val, two test
 GN_TRAIN_LR = 5e-4
 GN_TRAIN_WEIGHTS = (0.2, 0.8)
 GN_KERNELS = ("gather_rows_kernel", "transpose_sum_rows_kernel")
-# a scalar-path width (F % 8 != 0) for the kernel checks
+# widths for the kernel checks: a ragged last span of #5 (130 = 2 x 64 + 2
+# channels; #4 copies one bf16 at a time there) and one bf16 for both (odd)
+GN_PAIR_F = 130
 GN_ODD_F = 13
 
 
@@ -2005,16 +2007,18 @@ def _slot_order_sum(ct, perm, k):
     return acc.to(torch.bfloat16), rows.abs().sum(dim=1)
 
 
-def check_ell_gather(dhfr_nbl, stmv_nbl):
+def check_ell_gather(lists):
     """#4 against its plain version bitwise.  #5 bitwise equal from run to
     run and to its contract (f32 sums in slot order, rounded once), and
     against its plain version (an f32 sum in torch's own order, rounded
     once) within one bf16 ulp of the output plus the f32 reordering bound
     K 2^-24 sum|g|: where a sum cancels, the two orders' f32 results may
-    round to bf16 values more than one ulp of the small output apart.  At the
-    DHFR and STMV skin shapes (F = 128), at F = 384 and at a width of the
-    scalar path.  Returns the max abs errors (#4, #5 against the plain
-    version)."""
+    round to bf16 values more than one ulp of the small output apart.  At
+    the DHFR, STMV skin and GN-aspirin training shapes (F = 128), at F = 384
+    and 1152 (ET's 3H, TensorNet's 9H), at a width whose last span of #5 is
+    ragged (#4 copies one bf16 at a time there) and at an odd width (one
+    bf16 at a time for both).
+    Returns the max abs errors (#4, #5 against the plain version)."""
     import torch
 
     from torchmdnet_tpu_torch.ops import neighbors as nb
@@ -2022,8 +2026,9 @@ def check_ell_gather(dhfr_nbl, stmv_nbl):
 
     g = torch.Generator().manual_seed(SEED)
     parts, errs = [], [0.0, 0.0]
-    for label, nbl, f in (("DHFR", dhfr_nbl, 128), ("STMV skin", stmv_nbl, 128),
-                          ("DHFR", dhfr_nbl, 384), ("DHFR scalar path", dhfr_nbl, GN_ODD_F)):
+    for label, f in (("DHFR", 128), ("STMV skin", 128), ("training", 128), ("DHFR", 384), ("DHFR", 1152),
+                     ("DHFR", GN_PAIR_F), ("DHFR", GN_ODD_F)):
+        nbl = lists[label]
         n, k = nbl.idx.shape
         perm = nbl.transpose_perm
         x = torch.randn(n, f, generator=g).to("cuda", torch.bfloat16)
@@ -2055,6 +2060,27 @@ def check_ell_gather(dhfr_nbl, stmv_nbl):
     return tuple(errs)
 
 
+def log_ell_resources(lists):
+    """#4's and #5's resources at each shape a GN path runs them (F = 128)
+    and at F = 384 and 1152 at DHFR: the kernel each launch plan takes, its
+    registers and spills from the compiled code, blocks an SM from the
+    occupancy calculator, and the grid."""
+    from torchmdnet_tpu_torch.ops.kernels import ell_gather as eg
+
+    parts = []
+    for label, f in (("DHFR", 128), ("STMV skin", 128), ("STMV forward", 128), ("training", 128), ("DHFR", 384),
+                     ("DHFR", 1152)):
+        n, k = lists[label].idx.shape
+        for kind, name in (("gather", "gather_rows_kernel"), ("transpose", "transpose_sum_rows_kernel")):
+            if kind == "transpose" and label == "STMV forward":
+                continue
+            r = eg.kernel_resources(kind, n, k, f)
+            parts.append(f"{name} at {label} N={n} K={k} F={f}: {r['registers']} registers, {r['spill_bytes']} B "
+                         f"spilled, {r['threads']} threads, {r['smem']} B shared, {r['blocks_per_sm']} blocks/SM "
+                         f"({r['blocks_per_sm'] * r['threads'] // 32} warps), grid {r['grid']}")
+    log("ell_gather kernel resources: " + "; ".join(parts))
+
+
 def _ell_bounds(n, k, f, kind):
     """Least time: max(bytes / HBM rate, operations / f32 peak).  #4 reads
     the source rows and idx once and writes (N, K, F); #5 reads (N, K, F) and
@@ -2067,48 +2093,122 @@ def _ell_bounds(n, k, f, kind):
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def time_ell_gather(lists):
-    """#4 and #5 (F = 128) on each of ``_gn_lists``: the DHFR serving shapes,
-    the STMV skin shapes, the STMV forward's (#4 only: it transposes
-    nothing) and GN-aspirin training's: kernel, plain version, the one
-    PyTorch call that computes the same function (``index_select`` for #4,
-    ``index_add_`` into f32 of the rows in f32 for #5: its atomics add in no
-    fixed order), bound (L2 flushed, median of 20)."""
+def _enqueue_ms(fn, reps=200, warmup=10):
+    """Median over ``reps`` calls of host-clock time with no synchronise:
+    what the host takes to enqueue one call (the card runs behind it)."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(1e3 * (time.perf_counter() - t0))
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def _device_ms(fn, flush, reps=20):
+    """Device time alone of one call: torch.profiler's durations of the
+    kernels the call runs over ``reps`` calls, the L2 flushed before each
+    (the flush's own kernels left out by name); per kernel name the median
+    duration times its launches a call, summed.  The loop is profiled twice
+    and the second session kept: a process's first sessions read whole
+    sessions several times slow now and then."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def device_events(prof):
+        return [ev for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA]
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        flush.zero_()
+        torch.cuda.synchronize()
+    flush_names = {ev.name for ev in device_events(prof)}
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+    durations = {}
+    for ev in device_events(prof):
+        if ev.name not in flush_names:
+            durations.setdefault(ev.name, []).append(ev.device_time / 1e3)
+    ms = sum(statistics.median(d) * len(d) / reps for d in durations.values())
+    if ms <= 0.0:
+        raise AssertionError("the profiler recorded no device time for the call")
+    return ms
+
+
+def ell_cases(lists):
+    """#4 and #5 on each of ``_gn_lists`` at GN's width, operands drawn
+    from SEED: yields (shape name, (N, K, F),
+    {kind: (kernel call, plain call, library call)}).  The STMV forward's
+    truncated list has no transpose (its forward needs none), so #4 only.
+    The library calls: ``index_select`` for #4, ``index_add_`` into f32 of
+    the rows in f32 for #5 (its atomics add in no fixed order)."""
     import torch
 
     from torchmdnet_tpu_torch.ops import neighbors as nb
     from torchmdnet_tpu_torch.ops.kernels import ell_gather as eg
 
-    flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")  # 256 MB > L2
+    f = GN_ARGS["embedding_dimension"]
     g = torch.Generator().manual_seed(SEED)
-    out = {}
     for where, nbl in lists.items():
         n, k = nbl.idx.shape
-        f = GN_ARGS["embedding_dimension"]
         idx, flat = nbl.idx, nbl.idx.reshape(-1).long()
         x = torch.randn(n, f, generator=g).to("cuda", torch.bfloat16)
-        out[where] = dict(
-            gather=(_event_ms(lambda: eg.gather_rows(x, idx), flush=flush),
-                    _event_ms(lambda: nb._gather_rows(x, idx), flush=flush),
-                    _event_ms(lambda: x.index_select(0, flat), flush=flush)) + _ell_bounds(n, k, f, "gather"),
-            shape=(n, k, f),
-        )
-        if where != "STMV forward":  # its truncated list has no transpose (and the forward needs none)
+        calls = dict(gather=(lambda: eg.gather_rows(x, idx), lambda: nb._gather_rows(x, idx),
+                             lambda: x.index_select(0, flat)))
+        if where != "STMV forward":
             perm = nbl.transpose_perm
             ct = torch.randn(n, k, f, generator=g).to("cuda", torch.bfloat16)
             rows32 = ct.reshape(n * k, f).float()
             acc = torch.zeros(n, f, device="cuda")
-            out[where]["transpose"] = (
-                (_event_ms(lambda: eg.transpose_sum_rows(ct, idx, perm), flush=flush),
-                 _event_ms(lambda: nb._transpose_sum(ct, idx, perm), flush=flush),
-                 _event_ms(lambda: acc.index_add_(0, flat, rows32), flush=flush))
-                + _ell_bounds(n, k, f, "transpose"))
-            del ct, rows32, acc
-        del x
-    log("ell_gather kernel times (L2 flushed, median of 20): " + "; ".join(
-        f"{kind} at {where} N={v['shape'][0]} K={v['shape'][1]} F={v['shape'][2]} {t[0]:.4f} ms (plain "
-        f"{t[1]:.4f} ms, library {t[2]:.4f} ms, bound {t[3]:.4f} ms by {t[4]}, {100 * t[3] / t[0]:.1f}% of it "
-        f"reached)" for where, v in out.items() for kind, t in v.items() if kind != "shape"))
+            calls["transpose"] = (lambda: eg.transpose_sum_rows(ct, idx, perm),
+                                  lambda: nb._transpose_sum(ct, idx, perm),
+                                  lambda: acc.index_add_(0, flat, rows32))
+        yield where, (n, k, f), calls
+        del calls
+        torch.cuda.empty_cache()
+
+
+def time_ell_gather(lists):
+    """#4 and #5 (F = 128) on each of ``_gn_lists`` (``ell_cases``): the
+    DHFR serving shapes, the STMV skin shapes, the STMV forward's and
+    GN-aspirin training's.  For the kernel and its library call, three
+    times: the CUDA-event window (L2 flushed, median of 20: ``ms``,
+    ``library_ms``), the device time alone (torch.profiler, median of 20, L2
+    flushed: ``device_ms``, ``library_device_ms``) and the host's enqueue
+    (host clock without a synchronise, median of 200: ``enqueue_ms``,
+    ``library_enqueue_ms``); the plain version's event window and the
+    bound."""
+    import torch
+
+    flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")  # 256 MB > L2
+    out = {}
+    for where, (n, k, f), calls in ell_cases(lists):
+        out[where] = dict(shape=(n, k, f))
+        for kind, (kern, plain, lib) in calls.items():
+            bound, by = _ell_bounds(n, k, f, kind)
+            out[where][kind] = dict(
+                ms=_event_ms(kern, flush=flush), plain_ms=_event_ms(plain, flush=flush),
+                library_ms=_event_ms(lib, flush=flush), bound_ms=bound, bound_by=by,
+                device_ms=_device_ms(kern, flush), library_device_ms=_device_ms(lib, flush),
+                enqueue_ms=_enqueue_ms(kern), library_enqueue_ms=_enqueue_ms(lib))
+    log("ell_gather kernel times (events: L2 flushed, median of 20; device: torch.profiler, median of 20; "
+        "enqueue: host clock without a synchronise, median of 200): " + "; ".join(
+            f"{kind} at {where} N={v['shape'][0]} K={v['shape'][1]} F={v['shape'][2]} {t['ms']:.4f} ms "
+            f"(device {t['device_ms']:.4f}, enqueue {t['enqueue_ms']:.4f}; plain {t['plain_ms']:.4f} ms; "
+            f"library {t['library_ms']:.4f} ms, device {t['library_device_ms']:.4f}, enqueue "
+            f"{t['library_enqueue_ms']:.4f}; bound {t['bound_ms']:.4f} ms by {t['bound_by']}, "
+            f"{100 * t['bound_ms'] / t['ms']:.1f}% of it reached)"
+            for where, v in out.items() for kind, t in v.items() if kind != "shape"))
     return out
 
 
@@ -2841,7 +2941,8 @@ def main():
                      T_TRAIN_ARGS["cutoff_upper"])
     del t_model
     gn_nbls = _gn_lists()
-    gn_errs = check_ell_gather(gn_nbls["DHFR"], gn_nbls["STMV skin"])
+    log_ell_resources(gn_nbls)
+    gn_errs = check_ell_gather(gn_nbls)
     ext_launches, ext, pos, _, _ = main_path(ET_ARGS, em, "ET 6x128 fused")
     tn_ext_launches, tn_ext, tn_pos, tn_call_ms, _ = main_path(TN_ARGS, tm, "TensorNet 2x128 fused")
     tn_strong_messages()
@@ -2924,7 +3025,8 @@ def main():
     }
     for path, parts in PART_LAUNCHES.items():
         paths[path].update(parts)
-    gn_rows = {kind: (t[0], t[1], t[3], t[4], t[2]) for kind, t in gn_times["DHFR"].items() if kind != "shape"}
+    gn_rows = {kind: (t["ms"], t["plain_ms"], t["bound_ms"], t["bound_by"], t["library_ms"])
+               for kind, t in gn_times["DHFR"].items() if kind != "shape"}
     bwd2_row = (train_ms["bwd2"], train_plain["bwd2"]) + train_bounds["bwd2"] + (None,)
     t_rows = {k: t_times[(where, k)][:4] + (None,)
               for where, k in (("DHFR", "fwd"), ("DHFR", "bwd"), ("training", "bwd2"))}
@@ -2932,7 +3034,8 @@ def main():
     # training at the training shapes, GN's STMV forward at its K = 32 list,
     # the selection at each path's own cell-list build; a path not named
     # here runs its row's shape and takes its row's (ms, bound_ms)
-    gn_at = {where: {kind: (t[0], t[3]) for kind, t in v.items() if kind != "shape"} for where, v in gn_times.items()}
+    gn_at = {where: {kind: (t["ms"], t["bound_ms"]) for kind, t in v.items() if kind != "shape"}
+             for where, v in gn_times.items()}
     timed_at = {
         "et_message_fwd": {"md_stmv": times["stmv_fwd"], "train": (train_ms["fwd"], train_bounds["fwd"][0])},
         "et_message_bwd": {"md_stmv": times["stmv_bwd"], "train": (train_ms["bwd_w"], train_bounds["bwd_w"][0])},
@@ -2946,6 +3049,11 @@ def main():
                               "gn_train": gn_at["training"]["transpose"]},
         "select_topk": {path: sel_times[label][::2][:2] for path, label in sel_label_of.items()},
     }
+    # #4's and #5's three times (event window, device alone, host enqueue)
+    # beside their library call's, at each shape a GN path runs them
+    by_shape = {name: {"times_by_shape": {where: {key: val for key, val in v[kind].items() if key != "bound_by"}
+                                          for where, v in gn_times.items() if kind in v}}
+                for name, kind in (("ell_gather", "gather"), ("ell_transpose_sum", "transpose"))}
     kernels = []
     for name, source, line, (ms, plain_ms, bound_ms, bound_by, lib_ms), err in (
         ("et_message_fwd", "et_message.cu", "et_message.py:227", times["fwd"] + (None,),
@@ -2989,7 +3097,7 @@ def main():
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
             library_ms=lib_ms,
             ms_by_path={path: at[path][0] for path in excess}, excess_by_path=excess,
-            excess_ms=sum(excess.values()),
+            excess_ms=sum(excess.values()), **by_shape.get(name, {}),
         ))
         if max(by_path.values()) < 1:
             raise AssertionError(f"{name} was not launched on a main path")

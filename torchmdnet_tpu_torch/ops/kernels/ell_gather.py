@@ -19,6 +19,8 @@ launch the kernels (or raise), CPU tensors take the plain versions.
 """
 
 import ctypes
+import math
+from typing import Any, NamedTuple
 
 import torch
 
@@ -27,35 +29,66 @@ from torchmdnet_tpu_torch.ops.neighbors import _gather_rows, _transpose_sum
 
 SOURCE = "ell_gather.cu"
 
-_P = ctypes.c_void_p
+
+class _Lib(NamedTuple):
+    gather: Any
+    transpose: Any
+    error: Any
+    stream: Any  # device index -> its current stream's handle
+    resources: Any
 
 
-def _lib() -> ctypes.CDLL:
-    lib = build.load(SOURCE)
-    if not getattr(lib, "_argtypes_set", False):
-        lib.ell_gather_error_string.argtypes = [ctypes.c_int]
+_LIB = None  # bound once, after the first build: a launch takes no lock and builds no Stream object
+
+
+def _bind() -> _Lib:
+    global _LIB
+    if _LIB is None:
+        lib = build.load(SOURCE)
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.ell_gather_error_string.argtypes = [i]
         lib.ell_gather_error_string.restype = ctypes.c_char_p
-        lib.ell_gather_bf16.argtypes = [_P, _P, ctypes.c_longlong, ctypes.c_int, _P, _P]
-        lib.ell_gather_bf16.restype = ctypes.c_int
-        lib.ell_transpose_sum_bf16.argtypes = [_P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P]
-        lib.ell_transpose_sum_bf16.restype = ctypes.c_int
-        lib._argtypes_set = True
-    return lib
+        lib.ell_gather_bf16.argtypes = [p, p, ctypes.c_longlong, i, p, p]
+        lib.ell_gather_bf16.restype = i
+        lib.ell_transpose_sum_bf16.argtypes = [p, p, i, i, i, p, p]
+        lib.ell_transpose_sum_bf16.restype = i
+        lib.ell_gather_resources.argtypes = [i, i, i, i, p]
+        lib.ell_gather_resources.restype = i
+        stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+        if stream is None:
+            def stream(d):
+                return torch.cuda.current_stream(d).cuda_stream
+        _LIB = _Lib(lib.ell_gather_bf16, lib.ell_transpose_sum_bf16, lib.ell_gather_error_string, stream,
+                    lib.ell_gather_resources)
+    return _LIB
 
 
 def _check(t, what):
     if t.dtype != torch.bfloat16:
         raise ValueError(f"{what} takes bf16 rows, got {t.dtype}")
+    if t.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"{what} runs on cuda or cpu tensors, not {t.device}")
 
 
-def _launch(fn, what, device, *args):
-    lib = _lib()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(lib, fn)(*args, _P(stream))
+def _int32(t):
+    """``t`` as contiguous int32, copied only where it is not so already."""
+    if t.dtype != torch.int32:
+        t = t.to(torch.int32)
+    return t if t.is_contiguous() else t.contiguous()
+
+
+def _launch(which, what, device, *args):
+    """Launch on the current stream of ``device``, made the current device
+    only where it is not already."""
+    lib = _bind()
+    fn, d = getattr(lib, which), device.index
+    if d == torch.cuda.current_device():
+        err = fn(*args, lib.stream(d))
+    else:
+        with torch.cuda.device(d):
+            err = fn(*args, lib.stream(d))
     if err != 0:
-        raise RuntimeError(f"{what} launch failed: CUDA error {err} "
-                           f"({lib.ell_gather_error_string(err).decode()})")
+        raise RuntimeError(f"{what} launch failed: CUDA error {err} ({lib.error(err).decode()})")
 
 
 def gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -63,15 +96,13 @@ def gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     _check(x, "gather_rows")
     if x.device.type == "cpu":
         return _gather_rows(x, idx)
-    if x.device.type != "cuda":
-        raise ValueError(f"gather_rows runs on cuda or cpu tensors, not {x.device}")
-    x2 = x.reshape(x.shape[0], -1).contiguous()
-    flat = idx.reshape(-1).to(torch.int32).contiguous()
-    out = torch.empty((flat.numel(), x2.shape[1]), dtype=x.dtype, device=x.device)
-    _launch("ell_gather_bf16", "ell_gather", x.device, _P(x2.data_ptr()), _P(flat.data_ptr()),
-            flat.numel(), x2.shape[1], _P(out.data_ptr()))
+    x = x if x.is_contiguous() else x.contiguous()
+    flat = _int32(idx)
+    out = torch.empty(tuple(idx.shape) + tuple(x.shape[1:]), dtype=x.dtype, device=x.device)
+    _launch("gather", "ell_gather", x.device, x.data_ptr(), flat.data_ptr(), flat.numel(),
+            math.prod(x.shape[1:]), out.data_ptr())
     gather_rows.launches += 1
-    return out.reshape(tuple(idx.shape) + tuple(x.shape[1:]))
+    return out
 
 
 def transpose_sum_rows(g: torch.Tensor, idx: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
@@ -79,16 +110,27 @@ def transpose_sum_rows(g: torch.Tensor, idx: torch.Tensor, perm: torch.Tensor) -
     _check(g, "transpose_sum_rows")
     if g.device.type == "cpu":
         return _transpose_sum(g, idx, perm)
-    if g.device.type != "cuda":
-        raise ValueError(f"transpose_sum_rows runs on cuda or cpu tensors, not {g.device}")
     n, k = idx.shape
-    g2 = g.reshape(n * k, -1).contiguous()
-    perm = perm.to(torch.int32).contiguous()
-    out = torch.empty((n, g2.shape[1]), dtype=g.dtype, device=g.device)
-    _launch("ell_transpose_sum_bf16", "ell_transpose_sum", g.device, _P(g2.data_ptr()),
-            _P(perm.data_ptr()), n, k, g2.shape[1], _P(out.data_ptr()))
+    g = g if g.is_contiguous() else g.contiguous()
+    out = torch.empty((n,) + tuple(g.shape[2:]), dtype=g.dtype, device=g.device)
+    _launch("transpose", "ell_transpose_sum", g.device, g.data_ptr(), _int32(perm).data_ptr(), n, k,
+            math.prod(g.shape[2:]), out.data_ptr())
     transpose_sum_rows.launches += 1
-    return out.reshape((n,) + tuple(g.shape[2:]))
+    return out
+
+
+def kernel_resources(kind: str, n: int, k: int, f: int) -> dict:
+    """The resources of the kernel the launch plan takes for ``kind``
+    ("gather": N*K rows of width ``f``; "transpose": N atoms of K slots)
+    with aligned rows, from the CUDA runtime: {registers, spill_bytes (local
+    memory a thread), threads, smem (a block), blocks_per_sm (resident),
+    grid (blocks launched)}.  Needs a CUDA device."""
+    lib = _bind()
+    out = (ctypes.c_int * 6)()
+    err = lib.resources(("gather", "transpose").index(kind), int(n), int(k), int(f), out)
+    if err != 0:
+        raise RuntimeError(f"ell_gather_resources failed: CUDA error {err} ({lib.error(err).decode()})")
+    return dict(zip(("registers", "spill_bytes", "threads", "smem", "blocks_per_sm", "grid"), out))
 
 
 def reset_launch_counts():

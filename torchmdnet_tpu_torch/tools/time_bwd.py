@@ -28,19 +28,25 @@ each of its kernels' device time apart (the edge kernel, the source-row
 sum, the weight reduction; torch.profiler, mean of 20).  ``topk`` is #6
 at each cell-list build a path runs (chip_smoke.py's ``select_cases``:
 the DHFR builds of External's models, GN's STMV forward, the STMV skin
-build of MD).  ``md_stmv``
+build of MD).  ``ell`` is the ELL gather #4 and transpose-sum #5 (F = 128)
+at each shape a GN path runs them (chip_smoke.py's ``_gn_lists``: DHFR,
+the STMV skin list, the STMV forward's K = 32 list, #4 only, and a
+GN-aspirin training batch), each with its library call (``index_select``,
+``index_add_``), timed three ways: CUDA events as below, the device time
+alone (torch.profiler, median of 20, L2 flushed) and the host's enqueue
+(host clock without a synchronise, median of 200).  ``md_stmv``
 is chip_smoke.py's ET MD at STMV size in bench.py's configuration
 (``MD_ARGS``) through the tree's ``Simulation``: after its warm-up, three
 windows of ``MD_TIMED_STEPS`` steps, each a mean ms/step on the host clock
 with the card synchronised.  Prints the card's name and power limit, then one
 JSON line of CUDA-event medians of 20 launches (5 at STMV) with the L2
 flushed.  ``--dump DIR`` also saves one
-call's outputs per shape and kernel (the forwards #1, #8 and #11 and the
-selections too) to DIR/LABEL.pt; ``--compare DIR A B``
+call's outputs per shape and kernel (the forwards #1, #8 and #11, the
+selections and #4/#5 too) to DIR/LABEL.pt; ``--compare DIR A B``
 then prints, per output, whether two labels' outputs are bitwise equal and
 their largest difference over the largest value.  ``--shapes`` times only
-the named shapes (dhfr, train, stmv, t_dhfr, t_train, tn_dhfr, tn_train, md_stmv, topk).  Needs a CUDA device
-(``--compare`` does not).
+the named shapes (dhfr, train, stmv, t_dhfr, t_train, tn_dhfr, tn_train, md_stmv, topk,
+ell).  Needs a CUDA device (``--compare`` does not).
 """
 
 import argparse
@@ -117,6 +123,7 @@ def main(argv=None) -> int:
                                                 cs.TN_TRAIN_ARGS["cutoff_upper"])),
         "md_stmv": {},
         "topk": {},
+        "ell": {},
     }
     label = args.label or tree
     result = dict(label=label, tree=tree)
@@ -127,6 +134,10 @@ def main(argv=None) -> int:
             continue
         if name == "md_stmv":
             result[name] = _time_md(cs)
+            torch.cuda.empty_cache()
+            continue
+        if name == "ell":
+            result[name] = _time_ell(cs, flush, dumped if args.dump else None)
             torch.cuda.empty_cache()
             continue
         if name == "topk":
@@ -252,6 +263,22 @@ def _time_topk(cs, flush):
     cases, _ = cs.select_cases(cs._synthetic_batch(DHFR_ATOMS, cs.SEED, "cuda")[2], stmv, keys, k)
     calls = {label: (lambda c=c: select_topk(*c)) for label, c in cases.items()}
     return {f"{label}_ms": cs._event_ms(fn, flush=flush) for label, fn in calls.items()}, calls
+
+
+def _time_ell(cs, flush, dumped=None):
+    """#4 and #5 at each shape of chip_smoke.py's ``_gn_lists``, with their
+    library calls: {shape/kind: {event, device and enqueue ms}}; each
+    kernel's output into ``dumped`` where given."""
+    row = {}
+    for where, shape, calls in cs.ell_cases(cs._gn_lists()):
+        for kind, (kern, _, lib) in calls.items():
+            row[f"{where}/{kind}"] = dict(
+                shape=shape, ms=cs._event_ms(kern, flush=flush), device_ms=cs._device_ms(kern, flush),
+                enqueue_ms=cs._enqueue_ms(kern), library_ms=cs._event_ms(lib, flush=flush),
+                library_device_ms=cs._device_ms(lib, flush), library_enqueue_ms=cs._enqueue_ms(lib))
+            if dumped is not None:
+                dumped[f"ell/{where}/{kind}"] = _flat_cpu(kern())
+    return row
 
 
 def _time_md(cs, windows=3):
