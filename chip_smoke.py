@@ -2064,7 +2064,9 @@ def log_ell_resources(lists):
     """#4's and #5's resources at each shape a GN path runs them (F = 128)
     and at F = 384 and 1152 at DHFR: the kernel each launch plan takes, its
     registers and spills from the compiled code, blocks an SM from the
-    occupancy calculator, and the grid."""
+    occupancy calculator, and the grid.  Both keep their rows in flight in
+    registers: a spill, or shared memory past an H100's 227 KB a block, is
+    an error."""
     from torchmdnet_tpu_torch.ops.kernels import ell_gather as eg
 
     parts = []
@@ -2075,6 +2077,8 @@ def log_ell_resources(lists):
             if kind == "transpose" and label == "STMV forward":
                 continue
             r = eg.kernel_resources(kind, n, k, f)
+            if r["spill_bytes"] or r["smem"] > 227 * 1024:
+                raise AssertionError(f"{name} at {label} F={f} spills or outgrows shared memory: {r}")
             parts.append(f"{name} at {label} N={n} K={k} F={f}: {r['registers']} registers, {r['spill_bytes']} B "
                          f"spilled, {r['threads']} threads, {r['smem']} B shared, {r['blocks_per_sm']} blocks/SM "
                          f"({r['blocks_per_sm'] * r['threads'] // 32} warps), grid {r['grid']}")
@@ -2110,39 +2114,17 @@ def _enqueue_ms(fn, reps=200, warmup=10):
     return statistics.median(times)
 
 
+FLUSH_KERNELS = ("FillFunctor", "Memset")  # what ``flush.zero_()`` runs on the card
+
+
 def _device_ms(fn, flush, reps=20):
-    """Device time alone of one call: torch.profiler's durations of the
-    kernels the call runs over ``reps`` calls, the L2 flushed before each
-    (the flush's own kernels left out by name); per kernel name the median
-    duration times its launches a call, summed.  The loop is profiled twice
-    and the second session kept: a process's first sessions read whole
-    sessions several times slow now and then."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    def device_events(prof):
-        return [ev for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA]
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        flush.zero_()
-        torch.cuda.synchronize()
-    flush_names = {ev.name for ev in device_events(prof)}
-    for _ in range(2):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                flush.zero_()
-                fn()
-            torch.cuda.synchronize()
-    durations = {}
-    for ev in device_events(prof):
-        if ev.name not in flush_names:
-            durations.setdefault(ev.name, []).append(ev.device_time / 1e3)
-    ms = sum(statistics.median(d) * len(d) / reps for d in durations.values())
-    if ms <= 0.0:
-        raise AssertionError("the profiler recorded no device time for the call")
-    return ms
+    """Device time alone of one call: torch.profiler's device time of the
+    kernels ``fn`` runs (``_profile``), mean of ``reps`` calls with the L2
+    flushed before each, the flush's own kernel left out by name."""
+    _, _, groups, other, _ = _profile(lambda: (flush.zero_(), fn()), reps, FLUSH_KERNELS)
+    if not (sum(groups.values()) > 0.0 and other > 0.0):
+        raise AssertionError(f"the profiler did not tell the flush from the call: flush {groups}, call {other} ms")
+    return other
 
 
 def ell_cases(lists):
@@ -2183,7 +2165,7 @@ def time_ell_gather(lists):
     DHFR serving shapes, the STMV skin shapes, the STMV forward's and
     GN-aspirin training's.  For the kernel and its library call, three
     times: the CUDA-event window (L2 flushed, median of 20: ``ms``,
-    ``library_ms``), the device time alone (torch.profiler, median of 20, L2
+    ``library_ms``), the device time alone (torch.profiler, mean of 20, L2
     flushed: ``device_ms``, ``library_device_ms``) and the host's enqueue
     (host clock without a synchronise, median of 200: ``enqueue_ms``,
     ``library_enqueue_ms``); the plain version's event window and the
@@ -2201,7 +2183,7 @@ def time_ell_gather(lists):
                 library_ms=_event_ms(lib, flush=flush), bound_ms=bound, bound_by=by,
                 device_ms=_device_ms(kern, flush), library_device_ms=_device_ms(lib, flush),
                 enqueue_ms=_enqueue_ms(kern), library_enqueue_ms=_enqueue_ms(lib))
-    log("ell_gather kernel times (events: L2 flushed, median of 20; device: torch.profiler, median of 20; "
+    log("ell_gather kernel times (events: L2 flushed, median of 20; device: torch.profiler, mean of 20; "
         "enqueue: host clock without a synchronise, median of 200): " + "; ".join(
             f"{kind} at {where} N={v['shape'][0]} K={v['shape'][1]} F={v['shape'][2]} {t['ms']:.4f} ms "
             f"(device {t['device_ms']:.4f}, enqueue {t['enqueue_ms']:.4f}; plain {t['plain_ms']:.4f} ms; "

@@ -30,10 +30,14 @@ The mirrors below follow those host plans and device loops.  Here, for N in
 - each of #5's sums walks the slots in ascending order with each ring
   entry holding the row of the slot it adds, and the walk-order f32 sum of
   random bf16 rows is bitwise a sequential numpy f32 sum rounded once;
-- neither kernel asks for shared memory (the ring is in registers, well
-  inside a thread's 255), and the wide chunks (#4's 16 bytes, #5's 4) are
-  taken only for rows and pointers aligned to them;
+- the wide chunks (#4's 16 bytes, #5's 4) are taken only for rows and
+  pointers aligned to them;
 - the grid reaches the 132 SMs wherever the rows or atoms allow.
+
+Neither kernel asks for shared memory: their rows in flight are in
+registers.  chip_smoke.py's "ell_gather kernel resources" line reads the
+registers, spills and shared memory of the compiled kernels and fails on a
+spill.
 """
 
 import numpy as np
@@ -46,8 +50,6 @@ GATHER_THREADS = 256
 UNROLL = 4
 RING = 16
 SUM_WARPS = 8
-SMEM_MAX = 232448  # cudaDevAttrMaxSharedMemoryPerBlockOptin
-REGISTERS_MAX = 255
 
 NS = (1, 168, 2496)
 KS = (1, 32, 80, 112)
@@ -163,11 +165,11 @@ def test_sum_walk_covers_each_atom_channel_once(n, f):
     assert v * 32 * spans >= f > v * 32 * (spans - 1)
 
 
-@pytest.mark.parametrize("ring_rows", (8, 16, RING))
+@pytest.mark.parametrize("ring_rows", (8, RING))
 @pytest.mark.parametrize("k", KS + (2, 31, 33, 64, 65, 200))
 def test_ring_adds_slots_in_order(k, ring_rows):
-    """At the kernel's ring of 32 rows, and at the other divisors of the
-    warp its code takes."""
+    """At the kernel's ring of 16 rows, and at 8, another divisor of the
+    warp that its code takes."""
     added = ring_walk(k, ring_rows)
     assert [s for s, _ in added] == list(range(k))
     assert all(s == held for s, held in added)  # each entry holds the row of the slot it adds
@@ -200,18 +202,6 @@ def test_wide_chunks_only_where_aligned(f):
         assert (v == 8) == (f % 8 == 0 and align == 16)
         v = sum_plan(1000, f, align)[0]
         assert (v == 2) == (f % 2 == 0 and align >= 4)
-
-
-def test_registers_and_shared_memory():
-    """Both kernels keep their in-flight rows in registers: the ring's 16
-    rows of V bf16 (one register each) and the V f32 sums leave most of a
-    thread's 255 registers; #4's U chunks of 16 bytes take 4U, its source
-    rows U.  Neither asks for shared memory."""
-    for v in (1, 2):
-        assert RING + v <= REGISTERS_MAX // 4
-    assert UNROLL * (4 + 1) <= REGISTERS_MAX // 4
-    smem = 0
-    assert smem <= SMEM_MAX
 
 
 @pytest.mark.parametrize("n", NS)

@@ -54,12 +54,8 @@ def _bind() -> _Lib:
         lib.ell_transpose_sum_bf16.restype = i
         lib.ell_gather_resources.argtypes = [i, i, i, i, p]
         lib.ell_gather_resources.restype = i
-        stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
-        if stream is None:
-            def stream(d):
-                return torch.cuda.current_stream(d).cuda_stream
-        _LIB = _Lib(lib.ell_gather_bf16, lib.ell_transpose_sum_bf16, lib.ell_gather_error_string, stream,
-                    lib.ell_gather_resources)
+        _LIB = _Lib(lib.ell_gather_bf16, lib.ell_transpose_sum_bf16, lib.ell_gather_error_string,
+                    torch._C._cuda_getCurrentRawStream, lib.ell_gather_resources)
     return _LIB
 
 
@@ -68,13 +64,6 @@ def _check(t, what):
         raise ValueError(f"{what} takes bf16 rows, got {t.dtype}")
     if t.device.type not in ("cuda", "cpu"):
         raise ValueError(f"{what} runs on cuda or cpu tensors, not {t.device}")
-
-
-def _int32(t):
-    """``t`` as contiguous int32, copied only where it is not so already."""
-    if t.dtype != torch.int32:
-        t = t.to(torch.int32)
-    return t if t.is_contiguous() else t.contiguous()
 
 
 def _launch(which, what, device, *args):
@@ -96,8 +85,8 @@ def gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     _check(x, "gather_rows")
     if x.device.type == "cpu":
         return _gather_rows(x, idx)
-    x = x if x.is_contiguous() else x.contiguous()
-    flat = _int32(idx)
+    x = x.contiguous()
+    flat = idx.to(torch.int32).contiguous()
     out = torch.empty(tuple(idx.shape) + tuple(x.shape[1:]), dtype=x.dtype, device=x.device)
     _launch("gather", "ell_gather", x.device, x.data_ptr(), flat.data_ptr(), flat.numel(),
             math.prod(x.shape[1:]), out.data_ptr())
@@ -111,9 +100,9 @@ def transpose_sum_rows(g: torch.Tensor, idx: torch.Tensor, perm: torch.Tensor) -
     if g.device.type == "cpu":
         return _transpose_sum(g, idx, perm)
     n, k = idx.shape
-    g = g if g.is_contiguous() else g.contiguous()
+    g, perm = g.contiguous(), perm.to(torch.int32).contiguous()
     out = torch.empty((n,) + tuple(g.shape[2:]), dtype=g.dtype, device=g.device)
-    _launch("transpose", "ell_transpose_sum", g.device, g.data_ptr(), _int32(perm).data_ptr(), n, k,
+    _launch("transpose", "ell_transpose_sum", g.device, g.data_ptr(), perm.data_ptr(), n, k,
             math.prod(g.shape[2:]), out.data_ptr())
     transpose_sum_rows.launches += 1
     return out

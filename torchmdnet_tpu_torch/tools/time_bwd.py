@@ -33,7 +33,7 @@ at each shape a GN path runs them (chip_smoke.py's ``_gn_lists``: DHFR,
 the STMV skin list, the STMV forward's K = 32 list, #4 only, and a
 GN-aspirin training batch), each with its library call (``index_select``,
 ``index_add_``), timed three ways: CUDA events as below, the device time
-alone (torch.profiler, median of 20, L2 flushed) and the host's enqueue
+alone (torch.profiler, mean of 20, L2 flushed) and the host's enqueue
 (host clock without a synchronise, median of 200).  ``md_stmv``
 is chip_smoke.py's ET MD at STMV size in bench.py's configuration
 (``MD_ARGS``) through the tree's ``Simulation``: after its warm-up, three
