@@ -2117,14 +2117,60 @@ def _enqueue_ms(fn, reps=200, warmup=10):
 FLUSH_KERNELS = ("FillFunctor", "Memset")  # what ``flush.zero_()`` runs on the card
 
 
+def _kernel_label(name):
+    """A short label for a device activity's name in the profiler."""
+    for key, label in (("compact_kernel", "compact_kernel"), ("direct_copy", "copy"), ("arange", "arange"),
+                       ("CatArrayBatchedCopy", "cat")):
+        if key in name:
+            return label
+    return name.removeprefix("void ")[:48]
+
+
+def _device_split(fn, flush, reps=20, attempts=3):
+    """Device time alone of one call, kernel by kernel: torch.profiler's
+    device activities over ``reps`` calls, each after an L2 flush, the
+    flush's kernels (``FLUSH_KERNELS``) left out by name.  Returns ({label:
+    device ms per call}, device activities per call).  A profile in which
+    the profiler recorded no activity of the call or none of the flush (it
+    happens now and then) is taken again, up to ``attempts`` in all."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    for _ in range(attempts):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        split, count, flushes = {}, 0, 0
+        for ev in prof.events():
+            if ev.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            if any(f in ev.name for f in FLUSH_KERNELS):
+                flushes += 1
+                continue
+            label = _kernel_label(ev.name)
+            split[label] = split.get(label, 0.0) + ev.device_time / 1e3 / reps
+            count += 1
+        if split and flushes:
+            return split, count / reps
+    raise AssertionError(f"the profiler did not tell the flush from the call in {attempts} profiles")
+
+
 def _device_ms(fn, flush, reps=20):
-    """Device time alone of one call: torch.profiler's device time of the
-    kernels ``fn`` runs (``_profile``), mean of ``reps`` calls with the L2
-    flushed before each, the flush's own kernel left out by name."""
-    _, _, groups, other, _ = _profile(lambda: (flush.zero_(), fn()), reps, FLUSH_KERNELS)
-    if not (sum(groups.values()) > 0.0 and other > 0.0):
-        raise AssertionError(f"the profiler did not tell the flush from the call: flush {groups}, call {other} ms")
-    return other
+    """Device time alone of one call (``_device_split``, all its kernels)."""
+    return sum(_device_split(fn, flush, reps)[0].values())
+
+
+def _three_ways(fn, flush):
+    """One call timed three ways: the CUDA-event window (L2 flushed, median
+    of 20), the device time alone kernel by kernel with the activities a
+    call launches (``_device_split``), and the host's enqueue (no
+    synchronise, median of 200)."""
+    split, launches = _device_split(fn, flush)
+    return dict(ms=_event_ms(fn, flush=flush), device_ms=split, launches=launches, enqueue_ms=_enqueue_ms(fn))
 
 
 def ell_cases(lists):
@@ -2699,43 +2745,111 @@ def _brute_pairs(nbl, n):
     return (rows * n + nbl.idx.long())[nbl.mask]
 
 
-def check_compaction(label, batch, k, cutoff, model=None):
-    """#7 on its entry points against its plain version, bitwise: the list
-    with the self loop (through ``model.neighbors(strategy="brute-pallas")``
-    when a model is given) and without it (``neighbor_list``).  Logs how
-    many pairs differ from the Gram-form ``strategy="brute"`` list.  Returns
-    the max abs error (0 when bitwise equal)."""
+# #7's multi-stage check: more columns than one shared-memory stage holds
+# (4096), in several molecules that overlap in space, with atoms masked
+# inside them besides the padding, and a K that truncates most rows (about
+# 50 neighbors within 5 A at DHFR's density); the plain version's (N, N)
+# matrices fit
+COMPACTION_STAGE_K = 48
+COMPACTION_STAGE_MOLECULES = 4
+COMPACTION_STAGE_MOLECULE_ATOMS = 3990
+COMPACTION_STAGE_ATOMS = 16000
+COMPACTION_MASK_EVERY = 101
+
+
+def _compaction_stage_batch():
+    """(batch, atom_mask): COMPACTION_STAGE_MOLECULES synthetic molecules at
+    DHFR's density, padded to COMPACTION_STAGE_ATOMS, and the batch's mask
+    with every COMPACTION_MASK_EVERY-th atom cleared."""
+    from torchmdnet_tpu_torch.data.batch import pad_molecules
+    from torchmdnet_tpu_torch.data.systems import synthetic_system
+
+    mols = [dict(zip(("z", "pos"), synthetic_system(COMPACTION_STAGE_MOLECULE_ATOMS, seed=SEED + m)))
+            for m in range(COMPACTION_STAGE_MOLECULES)]
+    batch = pad_molecules(mols, num_atoms=COMPACTION_STAGE_ATOMS, device="cuda")
+    mask = batch.atom_mask.clone()
+    mask[::COMPACTION_MASK_EVERY] = False
+    return batch, mask
+
+
+def log_compaction_resources():
+    """#7's launch plan and resources at each N it is checked or runs at
+    (DHFR and the MD build, the training batch, the multi-stage check):
+    rows a warp, threads, blocks, registers, spills, shared memory, blocks
+    an SM.  A spill, or shared memory past an H100's 227 KB a block, is an
+    error."""
+    from torchmdnet_tpu_torch.ops.kernels import compaction
+
+    parts = []
+    for label, n in (("DHFR", 2496), ("training", 2304), ("multi-stage", COMPACTION_STAGE_ATOMS)):
+        r = compaction.kernel_resources(n)
+        if r["spill_bytes"] or r["smem"] > 227 * 1024:
+            raise AssertionError(f"compact_kernel at {label} N={n} spills or outgrows shared memory: {r}")
+        parts.append(f"{label} N={n}: {r['rows']} rows a warp, {r['threads']} threads, grid {r['grid']}, "
+                     f"{r['registers']} registers, {r['spill_bytes']} B spilled, {r['smem']} B shared "
+                     f"({r['stage']} columns a stage), {r['blocks_per_sm']} blocks/SM")
+    log("compact_kernel resources: " + "; ".join(parts))
+
+
+def check_compaction(label, batch, k, cutoff_upper, cutoff_lower=0.0, model=None, skin=0.0, atom_mask=None,
+                     ids=None):
+    """#7 on its entry points against its plain version, bitwise, with and
+    without the self loop: the loop list through ``model.neighbors(strategy=
+    "brute-pallas", skin=skin)`` when a model is given (``k`` and the
+    cutoffs must be the ones it builds with), else ``neighbor_list``.
+    ``atom_mask`` and ``ids`` replace the batch's (atoms masked inside
+    molecules; int32 molecule ids).  Logs how many pairs differ from the
+    Gram-form ``strategy="brute"`` list.  Returns the max abs error (0 when
+    bitwise equal)."""
     import torch
 
     from torchmdnet_tpu_torch.ops.kernels.compaction import compact_neighbors_reference
     from torchmdnet_tpu_torch.ops.neighbors import neighbor_list
 
     n = batch.num_atoms
-    args = (batch.pos, batch.batch, batch.atom_mask)
-    plain_idx, plain_mask, plain_count = compact_neighbors_reference(*args, k=k, cutoff_upper=cutoff)
-    ar = torch.arange(n, device="cuda", dtype=torch.int32)[:, None]
+    args = (batch.pos, batch.batch if ids is None else ids, batch.atom_mask if atom_mask is None else atom_mask)
+    kw = dict(k=k, cutoff_lower=cutoff_lower, cutoff_upper=cutoff_upper)
     for loop in (True, False):
+        want_idx, want_mask, want_count = compact_neighbors_reference(*args, loop=loop, **kw)
         if loop and model is not None:
-            got = model.neighbors(batch, strategy="brute-pallas")
+            got = model.neighbors(batch, strategy="brute-pallas", skin=skin)
         else:
-            got = neighbor_list(*args, k=k, cutoff_upper=cutoff, loop=loop, strategy="brute-pallas")
-        want_idx = torch.cat([ar, plain_idx], dim=1) if loop else plain_idx
-        want_mask = torch.cat([batch.atom_mask[:, None], plain_mask], dim=1) if loop else plain_mask
+            got = neighbor_list(*args, loop=loop, strategy="brute-pallas", **kw)
         torch.cuda.synchronize()
-        if not (torch.equal(got.idx, want_idx) and torch.equal(got.mask, want_mask)
-                and torch.equal(got.n_neighbors, plain_count) and got.self_loops == loop):
+        if not (got.idx.shape == want_idx.shape and torch.equal(got.idx, want_idx)
+                and torch.equal(got.mask, want_mask) and torch.equal(got.n_neighbors, want_count)
+                and got.self_loops == loop):
             bad = int((got.idx != want_idx).sum()) if got.idx.shape == want_idx.shape else -1
             raise AssertionError(f"#7 differs from its plain version at {label} (loop={loop}): {bad} slots")
-    brute = neighbor_list(*args, k=k, cutoff_upper=cutoff, strategy="brute")
-    fused = neighbor_list(*args, k=k, cutoff_upper=cutoff, strategy="brute-pallas")
+        del want_idx, want_mask
+    brute = neighbor_list(*args, strategy="brute", **kw)
+    fused = neighbor_list(*args, strategy="brute-pallas", **kw)
     pb, pf = _brute_pairs(brute, n), _brute_pairs(fused, n)
     only_brute, only_fused = int((~torch.isin(pb, pf)).sum()), int((~torch.isin(pf, pb)).sum())
     entry = "Potential.neighbors" if model is not None else "neighbor_list"
-    log(f"compaction check {label} (N={n} K={k} cutoff {cutoff} A, {batch.num_mol} molecules): bitwise equal to "
-        f"its plain version with and without the self loop ({entry}(strategy='brute-pallas')), true max "
-        f"{int(plain_count.max())} neighbors; against the Gram-form "
-        f"strategy='brute' list: {only_brute} pairs only there, {only_fused} only here, of {int(pb.numel())}")
+    log(f"compaction check {label} (N={n} K={k} cutoff {cutoff_lower}-{cutoff_upper} A, {batch.num_mol} molecules, "
+        f"{int((~args[2]).sum())} atoms masked, {args[1].dtype} ids): bitwise equal to its plain version with and "
+        f"without the self loop ({entry}(strategy='brute-pallas')), true max {int(want_count.max())} neighbors; "
+        f"against the Gram-form strategy='brute' list: {only_brute} pairs only there, {only_fused} only here, of "
+        f"{int(pb.numel())}")
+    del brute, fused, pb, pf
+    torch.cuda.empty_cache()
     return 0.0
+
+
+def compaction_shapes():
+    """#7's two shapes on the synthetic DHFR system (N 2496): the row shape
+    of External's list and of the check (K 80, cutoff 0-5 A, no loop), and
+    the Transformer MD build's (``Potential.neighbors`` with bench.py's
+    skin: cutoff and K grown by the skin, the self loop)."""
+    a, skin = T_ARGS, MD_ARGS["neighbor_skin"]
+    hi = a["cutoff_upper"] + skin
+    k = int(math.ceil(a["max_num_neighbors"] * (hi / a["cutoff_upper"]) ** 3 / 8.0)) * 8
+    return {
+        "DHFR": dict(k=a["max_num_neighbors"], cutoff_lower=a["cutoff_lower"], cutoff_upper=a["cutoff_upper"],
+                     loop=False),
+        "MD build": dict(k=k, cutoff_lower=max(0.0, a["cutoff_lower"] - skin), cutoff_upper=hi, loop=True),
+    }
 
 
 def _compaction_bounds(n, k, pairs):
@@ -2749,10 +2863,14 @@ def _compaction_bounds(n, k, pairs):
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def time_compaction(batch, k, cutoff):
-    """#7's time at the DHFR shapes (L2 flushed, median of 20), its plain
-    version's, the strategy='brute' route's (Gram-form distances and
-    torch.topk: the library yardstick) and its bound."""
+def time_compaction(batch):
+    """#7 at ``compaction_shapes`` on the synthetic DHFR system: the kernel's
+    wrapper and the whole brute-pallas build (``neighbor_list``), each timed
+    three ways (``_three_ways``: the CUDA-event window, the device time
+    alone kernel by kernel, the host's enqueue), the plain version's and the
+    strategy='brute' route's event windows (Gram-form distances and
+    torch.topk: the library yardstick) and the bound.  A build must launch
+    one kernel, #7.  Returns {shape: times}."""
     import torch
 
     from torchmdnet_tpu_torch.ops.kernels.compaction import compact_neighbors, compact_neighbors_reference
@@ -2761,13 +2879,33 @@ def time_compaction(batch, k, cutoff):
     n = batch.num_atoms
     args = (batch.pos, batch.batch, batch.atom_mask)
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")  # 256 MB > L2
-    ms = _event_ms(lambda: compact_neighbors(*args, k=k, cutoff_upper=cutoff), flush=flush)
-    plain = _event_ms(lambda: compact_neighbors_reference(*args, k=k, cutoff_upper=cutoff), flush=flush)
-    brute = _event_ms(lambda: neighbor_list(*args, k=k, cutoff_upper=cutoff, strategy="brute"), flush=flush)
-    bound, by = _compaction_bounds(n, k, n * n)
-    log(f"compaction time at DHFR (N={n} K={k}, L2 flushed, median of 20): {ms:.4f} ms (plain {plain:.4f} ms, "
-        f"strategy='brute' route {brute:.4f} ms, bound {bound:.4f} ms by {by}, {100 * bound / ms:.1f}% of it reached)")
-    return ms, plain, bound, by, brute
+    out = {}
+    for where, s in compaction_shapes().items():
+        kw = dict(k=s["k"], cutoff_lower=s["cutoff_lower"], cutoff_upper=s["cutoff_upper"], loop=s["loop"])
+        kern = _three_ways(lambda: compact_neighbors(*args, **kw), flush)
+        build = _three_ways(lambda: neighbor_list(*args, strategy="brute-pallas", **kw), flush)
+        if build["launches"] != 1 or list(build["device_ms"]) != ["compact_kernel"]:
+            raise AssertionError(f"a brute-pallas build at {where} ran {build['launches']} device activities "
+                                 f"({build['device_ms']}), not #7 alone")
+        bound, by = _compaction_bounds(n, s["k"] + s["loop"], n * n)
+        out[where] = dict(
+            k=s["k"], loop=s["loop"], cutoff_upper=s["cutoff_upper"],
+            ms=kern["ms"], device_ms=kern["device_ms"]["compact_kernel"], enqueue_ms=kern["enqueue_ms"],
+            build_ms=build["ms"], build_device_ms=build["device_ms"]["compact_kernel"],
+            build_enqueue_ms=build["enqueue_ms"], build_launches=build["launches"],
+            plain_ms=_event_ms(lambda: compact_neighbors_reference(*args, **kw), flush=flush),
+            library_ms=_event_ms(lambda: neighbor_list(*args, strategy="brute", **kw), flush=flush),
+            bound_ms=bound, bound_by=by)
+    log("compaction times (events: L2 flushed, median of 20; device: torch.profiler, mean of 20; enqueue: host "
+        "clock without a synchronise, median of 200): " + "; ".join(
+            f"{where} N={n} K={t['k']}{' + loop' if t['loop'] else ''} cutoff {t['cutoff_upper']} A: kernel "
+            f"{t['ms']:.4f} ms (device {t['device_ms']:.4f}, enqueue {t['enqueue_ms']:.4f}); brute-pallas build "
+            f"{t['build_ms']:.4f} ms (device {t['build_device_ms']:.4f}, enqueue {t['build_enqueue_ms']:.4f}, "
+            f"{t['build_launches']:g} launch); plain {t['plain_ms']:.4f} ms; strategy='brute' route "
+            f"{t['library_ms']:.4f} ms; bound {t['bound_ms']:.4f} ms by {t['bound_by']}, "
+            f"{100 * t['bound_ms'] / t['ms']:.1f}% of it reached"
+            for where, t in out.items()))
+    return out
 
 
 def t_md_brute_pallas():
@@ -2873,6 +3011,7 @@ def main():
     log_et_resources()
     log_t_resources()
     log_tn_resources()
+    log_compaction_resources()
 
     check_kernels("medium", 512, 40, 64, 4, 32, 3.5, seed=1)
     fwd_abs, bwd_abs, _ = check_kernels("DHFR", 2489, 80, 128, 8, 50, 5.0, seed=2)
@@ -2919,9 +3058,18 @@ def main():
     dhfr_batch = _synthetic_batch(DHFR_ATOMS, SEED, "cuda")[2]
     train_batch_gpu = _train_batch(train_ds, "cuda")
     check_compaction("DHFR", dhfr_batch, T_ARGS["max_num_neighbors"], T_ARGS["cutoff_upper"], model=t_model)
+    md_build = compaction_shapes()["MD build"]
+    check_compaction("MD build", dhfr_batch, md_build["k"], md_build["cutoff_upper"], md_build["cutoff_lower"],
+                     model=t_model, skin=MD_ARGS["neighbor_skin"])
+    check_compaction("DHFR, int32 ids", dhfr_batch, T_ARGS["max_num_neighbors"], T_ARGS["cutoff_upper"],
+                     ids=dhfr_batch.batch.int())
     check_compaction("training batch", train_batch_gpu, T_TRAIN_ARGS["max_num_neighbors"],
                      T_TRAIN_ARGS["cutoff_upper"])
-    del t_model
+    stage_batch, stage_mask = _compaction_stage_batch()
+    check_compaction("multi-stage", stage_batch, COMPACTION_STAGE_K, T_ARGS["cutoff_upper"], atom_mask=stage_mask)
+    check_compaction("multi-stage, int32 ids", stage_batch, COMPACTION_STAGE_K, T_ARGS["cutoff_upper"], 0.5,
+                     atom_mask=stage_mask, ids=stage_batch.batch.int())
+    del t_model, stage_batch, stage_mask
     gn_nbls = _gn_lists()
     log_ell_resources(gn_nbls)
     gn_errs = check_ell_gather(gn_nbls)
@@ -2939,7 +3087,7 @@ def main():
     sel_times = time_select_topk(sel_cases)
     sel_time = sel_times["STMV skin build"]
     t_times = time_t_kernels(_train_batch(train_ds, "cuda"))
-    comp_time = time_compaction(dhfr_batch, T_ARGS["max_num_neighbors"], T_ARGS["cutoff_upper"])
+    comp_times = time_compaction(dhfr_batch)
     del dhfr_batch, train_batch_gpu
     del keys, stmv, gn_nbls, sel_cases
     md_launches, sim = md_stmv(sel_time[0])
@@ -3030,12 +3178,17 @@ def main():
         "ell_transpose_sum": {"gn_md_stmv": gn_at["STMV skin"]["transpose"],
                               "gn_train": gn_at["training"]["transpose"]},
         "select_topk": {path: sel_times[label][::2][:2] for path, label in sel_label_of.items()},
+        "compaction": {"t_md_brute_pallas": (comp_times["MD build"]["ms"], comp_times["MD build"]["bound_ms"])},
     }
     # #4's and #5's three times (event window, device alone, host enqueue)
     # beside their library call's, at each shape a GN path runs them
     by_shape = {name: {"times_by_shape": {where: {key: val for key, val in v[kind].items() if key != "bound_by"}
                                           for where, v in gn_times.items() if kind in v}}
                 for name, kind in (("ell_gather", "gather"), ("ell_transpose_sum", "transpose"))}
+    # #7's: the kernel's and the whole build's, at the DHFR row shape and the
+    # MD build's
+    by_shape["compaction"] = {"times_by_shape": comp_times}
+    comp_row = tuple(comp_times["DHFR"][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms"))
     kernels = []
     for name, source, line, (ms, plain_ms, bound_ms, bound_by, lib_ms), err in (
         ("et_message_fwd", "et_message.cu", "et_message.py:227", times["fwd"] + (None,),
@@ -3052,7 +3205,7 @@ def main():
          tn_bwd2_abs),
         ("ell_gather", "ell_gather.cu", "onehot_gather.py:178", gn_rows["gather"], gn_errs[0]),
         ("ell_transpose_sum", "ell_gather.cu", "onehot_gather.py:227", gn_rows["transpose"], gn_errs[1]),
-        ("compaction", "compaction.cu", "compaction.py:31", comp_time, 0.0),
+        ("compaction", "compaction.cu", "compaction.py:31", comp_row, 0.0),
         ("t_message_fwd", "t_message.cu", "t_message.py:66", t_rows["fwd"], t_fwd_abs),
         ("t_message_bwd", "t_message.cu", "t_message.py:113", t_rows["bwd"], t_bwd_abs),
         ("t_message_bwd2", "t_message.cu", "t_message.py:519", t_rows["bwd2"], t_bwd2_abs),

@@ -428,12 +428,8 @@ def neighbor_list(
 
         idx, mask, n_neighbors = compact_neighbors(
             pos.detach(), batch, atom_mask, k=int(k),
-            cutoff_lower=float(cutoff_lower), cutoff_upper=float(cutoff_upper),
+            cutoff_lower=float(cutoff_lower), cutoff_upper=float(cutoff_upper), loop=bool(loop),
         )
-        if loop:
-            ar = torch.arange(n, device=pos.device, dtype=idx.dtype)
-            idx = torch.cat([ar[:, None], idx], dim=1).contiguous()
-            mask = torch.cat([atom_mask[:, None], mask], dim=1).contiguous()
         return NeighborList(idx=idx, mask=mask, n_neighbors=n_neighbors, self_loops=loop)
     idx, mask, n_neighbors = _neighbor_list_brute(
         pos.detach(), batch, atom_mask, box, k=int(k),

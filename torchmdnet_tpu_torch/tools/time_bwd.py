@@ -34,7 +34,18 @@ the STMV skin list, the STMV forward's K = 32 list, #4 only, and a
 GN-aspirin training batch), each with its library call (``index_select``,
 ``index_add_``), timed three ways: CUDA events as below, the device time
 alone (torch.profiler, mean of 20, L2 flushed) and the host's enqueue
-(host clock without a synchronise, median of 200).  ``md_stmv``
+(host clock without a synchronise, median of 200).  ``compaction`` is
+the fused brute search #7 at chip_smoke.py's ``compaction_shapes`` (the
+DHFR row shape, K 80 without the loop, and the Transformer MD build's, K
+112 at 5.5 A with the self loop) on the synthetic DHFR system: the
+kernel's wrapper (with the loop where the tree's takes one) and the whole
+``neighbor_list(strategy="brute-pallas")`` build, each timed those three
+ways, the device time split by kernel with the device activities a call
+launches.  ``compaction_plans`` times #7's kernel alone (device time, mean
+of 20, L2 flushed) at both shapes under each launch plan of
+``COMPACTION_PLANS`` (rows a warp, warps a block; 0 for the kernel's own
+choice), bitwise against the plain version: the plan's choice against the
+others.  ``md_stmv``
 is chip_smoke.py's ET MD at STMV size in bench.py's configuration
 (``MD_ARGS``) through the tree's ``Simulation``: after its warm-up, three
 windows of ``MD_TIMED_STEPS`` steps, each a mean ms/step on the host clock
@@ -46,7 +57,7 @@ selections and #4/#5 too) to DIR/LABEL.pt; ``--compare DIR A B``
 then prints, per output, whether two labels' outputs are bitwise equal and
 their largest difference over the largest value.  ``--shapes`` times only
 the named shapes (dhfr, train, stmv, t_dhfr, t_train, tn_dhfr, tn_train, md_stmv, topk,
-ell).  Needs a CUDA device (``--compare`` does not).
+ell, compaction, compaction_plans).  Needs a CUDA device (``--compare`` does not).
 """
 
 import argparse
@@ -124,6 +135,8 @@ def main(argv=None) -> int:
         "md_stmv": {},
         "topk": {},
         "ell": {},
+        "compaction": {},
+        "compaction_plans": {},
     }
     label = args.label or tree
     result = dict(label=label, tree=tree)
@@ -136,8 +149,9 @@ def main(argv=None) -> int:
             result[name] = _time_md(cs)
             torch.cuda.empty_cache()
             continue
-        if name == "ell":
-            result[name] = _time_ell(cs, flush, dumped if args.dump else None)
+        if name in ("ell", "compaction", "compaction_plans"):
+            timer = {"ell": _time_ell, "compaction": _time_compaction, "compaction_plans": _time_compaction_plans}
+            result[name] = timer[name](cs, flush, dumped if args.dump else None)
             torch.cuda.empty_cache()
             continue
         if name == "topk":
@@ -281,6 +295,69 @@ def _time_ell(cs, flush, dumped=None):
     return row
 
 
+def _time_compaction(cs, flush, dumped=None):
+    """#7 at chip_smoke.py's ``compaction_shapes``: the kernel's wrapper and
+    the whole brute-pallas build, {shape/call: three-way times}; each
+    call's output into ``dumped`` where given."""
+    import inspect
+
+    from torchmdnet_tpu_torch.data.systems import DHFR_ATOMS
+    from torchmdnet_tpu_torch.ops.kernels.compaction import compact_neighbors
+    from torchmdnet_tpu_torch.ops.neighbors import neighbor_list
+
+    batch = cs._synthetic_batch(DHFR_ATOMS, cs.SEED, "cuda")[2]
+    args = (batch.pos, batch.batch, batch.atom_mask)
+    takes_loop = "loop" in inspect.signature(compact_neighbors).parameters
+    row = {}
+    for where, s in cs.compaction_shapes().items():
+        kw = {key: s[key] for key in ("k", "cutoff_lower", "cutoff_upper")}
+        kern_kw = dict(kw, loop=s["loop"]) if takes_loop else kw
+        calls = dict(kernel=lambda: compact_neighbors(*args, **kern_kw),
+                     build=lambda: neighbor_list(*args, loop=s["loop"], strategy="brute-pallas", **kw))
+        for what, fn in calls.items():
+            loop = s["loop"] and (what == "build" or takes_loop)
+            row[f"{where}/{what}"] = dict(cs._three_ways(fn, flush), k=s["k"], loop=loop)
+            if dumped is not None:
+                out = fn()
+                dumped[f"compaction/{where}/{what}"] = _flat_cpu(
+                    (out.idx, out.mask, out.n_neighbors) if what == "build" else out)
+    return row
+
+
+# (rows a warp, warps a block) for ``compaction_plans``: the plan's own
+# choice (one block an SM of ceil(N / SMs) rows: 19 warps of one row at
+# N 2496), then fewer rows a block (several blocks an SM) and more rows a warp
+COMPACTION_PLANS = ((0, 0), (1, 8), (1, 16), (2, 8), (2, 10), (2, 16), (4, 5), (4, 8))
+
+
+def _time_compaction_plans(cs, flush, dumped=None):
+    """#7's kernel alone at ``compaction_shapes`` under each of
+    ``COMPACTION_PLANS``: {shape/plan: device ms}; raises where a plan's
+    list differs from the plain version's."""
+    from torchmdnet_tpu_torch.data.systems import DHFR_ATOMS
+    from torchmdnet_tpu_torch.ops.kernels import compaction
+
+    batch = cs._synthetic_batch(DHFR_ATOMS, cs.SEED, "cuda")[2]
+    args = (batch.pos, batch.batch, batch.atom_mask)
+    n, row = batch.num_atoms, {}
+    for where, s in cs.compaction_shapes().items():
+        k, loop = s["k"], s["loop"]
+        want = compaction.compact_neighbors_reference(*args, k=k, cutoff_lower=s["cutoff_lower"],
+                                                      cutoff_upper=s["cutoff_upper"], loop=loop)
+        outs = [torch.empty((n, k + loop), dtype=torch.int32, device="cuda"),
+                torch.empty((n, k + loop), dtype=torch.bool, device="cuda"),
+                torch.empty((n,), dtype=torch.int32, device="cuda")]
+        for rows, warps in COMPACTION_PLANS:
+            def fn():
+                compaction._launch(*args, k, loop, s["cutoff_lower"], s["cutoff_upper"], *outs,
+                                   plan=(rows, warps))
+            fn()
+            if not all(torch.equal(a, b) for a, b in zip(outs, want)):
+                raise AssertionError(f"#7 under plan ({rows}, {warps}) differs from its plain version at {where}")
+            row[f"{where}/{rows}x{warps}"] = cs._device_split(fn, flush)[0]["compact_kernel"]
+    return row
+
+
 def _time_md(cs, windows=3):
     """ET MD at STMV size (chip_smoke.py's md_stmv configuration): ms/step
     of each timed window and their median."""
@@ -327,7 +404,9 @@ def compare(directory, a, b):
         for i, (x, y) in enumerate(zip(da[key], db[key])):
             if x is None or y is None:
                 continue
-            if torch.equal(x, y):
+            if x.shape != y.shape:
+                parts.append(f"{i}: shapes {tuple(x.shape)} and {tuple(y.shape)}")
+            elif torch.equal(x, y):
                 parts.append(f"{i}: equal")
             else:
                 diff = (x.double() - y.double()).abs()
