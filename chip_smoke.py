@@ -817,7 +817,7 @@ def _profile(fn, reps, names):
     """Run ``fn`` ``reps`` times under torch.profiler's CUDA activity: (wall
     ms per rep on the host clock, device busy ms per rep, {name: device ms
     per rep of the kernels whose names contain it}, the other kernels' ms per
-    rep, their launches per rep)."""
+    rep, their launches per rep, {name: launches per rep})."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -828,7 +828,7 @@ def _profile(fn, reps, names):
             fn()
         torch.cuda.synchronize()
         wall = 1e3 * (time.perf_counter() - t0) / reps
-    groups = dict.fromkeys(names, 0.0)
+    groups, counts = dict.fromkeys(names, 0.0), dict.fromkeys(names, 0)
     other, launches = 0.0, 0
     for ev in prof.events():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
@@ -840,10 +840,11 @@ def _profile(fn, reps, names):
             launches += 1
         else:
             groups[key] += ms
+            counts[key] += 1
     busy = sum(groups.values()) + other
     if busy <= 0.0:
         raise AssertionError("the profiler recorded no device time")
-    return wall, busy, groups, other, launches / reps
+    return wall, busy, groups, other, launches / reps, {k: c / reps for k, c in counts.items()}
 
 
 def _shares(groups, other, busy):
@@ -858,7 +859,7 @@ TN_SERVE_KERNELS = ("tn_fwd_kernel", "tn_bwd_kernel")
 def profile_calls(ext, pos, names, label, calls=3):
     """Where the time of an energy+forces call goes: device time by kernel
     against the host clock."""
-    wall, busy, groups, other, launches = _profile(lambda: ext.calculate(pos), calls, names)
+    wall, busy, groups, other, launches, _ = _profile(lambda: ext.calculate(pos), calls, names)
     log(f"profile of {calls} {label} calls (torch.profiler): wall {wall:.3f} ms/call, device busy "
         f"{busy:.3f} ms/call ({100 * busy / wall:.1f}%); {_shares(groups, other, busy)} "
         f"({launches:.0f} other launches/call)")
@@ -1250,7 +1251,7 @@ def profile_md(sim, names=ET_SERVE_KERNELS, label="ET", steps=10):
     """Where the time of an MD step goes at STMV: device time by kernel over
     ``steps`` steps."""
     names = names + ("select_topk_kernel",)
-    wall, busy, groups, other, _ = _profile(lambda: sim.step(steps), 1, names)
+    wall, busy, groups, other, _, _ = _profile(lambda: sim.step(steps), 1, names)
     wall, busy, other = wall / steps, busy / steps, other / steps
     groups = {k: v / steps for k, v in groups.items()}
     log(f"profile of {steps} {label} MD steps at STMV (torch.profiler): wall {wall:.3f} ms/step, device busy "
@@ -1571,7 +1572,7 @@ def profile_train(trainer, batch, cfg, steps=3):
 
     acc = torch.zeros(4, dtype=trainer.dtype, device="cuda")
     ema = torch.zeros((), dtype=trainer.dtype, device="cuda")
-    wall, busy, groups, other, launches = _profile(
+    wall, busy, groups, other, launches, _ = _profile(
         lambda: trainer._train_step(batch, acc, ema, ema), steps, cfg["kernels"])
     log(f"profile of {steps} {cfg['label']} training steps (torch.profiler): wall {wall:.3f} ms/step, device "
         f"busy {busy:.3f} ms/step ({100 * busy / wall:.1f}%); {_shares(groups, other, busy)} "
@@ -2117,60 +2118,29 @@ def _enqueue_ms(fn, reps=200, warmup=10):
 FLUSH_KERNELS = ("FillFunctor", "Memset")  # what ``flush.zero_()`` runs on the card
 
 
-def _kernel_label(name):
-    """A short label for a device activity's name in the profiler."""
-    for key, label in (("compact_kernel", "compact_kernel"), ("direct_copy", "copy"), ("arange", "arange"),
-                       ("CatArrayBatchedCopy", "cat")):
-        if key in name:
-            return label
-    return name.removeprefix("void ")[:48]
-
-
-def _device_split(fn, flush, reps=20, attempts=3):
-    """Device time alone of one call, kernel by kernel: torch.profiler's
-    device activities over ``reps`` calls, each after an L2 flush, the
-    flush's kernels (``FLUSH_KERNELS``) left out by name.  Returns ({label:
-    device ms per call}, device activities per call).  A profile in which
-    the profiler recorded no activity of the call or none of the flush (it
-    happens now and then) is taken again, up to ``attempts`` in all."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    for _ in range(attempts):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                flush.zero_()
-                fn()
-            torch.cuda.synchronize()
-        split, count, flushes = {}, 0, 0
-        for ev in prof.events():
-            if ev.device_type != torch.autograd.DeviceType.CUDA:
-                continue
-            if any(f in ev.name for f in FLUSH_KERNELS):
-                flushes += 1
-                continue
-            label = _kernel_label(ev.name)
-            split[label] = split.get(label, 0.0) + ev.device_time / 1e3 / reps
-            count += 1
-        if split and flushes:
-            return split, count / reps
-    raise AssertionError(f"the profiler did not tell the flush from the call in {attempts} profiles")
-
-
 def _device_ms(fn, flush, reps=20):
-    """Device time alone of one call (``_device_split``, all its kernels)."""
-    return sum(_device_split(fn, flush, reps)[0].values())
+    """Device time alone of one call: torch.profiler's device time of the
+    kernels ``fn`` runs (``_profile``), mean of ``reps`` calls with the L2
+    flushed before each, the flush's own kernel left out by name."""
+    _, _, groups, other, _, _ = _profile(lambda: (flush.zero_(), fn()), reps, FLUSH_KERNELS)
+    if not (sum(groups.values()) > 0.0 and other > 0.0):
+        raise AssertionError(f"the profiler did not tell the flush from the call: flush {groups}, call {other} ms")
+    return other
 
 
-def _three_ways(fn, flush):
+def _three_ways(fn, flush, kernel, reps=20):
     """One call timed three ways: the CUDA-event window (L2 flushed, median
-    of 20), the device time alone kernel by kernel with the activities a
-    call launches (``_device_split``), and the host's enqueue (no
-    synchronise, median of 200)."""
-    split, launches = _device_split(fn, flush)
-    return dict(ms=_event_ms(fn, flush=flush), device_ms=split, launches=launches, enqueue_ms=_enqueue_ms(fn))
+    of 20); the device time alone of the kernels whose names contain
+    ``kernel`` (``device_ms``, ``launches``) and of the call's other kernels
+    (``other_ms``, ``other_launches``), from ``_profile``, mean of ``reps``
+    calls with the L2 flushed before each, the flush's kernels left out by
+    name; and the host's enqueue (no synchronise, median of 200)."""
+    fn()
+    _, _, groups, other, others, counts = _profile(lambda: (flush.zero_(), fn()), reps, FLUSH_KERNELS + (kernel,))
+    if not (groups[kernel] > 0.0 and any(counts[f] for f in FLUSH_KERNELS)):
+        raise AssertionError(f"the profiler did not tell the flush from the call: {groups}, other {other} ms")
+    return dict(ms=_event_ms(fn, flush=flush), device_ms=groups[kernel], launches=counts[kernel], other_ms=other,
+                other_launches=others, enqueue_ms=_enqueue_ms(fn))
 
 
 def ell_cases(lists):
@@ -2745,28 +2715,28 @@ def _brute_pairs(nbl, n):
     return (rows * n + nbl.idx.long())[nbl.mask]
 
 
-# #7's multi-stage check: more columns than one shared-memory stage holds
+# #7's multi-stage checks: more columns than one shared-memory stage holds
 # (4096), in several molecules that overlap in space, with atoms masked
 # inside them besides the padding, and a K that truncates most rows (about
 # 50 neighbors within 5 A at DHFR's density); the plain version's (N, N)
-# matrices fit
+# matrices fit.  {label: (atoms, molecules, atoms a molecule)}: 16,000
+# atoms (4 rows a warp; stages of 4096 columns and a last of 3712) and
+# 5000 (2 rows a warp; a last stage of 904 columns, not a multiple of 32,
+# so padding entries go through the sweep)
+COMPACTION_STAGE_CASES = {"multi-stage": (16000, 4, 3990), "ragged multi-stage": (5000, 3, 1650)}
 COMPACTION_STAGE_K = 48
-COMPACTION_STAGE_MOLECULES = 4
-COMPACTION_STAGE_MOLECULE_ATOMS = 3990
-COMPACTION_STAGE_ATOMS = 16000
 COMPACTION_MASK_EVERY = 101
 
 
-def _compaction_stage_batch():
-    """(batch, atom_mask): COMPACTION_STAGE_MOLECULES synthetic molecules at
-    DHFR's density, padded to COMPACTION_STAGE_ATOMS, and the batch's mask
-    with every COMPACTION_MASK_EVERY-th atom cleared."""
+def _compaction_stage_batch(atoms, molecules, molecule_atoms):
+    """(batch, atom_mask): ``molecules`` synthetic molecules at DHFR's
+    density, padded to ``atoms``, and the batch's mask with every
+    COMPACTION_MASK_EVERY-th atom cleared."""
     from torchmdnet_tpu_torch.data.batch import pad_molecules
     from torchmdnet_tpu_torch.data.systems import synthetic_system
 
-    mols = [dict(zip(("z", "pos"), synthetic_system(COMPACTION_STAGE_MOLECULE_ATOMS, seed=SEED + m)))
-            for m in range(COMPACTION_STAGE_MOLECULES)]
-    batch = pad_molecules(mols, num_atoms=COMPACTION_STAGE_ATOMS, device="cuda")
+    mols = [dict(zip(("z", "pos"), synthetic_system(molecule_atoms, seed=SEED + m))) for m in range(molecules)]
+    batch = pad_molecules(mols, num_atoms=atoms, device="cuda")
     mask = batch.atom_mask.clone()
     mask[::COMPACTION_MASK_EVERY] = False
     return batch, mask
@@ -2774,14 +2744,15 @@ def _compaction_stage_batch():
 
 def log_compaction_resources():
     """#7's launch plan and resources at each N it is checked or runs at
-    (DHFR and the MD build, the training batch, the multi-stage check):
+    (DHFR and the MD build, the training batch, the multi-stage checks):
     rows a warp, threads, blocks, registers, spills, shared memory, blocks
     an SM.  A spill, or shared memory past an H100's 227 KB a block, is an
     error."""
     from torchmdnet_tpu_torch.ops.kernels import compaction
 
     parts = []
-    for label, n in (("DHFR", 2496), ("training", 2304), ("multi-stage", COMPACTION_STAGE_ATOMS)):
+    sizes = [("DHFR", 2496), ("training", 2304)] + [(lab, c[0]) for lab, c in COMPACTION_STAGE_CASES.items()]
+    for label, n in sizes:
         r = compaction.kernel_resources(n)
         if r["spill_bytes"] or r["smem"] > 227 * 1024:
             raise AssertionError(f"compact_kernel at {label} N={n} spills or outgrows shared memory: {r}")
@@ -2866,8 +2837,8 @@ def _compaction_bounds(n, k, pairs):
 def time_compaction(batch):
     """#7 at ``compaction_shapes`` on the synthetic DHFR system: the kernel's
     wrapper and the whole brute-pallas build (``neighbor_list``), each timed
-    three ways (``_three_ways``: the CUDA-event window, the device time
-    alone kernel by kernel, the host's enqueue), the plain version's and the
+    three ways (``_three_ways``: the CUDA-event window, compact_kernel's
+    device time alone, the host's enqueue), the plain version's and the
     strategy='brute' route's event windows (Gram-form distances and
     torch.topk: the library yardstick) and the bound.  A build must launch
     one kernel, #7.  Returns {shape: times}."""
@@ -2882,16 +2853,17 @@ def time_compaction(batch):
     out = {}
     for where, s in compaction_shapes().items():
         kw = dict(k=s["k"], cutoff_lower=s["cutoff_lower"], cutoff_upper=s["cutoff_upper"], loop=s["loop"])
-        kern = _three_ways(lambda: compact_neighbors(*args, **kw), flush)
-        build = _three_ways(lambda: neighbor_list(*args, strategy="brute-pallas", **kw), flush)
-        if build["launches"] != 1 or list(build["device_ms"]) != ["compact_kernel"]:
-            raise AssertionError(f"a brute-pallas build at {where} ran {build['launches']} device activities "
-                                 f"({build['device_ms']}), not #7 alone")
+        kern = _three_ways(lambda: compact_neighbors(*args, **kw), flush, "compact_kernel")
+        build = _three_ways(lambda: neighbor_list(*args, strategy="brute-pallas", **kw), flush, "compact_kernel")
+        if build["launches"] != 1 or build["other_launches"] or build["other_ms"]:
+            raise AssertionError(f"a brute-pallas build at {where} ran {build['launches']:g} compact_kernel and "
+                                 f"{build['other_launches']:g} other kernels ({build['other_ms']:.4f} ms), not #7 "
+                                 f"once")
         bound, by = _compaction_bounds(n, s["k"] + s["loop"], n * n)
         out[where] = dict(
             k=s["k"], loop=s["loop"], cutoff_upper=s["cutoff_upper"],
-            ms=kern["ms"], device_ms=kern["device_ms"]["compact_kernel"], enqueue_ms=kern["enqueue_ms"],
-            build_ms=build["ms"], build_device_ms=build["device_ms"]["compact_kernel"],
+            ms=kern["ms"], device_ms=kern["device_ms"], enqueue_ms=kern["enqueue_ms"],
+            build_ms=build["ms"], build_device_ms=build["device_ms"],
             build_enqueue_ms=build["enqueue_ms"], build_launches=build["launches"],
             plain_ms=_event_ms(lambda: compact_neighbors_reference(*args, **kw), flush=flush),
             library_ms=_event_ms(lambda: neighbor_list(*args, strategy="brute", **kw), flush=flush),
@@ -3065,10 +3037,11 @@ def main():
                      ids=dhfr_batch.batch.int())
     check_compaction("training batch", train_batch_gpu, T_TRAIN_ARGS["max_num_neighbors"],
                      T_TRAIN_ARGS["cutoff_upper"])
-    stage_batch, stage_mask = _compaction_stage_batch()
-    check_compaction("multi-stage", stage_batch, COMPACTION_STAGE_K, T_ARGS["cutoff_upper"], atom_mask=stage_mask)
-    check_compaction("multi-stage, int32 ids", stage_batch, COMPACTION_STAGE_K, T_ARGS["cutoff_upper"], 0.5,
-                     atom_mask=stage_mask, ids=stage_batch.batch.int())
+    for label, case in COMPACTION_STAGE_CASES.items():
+        stage_batch, stage_mask = _compaction_stage_batch(*case)
+        check_compaction(label, stage_batch, COMPACTION_STAGE_K, T_ARGS["cutoff_upper"], atom_mask=stage_mask)
+        check_compaction(f"{label}, int32 ids", stage_batch, COMPACTION_STAGE_K, T_ARGS["cutoff_upper"], 0.5,
+                         atom_mask=stage_mask, ids=stage_batch.batch.int())
     del t_model, stage_batch, stage_mask
     gn_nbls = _gn_lists()
     log_ell_resources(gn_nbls)

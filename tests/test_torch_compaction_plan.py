@@ -55,15 +55,14 @@ def cdiv(a, b):
     return -(-a // b)
 
 
-def make_plan(n, sms=SMS, rows=0, warps=0, stage=0):
-    """make_plan: (rows a warp, warps a block, columns a stage, blocks,
-    dynamic shared memory a block: the stage's entries and each row's
-    ballot words)."""
-    if not rows or not warps:
-        need = cdiv(n, sms)
-        r, w = next(((r, cdiv(need, r)) for r in (1, 2, 4) if cdiv(need, r) <= MAX_WARPS), (4, 8))
-        rows, warps = rows or r, warps or w
-    stage = min(stage or MAX_STAGE, n)
+def make_plan(n, sms=SMS, stage=MAX_STAGE):
+    """make_plan on a card of ``sms`` SMs (``stage`` shrinks the stage to
+    walk several at a small N): (rows a warp, warps a block, columns a
+    stage, blocks, dynamic shared memory a block: the stage's entries and
+    each row's ballot words)."""
+    need = cdiv(n, sms)
+    rows, warps = next(((r, cdiv(need, r)) for r in (1, 2, 4) if cdiv(need, r) <= MAX_WARPS), (4, 8))
+    stage = min(stage, n)
     stage_pad = cdiv(stage, 32) * 32
     smem = stage_pad * ENTRY_BYTES + warps * rows * (stage_pad // 32) * 4
     return rows, warps, stage, cdiv(n, rows * warps), smem
@@ -188,13 +187,18 @@ def test_walk_in_stages_with_a_lower_cutoff(stage):
     assert all(v == list(range(70)) for v in visited)
 
 
-@pytest.mark.parametrize("rows,warps", [(1, 8), (2, 5), (4, 4), (4, 16)])
-def test_every_plan_gives_the_same_list(rows, warps):
+@pytest.mark.parametrize("sms,rows,warps", [(132, 1, 3), (10, 2, 15), (4, 4, 19), (2, 4, 8)])
+def test_every_plan_gives_the_same_list(sms, rows, warps):
+    """Each of the plan's forms, reached through the rows an SM must take:
+    one row a warp, two, four, and four in 8-warp blocks over several
+    waves."""
     n = 300
     pos, batch, mask = system(n, seed=rows * warps)
     kw = dict(k=40, cutoff_lower=0.0, cutoff_upper=5.0, loop=True)
     want = reference(pos, batch, mask, **kw)
-    got = walk(pos, batch, mask, plan=make_plan(n, rows=rows, warps=warps), **kw)
+    plan = make_plan(n, sms=sms)
+    assert plan[:2] == (rows, warps)
+    got = walk(pos, batch, mask, plan=plan, **kw)
     for a, b in zip(got[:3], want):
         np.testing.assert_array_equal(a, b)
 

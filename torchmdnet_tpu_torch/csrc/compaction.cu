@@ -250,24 +250,19 @@ const void* kernel_for(bool i64) {
 // The launch plan: one block an SM, each with ceil(N / SMs) rows, as R = 1,
 // 2 or 4 rows a warp (the fewest that fit kMaxWarps warps); past that, R =
 // 4 and 8 warps a block in several waves.  The whole column set in one stage
-// up to kMaxStage columns.  rows / warps > 0 override it (to time variants).
-cudaError_t make_plan(int n, bool i64, int rows, int warps, Plan* p) {
-  if (rows <= 0 || warps <= 0) {
-    const int sms = sm_count();
-    const int need = (n + sms - 1) / sms;
-    int r = 4, w = 8;
-    for (int rr = 1; rr <= 4; rr *= 2) {
-      if ((need + rr - 1) / rr <= kMaxWarps) {
-        r = rr;
-        w = (need + rr - 1) / rr;
-        break;
-      }
+// up to kMaxStage columns.
+cudaError_t make_plan(int n, bool i64, Plan* p) {
+  const int sms = sm_count();
+  const int need = (n + sms - 1) / sms;
+  int rows = 4, warps = 8;
+  for (int r = 1; r <= 4; r *= 2) {
+    if ((need + r - 1) / r <= kMaxWarps) {
+      rows = r;
+      warps = (need + r - 1) / r;
+      break;
     }
-    if (rows <= 0) rows = r;
-    if (warps <= 0) warps = w;
   }
   const int stage = std::min(kMaxStage, n);
-  if (warps > kMaxWarps || (rows != 1 && rows != 2 && rows != 4)) return cudaErrorInvalidValue;
   p->rows = rows;
   p->warps = warps;
   p->stage = stage;
@@ -291,14 +286,12 @@ const char* compaction_error_string(int err) {
 // pos (N, 3) f32, batch (N,) int64 (batch_i64 != 0) or int32, ids >= 0,
 // atom_mask (N,) uint8 (0/1); outputs idx (N, K + loop) int32, mask (N, K +
 // loop) uint8, count (N,) int32.  cl2/cu2 are the squared cutoffs in f32.
-// rows / warps: 0 for the launch plan's choice.  Returns a
-// cudaError_t (0 on success).  Launches on `stream` and does not synchronise.
+// Returns a cudaError_t (0 on success).  Launches on `stream` and does not synchronise.
 int compact_neighbors(const void* pos, const void* batch, int batch_i64, const void* atom_mask, int n, int k,
-                      int loop, float cl2, float cu2, void* idx, void* mask, void* count, int rows, int warps,
-                      void* stream) {
+                      int loop, float cl2, float cu2, void* idx, void* mask, void* count, void* stream) {
   if (n <= 0 || k <= 0) return (int)cudaErrorInvalidValue;
   Plan plan;
-  cudaError_t err = make_plan(n, batch_i64 != 0, rows, warps, &plan);
+  cudaError_t err = make_plan(n, batch_i64 != 0, &plan);
   if (err != cudaSuccess) return (int)err;
   Params p{static_cast<const float*>(pos), batch, static_cast<const uint8_t*>(atom_mask),
            static_cast<int32_t*>(idx), static_cast<uint8_t*>(mask), static_cast<int32_t*>(count),
@@ -309,14 +302,13 @@ int compact_neighbors(const void* pos, const void* batch, int batch_i64, const v
 }
 
 // The launch plan and the kernel's resources at N atoms (int64 ids): out =
-// registers a thread, local
-// (spill) bytes a thread, threads a block, shared memory a block (static +
+// registers a thread, local (spill) bytes a thread, threads a block, shared memory a block (static +
 // dynamic), resident blocks an SM, blocks launched, rows a warp, columns a
 // stage.
 int compaction_resources(int n, int* out) {
   if (n <= 0) return (int)cudaErrorInvalidValue;
   Plan plan;
-  cudaError_t err = make_plan(n, true, 0, 0, &plan);
+  cudaError_t err = make_plan(n, true, &plan);
   cudaFuncAttributes attr;
   if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, plan.fn);
   int per_sm = 0;

@@ -52,7 +52,7 @@ def _bind() -> _Lib:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.compaction_error_string.argtypes = [i]
         lib.compaction_error_string.restype = ctypes.c_char_p
-        lib.compact_neighbors.argtypes = [p, p, i, p, i, i, i, f, f, p, p, p, i, i, p]
+        lib.compact_neighbors.argtypes = [p, p, i, p, i, i, i, f, f, p, p, p, p]
         lib.compact_neighbors.restype = i
         lib.compaction_resources.argtypes = [i, p]
         lib.compaction_resources.restype = i
@@ -90,16 +90,14 @@ def compact_neighbors_reference(pos, batch, atom_mask, *, k: int, cutoff_lower: 
     return idx, mask, valid.sum(dim=1).to(torch.int32)
 
 
-def _launch(pos, batch, atom_mask, k, loop, cutoff_lower, cutoff_upper, idx, mask, count, plan=(0, 0)):
+def _launch(pos, batch, atom_mask, k, loop, cutoff_lower, cutoff_upper, idx, mask, count):
     """One launch on the current stream of the tensors' device, made the
-    current device only where it is not already.  ``plan`` = (rows a warp,
-    warps a block), 0 for the kernel's own choice (``tools/time_bwd.py``
-    times others)."""
+    current device only where it is not already."""
     lib = _bind()
     d = pos.device.index
     args = (pos.data_ptr(), batch.data_ptr(), batch.dtype == torch.int64, atom_mask.data_ptr(), pos.shape[0], k,
             loop, _squared(cutoff_lower), _squared(cutoff_upper), idx.data_ptr(), mask.data_ptr(),
-            count.data_ptr(), *plan)
+            count.data_ptr())
     if d == torch.cuda.current_device():
         err = lib.launch(*args, lib.stream(d))
     else:

@@ -40,12 +40,8 @@ DHFR row shape, K 80 without the loop, and the Transformer MD build's, K
 112 at 5.5 A with the self loop) on the synthetic DHFR system: the
 kernel's wrapper (with the loop where the tree's takes one) and the whole
 ``neighbor_list(strategy="brute-pallas")`` build, each timed those three
-ways, the device time split by kernel with the device activities a call
-launches.  ``compaction_plans`` times #7's kernel alone (device time, mean
-of 20, L2 flushed) at both shapes under each launch plan of
-``COMPACTION_PLANS`` (rows a warp, warps a block; 0 for the kernel's own
-choice), bitwise against the plain version: the plan's choice against the
-others.  ``md_stmv``
+ways, the device time that of ``compact_kernel`` alone, beside the time
+and launches of the call's other kernels.  ``md_stmv``
 is chip_smoke.py's ET MD at STMV size in bench.py's configuration
 (``MD_ARGS``) through the tree's ``Simulation``: after its warm-up, three
 windows of ``MD_TIMED_STEPS`` steps, each a mean ms/step on the host clock
@@ -57,7 +53,7 @@ selections and #4/#5 too) to DIR/LABEL.pt; ``--compare DIR A B``
 then prints, per output, whether two labels' outputs are bitwise equal and
 their largest difference over the largest value.  ``--shapes`` times only
 the named shapes (dhfr, train, stmv, t_dhfr, t_train, tn_dhfr, tn_train, md_stmv, topk,
-ell, compaction, compaction_plans).  Needs a CUDA device (``--compare`` does not).
+ell, compaction).  Needs a CUDA device (``--compare`` does not).
 """
 
 import argparse
@@ -136,7 +132,6 @@ def main(argv=None) -> int:
         "topk": {},
         "ell": {},
         "compaction": {},
-        "compaction_plans": {},
     }
     label = args.label or tree
     result = dict(label=label, tree=tree)
@@ -149,8 +144,8 @@ def main(argv=None) -> int:
             result[name] = _time_md(cs)
             torch.cuda.empty_cache()
             continue
-        if name in ("ell", "compaction", "compaction_plans"):
-            timer = {"ell": _time_ell, "compaction": _time_compaction, "compaction_plans": _time_compaction_plans}
+        if name in ("ell", "compaction"):
+            timer = {"ell": _time_ell, "compaction": _time_compaction}
             result[name] = timer[name](cs, flush, dumped if args.dump else None)
             torch.cuda.empty_cache()
             continue
@@ -316,45 +311,11 @@ def _time_compaction(cs, flush, dumped=None):
                      build=lambda: neighbor_list(*args, loop=s["loop"], strategy="brute-pallas", **kw))
         for what, fn in calls.items():
             loop = s["loop"] and (what == "build" or takes_loop)
-            row[f"{where}/{what}"] = dict(cs._three_ways(fn, flush), k=s["k"], loop=loop)
+            row[f"{where}/{what}"] = dict(cs._three_ways(fn, flush, "compact_kernel"), k=s["k"], loop=loop)
             if dumped is not None:
                 out = fn()
                 dumped[f"compaction/{where}/{what}"] = _flat_cpu(
                     (out.idx, out.mask, out.n_neighbors) if what == "build" else out)
-    return row
-
-
-# (rows a warp, warps a block) for ``compaction_plans``: the plan's own
-# choice (one block an SM of ceil(N / SMs) rows: 19 warps of one row at
-# N 2496), then fewer rows a block (several blocks an SM) and more rows a warp
-COMPACTION_PLANS = ((0, 0), (1, 8), (1, 16), (2, 8), (2, 10), (2, 16), (4, 5), (4, 8))
-
-
-def _time_compaction_plans(cs, flush, dumped=None):
-    """#7's kernel alone at ``compaction_shapes`` under each of
-    ``COMPACTION_PLANS``: {shape/plan: device ms}; raises where a plan's
-    list differs from the plain version's."""
-    from torchmdnet_tpu_torch.data.systems import DHFR_ATOMS
-    from torchmdnet_tpu_torch.ops.kernels import compaction
-
-    batch = cs._synthetic_batch(DHFR_ATOMS, cs.SEED, "cuda")[2]
-    args = (batch.pos, batch.batch, batch.atom_mask)
-    n, row = batch.num_atoms, {}
-    for where, s in cs.compaction_shapes().items():
-        k, loop = s["k"], s["loop"]
-        want = compaction.compact_neighbors_reference(*args, k=k, cutoff_lower=s["cutoff_lower"],
-                                                      cutoff_upper=s["cutoff_upper"], loop=loop)
-        outs = [torch.empty((n, k + loop), dtype=torch.int32, device="cuda"),
-                torch.empty((n, k + loop), dtype=torch.bool, device="cuda"),
-                torch.empty((n,), dtype=torch.int32, device="cuda")]
-        for rows, warps in COMPACTION_PLANS:
-            def fn():
-                compaction._launch(*args, k, loop, s["cutoff_lower"], s["cutoff_upper"], *outs,
-                                   plan=(rows, warps))
-            fn()
-            if not all(torch.equal(a, b) for a, b in zip(outs, want)):
-                raise AssertionError(f"#7 under plan ({rows}, {warps}) differs from its plain version at {where}")
-            row[f"{where}/{rows}x{warps}"] = cs._device_split(fn, flush)[0]["compact_kernel"]
     return row
 
 
