@@ -33,8 +33,16 @@ shapes, energy and forces at DHFR size through ``External.calculate``
 10 % of the energy, MD at DHFR size on the fused brute neighbor search
 (``neighbor_strategy="brute-pallas"``, kernel #7, which is checked bitwise
 against its plain version through ``Potential.neighbors``), and force-loss
-training of the training benchmark's shapes (8 x 256) through the CLI. It
-times each. Each phase prints one line; the line before the last is a JSON object
+training of the training benchmark's shapes (8 x 256) through the CLI. The
+output heads and the pair priors: ET energy and forces at DHFR size through
+``External.calculate`` with a ZBL prior (whose own cell list runs #6 once
+more a call; the prior held against an f64 closed form, and the total
+against the model without it plus the prior), ET serving the dipole moment
+at ET-QM9's widths (fused against composable, under rotations and a
+translation; the other heads and TensorNet's dipole one call each), and
+force training with the ZBL, D2 and Coulomb priors through the DataModule,
+the loader and the Trainer, with Coulomb's partial charges from the
+dataset. It times each. Each phase prints one line; the line before the last is a JSON object
 with each kernel's numbers, the last line is ``{"ok": true, "device":
 {...}}``. Any failure raises and exits non-zero. Without a CUDA device, or
 outside a checkout, it exits non-zero and prints no result.
@@ -902,13 +910,17 @@ def stmv_skin_keys(batch):
     return cell_keys(ET_ARGS, batch, skin=MD_ARGS["neighbor_skin"])
 
 
-def select_cases(dhfr, stmv, skin_keys, skin_k):
+def select_cases(dhfr, stmv, skin_keys, skin_k, zbl_k):
     """{label: (keys, k, sentinel)} for each cell-list build a path runs,
     and {path: label}: the DHFR builds of External's four models (cutoff
-    and k; the ET, GN and Transformer builds are one), GN's STMV forward
-    (cutoff 5 A, K = 32) and the STMV skin build of MD."""
+    and k; the ET, GN and Transformer builds are one, and the ZBL path's
+    model builds too), GN's STMV forward (cutoff 5 A, K = 32), the STMV skin
+    build of MD, and the ZBL prior's own DHFR build (4 A, K = ``zbl_k``, the
+    sizes External probes for it)."""
+    from torchmdnet_tpu_torch.ops.cell_list import cell_candidate_keys, probe_cell_kwargs
+
     models = {"external_dhfr": ET_ARGS, "tn_external_dhfr": TN_ARGS, "gn_external_dhfr": GN_ARGS,
-              "t_external_dhfr": T_ARGS, "gn_forward_stmv": GN_STMV_FWD_ARGS}
+              "t_external_dhfr": T_ARGS, "gn_forward_stmv": GN_STMV_FWD_ARGS, "zbl_external_dhfr": ET_ARGS}
     cases, label_of = {}, {}
     for path, args in models.items():
         batch = dhfr if path.endswith("_dhfr") else stmv
@@ -921,6 +933,13 @@ def select_cases(dhfr, stmv, skin_keys, skin_k):
     label = "STMV skin build"
     cases[label] = (skin_keys, skin_k, skin_keys.shape[0])
     label_of.update(md_stmv=label, gn_md_stmv=label)
+    sizes = probe_cell_kwargs(dhfr, cutoff_upper=ZBL_CUTOFF)
+    keys, _, overflow = cell_candidate_keys(dhfr.pos, dhfr.batch, dhfr.atom_mask, cutoff_upper=ZBL_CUTOFF, **sizes)
+    if bool(overflow):
+        raise AssertionError(f"the ZBL prior's DHFR build overflowed its probed sizes {sizes}")
+    label = f"DHFR ZBL prior build (cutoff 0-{ZBL_CUTOFF} A, K={zbl_k}, {sizes})"
+    cases[label] = (keys, zbl_k, keys.shape[0])
+    label_of["zbl_prior_dhfr"] = label
     return cases, label_of
 
 
@@ -1318,12 +1337,16 @@ def _train_dataset(split=TRAIN_SPLIT, mol=TRAIN_MOL):
 
 def _train_batch(ds, device, batch_size=TRAIN_BATCH, cutoff=TRAIN_ARGS["cutoff_upper"], mol=TRAIN_MOL):
     """The first ``batch_size`` molecules as the trainer sees a batch: padded
-    to a multiple of 8 atoms, spatially sorted (the fused paths), on ``device``."""
+    to a multiple of 8 atoms, partial charges (``pq``) collated as the loader
+    collates them, spatially sorted (the fused paths), on ``device``."""
     from torchmdnet_tpu_torch.data.batch import pad_molecules, spatial_sort
 
     mols = [ds[i] for i in range(batch_size)]
+    keys = ("partial_charges",) if "pq" in mols[0] else ()
+    if keys:
+        mols = [dict(m, partial_charges=m["pq"]) for m in mols]
     n = -(-batch_size * mol["num_atoms"] // 8) * 8
-    batch = pad_molecules(mols, num_atoms=n, num_mol=batch_size)
+    batch = pad_molecules(mols, num_atoms=n, num_mol=batch_size, extra_atom_keys=keys)
     return spatial_sort(batch, cell=cutoff)[0].to(device)
 
 
@@ -1350,10 +1373,10 @@ def _reset_launches():
     select_topk.launches = 0
 
 
-def time_train_kernels(batch):
+def time_train_kernels(batch, label="the training shapes"):
     """#1, #2 (with and without weight cotangents) and #3 at the training
-    shapes (N=2304, K=33, H=256, 8 heads, RBF=64), their plain versions and
-    bounds (L2 flushed, median of 20)."""
+    shapes (N=2304, K=33, H=256, 8 heads, RBF=64; or ``batch``'s N), their
+    plain versions and bounds (L2 flushed, median of 20)."""
     import torch
 
     from torchmdnet_tpu_torch.ops.kernels import et_message as em
@@ -1389,7 +1412,7 @@ def time_train_kernels(batch):
                        flush=flush, reps=5),
     )
     bounds = {k: _bounds(n, kk, h, rbf, k) for k in ms}
-    log(f"kernel times at the training shapes (N={n} K={kk} H={h} heads={heads} RBF={rbf}, L2 flushed, "
+    log(f"kernel times at {label} (N={n} K={kk} H={h} heads={heads} RBF={rbf}, L2 flushed, "
         f"median of 20; plain second order of 5): "
         + "; ".join(f"{k} {v:.4f} ms (bound {bounds[k][0]:.4f} ms by {bounds[k][1]}"
                     + (f", plain {plain[k]:.4f} ms" if k in plain else "") + ")" for k, v in ms.items()))
@@ -2951,6 +2974,425 @@ def t_md_brute_pallas():
     return launches, ms_step
 
 
+# --- the output heads and the pair priors: ZBL serving, dipole serving, ---
+# --- force training with ZBL, D2 and Coulomb -------------------------------
+
+EV = 1.602176634e-19  # J: positions in A and energies in eV, as SyntheticMorse's
+ZBL_CUTOFF = 4.0
+# ZBL's capacities tried on DHFR, from the JAX package's default up
+ZBL_K_TRIED = (32, 48, 64)
+# the prior alone on the card (f32) against an f64 sum of its closed form
+# over all pairs: f32 rounding of exp, pow and the pair sums, |dE|/|E| and
+# max|dF|/max|F|
+ZBL_TOL = 1e-5
+# (E, F) with the prior minus (E, F) without it against the prior's own: the
+# model part is bitwise the same (same weights, list and kernels), so only
+# the f32 rounding of the totals and of autograd's sum of the position
+# cotangents is left, a few ulps of the largest term
+ZBL_SUM_ULPS = 16
+# ET's serving of the dipole moment at examples/ET-QM9.yaml's widths: 8 x 256,
+# 8 heads, 64 ExpNormal RBFs (not trainable), 0-5 A, K 64, NeighborEmbedding,
+# the fused bf16 edge phase; DipoleMoment becomes EquivariantDipoleMoment
+DIPOLE_ARGS = dict(TRAIN_ARGS, max_num_neighbors=64, output_model="DipoleMoment", derivative=False)
+# the other heads, each with its tolerance against its composable path: the
+# spatial extent is a positive sum like |mu| (FWD_TOL of the largest value);
+# the vector output sums per-atom vectors that cancel, like forces
+# (E2E_FORCE_TOL of the largest component)
+DIPOLE_OTHER_HEADS = {"ElectronicSpatialExtent": FWD_TOL, "EquivariantVectorOutput": E2E_FORCE_TOL}
+# force training with the three pair priors, their arguments from the
+# dataset (atomic numbers 0-99, A, eV): batches of 64 molecules (1152 atoms),
+# below the 2048 atoms from which a prior's own list would take the cell
+# route (every SyntheticMorse molecule lies in the same 6 A box, so a cell
+# list of 128 molecules overflows its cells, as the JAX package's does)
+PRIOR_TRAIN_BATCH = 64
+PRIOR_TRAIN_SPLIT = (192, 64, 64)  # three training steps, one validation batch
+PRIOR_TRAIN_PRIORS = ["ZBL", "D2", "Coulomb"]
+
+
+def _zbl_kwargs(k):
+    return {"cutoff_distance": ZBL_CUTOFF, "max_num_neighbors": k, "atomic_number": list(range(100)),
+            "distance_scale": 1e-10, "energy_scale": EV}
+
+
+def _dhfr_requests():
+    """(z, pos, requests): the DHFR system and main_path's requests."""
+    import numpy as np
+
+    from torchmdnet_tpu_torch.data.systems import DHFR_ATOMS
+
+    z, pos, _ = _synthetic_batch(DHFR_ATOMS, SEED, "cpu")
+    rng = np.random.default_rng(SEED)
+    requests = [pos + rng.normal(scale=0.02, size=pos.shape).astype(np.float32) for _ in range(REQUESTS - 1)]
+    requests.append(requests[-1].copy())  # the last request repeats the one before
+    return z, pos, requests
+
+
+def find_zbl_k():
+    """The smallest of ZBL_K_TRIED at which External's first request (its
+    capacity checks) passes for ET with a ZBL prior on DHFR; logs what each
+    smaller capacity raised."""
+    from torchmdnet_tpu_torch import External, create_model
+
+    z, _, requests = _dhfr_requests()
+    raised = []
+    for k in ZBL_K_TRIED:
+        ext = External((create_model(dict(ET_ARGS, prior_model={"ZBL": _zbl_kwargs(k)}), seed=SEED), None), z[None])
+        try:
+            ext.calculate(requests[0])
+        except ValueError as e:
+            if "ZBL prior" not in str(e):
+                raise
+            raised.append(f"K={k}: {e}")
+            continue
+        log(f"ZBL prior capacity at DHFR size ({ZBL_CUTOFF} A): External's first request passes at K={k}; "
+            + ("; ".join(raised) if raised else "no smaller capacity tried"))
+        return k
+    raise AssertionError(f"External raised at every ZBL capacity of {ZBL_K_TRIED}: {raised}")
+
+
+def _zbl_reference(z, pos):
+    """ZBL's energy (eV) and forces (eV/A) of one molecule in float64, summed
+    over all pairs within the cutoff from the closed form (the screening
+    function of Ziegler, Biersack and Littmark under a cosine cutoff), with
+    no neighbor list and none of the prior's code."""
+    import torch
+
+    bohr, k_e = 5.29177210903e-11, 2.30707755e-28  # m; J m
+    p = pos.double().detach().requires_grad_(True)
+    zz = z.double()
+    i, j = torch.triu_indices(p.shape[0], p.shape[0], 1, device=p.device)
+    with torch.no_grad():
+        near = (p[i] - p[j]).norm(dim=-1) < ZBL_CUTOFF
+    i, j = i[near], j[near]
+    r = (p[i] - p[j]).norm(dim=-1)
+    a = 0.8854 * bohr / (zz[i] ** 0.23 + zz[j] ** 0.23)
+    x = r * 1e-10 / a
+    phi = (0.1818 * torch.exp(-3.2 * x) + 0.5099 * torch.exp(-0.9423 * x) + 0.2802 * torch.exp(-0.4029 * x)
+           + 0.02817 * torch.exp(-0.2016 * x))
+    cut = 0.5 * (torch.cos(math.pi * r / ZBL_CUTOFF) + 1.0)
+    energy = (k_e / EV / 1e-10) * (phi * cut * zz[i] * zz[j] / r).sum()
+    (grad,) = torch.autograd.grad(energy, p)
+    return energy.detach(), -grad, int(near.sum())
+
+
+def zbl_path(zbl_k):
+    """Phase A: ET energy + forces at DHFR size through External with a ZBL
+    prior (atomic numbers 0-99, A, eV, K = ``zbl_k``).  Per request the
+    forward and backward kernels run once per layer, and #6 twice: the
+    model's cell list and the prior's own (External probes the sizes of
+    both on the first request).  Checks: the prior's energy and forces on
+    the card against ``_zbl_reference``; (E, F) with the prior minus (E, F)
+    of the same weights without it equal to the prior's own; two identical
+    requests bitwise equal.  Returns ((fwd, bwd, the model's #6 launches),
+    the prior's #6 launches, the External, its first request)."""
+    import torch
+
+    from torchmdnet_tpu_torch import External, create_model
+    from torchmdnet_tpu_torch.data.systems import DHFR_ATOMS
+    from torchmdnet_tpu_torch.ops.kernels import et_message as em
+    from torchmdnet_tpu_torch.ops.kernels.select_topk import select_topk
+
+    z, _, requests = _dhfr_requests()
+    potential = create_model(dict(ET_ARGS, prior_model={"ZBL": _zbl_kwargs(zbl_k)}), seed=SEED)
+    plain = create_model(ET_ARGS, seed=SEED)
+    plain.module.load_state_dict(potential.module.state_dict())
+    prior = potential.module.priors[0]
+    # count the selection launches of the prior's own builds apart from the model's
+    prior_builds = [0]
+    build = prior.build_neighbor_list
+
+    def counted_build(*args):
+        before = select_topk.launches
+        out = build(*args)
+        prior_builds[0] += select_topk.launches - before
+        return out
+
+    prior.build_neighbor_list = counted_build
+    ext = External((potential, None), z[None])
+    _reset_launches()
+    results = []
+    for p in requests:
+        energy, forces = ext.calculate(p)
+        results.append((energy.clone(), forces.clone()))
+    torch.cuda.synchronize()
+    prior_launches = prior_builds[0]
+    launches = (em.run_fwd.launches, em.run_bwd.launches, select_topk.launches - prior_launches)
+    layers = ET_ARGS["num_layers"]
+    if launches != (layers * REQUESTS, layers * REQUESTS, REQUESTS + 1) or prior_launches != REQUESTS + 1:
+        raise AssertionError(f"expected {layers} fwd + {layers} bwd launches per request and {REQUESTS + 1} "
+                             f"select_topk launches each for the model's and the prior's lists, got {launches} "
+                             f"and {prior_launches}")
+    _check_et_parts("zbl_external_dhfr", launches[1], 0)
+    for energy, forces in results:
+        if not (torch.isfinite(energy).all() and torch.isfinite(forces).all()):
+            raise AssertionError("non-finite energy or forces with the ZBL prior")
+    if not (torch.equal(results[-1][0], results[-2][0]) and torch.equal(results[-1][1], results[-2][1])):
+        raise AssertionError("two identical requests with the ZBL prior differ")
+
+    # the prior alone, on the card in f32, against the f64 closed form
+    batch = ext._template
+    pos = torch.cat([torch.as_tensor(requests[0], device="cuda"), batch.pos.new_zeros((ext.n_pad, 3))])
+    pos.requires_grad_(True)
+    e_prior = prior.post_reduce(torch.zeros((1, 1), device="cuda"), batch.z, pos, batch.batch, batch.atom_mask, 1)
+    (grad,) = torch.autograd.grad(e_prior.sum(), pos)
+    f_prior = -grad[:DHFR_ATOMS]
+    e_ref, f_ref, pairs = _zbl_reference(batch.z[:DHFR_ATOMS], pos[:DHFR_ATOMS])
+    e_err = float((e_prior.double().sum() - e_ref).abs() / e_ref.abs())
+    f_err = float((f_prior.double() - f_ref).abs().max() / f_ref.abs().max())
+    # with the prior minus without it
+    e0, f0 = External((plain, None), z[None]).calculate(requests[0])
+    e1, f1 = results[0]
+    f_prior = f_prior.reshape(f1.shape)
+    eps = torch.finfo(torch.float32).eps
+    de = float(((e1 - e0) - e_prior.detach().reshape(e1.shape)).abs().max())
+    df = float(((f1 - f0) - f_prior).abs().max())
+    de_tol = ZBL_SUM_ULPS * eps * float(e0.abs().max() + e_prior.abs().max())
+    df_tol = ZBL_SUM_ULPS * eps * float(max(f0.abs().max(), f_prior.abs().max()))
+    with_ms = _host_ms(lambda: ext.calculate(requests[0]))
+    without = External((plain, None), z[None])
+    without.calculate(requests[0])
+    without_ms = _host_ms(lambda: without.calculate(requests[0]))
+    log(f"ET {layers}x{ET_ARGS['embedding_dimension']} fused with a ZBL prior (K={zbl_k}, {ZBL_CUTOFF} A) through "
+        f"External at DHFR size: {REQUESTS} requests; launches fwd {launches[0]} bwd {launches[1]}, select_topk "
+        f"{launches[2]} for the model's lists and {prior_launches} for the prior's (one more a call than "
+        f"without the prior); "
+        f"repeat bitwise equal: True; the prior on the card (f32) vs the f64 closed form over {pairs} pairs: "
+        f"E {float(e_prior.detach().sum()):.6f} eV vs {float(e_ref):.6f}, |dE|/|E| {e_err:.3e}, max|dF|/max|F| {f_err:.3e} "
+        f"(tol {ZBL_TOL}); with minus without vs the prior alone: |dE| {de:.3e} (tol {de_tol:.3e}), max|dF| "
+        f"{df:.3e} (tol {df_tol:.3e}); per call (host clock with sync, median of 20) {with_ms:.3f} ms with "
+        f"the prior, {without_ms:.3f} ms without")
+    if e_err > ZBL_TOL or f_err > ZBL_TOL:
+        raise AssertionError("the ZBL prior on the card disagrees with its closed form")
+    if de > de_tol or df > df_tol:
+        raise AssertionError("External with the ZBL prior is not the model without it plus the prior")
+    del prior.build_neighbor_list  # the class's method again
+    return launches, prior_launches, ext, requests[0]
+
+
+def _rotate_molecules(batch, seed):
+    """``batch`` with every molecule turned by its own random rotation about
+    its centroid (seeded), padding atoms left in place."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    m = batch.num_mol
+    q, r = torch.linalg.qr(torch.randn(m, 3, 3, generator=g, dtype=torch.float64))
+    rot = q * torch.sign(torch.diagonal(r, dim1=-2, dim2=-1))[:, None, :]
+    rot = (rot * torch.linalg.det(rot)[:, None, None]).to(batch.pos.device)  # proper rotations
+    real = batch.atom_mask
+    ids, pos = batch.batch[real], batch.pos[real].double()
+    count = torch.bincount(ids, minlength=m).clamp(min=1).double()
+    centroid = torch.zeros((m, 3), dtype=pos.dtype, device=pos.device).index_add_(0, ids, pos) / count[:, None]
+    turned = torch.einsum("nij,nj->ni", rot[ids], pos - centroid[ids]) + centroid[ids]
+    out = batch.pos.clone()
+    out[real] = turned.to(out.dtype)
+    return batch.replace(pos=out)
+
+
+def dipole_path(ds, tn_batch):
+    """Phase B: the dipole moment served by ET at examples/ET-QM9.yaml's
+    widths, fused bf16, derivative false, on 128 SyntheticMorse molecules of
+    18 atoms: #1 once per layer per call (the batch's list is brute:
+    ``Potential.neighbors`` sends batches of small molecules there, so #6
+    does not run).  Checks against the composable fp32 path (FWD_TOL of the
+    largest |mu|), |mu| under a seeded rotation of every molecule and mu
+    under a translation (the same tolerance: the bf16 roundings move with
+    the inputs); the spatial extent and the vector heads one call each
+    against their composable path, and TensorNet's DipoleMoment on its
+    training batch (TN_FWD_TOL).  Returns (#1 launches of the dipole call,
+    #8 launches of TensorNet's, #1's (ms, plain ms, bound ms, bound by) at
+    this shape, its largest absolute error against its plain version, the
+    dipole call)."""
+    import torch
+
+    from torchmdnet_tpu_torch import create_model
+    from torchmdnet_tpu_torch.ops.kernels import et_message as em
+    from torchmdnet_tpu_torch.ops.kernels import tn_message as tm
+    from torchmdnet_tpu_torch.ops.kernels.select_topk import select_topk
+
+    batch = _train_batch(ds, "cuda")
+    layers = DIPOLE_ARGS["num_layers"]
+
+    def pair(args):
+        fused = create_model(args, seed=SEED)
+        comp = create_model(dict(args, bf16_messages=False, fused_attention=False, fused_message=False), seed=SEED)
+        comp.module.load_state_dict(fused.module.state_dict())
+        return fused, comp
+
+    def serve(model, b):
+        with torch.no_grad():
+            return model.energy(b, nbl=model.neighbors(b).raise_on_overflow("the dipole batch"))
+
+    def err(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    fused, comp = pair(DIPOLE_ARGS)
+    head = type(fused.module.output_model).__name__
+    if head != "EquivariantDipoleMoment" or fused.module.priors:
+        raise AssertionError(f"expected an EquivariantDipoleMoment head without priors, got {head}")
+    _reset_launches()
+    mu = serve(fused, batch)
+    torch.cuda.synchronize()
+    launches = (em.run_fwd.launches, select_topk.launches)
+    if launches != (layers, 0) or em.run_bwd.launches:
+        raise AssertionError(f"one dipole call should launch #1 {layers} times and nothing else, got {launches}")
+    if mu.shape != (batch.num_mol, 1) or not torch.isfinite(mu).all() or not bool((mu > 0).all()):
+        raise AssertionError(f"unexpected dipole moments {tuple(mu.shape)}")
+    tols = dict.fromkeys(("fused vs composable fp32", "rotated molecules", "translated"), FWD_TOL)
+    errs = {"fused vs composable fp32": err(mu, serve(comp, batch)),
+            "rotated molecules": err(serve(fused, _rotate_molecules(batch, SEED + 1)), mu)}
+    shift = torch.tensor([3.7, -2.1, 5.3], device="cuda")
+    errs["translated"] = err(serve(fused, batch.replace(pos=torch.where(batch.atom_mask[:, None],
+                                                                        batch.pos + shift, batch.pos))), mu)
+    ms = _host_ms(lambda: serve(fused, batch))
+    comp_ms = _host_ms(lambda: serve(comp, batch))
+    dipole = fused
+    del fused, comp
+    for name, tol in DIPOLE_OTHER_HEADS.items():
+        fused, comp = pair(dict(DIPOLE_ARGS, output_model=name))
+        out = serve(fused, batch)
+        if not torch.isfinite(out).all():
+            raise AssertionError(f"non-finite {name} outputs")
+        key = f"{type(fused.module.output_model).__name__} vs composable"
+        errs[key], tols[key] = err(out, serve(comp, batch)), tol
+        del fused, comp
+    fused, comp = pair(dict(TN_TRAIN_ARGS, output_model="DipoleMoment", derivative=False))
+    tm.reset_launch_counts()
+    tn_mu = serve(fused, tn_batch)
+    torch.cuda.synchronize()
+    tn_launches = tm.run_fwd.launches
+    tn_err = err(tn_mu, serve(comp, tn_batch))
+    if tn_launches != TN_TRAIN_ARGS["num_layers"]:
+        raise AssertionError(f"TensorNet's dipole call should launch #8 once per layer, got {tn_launches}")
+    del fused, comp
+
+    # #1 at this shape: the kernel, its plain version, its bound
+    a = DIPOLE_ARGS
+    h, heads, rbf = a["embedding_dimension"], a["num_heads"], a["num_rbf"]
+    nbl, ins, _ = _kernel_inputs(None, a["max_num_neighbors"], h, rbf, a["cutoff_upper"], SEED, batch=batch)
+    n, kk = nbl.idx.shape
+    flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")  # 256 MB > L2
+    dirs = (ins["dir0"], ins["dir1"], ins["dir2"])
+    common = [ins[x] for x in ("q", "k", "v", "vec0", "vec1", "vec2", "ea", "cutm", "msk")]
+    w = [ins[x] for x in ("wdk", "bdk", "wdv", "bdv")]
+    kw = dict(heads=heads, act="silu", attn_act="silu")
+    got = em.run_fwd(nbl.idx, *common, dirs, *w, **kw)
+    want = _call(em.et_messages_reference, nbl, ins, heads)
+    fwd_err = max(_rel(g, r) for g, r in zip(got, want))
+    fwd_abs = max(float((g - r).abs().max()) for g, r in zip(got, want))
+    if fwd_err > FWD_TOL:
+        raise AssertionError(f"#1 disagrees with its plain version at the dipole shape: {fwd_err}")
+    fwd_ms = _event_ms(lambda: em.run_fwd(nbl.idx, *common, dirs, *w, **kw), flush=flush)
+    plain_ms = _event_ms(lambda: _call(em.et_messages_reference, nbl, ins, heads), flush=flush)
+    bound_ms, bound_by = _bounds(n, kk, h, rbf, "fwd")
+    log(f"ET dipole serving at ET-QM9's widths ({layers}x{h}, {heads} heads, RBF {rbf}, K {a['max_num_neighbors']}, "
+        f"fused bf16, {batch.num_mol} molecules of {TRAIN_MOL['num_atoms']} atoms, N={batch.num_atoms}): "
+        f"{head}; launches #1 {launches[0]} ({layers} per call), select_topk {launches[1]} (brute list); "
+        + ", ".join(f"{k} max|d|/max|ref| {v:.3e} (tol {tols[k]})" for k, v in errs.items())
+        + f"; TensorNet {TN_TRAIN_ARGS['num_layers']}x{TN_TRAIN_ARGS['embedding_dimension']} "
+        f"DipoleMoment on its training batch (N={tn_batch.num_atoms}): #8 {tn_launches} launches, vs composable "
+        f"{tn_err:.3e} (tol {TN_FWD_TOL}); per call (host clock with sync, median of 20) {ms:.3f} ms fused, "
+        f"{comp_ms:.3f} ms composable fp32; #1 at this shape (N={n} K={kk}, L2 flushed, median of 20) "
+        f"{fwd_ms:.4f} ms (plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by}), vs plain "
+        f"{fwd_err:.3e}")
+    if any(v > tols[k] for k, v in errs.items()) or tn_err > TN_FWD_TOL:
+        raise AssertionError("the dipole and other heads disagree with their composable path or move "
+                             "under a rotation or a translation")
+    return launches[0], tn_launches, (fwd_ms, plain_ms, bound_ms, bound_by), fwd_abs, lambda: serve(dipole, batch)
+
+
+def _prior_dataset():
+    """SyntheticMorse's molecules (TRAIN_MOL) as an InMemoryArrays dataset with
+    seeded partial charges (zero net charge a molecule) and the atomic
+    numbers and scales SyntheticMorse gives its priors (0-99, A, eV)."""
+    import numpy as np
+
+    from torchmdnet_tpu_torch.data.datasets import InMemoryArrays, SyntheticMorse
+
+    src = SyntheticMorse(num_samples=sum(PRIOR_TRAIN_SPLIT), seed=SEED, **TRAIN_MOL)
+    s, n = src.z.shape
+    rng = np.random.default_rng(SEED + 7)
+    pq = rng.normal(scale=0.3, size=(s, n))
+    pq = (pq - pq.mean(axis=1, keepdims=True)).astype(np.float32)
+    ds = InMemoryArrays(src.z.reshape(-1), src.pos.reshape(-1, 3), np.arange(0, s * n + 1, n),
+                        y=src.y, neg_dy=src.neg_dy.reshape(-1, 3), pq=pq.reshape(-1))
+    for key in ("atomic_number", "distance_scale", "energy_scale"):
+        setattr(ds, key, getattr(src, key))
+    return ds
+
+
+def prior_training(workdir):
+    """Phase C: force training of the training benchmark's ET with the ZBL,
+    D2 and Coulomb priors through DataModule -> PaddedLoader -> Trainer (one
+    epoch: three steps and a validation batch of 64 molecules), the priors'
+    arguments taken from the dataset and Coulomb's charges from its ``pq``.
+    Checks: the first batch's prior checks pass (fit makes them), losses
+    finite, #1 once, #2 twice and #3 once per layer per step; then one
+    force-loss gradient against the composable fp32 path
+    (``train_grads_vs_composable``).  Returns (the fit's (fwd, bwd, bwd2,
+    select_topk) launches, the trainer, the dataset, the gradient's
+    configuration)."""
+    import numpy as np
+    import torch
+
+    from torchmdnet_tpu_torch import create_model
+    from torchmdnet_tpu_torch.data.module import DataModule
+    from torchmdnet_tpu_torch.models.potential import create_prior_models
+    from torchmdnet_tpu_torch.ops.kernels import et_message as em
+    from torchmdnet_tpu_torch.train.trainer import Trainer
+
+    ds = _prior_dataset()
+    train, val, test = PRIOR_TRAIN_SPLIT
+    h = dict(TRAIN_ARGS, prior_model=PRIOR_TRAIN_PRIORS, batch_size=PRIOR_TRAIN_BATCH,
+             inference_batch_size=PRIOR_TRAIN_BATCH, num_epochs=1, train_size=train, val_size=val,
+             test_size=test, lr=1e-4, y_weight=1.0, neg_dy_weight=1.0, seed=SEED, num_workers=0,
+             log_dir=os.path.join(workdir, "logs"), save_interval=1)
+    t0 = time.perf_counter()
+    data = DataModule(h, dataset=ds)
+    data.setup()
+    priors = create_prior_models(h, data.dataset)
+    h["prior_args"] = [p.get_init_args() for p in priors]
+    model = create_model(h, priors, mean=data.mean, std=data.std, seed=SEED)
+    names = [type(p).__name__ for p in model.module.priors]
+    if names != PRIOR_TRAIN_PRIORS or model.module.priors[0].atomic_number != tuple(range(100)):
+        raise AssertionError(f"the priors did not take the dataset's arguments: {h['prior_args']}")
+    trainer = Trainer(model, h)
+    _reset_launches()
+    trainer.fit(data)
+    torch.cuda.synchronize()
+    launches = _launches(em)
+    seconds = time.perf_counter() - t0
+    with open(os.path.join(h["log_dir"], "metrics.csv")) as f:
+        rows = [r for r in csv.DictReader(f) if r.get("train_total_mse_loss")]
+    losses = [float(rows[-1][k]) for k in ("train_total_mse_loss", "val_total_mse_loss")] + [trainer.first_step_loss]
+    if not rows or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"training with priors gave non-finite losses: {rows}")
+    layers = TRAIN_ARGS["num_layers"]
+    steps, evals = train // PRIOR_TRAIN_BATCH, -(-val // PRIOR_TRAIN_BATCH)
+    expected = (layers * (steps + evals), layers * (2 * steps + evals), layers * steps, 0)
+    if launches != expected or trainer.state.global_step != steps:
+        raise AssertionError(f"expected launches {expected} for {steps} steps and {evals} evaluation batches "
+                             f"with the priors, got {launches}")
+    _check_et_parts("prior_train", launches[1], launches[2])
+    charges = data.train_dataloader()
+    first = next(iter(charges))
+    log(f"force training with priors {names} (DataModule -> PaddedLoader -> Trainer, {TRAIN_ARGS['num_layers']}x"
+        f"{TRAIN_ARGS['embedding_dimension']} fused bf16, batches of {PRIOR_TRAIN_BATCH} molecules, "
+        f"N={first.num_atoms}, partial charges collated: {sorted(first.extra)}, net charge per molecule "
+        f"max |{float(np.abs(np.add.reduceat(ds.pq, ds.offsets[:-1])).max()):.2e}|): prior args, atomic numbers "
+        f"0-99 from the dataset and "
+        f"{json.dumps([{k: v for k, v in a.items() if k != 'atomic_number'} for a in h['prior_args']])}; "
+        f"first-batch prior checks passed; first step loss "
+        f"{trainer.first_step_loss:.4f}, train {losses[0]:.4f}, val {losses[1]:.4f}; launches fwd {launches[0]} "
+        f"bwd {launches[1]} bwd2 {launches[2]} select_topk {launches[3]} ({steps} steps x (1, 2, 1) x L + {evals} "
+        f"evaluation batch x (1, 1, 0) x L, L={layers}); {seconds:.1f} s in all")
+    cfg = dict(_train_cfg("et"), args=dict(TRAIN_ARGS, prior_model=PRIOR_TRAIN_PRIORS, prior_args=h["prior_args"]),
+               batch=PRIOR_TRAIN_BATCH, label=f"ET {layers}x{TRAIN_ARGS['embedding_dimension']} with "
+               f"{'/'.join(names)}")
+    train_grads_vs_composable(ds, cfg)
+    return launches, trainer, ds, cfg
+
+
 def main():
     import torch
 
@@ -3017,7 +3459,8 @@ def main():
                                        batch=_train_batch(train_ds, "cuda"))
     stmv = _stmv_batch()
     keys, k, _ = stmv_skin_keys(stmv)
-    sel_cases, sel_label_of = select_cases(_synthetic_batch(DHFR_ATOMS, SEED, "cuda")[2], stmv, keys, k)
+    zbl_k = find_zbl_k()
+    sel_cases, sel_label_of = select_cases(_synthetic_batch(DHFR_ATOMS, SEED, "cuda")[2], stmv, keys, k, zbl_k)
     log_select_topk_resources(sel_cases)
     sel_abs = check_select_topk(sel_cases)
     check_cell_vs_brute(DHFR_ATOMS)
@@ -3047,11 +3490,13 @@ def main():
     log_ell_resources(gn_nbls)
     gn_errs = check_ell_gather(gn_nbls)
     ext_launches, ext, pos, _, _ = main_path(ET_ARGS, em, "ET 6x128 fused")
+    zbl_launches, zbl_prior_launches, zbl_ext, zbl_pos = zbl_path(zbl_k)
     tn_ext_launches, tn_ext, tn_pos, tn_call_ms, _ = main_path(TN_ARGS, tm, "TensorNet 2x128 fused")
     tn_strong_messages()
     gn_ext_launches, gn_ext, gn_pos, gn_call_ms, _ = main_path(GN_ARGS, _gn_km(), "GN 6x128")
     t_ext_launches, t_ext, t_pos, t_call_ms, t_share = main_path(T_ARGS, tmk, "Transformer 6x128 fused")
     t_strong_messages(t_share)
+    dipole_launches, tn_dipole_launches, dipole_fwd, dipole_abs, dipole_call = dipole_path(train_ds, tn_batch)
     gn_fwd = gn_forward()
     times = time_kernels(seed=SEED)
     train_ms, train_plain, train_bounds = time_train_kernels(_train_batch(train_ds, "cuda"))
@@ -3075,6 +3520,11 @@ def main():
     t_cfg = _train_cfg("t")
     train_grads_vs_composable(train_ds, t_cfg)
     with tempfile.TemporaryDirectory() as workdir:
+        prior_train_launches, prior_trainer, prior_ds, prior_cfg = prior_training(workdir)
+    prior_batch = _train_batch(prior_ds, "cuda", PRIOR_TRAIN_BATCH)
+    prior_ms, _, prior_bounds = time_train_kernels(prior_batch, "the prior-training shapes")
+    del prior_ds
+    with tempfile.TemporaryDirectory() as workdir:
         trainer, train_launches = train_cli(workdir, et_cfg)
     with tempfile.TemporaryDirectory() as workdir:
         tn_trainer, tn_train_launches = train_cli(workdir, tn_cfg)
@@ -3091,12 +3541,18 @@ def main():
     profile_calls(tn_ext, tn_pos, TN_SERVE_KERNELS, "fused TensorNet")
     profile_calls(gn_ext, gn_pos, GN_KERNELS, "GN")
     profile_calls(t_ext, t_pos, T_SERVE_KERNELS, "fused Transformer")
+    profile_calls(zbl_ext, zbl_pos, ET_SERVE_KERNELS + ("select_topk_kernel",), "fused ET with a ZBL prior")
+    wall, busy, groups, other, launches, _ = _profile(dipole_call, 3, ("et_fwd_kernel",))
+    log(f"profile of 3 ET dipole calls at ET-QM9's widths (torch.profiler): wall {wall:.3f} ms/call, device busy "
+        f"{busy:.3f} ms/call ({100 * busy / wall:.1f}%); {_shares(groups, other, busy)} "
+        f"({launches:.0f} other launches/call)")
     profile_md(sim)
     profile_md(gn_sim, GN_KERNELS, "GN", steps=2 * MD_VALID_EVERY)
     profile_train(trainer, train_batch, et_cfg)
     profile_train(tn_trainer, tn_train_batch, tn_cfg)
     profile_train(gn_trainer, gn_train_batch, gn_cfg)
     profile_train(t_trainer, t_train_batch, t_cfg)
+    profile_train(prior_trainer, prior_batch, prior_cfg)
     log(f"TensorNet paths: DHFR energy+forces {tn_call_ms:.3f} ms/call, TensorNet-ANI1X training "
         f"{tn_step_ms:.3f} ms/step ({1e3 * TN_TRAIN_BATCH / tn_step_ms:.1f} molecules/s)")
     log(f"GN paths: DHFR energy+forces {gn_call_ms:.3f} ms/call (bf16 messages, K=80); forward "
@@ -3125,6 +3581,12 @@ def main():
         "t_train": dict(zip(("t_message_fwd", "t_message_bwd", "t_message_bwd2", "select_topk"), t_train_launches)),
         "t_md_brute_pallas": dict(zip(("t_message_fwd", "t_message_bwd", "compaction", "select_topk"),
                                       t_md_launches)),
+        "zbl_external_dhfr": dict(zip(("et_message_fwd", "et_message_bwd", "select_topk"), zbl_launches)),
+        "zbl_prior_dhfr": {"select_topk": zbl_prior_launches},
+        "dipole_qm9": {"et_message_fwd": dipole_launches},
+        "tn_dipole": {"tn_message_fwd": tn_dipole_launches},
+        "prior_train": dict(zip(("et_message_fwd", "et_message_bwd", "et_message_bwd2", "select_topk"),
+                                prior_train_launches)),
     }
     for path, parts in PART_LAUNCHES.items():
         paths[path].update(parts)
@@ -3140,9 +3602,14 @@ def main():
     gn_at = {where: {kind: (t["ms"], t["bound_ms"]) for kind, t in v.items() if kind != "shape"}
              for where, v in gn_times.items()}
     timed_at = {
-        "et_message_fwd": {"md_stmv": times["stmv_fwd"], "train": (train_ms["fwd"], train_bounds["fwd"][0])},
-        "et_message_bwd": {"md_stmv": times["stmv_bwd"], "train": (train_ms["bwd_w"], train_bounds["bwd_w"][0])},
-        "tn_message_fwd": {"tn_train": tn_times[("training", "fwd")][::2][:2]},
+        "et_message_fwd": {"md_stmv": times["stmv_fwd"], "train": (train_ms["fwd"], train_bounds["fwd"][0]),
+                           "dipole_qm9": (dipole_fwd[0], dipole_fwd[2]),
+                           "prior_train": (prior_ms["fwd"], prior_bounds["fwd"][0])},
+        "et_message_bwd": {"md_stmv": times["stmv_bwd"], "train": (train_ms["bwd_w"], train_bounds["bwd_w"][0]),
+                           "prior_train": (prior_ms["bwd_w"], prior_bounds["bwd_w"][0])},
+        "et_message_bwd2": {"prior_train": (prior_ms["bwd2"], prior_bounds["bwd2"][0])},
+        "tn_message_fwd": {"tn_train": tn_times[("training", "fwd")][::2][:2],
+                           "tn_dipole": tn_times[("training", "fwd")][::2][:2]},
         "tn_message_bwd": {"tn_train": tn_times[("training", "bwd_w")][::2][:2]},
         "t_message_fwd": {"t_train": t_times[("training", "fwd")][::2][:2]},
         "t_message_bwd": {"t_train": t_times[("training", "bwd_w")][::2][:2]},
@@ -3165,7 +3632,7 @@ def main():
     kernels = []
     for name, source, line, (ms, plain_ms, bound_ms, bound_by, lib_ms), err in (
         ("et_message_fwd", "et_message.cu", "et_message.py:227", times["fwd"] + (None,),
-         max(fwd_abs, times["stmv_abs"][0])),
+         max(fwd_abs, times["stmv_abs"][0], dipole_abs)),
         ("et_message_bwd", "et_message.cu", "et_message.py:296", times["bwd"] + (None,),
          max(bwd_abs, times["stmv_abs"][1])),
         ("et_message_bwd2", "et_message.cu", "et_message.py:685", bwd2_row, bwd2_abs),

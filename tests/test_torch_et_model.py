@@ -148,7 +148,14 @@ def test_entry_points_never_fall_back_to_the_cpu():
 def test_configuration_errors():
     with pytest.raises(ValueError, match="bf16_messages"):
         create_model(dict(ARGS, fused_attention=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        create_model(dict(ARGS, output_model="DipoleMoment"), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        create_model(dict(ARGS, prior_model="ZBL"), device="cpu")
+    # every head builds (ported), and an unknown name still raises
+    head = create_model(dict(ARGS, output_model="DipoleMoment"), device="cpu").module.output_model
+    assert type(head).__name__ == "EquivariantDipoleMoment"
+    with pytest.raises(KeyError):
+        create_model(dict(ARGS, output_model="Quadrupole"), device="cpu")
+    # the pair priors build (ported), and an unknown name still raises
+    pm = create_model(dict(ARGS, prior_model=[{"ZBL": {"atomic_number": list(range(100))}}, "Coulomb"]),
+                      device="cpu")
+    assert [type(p).__name__ for p in pm.module.priors] == ["ZBL", "Coulomb"]
+    with pytest.raises(ValueError, match="Unknown prior model"):
+        create_model(dict(ARGS, prior_model="Hessian"), device="cpu")

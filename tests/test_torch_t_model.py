@@ -224,5 +224,8 @@ def test_configuration_errors():
         create_model(dict(ARGS, fused_attention=True), device="cpu")
     with pytest.raises(ValueError, match="distance_influence"):
         create_model(dict(ARGS, distance_influence="queries"), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        create_model(dict(ARGS, output_model="DipoleMoment"), device="cpu")
+    # every head builds (ported), and an unknown name still raises
+    head = create_model(dict(ARGS, output_model="DipoleMoment"), device="cpu").module.output_model
+    assert type(head).__name__ == "DipoleMoment"
+    with pytest.raises(KeyError):
+        create_model(dict(ARGS, output_model="Quadrupole"), device="cpu")

@@ -168,5 +168,8 @@ def test_configuration_errors():
         create_model(dict(ARGS, fused_message=True), device="cpu")
     with pytest.raises(ValueError, match="equivariance group"):
         create_model(dict(ARGS, equivariance_invariance_group="E(3)"), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        create_model(dict(ARGS, output_model="DipoleMoment"), device="cpu")
+    # every head builds (ported), and an unknown name still raises
+    head = create_model(dict(ARGS, output_model="DipoleMoment"), device="cpu").module.output_model
+    assert type(head).__name__ == "DipoleMoment"
+    with pytest.raises(KeyError):
+        create_model(dict(ARGS, output_model="Quadrupole"), device="cpu")

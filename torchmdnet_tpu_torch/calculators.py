@@ -40,11 +40,13 @@ class External:
             is ``eval``ed as the reference does.
         use_box: set True when ``calculate`` will be called with a box.
         check_errors: check on the first ``calculate`` that the neighbor
-            capacity holds for this system (one host fetch).
+            capacities hold for this system: the model's list and each
+            prior's own (a host fetch each).
 
     The cell list's static sizes are probed from the first request, as
-    ``md.Simulation`` probes them: the defaults hold for the 5 A cutoff at
-    DHFR size but not for TensorNet's 4.5 A, whose smaller cells number more.
+    ``md.Simulation`` probes them, for the model's list and for each pair
+    prior's own: the defaults hold for the 5 A cutoff at DHFR size but not
+    for TensorNet's 4.5 A or ZBL's 4 A, whose smaller cells number more.
     """
 
     def __init__(self, netfile, embeddings, device=None, output_transform=None,
@@ -121,10 +123,15 @@ class External:
         if self._neighbor_kwargs is None:
             self._neighbor_kwargs = probe_cell_kwargs(
                 batch, cutoff_upper=self.model.args.get("cutoff_upper", 5.0), box=box)
+            # each pair prior's own list, at its cutoff
+            for prior in self.model.module.priors:
+                prior.probe_cell_sizes(batch)
         if self._check_errors:
             self._check_errors = False
             self.model.neighbors(batch, box=box, **self._neighbor_kwargs).raise_on_overflow(
                 "External.calculate")
+            for prior in self.model.module.priors:
+                prior.check_neighbor_capacity(batch, "External.calculate")
         nbl = self.model.neighbors(batch, box=box, **self._neighbor_kwargs)
         energy, forces = self.model.energy_and_forces(batch, box=box, nbl=nbl)
         return self.output_transformer(

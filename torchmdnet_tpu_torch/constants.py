@@ -1,4 +1,4 @@
-"""Physical constants (the port's copy of torchmdnet_tpu/constants.py's masses).
+"""Physical constants (the port's copy of torchmdnet_tpu/constants.py).
 
 Standard atomic weights (IUPAC 2013, doi:10.1515/pac-2015-0305), indexed by
 atomic number Z, with index 0 set to 1.0 as a harmless placeholder: the
@@ -37,3 +37,13 @@ ATOMIC_MASSES = np.array([
     289.194, 293.204, 293.208, 294.214,
 ])
 # fmt: on
+
+# Coulomb constant prefactor of the ZBL and Coulomb priors, in J * m
+# (elementary_charge^2 / (4 pi epsilon_0)).
+COULOMB_CONSTANT_JM = 2.30707755e-28
+
+# Bohr radius in meters (the ZBL screening length).
+BOHR_RADIUS_M = 5.29177210903e-11
+
+# Avogadro's number (the D2 prior's J -> J/mol conversion).
+AVOGADRO = 6.02214076e23

@@ -26,6 +26,10 @@ class AtomicBatch:
     num_mol: int  # M, the padded molecule capacity
     y: Optional[torch.Tensor] = None  # (M, 1) energy labels
     neg_dy: Optional[torch.Tensor] = None  # (N, 3) force labels
+    q: Optional[torch.Tensor] = None  # (M,) total charge
+    s: Optional[torch.Tensor] = None  # (M,) spin
+    # per-atom fields by name, (N,) each (e.g. "partial_charges")
+    extra: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
 
     @property
     def num_atoms(self) -> int:
@@ -34,26 +38,37 @@ class AtomicBatch:
     def replace(self, **changes) -> "AtomicBatch":
         return dataclasses.replace(self, **changes)
 
-    def to(self, device) -> "AtomicBatch":
-        """The same batch with every tensor on ``device``."""
-        return self.replace(**{
-            f.name: getattr(self, f.name).to(device)
+    def map_tensors(self, fn) -> "AtomicBatch":
+        """The same batch with ``fn`` applied to every tensor, those in
+        ``extra`` too."""
+        changes = {
+            f.name: fn(getattr(self, f.name))
             for f in dataclasses.fields(self)
             if isinstance(getattr(self, f.name), torch.Tensor)
-        })
+        }
+        changes["extra"] = {key: fn(value) for key, value in self.extra.items()}
+        return self.replace(**changes)
+
+    def to(self, device) -> "AtomicBatch":
+        """The same batch with every tensor on ``device``."""
+        return self.map_tensors(lambda t: t.to(device))
 
 
 def pad_molecules(
     mols: Sequence[Dict[str, np.ndarray]],
     num_atoms: int,
     num_mol: Optional[int] = None,
+    extra_atom_keys: Sequence[str] = (),
     float_dtype=np.float32,
     device="cpu",
 ) -> AtomicBatch:
     """Collate a list of per-molecule dicts ``{"z": (n,), "pos": (n, 3)}``,
     with the optional labels ``y`` (energy) and ``neg_dy`` (n, 3) (forces),
-    into one padded AtomicBatch, built on ``device`` (the CPU unless named).
-    A label is carried when every molecule has it; padding rows are zero."""
+    the per-molecule ``q`` (charge) and ``s`` (spin), and the per-atom
+    fields named by ``extra_atom_keys`` (into ``extra``), into one padded
+    AtomicBatch, built on ``device`` (the CPU unless named).  A label, ``q``
+    or ``s`` is carried when every molecule has it; padding rows are zero.
+    The arrays are the JAX package's collation, bit for bit."""
     if num_mol is None:
         num_mol = len(mols)
     if len(mols) > num_mol:
@@ -69,8 +84,13 @@ def pad_molecules(
     mol_mask = np.zeros(num_mol, dtype=bool)
     has_y = bool(mols) and all(m.get("y") is not None for m in mols)
     has_f = bool(mols) and all(m.get("neg_dy") is not None for m in mols)
+    has_q = bool(mols) and all(m.get("q") is not None for m in mols)
+    has_s = bool(mols) and all(m.get("s") is not None for m in mols)
     y = np.zeros((num_mol, 1), dtype=float_dtype) if has_y else None
     neg_dy = np.zeros((num_atoms, 3), dtype=float_dtype) if has_f else None
+    q = np.zeros(num_mol, dtype=float_dtype) if has_q else None
+    s = np.zeros(num_mol, dtype=float_dtype) if has_s else None
+    extra = {key: np.zeros(num_atoms, dtype=float_dtype) for key in extra_atom_keys}
     offset = 0
     for i, m in enumerate(mols):
         n = len(m["z"])
@@ -84,15 +104,21 @@ def pad_molecules(
             y[i, 0] = np.asarray(m["y"]).reshape(-1)[0]
         if has_f:
             neg_dy[sl] = m["neg_dy"]
+        if has_q:
+            q[i] = np.asarray(m["q"]).reshape(-1)[0]
+        if has_s:
+            s[i] = np.asarray(m["s"]).reshape(-1)[0]
+        for key in extra_atom_keys:
+            extra[key][sl] = np.asarray(m[key]).reshape(n)
         offset += n
 
     def t(a):
-        return torch.as_tensor(a, device=device)
+        return None if a is None else torch.as_tensor(a, device=device)
 
     return AtomicBatch(
         z=t(z), pos=t(pos), batch=t(batch), atom_mask=t(atom_mask),
-        mol_mask=t(mol_mask), num_mol=num_mol,
-        y=None if y is None else t(y), neg_dy=None if neg_dy is None else t(neg_dy),
+        mol_mask=t(mol_mask), num_mol=num_mol, y=t(y), neg_dy=t(neg_dy), q=t(q), s=t(s),
+        extra={key: t(value) for key, value in extra.items()},
     )
 
 
@@ -105,7 +131,9 @@ def spatial_sort(batch: AtomicBatch, cell: float = 5.0) -> Tuple[AtomicBatch, to
     Atom order means nothing to the models; per-atom outputs (forces) come
     back in the sorted order and map to the original one with the inverse
     permutation, ``forces_original = forces_sorted[torch.argsort(order)]``.
-    Force labels (``neg_dy``) move with their atoms.
+    Every tensor whose first axis is the atom axis moves with its atoms: the
+    force labels (``neg_dy``) and the per-atom fields of ``extra`` (partial
+    charges) too, as the JAX package permutes every such leaf.
     ``cell`` should be about the model cutoff.  Returns (sorted batch, order).
     """
     pos = batch.pos.detach().cpu().numpy()
@@ -117,8 +145,4 @@ def spatial_sort(batch: AtomicBatch, cell: float = 5.0) -> Tuple[AtomicBatch, to
     key = np.where(mask, key, np.iinfo(np.int64).max)  # padding last
     order = torch.as_tensor(np.argsort(key, kind="stable"), device=batch.pos.device)
     n = batch.num_atoms
-    return batch.replace(**{
-        f.name: getattr(batch, f.name)[order]
-        for f in dataclasses.fields(batch)
-        if isinstance(getattr(batch, f.name), torch.Tensor) and getattr(batch, f.name).shape[:1] == (n,)
-    }), order
+    return batch.map_tensors(lambda t: t[order] if t.shape[:1] == (n,) else t), order

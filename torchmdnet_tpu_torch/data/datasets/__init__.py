@@ -1,9 +1,9 @@
 """Dataset registry (counterpart of torchmdnet_tpu/data/datasets/__init__.py).
 
-Samples are dicts of numpy arrays with keys z, pos and optionally y, neg_dy
-(and, in the datasets still to port, q, s, pq, dp).  The registry names
-every dataset of the JAX package; those whose files need a download are not
-ported yet and raise.
+Samples are dicts of numpy arrays with keys z, pos and optionally y, neg_dy,
+q, s, pq (per-atom partial charges, which the loader carries to the Coulomb
+prior) and dp.  The registry names every dataset of the JAX package; those
+whose files need a download are not ported yet and raise.
 """
 
 from torchmdnet_tpu_torch.data.datasets.base import InMemoryArrays, MolecularDataset, Subset  # noqa: F401
@@ -12,8 +12,8 @@ from torchmdnet_tpu_torch.data.datasets.synthetic import SyntheticMorse  # noqa:
 
 DATASETS_TODO = (
     "is not ported yet: its files need a download, and the port trains on the "
-    "in-repo DummyDataset and SyntheticMorse so far (ROADMAP.md, 'Modules to "
-    "port', item 6)"
+    "in-repo DummyDataset and SyntheticMorse so far (ROADMAP.md, 'The next "
+    "bring_up slices', item 1)"
 )
 
 

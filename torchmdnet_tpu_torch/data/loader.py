@@ -7,13 +7,16 @@ batched within a bucket and padded to the bucket's own capacity; the order of
 batches shuffles across buckets.  The epoch plan (shuffle order, buckets,
 ``drop_last``) is the JAX package's for the same seed and epoch, and the
 batches are collated in numpy (``pad_molecules``), so they are bitwise the
-JAX package's.  Batches come out on ``device`` (the CPU unless named).
+JAX package's.  The per-atom fields named by ``extra_atom_keys`` go into
+``batch.extra``; a sample's ``pq`` is carried as ``partial_charges``, the
+name the Coulomb prior reads.  Batches come out on ``device`` (the CPU
+unless named).
 """
 
 import math
 import queue
 import threading
-from typing import Iterator, Optional
+from typing import Iterator, Optional, Sequence
 
 import numpy as np
 
@@ -32,6 +35,7 @@ class PaddedLoader:
         shuffle: bool = False,
         seed: int = 0,
         num_atoms_pad: Optional[int] = None,
+        extra_atom_keys: Sequence[str] = (),
         drop_last: bool = False,
         prefetch: int = 0,
         float_dtype=np.float32,
@@ -43,6 +47,7 @@ class PaddedLoader:
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.seed = seed
+        self.extra_atom_keys = tuple(extra_atom_keys)
         self.drop_last = drop_last
         self.epoch = 0
         self.prefetch = prefetch
@@ -100,7 +105,11 @@ class PaddedLoader:
         self.epoch += 1
         for idxs, cap in plan:
             mols = [self.dataset[int(i)] for i in idxs]
+            for j, m in enumerate(mols):
+                if "pq" in m and "partial_charges" not in m:
+                    mols[j] = dict(m, partial_charges=m["pq"])
             yield pad_molecules(mols, num_atoms=cap, num_mol=self.batch_size,
+                                extra_atom_keys=self.extra_atom_keys,
                                 float_dtype=self.float_dtype, device=self.device)
 
     def __iter__(self) -> Iterator[AtomicBatch]:

@@ -65,12 +65,21 @@ class DataModule:
             seed=h.get("seed", 1),
             # bucketed loaders take their capacities from the subset they serve
             num_atoms_pad=None if num_buckets > 1 else self.num_atoms_pad,
+            extra_atom_keys=("partial_charges",) if self._has_partial_charges() else (),
             float_dtype=float_dtype,
             prefetch=2 if h.get("num_workers", 0) else 0,
             num_buckets=num_buckets,
             pad_multiple=PAD_MULTIPLE,
             device=self.device,
         )
+
+    def _has_partial_charges(self):
+        """Whether the samples carry per-atom partial charges (``pq``), which
+        the loaders then collate into ``batch.extra["partial_charges"]``."""
+        if len(self.dataset) == 0:
+            return False
+        sample = self.dataset[0]
+        return "pq" in sample or "partial_charges" in sample
 
     def train_dataloader(self):
         return self._loader(self.train_dataset, "train")

@@ -47,7 +47,7 @@ _KB = 8.617333262e-5
 
 _PARALLEL_TODO = (
     "MD over a device mesh (mesh / edge_partition) is not ported yet "
-    "(ROADMAP.md, 'Modules to port', item 9: slice G, the parallel layer)"
+    "(ROADMAP.md, 'The next bring_up slices', item 4: slice G, the parallel layer)"
 )
 
 
@@ -130,6 +130,9 @@ class Simulation:
                         **self.neighbor_kwargs).raise_on_overflow(
             "the initial MD configuration"
         )
+        for prior in model.module.priors:
+            prior.probe_cell_sizes(batch)
+            prior.check_neighbor_capacity(batch, "the initial MD configuration")
         self.generator = torch.Generator(device=dev).manual_seed(int(seed))
         self._carried = None  # (pos, forces): the last evaluation and where it was made
         self.state = MDState(

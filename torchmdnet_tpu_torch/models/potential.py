@@ -7,10 +7,12 @@
   package takes, ``create_prior_models`` its priors, ``load_model`` a
   Potential from a port checkpoint.  All four representation models (the
   equivariant transformer, TensorNet, the graph network and the
-  Transformer) are ported; of the priors, Atomref.
+  Transformer) are ported, with the seven output heads and the Atomref,
+  ZBL, Coulomb and D2 priors.
 """
 
 import dataclasses
+import inspect
 import math
 from typing import Any, Dict, Optional
 
@@ -21,7 +23,7 @@ from torch import nn
 from torchmdnet_tpu_torch.data.batch import AtomicBatch
 from torchmdnet_tpu_torch.models.et import TorchMD_ET
 from torchmdnet_tpu_torch.models.graph_network import TorchMD_GN
-from torchmdnet_tpu_torch.models.output_heads import head_class
+from torchmdnet_tpu_torch.models.output_heads import head_class_mapping
 from torchmdnet_tpu_torch.models.tensornet import TensorNet
 from torchmdnet_tpu_torch.models.transformer import TorchMD_T
 from torchmdnet_tpu_torch.ops.neighbors import neighbor_list
@@ -57,13 +59,13 @@ class EnergyModel(nn.Module):
         x = self.output_model.pre_reduce(x, v, z, pos, batch_ids)
         x = x * self.std
         for prior in self.priors:
-            x = prior.pre_reduce(x, z, pos, batch_ids, batch.atom_mask)
+            x = prior.pre_reduce(x, z, pos, batch_ids, batch.atom_mask, batch.extra)
         # padding atoms carry batch id == m (the trash segment)
         y = segment_reduce(x, batch_ids, m + 1, self.output_model.reduce_op)[:m]
         y = y + self.mean
         y = self.output_model.post_reduce(y)
         for prior in self.priors:
-            y = prior.post_reduce(y, z, pos, batch_ids, batch.atom_mask, m)
+            y = prior.post_reduce(y, z, pos, batch_ids, batch.atom_mask, m, batch.extra)
         return y
 
 
@@ -203,8 +205,10 @@ def create_representation(args: Dict[str, Any], generator: torch.Generator) -> n
 def create_prior_models(args: Dict[str, Any], dataset=None):
     """The priors of ``args["prior_model"]``: a name, a dict {name: kwargs}
     or a list of either; ``prior_args`` saved in a checkpoint replay when
-    present (the JAX package's parser).  Only Atomref is ported; the others
-    raise ``NotImplementedError``."""
+    present (the JAX package's parser).  With a ``dataset``, the pair priors
+    take those of its ``atomic_number``, ``distance_scale`` and
+    ``energy_scale`` that their constructor has and their kwargs do not
+    name, and Atomref its atomref table."""
     from torchmdnet_tpu_torch.priors import Atomref
 
     prior_models = []
@@ -237,6 +241,15 @@ def create_prior_models(args: Dict[str, Any], dataset=None):
             else:
                 prior_models.append(Atomref.from_dataset(dataset=dataset, max_z=kwargs.get("max_z")))
         else:
+            if dataset is not None:
+                # only what the prior's constructor takes (Coulomb has no
+                # atomic_number): JAX passes all three, and its Coulomb
+                # raises a TypeError for a dataset with atomic numbers
+                accepted = inspect.signature(prior_class_mapping[name]).parameters
+                for key in ("atomic_number", "distance_scale", "energy_scale"):
+                    if key in accepted:
+                        kwargs.setdefault(key, getattr(dataset, key, None))
+            kwargs = {k: v for k, v in kwargs.items() if v is not None}
             prior_models.append(prior_class_mapping[name](**kwargs))
     return prior_models
 
@@ -271,7 +284,7 @@ def create_model(
     head_name = args.get("output_model", "Scalar")
     if args["model"] == "equivariant-transformer" and not head_name.startswith("Equivariant"):
         head_name = "Equivariant" + head_name
-    head = head_class(head_name)(
+    head = head_class_mapping[head_name](
         args["embedding_dimension"], args["activation"],
         reduce_op=args.get("reduce_op", "sum"), generator=generator,
     )

@@ -1,27 +1,11 @@
-"""Prior models (counterpart of torchmdnet_tpu/priors).  Atomref is ported;
-the pair priors raise until they are."""
+"""Prior models (counterpart of torchmdnet_tpu/priors)."""
 
 from torchmdnet_tpu_torch.priors.atomref import Atomref  # noqa: F401
 from torchmdnet_tpu_torch.priors.base import BasePrior  # noqa: F401
+from torchmdnet_tpu_torch.priors.coulomb import Coulomb  # noqa: F401
+from torchmdnet_tpu_torch.priors.d2 import D2  # noqa: F401
+from torchmdnet_tpu_torch.priors.zbl import ZBL  # noqa: F401
 
-PRIORS_TODO = (
-    "only the Atomref prior is ported so far; ZBL, Coulomb and D2 follow "
-    "(ROADMAP.md, 'Modules to port', item 5)"
-)
+prior_class_mapping = {"Atomref": Atomref, "D2": D2, "ZBL": ZBL, "Coulomb": Coulomb}
 
-
-def _not_ported(name):
-    def make(*args, **kwargs):
-        raise NotImplementedError(f"prior {name!r}: {PRIORS_TODO}")
-
-    return make
-
-
-prior_class_mapping = {
-    "Atomref": Atomref,
-    "D2": _not_ported("D2"),
-    "ZBL": _not_ported("ZBL"),
-    "Coulomb": _not_ported("Coulomb"),
-}
-
-__all__ = ["Atomref", "BasePrior", "prior_class_mapping"]
+__all__ = ["Atomref", "BasePrior", "Coulomb", "D2", "ZBL", "prior_class_mapping"]

@@ -28,7 +28,7 @@ from torchmdnet_tpu_torch.utils import LoadFromCheckpoint, LoadFromFile, number,
 
 MODEL_CHOICES = ["graph-network", "transformer", "equivariant-transformer", "tensornet"]
 PRIOR_CHOICES = ["Atomref", "D2", "ZBL", "Coulomb"]
-# the JAX package's output heads; those not ported yet raise in create_model
+# the JAX package's output heads, all ported
 HEAD_CHOICES = ["Scalar", "EquivariantScalar", "DipoleMoment", "EquivariantDipoleMoment",
                 "ElectronicSpatialExtent", "EquivariantElectronicSpatialExtent",
                 "EquivariantVectorOutput"]

@@ -7,8 +7,11 @@ names (``representation_model.attention_layers.0.q_proj.weight``, ...) and
 the JAX package's column layout (ET's v/dv projections in global thirds,
 TensorNet's interaction filter in irrep thirds), so no column permutation is
 needed here: the reference's (H, 3)-interleaved TensorNet filter
-(``wproj_column_perm``) applies only to reference torch checkpoints.  A
-prior's table (Atomref's ``priors_0/atomref``) becomes ``priors.0.atomref``.
+(``wproj_column_perm``) applies only to reference torch checkpoints.  Every
+head is ``lin1``/``lin2`` (Scalar, DipoleMoment, ElectronicSpatialExtent)
+or ``block1``/``block2`` (the equivariant heads).  A prior's table
+(Atomref's ``priors_1/atomref``) becomes ``priors.1.atomref``; the pair
+priors have no parameters.
 Flax kernels are (in, out); torch Linear weights are (out, in): transposed
 on the way.  This is the same map as
 torchmdnet_tpu/tools/import_torch.py, read from the other side.
@@ -148,8 +151,10 @@ def _head_and_priors(out, params):
     else:
         _dense(out, "output_model.output_network.0", head["lin1"])
         _dense(out, "output_model.output_network.2", head["lin2"])
-    i = 0
-    while f"priors_{i}" in params:
-        for name, value in params[f"priors_{i}"].items():
-            out[f"priors.{i}.{name}"] = _t(value)
-        i += 1
+    # only priors with parameters have a subtree, so a prior's index is read
+    # from its name
+    for key, value in params.items():
+        if key.startswith("priors_"):
+            i = int(key[len("priors_"):])
+            for name, leaf in value.items():
+                out[f"priors.{i}.{name}"] = _t(leaf)

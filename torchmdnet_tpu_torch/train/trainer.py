@@ -38,13 +38,13 @@ from torchmdnet_tpu_torch.ops.cell_list import probe_cell_kwargs
 from torchmdnet_tpu_torch.train.checkpoints import latest_checkpoint, load_checkpoint, save_checkpoint
 from torchmdnet_tpu_torch.train.loggers import make_loggers
 
+_QUEUE = "ROADMAP.md, 'The next bring_up slices'"
 _LATER_SLICES = {
-    "force_grad_mode": "force_grad_mode='jvp' (forward-over-reverse) is not ported; the port "
-                       "trains force losses by grad-of-grad (ROADMAP.md, queue 1 item 8, training leftovers)",
-    "edge_partition": "edge partitioning needs the parallel layer (ROADMAP.md, queue 1 item 9, slice G)",
-    "ndevices": "training on more than one device needs the parallel layer (ROADMAP.md, queue 1 item 9, "
-                "slice G)",
-    "num_nodes": "multi-host training needs the parallel layer (ROADMAP.md, queue 1 item 9, slice G)",
+    "force_grad_mode": "force_grad_mode='jvp' (forward-over-reverse) is not ported; the port trains force "
+                       f"losses by grad-of-grad ({_QUEUE}, item 3, training leftovers)",
+    "edge_partition": f"edge partitioning needs the parallel layer ({_QUEUE}, item 4, slice G)",
+    "ndevices": f"training on more than one device needs the parallel layer ({_QUEUE}, item 4, slice G)",
+    "num_nodes": f"multi-host training needs the parallel layer ({_QUEUE}, item 4, slice G)",
 }
 
 
@@ -232,6 +232,7 @@ class Trainer:
         self._cell_kwargs = probe_cell_kwargs(batch0, cutoff_upper=cutoff)
         self.model.neighbors(batch0, **self._cell_kwargs).raise_on_overflow("the first training batch")
         for prior in self.model.module.priors:
+            prior.probe_cell_sizes(batch0)
             prior.check_neighbor_capacity(batch0, "the first training batch")
         check_atom_filter_batch(self.model.module, batch0, "the first training batch")
 
