@@ -8,10 +8,11 @@
   formulas; only the order of sums differs).
 - Every head on every model of ``tests/test_model.py`` (the equivariant
   heads on ET, the others on the graph network, the Transformer and
-  TensorNet), whole models through ``state_dict_from_jax`` in f64: energies
-  at rtol 1e-10, and on ET the dipole's forces and the dipole with an atom
-  filter.  One JAX program per model evaluates all its heads: the
-  representation's gradients are held to JAX in each model's own test file.
+  TensorNet), whole models through ``state_dict_from_jax`` in f64 and f32
+  (the same tolerances, of the largest value): energies, and on ET the
+  dipole's forces and the dipole with an atom filter.  One JAX program per
+  model evaluates all its heads: the representation's gradients are held
+  to JAX in each model's own test file.
 - ``_center_of_mass`` with a trash segment and with an atom filter that
   empties a molecule: values and gradients, finite where a segment has no
   mass.
@@ -157,15 +158,17 @@ def _mols():
     return [{"z": rng.integers(1, 10, n), "pos": rng.uniform(0.0, 5.0, (n, 3))} for n in (9, 6)]
 
 
+@pytest.mark.parametrize("precision", [64, 32])
 @pytest.mark.parametrize("model", list(MODEL_HEADS))
-def test_every_head_on_every_model(model):
+def test_every_head_on_every_model(model, precision):
     """Heads with the same keys share one set of weights (Scalar's lin1/lin2
     for the dipole and spatial-extent heads, EquivariantScalar's blocks for
     the equivariant dipole and vector heads), and one JAX program evaluates
     all of a model's heads."""
     heads = MODEL_HEADS[model]
-    args = dict(BASE, model=model, precision=64)
-    jb = jax_pad_molecules(_mols(), num_atoms=16, num_mol=2, float_dtype=np.float64)
+    fdt = np.float64 if precision == 64 else np.float32
+    args = dict(BASE, model=model, precision=precision)
+    jb = jax_pad_molecules(_mols(), num_atoms=16, num_mol=2, float_dtype=fdt)
     jms = {h: jax_create_model(dict(args, output_model=h)) for h in heads}
     # the weights of each parameter layout, drawn once
     params, layout = {}, {}
@@ -186,7 +189,13 @@ def test_every_head_on_every_model(model):
         return out
 
     ref = _compile(fn, params, jb)(params, jb)
-    pb = pad_molecules(_mols(), num_atoms=16, num_mol=2, float_dtype=np.float64)
+    pb = pad_molecules(_mols(), num_atoms=16, num_mol=2, float_dtype=fdt)
+    tol = TOL[precision]
+
+    def check(got, want):
+        want = np.asarray(want)
+        np.testing.assert_allclose(got.detach().numpy(), want, rtol=tol, atol=tol * np.abs(want).max())
+
     for h in heads:
         pm = create_model(dict(args, output_model=h), device="cpu")
         # the fixed RBF shape constants stay the port's buffers
@@ -194,16 +203,16 @@ def test_every_head_on_every_model(model):
         pm.module.load_state_dict(sd)
         y = pm.energy(pb)
         assert y.shape == ((2, 3) if h == "EquivariantVectorOutput" else (2, 1))
-        np.testing.assert_allclose(y.detach().numpy(), np.asarray(ref[h]), rtol=1e-10, atol=1e-12)
+        assert y.dtype == (torch.float64 if precision == 64 else torch.float32)
+        check(y, ref[h])
         if et and h == "DipoleMoment":
             assert type(pm.module.output_model).__name__ == "EquivariantDipoleMoment"
             _, forces = pm.energy_and_forces(pb)
             assert np.abs(np.asarray(ref["forces"])).max() > 1e-3
-            np.testing.assert_allclose(forces.numpy(), np.asarray(ref["forces"]), rtol=1e-10, atol=1e-12)
+            check(forces, ref["forces"])
             pf = create_model(dict(args, output_model=h, atom_filter=1), device="cpu")
             pf.module.load_state_dict(sd)
-            np.testing.assert_allclose(pf.energy(pb).detach().numpy(), np.asarray(ref["filtered"]),
-                                       rtol=1e-10, atol=1e-12)
+            check(pf.energy(pb), ref["filtered"])
 
 
 @functools.lru_cache(maxsize=None)
