@@ -42,7 +42,13 @@ at ET-QM9's widths (fused against composable, under rotations and a
 translation; the other heads and TensorNet's dipole one call each), and
 force training with the ZBL, D2 and Coulomb priors through the DataModule,
 the loader and the Trainer, with Coulomb's partial charges from the
-dataset. It times each. Each phase prints one line; the line before the last is a JSON object
+dataset. The datasets and the reference-checkpoint import:
+examples/ET-MD17.yaml at its widths trained through the CLI on an
+rMD17-format file read by ``MD17`` (the same frames through ``Custom``'s npy
+files equal bitwise), the loader's share of an epoch, and the trained
+checkpoint re-expressed in the upstream torchmd-net layout and served back
+through ``tools.import_torch.import_checkpoint``, bitwise equal to the port
+checkpoint on aspirin frames and at DHFR size. It times each. Each phase prints one line; the line before the last is a JSON object
 with each kernel's numbers, the last line is ``{"ok": true, "device":
 {...}}``. Any failure raises and exits non-zero. Without a CUDA device, or
 outside a checkout, it exits non-zero and prints no result.
@@ -1373,17 +1379,18 @@ def _reset_launches():
     select_topk.launches = 0
 
 
-def time_train_kernels(batch, label="the training shapes"):
+def time_train_kernels(batch, label="the training shapes", args=TRAIN_ARGS):
     """#1, #2 (with and without weight cotangents) and #3 at the training
-    shapes (N=2304, K=33, H=256, 8 heads, RBF=64; or ``batch``'s N), their
-    plain versions and bounds (L2 flushed, median of 20)."""
+    shapes (N=2304, K=33, H=256, 8 heads, RBF=64; or ``batch``'s N and
+    ``args``' widths), their plain versions and bounds (L2 flushed, median
+    of 20)."""
     import torch
 
     from torchmdnet_tpu_torch.ops.kernels import et_message as em
 
-    h, heads, rbf = TRAIN_ARGS["embedding_dimension"], TRAIN_ARGS["num_heads"], TRAIN_ARGS["num_rbf"]
-    nbl, ins, cts = _kernel_inputs(None, TRAIN_ARGS["max_num_neighbors"], h, rbf,
-                                   TRAIN_ARGS["cutoff_upper"], SEED, batch=batch)
+    h, heads, rbf = args["embedding_dimension"], args["num_heads"], args["num_rbf"]
+    nbl, ins, cts = _kernel_inputs(None, args["max_num_neighbors"], h, rbf,
+                                   args["cutoff_upper"], SEED, batch=batch)
     n, kk = nbl.idx.shape
     perm = nbl.transpose_perm
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")  # 256 MB > L2
@@ -3393,6 +3400,299 @@ def prior_training(workdir):
     return launches, trainer, ds, cfg
 
 
+# --- examples/ET-MD17.yaml from an rMD17-format file, and its checkpoint ----
+# served back through the reference-checkpoint import
+
+MD17_CONF = os.path.join("examples", "ET-MD17.yaml")
+MD17_MOLECULE = "revised_aspirin"
+# rMD17's aspirin, its atomic numbers in the file's order (C9H8O4)
+ASPIRIN_Z = (6, 6, 6, 6, 6, 6, 6, 8, 8, 8, 6, 6, 8, 1, 1, 1, 1, 1, 1, 1, 1)
+# SyntheticMorse frames of 21 atoms in a 6.3 A cell (GN_TRAIN_MOL's 2 A spacing)
+MD17_MOL = dict(num_atoms=21, cell=6.3)
+# cuts of the configuration, each named in the phase's line: the yaml trains
+# on 950 / 50 frames (the test set is the rest of rMD17's 100,000) for
+# 10,000 epochs after 1000 warmup steps, with a checkpoint every 10 epochs
+MD17_SPLIT = (192, 32, 32)  # 24 training batches of 8, one val batch, one test batch of 64
+MD17_EPOCHS = 2
+MD17_WARMUP_STEPS = 10
+MD17_SAVE_INTERVAL = 1
+MD17_KERNELS = ("et_fwd_kernel", "et_bwd_kernel", "et_bwd2_kernel", "et_bwd_src_kernel", "et_bwd2_src_kernel",
+                "et_dw_kernel")
+
+
+def write_rmd17(root):
+    """MD17_SPLIT's frames of one molecule with aspirin's atomic numbers,
+    labelled by SyntheticMorse's Morse energies and forces, as rMD17 ships
+    them (``<root>/raw/rmd17/npz_data/rmd17_aspirin.npz``: nuclear_charges,
+    coords, energies, forces, old_indices, old_energies, old_forces), and
+    the same frames as Custom's npy files under ``<root>/custom``.  Returns
+    Custom's globs."""
+    import numpy as np
+
+    from torchmdnet_tpu_torch.data.datasets import MD17, SyntheticMorse
+
+    frames = sum(MD17_SPLIT)
+    morse = SyntheticMorse(num_samples=frames, atom_types=(1, 6, 8), seed=SEED, **MD17_MOL)
+    z = np.asarray(ASPIRIN_Z, dtype=np.int64)
+    coords = morse.pos.astype(np.float64)
+    labels = [morse._energy_forces(z, p) for p in coords]
+    energies = np.array([e for e, _ in labels])
+    forces = np.stack([f for _, f in labels])
+    raw = os.path.join(root, "raw", "rmd17", "npz_data")
+    os.makedirs(raw)
+    np.savez(os.path.join(raw, MD17.file_names[MD17_MOLECULE]), nuclear_charges=z, coords=coords,
+             energies=energies, forces=forces, old_indices=np.arange(frames), old_energies=energies,
+             old_forces=forces)
+    custom = os.path.join(root, "custom")
+    os.makedirs(custom)
+    for name, value in (("coord", coords), ("embed", z), ("energy", energies[:, None]), ("force", forces)):
+        np.save(os.path.join(custom, f"{name}_0.npy"), value)
+    return {f"{name}glob": os.path.join(custom, f"{name}_*.npy") for name in ("coord", "embed", "energy", "force")}
+
+
+def md17_training(workdir):
+    """examples/ET-MD17.yaml at its widths (6 x 128, 8 heads, 32 RBFs,
+    cutoff 5 A, 32 neighbors, batches of 8, derivative, standardize)
+    through the training CLI with the fused bf16 edge phase, on an
+    rMD17-format file that ``MD17("revised_aspirin")`` reads through
+    DataModule and the loader.  Checks: the same frames through Custom's
+    npy files equal MD17's samples bitwise; losses finite and falling; #1
+    once, #2 twice and #3 once per layer per step (plus the evaluations);
+    the checkpoint reloads.  Then the loader's share of an epoch's wall.
+    Returns ((fwd, bwd, bwd2, select_topk) launches, the trainer, a
+    training batch, the best checkpoint's path)."""
+    import numpy as np
+    import torch
+
+    from torchmdnet_tpu_torch.data.datasets import MD17, Custom
+    from torchmdnet_tpu_torch.models.potential import load_model
+    from torchmdnet_tpu_torch.ops.kernels import et_message as em
+    from torchmdnet_tpu_torch.scripts import train as cli
+    from torchmdnet_tpu_torch.train.checkpoints import load_checkpoint
+
+    root = os.path.join(workdir, "data")
+    globs = write_rmd17(root)
+    md17, custom = MD17(root, molecules=MD17_MOLECULE), Custom(**globs)
+    if len(md17) != len(custom) or not np.array_equal(md17.sample_sizes(), custom.sample_sizes()):
+        raise AssertionError("MD17 and Custom read different frame counts from the same frames")
+    for i in range(len(md17)):
+        a, b = md17[i], custom[i]
+        if sorted(a) != sorted(b) or any(a[k].dtype != b[k].dtype or not np.array_equal(a[k], b[k]) for k in a):
+            raise AssertionError(f"frame {i}: MD17 and Custom samples differ")
+    train, val, test = MD17_SPLIT
+    logs = os.path.join(workdir, "logs")
+    flags = ["--conf", os.path.join(ROOT, MD17_CONF), "--dataset-root", root,
+             "--dataset-arg", json.dumps({"molecules": MD17_MOLECULE}), "--train-size", str(train),
+             "--val-size", str(val), "--test-size", str(test), "--num-epochs", str(MD17_EPOCHS),
+             "--lr-warmup-steps", str(MD17_WARMUP_STEPS), "--save-interval", str(MD17_SAVE_INTERVAL),
+             "--fused-attention", "true", "--bf16-messages", "true", "--seed", str(SEED), "--log-dir", logs]
+    t0 = time.perf_counter()
+    _reset_launches()
+    trainer, test_metrics = cli.main(flags)
+    torch.cuda.synchronize()
+    launches = _launches(em)
+    seconds = time.perf_counter() - t0
+    h = trainer.h
+    widths = {k: h[k] for k in ("embedding_dimension", "num_layers", "num_heads", "num_rbf", "cutoff_upper",
+                                "max_num_neighbors", "batch_size", "derivative", "standardize")}
+    if widths != dict(embedding_dimension=128, num_layers=6, num_heads=8, num_rbf=32, cutoff_upper=5.0,
+                      max_num_neighbors=32, batch_size=8, derivative=True, standardize=True):
+        raise AssertionError(f"ET-MD17's widths did not reach the trainer: {widths}")
+    if (h["dataset"], h["dataset_arg"]) != ("MD17", {"molecules": MD17_MOLECULE}):
+        raise AssertionError(f"the CLI did not read the rMD17 file through MD17: {h['dataset']}, {h['dataset_arg']}")
+    with open(os.path.join(logs, "metrics.csv")) as f:
+        rows = [r for r in csv.DictReader(f) if r.get("train_total_mse_loss")]
+    train_losses = [float(r["train_total_mse_loss"]) for r in rows]
+    first = trainer.first_step_loss
+    values = train_losses + [first] + [float(v) for v in test_metrics.values()]
+    if len(rows) != MD17_EPOCHS or not all(math.isfinite(v) for v in values):
+        raise AssertionError(f"ET-MD17 training losses missing or not finite: {rows}, {test_metrics}")
+    if not train_losses[-1] < first:
+        raise AssertionError(f"ET-MD17: the last epoch's train loss {train_losses[-1]} is not below the first "
+                             f"step's {first}")
+    layers, bs, ibs = h["num_layers"], h["batch_size"], h["inference_batch_size"]
+    steps = MD17_EPOCHS * (train // bs)
+    evals = MD17_EPOCHS * -(-val // ibs) + -(-test // ibs)
+    expected = (layers * (steps + evals), layers * (2 * steps + evals), layers * steps, 0)
+    if launches != expected or trainer.state.global_step != steps:
+        raise AssertionError(f"ET-MD17: expected launches {expected} for {steps} steps and {evals} evaluation "
+                             f"batches, got {launches} after {trainer.state.global_step} steps")
+    if _check_et_parts("md17_train", launches[1], launches[2])["et_message_dw"] < launches[2]:
+        raise AssertionError("ET-MD17: the second order's weight reduction did not run once per launch")
+    best = trainer.best_model_path
+    ckpt = load_checkpoint(best)
+    reloaded = load_model(best)
+    same = all(torch.equal(v.cpu(), ckpt["state_dict"][k]) for k, v in reloaded.module.state_dict().items())
+    scale = (trainer.model.module.mean, trainer.model.module.std)
+    if not same or ckpt["optimizer"] is None or (reloaded.module.mean, reloaded.module.std) != scale:
+        raise AssertionError(f"the checkpoint {best} did not reload")
+    log(f"ET-MD17 training CLI (scripts.train.main --conf {MD17_CONF}, {layers}x{h['embedding_dimension']}, "
+        f"{h['num_heads']} heads, {h['num_rbf']} RBFs, K {h['max_num_neighbors']}, batches of {bs}, fused bf16; "
+        f"MD17('{MD17_MOLECULE}') on an rMD17-format file of {len(md17)} SyntheticMorse-labelled frames with "
+        f"aspirin's atomic numbers, equal bitwise to Custom's npy reads; cut: splits {MD17_SPLIT} for the yaml's "
+        f"950/50/rest, {MD17_EPOCHS} epochs for 10000, warmup {MD17_WARMUP_STEPS} steps for 1000, save "
+        f"interval {MD17_SAVE_INTERVAL} for 10): first step loss {first:.4f}, epoch train losses "
+        f"{[round(v, 4) for v in train_losses]}, test {json.dumps({k: round(v, 4) for k, v in test_metrics.items()})}"
+        f"; launches fwd {launches[0]} bwd {launches[1]} bwd2 {launches[2]} select_topk {launches[3]} ({steps} "
+        f"steps x (1, 2, 1) x L + {evals} evaluation batches x (1, 1, 0) x L, L={layers}); checkpoint "
+        f"{os.path.basename(best)} reloads with its mean {scale[0]:.4f} and std {scale[1]:.4f}; {seconds:.1f} s "
+        f"in all")
+    batch = loader_share(trainer, workdir)
+    return launches, trainer, batch, best
+
+
+def loader_share(trainer, workdir):
+    """The loader's share of an ET-MD17 training epoch's wall: one epoch of
+    the training loader alone (collation into a padded batch built on the
+    card, so the host-to-device copy is in it) against one epoch of
+    training steps on it, without prefetch (num_workers 0) and with the
+    yaml's (num_workers 6: a thread collates two batches ahead); host clock
+    with a sync at each end, the second of two rounds.  Returns a training
+    batch on the card."""
+    import torch
+
+    from torchmdnet_tpu_torch.data.datasets import MD17
+    from torchmdnet_tpu_torch.data.module import DataModule
+
+    h = trainer.h
+    loaders = {}
+    for workers in (0, h["num_workers"]):
+        data = DataModule(dict(h, num_workers=workers, log_dir=os.path.join(workdir, f"loader{workers}")))
+        data.setup()
+        if not isinstance(data.dataset, MD17):
+            raise AssertionError(f"DataModule read {type(data.dataset).__name__}, not MD17")
+        loaders[workers] = data.train_dataloader()
+    acc = torch.zeros(4, dtype=trainer.dtype, device="cuda")
+    ema = torch.zeros((), dtype=trainer.dtype, device="cuda")
+
+    def epoch(loader, train):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = 0
+        for b in loader:
+            if train:
+                trainer._train_step(trainer._prepare_batch(b), acc, ema, ema)
+            n += 1
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0), n
+
+    rounds = []
+    for _ in range(2):
+        rounds.append({"loader": epoch(loaders[0], False), "steps": epoch(loaders[0], True),
+                       "steps, prefetch": epoch(loaders[h["num_workers"]], True)})
+    last = rounds[-1]
+    n = last["loader"][1]
+    share = last["loader"][0] / last["steps"][0]
+    log(f"ET-MD17 epoch ({n} batches of {h['batch_size']}, host clock with sync, second of two rounds): loader "
+        f"alone (collation + host-to-device) {last['loader'][0]:.3f} ms ({last['loader'][0] / n:.3f} ms/batch); "
+        f"training epoch {last['steps'][0]:.3f} ms without prefetch, {last['steps, prefetch'][0]:.3f} ms with "
+        f"num_workers {h['num_workers']} (prefetch thread); loader share of the epoch {100 * share:.1f}% "
+        f"(first round: loader {rounds[0]['loader'][0]:.3f} ms, epoch {rounds[0]['steps'][0]:.3f} ms, with "
+        f"prefetch {rounds[0]['steps, prefetch'][0]:.3f} ms)")
+    return trainer._prepare_batch(next(iter(loaders[0])))
+
+
+def reference_checkpoint(path, out):
+    """The port checkpoint at ``path`` re-expressed as an upstream
+    torchmd-net Lightning checkpoint at ``out``: the ``model.`` prefix, the
+    reference's per-head order of ET's v/dv projection rows and (H, 3)
+    interleave of TensorNet's interaction filter (the inverses of the
+    permutations ``tools/import_torch.py`` applies), Atomref's table as
+    ``prior_model.{i}.atomref.weight``, the standardization's mean and std
+    as the reference's ``mean``/``std`` buffers, and ``hyper_parameters``."""
+    import numpy as np
+    import torch
+
+    from torchmdnet_tpu_torch.models.et import vproj_column_perm
+    from torchmdnet_tpu_torch.models.tensornet import wproj_column_perm
+    from torchmdnet_tpu_torch.train.checkpoints import load_checkpoint
+
+    ckpt = load_checkpoint(path)
+    args = ckpt["hyper_parameters"]
+    h = args["embedding_dimension"]
+    inverse = None
+    if args["model"] == "equivariant-transformer":
+        inverse = torch.as_tensor(np.argsort(vproj_column_perm(h, args["num_heads"])))
+    elif args["model"] == "tensornet":
+        inverse = torch.as_tensor(np.argsort(wproj_column_perm(h)))
+    sd = {}
+    for key, value in ckpt["state_dict"].items():
+        parts = key.split(".")
+        if inverse is not None and (parts[-2] in ("v_proj", "dv_proj") or
+                                    (args["model"] == "tensornet" and ".layers." in key
+                                     and ".linears_scalar.2." in key)):
+            value = value[inverse]
+        if parts[0] == "priors":
+            key = f"prior_model.{parts[1]}.{parts[2]}.weight"
+        sd["model." + key] = value.clone()
+    for key in ("mean", "std"):
+        sd[f"model.{key}"] = torch.tensor(float(ckpt["extra"][key]), dtype=torch.float64)
+    torch.save({"state_dict": sd, "hyper_parameters": dict(args), "epoch": ckpt["extra"].get("epoch", 0),
+                "global_step": ckpt["extra"].get("global_step", 0)}, out)
+
+
+def import_serving(best, workdir, md17_batch):
+    """The trained ET-MD17 checkpoint re-expressed in the reference's layout
+    and brought back through ``import_checkpoint``: its weights, and its
+    energy and forces on aspirin frames and on the DHFR-sized system
+    through ``External.calculate``, must be bitwise those of ``load_model``
+    on the port checkpoint (the standardization's mean and std with them).
+    Both take the ET DHFR phase's
+    max_num_neighbors (ET-MD17's 32 at 5 A overflow at DHFR density).
+    Returns the imported model's (fwd, bwd, select_topk) launches over
+    REQUESTS calls."""
+    import torch
+
+    from torchmdnet_tpu_torch import External
+    from torchmdnet_tpu_torch.models.potential import load_model
+    from torchmdnet_tpu_torch.ops.kernels import et_message as em
+    from torchmdnet_tpu_torch.ops.kernels.select_topk import select_topk
+    from torchmdnet_tpu_torch.tools.import_torch import import_checkpoint
+
+    k = ET_ARGS["max_num_neighbors"]
+    ref_path = os.path.join(workdir, "reference.ckpt")
+    reference_checkpoint(best, ref_path)
+    ported = load_model(best, max_num_neighbors=k)
+    imported = import_checkpoint(ref_path, max_num_neighbors=k)
+    a, b = ported.module.state_dict(), imported.module.state_dict()
+    if sorted(a) != sorted(b) or not all(torch.equal(a[key], b[key]) for key in a):
+        raise AssertionError("the imported weights differ from the port checkpoint's")
+    scale = (imported.module.mean, imported.module.std)
+    if scale != (ported.module.mean, ported.module.std) or scale == (0.0, 1.0):
+        raise AssertionError(f"the standardization's mean and std did not come through: {scale}")
+    e_p, f_p = ported.energy_and_forces(md17_batch)
+    e_i, f_i = imported.energy_and_forces(md17_batch)
+    if not (torch.equal(e_p, e_i) and torch.equal(f_p, f_i) and torch.isfinite(f_i).all()):
+        raise AssertionError("the imported model's energy or forces on aspirin frames differ from the port's")
+    z, _, requests = _dhfr_requests()
+    results, launches = {}, None
+    for name, model in (("port", ported), ("imported", imported)):
+        ext = External((model, None), z[None])
+        _reset_launches()
+        results[name] = [tuple(t.clone() for t in ext.calculate(p)) for p in requests]
+        torch.cuda.synchronize()
+        if name == "imported":
+            launches = (em.run_fwd.launches, em.run_bwd.launches, select_topk.launches)
+            _check_et_parts("import_external_dhfr", launches[1], 0)
+            call_ms = _host_ms(lambda: ext.calculate(requests[0]))
+    layers = imported.args["num_layers"]
+    if launches != (layers * REQUESTS, layers * REQUESTS, REQUESTS + 1):
+        raise AssertionError(f"imported ET-MD17 at DHFR size: expected ({layers}, {layers}) launches a request "
+                             f"and {REQUESTS + 1} select_topk, got {launches}")
+    for (e1, f1), (e2, f2) in zip(results["port"], results["imported"]):
+        if not (torch.equal(e1, e2) and torch.equal(f1, f2) and torch.isfinite(f2).all()):
+            raise AssertionError("the imported model serves other energies or forces at DHFR size than the port's")
+    log(f"reference-checkpoint import (tools.import_torch.import_checkpoint) of the ET-MD17 checkpoint "
+        f"re-expressed in the reference layout: weights bitwise the port checkpoint's, mean {scale[0]:.4f} and std "
+        f"{scale[1]:.4f} as load_model's; energy and forces bitwise "
+        f"load_model's on {md17_batch.num_mol} aspirin frames and on {REQUESTS} DHFR requests through "
+        f"External.calculate (max_num_neighbors {k} for both); launches fwd {launches[0]} bwd {launches[1]} "
+        f"({layers}+{layers} per request), select_topk {launches[2]}; energies "
+        f"{[round(float(r[0][0]), 4) for r in results['imported']]}; {call_ms:.3f} ms/call (host clock with "
+        f"sync, median of 20)")
+    return launches
+
+
 def main():
     import torch
 
@@ -3532,6 +3832,18 @@ def main():
         gn_trainer, gn_train_launches = train_cli(workdir, gn_cfg)
     with tempfile.TemporaryDirectory() as workdir:
         t_trainer, t_train_launches = train_cli(workdir, t_cfg)
+    with tempfile.TemporaryDirectory() as workdir:
+        md17_launches, md17_trainer, md17_batch, md17_best = md17_training(workdir)
+        import_launches = import_serving(md17_best, workdir, md17_batch)
+    # #1-#3 against their plain versions at the shapes these two paths run:
+    # ET-MD17's training batch and its widths at DHFR size with K 80
+    mh = md17_trainer.h
+    md17_abs = check_kernels("ET-MD17 training", None, mh["max_num_neighbors"], mh["embedding_dimension"],
+                             mh["num_heads"], mh["num_rbf"], mh["cutoff_upper"], seed=7, batch=md17_batch)
+    md17_dhfr_abs = check_kernels("ET-MD17 widths at DHFR", DHFR_ATOMS, ET_ARGS["max_num_neighbors"],
+                                  mh["embedding_dimension"], mh["num_heads"], mh["num_rbf"], mh["cutoff_upper"],
+                                  seed=8)
+    md17_ms, _, md17_bounds = time_train_kernels(md17_batch, "ET-MD17's training shapes", args=mh)
     train_batch, _ = time_train_steps(trainer, train_ds, et_cfg)
     tn_train_batch, tn_step_ms = time_train_steps(tn_trainer, tn_ds, tn_cfg)
     gn_train_batch, gn_step_ms = time_train_steps(gn_trainer, gn_ds, gn_cfg)
@@ -3553,6 +3865,7 @@ def main():
     profile_train(gn_trainer, gn_train_batch, gn_cfg)
     profile_train(t_trainer, t_train_batch, t_cfg)
     profile_train(prior_trainer, prior_batch, prior_cfg)
+    profile_train(md17_trainer, md17_batch, dict(label="ET-MD17 6x128", kernels=MD17_KERNELS))
     log(f"TensorNet paths: DHFR energy+forces {tn_call_ms:.3f} ms/call, TensorNet-ANI1X training "
         f"{tn_step_ms:.3f} ms/step ({1e3 * TN_TRAIN_BATCH / tn_step_ms:.1f} molecules/s)")
     log(f"GN paths: DHFR energy+forces {gn_call_ms:.3f} ms/call (bf16 messages, K=80); forward "
@@ -3587,6 +3900,9 @@ def main():
         "tn_dipole": {"tn_message_fwd": tn_dipole_launches},
         "prior_train": dict(zip(("et_message_fwd", "et_message_bwd", "et_message_bwd2", "select_topk"),
                                 prior_train_launches)),
+        "md17_train": dict(zip(("et_message_fwd", "et_message_bwd", "et_message_bwd2", "select_topk"),
+                               md17_launches)),
+        "import_external_dhfr": dict(zip(("et_message_fwd", "et_message_bwd", "select_topk"), import_launches)),
     }
     for path, parts in PART_LAUNCHES.items():
         paths[path].update(parts)
@@ -3604,10 +3920,13 @@ def main():
     timed_at = {
         "et_message_fwd": {"md_stmv": times["stmv_fwd"], "train": (train_ms["fwd"], train_bounds["fwd"][0]),
                            "dipole_qm9": (dipole_fwd[0], dipole_fwd[2]),
-                           "prior_train": (prior_ms["fwd"], prior_bounds["fwd"][0])},
+                           "prior_train": (prior_ms["fwd"], prior_bounds["fwd"][0]),
+                           "md17_train": (md17_ms["fwd"], md17_bounds["fwd"][0])},
         "et_message_bwd": {"md_stmv": times["stmv_bwd"], "train": (train_ms["bwd_w"], train_bounds["bwd_w"][0]),
-                           "prior_train": (prior_ms["bwd_w"], prior_bounds["bwd_w"][0])},
-        "et_message_bwd2": {"prior_train": (prior_ms["bwd2"], prior_bounds["bwd2"][0])},
+                           "prior_train": (prior_ms["bwd_w"], prior_bounds["bwd_w"][0]),
+                           "md17_train": (md17_ms["bwd_w"], md17_bounds["bwd_w"][0])},
+        "et_message_bwd2": {"prior_train": (prior_ms["bwd2"], prior_bounds["bwd2"][0]),
+                            "md17_train": (md17_ms["bwd2"], md17_bounds["bwd2"][0])},
         "tn_message_fwd": {"tn_train": tn_times[("training", "fwd")][::2][:2],
                            "tn_dipole": tn_times[("training", "fwd")][::2][:2]},
         "tn_message_bwd": {"tn_train": tn_times[("training", "bwd_w")][::2][:2]},
@@ -3632,10 +3951,11 @@ def main():
     kernels = []
     for name, source, line, (ms, plain_ms, bound_ms, bound_by, lib_ms), err in (
         ("et_message_fwd", "et_message.cu", "et_message.py:227", times["fwd"] + (None,),
-         max(fwd_abs, times["stmv_abs"][0], dipole_abs)),
+         max(fwd_abs, times["stmv_abs"][0], dipole_abs, md17_abs[0], md17_dhfr_abs[0])),
         ("et_message_bwd", "et_message.cu", "et_message.py:296", times["bwd"] + (None,),
-         max(bwd_abs, times["stmv_abs"][1])),
-        ("et_message_bwd2", "et_message.cu", "et_message.py:685", bwd2_row, bwd2_abs),
+         max(bwd_abs, times["stmv_abs"][1], md17_abs[1], md17_dhfr_abs[1])),
+        ("et_message_bwd2", "et_message.cu", "et_message.py:685", bwd2_row,
+         max(bwd2_abs, md17_abs[2], md17_dhfr_abs[2])),
         ("select_topk", "select_topk.cu", "select_topk.py:32", sel_time, sel_abs),
         ("tn_message_fwd", "tn_message.cu", "tn_message.py:77", tn_times[("DHFR", "fwd")][:4] + (None,),
          tn_fwd_abs),

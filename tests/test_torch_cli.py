@@ -73,6 +73,67 @@ def test_conf_yaml_merges_and_rejects_unknown_keys(tmp_path):
         cli.get_args(["--conf", str(conf), "--log-dir", str(tmp_path)])
 
 
+def test_train_on_custom_npy_files(tmp_path, monkeypatch):
+    """--dataset Custom reads the globs of --coord-files etc. through
+    DataModule's Custom branch: two steps, finite losses."""
+    import csv
+    import math
+
+    import numpy as np
+
+    from torchmdnet_tpu_torch.data.datasets import Custom
+    from torchmdnet_tpu_torch.data.module import DataModule
+
+    rng = np.random.default_rng(0)
+    for i, n in enumerate((5, 7)):
+        np.save(tmp_path / f"coords_{i}.npy", rng.normal(size=(8, n, 3)).astype(np.float32) * 1.5)
+        np.save(tmp_path / f"embed_{i}.npy", rng.integers(1, 9, n))
+        np.save(tmp_path / f"energy_{i}.npy", rng.normal(size=(8, 1)))
+        np.save(tmp_path / f"force_{i}.npy", rng.normal(size=(8, n, 3)).astype(np.float32))
+    seen = []
+    setup = DataModule.setup
+
+    def recording_setup(self):
+        setup(self)
+        seen.append(self.dataset)
+
+    monkeypatch.setattr(DataModule, "setup", recording_setup)
+    flags = TINY[:TINY.index("--dataset")] + [
+        "--dataset", "Custom", "--coord-files", str(tmp_path / "coords_*.npy"),
+        "--embed-files", str(tmp_path / "embed_*.npy"), "--energy-files", str(tmp_path / "energy_*.npy"),
+        "--force-files", str(tmp_path / "force_*.npy"), "--num-workers", "0", "--lr", "1e-3",
+        "--bf16-messages", "true", "--fused-attention", "true", "--num-epochs", "1",
+        "--log-dir", str(tmp_path / "logs"), "--dataset-root", str(tmp_path / "unused"),
+    ]
+    trainer, test_metrics = cli.main(flags)
+    assert len(seen) == 1 and isinstance(seen[0], Custom) and len(seen[0]) == 16
+    assert trainer.state.global_step == 2  # 8 training molecules, batches of 4
+    with open(tmp_path / "logs" / "metrics.csv") as f:
+        rows = [r for r in csv.DictReader(f) if r.get("train_total_mse_loss")]
+    losses = [float(r["train_total_mse_loss"]) for r in rows] + [float(v) for v in test_metrics.values()]
+    assert rows and all(math.isfinite(v) for v in losses)
+
+
+def test_standardized_checkpoint_reloads_its_mean_and_std(tmp_path):
+    """--standardize scales the model by the training energies' std and
+    shifts it by their mean; the checkpoint keeps both, so load_model
+    serves the trained model's energies and forces."""
+    from torchmdnet_tpu_torch.data.datasets import DummyDataset
+    from torchmdnet_tpu_torch.data.batch import pad_molecules
+    from torchmdnet_tpu_torch.models.potential import load_model
+
+    trainer, _ = _run(tmp_path, "--num-epochs", "1", "--standardize", "true")
+    module = trainer.model.module
+    assert module.std != 1.0 and module.mean != 0.0
+    reloaded = load_model(trainer.best_model_path, device="cpu")
+    assert (reloaded.module.mean, reloaded.module.std) == (module.mean, module.std)
+    ds = DummyDataset(num_samples=2, num_atoms=5, seed=3)
+    batch = pad_molecules([ds[0], ds[1]], num_atoms=16, num_mol=2)
+    e, f = trainer.model.energy_and_forces(batch)
+    e2, f2 = reloaded.energy_and_forces(batch)
+    assert torch.equal(e, e2) and torch.equal(f, f2)
+
+
 def _parser(module, monkeypatch):
     """The ArgumentParser the module's get_args builds (stopped at parsing)."""
     seen = {}

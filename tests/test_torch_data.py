@@ -1,9 +1,9 @@
 """The port's data pipeline held against the JAX package's, on the CPU.
 
-Splits index for index, the in-repo datasets' arrays and the loader's
-batches bitwise (z, pos, y, neg_dy, batch ids, masks; flat and bucketed,
-shuffled, with and without drop_last), the standardize mean and std, and
-the Atomref prior's per-atom energies.
+Splits index for index, the in-repo datasets' arrays, the registry's names,
+and the loader's batches bitwise (z, pos, y, neg_dy, batch ids, masks; flat
+and bucketed, shuffled, with and without drop_last), the standardize mean
+and std, and the Atomref prior's per-atom energies.
 """
 
 import jax
@@ -65,9 +65,13 @@ def test_datasets_bitwise_equal_jax(name, kwargs):
 
 
 def test_datasets_still_to_port_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pds.QM9("/nonexistent")
-    assert set(pds.__all__) == set(jds.__all__)
+    """No registry name raises any more: each is a real dataset class of the
+    JAX registry's name, and ``__all__`` is the JAX registry's."""
+    assert pds.__all__ == jds.__all__
+    for name in pds.__all__:
+        cls = getattr(pds, name)
+        assert isinstance(cls, type) and issubclass(cls, pds.MolecularDataset), name
+        assert cls.__name__ == getattr(jds, name).__name__
 
 
 class _Ragged:

@@ -29,7 +29,11 @@ class DataModule:
 
     def setup(self):
         h = self.hparams
-        if self.dataset is None:
+        if self.dataset is None and h["dataset"] == "Custom":
+            # globs of npy files, from --coord-files etc.
+            self.dataset = datasets_module.Custom(h["coord_files"], h["embed_files"], h["energy_files"],
+                                                  h["force_files"])
+        elif self.dataset is None:
             dataset_arg = {}
             if h.get("dataset_arg") is not None:
                 da = h["dataset_arg"]

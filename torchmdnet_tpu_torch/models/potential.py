@@ -306,9 +306,10 @@ def create_model(
 
 def load_model(filepath, args=None, device=None, **kwargs) -> Potential:
     """A Potential with the weights of a port checkpoint
-    (``train/checkpoints.py``).  Hyperparameters come from the checkpoint
-    unless ``args`` is given; ``kwargs`` override single ones.  Runs on
-    ``cuda`` unless ``device`` names another device."""
+    (``train/checkpoints.py``) and the standardization's mean and std saved
+    beside them.  Hyperparameters come from the checkpoint unless ``args``
+    is given; ``kwargs`` override single ones.  Runs on ``cuda`` unless
+    ``device`` names another device."""
     from torchmdnet_tpu_torch.train.checkpoints import load_checkpoint
 
     ckpt = load_checkpoint(filepath)
@@ -319,6 +320,7 @@ def load_model(filepath, args=None, device=None, **kwargs) -> Potential:
 
             warnings.warn(f"Unknown hyperparameter: {key}={value}")
         args[key] = value
-    model = create_model(args, device=device)
+    extra = ckpt.get("extra") or {}
+    model = create_model(args, device=device, mean=extra.get("mean"), std=extra.get("std"))
     model.module.load_state_dict(ckpt["state_dict"])
     return model

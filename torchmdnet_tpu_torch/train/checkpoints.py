@@ -3,7 +3,8 @@
 A checkpoint is one file written with ``torch.save``: the model's
 ``state_dict``, the hyperparameters, the optimizer's state (absent in a file
 meant for inference only) and the trainer's state (epoch, step, learning
-rate, best metric, EMA), so one file serves both ``load_model`` and a full
+rate, best metric, EMA, and the standardization's mean and std, which
+``load_model`` restores), so one file serves both ``load_model`` and a full
 resume.  The JAX package's msgpack checkpoints are not read (ROADMAP.md).
 """
 

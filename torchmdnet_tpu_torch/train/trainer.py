@@ -373,11 +373,15 @@ class Trainer:
         return self._ckpts[0][1] if self._ckpts else None
 
     def save_checkpoint(self, path):
+        """The weights, hyperparameters, optimizer and trainer state, and the
+        standardization's mean and std (plain floats of the module, not in
+        its state_dict; the reference keeps them as buffers)."""
         s = self.state
+        module = self.model.module
         save_checkpoint(
-            path, self.model.module.state_dict(), self.h,
+            path, module.state_dict(), self.h,
             extra={"epoch": s.epoch + 1, "global_step": s.global_step, "lr": s.lr,
-                   "best_metric": s.best_metric, "ema": dict(s.ema)},
+                   "best_metric": s.best_metric, "ema": dict(s.ema), "mean": module.mean, "std": module.std},
             optimizer=self.optimizer.state_dict(),
         )
 
