@@ -48,7 +48,14 @@ rMD17-format file read by ``MD17`` (the same frames through ``Custom``'s npy
 files equal bitwise), the loader's share of an epoch, and the trained
 checkpoint re-expressed in the upstream torchmd-net layout and served back
 through ``tools.import_torch.import_checkpoint``, bitwise equal to the port
-checkpoint on aspirin frames and at DHFR size. It times each. Each phase prints one line; the line before the last is a JSON object
+checkpoint on aspirin frames and at DHFR size. The parallel layer
+(``torchmdnet_tpu_torch.parallel``): examples/ET-MD17.yaml through the CLI
+on two data-parallel ranks of the one card (gloo), as two nodes through the
+environment rendezvous, and on NCCL at world size 1, each against one
+process on the same global batches; ET energy and forces edge-partitioned
+over two ranks at DHFR size (the fused kernels #1/#2 on each rank's rows)
+and at STMV size (each rank's peak memory), and ``Simulation(mesh,
+edge_partition=True)`` at DHFR size, each against one process. It times each. Each phase prints one line; the line before the last is a JSON object
 with each kernel's numbers, the last line is ``{"ok": true, "device":
 {...}}``. Any failure raises and exits non-zero. Without a CUDA device, or
 outside a checkout, it exits non-zero and prints no result.
@@ -3693,6 +3700,615 @@ def import_serving(best, workdir, md17_batch):
     return launches
 
 
+# --- the parallel layer: data parallelism and edge partitioning
+
+DP_SPLIT = (64, 32, 32)  # 8 training batches of 8, one val and one test batch (of 64, split over the ranks)
+DP_EPOCHS = 2
+# fused bf16, one process against two ranks (each sorting its shard on the
+# global batch's grid, as one process sorts the batch).  The distance
+# filters (DP_BF16_FILTERS) enter the fused kernels as bf16 copies, so each
+# rank's share of their gradient is rounded to bf16 before the ranks' sum,
+# where one process rounds the sum once: up to half a bf16 ulp (2^-9) of
+# each share and of the sum, more of a tensor's largest where shares
+# cancel.  Every other gradient sums f32 shares: DP_SAME_GRAD_TOL.  The
+# filters' rounding then steers 16 Adam steps apart: the epoch losses.
+# Sound runs: the filters 7.353e-3 of their largest on the H100 (all
+# gradients' largest gap there), 3.7e-3 on the CPU at the tests' size, with
+# nothing else above 3.3e-7; losses 1.329e-2 (H100).  Planted faults (CPU,
+# the tests' size): no gradient sum, or each rank's loss divided by its own
+# counts, give gradients 1.07 and 1.0, losses 0.37 and 0.48.  Limits
+# between: 2^-6 and 5e-2.
+DP_BF16_FILTERS = ("dk_proj", "dv_proj")
+DP_BF16_FILTER_GRAD_TOL = 2 ** -6
+DP_BF16_LOSS_RTOL = 5e-2
+# composable f32, and NCCL at world size 1 (the same batches): only the
+# order of float sums differs; 16 Adam steps carry the first step's
+# differences into the weights, and a loss near its minimum magnifies them
+DP_SAME_GRAD_TOL = 1e-5  # of each tensor's largest value
+DP_SAME_LOSS_RTOL = 1e-4
+DP_TIMEOUT_S = 300
+EP_ENERGY_RTOL = 1e-5  # JAX's ring test's tolerances (tests/test_ring_model.py:47-53)
+EP_FORCE_TOL = 1e-4  # of the largest force
+EP_REPEATS = 3
+EP_MD_STEPS = 20
+# Partitioned fused bf16 forces differ from one process's in their last
+# bits: a rank's 1248 DHFR rows reach cuBLAS's f32 products with half the
+# rows, and the input gradients of the 128 -> 384 projections ((M, 384) x
+# (384, 128)) then round some rows otherwise (1.9e-8; row_count_probe; at
+# STMV's row counts no op does), which flips bf16 roundings in the kernels'
+# operands: 5.2e-5 of the largest force for the DHFR call, up to 1.61e-4
+# over the 21 evaluations of unscaled MD on the skin list (H100).  Planted
+# faults (CPU, the tests' 61 atoms): ghost rows out of order 0.75, the ghost
+# receivers' cotangents dropped 0.109.  The evaluations' limit between:
+EP_FUSED_FORCE_TOL = 1e-3
+# Random weights give forces of hundreds of eV/A, which grow those gaps into
+# 0.14 A in 20 steps: the trajectory check scales the output by EP_MD_STD
+# (as GN MD at STMV scales it by 0.1), so that thermal motion (about 1.5 A
+# in 20 fs for hydrogens) dominates; the evaluations are checked unscaled.
+EP_MD_STD = 0.01
+EP_MD_POS_TOL = 1e-3  # A
+EP_TIMEOUT_S = 400
+EP_BOUNDARY = 65536  # boundary edges a (rank, owner) pair may have: the library's boundary_limit
+EP_MD_ARGS = dict(timestep_fs=1.0, temperature_K=300.0, friction_per_fs=0.01, neighbor_skin=MD_ARGS["neighbor_skin"],
+                  rebuild_every=MD_VALID_EVERY, seed=SEED)
+# the single-process ET MD peak at STMV size (PERF.md section 7), for scale
+STMV_SINGLE_PEAK_GIB = 12.04
+
+
+def _dp_flags(root, log_dir):
+    train, val, test = DP_SPLIT
+    return ["--conf", os.path.join(ROOT, MD17_CONF), "--dataset-root", root,
+            "--dataset-arg", json.dumps({"molecules": MD17_MOLECULE}), "--train-size", str(train),
+            "--val-size", str(val), "--test-size", str(test), "--num-epochs", str(DP_EPOCHS),
+            "--lr-warmup-steps", str(MD17_WARMUP_STEPS), "--save-interval", "1", "--fused-attention", "true",
+            "--bf16-messages", "true", "--seed", str(SEED), "--num-workers", "0", "--log-dir", log_dir]
+
+
+# one rank of the training CLI whose trainer saves the first step's
+# gradients (its on_before_optimizer_step hook):
+#   python -c _RANK_DRIVER grads.pt BACKEND [CLI flags]
+# BACKEND, when not empty, joins the process group on that backend first
+# (nodes that share one card name gloo: NCCL refuses two ranks on a device)
+_RANK_DRIVER = """
+import sys, torch
+from torchmdnet_tpu_torch.parallel.distributed import initialize_distributed
+from torchmdnet_tpu_torch.scripts import train as cli
+from torchmdnet_tpu_torch.train.trainer import Trainer
+
+def save(trainer):
+    if trainer.state.global_step == 0 and trainer.is_main:
+        torch.save({n: p.grad.detach().cpu() for n, p in zip(trainer.param_names, trainer.params)}, sys.argv[1])
+
+Trainer.on_before_optimizer_step = save
+if sys.argv[2]:
+    initialize_distributed(cli.get_args(sys.argv[3:]).num_nodes, backend=sys.argv[2])
+cli.main(sys.argv[3:])
+"""
+
+
+def _dp_run(label, workdir, root, extra=(), env=None, ranks=0, nodes=0, backend=""):
+    """One training run of the DP phase: the CLI in this process (its
+    trainer's hook saving the first step's gradients), or ``ranks`` local
+    ranks of one node (as the CLI's launcher starts them: LOCAL_RANK,
+    LOCAL_WORLD_SIZE), or ``nodes`` processes joined through the environment
+    rendezvous (NODE_RANK), each running ``_RANK_DRIVER``.  Returns (epoch
+    rows of metrics.csv, first-step gradients, (rank 0's "fit:" line or
+    None, its output), seconds)."""
+    import torch
+
+    from torchmdnet_tpu_torch.parallel.distributed import free_port
+    from torchmdnet_tpu_torch.scripts import train as cli
+    from torchmdnet_tpu_torch.train.trainer import Trainer
+
+    log_dir = os.path.join(workdir, label)
+    grads = os.path.join(workdir, f"{label}_grads.pt")
+    flags = _dp_flags(root, log_dir) + list(extra)
+    base = dict(os.environ, PYTHONPATH=ROOT, **(env or {}))
+    t0 = time.perf_counter()
+    fit = None
+    if ranks or nodes:
+        common = dict(base, MASTER_ADDR="localhost", MASTER_PORT=str(free_port()))
+        envs = ([dict(common, LOCAL_RANK=str(r), LOCAL_WORLD_SIZE=str(ranks)) for r in range(ranks)]
+                + [dict(common, NODE_RANK=str(r)) for r in range(nodes)])
+        procs = [subprocess.Popen([sys.executable, "-c", _RANK_DRIVER, grads, backend] + flags, env=e,
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for e in envs]
+        try:
+            outs = [p.communicate(timeout=DP_TIMEOUT_S)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        if any(p.returncode for p in procs):
+            raise AssertionError(f"DP {label}: a rank failed:\n" + "\n".join(o[-3000:] for o in outs))
+        text = outs[0]
+    else:
+        import contextlib
+        import io
+
+        def save(trainer):
+            if trainer.state.global_step == 0 and trainer.is_main:
+                torch.save({n: p.grad.detach().cpu() for n, p in zip(trainer.param_names, trainer.params)}, grads)
+
+        saved = {k: os.environ.get(k) for k in base}
+        os.environ.update(base)
+        out = io.StringIO()
+        hook = Trainer.on_before_optimizer_step
+        Trainer.on_before_optimizer_step = save
+        try:
+            with contextlib.redirect_stdout(out):
+                cli.main(flags)
+        finally:
+            Trainer.on_before_optimizer_step = hook
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        torch.cuda.synchronize()
+        text = out.getvalue()
+    seconds = time.perf_counter() - t0
+    for line in text.splitlines():
+        if line.startswith("fit:"):
+            fit = line
+    with open(os.path.join(log_dir, "metrics.csv")) as f:
+        rows = [{k: float(v) for k, v in r.items() if v not in ("", None)} for r in csv.DictReader(f)]
+    return rows, torch.load(grads), (fit, text), seconds
+
+
+def _grad_gap(a, b, keys=None):
+    """The largest |a - b| of a gradient tensor over its largest |a|, over
+    the tensors ``keys`` (all by default)."""
+    return max((float((a[k] - b[k]).abs().max()) / max(float(a[k].abs().max()), 1e-30) for k in (keys or a)),
+               default=0.0)
+
+
+def _rows_gap(a, b):
+    """(the largest relative gap between two runs' logged metrics, its key)."""
+    if len(a) != len(b) or any(x.keys() != y.keys() for x, y in zip(a, b)):
+        raise AssertionError(f"the runs logged different metrics: {a} / {b}")
+    gaps = [(abs(x[k] - y[k]) / max(abs(x[k]), 1e-30), k) for x, y in zip(a, b) for k in x if k != "epoch"]
+    return max(gaps)
+
+
+def dp_training(workdir):
+    """(G-DP) examples/ET-MD17.yaml through the CLI, each run against one
+    process on the same global batches:
+
+    - fused bf16 (the yaml's path on the card): ``--ndevices 2`` (two
+      local ranks of one node on the one card, gloo; each rank sorts its
+      shard on the global batch's grid, so every molecule's atoms take the
+      order they take in one process), DP_BF16_* (the filters' gradients)
+      and DP_SAME_* (the rest); and one process through
+      the rendezvous (MASTER_ADDR set): a data-parallel run on NCCL at world
+      size 1 over the same batches (DP_SAME_*), whose launches are the
+      ``dp_nccl_train`` path;
+    - composable f32: ``--num-nodes 2 --ndevices 1``, two processes joined
+      through MASTER_ADDR / MASTER_PORT / NODE_RANK (gloo, named: the nodes
+      share the card; the gradients summed through host copies), DP_SAME_*.
+
+    Each run logs its epoch losses, and its trainer's hook saves the
+    first step's gradients.  Returns the NCCL run's (fwd, bwd, bwd2,
+    select_topk) launches."""
+    from torchmdnet_tpu_torch.ops.kernels import et_message as em
+    from torchmdnet_tpu_torch.parallel.distributed import free_port
+
+    root = os.path.join(workdir, "data")
+    write_rmd17(root)
+    f32 = ("--fused-attention", "false", "--bf16-messages", "false")
+    one, g1, (fit1, _), s1 = _dp_run("one", workdir, root)
+    two, g2, (fit2, text2), s2 = _dp_run("ranks", workdir, root, extra=("--ndevices", "2"), ranks=2)
+    _reset_launches()
+    nccl, g4, (fit4, text4), s4 = _dp_run("nccl", workdir, root,
+                                          env=dict(MASTER_ADDR="localhost", MASTER_PORT=str(free_port())))
+    launches = _launches(em)
+    parts = _check_et_parts("dp_nccl_train", launches[1], launches[2])
+    one32, g5, (fit5, _), s5 = _dp_run("one_f32", workdir, root, extra=f32)
+    nodes, g3, (fit3, _), s3 = _dp_run("nodes_f32", workdir, root, extra=("--num-nodes", "2", "--ndevices", "1") + f32,
+                                      nodes=2, backend="gloo")
+    backend = [ln for ln in text2.splitlines() if ln.startswith("data parallel:")]
+    if not backend or "2 ranks over the gloo backend" not in backend[0]:
+        raise AssertionError(f"DP: the two-rank run did not report its gloo backend: {backend}")
+    nccl_backend = [ln for ln in text4.splitlines() if ln.startswith("data parallel:")]
+    if not nccl_backend or "1 ranks over the nccl backend" not in nccl_backend[0]:
+        raise AssertionError(f"DP: the rendezvous run at world size 1 did not train on NCCL: {nccl_backend}")
+    filters = [k for k in g1 if any(f in k for f in DP_BF16_FILTERS)]
+    others = [k for k in g1 if k not in filters]
+    if not filters or g1.keys() != g2.keys():
+        raise AssertionError(f"DP: unexpected gradient names {sorted(g1)} / {sorted(g2)}")
+    filter_gap = _grad_gap(g1, g2, filters)
+    gaps = dict(ranks=(_rows_gap(one, two), _grad_gap(g1, g2, others)), nccl=(_rows_gap(one, nccl), _grad_gap(g1, g4)),
+                nodes=(_rows_gap(one32, nodes), _grad_gap(g5, g3)))
+    text = "; ".join(f"{k}: losses {v[0][0]:.3e} ({v[0][1]}), gradients {v[1]:.3e}" for k, v in gaps.items())
+    text += f" (ranks: the {len(others)} gradients but the {len(filters)} filters'; theirs {filter_gap:.3e})"
+    if (gaps["ranks"][0][0] > DP_BF16_LOSS_RTOL or gaps["ranks"][1] > DP_SAME_GRAD_TOL
+            or filter_gap > DP_BF16_FILTER_GRAD_TOL
+            or any(gaps[k][0][0] > DP_SAME_LOSS_RTOL or gaps[k][1] > DP_SAME_GRAD_TOL for k in ("nccl", "nodes"))):
+        raise AssertionError(f"DP: a data-parallel run disagrees with one process: {text}")
+    train, val, test = DP_SPLIT
+    steps = DP_EPOCHS * train // 8
+    layers = 6
+    evals = DP_EPOCHS + 1  # one validation batch an epoch and one test batch, each of 64 molecule slots
+    expected = (layers * (steps + evals), layers * (2 * steps + evals), layers * steps, 0)
+    if launches != expected or parts["et_message_dw"] < launches[2]:
+        raise AssertionError(f"DP NCCL run: expected launches {expected}, got {launches}, {parts}")
+    epochs = [r for r in one if "train_total_mse_loss" in r]
+    log(f"data-parallel training (G-DP; examples/ET-MD17.yaml, splits {DP_SPLIT}, {DP_EPOCHS} epochs, {steps} steps "
+        f"of 8 molecules; gaps: the largest relative loss gap over the logged metrics, and the first step's "
+        f"gradients over each tensor's largest): fused bf16 one process {s1:.1f} s [{fit1}], epoch train losses "
+        f"{[round(r['train_total_mse_loss'], 5) for r in epochs]}; --ndevices 2 ({backend[0]}) {s2:.1f} s [{fit2}] "
+        f"(tol {DP_BF16_LOSS_RTOL} / {DP_SAME_GRAD_TOL}, filters {DP_BF16_FILTER_GRAD_TOL}); NCCL at world size 1 {s4:.1f} s [{fit4}] (tol {DP_SAME_LOSS_RTOL} / {DP_SAME_GRAD_TOL}), "
+        f"launches fwd {launches[0]} bwd {launches[1]} bwd2 {launches[2]} ({steps} steps x (1, 2, 1) x {layers} + "
+        f"{evals} evaluation batches x (1, 1, 0) x {layers}); composable f32 one process {s5:.1f} s [{fit5}], "
+        f"--num-nodes 2 through MASTER_ADDR/NODE_RANK (gloo) {s3:.1f} s [{fit3}] (tol {DP_SAME_LOSS_RTOL} / "
+        f"{DP_SAME_GRAD_TOL}); {text}")
+    return launches
+
+
+def _spec_case(name, kind, batch, **kw):
+    import dataclasses
+
+    fields = {f.name: getattr(batch, f.name) for f in dataclasses.fields(batch)}
+    return dict(name=name, kind=kind, args=ET_ARGS, seed=SEED, batch={k: v.cpu() if hasattr(v, "cpu") else v
+                                                                          for k, v in fields.items()}, **kw)
+
+
+def _ranks(workdir, cases, label, timeout):
+    """Run ``cases`` on two ranks of ``tools/partition_run.py``; their outputs."""
+    import torch
+
+    spec = os.path.join(workdir, f"{label}.pt")
+    torch.save({"cases": cases}, spec)
+    from torchmdnet_tpu_torch.parallel.distributed import launch
+
+    rc = launch(["-m", "torchmdnet_tpu_torch.tools.partition_run", "--spec", spec, "--out",
+                 os.path.join(workdir, label + "_{rank}.pt")], 2, env=dict(os.environ, PYTHONPATH=ROOT),
+                timeout=timeout)
+    if rc != 0:
+        raise AssertionError(f"{label}: a rank failed with exit code {rc}")
+    return [torch.load(os.path.join(workdir, f"{label}_{r}.pt"), weights_only=False) for r in range(2)]
+
+
+def check_shard_kernels(batch, nbl, ranks=2):
+    """#1 and #2's wrappers at the shapes each rank of an edge-partitioned
+    call gives them (``ext=True``: the source tables with the ghost rows after
+    the rank's own, the source pass over the receiver tables with the ghost
+    receivers after them), each against its plain version on the same
+    inputs, and against those rows of the one-process call (same values in
+    each row: bitwise expected).  The receiver pass is also held against its
+    plain version at the one-process shape, as a baseline.  The exchange is
+    done here by indexing: each rank's tables are assembled from the global
+    ones through the plans that the ranks build.  Returns {rank: (local
+    rows, ghost source rows, ghost receiver rows)} and the log text."""
+    import torch
+
+    from torchmdnet_tpu_torch.ops.kernels import et_message as em
+    from torchmdnet_tpu_torch.parallel.edge_partition import make_ring_plan
+    from torchmdnet_tpu_torch.parallel.mesh import Mesh
+
+    h, heads, rbf = ET_ARGS["embedding_dimension"], ET_ARGS["num_heads"], ET_ARGS["num_rbf"]
+    _, t, (ct_x, ct_vec) = _kernel_inputs(None, nbl.idx.shape[1], h, rbf, ET_ARGS["cutoff_upper"], SEED,
+                                          batch=batch, nbl=nbl)
+    kw = dict(heads=heads, act="silu", attn_act="silu")
+    n, kk = nbl.idx.shape
+    nl = n // ranks
+    dev = nbl.idx.device
+    plans = [make_ring_plan(nbl.idx, Mesh(size=ranks, rank=r, device=dev, backend="none")) for r in range(ranks)]
+    w = [t[x] for x in ("wdk", "bdk", "wdv", "bdv")]
+    src_names, rx_names = ("k", "v", "vec0", "vec1", "vec2"), ("q", "ea", "cutm", "msk", "dir0", "dir1", "dir2")
+    dirs = (t["dir0"], t["dir1"], t["dir2"])
+    recv_args = (t["q"], *[t[x] for x in src_names], t["ea"], t["cutm"], t["msk"], dirs, *w, ct_x, ct_vec)
+    x_all, v_all = em.run_fwd(nbl.idx, *recv_args[:9], dirs, *w, **kw)
+    recv_all = em.bwd_receiver(nbl.idx, *recv_args, want_dpre=False, **kw)
+    recv_all_p = em.bwd_receiver_reference(nbl.idx, *recv_args, want_dpre=False, **kw)
+    src_all = em.bwd_source(nbl.idx, nbl.transpose_perm, *recv_args[:10], *w, ct_x, ct_vec, recv_all[4], **kw)
+
+    def recv_outs(r):  # dq, dea, dcutm, ddir0..2, hs
+        return [r[0], r[1], r[2], *r[3], r[4]]
+
+    with torch.no_grad():
+        x_all_p, v_all_p = em.et_messages_reference(nbl.idx, *recv_args[:9], *dirs, *w, perm=nbl.transpose_perm, **kw)
+    rel = {"fwd_one_process": max(_rel(x_all, x_all_p), _rel(v_all, v_all_p)),
+           "recv_one_process": max(_rel(a, b) for a, b in zip(recv_outs(recv_all), recv_outs(recv_all_p)))}
+    same, shapes, rank_tabs, recv = {}, {}, [], []
+    for r in range(ranks):
+        rows = torch.arange(r * nl, (r + 1) * nl, device=dev)
+        g_src = torch.cat([plans[o].src_send[r] + o * nl for o in range(ranks) if o != r])
+        g_rx = torch.cat([plans[o].rx_send[r] + o * nl for o in range(ranks) if o != r])
+        if g_src.numel() != plans[r].ghost_rows or g_rx.numel() != sum(plans[r].rx_recv):
+            raise AssertionError(f"rank {r}: the plans' ghost counts disagree")
+        shapes[r] = (nl, g_src.numel(), g_rx.numel())
+        srcs = [t[x][torch.cat([rows, g_src])].contiguous() for x in src_names]
+        loc = {x: t[x][rows].contiguous() for x in rx_names}
+        ldirs = (loc["dir0"], loc["dir1"], loc["dir2"])
+        lidx = plans[r].lidx
+        args = (loc["q"], *srcs, loc["ea"], loc["cutm"], loc["msk"], ldirs, *w, ct_x[rows].contiguous(),
+                ct_vec[rows].contiguous())
+        x_k, v_k = em.run_fwd(lidx, *args[:9], ldirs, *w, ext=True, **kw)
+        with torch.no_grad():
+            x_p, v_p = em.et_messages_reference(lidx, *args[:9], *ldirs, *w, perm=plans[r].perm_rx, **kw)
+        rk = em.bwd_receiver(lidx, *args, want_dpre=False, ext=True, **kw)
+        rp = em.bwd_receiver_reference(lidx, *args, want_dpre=False, **kw)
+        recv.append(rk)
+        rank_tabs.append((rows, g_rx, srcs))
+        rel[f"fwd_rank{r}"] = max(_rel(x_k, x_p), _rel(v_k, v_p))
+        rel[f"recv_rank{r}"] = max(_rel(a, b) for a, b in zip(recv_outs(rk), recv_outs(rp)))
+        slots = (rows[:, None] * kk + torch.arange(kk, device=dev)).reshape(-1)
+        same[f"fwd_rank{r}"] = bool(torch.equal(x_k, x_all[rows]) and torch.equal(v_k, v_all[rows]))
+        same[f"recv_rank{r}"] = all(torch.equal(a, b[rows]) for a, b in zip(recv_outs(rk)[:-1], recv_outs(recv_all)))
+        same[f"recv_rank{r}"] &= bool(torch.equal(rk[4], recv_all[4][slots]))
+    for r in range(ranks):
+        rows, g_rx, srcs = rank_tabs[r]
+        rx = torch.cat([rows, g_rx])
+        hs_rx = torch.cat([recv[r][4]] + [recv[o][4].reshape(nl, kk, 2, heads)[plans[o].rx_send[r]].reshape(-1, 2, heads)
+                                          for o in range(ranks) if o != r]).contiguous()
+        q_rx, ea_rx, msk_rx = (t[x][rx].contiguous() for x in ("q", "ea", "msk"))
+        dirs_rx = tuple(d[rx].contiguous() for d in dirs)
+        cts_rx = (ct_x[rx].contiguous(), ct_vec[rx].contiguous())
+        got = em.bwd_source(plans[r].lidx, plans[r].perm_rx, q_rx, *srcs, ea_rx, msk_rx, msk_rx, dirs_rx, *w, *cts_rx,
+                            hs_rx, ext=True, **kw)
+        want = em.bwd_source_reference(plans[r].lidx, plans[r].perm_rx, q_rx, *srcs, ea_rx, msk_rx, dirs_rx, *w,
+                                       *cts_rx, hs_rx, heads=heads, act="silu")
+        rel[f"src_rank{r}"] = max(_rel(a, b) for a, b in zip(got, want))
+        same[f"src_rank{r}"] = all(torch.equal(a, b[rows]) for a, b in zip(got, src_all))
+    torch.cuda.synchronize()
+    text = (f"#1/#2 wrappers at each rank's shapes (N={n} K={kk}: " + ", ".join(
+        f"rank {r} {a} rows, {b} ghost source rows, {c} ghost receivers" for r, (a, b, c) in shapes.items())
+        + f"), against their plain versions (tol fwd {FWD_TOL}, passes {PART_TOL}): {_fmt(rel)}; bitwise those rows "
+        f"of the one-process call: {json.dumps(same)}")
+    bad = [k for k, v in rel.items() if v > (FWD_TOL if k.startswith("fwd") else PART_TOL)]
+    if bad:
+        raise AssertionError(f"G-EP: a kernel disagrees with its plain version at the partitioned shapes: {text}")
+    return shapes, text
+
+
+def row_count_probe(model, batch, nbl, parts=2):
+    """Which ops of one energy+forces call give a row other bits when they run
+    on a rank's rows alone.  Under a dispatch mode, every aten matmul,
+    reduction over a later axis, norm or softmax whose output's first axis is
+    the N atoms or the N*K slots is rerun on the first 1/``parts`` of those
+    rows (rank 0's rows of a partitioned call) of each operand with that
+    first axis, and compared bitwise with those rows of its output.  Returns
+    {op and operand shapes: [calls checked, calls differing, largest gap]}."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    aten = torch.ops.aten
+    row_ops = {aten.mm.default, aten.addmm.default, aten.bmm.default, aten.sum.dim_IntList, aten.mean.dim,
+               aten.native_layer_norm.default, aten.native_layer_norm_backward.default, aten._softmax.default,
+               aten._softmax_backward_data.default, aten.linalg_vector_norm.default, aten.amax.default}
+    n, kk = nbl.idx.shape
+    sizes = {n, n * kk}
+    found = {}
+
+    dim_at = {aten.sum.dim_IntList: 1, aten.mean.dim: 1, aten.amax.default: 1, aten.linalg_vector_norm.default: 2,
+              aten._softmax.default: 1, aten._softmax_backward_data.default: 2}
+
+    def reduces_rows(func, args, kwargs):
+        """Whether the op mixes rows (it reduces or normalises over axis 0)."""
+        if func not in dim_at:
+            return False
+        at = dim_at[func]
+        dims = args[at] if len(args) > at else kwargs.get("dim")
+        dims = [dims] if isinstance(dims, int) else dims
+        return not dims or any(d % args[0].dim() == 0 for d in dims)
+
+    class Probe(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            out = func(*args, **kwargs)
+            first = out[0] if isinstance(out, (tuple, list)) else out
+            if (func in row_ops and isinstance(first, torch.Tensor) and first.dim() >= 1 and first.shape[0] in sizes
+                    and not reduces_rows(func, args, kwargs)):
+                m = first.shape[0]
+                part = m // parts
+
+                def cut(a):
+                    return a[:part] if isinstance(a, torch.Tensor) and a.dim() >= 1 and a.shape[0] == m else a
+
+                sub = func(*[cut(a) for a in args], **{k: cut(v) for k, v in kwargs.items()})
+                pairs = zip(sub, out) if isinstance(out, (tuple, list)) else [(sub, out)]
+                gap = max((float((a.double() - b[:part].double()).abs().max()) for a, b in pairs
+                           if isinstance(a, torch.Tensor) and a.dim() >= 1 and b.shape[0] == m), default=0.0)
+                key = f"{func.__name__}{[tuple(a.shape) for a in args if isinstance(a, torch.Tensor)]}"
+                rec = found.setdefault(key, [0, 0, 0.0])
+                rec[0] += 1
+                rec[1] += gap > 0
+                rec[2] = max(rec[2], gap)
+            return out
+
+    pos = batch.pos.detach().requires_grad_(True)
+    with Probe():
+        y = model.module(batch.replace(pos=pos), None, nbl)
+        (g,) = torch.autograd.grad(y.sum(), pos)
+    torch.cuda.synchronize()
+    return found
+
+
+def _probe_text(found):
+    diff = {k: v for k, v in found.items() if v[1]}
+    return (f"{sum(v[0] for v in found.values())} calls of {len(found)} op shapes checked, "
+            f"{len(diff)} give rows other bits: " + (json.dumps({k: [v[0], v[1], float(f'{v[2]:.3e}')]
+                                                                  for k, v in diff.items()}) if diff else "none"))
+
+
+def edge_partition(workdir):
+    """(G-EP, G-MD) ET 6 x 128 fused bf16 (K 80) edge-partitioned over two
+    ranks of the one card (gloo): energy and forces at DHFR size against
+    one process, every rank launching #1/#2, and #1/#2's wrappers at each
+    rank's shapes against their plain versions; one STMV energy+forces call
+    with each rank's peak memory; which ops of a one-process call give a
+    rank's rows other bits (at DHFR and STMV); Simulation(mesh,
+    edge_partition=True) at DHFR size for EP_MD_STEPS steps against one
+    process: the trajectory with the output scaled by EP_MD_STD, and, with
+    it unscaled, every force evaluation against one process's on the same
+    list.  Then which gloo collectives take CUDA tensors as they are.
+    Returns {path: launches} of rank 0."""
+    import numpy as np
+    import torch
+
+    from torchmdnet_tpu_torch import Simulation, create_model
+    from torchmdnet_tpu_torch.data.batch import spatial_sort
+    from torchmdnet_tpu_torch.data.systems import DHFR_ATOMS
+    from torchmdnet_tpu_torch.ops.cell_list import probe_cell_kwargs
+    from torchmdnet_tpu_torch.ops.kernels import et_message as em
+
+    dhfr = spatial_sort(_synthetic_batch(DHFR_ATOMS, SEED, "cuda")[2])[0]
+    stmv = _stmv_batch()
+    model = create_model(ET_ARGS, seed=SEED)
+    # the list the ranks build: cell sizes probed as ring_potential probes them
+    dhfr_cells = probe_cell_kwargs(dhfr, cutoff_upper=ET_ARGS["cutoff_upper"])
+    stmv_cells = probe_cell_kwargs(stmv, cutoff_upper=ET_ARGS["cutoff_upper"])
+    model.energy_and_forces(dhfr, nbl=model.neighbors(dhfr, **dhfr_cells))
+    ms = []
+    for _ in range(EP_REPEATS):
+        _reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y1, f1 = model.energy_and_forces(dhfr, nbl=model.neighbors(dhfr, **dhfr_cells))
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    one_launches = _launches(em)
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ys, fs = model.energy_and_forces(stmv, nbl=model.neighbors(stmv, **stmv_cells))
+    torch.cuda.synchronize()
+    stmv_ms = 1e3 * (time.perf_counter() - t0)
+    stmv_peak = torch.cuda.max_memory_allocated() - base
+    ys, fs = ys.cpu(), fs.cpu()
+    torch.cuda.empty_cache()
+    md_model = create_model(ET_ARGS, seed=SEED)
+    md_model.module.std = EP_MD_STD
+    sim = Simulation(md_model, dhfr, **EP_MD_ARGS)
+    sim.set_velocities_from_temperature(EP_MD_ARGS["temperature_K"], seed=SEED + 1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = sim.step(EP_MD_STEPS)
+    torch.cuda.synchronize()
+    md_ms = 1e3 * (time.perf_counter() - t0) / EP_MD_STEPS
+    md_pos, md_stale = state.pos.cpu(), bool(state.stale)
+    md_moved = float((md_pos - dhfr.pos.cpu()).abs().max())
+    del sim, state, md_model
+    torch.cuda.empty_cache()
+    # the kernels at the ranks' shapes, and which ops round a rank's rows
+    # otherwise than those rows of the one-process call
+    dhfr_nbl = model.neighbors(dhfr, **dhfr_cells)
+    shard_shapes, shard_text = check_shard_kernels(dhfr, dhfr_nbl)
+    probe_dhfr = row_count_probe(model, dhfr, dhfr_nbl)
+    del dhfr_nbl
+    stmv_nbl = model.neighbors(stmv, **stmv_cells)
+    probe_stmv = row_count_probe(model, stmv, stmv_nbl)
+    del stmv_nbl
+    torch.cuda.empty_cache()
+    # unscaled MD: one process's trajectory, and a one-process Simulation
+    # whose lists and forces are held against each partitioned evaluation
+    raw_model = create_model(ET_ARGS, seed=SEED)
+    raw = Simulation(raw_model, dhfr, **EP_MD_ARGS)
+    raw.set_velocities_from_temperature(EP_MD_ARGS["temperature_K"], seed=SEED + 1)
+    raw_pos = raw.step(EP_MD_STEPS).pos.cpu()
+    md = dict(EP_MD_ARGS, steps=EP_MD_STEPS, velocity_seed=SEED + 1)
+    outs = _ranks(workdir, [_spec_case("dhfr", "forces", dhfr, repeat=EP_REPEATS, boundary_capacity=EP_BOUNDARY),
+                            _spec_case("md", "md", dhfr, md=md, std=EP_MD_STD),
+                            _spec_case("md_raw", "md", dhfr, md=md, record=True),
+                            _spec_case("stmv", "forces", stmv, repeat=1, boundary_capacity=EP_BOUNDARY)],
+                  "edge_partition", EP_TIMEOUT_S)
+    if any(o["backend"] != "gloo" or o["size"] != 2 for o in outs):
+        raise AssertionError(f"G-EP: expected two gloo ranks, got {[(o['backend'], o['size']) for o in outs]}")
+    y1, f1 = y1.cpu(), f1.cpu()
+    lines, launches = [], {}
+    layers = ET_ARGS["num_layers"]
+    for o in outs:
+        d = o["cases"]["dhfr"]
+        e_err = float((d["energy"] - y1).abs().max() / y1.abs().max())
+        f_err = float((d["forces"] - f1).abs().max() / f1.abs().max())
+        if e_err > EP_ENERGY_RTOL or f_err > EP_FORCE_TOL or not d["repeat_bitwise"]:
+            raise AssertionError(f"G-EP rank {o['rank']}: energy {e_err:.3e}, forces {f_err:.3e}, repeat bitwise "
+                                 f"{d['repeat_bitwise']}")
+        want = {"et_message_fwd": layers, "et_message_bwd": layers, "et_message_bwd_src": layers, "select_topk": 0}
+        if d["launches"] != want:
+            raise AssertionError(f"G-EP rank {o['rank']}: launches {d['launches']}, expected {want} a call")
+        st = d["stats"]
+        if (st["n_local"], st["ghost_rows"]) != shard_shapes[o["rank"]][:2]:
+            raise AssertionError(f"G-EP rank {o['rank']}: {st['n_local']} rows + {st['ghost_rows']} ghost rows, but "
+                                 f"the kernel check's plan has {shard_shapes[o['rank']]}")
+        lines.append(f"rank {o['rank']}: {st['n_local']} rows + {st['ghost_rows']} ghost rows "
+                     f"({st['bytes_received']} B of fused source rows a gather), boundary edges {st['edges_boundary']} "
+                     f"of {st['edges_total']} ({100 * st['boundary_fraction']:.1f} %), launches {d['launches']} a call, "
+                     f"{statistics.median(d['ms']):.3f} ms a call (median of {EP_REPEATS}; build "
+                     f"{d['build_ms']:.1f} ms), peak {d['peak_bytes'] / 2 ** 30:.3f} GiB, |dE|/|E| {e_err:.3e} "
+                     f"max|dF|/max|F| {f_err:.3e}, forces bitwise one process's: {bool(torch.equal(d['forces'], f1))}")
+        if o["rank"] == 0:
+            launches["ep_dhfr"] = dict(d["launches"])
+    log(f"edge-partitioned ET at DHFR (G-EP; {ET_ARGS['num_layers']}x{ET_ARGS['embedding_dimension']} fused bf16, K "
+        f"{ET_ARGS['max_num_neighbors']}, {dhfr.num_atoms} atoms spatially sorted, 2 gloo ranks on one card; tol "
+        f"{EP_ENERGY_RTOL} / {EP_FORCE_TOL}): one process {statistics.median(ms):.3f} ms a call, launches "
+        f"{one_launches}; " + "; ".join(lines) + f"; repeats bitwise on every rank; {shard_text}; ops of the "
+        f"one-process call rerun on rank 0's rows alone: at DHFR {_probe_text(probe_dhfr)}; at STMV "
+        f"{_probe_text(probe_stmv)}")
+    parts = []
+    for o in outs:
+        d = o["cases"]["stmv"]
+        e_err = float((d["energy"] - ys).abs().max() / ys.abs().max())
+        f_err = float((d["forces"] - fs).abs().max() / fs.abs().max())
+        if e_err > EP_ENERGY_RTOL or f_err > EP_FORCE_TOL:
+            raise AssertionError(f"G-EP STMV rank {o['rank']}: energy {e_err:.3e}, forces {f_err:.3e}")
+        st = d["stats"]
+        parts.append(f"rank {o['rank']}: peak {d['peak_bytes'] / 2 ** 30:.3f} GiB ({100 * d['peak_bytes'] / stmv_peak:.1f} "
+                     f"% of one process's), {st['n_local']} rows + {st['ghost_rows']} ghost rows, boundary edges "
+                     f"{st['edges_boundary']} of {st['edges_total']}, {d['ms'][0]:.1f} ms a call, |dE|/|E| {e_err:.3e} "
+                     f"max|dF|/max|F| {f_err:.3e}")
+    log(f"edge-partitioned ET at STMV (G-EP; {stmv.num_atoms} atoms, K {ET_ARGS['max_num_neighbors']}): one process's "
+        f"energy+forces call takes {stmv_ms:.1f} ms (the first at this shape) and peaks at "
+        f"{stmv_peak / 2 ** 30:.3f} GiB above its resident tensors (ET STMV MD, K 113: "
+        f"{STMV_SINGLE_PEAK_GIB} GiB); " + "; ".join(parts))
+    parts = []
+    for o in outs:
+        m = o["cases"]["md"]
+        gap = float((m["pos"] - md_pos).abs().max())
+        if m["stale"] or md_stale or not np.isfinite(m["pos"].numpy()).all() or gap > EP_MD_POS_TOL:
+            raise AssertionError(f"G-MD rank {o['rank']}: stale {m['stale']} (one process {md_stale}), position gap "
+                                 f"{gap:.3e} A")
+        # the global skin list is built at every rebuild on every rank (a cell-list build: #6 once)
+        want = {"et_message_fwd": layers * (EP_MD_STEPS + 1), "et_message_bwd": layers * (EP_MD_STEPS + 1),
+                "et_message_bwd_src": layers * (EP_MD_STEPS + 1),
+                "select_topk": -(-EP_MD_STEPS // EP_MD_ARGS["rebuild_every"])}
+        if m["launches"] != want:
+            raise AssertionError(f"G-MD rank {o['rank']}: launches {m['launches']}, expected {want}")
+        # unscaled: each partitioned evaluation against one process's on the
+        # same list (built at the same positions) at the same positions
+        r = o["cases"]["md_raw"]
+        f_gaps = []
+        with torch.no_grad():
+            for built_at, at, f_ranks in r["records"]:
+                nbl = raw._build_nbl(built_at.to("cuda")).refine(at.to("cuda"), raw._lo, raw._hi, raw.box)
+                f_one = raw._forces(at.to("cuda"), nbl)[1].cpu()
+                f_gaps.append(float((f_ranks - f_one).abs().max() / f_one.abs().max()))
+        raw_gap = float((r["pos"] - raw_pos).abs().max())
+        if len(f_gaps) != EP_MD_STEPS + 1 or max(f_gaps) > EP_FUSED_FORCE_TOL or not np.isfinite(r["pos"].numpy()).all():
+            raise AssertionError(f"G-MD rank {o['rank']} unscaled: {len(f_gaps)} evaluations, force gaps {f_gaps}")
+        parts.append(f"rank {o['rank']}: {m['ms_per_step']:.3f} ms a step, position gap {gap:.3e} A, stale "
+                     f"{m['stale']}, peak {m['peak_bytes'] / 2 ** 30:.3f} GiB; unscaled: max|dF|/max|F| of its "
+                     f"{len(f_gaps)} evaluations against one process's on the same list and positions: largest "
+                     f"{max(f_gaps):.3e}, first {f_gaps[0]:.3e}, last {f_gaps[-1]:.3e} (tol {EP_FUSED_FORCE_TOL}); "
+                     f"positions after {EP_MD_STEPS} steps {raw_gap:.3e} A from one process's unscaled run, "
+                     f"stale {r['stale']}")
+        if o["rank"] == 0:
+            launches["ep_md_dhfr"] = dict(m["launches"])
+    log(f"edge-partitioned MD at DHFR (G-MD; Simulation(mesh, edge_partition=True), skin "
+        f"{EP_MD_ARGS['neighbor_skin']} A, a rebuild every {EP_MD_ARGS['rebuild_every']} steps, Langevin "
+        f"{EP_MD_ARGS['temperature_K']} K, {EP_MD_STEPS} steps, the trajectory with the output scaled by "
+        f"{EP_MD_STD}; tol {EP_MD_POS_TOL} "
+        f"A): one process {md_ms:.3f} ms a step, stale {md_stale}, atoms moved up to {md_moved:.3f} A; "
+        + "; ".join(parts))
+    probe = _ranks(workdir, [dict(name="probe", kind="probe", args=ET_ARGS, seed=SEED)], "probe", 120)
+    results = probe[0]["cases"]["probe"]
+    log("gloo collectives on CUDA tensors without host staging (2 ranks, one card; the port stages every one): "
+        + json.dumps(results))
+    return launches
+
+
 def main():
     import torch
 
@@ -3844,6 +4460,12 @@ def main():
                                   mh["embedding_dimension"], mh["num_heads"], mh["num_rbf"], mh["cutoff_upper"],
                                   seed=8)
     md17_ms, _, md17_bounds = time_train_kernels(md17_batch, "ET-MD17's training shapes", args=mh)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as workdir:
+        dp_launches = dp_training(workdir)
+    with tempfile.TemporaryDirectory() as workdir:
+        ep_launches = edge_partition(workdir)
+    log(f"parallel-layer phases (G-DP, G-EP, G-MD): {time.perf_counter() - t0:.1f} s")
     train_batch, _ = time_train_steps(trainer, train_ds, et_cfg)
     tn_train_batch, tn_step_ms = time_train_steps(tn_trainer, tn_ds, tn_cfg)
     gn_train_batch, gn_step_ms = time_train_steps(gn_trainer, gn_ds, gn_cfg)
@@ -3903,6 +4525,11 @@ def main():
         "md17_train": dict(zip(("et_message_fwd", "et_message_bwd", "et_message_bwd2", "select_topk"),
                                md17_launches)),
         "import_external_dhfr": dict(zip(("et_message_fwd", "et_message_bwd", "select_topk"), import_launches)),
+        "dp_nccl_train": dict(zip(("et_message_fwd", "et_message_bwd", "et_message_bwd2", "select_topk"),
+                                  dp_launches)),
+        # rank 0 of two edge-partitioned ranks: one DHFR call; 20 MD steps at DHFR
+        "ep_dhfr": ep_launches["ep_dhfr"],
+        "ep_md_dhfr": ep_launches["ep_md_dhfr"],
     }
     for path, parts in PART_LAUNCHES.items():
         paths[path].update(parts)
@@ -3912,21 +4539,26 @@ def main():
     t_rows = {k: t_times[(where, k)][:4] + (None,)
               for where, k in (("DHFR", "fwd"), ("DHFR", "bwd"), ("training", "bwd2"))}
     # (ms, bound) at the shape each path runs: MD at the STMV skin list,
-    # training at the training shapes, GN's STMV forward at its K = 32 list,
-    # the selection at each path's own cell-list build; a path not named
-    # here runs its row's shape and takes its row's (ms, bound_ms)
+    # training at the training shapes (the data-parallel NCCL run at ET-MD17's),
+    # GN's STMV forward at its K = 32 list, the selection at each path's own
+    # cell-list build; a path not named here (the edge-partitioned DHFR
+    # paths: the DHFR row shape, each rank half its rows) runs its row's shape
+    # and takes its row's (ms, bound_ms)
     gn_at = {where: {kind: (t["ms"], t["bound_ms"]) for kind, t in v.items() if kind != "shape"}
              for where, v in gn_times.items()}
     timed_at = {
         "et_message_fwd": {"md_stmv": times["stmv_fwd"], "train": (train_ms["fwd"], train_bounds["fwd"][0]),
                            "dipole_qm9": (dipole_fwd[0], dipole_fwd[2]),
                            "prior_train": (prior_ms["fwd"], prior_bounds["fwd"][0]),
-                           "md17_train": (md17_ms["fwd"], md17_bounds["fwd"][0])},
+                           "md17_train": (md17_ms["fwd"], md17_bounds["fwd"][0]),
+                           "dp_nccl_train": (md17_ms["fwd"], md17_bounds["fwd"][0])},
         "et_message_bwd": {"md_stmv": times["stmv_bwd"], "train": (train_ms["bwd_w"], train_bounds["bwd_w"][0]),
                            "prior_train": (prior_ms["bwd_w"], prior_bounds["bwd_w"][0]),
-                           "md17_train": (md17_ms["bwd_w"], md17_bounds["bwd_w"][0])},
+                           "md17_train": (md17_ms["bwd_w"], md17_bounds["bwd_w"][0]),
+                           "dp_nccl_train": (md17_ms["bwd_w"], md17_bounds["bwd_w"][0])},
         "et_message_bwd2": {"prior_train": (prior_ms["bwd2"], prior_bounds["bwd2"][0]),
-                            "md17_train": (md17_ms["bwd2"], md17_bounds["bwd2"][0])},
+                            "md17_train": (md17_ms["bwd2"], md17_bounds["bwd2"][0]),
+                            "dp_nccl_train": (md17_ms["bwd2"], md17_bounds["bwd2"][0])},
         "tn_message_fwd": {"tn_train": tn_times[("training", "fwd")][::2][:2],
                            "tn_dipole": tn_times[("training", "fwd")][::2][:2]},
         "tn_message_bwd": {"tn_train": tn_times[("training", "bwd_w")][::2][:2]},

@@ -152,8 +152,13 @@ def test_optimize_matches_energy_and_forces(skin):
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # edge partitioning is ported: it needs a mesh and a Verlet skin
+    with pytest.raises(ValueError, match="mesh"):
         _sim(edge_partition=True)
+    from torchmdnet_tpu_torch.parallel.mesh import make_mesh
+
+    with pytest.raises(ValueError, match="neighbor_skin"):
+        _sim(edge_partition=True, mesh=make_mesh(allow_single=True, device="cpu"))
     # the gather plan is accepted with no effect (ROADMAP.md section 3)
     assert _sim(neighbor_skin=1.0, neighbor_kwargs={"gather_plan": True}).neighbor_kwargs["gather_plan"]
     if not torch.cuda.is_available():  # entry points never fall back to the CPU

@@ -61,6 +61,8 @@ def pad_molecules(
     extra_atom_keys: Sequence[str] = (),
     float_dtype=np.float32,
     device="cpu",
+    mol_id_offset: int = 0,
+    num_mol_global: Optional[int] = None,
 ) -> AtomicBatch:
     """Collate a list of per-molecule dicts ``{"z": (n,), "pos": (n, 3)}``,
     with the optional labels ``y`` (energy) and ``neg_dy`` (n, 3) (forces),
@@ -68,9 +70,20 @@ def pad_molecules(
     fields named by ``extra_atom_keys`` (into ``extra``), into one padded
     AtomicBatch, built on ``device`` (the CPU unless named).  A label, ``q``
     or ``s`` is carried when every molecule has it; padding rows are zero.
-    The arrays are the JAX package's collation, bit for bit."""
+    The arrays are the JAX package's collation, bit for bit.
+
+    A rank's shard of a global batch (data parallelism): ``mol_id_offset`` is
+    the global index of its first molecule and ``num_mol_global`` the global
+    molecule capacity; molecule ids are then global, padding atoms point at
+    the GLOBAL trash segment and ``num_mol`` is the global capacity, while
+    ``mol_mask`` and the per-molecule labels keep the shard's ``num_mol``
+    rows (``parallel.distributed.localize_shard`` renumbers it)."""
     if num_mol is None:
         num_mol = len(mols)
+    if num_mol_global is None:
+        if mol_id_offset:
+            raise ValueError("mol_id_offset needs num_mol_global")
+        num_mol_global = num_mol
     if len(mols) > num_mol:
         raise ValueError(f"{len(mols)} molecules exceed the capacity {num_mol}")
     total = sum(len(m["z"]) for m in mols)
@@ -79,7 +92,7 @@ def pad_molecules(
 
     z = np.zeros(num_atoms, dtype=np.int64)
     pos = np.zeros((num_atoms, 3), dtype=float_dtype)
-    batch = np.full(num_atoms, num_mol, dtype=np.int64)
+    batch = np.full(num_atoms, num_mol_global, dtype=np.int64)
     atom_mask = np.zeros(num_atoms, dtype=bool)
     mol_mask = np.zeros(num_mol, dtype=bool)
     has_y = bool(mols) and all(m.get("y") is not None for m in mols)
@@ -97,7 +110,7 @@ def pad_molecules(
         sl = slice(offset, offset + n)
         z[sl] = m["z"]
         pos[sl] = m["pos"]
-        batch[sl] = i
+        batch[sl] = mol_id_offset + i
         atom_mask[sl] = True
         mol_mask[i] = True
         if has_y:
@@ -117,12 +130,12 @@ def pad_molecules(
 
     return AtomicBatch(
         z=t(z), pos=t(pos), batch=t(batch), atom_mask=t(atom_mask),
-        mol_mask=t(mol_mask), num_mol=num_mol, y=t(y), neg_dy=t(neg_dy), q=t(q), s=t(s),
+        mol_mask=t(mol_mask), num_mol=num_mol_global, y=t(y), neg_dy=t(neg_dy), q=t(q), s=t(s),
         extra={key: t(value) for key, value in extra.items()},
     )
 
 
-def spatial_sort(batch: AtomicBatch, cell: float = 5.0) -> Tuple[AtomicBatch, torch.Tensor]:
+def spatial_sort(batch: AtomicBatch, cell: float = 5.0, origin=None) -> Tuple[AtomicBatch, torch.Tensor]:
     """Reorder atoms so that storage order follows space (cell-key sort).
 
     The JAX package's key (torchmdnet_tpu/data/batch.py:131-165): molecule id
@@ -134,12 +147,17 @@ def spatial_sort(batch: AtomicBatch, cell: float = 5.0) -> Tuple[AtomicBatch, to
     Every tensor whose first axis is the atom axis moves with its atoms: the
     force labels (``neg_dy``) and the per-atom fields of ``extra`` (partial
     charges) too, as the JAX package permutes every such leaf.
-    ``cell`` should be about the model cutoff.  Returns (sorted batch, order).
+    ``cell`` should be about the model cutoff.  The cells' grid starts at
+    ``origin`` (3,), by default the batch's lowest coordinates; a rank's
+    shard of a global batch passes the global batch's, so that each of its
+    molecules takes the order it takes in the global batch.  Returns (sorted
+    batch, order).
     """
     pos = batch.pos.detach().cpu().numpy()
     ids = batch.batch.cpu().numpy().astype(np.int64)
     mask = batch.atom_mask.cpu().numpy()
-    c = np.floor((pos - pos.min(axis=0)) / float(cell)).astype(np.int64)
+    low = pos.min(axis=0) if origin is None else np.asarray(torch.as_tensor(origin).cpu(), dtype=pos.dtype)
+    c = np.floor((pos - low) / float(cell)).astype(np.int64)
     span = int(max(c.max() + 1, 1))
     key = ((ids * span + c[:, 0]) * span + c[:, 1]) * span + c[:, 2]
     key = np.where(mask, key, np.iinfo(np.int64).max)  # padding last

@@ -7,7 +7,12 @@ batched within a bucket and padded to the bucket's own capacity; the order of
 batches shuffles across buckets.  The epoch plan (shuffle order, buckets,
 ``drop_last``) is the JAX package's for the same seed and epoch, and the
 batches are collated in numpy (``pad_molecules``), so they are bitwise the
-JAX package's.  The per-atom fields named by ``extra_atom_keys`` go into
+JAX package's.  With ``process_count > 1`` (data parallelism over ranks,
+``parallel/distributed.py``) every rank walks the same global batch sequence
+and collates only its slice: ``batch_size/process_count`` molecules in
+``num_atoms_pad/process_count`` atom slots, with global molecule ids, as
+the JAX package's multi-host loader (the analog of DDP's
+DistributedSampler).  The per-atom fields named by ``extra_atom_keys`` go into
 ``batch.extra``; a sample's ``pq`` is carried as ``partial_charges``, the
 name the Coulomb prior reads.  Batches come out on ``device`` (the CPU
 unless named).
@@ -42,6 +47,8 @@ class PaddedLoader:
         num_buckets: int = 1,
         pad_multiple: Optional[int] = None,
         device="cpu",
+        process_rank: int = 0,
+        process_count: int = 1,
     ):
         self.dataset = dataset
         self.batch_size = batch_size
@@ -53,7 +60,11 @@ class PaddedLoader:
         self.prefetch = prefetch
         self.device = device
         self.float_dtype = np.dtype(float_dtype)
-        mult = pad_multiple if pad_multiple else 8
+        self.process_rank = process_rank
+        self.process_count = process_count
+        # capacities divide over 8 and over every rank
+        mult = pad_multiple if pad_multiple else 8 * process_count
+        mult = mult * process_count // math.gcd(mult, process_count)
         mult = mult * 8 // math.gcd(mult, 8)
         sizes = np.asarray(dataset.sample_sizes())
         self.num_buckets = max(1, int(num_buckets))
@@ -67,6 +78,13 @@ class PaddedLoader:
             max_size = int(sizes.max()) if len(sizes) else 1
             num_atoms_pad = _round_up(batch_size * max_size, mult)
         self.num_atoms_pad = num_atoms_pad  # the largest capacity
+        if process_count > 1:
+            assert batch_size % process_count == 0, (
+                f"batch_size {batch_size} must divide over {process_count} ranks"
+            )
+            assert num_atoms_pad % process_count == 0, (
+                f"num_atoms_pad {num_atoms_pad} must divide over {process_count} ranks"
+            )
 
     def __len__(self):
         def nbatches(n):
@@ -103,11 +121,21 @@ class PaddedLoader:
     def _batches(self) -> Iterator[AtomicBatch]:
         plan = self._batch_plan()
         self.epoch += 1
+        local_bs = self.batch_size // self.process_count
         for idxs, cap in plan:
+            if self.process_count > 1:
+                idxs = idxs[self.process_rank * local_bs:(self.process_rank + 1) * local_bs]
             mols = [self.dataset[int(i)] for i in idxs]
             for j, m in enumerate(mols):
                 if "pq" in m and "partial_charges" not in m:
                     mols[j] = dict(m, partial_charges=m["pq"])
+            if self.process_count > 1:
+                # this rank's shard: local capacities, global molecule ids
+                yield pad_molecules(mols, num_atoms=cap // self.process_count, num_mol=local_bs,
+                                    extra_atom_keys=self.extra_atom_keys, float_dtype=self.float_dtype,
+                                    device=self.device, mol_id_offset=self.process_rank * local_bs,
+                                    num_mol_global=self.batch_size)
+                continue
             yield pad_molecules(mols, num_atoms=cap, num_mol=self.batch_size,
                                 extra_atom_keys=self.extra_atom_keys,
                                 float_dtype=self.float_dtype, device=self.device)

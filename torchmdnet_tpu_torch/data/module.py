@@ -4,6 +4,7 @@
 Its loaders put the batches on ``hparams["device"]``: ``cuda`` unless a
 device is named (with no device named and no GPU present, it raises)."""
 
+import math
 import os
 from os.path import join
 from typing import Optional
@@ -15,8 +16,16 @@ from torchmdnet_tpu_torch.data.datasets.base import Subset
 from torchmdnet_tpu_torch.data.loader import PaddedLoader, _round_up
 from torchmdnet_tpu_torch.utils import make_splits, resolve_device
 
-# capacities are multiples of 8 atoms, as in the JAX package on one device
+# capacities are multiples of 8 atoms, as in the JAX package on one device,
+# and of the rank count under data parallelism (``pad_multiple``)
 PAD_MULTIPLE = 8
+
+
+def pad_multiple(ranks: int) -> int:
+    """The capacity multiple: 8 and the rank count, so that every rank's
+    share of a batch's atom slots is whole (the JAX package rounds to its
+    device count)."""
+    return PAD_MULTIPLE * ranks // math.gcd(PAD_MULTIPLE, ranks)
 
 
 class DataModule:
@@ -53,12 +62,22 @@ class DataModule:
         sizes = np.asarray(self.dataset.sample_sizes())
         max_size = int(sizes.max()) if len(sizes) else 1
         bs = max(h["batch_size"], h.get("inference_batch_size") or h["batch_size"])
-        self.num_atoms_pad = _round_up(bs * max_size, PAD_MULTIPLE)
+        self.num_atoms_pad = _round_up(bs * max_size, pad_multiple(self._ranks()[1]))
         if h.get("standardize"):
             self._standardize()
 
+    def _ranks(self):
+        """(rank, count) of the data-parallel ranks; (0, 1) outside a process
+        group and under edge partitioning (every rank loads the same batch)."""
+        from torchmdnet_tpu_torch.parallel.distributed import process_info
+
+        if self.hparams.get("edge_partition"):
+            return 0, 1
+        return process_info()
+
     def _loader(self, dataset, stage):
         h = self.hparams
+        rank, count = self._ranks()
         batch_size = h["batch_size"] if stage == "train" else (h.get("inference_batch_size") or h["batch_size"])
         float_dtype = {16: np.float32, 32: np.float32, 64: np.float64}[h.get("precision", 32)]
         num_buckets = int(h.get("loader_buckets", 1) or 1)
@@ -73,8 +92,10 @@ class DataModule:
             float_dtype=float_dtype,
             prefetch=2 if h.get("num_workers", 0) else 0,
             num_buckets=num_buckets,
-            pad_multiple=PAD_MULTIPLE,
+            pad_multiple=pad_multiple(count),
             device=self.device,
+            process_rank=rank,
+            process_count=count,
         )
 
     def _has_partial_charges(self):

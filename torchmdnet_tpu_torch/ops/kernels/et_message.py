@@ -47,6 +47,7 @@ from torch.autograd.function import once_differentiable
 
 from torchmdnet_tpu_torch.ops.kernels import build
 from torchmdnet_tpu_torch.ops.neighbors import ell_gather, transpose_perm
+from torchmdnet_tpu_torch.parallel.context import G2_ITEM, ShardPlan
 
 SOURCE = "et_message.cu"
 _ACT_CODE = {"silu": 0, "ssp": 1, "tanh": 2, "sigmoid": 3}
@@ -164,11 +165,19 @@ def _raise_on(lib, err, what):
         raise RuntimeError(f"{what} failed: CUDA error {err} ({lib.et_error_string(err).decode()})")
 
 
-def _prepare(idx, q, k, v, vec0, vec1, vec2, ea, cutm, msk, dirs, wdk, bdk, wdv, bdv, heads):
+def _prepare(idx, q, k, v, vec0, vec1, vec2, ea, cutm, msk, dirs, wdk, bdk, wdv, bdv, heads, ext=False):
     """Validate the operands; return ((N, K, H, RBF), the 16 operands in the
-    kernel's order, with the filters transposed to its (F, RBF) layout)."""
+    kernel's order, with the filters transposed to its (F, RBF) layout).
+
+    ``ext`` (a rank's shard under edge partitioning): the source tables (k,
+    v, vec) may hold more rows than ``idx`` (ghost sources after the local
+    rows), and so may the receiver-side tables (q, ea, cutm, msk, dirs: ghost
+    receivers after the local rows, which only the source pass reads)."""
     dev = q.device
     n, kk = idx.shape
+    ns, nr = (k.shape[0], q.shape[0]) if ext else (n, n)
+    if ns < n or nr < n:
+        raise ValueError(f"extended tables need at least the {n} rows of idx; got {ns} source, {nr} receiver rows")
     h = q.shape[1]
     rbf = ea.shape[-1]
     if (h % 32 or h > 1024 or h % heads or (h // heads) > 32 or (h // heads) & (h // heads - 1)
@@ -179,12 +188,12 @@ def _prepare(idx, q, k, v, vec0, vec1, vec2, ea, cutm, msk, dirs, wdk, bdk, wdv,
         )
     bf = torch.bfloat16
     _check(idx, "idx", torch.int32, (n, kk), dev)
-    for t, name, width in ((q, "q", h), (k, "k", h), (v, "v", 3 * h),
-                           (vec0, "vec0", h), (vec1, "vec1", h), (vec2, "vec2", h)):
-        _check(t, name, bf, (n, width), dev)
-    _check(ea, "ea", bf, (n, kk, rbf), dev)
+    for t, name, rows, width in ((q, "q", nr, h), (k, "k", ns, h), (v, "v", ns, 3 * h),
+                                 (vec0, "vec0", ns, h), (vec1, "vec1", ns, h), (vec2, "vec2", ns, h)):
+        _check(t, name, bf, (rows, width), dev)
+    _check(ea, "ea", bf, (nr, kk, rbf), dev)
     for t, name in ((cutm, "cutm"), (msk, "msk"), (dirs[0], "dir0"), (dirs[1], "dir1"), (dirs[2], "dir2")):
-        _check(t, name, torch.float32, (n, kk), dev)
+        _check(t, name, torch.float32, (nr, kk), dev)
     # the kernel reads the filters as (F, RBF) rows: torch's Linear layout
     wk = bk = wv = bv = None
     if wdk is not None:
@@ -200,11 +209,12 @@ def _prepare(idx, q, k, v, vec0, vec1, vec2, ea, cutm, msk, dirs, wdk, bdk, wdv,
 
 
 def run_fwd(idx, q, k, v, vec0, vec1, vec2, ea, cutm, msk, dirs, wdk, bdk, wdv, bdv, *,
-            heads, act, attn_act):
-    """Launch the forward kernel; returns (x_agg (N, H), vec_agg (N, 3H)) f32."""
+            heads, act, attn_act, ext=False):
+    """Launch the forward kernel; returns (x_agg (N, H), vec_agg (N, 3H)) f32.
+    ``ext``: the source tables may hold ghost rows after the N local ones."""
     lib = _lib()
     (n, kk, h, rbf), tensors = _prepare(
-        idx, q, k, v, vec0, vec1, vec2, ea, cutm, msk, dirs, wdk, bdk, wdv, bdv, heads
+        idx, q, k, v, vec0, vec1, vec2, ea, cutm, msk, dirs, wdk, bdk, wdv, bdv, heads, ext=ext
     )
     x = torch.empty((n, h), dtype=torch.float32, device=q.device)
     vec = torch.empty((n, 3 * h), dtype=torch.float32, device=q.device)
@@ -319,7 +329,7 @@ class _Edges:
         self.bf = q.dtype
         self.acc = _wdt(q.dtype)
         self.e, self.src, self.recv = e, src, torch.div(e, kk, rounding_mode="floor")
-        self.ea = ea.reshape(n * kk, -1)[e]
+        self.ea = ea.reshape(-1, ea.shape[-1])[e]  # the slots of ghost receivers too, under partitioning
         self.m = self.r(msk.reshape(-1)[e].to(self.acc))[:, None]
         self.dirs = [self.r(d.reshape(-1)[e].to(self.acc))[:, None] for d in dirs]
 
@@ -547,20 +557,26 @@ weight_grads.launches = 0
 
 
 def bwd_source(idx, perm, q, k, v, vec0, vec1, vec2, ea, cutm, msk, dirs, wdk, bdk, wdv, bdv,
-               ct_x, ct_vec, hs, *, heads, act, attn_act):
+               ct_x, ct_vec, hs, *, heads, act, attn_act, ext=False):
     """The backward's source pass: (dk, dv, dvec0, dvec1, dvec2) bf16 from
     the receiver pass's hs.  CUDA tensors run ``et_bwd_src_kernel``, CPU
-    tensors ``bwd_source_reference``."""
+    tensors ``bwd_source_reference``.
+
+    ``ext`` (edge partitioning): the N = idx rows are the target atoms, and
+    the receiver-side tables (q, ea, cutm, msk, dirs, ct_x, ct_vec, hs) hold
+    the ghost receivers' rows after the local ones; ``perm`` indexes their
+    slots.  The kernel reads a slot's receiver as slot // K, so it runs
+    unchanged."""
     if q.device.type == "cpu":
         return bwd_source_reference(idx, perm, q, k, v, vec0, vec1, vec2, ea, msk, dirs,
                                     wdk, bdk, wdv, bdv, ct_x, ct_vec, hs, heads=heads, act=act)
     lib = _lib()
     (n, kk, h, rbf), tensors = _prepare(
-        idx, q, k, v, vec0, vec1, vec2, ea, cutm, msk, dirs, wdk, bdk, wdv, bdv, heads
+        idx, q, k, v, vec0, vec1, vec2, ea, cutm, msk, dirs, wdk, bdk, wdv, bdv, heads, ext=ext
     )
     dev = q.device
     _check(perm, "perm", torch.int32, (n * kk,), dev)
-    _check(hs, "hs", torch.bfloat16, (n * kk, 2, heads), dev)
+    _check(hs, "hs", torch.bfloat16, (q.shape[0] * kk, 2, heads), dev)
     outs = [torch.empty((n, w * h), dtype=torch.bfloat16, device=dev) for w in (1, 3, 1, 1, 1)]
     with torch.cuda.device(dev):
         err = lib.et_bwd_src(
@@ -577,7 +593,7 @@ bwd_source.launches = 0
 
 
 def bwd_receiver(idx, q, k, v, vec0, vec1, vec2, ea, cutm, msk, dirs, wdk, bdk, wdv, bdv, ct_x, ct_vec,
-                 *, heads, act, attn_act, want_dpre):
+                 *, heads, act, attn_act, want_dpre, ext=False):
     """The backward's receiver pass: (dq, dea, dcutm, [ddir0..2], hs, dpre,
     db) as ``bwd_receiver_reference`` returns them (dq, dcutm, ddir, db f32
     on the card).  CUDA tensors run ``et_bwd_kernel`` (counted by
@@ -588,7 +604,7 @@ def bwd_receiver(idx, q, k, v, vec0, vec1, vec2, ea, cutm, msk, dirs, wdk, bdk, 
                                       want_dpre=want_dpre)
     lib = _lib()
     (n, kk, h, rbf), tensors = _prepare(
-        idx, q, k, v, vec0, vec1, vec2, ea, cutm, msk, dirs, wdk, bdk, wdv, bdv, heads
+        idx, q, k, v, vec0, vec1, vec2, ea, cutm, msk, dirs, wdk, bdk, wdv, bdv, heads, ext=ext
     )
     dev = q.device
     _check(ct_x, "ct_x", torch.float32, (n, h), dev)
@@ -1093,6 +1109,97 @@ class _EtMessagesBwd(torch.autograd.Function):
         return (None, None, None, None, *g_inputs, *g_ct)
 
 
+_PARTITION_SECOND_ORDER = (
+    "a force-loss gradient through the fused ET edge phase under edge partitioning (the second-order "
+    f"kernel #3 on each shard) is not ported yet ({G2_ITEM})"
+)
+
+
+def _exchange_rx(plan, rows):
+    """This rank's receiver rows ``rows`` (N, F) sent to the ranks whose atoms
+    they are sources of; returns the ghost receivers' rows received, owners
+    in rank order."""
+    from torchmdnet_tpu_torch.parallel.distributed import all_to_all_rows
+
+    return all_to_all_rows(plan.mesh, [rows.index_select(0, s) for s in plan.rx_send], plan.rx_recv)
+
+
+class _EtMessagesShard(torch.autograd.Function):
+    """The fused edge phase on one rank's receiver rows under edge
+    partitioning (``plan`` a ``ShardPlan``).
+
+    Forward (#1): the source rows [k | v | vec] of the ghost atoms arrive in
+    one exchange and extend the local source tables; the kernel reads them
+    through the plan's local ids.  Backward (#2): the receiver pass runs on
+    the local receivers; then each rank ships the rows its receivers hold
+    for other ranks' sources (q, the cotangents, each slot's ea, msk, dir
+    and the receiver pass's hs) and runs the source pass over its own atoms,
+    each summing its K slots of the global transpose permutation, local and
+    ghost, in order.  The source rows' gradients are then complete on their
+    owner: no cotangent travels back.  CPU tensors run the passes' plain
+    versions.  The second order under partitioning raises (the next
+    slice)."""
+
+    @staticmethod
+    def forward(ctx, cfg, plan, q, k, v, vec0, vec1, vec2, ea, cutm, msk, dir0, dir1, dir2, wdk, bdk, wdv, bdv):
+        from torchmdnet_tpu_torch.parallel.context import ring_scope
+        from torchmdnet_tpu_torch.parallel.edge_partition import ghost_rows
+
+        heads, act, attn_act = cfg
+        h = q.shape[1]
+        rows = torch.cat([k, v, vec0, vec1, vec2], dim=1)
+        table = torch.cat([rows, ghost_rows(rows, plan)])
+        srcs = [table[:, a:b].contiguous() for a, b in ((0, h), (h, 4 * h), (4 * h, 5 * h), (5 * h, 6 * h),
+                                                         (6 * h, 7 * h))]
+        ctx.cfg, ctx.plan = cfg, plan
+        ctx.save_for_backward(q, *srcs, ea, cutm, msk, dir0, dir1, dir2, wdk, bdk, wdv, bdv)
+        if q.device.type == "cpu":
+            with ring_scope(None), torch.no_grad():  # local ids into the extended tables
+                return et_messages_reference(plan.lidx, q, *srcs, ea, cutm, msk, dir0, dir1, dir2,
+                                             wdk, bdk, wdv, bdv, heads=heads, act=act, attn_act=attn_act,
+                                             perm=plan.perm_rx)
+        return run_fwd(plan.lidx, q, *srcs, ea, cutm, msk, (dir0, dir1, dir2), wdk, bdk, wdv, bdv,
+                       heads=heads, act=act, attn_act=attn_act, ext=True)
+
+    @staticmethod
+    def backward(ctx, ct_x, ct_vec):
+        if torch.is_grad_enabled():
+            raise NotImplementedError(_PARTITION_SECOND_ORDER)
+        heads, act, attn_act = ctx.cfg
+        plan = ctx.plan
+        q, k, v, vec0, vec1, vec2, ea, cutm, msk, dir0, dir1, dir2, wdk, bdk, wdv, bdv = ctx.saved_tensors
+        n, kk = plan.lidx.shape
+        h, rbf = q.shape[1], ea.shape[-1]
+        want_w = any(ctx.needs_input_grad[14:18]) and (wdk is not None or wdv is not None)
+        ct_x, ct_vec = ct_x.contiguous(), ct_vec.contiguous()
+        dirs = (dir0, dir1, dir2)
+        dq, dea, dcutm, ddirs, hs, dpre, db = bwd_receiver(
+            plan.lidx, q, k, v, vec0, vec1, vec2, ea, cutm, msk, dirs, wdk, bdk, wdv, bdv, ct_x, ct_vec,
+            heads=heads, act=act, attn_act=attn_act, want_dpre=want_w, ext=True)
+        # the ghost receivers: f32 [ct_x | ct_vec | msk | dir0..2], bf16 [q | ea | hs]
+        wide = _exchange_rx(plan, torch.cat([ct_x, ct_vec, msk, dir0, dir1, dir2], dim=1))
+        narrow = _exchange_rx(plan, torch.cat([q, ea.reshape(n, -1), hs.reshape(n, -1)], dim=1))
+        g = wide.shape[0]
+        cols = torch.split(wide, [h, 3 * h, kk, kk, kk, kk], dim=1)
+        q_rx = torch.cat([q, narrow[:, :h]]).contiguous()
+        ea_rx = torch.cat([ea, narrow[:, h:h + kk * rbf].reshape(g, kk, rbf)]).contiguous()
+        hs_rx = torch.cat([hs, narrow[:, h + kk * rbf:].reshape(g * kk, 2, heads)]).contiguous()
+        ctx_rx, ctv_rx = (torch.cat([a, b]).contiguous() for a, b in ((ct_x, cols[0]), (ct_vec, cols[1])))
+        msk_rx = torch.cat([msk, cols[2]]).contiguous()
+        dirs_rx = tuple(torch.cat([d, c]).contiguous() for d, c in zip(dirs, cols[3:]))
+        # the source pass reads no cutm: msk stands in for its shape
+        src = bwd_source(plan.lidx, plan.perm_rx, q_rx, k, v, vec0, vec1, vec2, ea_rx, msk_rx, msk_rx, dirs_rx,
+                         wdk, bdk, wdv, bdv, ctx_rx, ctv_rx, hs_rx, heads=heads, act=act, attn_act=attn_act,
+                         ext=True)
+        gw = (None,) * 4
+        if want_w:  # this rank's edges' share of the weight cotangents
+            dw = weight_grads([(ea.reshape(n * kk, -1), dpre)], rbf)
+            gw = _split_weights(dw, db, h, wdk, bdk, wdv, bdv)
+        dk, dv, dvec0, dvec1, dvec2 = src
+        return (None, None, dq.to(q.dtype), dk, dv, dvec0, dvec1, dvec2, dea, dcutm, None,
+                *ddirs, *gw)
+
+
 def fused_et_messages(
     idx, q, k, v, vec0, vec1, vec2, ea, cutm, msk, dir0, dir1, dir2,
     wdk=None, bdk=None, wdv=None, bdv=None, *, heads: int,
@@ -1102,8 +1209,16 @@ def fused_et_messages(
 
     Arguments as ``et_messages_reference``; on the GPU the message operands
     are bf16.  CUDA tensors run the kernels (or raise); CPU tensors run the
-    plain version.
+    plain version.  A ``ShardPlan`` as ``perm`` (edge partitioning: this
+    rank's receiver rows, global ids in ``idx``) runs ``_EtMessagesShard``.
     """
+    if isinstance(perm, ShardPlan):
+        if q.device.type == "cuda" and (act not in _ACT_CODE or attn_act not in _ACT_CODE):
+            raise ValueError(f"unsupported activation for the fused ET kernel: {act}, {attn_act}")
+        return _EtMessagesShard.apply(
+            (heads, act, attn_act), perm, q, k, v, vec0, vec1, vec2, ea, cutm, msk,
+            dir0, dir1, dir2, wdk, bdk, wdv, bdv,
+        )
     if q.device.type == "cpu":
         return et_messages_reference(
             idx, q, k, v, vec0, vec1, vec2, ea, cutm, msk, dir0, dir1, dir2,

@@ -48,6 +48,7 @@ import torch
 from torchmdnet_tpu_torch.ops.kernels import build
 from torchmdnet_tpu_torch.ops.kernels import et_message as em
 from torchmdnet_tpu_torch.ops.neighbors import ell_gather, transpose_perm
+from torchmdnet_tpu_torch.parallel.context import G2_ITEM, ShardPlan, ring_info
 
 SOURCE = "t_message.cu"
 
@@ -794,8 +795,13 @@ def fused_t_messages(
 
     Arguments as ``t_messages_reference``; on the GPU the message operands
     are bf16.  CUDA tensors run the kernels (or raise); CPU tensors run the
-    plain version.
+    plain version.  Under edge partitioning it raises (the next slice).
     """
+    if isinstance(perm, ShardPlan) or ring_info() is not None:
+        raise NotImplementedError(
+            f"the fused Transformer edge phase (#11/#12) under edge partitioning is not ported yet ({G2_ITEM}); "
+            "run the Transformer partitioned with fused_attention=False"
+        )
     if q.device.type == "cpu":
         return t_messages_reference(
             idx, q, k, v, ea, cutm, wdk, bdk, wdv, bdv,

@@ -52,6 +52,7 @@ import torch
 from torchmdnet_tpu_torch.ops.kernels import build
 from torchmdnet_tpu_torch.ops.kernels.et_message import _act_v, _check, _dact, _ptr, dw_partials, dw_per_split
 from torchmdnet_tpu_torch.ops.neighbors import ell_gather, transpose_perm
+from torchmdnet_tpu_torch.parallel.context import G2_ITEM, ShardPlan, ring_info
 
 SOURCE = "tn_message.cu"
 _ACT_CODE = {"silu": 0, "ssp": 1, "tanh": 2, "sigmoid": 3}
@@ -544,8 +545,13 @@ def fused_tn_messages(idx, cat, ea, cutm, w1, b1, w2, b2, w3, b3, *, act: str = 
 
     Arguments as ``tn_messages_reference``; on the GPU the message operands
     are bf16.  CUDA tensors run the kernels (or raise); CPU tensors run the
-    plain version.
+    plain version.  Under edge partitioning it raises (the next slice).
     """
+    if isinstance(perm, ShardPlan) or ring_info() is not None:
+        raise NotImplementedError(
+            f"the fused TensorNet message phase (#8/#9) under edge partitioning is not ported yet ({G2_ITEM}); "
+            "run TensorNet partitioned with fused_message=False"
+        )
     if cat.device.type == "cpu":
         return tn_messages_reference(idx, cat, ea, cutm, w1, b1, w2, b2, w3, b3, act=act, perm=perm)
     if cat.device.type != "cuda":

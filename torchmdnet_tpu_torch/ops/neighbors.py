@@ -27,6 +27,13 @@ dtypes stay ``index_select`` and a K-axis sum.
 PBC: rectangular and reduced-form triclinic boxes via minimum image, with the
 reference's convention and box-validity preconditions (the cell strategy,
 ``ops/cell_list.py``, takes rectangular boxes only).
+
+Edge partitioning (``parallel/``): a list whose transpose permutation is a
+``ShardPlan`` holds one rank's rows with global ids; ``ell_gather`` and
+``ell_transpose_sum`` on it exchange the boundary rows with the other ranks
+(``parallel/edge_partition.py``), and under a partition scope
+``neighbor_list`` returns the executor's prebuilt list of the same
+signature (a pair prior's own list).
 """
 
 import dataclasses
@@ -34,6 +41,8 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+
+from torchmdnet_tpu_torch.parallel.context import ShardPlan, record_build, ring_info
 
 # atom count at which 'auto' switches from brute to the cell list, the JAX
 # package's threshold (torchmdnet_tpu/ops/neighbors.py:60)
@@ -131,14 +140,22 @@ def ell_gather(x, idx, perm=None):
     returning it (``NeighborList.lazy_perm``: computed when a backward first
     needs it, once per list), or None (computed by each backward).  The pair
     of functions are each other's gradients, so every derivative order stays
-    scatter-free.
+    scatter-free.  A ``ShardPlan`` as ``perm`` takes the partitioned route.
     """
+    if isinstance(perm, ShardPlan):
+        from torchmdnet_tpu_torch.parallel.edge_partition import ring_ell_gather
+
+        return ring_ell_gather(x, perm)
     return _EllGather.apply(x, idx, perm)
 
 
 def ell_transpose_sum(g, idx, perm=None):
     """dh[j] = sum of g[i, k] over all slots with idx[i, k] == j; ``perm`` as
     for ``ell_gather``."""
+    if isinstance(perm, ShardPlan):
+        from torchmdnet_tpu_torch.parallel.edge_partition import ring_ell_transpose
+
+        return ring_ell_transpose(g, perm)
     return _EllTransposeSum.apply(g, idx, perm)
 
 
@@ -186,8 +203,9 @@ class NeighborList:
     @property
     def lazy_perm(self):
         """The transpose permutation if it is known, else a callable that
-        gives ``transpose_perm`` when a backward first needs it."""
-        if isinstance(self._perm, torch.Tensor):
+        gives ``transpose_perm`` when a backward first needs it (a
+        partitioned list's ``ShardPlan`` as it is)."""
+        if isinstance(self._perm, (torch.Tensor, ShardPlan)):
             return self._perm
         return lambda: self.transpose_perm
 
@@ -201,6 +219,12 @@ class NeighborList:
         if not self.self_loops:
             return self
         n, k = self.idx.shape
+        if isinstance(self._perm, ShardPlan):
+            return NeighborList(
+                idx=self.idx[:, 1:].contiguous(), mask=self.mask[:, 1:].contiguous(),
+                n_neighbors=self.n_neighbors, self_loops=False, cell_overflow=self.cell_overflow,
+                _perm=self._perm.without_self_loops(),
+            )
 
         def derived():
             groups = self.transpose_perm.reshape(n, k).long()
@@ -247,7 +271,7 @@ class NeighborList:
         """Re-apply the true cutoff window to a skin-padded list (Verlet-skin
         reuse); the self-loop column, if present, stays valid."""
         with torch.no_grad():
-            pj = _gather_rows(pos, self.idx)
+            pj = ell_gather(pos, self.idx, self.lazy_perm)
             dx = pj[..., 0] - pos[:, None, 0]
             dy = pj[..., 1] - pos[:, None, 1]
             dz = pj[..., 2] - pos[:, None, 2]
@@ -404,7 +428,27 @@ def neighbor_list(
             the box is triclinic, brute otherwise.
         cell_kwargs: the cell strategy's static sizes (``cell_capacity``,
             ``max_cells``, ...; see ``neighbor_list_cell``); brute ignores them.
+
+    Under a partition scope the list comes from the executor's prebuilt lists
+    (matched by (k, cutoff_lower, cutoff_upper, loop)), not from ``pos``.
     """
+    sig = (int(k), float(cutoff_lower), float(cutoff_upper), bool(loop))
+    info = ring_info()
+    if info is not None:
+        nbl = info.match_build(sig)
+        if nbl is None:
+            raise ValueError(
+                f"under edge partitioning a neighbor list must be prebuilt by the executor; none matches "
+                f"(k, cutoff_lower, cutoff_upper, loop) = {sig}"
+            )
+        return nbl
+    nbl = _build_list(pos, batch, atom_mask, k=k, cutoff_lower=cutoff_lower, cutoff_upper=cutoff_upper,
+                      loop=loop, box=box, strategy=strategy, **cell_kwargs)
+    record_build(sig, nbl)
+    return nbl
+
+
+def _build_list(pos, batch, atom_mask, *, k, cutoff_lower, cutoff_upper, loop, box, strategy, **cell_kwargs):
     n = pos.shape[0]
     if strategy == "auto":
         strategy = "cell" if n >= _AUTO_CELL_THRESHOLD and _is_rectangular(box) else "brute"

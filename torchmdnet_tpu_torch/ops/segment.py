@@ -4,13 +4,30 @@ Padding atoms carry id == num_segments - 1 (a trash row the caller slices
 off).  Sums go through a dense one-hot matrix product rather than
 ``index_add_``: on the GPU ``index_add_`` adds floats with atomics in an order
 that changes from run to run, while the product is the same every run.
+
+Under edge partitioning (``parallel/context.py``) ``x`` holds only this
+rank's atoms (ids stay global): the reduction becomes a local partial
+reduction whose partials every rank combines in rank order
+(``parallel/edge_partition.ring_segment_reduce``).
 """
 
 import torch
 
+from torchmdnet_tpu_torch.parallel.context import ring_info
+
 
 def segment_reduce(x, segment_ids, num_segments: int, op: str = "sum"):
     """Reduce per-atom values (N, ...) into per-segment values (num_segments, ...)."""
+    info = ring_info()
+    if info is not None:
+        from torchmdnet_tpu_torch.parallel.edge_partition import ring_segment_reduce
+
+        return ring_segment_reduce(x, segment_ids, num_segments, op, info.mesh)
+    return local_segment_reduce(x, segment_ids, num_segments, op)
+
+
+def local_segment_reduce(x, segment_ids, num_segments: int, op: str = "sum"):
+    """``segment_reduce`` of these rows alone, whatever the scope."""
     if op == "max":
         shape = (num_segments,) + tuple(x.shape[1:])
         out = torch.full(shape, float("-inf"), dtype=x.dtype, device=x.device)

@@ -10,7 +10,7 @@ from typing import Dict
 import torch
 
 from torchmdnet_tpu_torch.constants import COULOMB_CONSTANT_JM
-from torchmdnet_tpu_torch.ops.neighbors import edge_geometry_components, neighbor_list
+from torchmdnet_tpu_torch.ops.neighbors import edge_geometry_components, ell_gather, neighbor_list
 from torchmdnet_tpu_torch.priors.base import BasePrior, molecular_pair_energy_sum
 
 
@@ -53,7 +53,7 @@ class Coulomb(BasePrior):
         dist_safe = torch.where(nbl.mask, dist, torch.ones_like(dist))
         pq = extra["partial_charges"]
         qi = pq[:, None]
-        qj = pq[nbl.idx.long()]
+        qj = ell_gather(pq, nbl.idx, nbl.lazy_perm)  # global ids under edge partitioning
         e_pair = torch.erf(self.alpha * dist_safe) * qi * qj / dist_safe
         e_mol = molecular_pair_energy_sum(e_pair, batch_ids, atom_mask, nbl.mask, num_mol)
         e_mol = 0.5 * (COULOMB_CONSTANT_JM / self.energy_scale / self.distance_scale) * e_mol

@@ -12,7 +12,7 @@ import numpy as np
 import torch
 
 from torchmdnet_tpu_torch.constants import AVOGADRO
-from torchmdnet_tpu_torch.ops.neighbors import edge_geometry_components, neighbor_list
+from torchmdnet_tpu_torch.ops.neighbors import edge_geometry_components, ell_gather, neighbor_list
 from torchmdnet_tpu_torch.priors.base import BasePrior, molecular_pair_energy_sum
 
 # fmt: off
@@ -79,9 +79,9 @@ class D2(BasePrior):
         energy_scale_jmol = self.energy_scale * AVOGADRO
 
         rows = self.c6_rr.to(pos.dtype)[self.zmap[z]]  # (N, 2); NaN for Z = 0
-        idx = nbl.idx.long()
-        c6 = torch.sqrt(rows[:, 0:1] * rows[idx, 0])
-        rr = rows[:, 1:2] + rows[idx, 1]
+        rows_j = ell_gather(rows, nbl.idx, nbl.lazy_perm)  # (N, K, 2); global ids under edge partitioning
+        c6 = torch.sqrt(rows[:, 0:1] * rows_j[..., 0])
+        rr = rows[:, 1:2] + rows_j[..., 1]
         f_damp = 1.0 / (1.0 + torch.exp(-self.d * (r_ij / rr - 1.0)))
         e_pair = c6 / r_ij ** 6 * f_damp
         e_mol = molecular_pair_energy_sum(e_pair, batch_ids, atom_mask, nbl.mask, num_mol)

@@ -12,7 +12,7 @@ import torch
 
 from torchmdnet_tpu_torch.constants import BOHR_RADIUS_M, COULOMB_CONSTANT_JM
 from torchmdnet_tpu_torch.ops.cutoff import cosine_cutoff
-from torchmdnet_tpu_torch.ops.neighbors import edge_geometry_components, neighbor_list
+from torchmdnet_tpu_torch.ops.neighbors import edge_geometry_components, ell_gather, neighbor_list
 from torchmdnet_tpu_torch.priors.base import BasePrior, molecular_pair_energy_sum
 
 
@@ -52,7 +52,7 @@ class ZBL(BasePrior):
         _, dist = edge_geometry_components(pos, nbl)
         zt = self.zmap.to(pos.dtype)[z]  # (N,)
         zi = zt[:, None]
-        zj = zt[nbl.idx.long()]  # (N, K)
+        zj = ell_gather(zt, nbl.idx, nbl.lazy_perm)  # (N, K); global ids under edge partitioning
         a = 0.8854 * BOHR_RADIUS_M / (zi ** 0.23 + zj ** 0.23)
         dist_safe = torch.where(nbl.mask, dist, torch.ones_like(dist))
         d = dist_safe * self.distance_scale / a

@@ -9,11 +9,20 @@ the best checkpoint -> test.  Run it as
 
     python -m torchmdnet_tpu_torch.scripts.train --conf config.yaml
 
-It trains on ``cuda`` unless ``--device`` names another device.  Flags of
-later slices (``--force-grad-mode jvp``, ``--edge-partition``,
-``--ndevices`` > 1, ``--num-nodes`` > 1) raise; ``--steps-per-dispatch``
-runs its steps one by one, and the gather-plan flags are accepted and unused
-(the port's kernels gather by index).
+It trains on ``cuda`` unless ``--device`` names another device.
+
+Data parallelism, as the reference's Lightning DDP: ``--ndevices D`` (-1:
+every GPU of the node) starts D processes, one a device, each training on
+its shard of every global batch (``parallel/``); ranks that share a card
+(more ranks than GPUs, or ``--device cpu``) use gloo, otherwise NCCL.
+``--num-nodes N`` joins N such nodes through the reference's environment
+rendezvous (``MASTER_ADDR``, ``MASTER_PORT``, ``NODE_RANK``, set on every
+node).  Only rank 0 writes logs and checkpoints.
+
+Flags of later slices (``--force-grad-mode jvp``, ``--edge-partition``)
+raise; ``--steps-per-dispatch`` runs its steps one by one, and the
+gather-plan flags are accepted and unused (the port's kernels gather by
+index).
 """
 
 import argparse
@@ -21,6 +30,7 @@ import json
 import logging
 import os
 import sys
+import time
 
 from torchmdnet_tpu_torch.ops.activations import act_fn_mapping
 from torchmdnet_tpu_torch.ops.rbf import rbf_class_mapping
@@ -69,8 +79,8 @@ def get_args(argv=None):
     parser.add_argument('--weight-decay', type=float, default=0.0, help='Weight decay strength')
     parser.add_argument('--ema-alpha-y', type=float, default=1.0, help='The amount of influence of new losses on the exponential moving average of y')
     parser.add_argument('--ema-alpha-neg-dy', type=float, default=1.0, help='The amount of influence of new losses on the exponential moving average of dy')
-    parser.add_argument('--ndevices', type=int, default=-1, help='Number of devices for data parallelism (-1 = all; more than one is not ported yet)')
-    parser.add_argument('--num-nodes', type=int, default=1, help='Number of hosts (more than one is not ported yet)')
+    parser.add_argument('--ndevices', type=int, default=-1, help='Number of devices (one process each) for data parallelism on this node; -1 = every GPU of the node (one process on the CPU)')
+    parser.add_argument('--num-nodes', type=int, default=1, help='Number of nodes; more than one needs MASTER_ADDR, MASTER_PORT and NODE_RANK on every node')
     parser.add_argument('--precision', type=int, default=32, choices=[16, 32, 64], help='Floating point precision (16 = bfloat16 compute)')
     parser.add_argument('--log-dir', '-l', default='/tmp/logs', help='log file')
     parser.add_argument('--splits', default=None, help='Npz with splits idx_train, idx_val, idx_test')
@@ -132,8 +142,8 @@ def get_args(argv=None):
     parser.add_argument('--fused-attention', type=str2bool, default=False, help='Route the equivariant-transformer or transformer edge phase through the fused CUDA kernels (requires bf16-messages; batches are spatially sorted). Force-loss training runs their second-order kernel')
     parser.add_argument('--force-grad-mode', type=str, default='gradgrad', choices=['gradgrad', 'jvp'], help='Force-loss gradient formulation: nested reverse ("gradgrad", default); "jvp" is not ported yet')
     parser.add_argument('--fused-message', type=str2bool, default=False, help='Route the tensornet message phase through the fused CUDA kernels (requires bf16-messages; batches are spatially sorted). Force-loss training runs their second-order kernel')
-    parser.add_argument('--edge-partition', type=str2bool, default=False, help="Shard each batch's atom rows over the devices (not ported yet)")
-    parser.add_argument('--edge-boundary-limit', type=int, default=65536, help='Upper limit on the boundary capacity of edge partitioning (not ported yet)')
+    parser.add_argument('--edge-partition', type=str2bool, default=False, help="Shard each batch's atom rows over the devices in training (not ported yet: the next slice; edge-partitioned energy, forces and MD are, through parallel.edge_partition and md.Simulation)")
+    parser.add_argument('--edge-boundary-limit', type=int, default=65536, help='Upper limit on the boundary capacity of edge partitioning')
     parser.add_argument('--plan-block-rows', type=int, default=0, help="Gather-plan rows per block (accepted and unused: the port's kernels gather by index)")
     parser.add_argument('--plan-width', type=int, default=0, help="Gather-plan width (accepted and unused: the port's kernels gather by index)")
     parser.add_argument('--steps-per-dispatch', type=int, default=8, help='Optimizer steps per dispatch in the JAX package; the port runs them one by one, with the same numbers')
@@ -146,7 +156,7 @@ def get_args(argv=None):
     parser.add_argument('--wandb-resume-from-id', default=None, type=str, help='Resume a wandb run from a given run id.')
     parser.add_argument('--tensorboard-use', default=False, type=bool, help='Defines if tensor board is used or not')
     # the port's own flags (PORT_ONLY_FLAGS)
-    parser.add_argument('--device', default=None, type=str, help='Torch device to train on (default: cuda; raises without a GPU unless a device such as cpu is named)')
+    parser.add_argument('--device', default=None, type=str, help='Torch device to train on (default: cuda; raises without a GPU unless a device such as cpu is named); with several ranks, each takes its own card of this type')
     # fmt: on
 
     args = parser.parse_args(argv)
@@ -161,12 +171,47 @@ def get_args(argv=None):
         args.inference_batch_size = args.batch_size
 
     os.makedirs(args.log_dir, exist_ok=True)
-    save_argparse(args, os.path.join(args.log_dir, "input.yaml"), exclude=["conf"])
+    if _is_first_rank():
+        save_argparse(args, os.path.join(args.log_dir, "input.yaml"), exclude=["conf"])
     return args
+
+
+def _is_first_rank():
+    return os.environ.get("LOCAL_RANK", "0") == "0" and os.environ.get("NODE_RANK", "0") == "0"
+
+
+def _local_ranks(args):
+    """Processes to start on this node: ``--ndevices``, -1 being every GPU of
+    the node (one process on the CPU)."""
+    if args.ndevices is not None and args.ndevices > 0:
+        return args.ndevices
+    import torch
+
+    on_cpu = args.device is not None and torch.device(args.device).type == "cpu"
+    return 1 if on_cpu or not torch.cuda.is_available() else torch.cuda.device_count()
 
 
 def main(argv=None):
     args = get_args(argv)
+    ranks = _local_ranks(args)
+    if ranks > 1 and "LOCAL_RANK" not in os.environ:
+        # this node's launcher: one process a device, each running this CLI
+        from torchmdnet_tpu_torch.parallel.distributed import launch
+
+        rc = launch(["-m", "torchmdnet_tpu_torch.scripts.train"] + list(sys.argv[1:] if argv is None else argv), ranks)
+        if rc != 0:
+            raise SystemExit(f"a training rank failed with exit code {rc}")
+        return None, None
+    from torchmdnet_tpu_torch.parallel.distributed import initialize_distributed, shutdown
+
+    initialize_distributed(args.num_nodes, ranks_per_node=ranks, device=args.device)
+    try:
+        return _train(args)
+    finally:
+        shutdown()
+
+
+def _train(args):
     hparams = vars(args)
     if isinstance(hparams.get("dataset_arg"), str):
         try:
@@ -176,10 +221,21 @@ def main(argv=None):
 
     from torchmdnet_tpu_torch.data.module import DataModule
     from torchmdnet_tpu_torch.models.potential import create_model, create_prior_models, load_model
+    from torchmdnet_tpu_torch.parallel.distributed import barrier
+    from torchmdnet_tpu_torch.parallel.mesh import make_mesh
     from torchmdnet_tpu_torch.train.checkpoints import load_checkpoint
     from torchmdnet_tpu_torch.train.trainer import Trainer
     from torchmdnet_tpu_torch.utils import resolve_device
 
+    # a process group (several ranks, or one started through the rendezvous)
+    # trains data-parallel over its ranks
+    import torch.distributed as dist
+
+    mesh = make_mesh(device=hparams.get("device"), allow_single=dist.is_available() and dist.is_initialized())
+    if mesh is not None:
+        hparams["device"] = str(mesh.device)
+        if mesh.rank == 0:
+            print(f"data parallel: {mesh.size} ranks over the {mesh.backend} backend, rank 0 on {mesh.device}")
     device = resolve_device(hparams.get("device"))
     data = DataModule(hparams)
     data.setup()
@@ -191,11 +247,19 @@ def main(argv=None):
         model = create_model(hparams, prior_models, mean=data.mean, std=data.std, device=device,
                              seed=hparams.get("seed", 1))
     # the hyperparameters beside the checkpoints, for --load-model
-    with open(os.path.join(args.log_dir, "hparams.yaml"), "w") as f:
-        json.dump({k: v for k, v in hparams.items() if k != "conf"}, f, indent=1, default=str)
+    if mesh is None or mesh.rank == 0:
+        with open(os.path.join(args.log_dir, "hparams.yaml"), "w") as f:
+            json.dump({k: v for k, v in hparams.items() if k != "conf"}, f, indent=1, default=str)
 
-    trainer = Trainer(model, hparams)
+    trainer = Trainer(model, hparams, mesh=mesh)
+    t0 = time.perf_counter()
     trainer.fit(data, ckpt_path=hparams.get("load_model"))
+    seconds = time.perf_counter() - t0
+    if trainer.is_main:
+        steps = trainer.state.global_step
+        print(f"fit: {steps} steps in {seconds:.3f} s ({1e3 * seconds / max(steps, 1):.3f} ms a step, "
+              "validation included)")
+    barrier()  # rank 0 has written the checkpoints
     # reload the best checkpoint and run the test set
     best = trainer.best_model_path
     if best is not None and os.path.exists(best):

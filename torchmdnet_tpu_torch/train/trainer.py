@@ -23,6 +23,15 @@ behaviour:
 The trainer trains the module's weights as they are (those ``create_model``
 drew from its seed, or weights loaded into it); it does not re-initialise
 them.  It runs on the potential's device.
+
+Data parallelism (``mesh``, one process per rank, ``parallel/``): each rank
+trains on its shard of every global batch (the loaders of ``DataModule``),
+starting from rank 0's weights.  Every loss term is normalised by the GLOBAL
+count of valid molecules or atoms, the gradients are summed over the ranks
+in rank order, and the losses, metrics, LR schedule, early stopping and
+checkpoint choice all read global values, so the ranks take the same steps
+as one process on the global batch, up to the order of float sums.  Only
+rank 0 writes logs and checkpoints.
 """
 
 import math
@@ -35,6 +44,14 @@ import torch
 from torchmdnet_tpu_torch.data.batch import spatial_sort
 from torchmdnet_tpu_torch.models.potential import Potential, check_atom_filter_batch
 from torchmdnet_tpu_torch.ops.cell_list import probe_cell_kwargs
+from torchmdnet_tpu_torch.parallel.context import G2_ITEM
+from torchmdnet_tpu_torch.parallel.distributed import (
+    broadcast_,
+    localize_shard,
+    max_over_ranks,
+    sum_gradients,
+    sum_in_rank_order,
+)
 from torchmdnet_tpu_torch.train.checkpoints import latest_checkpoint, load_checkpoint, save_checkpoint
 from torchmdnet_tpu_torch.train.loggers import make_loggers
 
@@ -42,22 +59,26 @@ _QUEUE = "ROADMAP.md, 'The next bring_up slices'"
 _LATER_SLICES = {
     "force_grad_mode": "force_grad_mode='jvp' (forward-over-reverse) is not ported; the port trains force "
                        f"losses by grad-of-grad ({_QUEUE}, item 3, training leftovers)",
-    "edge_partition": f"edge partitioning needs the parallel layer ({_QUEUE}, item 4, slice G)",
-    "ndevices": f"training on more than one device needs the parallel layer ({_QUEUE}, item 4, slice G)",
-    "num_nodes": f"multi-host training needs the parallel layer ({_QUEUE}, item 4, slice G)",
+    "edge_partition": "--edge-partition training (force losses through the partitioned exchange, the "
+                      f"second-order kernels on each shard) is not ported yet ({G2_ITEM}); edge-partitioned "
+                      "energy, forces and MD are (parallel/edge_partition.py, md.Simulation)",
 }
 
 
-def masked_mse(pred, target, mask):
-    se = (pred - target) ** 2
-    se = se.reshape(se.shape[0], -1).mean(dim=1)
-    return torch.where(mask, se, torch.zeros_like(se)).sum() / mask.sum().clamp_min(1)
+def _masked_sum(err, mask):
+    """The sum over valid rows of each row's mean error."""
+    err = err.reshape(err.shape[0], -1).mean(dim=1)
+    return torch.where(mask, err, torch.zeros_like(err)).sum()
 
 
-def masked_l1(pred, target, mask):
-    ae = (pred - target).abs()
-    ae = ae.reshape(ae.shape[0], -1).mean(dim=1)
-    return torch.where(mask, ae, torch.zeros_like(ae)).sum() / mask.sum().clamp_min(1)
+def masked_mse(pred, target, mask, count=None):
+    """Mean squared error over the valid rows; ``count`` (default the valid
+    rows here) is the global count under data parallelism."""
+    return _masked_sum((pred - target) ** 2, mask) / (mask.sum().clamp_min(1) if count is None else count)
+
+
+def masked_l1(pred, target, mask, count=None):
+    return _masked_sum((pred - target).abs(), mask) / (mask.sum().clamp_min(1) if count is None else count)
 
 
 @dataclass
@@ -72,21 +93,22 @@ class TrainerState:
 
 
 class Trainer:
-    def __init__(self, model: Potential, hparams):
+    """``mesh`` (``parallel.mesh.make_mesh``): train data-parallel over its
+    ranks; None trains in this process alone."""
+
+    def __init__(self, model: Potential, hparams, mesh=None):
         self.model = model
         self.h = h = dict(hparams)
         if h.get("force_grad_mode", "gradgrad") == "jvp":
             raise NotImplementedError(_LATER_SLICES["force_grad_mode"])
         if h.get("edge_partition"):
             raise NotImplementedError(_LATER_SLICES["edge_partition"])
-        if (h.get("ndevices") or 1) > 1:
-            raise NotImplementedError(_LATER_SLICES["ndevices"])
-        if (h.get("num_nodes") or 1) > 1:
-            raise NotImplementedError(_LATER_SLICES["num_nodes"])
+        self.mesh = mesh
+        self.is_main = mesh is None or mesh.rank == 0
         self.device = model.device
         self.log_dir = h.get("log_dir", "/tmp/logs")
         os.makedirs(self.log_dir, exist_ok=True)
-        self.loggers = make_loggers(h, self.log_dir)
+        self.loggers = make_loggers(h, self.log_dir) if self.is_main else []
         self._ckpts = []  # (metric, path) of the top-k checkpoints
         # the JAX trainer sorts the batch in space for the fused kernels'
         # gather plan (ET's fused_attention, TensorNet's fused_message); the
@@ -96,7 +118,11 @@ class Trainer:
         # (ROADMAP.md, section 3)
         self._fused = bool(h.get("fused_attention") or h.get("fused_message"))
         self._cell_kwargs = {}
-        self.params = [p for p in model.module.parameters() if p.requires_grad]
+        named = [(n, p) for n, p in model.module.named_parameters() if p.requires_grad]
+        self.param_names = [n for n, _ in named]
+        self.params = [p for _, p in named]
+        if mesh is not None:  # every rank starts from rank 0's weights
+            broadcast_(mesh, list(model.module.state_dict().values()))
         self.optimizer = torch.optim.AdamW(
             self.params, lr=h.get("lr", 1e-4), betas=(0.9, 0.999), eps=1e-8,
             weight_decay=h.get("weight_decay", 0.0),
@@ -109,6 +135,10 @@ class Trainer:
     def dtype(self):
         return self.model.dtype
 
+    def _print(self, text):
+        if self.is_main:
+            print(text)
+
     # --- one step ---------------------------------------------------------
 
     def _raise_on_overflow(self, count: float, context: str):
@@ -120,8 +150,14 @@ class Trainer:
             )
 
     def _prepare_batch(self, batch):
+        if self.mesh is not None:
+            batch = localize_shard(batch, self.mesh.rank)
         if self._fused:
-            batch, _ = spatial_sort(batch, cell=self.h.get("cutoff_upper", 5.0))
+            origin = None
+            if self.mesh is not None:  # the global batch's grid: each molecule sorts as in one process
+                low = batch.pos.amin(dim=0).to(self.device)
+                origin = (-max_over_ranks(self.mesh, -low)).cpu()
+            batch, _ = spatial_sort(batch, cell=self.h.get("cutoff_upper", 5.0), origin=origin)
         return batch.to(self.device)
 
     def _build_nbl(self, batch):
@@ -180,11 +216,17 @@ class Trainer:
         nbl, over = self._build_nbl(batch)
         preds = self._predictions(batch, nbl, train=True)
         zero = torch.zeros((), dtype=self.dtype, device=self.device)
-        loss_y = loss_f = zero
-        if "y" in preds:
-            loss_y = alpha_y * masked_mse(*preds["y"]) + (1 - alpha_y) * ema_y
-        if "neg_dy" in preds:
-            loss_f = alpha_f * masked_mse(*preds["neg_dy"]) + (1 - alpha_f) * ema_f
+        counts = (None, None)
+        if self.mesh is not None:  # normalised by the global batch's counts
+            counts = self._global_counts(preds)
+            has = counts > 0  # labels somewhere in the global batch (a rank's shard may be empty)
+            counts = counts.clamp_min(1)
+        mse_y = masked_mse(*preds["y"], count=counts[0]) if "y" in preds else zero
+        mse_f = masked_mse(*preds["neg_dy"], count=counts[1]) if "neg_dy" in preds else zero
+        # under data parallelism: this rank's share of the global loss, whose
+        # gradient's seeds round as one process's (the EMA terms carry none)
+        loss_y = alpha_y * mse_y + (1 - alpha_y) * ema_y if "y" in preds else zero
+        loss_f = alpha_f * mse_f + (1 - alpha_f) * ema_f if "neg_dy" in preds else zero
         total = y_w * loss_y + f_w * loss_f
         self.optimizer.zero_grad(set_to_none=True)
         if total.requires_grad:
@@ -192,6 +234,13 @@ class Trainer:
         for p in self.params:  # optax updates every leaf, decay included
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        if self.mesh is not None:
+            mse_y, mse_f, over = sum_gradients(
+                self.mesh, self.params, torch.stack([mse_y.detach(), mse_f.detach(), over]))
+            loss_y = torch.where(has[0], alpha_y * mse_y + (1 - alpha_y) * ema_y, zero)
+            loss_f = torch.where(has[1], alpha_f * mse_f + (1 - alpha_f) * ema_f, zero)
+            total = y_w * loss_y + f_w * loss_f
+        self.on_before_optimizer_step()
         if self.clip > 0:
             self._clip_grads()
         self.optimizer.step()
@@ -199,19 +248,33 @@ class Trainer:
         self.state.global_step += 1
         return loss_y.detach(), loss_f.detach()
 
+    def on_before_optimizer_step(self):
+        """Called in every step once the gradients are complete (summed over
+        the ranks), before clipping and the optimizer step, as Lightning's
+        hook of that name; ``self.params``' gradients are readable here."""
+
+    def _global_counts(self, preds):
+        """(valid molecules, valid atoms) with labels in the global batch."""
+        zero = torch.zeros((), dtype=self.dtype, device=self.device)
+        local = torch.stack([preds[k][2].sum().to(self.dtype) if k in preds else zero for k in ("y", "neg_dy")])
+        return sum_in_rank_order(self.mesh, local)
+
     def _eval_step(self, batch):
+        """(sums of the L1 and squared errors over the valid rows, and their
+        counts, of y and neg_dy; the overflow flag) of this batch (this
+        rank's shard of it)."""
         nbl, over = self._build_nbl(batch)
         preds = self._predictions(batch, nbl, train=False)
-        out = {"overflow": over}
-        if "y" in preds:
-            pred, target, mask = (t.detach() for t in preds["y"])
-            out["y_l1"] = masked_l1(pred, target, mask)
-            out["y_mse"] = masked_mse(pred, target, mask)
-        if "neg_dy" in preds:
-            pred, target, mask = (t.detach() for t in preds["neg_dy"])
-            out["neg_dy_l1"] = masked_l1(pred, target, mask)
-            out["neg_dy_mse"] = masked_mse(pred, target, mask)
-        return out
+        zero = torch.zeros((), dtype=self.dtype, device=self.device)
+        terms = []
+        for key in ("y", "neg_dy"):
+            if key in preds:
+                pred, target, mask = (t.detach() for t in preds[key])
+                terms += [_masked_sum((pred - target).abs(), mask), _masked_sum((pred - target) ** 2, mask),
+                          mask.sum().to(self.dtype)]
+            else:
+                terms += [zero, zero, zero]
+        return torch.stack(terms + [over])
 
     def _current_lr(self, state: TrainerState):
         warmup = self.h.get("lr_warmup_steps", 0)
@@ -227,7 +290,10 @@ class Trainer:
         val_loader = datamodule.val_dataloader()
         # setup checks on the first training batch: probed cell sizes for
         # large molecules, then every neighbor list checked on the host
-        batch0 = next(iter(train_loader)).to(self.device)
+        batch0 = next(iter(train_loader))
+        if self.mesh is not None:
+            batch0 = localize_shard(batch0, self.mesh.rank)
+        batch0 = batch0.to(self.device)
         cutoff = h.get("cutoff_upper", 5.0)
         self._cell_kwargs = probe_cell_kwargs(batch0, cutoff_upper=cutoff)
         self.model.neighbors(batch0, **self._cell_kwargs).raise_on_overflow("the first training batch")
@@ -239,7 +305,7 @@ class Trainer:
         if not ckpt_path and h.get("auto_resume"):
             ckpt_path = latest_checkpoint(self.log_dir)
             if ckpt_path:
-                print(f"auto-resume: restoring from {ckpt_path}")
+                self._print(f"auto-resume: restoring from {ckpt_path}")
         if ckpt_path and not h.get("reset_trainer"):
             self._restore(ckpt_path)
         elif ckpt_path:
@@ -265,10 +331,10 @@ class Trainer:
             if monitored < state.best_metric:
                 state.best_metric = monitored
             if state.early_stop_bad_epochs >= patience:
-                print(f"Early stopping at epoch {epoch}")
+                self._print(f"Early stopping at epoch {epoch}")
                 break
             if state.lr < h.get("lr_min", 0.0):
-                print(f"Learning rate fell below lr_min at epoch {epoch}")
+                self._print(f"Learning rate fell below lr_min at epoch {epoch}")
                 break
         return state
 
@@ -306,14 +372,28 @@ class Trainer:
         return out
 
     def _run_eval_epoch(self, loader, stage):
+        """The stage's metrics: each batch's mean errors (over the global
+        batch: every rank's sums and counts added first), averaged over the
+        batches."""
         h = self.h
         self.model.module.eval()
+        rows = [self._eval_step(self._prepare_batch(batch)) for batch in loader]
         sums = {}
-        n = 0
-        for batch in loader:
-            for k, v in self._eval_step(self._prepare_batch(batch)).items():
-                sums[k] = sums.get(k, 0.0) + v
-            n += 1
+        n = len(rows)
+        if rows:
+            table = torch.stack(rows)
+            if self.mesh is not None:
+                table = sum_in_rank_order(self.mesh, table)
+            has = (bool(table[:, 2].sum() > 0), bool(table[:, 5].sum() > 0))  # labels in the stage
+            for b in range(n):
+                (y_l1, y_mse, y_n, f_l1, f_mse, f_n, over) = table[b]
+                parts = {"overflow": over}
+                if has[0]:
+                    parts.update(y_l1=y_l1 / y_n.clamp_min(1), y_mse=y_mse / y_n.clamp_min(1))
+                if has[1]:
+                    parts.update(neg_dy_l1=f_l1 / f_n.clamp_min(1), neg_dy_mse=f_mse / f_n.clamp_min(1))
+                for k, v in parts.items():
+                    sums[k] = sums.get(k, 0.0) + v
         sums = {k: float(v) for k, v in sums.items()}
         self._raise_on_overflow(sums.pop("overflow", 0.0), f"the {stage} epoch")
         n = max(n, 1)
@@ -334,7 +414,8 @@ class Trainer:
         metrics = self._run_eval_epoch(datamodule.test_dataloader(), "test")
         for logger in self.loggers:
             logger.log_metrics(metrics, step=self.state.global_step)
-        print({k: round(v, 6) for k, v in metrics.items()})
+        if self.is_main:
+            print({k: round(v, 6) for k, v in metrics.items()})
         return metrics
 
     # --- plateau, early stop, checkpoints ---------------------------------
@@ -351,7 +432,7 @@ class Trainer:
         if state.plateau_bad_epochs > h.get("lr_patience", 10):
             new_lr = max(state.lr * h.get("lr_factor", 0.8), h.get("lr_min", 1e-6))
             if new_lr < state.lr:
-                print(f"Reducing learning rate to {new_lr:.3e}")
+                self._print(f"Reducing learning rate to {new_lr:.3e}")
             state.lr = new_lr
             state.plateau_bad_epochs = 0
 
@@ -360,12 +441,13 @@ class Trainer:
         test_l1 = metrics.get("test_total_l1_loss", float("nan"))
         fname = f"epoch={self.state.epoch}-val_loss={val:.4f}-test_loss={test_l1:.4f}.ckpt"
         path = os.path.join(self.log_dir, fname)
-        self.save_checkpoint(path)
+        if self.is_main:  # every rank keeps the same list; rank 0 writes the files
+            self.save_checkpoint(path)
         self._ckpts.append((monitored, path))
         self._ckpts.sort(key=lambda t: t[0])
         while len(self._ckpts) > 10:  # save_top_k = 10
             _, worst = self._ckpts.pop()
-            if os.path.exists(worst):
+            if self.is_main and os.path.exists(worst):
                 os.remove(worst)
 
     @property
