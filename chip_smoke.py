@@ -2430,11 +2430,11 @@ T_MD_STEPS = 10
 T_MD_STD = 0.1
 
 
-def _t_kernel_inputs(n_atoms, k, h, rbf, cutoff, seed, batch=None, influence="both"):
+def _t_kernel_inputs(n_atoms, k, h, rbf, cutoff, seed, batch=None, influence="both", nbl=None):
     """The Transformer edge phase's operands on the card: ET's (a real ELL
     list and its geometry, random bf16 rows and filters) cut to T's widths;
     filters absent where ``influence`` leaves them out."""
-    nbl, ins, cts = _kernel_inputs(n_atoms, k, h, rbf, cutoff, seed, batch=batch)
+    nbl, ins, cts = _kernel_inputs(n_atoms, k, h, rbf, cutoff, seed, batch=batch, nbl=nbl)
     t = dict(q=ins["q"], k=ins["k"], v=ins["v"][:, :h].contiguous(), ea=ins["ea"], cutm=ins["cutm"],
              wdk=ins["wdk"], bdk=ins["bdk"], wdv=ins["wdv"][:, :h].contiguous(),
              bdv=ins["bdv"][:, :h].contiguous())
@@ -3768,9 +3768,13 @@ def _dp_flags(root, log_dir):
 # gradients (its on_before_optimizer_step hook):
 #   python -c _RANK_DRIVER grads.pt BACKEND [CLI flags]
 # BACKEND, when not empty, joins the process group on that backend first
-# (nodes that share one card name gloo: NCCL refuses two ranks on a device)
+# (nodes that share one card name gloo: NCCL refuses two ranks on a device).
+# After the run each rank prints its fused kernels' launches ("rank
+# launches: RANK {json}") and its peak device memory ("rank peak bytes:
+# RANK BYTES")
 _RANK_DRIVER = """
-import sys, torch
+import json, os, sys, torch
+from torchmdnet_tpu_torch.ops.kernels import et_message, t_message, tn_message
 from torchmdnet_tpu_torch.parallel.distributed import initialize_distributed
 from torchmdnet_tpu_torch.scripts import train as cli
 from torchmdnet_tpu_torch.train.trainer import Trainer
@@ -3782,18 +3786,31 @@ def save(trainer):
 Trainer.on_before_optimizer_step = save
 if sys.argv[2]:
     initialize_distributed(cli.get_args(sys.argv[3:]).num_nodes, backend=sys.argv[2])
+kms = {"et_message": et_message, "t_message": t_message, "tn_message": tn_message}
+for km in kms.values():
+    km.reset_launch_counts()
 cli.main(sys.argv[3:])
+rank = os.environ.get("LOCAL_RANK", os.environ.get("NODE_RANK", "0"))
+counts = {f"{name}_{kind}": getattr(km, fn).launches for name, km in kms.items()
+          for kind, fn in (("fwd", "run_fwd"), ("bwd", "run_bwd"), ("bwd2", "run_bwd2"), ("bwd_src", "bwd_source"),
+                           ("bwd2_src", "bwd2_source")) if hasattr(km, fn)}
+print("rank launches:", rank, json.dumps(counts))
+if torch.cuda.is_available():
+    print("rank peak bytes:", rank, torch.cuda.max_memory_allocated())
 """
 
 
-def _dp_run(label, workdir, root, extra=(), env=None, ranks=0, nodes=0, backend=""):
+def _dp_run(label, workdir, root, extra=(), env=None, ranks=0, nodes=0, backend="", flags_of=None, solo=False):
     """One training run of the DP phase: the CLI in this process (its
     trainer's hook saving the first step's gradients), or ``ranks`` local
     ranks of one node (as the CLI's launcher starts them: LOCAL_RANK,
     LOCAL_WORLD_SIZE), or ``nodes`` processes joined through the environment
-    rendezvous (NODE_RANK), each running ``_RANK_DRIVER``.  Returns (epoch
+    rendezvous (NODE_RANK), each running ``_RANK_DRIVER``, or (``solo``) one
+    such process with no rendezvous (one process's own run, its peak memory
+    its own).  ``flags_of(root, log_dir)`` gives the CLI flags (default
+    ``_dp_flags``).  Returns (epoch
     rows of metrics.csv, first-step gradients, (rank 0's "fit:" line or
-    None, its output), seconds)."""
+    None, every rank's output), seconds)."""
     import torch
 
     from torchmdnet_tpu_torch.parallel.distributed import free_port
@@ -3802,14 +3819,17 @@ def _dp_run(label, workdir, root, extra=(), env=None, ranks=0, nodes=0, backend=
 
     log_dir = os.path.join(workdir, label)
     grads = os.path.join(workdir, f"{label}_grads.pt")
-    flags = _dp_flags(root, log_dir) + list(extra)
+    flags = (flags_of or _dp_flags)(root, log_dir) + list(extra)
     base = dict(os.environ, PYTHONPATH=ROOT, **(env or {}))
     t0 = time.perf_counter()
     fit = None
-    if ranks or nodes:
+    if ranks or nodes or solo:
         common = dict(base, MASTER_ADDR="localhost", MASTER_PORT=str(free_port()))
         envs = ([dict(common, LOCAL_RANK=str(r), LOCAL_WORLD_SIZE=str(ranks)) for r in range(ranks)]
                 + [dict(common, NODE_RANK=str(r)) for r in range(nodes)])
+        if solo:
+            envs = [{k: v for k, v in base.items() if k not in ("MASTER_ADDR", "MASTER_PORT", "NODE_RANK",
+                                                                "LOCAL_RANK", "LOCAL_WORLD_SIZE")}]
         procs = [subprocess.Popen([sys.executable, "-c", _RANK_DRIVER, grads, backend] + flags, env=e,
                                   stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for e in envs]
         try:
@@ -3821,7 +3841,7 @@ def _dp_run(label, workdir, root, extra=(), env=None, ranks=0, nodes=0, backend=
                     p.wait()
         if any(p.returncode for p in procs):
             raise AssertionError(f"DP {label}: a rank failed:\n" + "\n".join(o[-3000:] for o in outs))
-        text = outs[0]
+        text = "\n".join(outs)
     else:
         import contextlib
         import io
@@ -4309,6 +4329,697 @@ def edge_partition(workdir):
     return launches
 
 
+# --- the parallel layer: edge-partitioned force training
+
+# DHFR-size frames of one molecule (train, val, test; batches of one frame):
+# the synthetic DHFR system with every atom displaced by EPT_NOISE A (seeded),
+# labelled by a seeded ET_ARGS model
+EPT_FRAMES = (4, 1, 1)
+EPT_NOISE = 0.05
+EPT_EPOCHS = 2
+EPT_LR = 1e-4
+# the Transformer's, TensorNet's and the composable ET's few steps: two
+# frames, two epochs
+EPT_TRAIN = dict(batch_size=1, inference_batch_size=1, num_epochs=2, train_size=2, val_size=1, test_size=1,
+                 seed=SEED, lr=EPT_LR, lr_warmup_steps=0, save_interval=100, test_interval=-1, num_workers=0,
+                 y_weight=1.0, neg_dy_weight=1.0, edge_boundary_limit=EP_BOUNDARY)
+EPT_TIMEOUT_S = 600
+# the composable f32 ET's depth (its per-edge f32 tensors of six layers'
+# second order would fill much of the card twice over: two ranks and one process)
+EPT_F32_LAYERS = 2
+# Partitioned against one process, each tensor's largest gap over its
+# largest value: the weights the fused kernels read as bf16 copies (the
+# distance filters, TensorNet's edge MLP: each rank's share of their
+# gradient is rounded to bf16 before the ranks' sum), the rest of the fused
+# paths' gradients, the composable f32 paths'; and the logged metrics'
+# largest relative gap.  Sound runs (NVIDIA H100 80GB HBM3, 700 W): copies
+# 3.8e-3 to 5.6e-3; the rest 2.7e-5 for ET through the CLI (cuBLAS's
+# row-count rounding of a rank's rows, 5.2e-5 on ET's DHFR forces, flips
+# bf16 roundings in the kernels' operands), 5.4e-7 at most for T and
+# TensorNet (their DHFR forces within 6.1e-7: no 128 -> 384 projection);
+# metrics 1.4e-4 fused, 4.5e-7 f32; f32 gradients 5.0e-7.  Planted faults
+# (the CPU tests' shapes, tests/test_torch_edge_partition.py): the rest of
+# the gradients 2.9e-4 to 7.6e-3 (ghost hs4, w' or Z rows dropped), 1.2e-3
+# to 1.0 composable (the exchange's transpose left constant, the energy
+# loss through every rank's partials); metrics 1.0 (the force loss over a
+# rank's own atoms).  Limits between:
+EPT_BF16_COPY_TOL = 2 ** -6
+EPT_BF16_GRAD_TOL = 1e-4
+EPT_BF16_LOSS_RTOL = 1e-3
+EPT_F32_GRAD_TOL = 1e-5
+EPT_F32_LOSS_RTOL = 1e-5
+EPT_COPIES = ("dk_proj", "dv_proj", "linears_scalar")
+
+
+def _dhfr_frames(root):
+    """EPT_FRAMES's frames, written as Custom's npy files under
+    ``<root>/custom``: (the CLI's Custom flags, the same frames as an
+    ``InMemoryArrays`` dataset, the first frame as a sorted padded batch on
+    the card and its (y, neg_dy) labels in that order)."""
+    import numpy as np
+    import torch
+
+    from torchmdnet_tpu_torch import create_model
+    from torchmdnet_tpu_torch.data.batch import pad_molecules, spatial_sort
+    from torchmdnet_tpu_torch.data.datasets.base import InMemoryArrays
+    from torchmdnet_tpu_torch.data.systems import DHFR_ATOMS, synthetic_system
+    from torchmdnet_tpu_torch.ops.cell_list import probe_cell_kwargs
+
+    z, pos = synthetic_system(DHFR_ATOMS, seed=SEED)
+    rng = np.random.default_rng(SEED + 3)
+    frames = sum(EPT_FRAMES)
+    coords = np.stack([pos + EPT_NOISE * rng.standard_normal(pos.shape) for _ in range(frames)]).astype(np.float32)
+    labeller = create_model(ET_ARGS, seed=SEED + 1)
+    pad = -(-DHFR_ATOMS // 32) * 32
+    energies, forces = [], []
+    for c in coords:
+        b = pad_molecules([{"z": z, "pos": c}], num_atoms=pad, device="cuda")
+        y, f = labeller.energy_and_forces(b, nbl=labeller.neighbors(
+            b, **probe_cell_kwargs(b, cutoff_upper=ET_ARGS["cutoff_upper"])))
+        energies.append(float(y[0, 0]))
+        forces.append(f[:DHFR_ATOMS].cpu().numpy())
+    del labeller
+    energies = np.asarray(energies, dtype=np.float32)[:, None]
+    forces = np.stack(forces).astype(np.float32)
+    custom = os.path.join(root, "custom")
+    os.makedirs(custom)
+    for name, value in (("coord", coords), ("embed", z.astype(np.int64)), ("energy", energies), ("force", forces)):
+        np.save(os.path.join(custom, f"{name}_0.npy"), value)
+    flags = ["--dataset", "Custom"] + [x for name in ("coord", "embed", "energy", "force")
+                                       for x in (f"--{name}-files", os.path.join(custom, f"{name}_*.npy"))]
+    data = InMemoryArrays(z=np.tile(z, frames).astype(np.int64), pos=coords.reshape(-1, 3),
+                          offsets=np.arange(frames + 1) * DHFR_ATOMS, y=energies, neg_dy=forces.reshape(-1, 3))
+    first = pad_molecules([{"z": z, "pos": coords[0], "neg_dy": forces[0]}], num_atoms=pad, device="cuda")
+    first, _ = spatial_sort(first, cell=ET_ARGS["cutoff_upper"])
+    targets = (torch.tensor(energies[:1]), first.neg_dy.cpu())
+    return flags, data, first, targets
+
+
+def _ept_flags(custom):
+    """The CLI flags of G-EPT: ET_ARGS through the reference's flags, on the
+    Custom frames."""
+    a = ET_ARGS
+    train, val, test = EPT_FRAMES
+
+    def flags_of(root, log_dir):
+        return [
+            "--model", a["model"], "--embedding-dimension", str(a["embedding_dimension"]),
+            "--num-layers", str(a["num_layers"]), "--num-heads", str(a["num_heads"]), "--num-rbf", str(a["num_rbf"]),
+            "--rbf-type", a["rbf_type"], "--trainable-rbf", "true", "--neighbor-embedding", "true",
+            "--distance-influence", a["distance_influence"], "--cutoff-upper", str(a["cutoff_upper"]),
+            "--max-z", str(a["max_z"]), "--max-num-neighbors", str(a["max_num_neighbors"]), "--reduce-op", "add",
+            "--derivative", "true", "--bf16-messages", "true", "--fused-attention", "true", *custom,
+            "--batch-size", "1", "--inference-batch-size", "1", "--num-epochs", str(EPT_EPOCHS),
+            "--train-size", str(train), "--val-size", str(val), "--test-size", str(test), "--lr", str(EPT_LR),
+            "--seed", str(SEED), "--save-interval", "1", "--num-workers", "0", "--log-dir", log_dir,
+            "--edge-boundary-limit", str(EP_BOUNDARY),
+        ]
+
+    return flags_of
+
+
+def _ranks_said(text, what):
+    """{rank: parsed value} of the ``_RANK_DRIVER`` lines "rank WHAT: RANK VALUE"."""
+    out = {}
+    for line in text.splitlines():
+        if line.startswith(f"rank {what}: "):
+            rank, value = line[len(f"rank {what}: "):].split(" ", 1)
+            out[int(rank)] = json.loads(value)
+    return out
+
+
+def _step_ms(fit):
+    """ms a step of a CLI "fit:" line."""
+    return float(fit.split("(")[1].split(" ms")[0])
+
+
+def _copies_gap(a, b, tol_copies, tol_rest):
+    """(gap over the bf16-copied weights, gap over the rest, passed)."""
+    copies = [k for k in b if any(c in k for c in EPT_COPIES)]
+    rest = [k for k in b if k not in copies]
+    gc = _grad_gap(a, b, copies) if copies else 0.0
+    gr = _grad_gap(a, b, rest)
+    return gc, gr, gc <= tol_copies and gr <= tol_rest
+
+
+class _RankTables:
+    """Each rank's rows of an edge-partitioned call's tables, assembled from
+    the global ones through the plans the ranks build (the exchange done by
+    indexing): ``loc`` the rank's rows, ``src`` its rows then its ghost
+    sources, ``rx`` its rows then its ghost receivers (a per-slot table
+    flat (N*K, ...) or (N, K, ...) takes whole receiver rows)."""
+
+    def __init__(self, nbl, ranks=2):
+        import torch
+
+        from torchmdnet_tpu_torch.parallel.edge_partition import make_ring_plan
+        from torchmdnet_tpu_torch.parallel.mesh import Mesh
+
+        self.n, self.kk = nbl.idx.shape
+        self.idx = nbl.idx
+        nl = self.nl = self.n // ranks
+        dev = nbl.idx.device
+        self.plans = [make_ring_plan(nbl.idx, Mesh(size=ranks, rank=r, device=dev, backend="none"))
+                      for r in range(ranks)]
+        self.ids = []
+        for r in range(ranks):
+            rows = torch.arange(r * nl, (r + 1) * nl, device=dev)
+            g_src = torch.cat([self.plans[o].src_send[r] + o * nl for o in range(ranks) if o != r])
+            g_rx = torch.cat([self.plans[o].rx_send[r] + o * nl for o in range(ranks) if o != r])
+            self.ids.append({"loc": rows, "src": torch.cat([rows, g_src]), "rx": torch.cat([rows, g_rx])})
+        self.shapes = [(nl, int(i["src"].numel()) - nl, int(i["rx"].numel()) - nl) for i in self.ids]
+
+    def take(self, r, t, which):
+        if t is None:
+            return None
+        ids = self.ids[r][which]
+        if t.shape[0] == self.n * self.kk:  # per slot, flat
+            trail = tuple(t.shape[1:])
+            return t.reshape((self.n, self.kk) + trail)[ids].reshape((-1,) + trail).contiguous()
+        return t[ids].contiguous()
+
+    def loc(self, r, t):
+        return self.take(r, t, "loc")
+
+    def src(self, r, t):
+        return self.take(r, t, "src")
+
+    def rx(self, r, t):
+        return self.take(r, t, "rx")
+
+
+def _rank_times(calls, bounds):
+    """{kind: (ms, bound_ms, bound_by)} of rank 0's calls (CUDA events,
+    median of 20, L2 flushed), each beside its bound at the rank's shape."""
+    import torch
+
+    flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")  # 256 MB > L2
+    return {kind: (_event_ms(fn, flush=flush),) + bounds(kind) for kind, fn in calls.items()}
+
+
+def _times_text(times):
+    return ", ".join(f"{k} {ms:.4f} ms (bound {b:.4f} by {by})" for k, (ms, b, by) in times.items())
+
+
+def _same_rows(tabs, r, got, whole):
+    """Whether each of ``got`` equals the rank's rows of ``whole`` bitwise."""
+    import torch
+
+    return all(torch.equal(a, tabs.loc(r, b)) for a, b in zip(got, whole) if a is not None)
+
+
+def _pass_rel(got, want):
+    return max(_rel(a, b) for a, b in zip(got, want) if a is not None)
+
+
+def check_shard_et_bwd2(batch, nbl):
+    """#3's wrappers at each rank's shapes of a partitioned DHFR call
+    (``ext=True``: the receiver pass over source tables and Z extended with
+    the ghost rows, the source pass over the ghost receivers' rows, Z and
+    hs4), against their plain versions on the same inputs and against those
+    rows of the one-process call (bitwise expected).  Returns the log text."""
+    import torch
+
+    from torchmdnet_tpu_torch.ops.kernels import et_message as em
+
+    h, heads, rbf = ET_ARGS["embedding_dimension"], ET_ARGS["num_heads"], ET_ARGS["num_rbf"]
+    _, t, ct = _kernel_inputs(None, nbl.idx.shape[1], h, rbf, ET_ARGS["cutoff_upper"], SEED + 5, batch=batch, nbl=nbl)
+    kw = dict(heads=heads, act="silu", attn_act="silu")
+    ins, z = [t[n] for n in ORDER], _z_like(t, SEED + 5)
+    tabs = _RankTables(nbl)
+    one = em.bwd2_receiver(nbl.idx, ins, ct, z, **kw)
+    one_src = em.bwd2_source(nbl.idx, nbl.transpose_perm, ins, ct, z, one[7], **kw)
+
+    def recv_outs(o):  # gq, gea, gcutm, gmsk, gdir0..2, gctx, gctvec, hs4
+        return [o[0], o[1], o[2], o[3], *o[4], o[5], o[6], o[7]]
+
+    src_at = {1, 2, 3, 4, 5}  # k, v, vec0..2: extended with the ghost sources
+    rel, same = {}, {}
+    for r in range(2):
+        # the filters (12-15) are whole on every rank
+        pick = lambda i, x: x if i >= 12 else (tabs.src(r, x) if i in src_at else tabs.loc(r, x))  # noqa: E731
+        ins_r, z_r = [pick(i, x) for i, x in enumerate(ins)], [pick(i, x) for i, x in enumerate(z)]
+        ct_r = tuple(tabs.loc(r, c) for c in ct)
+        lidx = tabs.plans[r].lidx
+        got = em.bwd2_receiver(lidx, ins_r, ct_r, z_r, ext=True, **kw)
+        want = em.bwd2_receiver_reference(lidx, ins_r, ct_r, z_r, **kw)
+        rel[f"recv2_rank{r}"] = _pass_rel(recv_outs(got), recv_outs(want))
+        same[f"recv2_rank{r}"] = _same_rows(tabs, r, recv_outs(got), recv_outs(one))
+        take = lambda i, x: x if i >= 12 else (tabs.src(r, x) if i in src_at else tabs.rx(r, x))  # noqa: E731
+        ins_x, z_x = [take(i, x) for i, x in enumerate(ins)], [take(i, x) for i, x in enumerate(z)]
+        ins_x[7] = ins_x[8]  # the source pass reads no cutm: msk stands in for its shape
+        ct_x = tuple(tabs.rx(r, c) for c in ct)
+        hs4 = tabs.rx(r, one[7])
+        got = em.bwd2_source(lidx, tabs.plans[r].perm_rx, ins_x, ct_x, z_x, hs4, ext=True, **kw)
+        want = em.bwd2_source_reference(lidx, tabs.plans[r].perm_rx, ins_x, ct_x, z_x, hs4, heads=heads, act="silu")
+        rel[f"src2_rank{r}"] = _pass_rel(got, want)
+        same[f"src2_rank{r}"] = _same_rows(tabs, r, got, one_src)
+    torch.cuda.synchronize()
+    times = _et_rank_times(tabs, ins, z, ct, kw, rbf)
+    text = (f"#3's wrappers at each rank's shapes ({_shape_text(tabs)}) against their plain versions (tol "
+            f"{PART_TOL}): {_fmt(rel)}; bitwise those rows of the one-process call: {json.dumps(same)}; rank 0's "
+            f"ET kernels timed at its shape: {_times_text(times)}")
+    if max(rel.values()) > PART_TOL:
+        raise AssertionError(f"G-EPT: #3 disagrees with its plain version at the partitioned shapes: {text}")
+    return text, times
+
+
+def _et_rank_times(tabs, ins, z, ct, kw, rbf):
+    """#1, #2 (with the weights' cotangents) and #3 (each pass and its weight
+    reduction) as a force-loss step runs them on rank 0's rows."""
+    from torchmdnet_tpu_torch.ops.kernels import et_message as em
+
+    r, src_at = 0, {1, 2, 3, 4, 5}
+    lidx, perm_rx = tabs.plans[r].lidx, tabs.plans[r].perm_rx
+    pick = lambda i, x: x if i >= 12 else (tabs.src(r, x) if i in src_at else tabs.loc(r, x))  # noqa: E731
+    take = lambda i, x: x if i >= 12 else (tabs.src(r, x) if i in src_at else tabs.rx(r, x))  # noqa: E731
+    ins_r, z_r = [pick(i, x) for i, x in enumerate(ins)], [pick(i, x) for i, x in enumerate(z)]
+    ins_x, z_x = [take(i, x) for i, x in enumerate(ins)], [take(i, x) for i, x in enumerate(z)]
+    ins_x[7] = ins_x[8]
+    ct_r, ct_x = tuple(tabs.loc(r, c) for c in ct), tuple(tabs.rx(r, c) for c in ct)
+    dirs_r, dirs_x = tuple(ins_r[9:12]), tuple(ins_x[9:12])
+    one_hs = em.bwd_receiver(tabs.idx, *ins[:9], tuple(ins[9:12]), *ins[12:], *ct, want_dpre=False, **kw)[4]
+    one_hs4 = em.bwd2_receiver(tabs.idx, ins, ct, z, **kw)[7]
+    hs_x, hs4_x = tabs.rx(r, one_hs), tabs.rx(r, one_hs4)
+    ea2 = ins_r[6].reshape(-1, rbf)
+    zea2 = z_r[6].reshape(-1, rbf)
+
+    def bwd():
+        rk = em.bwd_receiver(lidx, *ins_r[:9], dirs_r, *ins_r[12:], *ct_r, want_dpre=True, ext=True, **kw)
+        em.bwd_source(lidx, perm_rx, *ins_x[:9], dirs_x, *ins_x[12:], *ct_x, hs_x, ext=True, **kw)
+        em.weight_grads([(ea2, rk[5])], rbf)
+
+    def bwd2():
+        rk = em.bwd2_receiver(lidx, ins_r, ct_r, z_r, ext=True, **kw)
+        em.bwd2_source(lidx, perm_rx, ins_x, ct_x, z_x, hs4_x, ext=True, **kw)
+        em.weight_grads([(ea2, rk[8]), (zea2, rk[9])], rbf)
+
+    calls = {"fwd": lambda: em.run_fwd(lidx, *ins_r[:9], dirs_r, *ins_r[12:], ext=True, **kw), "bwd_w": bwd,
+             "bwd2": bwd2}
+    h = ins[0].shape[1]
+    return _rank_times(calls, lambda kind: _bounds(tabs.nl, tabs.kk, h, rbf, kind))
+
+
+def _shape_text(tabs):
+    return f"N={tabs.n} K={tabs.kk}: " + ", ".join(
+        f"rank {r} {a} rows, {b} ghost source rows, {c} ghost receivers" for r, (a, b, c) in enumerate(tabs.shapes))
+
+
+def check_shard_t(batch, nbl):
+    """The Transformer's #11, #12 and #13 wrappers at each rank's shapes of a
+    partitioned DHFR call (``ext=True``), each pass against its plain version
+    on the same inputs and against those rows of the one-process call.
+    Returns the log text."""
+    import torch
+
+    from torchmdnet_tpu_torch.ops.kernels import t_message as tmk
+
+    a = T_ARGS
+    h, heads, rbf = a["embedding_dimension"], a["num_heads"], a["num_rbf"]
+    _, t, ct = _t_kernel_inputs(None, nbl.idx.shape[1], h, rbf, a["cutoff_upper"], SEED + 6, batch=batch, nbl=nbl)
+    kw = dict(heads=heads, act="silu", attn_act="silu")
+    ins, z = [t[n] for n in T_ORDER], _t_z_like(t, SEED + 6)
+    idx, perm = nbl.idx, nbl.transpose_perm
+    tabs = _RankTables(nbl)
+    one_fwd = tmk.run_fwd(idx, *ins, **kw)
+    one_recv = tmk.bwd_receiver(idx, *ins, ct, want_dpre=False, **kw)
+    one_src = tmk.bwd_source(idx, perm, *ins, ct, one_recv[3], **kw)
+    one_recv2 = tmk.bwd2_receiver(idx, ins, ct, z, **kw)
+    one_src2 = tmk.bwd2_source(idx, perm, ins, ct, z, one_recv2[4], **kw)
+    src_at = {1, 2}
+    rel, same = {}, {}
+    for r in range(2):
+        lidx, perm_rx = tabs.plans[r].lidx, tabs.plans[r].perm_rx
+        pick = lambda i, x: x if i >= 5 else (tabs.src(r, x) if i in src_at else tabs.loc(r, x))  # noqa: E731
+        take = lambda i, x: x if i >= 5 else (tabs.src(r, x) if i in src_at else tabs.rx(r, x))  # noqa: E731
+        ins_r, z_r = [pick(i, x) for i, x in enumerate(ins)], [pick(i, x) for i, x in enumerate(z)]
+        ins_x, z_x = [take(i, x) for i, x in enumerate(ins)], [take(i, x) for i, x in enumerate(z)]
+        ct_r, ct_x = tabs.loc(r, ct), tabs.rx(r, ct)
+        got = tmk.run_fwd(lidx, *ins_r, ext=True, **kw)
+        with torch.no_grad():
+            want = tmk.t_messages_reference(lidx, *ins_r, perm=perm_rx, **kw)
+        rel[f"fwd_rank{r}"], same[f"fwd_rank{r}"] = _rel(got, want), _same_rows(tabs, r, [got], [one_fwd])
+        got = tmk.bwd_receiver(lidx, *ins_r, ct_r, want_dpre=False, ext=True, **kw)[:4]
+        want = tmk.bwd_receiver_reference(lidx, *ins_r, ct_r, want_dpre=False, **kw)[:4]
+        rel[f"recv_rank{r}"], same[f"recv_rank{r}"] = _pass_rel(got, want), _same_rows(tabs, r, got, one_recv[:4])
+        hs = tabs.rx(r, one_recv[3])
+        got = tmk.bwd_source(lidx, perm_rx, *ins_x, ct_x, hs, ext=True, **kw)
+        want = tmk.bwd_source_reference(lidx, perm_rx, ins_x[0], ins_x[3], *ins_x[5:], ct_x, hs, heads=heads,
+                                        act="silu")
+        rel[f"src_rank{r}"], same[f"src_rank{r}"] = _pass_rel(got, want), _same_rows(tabs, r, got, one_src)
+        got = tmk.bwd2_receiver(lidx, ins_r, ct_r, z_r, ext=True, **kw)[:5]
+        want = tmk.bwd2_receiver_reference(lidx, ins_r, ct_r, z_r, **kw)[:5]
+        rel[f"recv2_rank{r}"], same[f"recv2_rank{r}"] = _pass_rel(got, want), _same_rows(tabs, r, got, one_recv2[:5])
+        hs4 = tabs.rx(r, one_recv2[4])
+        got = tmk.bwd2_source(lidx, perm_rx, ins_x, ct_x, z_x, hs4, ext=True, **kw)
+        want = tmk.bwd2_source_reference(lidx, perm_rx, ins_x, ct_x, z_x, hs4, heads=heads, act="silu")
+        rel[f"src2_rank{r}"], same[f"src2_rank{r}"] = _pass_rel(got, want), _same_rows(tabs, r, got, one_src2)
+    torch.cuda.synchronize()
+    times = _t_rank_times(tabs, ins, z, ct, kw, one_recv[3], one_recv2[4])
+    text = (f"#11/#12/#13's wrappers at each rank's shapes ({_shape_text(tabs)}) against their plain versions (tol "
+            f"fwd {FWD_TOL}, passes {PART_TOL}): {_fmt(rel)}; bitwise those rows of the one-process call: "
+            f"{json.dumps(same)}; rank 0's Transformer kernels timed at its shape: {_times_text(times)}")
+    bad = [k for k, v in rel.items() if v > (FWD_TOL if k.startswith("fwd") else PART_TOL)]
+    if bad:
+        raise AssertionError(f"G-EPT: a Transformer kernel disagrees with its plain version at the partitioned "
+                             f"shapes: {text}")
+    return text, times
+
+
+def _t_rank_times(tabs, ins, z, ct, kw, one_hs, one_hs4):
+    """#11, #12 (frozen, as serving runs it, and with the weights'
+    cotangents) and #13 on rank 0's rows, each with its source pass and
+    weight reduction."""
+    from torchmdnet_tpu_torch.ops.kernels import et_message as em
+    from torchmdnet_tpu_torch.ops.kernels import t_message as tmk
+
+    r = 0
+    lidx, perm_rx = tabs.plans[r].lidx, tabs.plans[r].perm_rx
+    pick = lambda i, x: x if i >= 5 else (tabs.src(r, x) if i in (1, 2) else tabs.loc(r, x))  # noqa: E731
+    take = lambda i, x: x if i >= 5 else (tabs.src(r, x) if i in (1, 2) else tabs.rx(r, x))  # noqa: E731
+    ins_r, z_r = [pick(i, x) for i, x in enumerate(ins)], [pick(i, x) for i, x in enumerate(z)]
+    ins_x, z_x = [take(i, x) for i, x in enumerate(ins)], [take(i, x) for i, x in enumerate(z)]
+    ct_r, ct_x = tabs.loc(r, ct), tabs.rx(r, ct)
+    hs_x, hs4_x = tabs.rx(r, one_hs), tabs.rx(r, one_hs4)
+    rbf = ins[3].shape[-1]
+    ea2, zea2 = ins_r[3].reshape(-1, rbf), z_r[3].reshape(-1, rbf)
+
+    def bwd(want):
+        rk = tmk.bwd_receiver(lidx, *ins_r, ct_r, want_dpre=want, ext=True, **kw)
+        tmk.bwd_source(lidx, perm_rx, *ins_x, ct_x, hs_x, ext=True, **kw)
+        if want:
+            em.weight_grads([(ea2, rk[4])], rbf)
+
+    def bwd2():
+        rk = tmk.bwd2_receiver(lidx, ins_r, ct_r, z_r, ext=True, **kw)
+        tmk.bwd2_source(lidx, perm_rx, ins_x, ct_x, z_x, hs4_x, ext=True, **kw)
+        em.weight_grads([(ea2, rk[5]), (zea2, rk[6])], rbf)
+
+    calls = {"fwd": lambda: tmk.run_fwd(lidx, *ins_r, ext=True, **kw), "bwd": lambda: bwd(False),
+             "bwd_w": lambda: bwd(True), "bwd2": bwd2}
+    h = ins[0].shape[1]
+    return _rank_times(calls, lambda kind: _t_bounds(tabs.nl, tabs.kk, h, rbf, kind))
+
+
+def check_shard_tn(batch, nbl):
+    """TensorNet's #8, #9 and #10 wrappers at each rank's shapes of a
+    partitioned DHFR call (``ext=True``: cat, ct and Z's cat extended with
+    the ghost sources; the source-row sum over the ghost receivers' ct rows
+    and w' slots), against their plain versions on the same inputs and
+    against those rows of the one-process call.  Returns the log text."""
+    import torch
+
+    from torchmdnet_tpu_torch.ops.kernels import tn_message as tm
+
+    a = TN_ARGS
+    h, rbf = a["embedding_dimension"], a["num_rbf"]
+    ins_d, ct = _tn_kernel_inputs(nbl, batch.pos, h, rbf, a["cutoff_upper"], SEED + 7)
+    ins, z = [ins_d[n] for n in TN_ORDER], _tn_z_like(ins_d, SEED + 7)
+    idx, perm = nbl.idx, nbl.transpose_perm
+    n, kk = idx.shape
+    tabs = _RankTables(nbl)
+    one_fwd = tm.run_fwd(idx, *ins, act="silu")
+    one_bwd = tm.bwd_rows(idx, *ins, ct, act="silu", want_rows=False)[:3]
+    one_e = tm.bwd2_edges(idx, ins, ct, z, act="silu")
+    one_gcat = tm.src_sum(perm, ct, one_e[3], n, kk)
+    rel, same = {}, {}
+    for r in range(2):
+        lidx, perm_rx = tabs.plans[r].lidx, tabs.plans[r].perm_rx
+        ins_r = [tabs.src(r, ins[0]), tabs.loc(r, ins[1]), tabs.loc(r, ins[2]), *ins[3:]]
+        z_r = [tabs.src(r, z[0]), tabs.loc(r, z[1]), tabs.loc(r, z[2]), *z[3:]]
+        ct_s = tabs.src(r, ct)
+        got = tm.run_fwd(lidx, *ins_r, act="silu", ext=True)
+        with torch.no_grad():
+            want = tm.tn_messages_reference(lidx, *ins_r, act="silu", perm=perm_rx)
+        rel[f"fwd_rank{r}"], same[f"fwd_rank{r}"] = _rel(got, want), _same_rows(tabs, r, [got], [one_fwd])
+        got = tm.bwd_rows(lidx, *ins_r, ct_s, act="silu", want_rows=False, ext=True)[:3]
+        want = tm.bwd_reference(lidx, *ins_r, ct_s, act="silu", want_rows=False)[:3]
+        rel[f"bwd_rank{r}"], same[f"bwd_rank{r}"] = _pass_rel(got, want), _same_rows(tabs, r, got, one_bwd)
+        got = tm.bwd2_edges(lidx, ins_r, ct_s, z_r, act="silu", ext=True)[:4]
+        want = tm.bwd2_edges_reference(lidx, ins_r, ct_s, z_r, act="silu")[:4]
+        rel[f"bwd2_rank{r}"], same[f"bwd2_rank{r}"] = _pass_rel(got, want), _same_rows(tabs, r, got, one_e[:4])
+        ct_x, wdot_x = tabs.rx(r, ct), tabs.rx(r, one_e[3])
+        got = tm.src_sum(perm_rx, ct_x, wdot_x, tabs.nl, kk)
+        want = tm.src_sum_reference(perm_rx, ct_x, wdot_x, tabs.nl, kk, torch.bfloat16)
+        rel[f"src_sum_rank{r}"], same[f"src_sum_rank{r}"] = _rel(got, want), _same_rows(tabs, r, [got], [one_gcat])
+    torch.cuda.synchronize()
+    times = _tn_rank_times(tabs, ins, z, ct, one_e[3])
+    tol = {"fwd": TN_FWD_TOL, "bwd": BWD_TOL, "bwd2": BWD2_TOL, "src": PART_TOL}
+    text = (f"#8/#9/#10's wrappers at each rank's shapes ({_shape_text(tabs)}) against their plain versions (tol "
+            f"{json.dumps(tol)}): {_fmt(rel)}; bitwise those rows of the one-process call: {json.dumps(same)}; "
+            f"rank 0's TensorNet kernels timed at its shape: {_times_text(times)}")
+    if any(v > tol[k.split("_")[0]] for k, v in rel.items()):
+        raise AssertionError(f"G-EPT: a TensorNet kernel disagrees with its plain version at the partitioned "
+                             f"shapes: {text}")
+    return text, times
+
+
+def _tn_rank_times(tabs, ins, z, ct, one_wdot):
+    """#8, #9 (frozen, and with the weights' cotangents: its reduction) and
+    #10 (edge kernel, source-row sum, reduction) on rank 0's rows."""
+    from torchmdnet_tpu_torch.ops.kernels import tn_message as tm
+
+    r = 0
+    lidx, perm_rx = tabs.plans[r].lidx, tabs.plans[r].perm_rx
+    ins_r = [tabs.src(r, ins[0]), tabs.loc(r, ins[1]), tabs.loc(r, ins[2]), *ins[3:]]
+    z_r = [tabs.src(r, z[0]), tabs.loc(r, z[1]), tabs.loc(r, z[2]), *z[3:]]
+    ct_s, ct_x, wdot_x = tabs.src(r, ct), tabs.rx(r, ct), tabs.rx(r, one_wdot)
+    h, rbf = ins[0].shape[1] // 9, ins[1].shape[-1]
+
+    def bwd2():
+        e = tm.bwd2_edges(lidx, ins_r, ct_s, z_r, act="silu", ext=True)
+        tm.src_sum(perm_rx, ct_x, wdot_x, tabs.nl, tabs.kk)
+        tm.weight_grads(e[4], tm._bwd2_jobs(h, tm._rbfp(rbf)))
+
+    calls = {"fwd": lambda: tm.run_fwd(lidx, *ins_r, act="silu", ext=True),
+             "bwd": lambda: tm.run_bwd(lidx, *ins_r, ct_s, act="silu", want_weight_grads=False, ext=True),
+             "bwd_w": lambda: tm.run_bwd(lidx, *ins_r, ct_s, act="silu", want_weight_grads=True, ext=True),
+             "bwd2": bwd2}
+    return _rank_times(calls, lambda kind: _tn_bounds(tabs.nl, tabs.kk, h, rbf, kind))
+
+
+def _one_force_grads(args, batch, targets):
+    """One process's energies, forces and force-loss gradient of a fresh
+    model (seed SEED) on ``batch``, with the cell sizes the ranks probe."""
+    import torch
+
+    from torchmdnet_tpu_torch import create_model
+    from torchmdnet_tpu_torch.ops.cell_list import probe_cell_kwargs
+    from torchmdnet_tpu_torch.tools.partition_run import force_loss
+
+    model = create_model(args, seed=SEED)
+    nbl = model.neighbors(batch, **probe_cell_kwargs(batch, cutoff_upper=args["cutoff_upper"]))
+    y, f = model.energy_and_forces(batch, nbl=nbl)
+    y2, f2 = model.energy_and_forces(batch, nbl=nbl, create_graph=True)
+    y_t, f_t = (x.to("cuda") for x in targets)
+    force_loss(y2, f2, y_t, f_t, batch.atom_mask, float(batch.atom_mask.sum())).backward()
+    grads = {n: p.grad.detach().cpu() for n, p in model.module.named_parameters() if p.requires_grad}
+    torch.cuda.synchronize()
+    return y.cpu(), f.cpu(), grads
+
+
+def _one_train(h, data):
+    """One process's plain ``Trainer.fit`` of a rank case: (metrics.csv rows,
+    the first step's gradients, seconds, steps)."""
+    import csv
+
+    import torch
+
+    from torchmdnet_tpu_torch import create_model
+    from torchmdnet_tpu_torch.data.module import DataModule
+    from torchmdnet_tpu_torch.train.trainer import Trainer
+
+    h = dict(h, device="cuda")
+    dm = DataModule(h, dataset=data)
+    dm.setup()
+    grads = {}
+
+    class Recording(Trainer):
+        def on_before_optimizer_step(self):
+            if self.state.global_step == 0:
+                grads.update({n: p.grad.detach().cpu() for n, p in zip(self.param_names, self.params)})
+
+    trainer = Recording(create_model(h, seed=h["seed"]), h)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.fit(dm)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    with open(os.path.join(h["log_dir"], "metrics.csv")) as f:
+        rows = [{k: float(v) for k, v in r.items() if v not in ("", None)} for r in csv.DictReader(f)]
+    return rows, grads, seconds, trainer.state.global_step
+
+
+def _train_launches(layers, steps, evals, prefix, src=True):
+    """A training run's launches a rank: (fwd, bwd, bwd2) per layer per step
+    (1, 2, 1) and per evaluation batch (1, 1, 0), with the source passes."""
+    out = {f"{prefix}_fwd": layers * (steps + evals), f"{prefix}_bwd": layers * (2 * steps + evals),
+           f"{prefix}_bwd2": layers * steps}
+    if src:
+        out[f"{prefix}_bwd_src"], out[f"{prefix}_bwd2_src"] = out[f"{prefix}_bwd"], out[f"{prefix}_bwd2"]
+    return out
+
+
+def edge_training(workdir):
+    """(G-EPT) Edge-partitioned force training on two ranks of the one card
+    (gloo), against one process on the same batches:
+
+    - ET_ARGS fused bf16 through the CLI (``--edge-partition true --ndevices
+      2``, each rank running ``_RANK_DRIVER``) on DHFR-size frames written as
+      Custom npy files, against one CLI process: every logged metric, the
+      first step's gradients, each rank's launches and peak memory, seconds a
+      step;
+    - the Transformer (T_ARGS) and TensorNet (TN_ARGS) fused: energy, forces
+      and the force-loss gradient of the DHFR frame, and a few
+      ``Trainer.fit`` steps, and ET composable f32's steps, through
+      ``tools/partition_run.py``, against one process in this process;
+    - #3, #8-#10 and #11-#13's wrappers at each rank's shapes against their
+      plain versions.
+
+    Returns ({path: launches} of rank 0, {kernel row: {path: (ms,
+    bound_ms)}} at rank 0's shape)."""
+    import torch
+
+    root = os.path.join(workdir, "data")
+    custom, frames, dhfr, targets = _dhfr_frames(root)
+    flags_of = _ept_flags(custom)
+    train, val, test = EPT_FRAMES
+    steps, evals = EPT_EPOCHS * train, EPT_EPOCHS * val + test
+    layers = ET_ARGS["num_layers"]
+    lines, launches = [], {}
+    # ET fused bf16 through the CLI: one process, then two ranks
+    one, g1, (fit1, text1), s1 = _dp_run("ept_one", workdir, root, solo=True, flags_of=flags_of)
+    two, g2, (fit2, text2), s2 = _dp_run("ept_ranks", workdir, root, extra=("--edge-partition", "true",
+                                                                         "--ndevices", "2"),
+                                         ranks=2, flags_of=flags_of)
+    mode = [ln for ln in text2.splitlines() if ln.startswith("edge partition:")]
+    if not mode or "2 ranks over the gloo backend" not in mode[0]:
+        raise AssertionError(f"G-EPT: the two-rank run did not report its edge partition: {mode}")
+    rank_launches, peaks = _ranks_said(text2, "launches"), _ranks_said(text2, "peak bytes")
+    one_peak = _ranks_said(text1, "peak bytes")[0]
+    want = _train_launches(layers, steps, evals, "et_message")
+    got = {k: v for k, v in rank_launches[0].items() if k.startswith("et_message") and v}
+    if set(rank_launches) != {0, 1} or any(
+            {k: v for k, v in rl.items() if k.startswith("et_message") and v} != want for rl in rank_launches.values()):
+        raise AssertionError(f"G-EPT: expected {want} launches on each rank, got {rank_launches}")
+    launches["ep_train_et"] = got
+    gc, gr, ok = _copies_gap(g1, g2, EPT_BF16_COPY_TOL, EPT_BF16_GRAD_TOL)
+    loss_gap = _rows_gap(one, two)
+    epochs = [r for r in one if "train_total_mse_loss" in r]
+    lines.append(
+        f"ET {layers}x{ET_ARGS['embedding_dimension']} fused bf16 through the CLI (Custom frames {EPT_FRAMES}, "
+        f"{EPT_EPOCHS} epochs, {steps} steps): one process {s1:.1f} s [{fit1}], peak "
+        f"{one_peak / 2 ** 30:.3f} GiB, epoch train losses {[round(r['train_total_mse_loss'], 4) for r in epochs]}; "
+        f"--edge-partition true --ndevices 2 ({mode[0]}) {s2:.1f} s [{fit2}], ms a step one rank / one process "
+        f"{_step_ms(fit2) / _step_ms(fit1):.2f}, peak rank 0 {peaks[0] / 2 ** 30:.3f} GiB, rank 1 "
+        f"{peaks[1] / 2 ** 30:.3f} GiB; launches a rank {got}; logged metrics' largest gap {loss_gap[0]:.3e} "
+        f"({loss_gap[1]}; tol {EPT_BF16_LOSS_RTOL}); first step's gradients: the bf16-copied filters {gc:.3e} "
+        f"(tol {EPT_BF16_COPY_TOL}), the rest {gr:.3e} (tol {EPT_BF16_GRAD_TOL})")
+    if not ok or loss_gap[0] > EPT_BF16_LOSS_RTOL:
+        raise AssertionError(f"G-EPT: ET partitioned training disagrees with one process: {lines[-1]}")
+    # the Transformer and TensorNet fused, ET composable f32: the ranks, then one process each
+    et32 = dict(ET_ARGS, bf16_messages=False, fused_attention=False, num_layers=EPT_F32_LAYERS)
+    import dataclasses
+
+    fields = {f.name: getattr(dhfr, f.name) for f in dataclasses.fields(dhfr)}
+    fields = {k: v.cpu() if hasattr(v, "cpu") else v for k, v in fields.items()}
+    cases = []
+    for name, args in (("t_dhfr", T_ARGS), ("tn_dhfr", TN_ARGS)):
+        cases.append(dict(name=name, kind="forces", args=args, seed=SEED, batch=fields, repeat=2,
+                          boundary_capacity=EP_BOUNDARY, targets=targets))
+    train_cases = {"train_t": T_ARGS, "train_tn": TN_ARGS, "train_et_f32": et32}
+    for name, args in train_cases.items():
+        cases.append(dict(name=name, kind="train", hparams=dict(args, **EPT_TRAIN), dataset=frames,
+                          log_dir=os.path.join(workdir, name)))
+    outs = _ranks(workdir, cases, "edge_training", EPT_TIMEOUT_S)
+    if any(o["backend"] != "gloo" or o["size"] != 2 for o in outs):
+        raise AssertionError(f"G-EPT: expected two gloo ranks, got {[(o['backend'], o['size']) for o in outs]}")
+    for name, args, prefix in (("t_dhfr", T_ARGS, "t_message"), ("tn_dhfr", TN_ARGS, "tn_message")):
+        y1, f1, g_one = _one_force_grads(args, dhfr, targets)
+        ly = args["num_layers"]
+        want = {f"{prefix}_fwd": ly, f"{prefix}_bwd": ly}
+        if prefix == "t_message":
+            want[f"{prefix}_bwd_src"] = ly
+        parts = []
+        for o in outs:
+            d = o["cases"][name]
+            e_err = float((d["energy"] - y1).abs().max() / y1.abs().max())
+            f_err = float((d["forces"] - f1).abs().max() / f1.abs().max())
+            gc, gr, ok = _copies_gap(g_one, d["grads"], EPT_BF16_COPY_TOL, EPT_BF16_GRAD_TOL)
+            got = {k: v for k, v in d["launches"].items() if k.startswith(prefix) and v}
+            if e_err > EP_ENERGY_RTOL or f_err > EP_FORCE_TOL or not ok or got != want:
+                raise AssertionError(f"G-EPT {name} rank {o['rank']}: energy {e_err:.3e}, forces {f_err:.3e}, "
+                                     f"gradients {gc:.3e} / {gr:.3e}, launches {got} (expected {want})")
+            st = d["stats"]
+            parts.append(f"rank {o['rank']}: {st['n_local']} rows + {st['ghost_rows']} ghost rows, "
+                         f"{statistics.median(d['ms']):.3f} ms a call, peak {d['peak_bytes'] / 2 ** 30:.3f} GiB, "
+                         f"|dE|/|E| {e_err:.3e}, max|dF|/max|F| {f_err:.3e}, force-loss gradient: copies {gc:.3e}, "
+                         f"rest {gr:.3e}, launches {got} a call, the gradient's {d['grad_launches']}")
+            if o["rank"] == 0:
+                launches[f"ep_{name}"] = got
+        lines.append(f"{name} ({ly}x{args['embedding_dimension']} fused bf16, K {args['max_num_neighbors']}; tol "
+                     f"{EP_ENERGY_RTOL} / {EP_FORCE_TOL}, gradients {EPT_BF16_COPY_TOL} / "
+                     f"{EPT_BF16_GRAD_TOL}): " + "; ".join(parts))
+    for name, args in train_cases.items():
+        h = dict(args, **EPT_TRAIN, log_dir=os.path.join(workdir, name + "_one"))
+        rows1, g_one, sec1, steps1 = _one_train(h, frames)
+        d = outs[0]["cases"][name]
+        fused = name != "train_et_f32"
+        if fused:
+            gc, gr, ok = _copies_gap(g_one, d["grads"], EPT_BF16_COPY_TOL, EPT_BF16_GRAD_TOL)
+        else:
+            gc, gr = 0.0, _grad_gap(g_one, d["grads"])
+            ok = gr <= EPT_F32_GRAD_TOL
+        gap = _rows_gap(rows1, d["rows"])
+        rtol = EPT_BF16_LOSS_RTOL if fused else EPT_F32_LOSS_RTOL
+        prefix = {"train_t": "t_message", "train_tn": "tn_message", "train_et_f32": None}[name]
+        tsteps = EPT_TRAIN["num_epochs"] * EPT_TRAIN["train_size"]
+        tevals = EPT_TRAIN["num_epochs"] * EPT_TRAIN["val_size"]
+        want = _train_launches(args["num_layers"], tsteps, tevals, prefix, src=name == "train_t") if prefix else {}
+        got = {k: v for k, v in d["launches"].items() if prefix and k.startswith(prefix) and v}
+        if not ok or gap[0] > rtol or d["steps"] != steps1 or got != want:
+            raise AssertionError(f"G-EPT {name}: gradients {gc:.3e} / {gr:.3e}, metrics {gap}, steps {d['steps']} / "
+                                 f"{steps1}, launches {got} (expected {want})")
+        if prefix:
+            launches[f"ep_{name}"] = got
+        peak = [o["cases"][name]["peak_bytes"] / 2 ** 30 for o in outs]
+        lines.append(f"{name} ({args['num_layers']}x{args['embedding_dimension']}, "
+                     f"{'fused bf16' if fused else 'composable f32'}, {d['steps']} steps): one process "
+                     f"{1e3 * sec1 / steps1:.1f} ms a step (validation included), rank 0 "
+                     f"{1e3 * d['seconds'] / d['steps']:.1f} ms, peak ranks {peak[0]:.3f} / {peak[1]:.3f} GiB; "
+                     f"metrics' largest gap {gap[0]:.3e} ({gap[1]}; tol {rtol}); first step's gradients "
+                     + (f"copies {gc:.3e} (tol {EPT_BF16_COPY_TOL}), rest {gr:.3e} (tol {EPT_BF16_GRAD_TOL})"
+                        if fused else f"{gr:.3e} (tol {EPT_F32_GRAD_TOL})") + f"; launches a rank {got}")
+    torch.cuda.empty_cache()
+    # the wrappers at the ranks' shapes of the DHFR frame's lists
+    from torchmdnet_tpu_torch import create_model
+    from torchmdnet_tpu_torch.ops.cell_list import probe_cell_kwargs
+
+    checks, times = [], {}
+    for args, check, prefix in ((ET_ARGS, check_shard_et_bwd2, "et_message"), (T_ARGS, check_shard_t, "t_message"),
+                                (TN_ARGS, check_shard_tn, "tn_message")):
+        model = create_model(args, seed=SEED)
+        nbl = model.neighbors(dhfr, **probe_cell_kwargs(dhfr, cutoff_upper=args["cutoff_upper"]))
+        text, t = check(dhfr, nbl)
+        checks.append(text)
+        times[prefix] = t
+    log("edge-partitioned force training (G-EPT; 2 gloo ranks on one card, each against one process on the "
+        "same batches): " + "; ".join(lines) + "; " + "; ".join(checks))
+    # (ms, bound) of each kernel row on the G-EPT paths, at rank 0's shape:
+    # the serving calls run #2/#9/#12 frozen, the training steps with weights
+    timed = {}
+    for prefix, serve, train_path in (("et_message", None, "ep_train_et"), ("t_message", "ep_t_dhfr", "ep_train_t"),
+                                      ("tn_message", "ep_tn_dhfr", "ep_train_tn")):
+        t = times[prefix]
+        timed.setdefault(f"{prefix}_fwd", {})[train_path] = t["fwd"][:2]
+        timed.setdefault(f"{prefix}_bwd", {})[train_path] = t["bwd_w"][:2]
+        timed.setdefault(f"{prefix}_bwd2", {})[train_path] = t["bwd2"][:2]
+        if serve:
+            timed[f"{prefix}_fwd"][serve] = t["fwd"][:2]
+            timed[f"{prefix}_bwd"][serve] = t["bwd"][:2]
+    return launches, timed
+
+
 def main():
     import torch
 
@@ -4465,7 +5176,11 @@ def main():
         dp_launches = dp_training(workdir)
     with tempfile.TemporaryDirectory() as workdir:
         ep_launches = edge_partition(workdir)
-    log(f"parallel-layer phases (G-DP, G-EP, G-MD): {time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as workdir:
+        ept_launches, ept_timed = edge_training(workdir)
+    log(f"parallel-layer phases (G-DP, G-EP, G-MD, G-EPT): {time.perf_counter() - t0:.1f} s (G-EPT "
+        f"{time.perf_counter() - t1:.1f} s)")
     train_batch, _ = time_train_steps(trainer, train_ds, et_cfg)
     tn_train_batch, tn_step_ms = time_train_steps(tn_trainer, tn_ds, tn_cfg)
     gn_train_batch, gn_step_ms = time_train_steps(gn_trainer, gn_ds, gn_cfg)
@@ -4530,6 +5245,9 @@ def main():
         # rank 0 of two edge-partitioned ranks: one DHFR call; 20 MD steps at DHFR
         "ep_dhfr": ep_launches["ep_dhfr"],
         "ep_md_dhfr": ep_launches["ep_md_dhfr"],
+        # rank 0 of two edge-partitioned ranks: ET's CLI force training on DHFR
+        # frames; one T and one TensorNet DHFR call; their training steps
+        **ept_launches,
     }
     for path, parts in PART_LAUNCHES.items():
         paths[path].update(parts)
@@ -4571,6 +5289,8 @@ def main():
         "select_topk": {path: sel_times[label][::2][:2] for path, label in sel_label_of.items()},
         "compaction": {"t_md_brute_pallas": (comp_times["MD build"]["ms"], comp_times["MD build"]["bound_ms"])},
     }
+    for name, at in ept_timed.items():  # the G-EPT paths at rank 0's shape
+        timed_at.setdefault(name, {}).update(at)
     # #4's and #5's three times (event window, device alone, host enqueue)
     # beside their library call's, at each shape a GN path runs them
     by_shape = {name: {"times_by_shape": {where: {key: val for key, val in v[kind].items() if key != "bound_by"}

@@ -179,9 +179,14 @@ def test_fused_bf16_grads_match_jax_bf16_composable():
 
 def test_later_slice_options_raise(tmp_path):
     pm = create_model(dict(ARGS, precision=32), create_prior_models(ARGS, _dataset()), device="cpu")
-    for over in (dict(force_grad_mode="jvp"), dict(edge_partition=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Trainer(pm, dict(ARGS, log_dir=str(tmp_path), **over))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Trainer(pm, dict(ARGS, log_dir=str(tmp_path), force_grad_mode="jvp"))
+    # edge partitioning is ported: it needs a mesh (one rank is allowed)
+    with pytest.raises(ValueError, match="needs a mesh"):
+        Trainer(pm, dict(ARGS, log_dir=str(tmp_path), edge_partition=True))
+    from torchmdnet_tpu_torch.parallel.mesh import make_mesh
+
+    Trainer(pm, dict(ARGS, log_dir=str(tmp_path), edge_partition=True), mesh=make_mesh(allow_single=True, device="cpu"))
     # accepted: steps run one by one; the gather plan is unused; the ranks of
     # --ndevices/--num-nodes are the CLI's processes (the Trainer takes a mesh)
     Trainer(pm, dict(ARGS, log_dir=str(tmp_path), steps_per_dispatch=8, plan_width=256, ndevices=-1))

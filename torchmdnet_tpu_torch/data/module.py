@@ -17,7 +17,8 @@ from torchmdnet_tpu_torch.data.loader import PaddedLoader, _round_up
 from torchmdnet_tpu_torch.utils import make_splits, resolve_device
 
 # capacities are multiples of 8 atoms, as in the JAX package on one device,
-# and of the rank count under data parallelism (``pad_multiple``)
+# and of the rank count under data parallelism and edge partitioning
+# (``pad_multiple``)
 PAD_MULTIPLE = 8
 
 
@@ -62,9 +63,17 @@ class DataModule:
         sizes = np.asarray(self.dataset.sample_sizes())
         max_size = int(sizes.max()) if len(sizes) else 1
         bs = max(h["batch_size"], h.get("inference_batch_size") or h["batch_size"])
-        self.num_atoms_pad = _round_up(bs * max_size, pad_multiple(self._ranks()[1]))
+        self.num_atoms_pad = _round_up(bs * max_size, self._pad_multiple())
         if h.get("standardize"):
             self._standardize()
+
+    def _pad_multiple(self):
+        """lcm(8, the rank count) whatever the mode, as the JAX package rounds
+        to its device count: under edge partitioning every rank loads the
+        whole batch and keeps 1/D of its atom rows, which must be whole."""
+        from torchmdnet_tpu_torch.parallel.distributed import process_info
+
+        return pad_multiple(process_info()[1])
 
     def _ranks(self):
         """(rank, count) of the data-parallel ranks; (0, 1) outside a process
@@ -92,7 +101,7 @@ class DataModule:
             float_dtype=float_dtype,
             prefetch=2 if h.get("num_workers", 0) else 0,
             num_buckets=num_buckets,
-            pad_multiple=pad_multiple(count),
+            pad_multiple=self._pad_multiple(),
             device=self.device,
             process_rank=rank,
             process_count=count,

@@ -47,7 +47,7 @@ from torch.autograd.function import once_differentiable
 
 from torchmdnet_tpu_torch.ops.kernels import build
 from torchmdnet_tpu_torch.ops.neighbors import ell_gather, transpose_perm
-from torchmdnet_tpu_torch.parallel.context import G2_ITEM, ShardPlan
+from torchmdnet_tpu_torch.parallel.context import ShardPlan
 
 SOURCE = "et_message.cu"
 _ACT_CODE = {"silu": 0, "ssp": 1, "tanh": 2, "sigmoid": 3}
@@ -846,23 +846,26 @@ def bwd2_source_reference(idx, perm, inputs, ct, Z, hs4, *, heads, act):
     return _split_rows(terms.reshape(n, kk, -1).sum(1).to(q.dtype), q.shape[1])
 
 
-def bwd2_source(idx, perm, inputs, ct, Z, hs4, *, heads, act, attn_act):
+def bwd2_source(idx, perm, inputs, ct, Z, hs4, *, heads, act, attn_act, ext=False):
     """The second order's source pass: (gk, gv, gvec0, gvec1, gvec2) bf16
     from the receiver pass's hs4.  CUDA tensors run ``et_bwd2_src_kernel``,
-    CPU tensors ``bwd2_source_reference``."""
+    CPU tensors ``bwd2_source_reference``.  ``ext`` as ``bwd_source``'s: the
+    receiver-side tables (q, ea, msk, dirs, ct, their Z and hs4) hold the
+    ghost receivers' rows after the local ones, and ``perm`` indexes their
+    slots."""
     q = inputs[0]
     if q.device.type == "cpu":
         return bwd2_source_reference(idx, perm, inputs, ct, Z, hs4, heads=heads, act=act)
     lib = _lib()
     (q, k, v, vec0, vec1, vec2, ea, cutm, msk, dir0, dir1, dir2, wdk, bdk, wdv, bdv) = inputs
     (n, kk, h, rbf), tensors = _prepare(
-        idx, q, k, v, vec0, vec1, vec2, ea, cutm, msk, (dir0, dir1, dir2), wdk, bdk, wdv, bdv, heads
+        idx, q, k, v, vec0, vec1, vec2, ea, cutm, msk, (dir0, dir1, dir2), wdk, bdk, wdv, bdv, heads, ext=ext
     )
     dev = q.device
     f32, bf = torch.float32, torch.bfloat16
     ct_x, ct_vec = (c.to(f32).contiguous() for c in ct)
     _check(perm, "perm", torch.int32, (n * kk,), dev)
-    _check(hs4, "hs4", f32, (n * kk, 4, heads), dev)
+    _check(hs4, "hs4", f32, (q.shape[0] * kk, 4, heads), dev)
     zs = _z_operands(inputs, Z, bf, f32)
     w_all, zw_all, zbk, zbv = _z_filters(inputs, Z, h, rbf)
     outs = [torch.empty((n, w * h), dtype=bf, device=dev) for w in (1, 3, 1, 1, 1)]
@@ -901,17 +904,19 @@ def _z_filters(inputs, Z, h, rbf):
     return w_all, zw_all, zbk, zbv
 
 
-def bwd2_receiver(idx, inputs, ct, Z, *, heads, act, attn_act):
+def bwd2_receiver(idx, inputs, ct, Z, *, heads, act, attn_act, ext=False):
     """The second order's receiver pass: (gq, gea, gcutm, gmsk, [gdir0..2],
     gctx, gctvec, hs4, bpre, bpret, db) as ``bwd2_receiver_reference``
     returns them.  CUDA tensors run ``et_bwd2_kernel`` (counted by
-    ``run_bwd2.launches``), CPU tensors the plain version."""
+    ``run_bwd2.launches``), CPU tensors the plain version.  ``ext``: the
+    source tables (k, v, vec) and their Z hold ghost rows after the N local
+    ones, as ``run_fwd``'s."""
     (q, k, v, vec0, vec1, vec2, ea, cutm, msk, dir0, dir1, dir2, wdk, bdk, wdv, bdv) = inputs
     if q.device.type == "cpu":
         return bwd2_receiver_reference(idx, inputs, ct, Z, heads=heads, act=act, attn_act=attn_act)
     lib = _lib()
     (n, kk, h, rbf), tensors = _prepare(
-        idx, q, k, v, vec0, vec1, vec2, ea, cutm, msk, (dir0, dir1, dir2), wdk, bdk, wdv, bdv, heads
+        idx, q, k, v, vec0, vec1, vec2, ea, cutm, msk, (dir0, dir1, dir2), wdk, bdk, wdv, bdv, heads, ext=ext
     )
     if h > 256:
         raise ValueError(f"the second-order ET kernel takes H <= 256; got H={h}")
@@ -1109,19 +1114,80 @@ class _EtMessagesBwd(torch.autograd.Function):
         return (None, None, None, None, *g_inputs, *g_ct)
 
 
-_PARTITION_SECOND_ORDER = (
-    "a force-loss gradient through the fused ET edge phase under edge partitioning (the second-order "
-    f"kernel #3 on each shard) is not ported yet ({G2_ITEM})"
-)
+def _shard_bwd(cfg, plan, srcs, inputs, ct, want_w):
+    """The backward (#2) on one rank's rows: the receiver pass on the local
+    receivers over the extended source tables ``srcs`` (k, v, vec0..2), then
+    the rows the receivers hold for other ranks' sources (q, the cotangents,
+    each slot's ea, msk, dir and the receiver pass's hs) exchanged, and the
+    source pass over this rank's atoms, each summing its K slots of the
+    global transpose permutation, local and ghost, in order: the source rows'
+    gradients are complete on their owner.  Returns (the 15 gradients of
+    ``run_bwd``, this rank's share of the weight cotangents, and the
+    extended receiver tables (q, ea, msk, dir0..2, ct_x, ct_vec) that the
+    second order's source pass reads again)."""
+    from torchmdnet_tpu_torch.parallel.edge_partition import extend_rows
+
+    heads, act, attn_act = cfg
+    q, _, _, _, _, _, ea, cutm, msk, dir0, dir1, dir2, wdk, bdk, wdv, bdv = inputs
+    ct_x, ct_vec = ct
+    n, kk = plan.lidx.shape
+    h, rbf = q.shape[1], ea.shape[-1]
+    dirs = (dir0, dir1, dir2)
+    want_w = want_w and (wdk is not None or wdv is not None)
+    dq, dea, dcutm, ddirs, hs, dpre, db = bwd_receiver(
+        plan.lidx, q, *srcs, ea, cutm, msk, dirs, wdk, bdk, wdv, bdv, ct_x, ct_vec,
+        heads=heads, act=act, attn_act=attn_act, want_dpre=want_w, ext=True)
+    q_rx, ea_rx, msk_rx, d0, d1, d2, ctx_rx, ctv_rx, hs_rx = extend_rows(
+        plan, [q, ea, msk, dir0, dir1, dir2, ct_x, ct_vec, hs], "rx")
+    # the source pass reads no cutm: msk stands in for its shape
+    src = bwd_source(plan.lidx, plan.perm_rx, q_rx, *srcs, ea_rx, msk_rx, msk_rx, (d0, d1, d2),
+                     wdk, bdk, wdv, bdv, ctx_rx, ctv_rx, hs_rx, heads=heads, act=act, attn_act=attn_act, ext=True)
+    gw = (None,) * 4
+    if want_w:  # this rank's edges' share of the weight cotangents
+        dw = weight_grads([(ea.reshape(n * kk, -1), dpre)], rbf)
+        gw = _split_weights(dw, db, h, wdk, bdk, wdv, bdv)
+    grads = (dq.to(q.dtype), *src, dea, dcutm, *ddirs, *gw)
+    return grads, (q_rx, ea_rx, msk_rx, d0, d1, d2, ctx_rx, ctv_rx)
 
 
-def _exchange_rx(plan, rows):
-    """This rank's receiver rows ``rows`` (N, F) sent to the ranks whose atoms
-    they are sources of; returns the ghost receivers' rows received, owners
-    in rank order."""
-    from torchmdnet_tpu_torch.parallel.distributed import all_to_all_rows
+def _shard_bwd2(cfg, plan, srcs, inputs, ct, rx, zs):
+    """The second order (#3) on one rank's rows, given the Z cotangents
+    ``zs`` on ``_shard_bwd``'s 15 outputs.  The Z of the source rows reach
+    the ghost copies through the forward's exchange, so the receiver pass
+    computes every receiver-side gradient locally (the terms of other ranks'
+    source rows included); the rows the source pass needs of the ghost
+    receivers (their Z and the receiver pass's hs4) are exchanged as the
+    backward's are, and the source pass completes the source rows' gradients
+    on their owner.  No cotangent travels back: each gradient is whole where
+    its input lives.  The Z on the weight cotangents must be the same on
+    every rank (zero in a force-loss step), since a ghost receiver's edges
+    read this rank's.  Returns the gradients of (inputs (16), ct_x, ct_vec)."""
+    from torchmdnet_tpu_torch.parallel.edge_partition import extend_rows
 
-    return all_to_all_rows(plan.mesh, [rows.index_select(0, s) for s in plan.rx_send], plan.rx_recv)
+    heads, act, attn_act = cfg
+    n, kk = plan.lidx.shape
+    q, ea = inputs[0], inputs[6]
+    ct = tuple(c.to(torch.float32).contiguous() if q.device.type != "cpu" else c for c in ct)
+    # Z per input slot: the msk slot (8) has no output and takes no Z
+    Z = [None if z is None else z.contiguous() for z in list(zs[:8]) + [None] + list(zs[8:])]
+    Z = [torch.zeros_like(inputs[i]) if Z[i] is None and i < 12 and i != 8 else Z[i] for i in range(16)]
+    zsrc = extend_rows(plan, Z[1:6], "src")
+    ins_ext = (q, *srcs, *inputs[6:])
+    gq, gea, gcutm, gmsk, gdirs, gctx, gctvec, hs4, bpre, bpret, db = bwd2_receiver(
+        plan.lidx, ins_ext, ct, [Z[0], *zsrc, *Z[6:]], heads=heads, act=act, attn_act=attn_act, ext=True)
+    zq_rx, zea_rx, zd0, zd1, zd2, hs4_rx = extend_rows(plan, [Z[0], Z[6], Z[9], Z[10], Z[11], hs4], "rx")
+    q_rx, ea_rx, msk_rx, d0, d1, d2, ctx_rx, ctv_rx = rx
+    ins_rx = (q_rx, *srcs, ea_rx, msk_rx, msk_rx, d0, d1, d2, *inputs[12:])
+    z_rx = [zq_rx, *zsrc, zea_rx, None, None, zd0, zd1, zd2, *Z[12:]]
+    src = bwd2_source(plan.lidx, plan.perm_rx, ins_rx, (ctx_rx, ctv_rx), z_rx, hs4_rx, heads=heads, act=act,
+                      attn_act=attn_act, ext=True)
+    gw = (None,) * 4
+    wdk, bdk, wdv, bdv = inputs[12:16]
+    if bpre is not None:  # this rank's edges' share
+        zea = Z[6].to(ea.dtype).reshape(n * kk, -1).contiguous()
+        dw = weight_grads([(ea.reshape(n * kk, -1), bpre), (zea, bpret)], ea.shape[-1])
+        gw = _split_weights(dw, db, q.shape[1], wdk, bdk, wdv, bdv)
+    return (gq.to(q.dtype), *src, gea, gcutm, gmsk, *gdirs, *gw, gctx, gctvec)
 
 
 class _EtMessagesShard(torch.autograd.Function):
@@ -1130,29 +1196,19 @@ class _EtMessagesShard(torch.autograd.Function):
 
     Forward (#1): the source rows [k | v | vec] of the ghost atoms arrive in
     one exchange and extend the local source tables; the kernel reads them
-    through the plan's local ids.  Backward (#2): the receiver pass runs on
-    the local receivers; then each rank ships the rows its receivers hold
-    for other ranks' sources (q, the cotangents, each slot's ea, msk, dir
-    and the receiver pass's hs) and runs the source pass over its own atoms,
-    each summing its K slots of the global transpose permutation, local and
-    ghost, in order.  The source rows' gradients are then complete on their
-    owner: no cotangent travels back.  CPU tensors run the passes' plain
-    versions.  The second order under partitioning raises (the next
-    slice)."""
+    through the plan's local ids.  Backward (#2, ``_shard_bwd``), itself
+    differentiable once through ``_EtMessagesShardBwd`` (#3,
+    ``_shard_bwd2``).  CPU tensors run the passes' plain versions."""
 
     @staticmethod
     def forward(ctx, cfg, plan, q, k, v, vec0, vec1, vec2, ea, cutm, msk, dir0, dir1, dir2, wdk, bdk, wdv, bdv):
         from torchmdnet_tpu_torch.parallel.context import ring_scope
-        from torchmdnet_tpu_torch.parallel.edge_partition import ghost_rows
+        from torchmdnet_tpu_torch.parallel.edge_partition import extend_rows
 
         heads, act, attn_act = cfg
-        h = q.shape[1]
-        rows = torch.cat([k, v, vec0, vec1, vec2], dim=1)
-        table = torch.cat([rows, ghost_rows(rows, plan)])
-        srcs = [table[:, a:b].contiguous() for a, b in ((0, h), (h, 4 * h), (4 * h, 5 * h), (5 * h, 6 * h),
-                                                         (6 * h, 7 * h))]
+        srcs = extend_rows(plan, [k, v, vec0, vec1, vec2], "src")
         ctx.cfg, ctx.plan = cfg, plan
-        ctx.save_for_backward(q, *srcs, ea, cutm, msk, dir0, dir1, dir2, wdk, bdk, wdv, bdv)
+        ctx.save_for_backward(q, k, v, vec0, vec1, vec2, ea, cutm, msk, dir0, dir1, dir2, wdk, bdk, wdv, bdv, *srcs)
         if q.device.type == "cpu":
             with ring_scope(None), torch.no_grad():  # local ids into the extended tables
                 return et_messages_reference(plan.lidx, q, *srcs, ea, cutm, msk, dir0, dir1, dir2,
@@ -1163,41 +1219,42 @@ class _EtMessagesShard(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, ct_x, ct_vec):
+        saved = ctx.saved_tensors
+        inputs, srcs = saved[:16], saved[16:]
+        want_w = any(ctx.needs_input_grad[14:18])
+        ct = (ct_x.contiguous(), ct_vec.contiguous())
         if torch.is_grad_enabled():
-            raise NotImplementedError(_PARTITION_SECOND_ORDER)
-        heads, act, attn_act = ctx.cfg
-        plan = ctx.plan
-        q, k, v, vec0, vec1, vec2, ea, cutm, msk, dir0, dir1, dir2, wdk, bdk, wdv, bdv = ctx.saved_tensors
-        n, kk = plan.lidx.shape
-        h, rbf = q.shape[1], ea.shape[-1]
-        want_w = any(ctx.needs_input_grad[14:18]) and (wdk is not None or wdv is not None)
-        ct_x, ct_vec = ct_x.contiguous(), ct_vec.contiguous()
-        dirs = (dir0, dir1, dir2)
-        dq, dea, dcutm, ddirs, hs, dpre, db = bwd_receiver(
-            plan.lidx, q, k, v, vec0, vec1, vec2, ea, cutm, msk, dirs, wdk, bdk, wdv, bdv, ct_x, ct_vec,
-            heads=heads, act=act, attn_act=attn_act, want_dpre=want_w, ext=True)
-        # the ghost receivers: f32 [ct_x | ct_vec | msk | dir0..2], bf16 [q | ea | hs]
-        wide = _exchange_rx(plan, torch.cat([ct_x, ct_vec, msk, dir0, dir1, dir2], dim=1))
-        narrow = _exchange_rx(plan, torch.cat([q, ea.reshape(n, -1), hs.reshape(n, -1)], dim=1))
-        g = wide.shape[0]
-        cols = torch.split(wide, [h, 3 * h, kk, kk, kk, kk], dim=1)
-        q_rx = torch.cat([q, narrow[:, :h]]).contiguous()
-        ea_rx = torch.cat([ea, narrow[:, h:h + kk * rbf].reshape(g, kk, rbf)]).contiguous()
-        hs_rx = torch.cat([hs, narrow[:, h + kk * rbf:].reshape(g * kk, 2, heads)]).contiguous()
-        ctx_rx, ctv_rx = (torch.cat([a, b]).contiguous() for a, b in ((ct_x, cols[0]), (ct_vec, cols[1])))
-        msk_rx = torch.cat([msk, cols[2]]).contiguous()
-        dirs_rx = tuple(torch.cat([d, c]).contiguous() for d, c in zip(dirs, cols[3:]))
-        # the source pass reads no cutm: msk stands in for its shape
-        src = bwd_source(plan.lidx, plan.perm_rx, q_rx, k, v, vec0, vec1, vec2, ea_rx, msk_rx, msk_rx, dirs_rx,
-                         wdk, bdk, wdv, bdv, ctx_rx, ctv_rx, hs_rx, heads=heads, act=act, attn_act=attn_act,
-                         ext=True)
-        gw = (None,) * 4
-        if want_w:  # this rank's edges' share of the weight cotangents
-            dw = weight_grads([(ea.reshape(n * kk, -1), dpre)], rbf)
-            gw = _split_weights(dw, db, h, wdk, bdk, wdv, bdv)
-        dk, dv, dvec0, dvec1, dvec2 = src
-        return (None, None, dq.to(q.dtype), dk, dv, dvec0, dvec1, dvec2, dea, dcutm, None,
-                *ddirs, *gw)
+            g = _EtMessagesShardBwd.apply(ctx.cfg, ctx.plan, want_w, srcs, *inputs, *ct)
+        else:
+            g = _shard_bwd(ctx.cfg, ctx.plan, srcs, inputs, ct, want_w)[0]
+        dq, dk, dv, dvec0, dvec1, dvec2, dea, dcutm, dd0, dd1, dd2, dwdk, dbdk, dwdv, dbdv = g
+        # msk is 0/1 data: no gradient, as in the JAX op
+        return (None, None, dq, dk, dv, dvec0, dvec1, dvec2, dea, dcutm, None, dd0, dd1, dd2, dwdk, dbdk, dwdv, dbdv)
+
+
+class _EtMessagesShardBwd(torch.autograd.Function):
+    """``_shard_bwd`` as a function of this rank's (inputs, ct); its gradient
+    is ``_shard_bwd2``.  ``srcs`` (the extended source tables of the forward)
+    is not an input: the gradients of the source rows are those of k, v and
+    vec, whose ghost copies it holds."""
+
+    @staticmethod
+    def forward(ctx, cfg, plan, want_w, srcs, q, k, v, vec0, vec1, vec2, ea, cutm, msk, dir0, dir1, dir2,
+                wdk, bdk, wdv, bdv, ct_x, ct_vec):
+        inputs = (q, k, v, vec0, vec1, vec2, ea, cutm, msk, dir0, dir1, dir2, wdk, bdk, wdv, bdv)
+        grads, rx = _shard_bwd(cfg, plan, srcs, inputs, (ct_x, ct_vec), want_w)
+        ctx.cfg, ctx.plan = cfg, plan
+        ctx.save_for_backward(*inputs, ct_x, ct_vec, *srcs, *rx)
+        return grads
+
+    @staticmethod
+    def backward(ctx, *zs):
+        if torch.is_grad_enabled():  # create_graph=True once more: a third derivative
+            raise NotImplementedError(_THIRD_ORDER)
+        saved = ctx.saved_tensors
+        inputs, ct, srcs, rx = saved[:16], saved[16:18], saved[18:23], saved[23:]
+        g = _shard_bwd2(ctx.cfg, ctx.plan, srcs, inputs, ct, rx, zs)
+        return (None, None, None, None, *g)
 
 
 def fused_et_messages(

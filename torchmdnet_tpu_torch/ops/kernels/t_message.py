@@ -48,7 +48,7 @@ import torch
 from torchmdnet_tpu_torch.ops.kernels import build
 from torchmdnet_tpu_torch.ops.kernels import et_message as em
 from torchmdnet_tpu_torch.ops.neighbors import ell_gather, transpose_perm
-from torchmdnet_tpu_torch.parallel.context import G2_ITEM, ShardPlan, ring_info
+from torchmdnet_tpu_torch.parallel.context import ShardPlan
 
 SOURCE = "t_message.cu"
 
@@ -124,11 +124,19 @@ def t_messages_reference(
     return (vdv * attn).to(acc).sum(dim=1)
 
 
-def _prepare(idx, q, k, v, ea, cutm, wdk, bdk, wdv, bdv, heads):
+def _prepare(idx, q, k, v, ea, cutm, wdk, bdk, wdv, bdv, heads, ext=False):
     """Validate the operands; return ((N, K, H, RBF), the 9 operands in the
-    kernel's order, with the filters transposed to its (H, RBF) layout)."""
+    kernel's order, with the filters transposed to its (H, RBF) layout).
+
+    ``ext`` (a rank's shard under edge partitioning): the source tables (k,
+    v) may hold more rows than ``idx`` (ghost sources after the local rows),
+    and so may the receiver-side tables (q, ea, cutm: ghost receivers after
+    the local rows, which only the source passes read)."""
     dev = q.device
     n, kk = idx.shape
+    ns, nr = (k.shape[0], q.shape[0]) if ext else (n, n)
+    if ns < n or nr < n:
+        raise ValueError(f"extended tables need at least the {n} rows of idx; got {ns} source, {nr} receiver rows")
     h = q.shape[1]
     rbf = ea.shape[-1]
     hd = h // heads if heads > 0 else 0
@@ -140,10 +148,10 @@ def _prepare(idx, q, k, v, ea, cutm, wdk, bdk, wdv, bdv, heads):
     bf = torch.bfloat16
     check = em._check
     check(idx, "idx", torch.int32, (n, kk), dev)
-    for t, name in ((q, "q"), (k, "k"), (v, "v")):
-        check(t, name, bf, (n, h), dev)
-    check(ea, "ea", bf, (n, kk, rbf), dev)
-    check(cutm, "cutm", torch.float32, (n, kk), dev)
+    for t, name, rows in ((q, "q", nr), (k, "k", ns), (v, "v", ns)):
+        check(t, name, bf, (rows, h), dev)
+    check(ea, "ea", bf, (nr, kk, rbf), dev)
+    check(cutm, "cutm", torch.float32, (nr, kk), dev)
     # the kernel reads the filters as (H, RBF) rows: torch's Linear layout
     wk = bk = wv = bv = None
     if wdk is not None:
@@ -166,10 +174,11 @@ def _stream(dev):
     return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
 
 
-def run_fwd(idx, q, k, v, ea, cutm, wdk, bdk, wdv, bdv, *, heads, act, attn_act):
-    """Launch the forward kernel; returns out (N, H) f32."""
+def run_fwd(idx, q, k, v, ea, cutm, wdk, bdk, wdv, bdv, *, heads, act, attn_act, ext=False):
+    """Launch the forward kernel; returns out (N, H) f32.  ``ext``: the
+    source tables may hold ghost rows after the N local ones."""
     lib = _lib()
-    (n, kk, h, rbf), tensors = _prepare(idx, q, k, v, ea, cutm, wdk, bdk, wdv, bdv, heads)
+    (n, kk, h, rbf), tensors = _prepare(idx, q, k, v, ea, cutm, wdk, bdk, wdv, bdv, heads, ext=ext)
     out = torch.empty((n, h), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         err = lib.t_fwd(
@@ -213,7 +222,7 @@ class _Edges(em._Edges):
         self.bf = q.dtype
         self.acc = em._wdt(q.dtype)
         self.e, self.src, self.recv = e, src, torch.div(e, kk, rounding_mode="floor")
-        self.ea = ea.reshape(n * kk, -1)[e]
+        self.ea = ea.reshape(-1, ea.shape[-1])[e]  # the slots of ghost receivers too, under partitioning
 
     def filters(self, wdk, bdk, wdv, bdv, act):
         """[(pre-activation, value)] of dk and dv (None where absent), as
@@ -327,16 +336,17 @@ def bwd_source_reference(idx, perm, q, ea, wdk, bdk, wdv, bdv, ct, hs, *, heads,
     return _split_kv(_slot_sum(terms, n, kk).to(q.dtype), q.shape[1])
 
 
-def bwd_receiver(idx, q, k, v, ea, cutm, wdk, bdk, wdv, bdv, ct, *, heads, act, attn_act, want_dpre):
+def bwd_receiver(idx, q, k, v, ea, cutm, wdk, bdk, wdv, bdv, ct, *, heads, act, attn_act, want_dpre, ext=False):
     """The backward's receiver pass: (dq, dea, dcutm, hs, dpre, db) as
     ``bwd_receiver_reference`` returns them (dq, dcutm, db f32 on the card).
     CUDA tensors run ``t_bwd_kernel`` (counted by ``run_bwd.launches``), CPU
-    tensors the plain version."""
+    tensors the plain version.  ``ext``: extended source tables, as
+    ``run_fwd``'s."""
     if q.device.type == "cpu":
         return bwd_receiver_reference(idx, q, k, v, ea, cutm, wdk, bdk, wdv, bdv, ct, heads=heads, act=act,
                                       attn_act=attn_act, want_dpre=want_dpre)
     lib = _lib()
-    (n, kk, h, rbf), tensors = _prepare(idx, q, k, v, ea, cutm, wdk, bdk, wdv, bdv, heads)
+    (n, kk, h, rbf), tensors = _prepare(idx, q, k, v, ea, cutm, wdk, bdk, wdv, bdv, heads, ext=ext)
     dev = q.device
     em._check(ct, "ct", torch.float32, (n, h), dev)
     f32, bf = torch.float32, torch.bfloat16
@@ -359,18 +369,25 @@ def bwd_receiver(idx, q, k, v, ea, cutm, wdk, bdk, wdv, bdv, ct, *, heads, act, 
     return dq, dea, dcutm, hs, dpre, None if db_part is None else db_part.sum(dim=0)
 
 
-def bwd_source(idx, perm, q, k, v, ea, cutm, wdk, bdk, wdv, bdv, ct, hs, *, heads, act, attn_act):
+def bwd_source(idx, perm, q, k, v, ea, cutm, wdk, bdk, wdv, bdv, ct, hs, *, heads, act, attn_act, ext=False):
     """The backward's source pass: (dk, dv) bf16 from the receiver pass's
     hs.  CUDA tensors run ``t_bwd_src_kernel``, CPU tensors
-    ``bwd_source_reference``."""
+    ``bwd_source_reference``.
+
+    ``ext`` (edge partitioning): the N = idx rows are the target atoms, and
+    the receiver-side tables (q, ea, cutm, ct, hs) hold the ghost receivers'
+    rows after the local ones; ``perm`` indexes their slots.  The kernel
+    reads a slot's receiver as slot // K (and no cutm), so it runs
+    unchanged."""
     if q.device.type == "cpu":
         return bwd_source_reference(idx, perm, q, ea, wdk, bdk, wdv, bdv, ct, hs, heads=heads, act=act)
     lib = _lib()
-    (n, kk, h, rbf), tensors = _prepare(idx, q, k, v, ea, cutm, wdk, bdk, wdv, bdv, heads)
+    (n, kk, h, rbf), tensors = _prepare(idx, q, k, v, ea, cutm, wdk, bdk, wdv, bdv, heads, ext=ext)
     dev = q.device
+    nr = q.shape[0]
     em._check(perm, "perm", torch.int32, (n * kk,), dev)
-    em._check(ct, "ct", torch.float32, (n, h), dev)
-    em._check(hs, "hs", torch.bfloat16, (n * kk, 2, heads), dev)
+    em._check(ct, "ct", torch.float32, (nr, h), dev)
+    em._check(hs, "hs", torch.bfloat16, (nr * kk, 2, heads), dev)
     outs = [torch.empty((n, h), dtype=torch.bfloat16, device=dev) for _ in range(2)]
     with torch.cuda.device(dev):
         err = lib.t_bwd_src(
@@ -575,16 +592,17 @@ def bwd2_source_reference(idx, perm, inputs, ct, Z, hs4, *, heads, act):
     return _split_kv(_slot_sum(terms, n, kk).to(q.dtype), q.shape[1])
 
 
-def bwd2_receiver(idx, inputs, ct, Z, *, heads, act, attn_act):
+def bwd2_receiver(idx, inputs, ct, Z, *, heads, act, attn_act, ext=False):
     """The second order's receiver pass: (gq, gea, gcutm, gct, hs4, bpre,
     bpret, db) as ``bwd2_receiver_reference`` returns them.  CUDA tensors
     run ``t_bwd2_kernel`` (counted by ``run_bwd2.launches``), CPU tensors
-    the plain version."""
+    the plain version.  ``ext``: the source tables (k, v) and their Z hold
+    ghost rows after the N local ones."""
     q, k, v, ea, cutm, wdk, bdk, wdv, bdv = inputs
     if q.device.type == "cpu":
         return bwd2_receiver_reference(idx, inputs, ct, Z, heads=heads, act=act, attn_act=attn_act)
     lib = _lib()
-    (n, kk, h, rbf), tensors = _prepare(idx, q, k, v, ea, cutm, wdk, bdk, wdv, bdv, heads)
+    (n, kk, h, rbf), tensors = _prepare(idx, q, k, v, ea, cutm, wdk, bdk, wdv, bdv, heads, ext=ext)
     if h > 256:
         raise ValueError(f"the second-order Transformer kernel takes H <= 256; got H={h}")
     dev = q.device
@@ -616,20 +634,22 @@ def bwd2_receiver(idx, inputs, ct, Z, *, heads, act, attn_act):
     return gq, gea, gcutm, gct, hs4, bpre, bpret, db
 
 
-def bwd2_source(idx, perm, inputs, ct, Z, hs4, *, heads, act, attn_act):
+def bwd2_source(idx, perm, inputs, ct, Z, hs4, *, heads, act, attn_act, ext=False):
     """The second order's source pass: (gk, gv) bf16 from the receiver
     pass's hs4.  CUDA tensors run ``t_bwd2_src_kernel``, CPU tensors
-    ``bwd2_source_reference``."""
+    ``bwd2_source_reference``.  ``ext`` as ``bwd_source``'s (q, ea, ct,
+    their Z and hs4 extended with the ghost receivers' rows)."""
     q = inputs[0]
     if q.device.type == "cpu":
         return bwd2_source_reference(idx, perm, inputs, ct, Z, hs4, heads=heads, act=act)
     lib = _lib()
-    (n, kk, h, rbf), tensors = _prepare(idx, *inputs, heads)
+    (n, kk, h, rbf), tensors = _prepare(idx, *inputs, heads, ext=ext)
     dev = q.device
+    nr = q.shape[0]
     f32, bf = torch.float32, torch.bfloat16
     em._check(perm, "perm", torch.int32, (n * kk,), dev)
-    em._check(ct, "ct", f32, (n, h), dev)
-    em._check(hs4, "hs4", f32, (n * kk, 4, heads), dev)
+    em._check(ct, "ct", f32, (nr, h), dev)
+    em._check(hs4, "hs4", f32, (nr * kk, 4, heads), dev)
     zs = _z_operands(inputs, Z)
     zw_all, zbk, zbv = _z_filters(inputs, Z, h, rbf)
     outs = [torch.empty((n, h), dtype=bf, device=dev) for _ in range(2)]
@@ -787,6 +807,127 @@ class _TMessagesBwd(torch.autograd.Function):
         return (None, None, None, None, *g_inputs, g_ct)
 
 
+def _shard_bwd(cfg, plan, srcs, inputs, ct, want_w):
+    """The backward (#12) on one rank's rows, as ET's ``_shard_bwd``: the
+    receiver pass on the local receivers over the extended source tables
+    ``srcs`` (k, v), the ghost receivers' rows (q, ct, each slot's ea and the
+    receiver pass's hs) exchanged, then the source pass over this rank's
+    atoms through the global transpose permutation's slots.  Returns (the 9
+    gradients of ``run_bwd``, this rank's share of the weight cotangents;
+    the extended receiver tables (q, ea, ct) the second order reads)."""
+    from torchmdnet_tpu_torch.parallel.edge_partition import extend_rows
+
+    heads, act, attn_act = cfg
+    q, _, _, ea, cutm, wdk, bdk, wdv, bdv = inputs
+    n, kk = plan.lidx.shape
+    want_w = want_w and (wdk is not None or wdv is not None)
+    dq, dea, dcutm, hs, dpre, db = bwd_receiver(plan.lidx, q, *srcs, ea, cutm, wdk, bdk, wdv, bdv, ct, heads=heads,
+                                                act=act, attn_act=attn_act, want_dpre=want_w, ext=True)
+    q_rx, ea_rx, ct_rx, hs_rx = extend_rows(plan, [q, ea, ct, hs], "rx")
+    # the source passes read no cutm: a stand-in of its shape
+    cut_rx = ct_rx.new_zeros(ea_rx.shape[:2])
+    dk, dv = bwd_source(plan.lidx, plan.perm_rx, q_rx, *srcs, ea_rx, cut_rx, wdk, bdk, wdv, bdv, ct_rx, hs_rx,
+                        heads=heads, act=act, attn_act=attn_act, ext=True)
+    gw = (None,) * 4
+    if want_w:  # this rank's edges' share
+        dw = em.weight_grads([(ea.reshape(n * kk, -1), dpre)], ea.shape[-1])
+        gw = em._split_weights(dw, db, q.shape[1], wdk, bdk, wdv, bdv)
+    return (dq.to(q.dtype), dk, dv, dea, dcutm, *gw), (q_rx, ea_rx, ct_rx)
+
+
+def _shard_bwd2(cfg, plan, srcs, inputs, ct, rx, zs):
+    """The second order (#13) on one rank's rows, as ET's ``_shard_bwd2``:
+    the Z of the source rows through the forward's exchange, the receiver
+    pass on the local receivers (every receiver-side gradient whole), the
+    ghost receivers' Z and hs4 exchanged, the source pass over this rank's
+    atoms.  The Z on the weight cotangents must be the same on every rank.
+    Returns the gradients of (inputs (9), ct)."""
+    from torchmdnet_tpu_torch.parallel.edge_partition import extend_rows
+
+    heads, act, attn_act = cfg
+    n, kk = plan.lidx.shape
+    q, ea = inputs[0], inputs[3]
+    if q.device.type != "cpu":
+        ct = ct.to(torch.float32).contiguous()
+    Z = [None if z is None else z.contiguous() for z in zs]
+    Z = [torch.zeros_like(inputs[i]) if Z[i] is None and i < 5 else Z[i] for i in range(9)]
+    zk, zv = extend_rows(plan, Z[1:3], "src")
+    gq, gea, gcutm, gct, hs4, bpre, bpret, db = bwd2_receiver(
+        plan.lidx, (q, *srcs, *inputs[3:]), ct, [Z[0], zk, zv, *Z[3:]], heads=heads, act=act, attn_act=attn_act,
+        ext=True)
+    zq_rx, zea_rx, hs4_rx = extend_rows(plan, [Z[0], Z[3], hs4], "rx")
+    q_rx, ea_rx, ct_rx = rx
+    cut_rx = ct_rx.new_zeros(ea_rx.shape[:2])
+    gk, gv = bwd2_source(plan.lidx, plan.perm_rx, (q_rx, *srcs, ea_rx, cut_rx, *inputs[5:]), ct_rx,
+                         [zq_rx, zk, zv, zea_rx, None, *Z[5:]], hs4_rx, heads=heads, act=act, attn_act=attn_act,
+                         ext=True)
+    gw = (None,) * 4
+    if bpre is not None:  # this rank's edges' share
+        zea = Z[3].to(ea.dtype).reshape(n * kk, -1).contiguous()
+        dw = em.weight_grads([(ea.reshape(n * kk, -1), bpre), (zea, bpret)], ea.shape[-1])
+        gw = em._split_weights(dw, db, q.shape[1], *inputs[5:9])
+    return (gq.to(q.dtype), gk, gv, gea, gcutm, *gw, gct)
+
+
+class _TMessagesShard(torch.autograd.Function):
+    """The fused edge phase on one rank's receiver rows under edge
+    partitioning (``plan`` a ``ShardPlan``), as ET's ``_EtMessagesShard``:
+    the forward (#11) over the source tables [k | v] extended with the ghost
+    rows (one exchange), the backward (#12, ``_shard_bwd``), differentiable
+    once through ``_TMessagesShardBwd`` (#13, ``_shard_bwd2``).  CPU tensors
+    run the passes' plain versions."""
+
+    @staticmethod
+    def forward(ctx, cfg, plan, q, k, v, ea, cutm, wdk, bdk, wdv, bdv):
+        from torchmdnet_tpu_torch.parallel.context import ring_scope
+        from torchmdnet_tpu_torch.parallel.edge_partition import extend_rows
+
+        heads, act, attn_act = cfg
+        srcs = extend_rows(plan, [k, v], "src")
+        ctx.cfg, ctx.plan = cfg, plan
+        ctx.save_for_backward(q, k, v, ea, cutm, wdk, bdk, wdv, bdv, *srcs)
+        if q.device.type == "cpu":
+            with ring_scope(None), torch.no_grad():  # local ids into the extended tables
+                return t_messages_reference(plan.lidx, q, *srcs, ea, cutm, wdk, bdk, wdv, bdv, heads=heads, act=act,
+                                            attn_act=attn_act, perm=plan.perm_rx)
+        return run_fwd(plan.lidx, q, *srcs, ea, cutm, wdk, bdk, wdv, bdv, heads=heads, act=act, attn_act=attn_act,
+                       ext=True)
+
+    @staticmethod
+    def backward(ctx, ct):
+        saved = ctx.saved_tensors
+        inputs, srcs = saved[:9], saved[9:]
+        want_w = any(ctx.needs_input_grad[7:11])
+        ct = ct.contiguous()
+        if torch.is_grad_enabled():
+            g = _TMessagesShardBwd.apply(ctx.cfg, ctx.plan, want_w, srcs, *inputs, ct)
+        else:
+            g = _shard_bwd(ctx.cfg, ctx.plan, srcs, inputs, ct, want_w)[0]
+        return (None, None, *g)
+
+
+class _TMessagesShardBwd(torch.autograd.Function):
+    """``_shard_bwd`` as a function of this rank's (inputs, ct); its gradient
+    is ``_shard_bwd2``.  ``srcs`` (the forward's extended source tables) is
+    not an input."""
+
+    @staticmethod
+    def forward(ctx, cfg, plan, want_w, srcs, q, k, v, ea, cutm, wdk, bdk, wdv, bdv, ct):
+        inputs = (q, k, v, ea, cutm, wdk, bdk, wdv, bdv)
+        grads, rx = _shard_bwd(cfg, plan, srcs, inputs, ct, want_w)
+        ctx.cfg, ctx.plan = cfg, plan
+        ctx.save_for_backward(*inputs, ct, *srcs, *rx)
+        return grads
+
+    @staticmethod
+    def backward(ctx, *zs):
+        if torch.is_grad_enabled():  # create_graph=True once more: a third derivative
+            raise NotImplementedError(_THIRD_ORDER)
+        saved = ctx.saved_tensors
+        inputs, ct, srcs, rx = saved[:9], saved[9], saved[10:12], saved[12:]
+        return (None, None, None, None, *_shard_bwd2(ctx.cfg, ctx.plan, srcs, inputs, ct, rx, zs))
+
+
 def fused_t_messages(
     idx, q, k, v, ea, cutm, wdk=None, bdk=None, wdv=None, bdv=None, *, heads: int,
     act: str = "silu", attn_act: str = "silu", perm: Optional[torch.Tensor] = None,
@@ -795,13 +936,13 @@ def fused_t_messages(
 
     Arguments as ``t_messages_reference``; on the GPU the message operands
     are bf16.  CUDA tensors run the kernels (or raise); CPU tensors run the
-    plain version.  Under edge partitioning it raises (the next slice).
+    plain version.  A ``ShardPlan`` as ``perm`` (edge partitioning: this
+    rank's receiver rows, global ids in ``idx``) runs ``_TMessagesShard``.
     """
-    if isinstance(perm, ShardPlan) or ring_info() is not None:
-        raise NotImplementedError(
-            f"the fused Transformer edge phase (#11/#12) under edge partitioning is not ported yet ({G2_ITEM}); "
-            "run the Transformer partitioned with fused_attention=False"
-        )
+    if isinstance(perm, ShardPlan):
+        if q.device.type == "cuda" and (act not in em._ACT_CODE or attn_act not in em._ACT_CODE):
+            raise ValueError(f"unsupported activation for the fused Transformer kernel: {act}, {attn_act}")
+        return _TMessagesShard.apply((heads, act, attn_act), perm, q, k, v, ea, cutm, wdk, bdk, wdv, bdv)
     if q.device.type == "cpu":
         return t_messages_reference(
             idx, q, k, v, ea, cutm, wdk, bdk, wdv, bdv,

@@ -50,9 +50,9 @@ from typing import Optional
 import torch
 
 from torchmdnet_tpu_torch.ops.kernels import build
-from torchmdnet_tpu_torch.ops.kernels.et_message import _act_v, _check, _dact, _ptr, dw_partials, dw_per_split
+from torchmdnet_tpu_torch.ops.kernels.et_message import _act3, _act_v, _check, _dact, _ptr, dw_partials, dw_per_split
 from torchmdnet_tpu_torch.ops.neighbors import ell_gather, transpose_perm
-from torchmdnet_tpu_torch.parallel.context import G2_ITEM, ShardPlan, ring_info
+from torchmdnet_tpu_torch.parallel.context import ShardPlan
 
 SOURCE = "tn_message.cu"
 _ACT_CODE = {"silu": 0, "ssp": 1, "tanh": 2, "sigmoid": 3}
@@ -124,12 +124,17 @@ def tn_messages_reference(idx, cat, ea, cutm, w1, b1, w2, b2, w3, b3, *, act: st
     return prod.to(acc).sum(dim=1).reshape(n, 9 * h)
 
 
-def _prepare(idx, cat, ea, cutm, w1, b1, w2, b2, w3, b3):
+def _prepare(idx, cat, ea, cutm, w1, b1, w2, b2, w3, b3, ext=False):
     """Validate the operands; return ((N, K, H, RBF), the nine operands in
     the kernels' layout: weights contiguous (in, out), w1 zero-padded to
-    RBFP = RBF rounded up to 16 rows, biases flat)."""
+    RBFP = RBF rounded up to 16 rows, biases flat).  ``ext`` (a rank's shard
+    under edge partitioning): ``cat`` may hold ghost source rows after the
+    N local ones, which ``idx`` indexes."""
     dev = cat.device
     n, kk = idx.shape
+    ns = cat.shape[0] if ext else n
+    if ns < n:
+        raise ValueError(f"an extended table needs at least the {n} rows of idx; got {ns}")
     h = cat.shape[1] // 9
     rbf = ea.shape[-1]
     rbfp = -(-rbf // 16) * 16
@@ -138,7 +143,7 @@ def _prepare(idx, cat, ea, cutm, w1, b1, w2, b2, w3, b3):
                          f"RBF <= 128; got H={cat.shape[1] / 9}, RBF={rbf}")
     bf = torch.bfloat16
     _check(idx, "idx", torch.int32, (n, kk), dev)
-    _check(cat, "cat", bf, (n, 9 * h), dev)
+    _check(cat, "cat", bf, (ns, 9 * h), dev)
     _check(ea, "ea", bf, (n, kk, rbf), dev)
     _check(cutm, "cutm", torch.float32, (n, kk), dev)
     w1p = torch.zeros((rbfp, h), dtype=bf, device=dev)
@@ -161,10 +166,11 @@ def _stream(dev):
     return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
 
 
-def run_fwd(idx, cat, ea, cutm, w1, b1, w2, b2, w3, b3, *, act):
-    """Launch the forward kernel; returns m (N, 9H) f32."""
+def run_fwd(idx, cat, ea, cutm, w1, b1, w2, b2, w3, b3, *, act, ext=False):
+    """Launch the forward kernel; returns m (N, 9H) f32.  ``ext``: ``cat``
+    may hold ghost rows after the N local ones."""
     lib = _lib()
-    (n, kk, h, rbf), ops = _prepare(idx, cat, ea, cutm, w1, b1, w2, b2, w3, b3)
+    (n, kk, h, rbf), ops = _prepare(idx, cat, ea, cutm, w1, b1, w2, b2, w3, b3, ext=ext)
     m = torch.empty((n, 9 * h), dtype=torch.float32, device=cat.device)
     with torch.cuda.device(cat.device):
         err = lib.tn_fwd(_ptr(idx), n, kk, h, rbf, *[_ptr(t) for t in ops], _ACT_CODE[act], _ptr(m),
@@ -295,13 +301,13 @@ def bwd_reference(idx, cat, ea, cutm, w1, b1, w2, b2, w3, b3, ct, *, act, want_r
     cmb = cutm.reshape(e, 1).to(bf)
     wb = (t3 * cmb).reshape(n, kk, 3, h)
     comp = [0, 1, 1, 1, 2, 2, 2, 2, 2]
-    ctb = ct.to(bf).reshape(n, 9, h)
+    ctb = ct.to(bf).reshape(-1, 9, h)
     lidx = idx.long()
     # d_cat[i] = sum_k bf16(ct[idx[i, k]] * w[i, k]), the thirds on their components
     dcat = (ctb[lidx] * wb[:, :, comp]).to(acc).sum(dim=1).reshape(n, 9 * h)
     # d_w[third] = bf16(sum over its components of bf16(ct[i] * cat[j]))
-    cat_j = cat.reshape(n, 9, h)[lidx]  # (N, K, 9, H)
-    prod = (ctb[:, None] * cat_j).to(acc)
+    cat_j = cat.reshape(-1, 9, h)[lidx]  # (N, K, 9, H)
+    prod = (ctb[:n, None] * cat_j).to(acc)
     dw = torch.stack([prod[:, :, 0], prod[:, :, 1:4].sum(2), prod[:, :, 4:].sum(2)], dim=2).to(bf)
     dw = dw.reshape(e, 3 * h)
     dcutm = (dw * t3).to(acc).sum(dim=1).reshape(n, kk)
@@ -320,21 +326,23 @@ def bwd_reference(idx, cat, ea, cutm, w1, b1, w2, b2, w3, b3, ct, *, act, want_r
     return dcat, dea, dcutm, rows
 
 
-def bwd_rows(idx, cat, ea, cutm, w1, b1, w2, b2, w3, b3, ct, *, act, want_rows: bool):
+def bwd_rows(idx, cat, ea, cutm, w1, b1, w2, b2, w3, b3, ct, *, act, want_rows: bool, ext=False):
     """The backward's edge kernel, ``tn_bwd_kernel`` (counted in
     ``run_bwd.launches``); CPU tensors take its plain twin
     (``bwd_reference``).  Returns (d_cat (N, 9H) bf16, d_ea (N, K, RBF)
     bf16, d_cutm (N, K) f32, and with ``want_rows`` the per-edge rows (E,
-    RBFP + 9H) bf16 the weight reduction reads, else None)."""
+    RBFP + 9H) bf16 the weight reduction reads, else None).  ``ext``: ``cat``
+    and ``ct`` hold the ghost source rows after the N local ones (d_cat
+    gathers ct through ``idx``, the receivers' own rows come first)."""
     if cat.device.type == "cpu":
         dcat, dea, dcutm, rows = bwd_reference(idx, cat, ea, cutm, w1, b1, w2, b2, w3, b3, ct, act=act,
                                                want_rows=want_rows)
         return dcat, dea, dcutm.to(cutm.dtype), rows
     lib = _lib()
-    (n, kk, h, rbf), ops = _prepare(idx, cat, ea, cutm, w1, b1, w2, b2, w3, b3)
+    (n, kk, h, rbf), ops = _prepare(idx, cat, ea, cutm, w1, b1, w2, b2, w3, b3, ext=ext)
     dev = cat.device
     f32 = torch.float32
-    _check(ct, "ct", f32, (n, 9 * h), dev)
+    _check(ct, "ct", f32, (cat.shape[0], 9 * h), dev)
     dcat = torch.empty((n, 9 * h), dtype=torch.bfloat16, device=dev)
     dea = torch.empty((n, kk, rbf), dtype=torch.bfloat16, device=dev)
     dcutm = torch.empty((n, kk), dtype=f32, device=dev)
@@ -349,18 +357,18 @@ def bwd_rows(idx, cat, ea, cutm, w1, b1, w2, b2, w3, b3, ct, *, act, want_rows: 
     return dcat, dea, dcutm, rows
 
 
-def run_bwd(idx, cat, ea, cutm, w1, b1, w2, b2, w3, b3, ct, *, act, want_weight_grads: bool):
+def run_bwd(idx, cat, ea, cutm, w1, b1, w2, b2, w3, b3, ct, *, act, want_weight_grads: bool, ext=False):
     """The backward: ``tn_bwd_kernel`` (``bwd_rows``) and, when the weight
     cotangents are wanted, the reduction of its per-edge rows
     (``weight_grads``).  CPU tensors take the plain versions.
 
     Returns (d_cat, d_ea, d_cutm, dw1, db1, dw2, db2, dw3, db3) in the
     operands' dtypes; the weight cotangents are None unless
-    ``want_weight_grads``."""
+    ``want_weight_grads``.  ``ext`` as ``bwd_rows``'."""
     rbf = ea.shape[-1]
     h = cat.shape[1] // 9
     dcat, dea, dcutm, rows = bwd_rows(idx, cat, ea, cutm, w1, b1, w2, b2, w3, b3, ct, act=act,
-                                      want_rows=want_weight_grads)
+                                      want_rows=want_weight_grads, ext=ext)
     wgrads = (None,) * 6
     if want_weight_grads:
         (dw1, db1), (dw2, db2), (dw3, db3) = weight_grads(rows, _bwd_jobs(h, _rbfp(rbf)))
@@ -373,24 +381,114 @@ def run_bwd(idx, cat, ea, cutm, w1, b1, w2, b2, w3, b3, ct, *, act, want_weight_
 run_bwd.launches = 0
 
 
-def bwd2_rows(idx, perm, inputs, ct, Z, *, act):
-    """Launch the second-order kernel and the source-row sum of its g_cat
-    (counted once in ``run_bwd2.launches``).
+_COMP = (0, 1, 1, 1, 2, 2, 2, 2, 2)  # the third of w that each of cat's nine components takes
+
+
+def bwd2_edges_reference(idx, inputs, ct, Z, *, act):
+    """Plain version of ``tn_bwd2_kernel``, in the plain forward's arithmetic
+    (the values rounded to the operand dtype where ``bwd_reference`` rounds
+    them, tangents and cotangents in the accumulation dtype, which the
+    kernel rounds at other points): the second order written as a dual
+    forward of the edge MLP
+    (every value x with its tangent x' driven by Z), S = sum over the edges
+    of <d_w, w'> + <z_w, w> with d_w[i, k] and z_w[i, k] the per-third sums
+    of ct_i * cat_j and ct_i * Z_cat_j, reversed by autograd.  ``cat``,
+    ``ct`` and Z's cat may hold ghost rows after the N receivers (``idx``
+    indexes them).  Returns (g_ea (N, K, RBF), g_cutm (N, K), g_ct (N, 9H),
+    wdot = w' (N*K, 3H), the per-edge rows (E, 2 RBFP + 18H) of the weight
+    reduction), the rows in the operand dtype, the rest in the accumulation
+    dtype."""
+    cat, ea, cutm, w1, b1, w2, b2, w3, b3 = inputs
+    n, kk = idx.shape
+    h = cat.shape[1] // 9
+    rbf = ea.shape[-1]
+    rbfp = _rbfp(rbf)
+    bf = cat.dtype
+    acc = _wide(cat[:1]).dtype
+    e = n * kk
+    z = [torch.zeros_like(t) if zt is None else zt for t, zt in zip(inputs, Z)]
+
+    def r(x):
+        return x.to(bf).to(acc)
+
+    lidx = idx.long()
+    comp = list(_COMP)
+    cat_j = r(cat.reshape(-1, 9, h)[lidx].reshape(e, 9, h))
+    zcat_j = r(z[0].reshape(-1, 9, h)[lidx].reshape(e, 9, h))
+    ct_i = r(ct[:n].reshape(n, 1, 9, h).expand(n, kk, 9, h).reshape(e, 9, h))
+
+    def thirds(x):  # (E, 9, H) -> (E, 3H): the per-third sums over the components
+        return torch.cat([x[:, 0], x[:, 1:4].sum(1), x[:, 4:].sum(1)], dim=1)
+
+    d_w = r(thirds(ct_i * cat_j))
+    z_w = r(thirds(ct_i * zcat_j))
+    with torch.enable_grad():
+        ea_l = ea.reshape(e, rbf).to(acc).requires_grad_(True)
+        cutm_l = cutm.reshape(e, 1).to(acc).requires_grad_(True)
+        zea = z[1].reshape(e, rbf).to(acc)
+        x, xt = ea_l, zea
+        pres, ins = [], [(ea_l, zea)]
+        for (w, b), (zw, zb) in zip(((w1, b1), (w2, b2), (w3, b3)), ((z[3], z[4]), (z[5], z[6]), (z[7], z[8]))):
+            w, b, zw, zb = (t.to(acc) for t in (w, b, zw, zb))
+            p = r(r(x @ w) + b.reshape(-1))
+            pt = xt @ w + x @ zw + zb.reshape(-1)
+            f, f1, _ = _act3(act, p)
+            x, xt = r(f), f1 * pt
+            pres.append((p, pt))
+            ins.append((x, xt))
+        wv = r(x * cutm_l)
+        wt = xt * cutm_l + x * z[2].reshape(e, 1).to(acc)
+        s = (d_w * wt).sum() + (z_w * wv).sum()
+        leaves = [ea_l, cutm_l] + [t for pair in pres for t in pair]
+        grads = torch.autograd.grad(s, leaves)
+    wt = wt.detach()
+    # g_ct_i = the tangent of m_i = sum_k w' cat_j + w Z_cat_j, each third on its components
+    g_ct = (wt.reshape(e, 3, h)[:, comp] * cat_j + wv.detach().reshape(e, 3, h)[:, comp] * zcat_j
+            ).reshape(n, kk, 9 * h).sum(1)
+    pad = torch.zeros((e, rbfp - rbf), dtype=acc, device=ea.device)
+    (t1, t1t), (t2, t2t) = ins[1], ins[2]
+    bars = grads[2:]
+    rows = torch.cat([ea_l.detach(), pad, zea, pad, t1.detach(), t1t.detach(), bars[0], bars[1], t2.detach(),
+                      t2t.detach(), bars[2], bars[3], bars[4], bars[5]], dim=1).to(bf)
+    return grads[0].to(bf).reshape(n, kk, rbf), grads[1].reshape(n, kk), g_ct, wt, rows
+
+
+def src_sum_reference(perm, ct, wdot, n, kk, dtype):
+    """Plain version of ``tn_src_sum_kernel``: g_cat[j, c] = the sum over the
+    K slots that ``perm`` lists for atom j (slot s = i * K + k: receiver i)
+    of ct[i, c] (rounded to ``dtype``) * wdot[s, third(c)], in slot order in
+    the accumulation dtype, rounded once to ``dtype``.  ``ct``'s rows are
+    the slots' receivers (the ghost receivers after the N local ones under
+    partitioning)."""
+    pe = perm.long()
+    h = ct.shape[1] // 9
+    acc = _wide(ct[:1]).dtype
+    ct_i = ct.to(dtype).to(acc).reshape(-1, 9, h)[pe // kk]
+    wd = wdot.to(acc).reshape(-1, 3, h)[pe][:, list(_COMP)]
+    return (ct_i * wd).reshape(n, kk, 9 * h).sum(1).to(dtype)
+
+
+def bwd2_edges(idx, inputs, ct, Z, *, act, ext=False):
+    """The second order's edge kernel, ``tn_bwd2_kernel`` (counted in
+    ``run_bwd2.launches``); CPU tensors take its plain twin
+    (``bwd2_edges_reference``).
 
     ``inputs`` are the nine operands, ``ct`` (N, 9H), ``Z`` the nine
-    cotangents on ``run_bwd``'s outputs (None means zero).  Returns (g_cat
-    (N, 9H) bf16, g_ea (N, K, RBF) bf16, g_cutm (N, K) f32, g_ct (N, 9H)
+    cotangents on ``run_bwd``'s outputs (None means zero).  Returns (g_ea
+    (N, K, RBF) bf16, g_cutm (N, K) f32, g_ct (N, 9H) f32, wdot (N*K, 3H)
     f32, the per-edge rows (E, 2 RBFP + 18H) bf16 of the weight
-    reduction).  The kernel's tiles take RBF <= 80 at H = 128 (any RBF <=
-    128 below); a wider shape raises."""
-    lib = _lib()
+    reduction).  ``ext``: ``cat``, ``ct`` and Z's cat hold the ghost source
+    rows after the N local ones.  The kernel's tiles take RBF <= 80 at H =
+    128 (any RBF <= 128 below); a wider shape raises."""
     cat, ea, cutm, w1, b1, w2, b2, w3, b3 = inputs
-    (n, kk, h, rbf), ops = _prepare(idx, *inputs)
+    if cat.device.type == "cpu":
+        return bwd2_edges_reference(idx, inputs, ct, Z, act=act)
+    lib = _lib()
+    (n, kk, h, rbf), ops = _prepare(idx, *inputs, ext=ext)
     dev = cat.device
     f32, bf = torch.float32, torch.bfloat16
     ct = ct.to(f32).contiguous()
-    _check(ct, "ct", f32, (n, 9 * h), dev)
-    _check(perm, "perm", torch.int32, (n * kk,), dev)
+    _check(ct, "ct", f32, (cat.shape[0], 9 * h), dev)
     rbfp = _rbfp(rbf)
 
     def z(i, like, dtype):
@@ -401,6 +499,7 @@ def bwd2_rows(idx, perm, inputs, ct, Z, *, act):
     zw1[:rbf] = z(3, w1, bf)
     zs = [z(0, cat, bf), z(1, ea, bf), z(2, cutm, f32), zw1, z(4, b1, bf).reshape(-1),
           z(5, w2, bf), z(6, b2, bf).reshape(-1), z(7, w3, bf), z(8, b3, bf).reshape(-1)]
+    _check(zs[0], "Z of cat", bf, tuple(cat.shape), dev)
     # the kernel copies the Z of W2 and W3 16 bytes at a time, as W2 and W3 (_prepare)
     for i in (5, 7):
         if zs[i].data_ptr() % 16:
@@ -410,18 +509,45 @@ def bwd2_rows(idx, perm, inputs, ct, Z, *, act):
     gcutm = torch.empty((n, kk), dtype=f32, device=dev)
     gct = torch.empty((n, 9 * h), dtype=f32, device=dev)
     wdot = torch.empty((e, 3 * h), dtype=f32, device=dev)
-    gcat = torch.empty((n, 9 * h), dtype=bf, device=dev)
     rows = torch.empty((e, 2 * rbfp + 18 * h), dtype=bf, device=dev)
     with torch.cuda.device(dev):
-        stream = _stream(dev)
         err = lib.tn_bwd2(_ptr(idx), n, kk, h, rbf, *[_ptr(t) for t in ops], _ACT_CODE[act], _ptr(ct),
                           *[_ptr(t) for t in zs], _ptr(gea), _ptr(gcutm), _ptr(gct), _ptr(wdot),
-                          _ptr(rows), stream)
-        _raise_on(lib, err, "tn_bwd2 launch")
-        err = lib.tn_src_sum(_ptr(perm), n, kk, h, _ptr(ct), _ptr(wdot), _ptr(gcat), stream)
-        _raise_on(lib, err, "tn_src_sum launch")
+                          _ptr(rows), _stream(dev))
+    _raise_on(lib, err, "tn_bwd2 launch")
     run_bwd2.launches += 1
-    return gcat, gea, gcutm, gct, rows
+    return gea, gcutm, gct, wdot, rows
+
+
+def src_sum(perm, ct, wdot, n, kk, dtype=torch.bfloat16):
+    """g_cat (N, 9H) in ``dtype`` from ct (rows: the slots' receivers) and
+    wdot (a row per slot) through ``perm`` (N*K): ``tn_src_sum_kernel`` for
+    CUDA tensors (bf16), its plain twin ``src_sum_reference`` for CPU ones."""
+    if ct.device.type == "cpu":
+        return src_sum_reference(perm, ct, wdot, n, kk, dtype)
+    lib = _lib()
+    dev = ct.device
+    h = ct.shape[1] // 9
+    f32 = torch.float32
+    _check(perm, "perm", torch.int32, (n * kk,), dev)
+    _check(ct, "ct", f32, (ct.shape[0], 9 * h), dev)
+    _check(wdot, "wdot", f32, (ct.shape[0] * kk, 3 * h), dev)
+    gcat = torch.empty((n, 9 * h), dtype=torch.bfloat16, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.tn_src_sum(_ptr(perm), n, kk, h, _ptr(ct), _ptr(wdot), _ptr(gcat), _stream(dev))
+    _raise_on(lib, err, "tn_src_sum launch")
+    return gcat
+
+
+def bwd2_rows(idx, perm, inputs, ct, Z, *, act):
+    """The second order's edge kernel (``bwd2_edges``) and the source-row sum
+    of its g_cat (``src_sum``): (g_cat (N, 9H), g_ea, g_cutm, g_ct, the
+    per-edge rows of the weight reduction), as those return them."""
+    n, kk = idx.shape
+    gea, gcutm, gct, wdot, rows = bwd2_edges(idx, inputs, ct, Z, act=act)
+    if ct.device.type != "cpu":
+        ct = ct.to(torch.float32).contiguous()
+    return src_sum(perm, ct, wdot, n, kk, inputs[0].dtype), gea, gcutm, gct, rows
 
 
 def run_bwd2(idx, perm, inputs, ct, Z, *, act):
@@ -539,19 +665,119 @@ class _TnMessagesBwd(torch.autograd.Function):
         return (None, None, None, None) + tuple(g_inputs) + (g_ct,)
 
 
+def _shard_bwd(act, plan, cat_ext, inputs, ct, want_w):
+    """The backward (#9) on one rank's rows: ct's ghost rows arrive through
+    the forward's exchange (the kernel's d_cat is the gather form, ct read at
+    each receiver's sources with the receiver's own edge weights), then
+    ``tn_bwd_kernel`` on the local receivers over the extended cat and ct.
+    d_ea and d_cutm are local; the weight cotangents are this rank's share.
+    Returns (``run_bwd``'s nine, the extended ct)."""
+    from torchmdnet_tpu_torch.parallel.edge_partition import extend_rows
+
+    (ct_ext,) = extend_rows(plan, [ct], "src")
+    return run_bwd(plan.lidx, cat_ext, *inputs[1:], ct_ext, act=act, want_weight_grads=want_w, ext=True), ct_ext
+
+
+def _shard_bwd2(act, plan, cat_ext, ct_ext, inputs, ct, zs):
+    """The second order (#10) on one rank's rows, given the Z cotangents
+    ``zs`` on ``_shard_bwd``'s nine outputs: Z on cat reaches the ghost rows
+    through the forward's exchange; ``tn_bwd2_kernel`` on the local
+    receivers gives g_ea, g_cutm and g_ct whole (g_ct's gather-form term
+    reads Z on cat at the sources, as d_cat reads ct) and each slot's w';
+    the ghost receivers' ct rows and w' slots are exchanged, and
+    ``tn_src_sum_kernel`` sums each local atom's K slots of the global
+    transpose permutation into g_cat.  The Z on the weight cotangents must
+    be the same on every rank.  Returns the gradients of (inputs (9), ct)."""
+    from torchmdnet_tpu_torch.parallel.edge_partition import extend_rows
+
+    cat, ea, cutm, w1, b1, w2, b2, w3, b3 = inputs
+    n, kk = plan.lidx.shape
+    h, rbf = cat.shape[1] // 9, ea.shape[-1]
+    Z = [None if z is None else z.contiguous() for z in zs]
+    if Z[0] is None:
+        Z[0] = torch.zeros_like(cat)
+    (zcat,) = extend_rows(plan, [Z[0]], "src")
+    ins_ext = (cat_ext, *inputs[1:])
+    gea, gcutm, gct, wdot, rows = bwd2_edges(plan.lidx, ins_ext, ct_ext, [zcat, *Z[1:]], act=act, ext=True)
+    ct_l = ct if ct.device.type == "cpu" else ct.to(torch.float32).contiguous()
+    ct_rx, wdot_rx = extend_rows(plan, [ct_l, wdot], "rx")
+    gcat = src_sum(plan.perm_rx, ct_rx, wdot_rx, n, kk, cat.dtype)
+    (gw1, gb1), (gw2, gb2), (gw3, gb3) = weight_grads(rows, _bwd2_jobs(h, _rbfp(rbf)))
+    return (gcat.to(cat.dtype), gea.to(ea.dtype), gcutm,
+            gw1[:rbf].to(w1.dtype), gb1.reshape(b1.shape).to(b1.dtype),
+            gw2.to(w2.dtype), gb2.reshape(b2.shape).to(b2.dtype),
+            gw3.to(w3.dtype), gb3.reshape(b3.shape).to(b3.dtype), gct)
+
+
+class _TnMessagesShard(torch.autograd.Function):
+    """The fused message phase on one rank's receiver rows under edge
+    partitioning (``plan`` a ``ShardPlan``): the forward (#8) over ``cat``
+    extended with the ghost source rows (one exchange of 9H bf16 rows,
+    indexed by the plan's local ids), the backward (#9, ``_shard_bwd``),
+    differentiable once through ``_TnMessagesShardBwd`` (#10,
+    ``_shard_bwd2``).  CPU tensors run the kernels' plain twins."""
+
+    @staticmethod
+    def forward(ctx, act, plan, cat, ea, cutm, w1, b1, w2, b2, w3, b3):
+        from torchmdnet_tpu_torch.parallel.context import ring_scope
+        from torchmdnet_tpu_torch.parallel.edge_partition import extend_rows
+
+        (cat_ext,) = extend_rows(plan, [cat], "src")
+        ctx.act, ctx.plan = act, plan
+        ctx.save_for_backward(cat, ea, cutm, w1, b1, w2, b2, w3, b3, cat_ext)
+        if cat.device.type == "cpu":
+            with ring_scope(None), torch.no_grad():  # local ids into the extended table
+                return tn_messages_reference(plan.lidx, cat_ext, ea, cutm, w1, b1, w2, b2, w3, b3, act=act,
+                                             perm=plan.perm_rx)
+        return run_fwd(plan.lidx, cat_ext, ea, cutm, w1, b1, w2, b2, w3, b3, act=act, ext=True)
+
+    @staticmethod
+    def backward(ctx, ct):
+        *inputs, cat_ext = ctx.saved_tensors
+        # serving freezes the weights: no weight cotangents then
+        want_w = any(ctx.needs_input_grad[5:11])
+        ct = ct.contiguous()
+        if torch.is_grad_enabled():
+            g = _TnMessagesShardBwd.apply(ctx.act, ctx.plan, want_w, cat_ext, *inputs, ct)
+        else:
+            g = _shard_bwd(ctx.act, ctx.plan, cat_ext, inputs, ct, want_w)[0]
+        return (None, None) + tuple(g)
+
+
+class _TnMessagesShardBwd(torch.autograd.Function):
+    """``_shard_bwd`` as a function of this rank's (inputs, ct); its gradient
+    is ``_shard_bwd2``.  ``cat_ext`` (the forward's extended table) is not an
+    input."""
+
+    @staticmethod
+    def forward(ctx, act, plan, want_w, cat_ext, cat, ea, cutm, w1, b1, w2, b2, w3, b3, ct):
+        inputs = (cat, ea, cutm, w1, b1, w2, b2, w3, b3)
+        grads, ct_ext = _shard_bwd(act, plan, cat_ext, inputs, ct, want_w)
+        ctx.act, ctx.plan = act, plan
+        ctx.save_for_backward(*inputs, ct, cat_ext, ct_ext)
+        return grads
+
+    @staticmethod
+    def backward(ctx, *zs):
+        if torch.is_grad_enabled():  # create_graph=True once more: a third derivative
+            raise NotImplementedError(_THIRD_ORDER)
+        *inputs, ct, cat_ext, ct_ext = ctx.saved_tensors
+        return (None, None, None, None) + _shard_bwd2(ctx.act, ctx.plan, cat_ext, ct_ext, inputs, ct, zs)
+
+
 def fused_tn_messages(idx, cat, ea, cutm, w1, b1, w2, b2, w3, b3, *, act: str = "silu",
                       perm: Optional[torch.Tensor] = None):
     """Fused TensorNet message phase: m (N, 9H) in f32.
 
     Arguments as ``tn_messages_reference``; on the GPU the message operands
     are bf16.  CUDA tensors run the kernels (or raise); CPU tensors run the
-    plain version.  Under edge partitioning it raises (the next slice).
+    plain version.  A ``ShardPlan`` as ``perm`` (edge partitioning: this
+    rank's receiver rows, global ids in ``idx``) runs ``_TnMessagesShard``.
     """
-    if isinstance(perm, ShardPlan) or ring_info() is not None:
-        raise NotImplementedError(
-            f"the fused TensorNet message phase (#8/#9) under edge partitioning is not ported yet ({G2_ITEM}); "
-            "run TensorNet partitioned with fused_message=False"
-        )
+    if isinstance(perm, ShardPlan):
+        if cat.device.type == "cuda" and act not in _ACT_CODE:
+            raise ValueError(f"unsupported activation for the fused TensorNet kernel: {act}")
+        return _TnMessagesShard.apply(act, perm, cat, ea, cutm, w1, b1, w2, b2, w3, b3)
     if cat.device.type == "cpu":
         return tn_messages_reference(idx, cat, ea, cutm, w1, b1, w2, b2, w3, b3, act=act, perm=perm)
     if cat.device.type != "cuda":

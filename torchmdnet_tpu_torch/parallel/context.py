@@ -28,9 +28,6 @@ import torch
 _RING: Optional["RingInfo"] = None
 _CAPTURE: Optional[list] = None
 
-# where the work that edge partitioning does not take yet is queued
-G2_ITEM = "ROADMAP.md, 'The next bring_up slices', item G2"
-
 
 @dataclasses.dataclass(eq=False)
 class ShardPlan:
@@ -47,7 +44,7 @@ class ShardPlan:
     row j of ``perm_ext.reshape(n_local, K)`` lists the K slots of the global
     transpose permutation's group for atom j, in that group's order.
 
-    Receiver ghosts (the fused ET source pass): whole receiver rows (their K
+    Receiver ghosts (the fused source passes): whole receiver rows (their K
     slots) that another rank's atoms are sources of; ``perm_rx`` indexes the
     slots of [local receivers | ghost receivers].  None for a derived list.
     """

@@ -26,11 +26,14 @@ The JAX package streams source chunks round a ring with ``ppermute``
 exchanges only the boundary rows, once per gather, which bounds memory the
 same way.
 
-ET's fused edge phase runs its kernels (#1, #2) on each rank's receiver rows
-(``ops/kernels/et_message.py``): the forward reads an extended source table
-(local rows, then ghosts), and the backward's source pass reads extended
-receiver tables (local receivers, then the ghost receivers whose slots point
-at this rank's atoms, shipped with their slot data).
+The fused edge phases run their kernels on each rank's receiver rows
+(``ops/kernels/et_message.py``, ``t_message.py``, ``tn_message.py``): the
+forward reads an extended source table (local rows, then ghosts:
+``extend_rows``), and a source pass reads extended receiver tables (local
+receivers, then the ghost receivers whose slots point at this rank's atoms,
+shipped with their slot data).  The second order does the same with the
+cotangents on the first order's outputs, so a force-loss training step runs
+partitioned too.
 
 The JAX names stay (``make_ring_plan``, ``RingExecutor``, ``ring_apply``)
 so each function has its obvious counterpart.
@@ -95,7 +98,7 @@ def make_ring_plan(idx, mesh, perm=None, receivers: bool = True) -> ShardPlan:
     ``perm`` is the global ``transpose_perm(idx)`` (computed when None; it
     raises for a list that is not symmetric, i.e. one truncated at its
     capacity).  ``receivers`` adds the ghost-receiver tables that the fused
-    ET source pass reads.
+    source passes read.
     """
     from torchmdnet_tpu_torch.ops.neighbors import transpose_perm
 
@@ -178,6 +181,27 @@ def ghost_rows(x: torch.Tensor, plan: ShardPlan) -> torch.Tensor:
     rank receives, owners in rank order: one exchange."""
     sends = [x.index_select(0, s) for s in plan.src_send]
     return all_to_all_rows(plan.mesh, sends, plan.src_recv)
+
+
+def extend_rows(plan: ShardPlan, tensors, side: str = "src"):
+    """Each of ``tensors`` (this rank's rows: (n_local * m, ...) for m = 1, or
+    K for per-slot tables) extended with the ghost rows it receives: ``side``
+    "src" the ghost sources (``src_send``), "rx" the ghost receivers with
+    their m slots each (``rx_send``).  One exchange per dtype: the fused
+    kernels' extended tables, local rows first."""
+    nl = plan.n_local
+    sends, recv = (plan.src_send, plan.src_recv) if side == "src" else (plan.rx_send, plan.rx_recv)
+    flat = [t.reshape(nl, -1) for t in tensors]
+    out = [None] * len(tensors)
+    for dtype in dict.fromkeys(t.dtype for t in tensors):
+        at = [i for i, t in enumerate(tensors) if t.dtype == dtype]
+        rows = torch.cat([flat[i] for i in at], dim=1) if len(at) > 1 else flat[at[0]]
+        got = all_to_all_rows(plan.mesh, [rows.index_select(0, s) for s in sends], recv)
+        for i, part in zip(at, torch.split(got, [flat[i].shape[1] for i in at], dim=1)):
+            t = tensors[i]
+            m = t.shape[0] // nl
+            out[i] = torch.cat([t, part.reshape((part.shape[0] * m,) + tuple(t.shape[1:]))]).contiguous()
+    return out
 
 
 def _gather_impl(x, plan):
@@ -441,8 +465,12 @@ class RingExecutor:
 
     def energy_and_forces(self, batch, ctx: RingContext, refine=None, create_graph: bool = False):
         """(energies (M, 1), this rank's forces (N/D, 3)): forces = -dE/dpos by
-        autograd through the partitioned gathers.  A force-loss gradient
-        through them (``create_graph``) is the next slice's."""
+        autograd through the partitioned gathers.  ``create_graph`` keeps the
+        graph of the forces for a force-loss gradient (training): every
+        exchange is differentiable again, the fused ops run their
+        second-order kernels on the rank's rows, and each rank's parameters
+        receive this rank's share of the gradient (``sum_gradients`` adds the
+        shares)."""
         pos = batch.pos.detach().requires_grad_(True)
         with torch.enable_grad():
             y = self.energy(batch.replace(pos=pos), ctx, refine)

@@ -19,10 +19,14 @@ its shard of every global batch (``parallel/``); ranks that share a card
 rendezvous (``MASTER_ADDR``, ``MASTER_PORT``, ``NODE_RANK``, set on every
 node).  Only rank 0 writes logs and checkpoints.
 
-Flags of later slices (``--force-grad-mode jvp``, ``--edge-partition``)
-raise; ``--steps-per-dispatch`` runs its steps one by one, and the
-gather-plan flags are accepted and unused (the port's kernels gather by
-index).
+Edge partitioning, as the JAX package's: ``--edge-partition true
+--ndevices D`` starts D ranks that each load the same global batch and
+train on their block of its atom rows (``parallel/edge_partition.py``; one
+rank is allowed), for molecules too large for one card.
+
+``--force-grad-mode jvp`` (a later slice) raises; ``--steps-per-dispatch``
+runs its steps one by one, and the gather-plan flags are accepted and unused
+(the port's kernels gather by index).
 """
 
 import argparse
@@ -142,7 +146,7 @@ def get_args(argv=None):
     parser.add_argument('--fused-attention', type=str2bool, default=False, help='Route the equivariant-transformer or transformer edge phase through the fused CUDA kernels (requires bf16-messages; batches are spatially sorted). Force-loss training runs their second-order kernel')
     parser.add_argument('--force-grad-mode', type=str, default='gradgrad', choices=['gradgrad', 'jvp'], help='Force-loss gradient formulation: nested reverse ("gradgrad", default); "jvp" is not ported yet')
     parser.add_argument('--fused-message', type=str2bool, default=False, help='Route the tensornet message phase through the fused CUDA kernels (requires bf16-messages; batches are spatially sorted). Force-loss training runs their second-order kernel')
-    parser.add_argument('--edge-partition', type=str2bool, default=False, help="Shard each batch's atom rows over the devices in training (not ported yet: the next slice; edge-partitioned energy, forces and MD are, through parallel.edge_partition and md.Simulation)")
+    parser.add_argument('--edge-partition', type=str2bool, default=False, help="Shard each batch's atom rows over the devices in training (every rank loads the whole batch and trains on its rows, the neighbors of other ranks' atoms exchanged): for molecules too large for one device")
     parser.add_argument('--edge-boundary-limit', type=int, default=65536, help='Upper limit on the boundary capacity of edge partitioning')
     parser.add_argument('--plan-block-rows', type=int, default=0, help="Gather-plan rows per block (accepted and unused: the port's kernels gather by index)")
     parser.add_argument('--plan-width', type=int, default=0, help="Gather-plan width (accepted and unused: the port's kernels gather by index)")
@@ -228,14 +232,17 @@ def _train(args):
     from torchmdnet_tpu_torch.utils import resolve_device
 
     # a process group (several ranks, or one started through the rendezvous)
-    # trains data-parallel over its ranks
+    # trains data-parallel over its ranks, or edge-partitioned (one rank too)
     import torch.distributed as dist
 
-    mesh = make_mesh(device=hparams.get("device"), allow_single=dist.is_available() and dist.is_initialized())
+    edge = bool(hparams.get("edge_partition"))
+    mesh = make_mesh(device=hparams.get("device"),
+                     allow_single=edge or (dist.is_available() and dist.is_initialized()))
     if mesh is not None:
         hparams["device"] = str(mesh.device)
         if mesh.rank == 0:
-            print(f"data parallel: {mesh.size} ranks over the {mesh.backend} backend, rank 0 on {mesh.device}")
+            mode = "edge partition" if edge else "data parallel"
+            print(f"{mode}: {mesh.size} ranks over the {mesh.backend} backend, rank 0 on {mesh.device}")
     device = resolve_device(hparams.get("device"))
     data = DataModule(hparams)
     data.setup()

@@ -8,17 +8,21 @@ group, builds the same models and global batches from the spec
 (``torch.save`` of a dict) and runs its cases:
 
 - ``forces``: ``ring_potential`` once, then ``repeat`` partitioned
-  energy+forces calls (bitwise repeatability, wall time, the ET kernels'
+  energy+forces calls (bitwise repeatability, wall time, the fused kernels'
   and the cell list's selection launches per call, the rank's peak device memory, its exchange
-  statistics); the forces of every rank are gathered;
+  statistics); the forces of every rank are gathered.  With "targets" (the
+  global (y, neg_dy)), also the force-loss gradient (``force_loss``) through
+  the partitioned forces, summed over the ranks, with its launches, and with
+  "third" whether a third derivative raises;
+- ``train``: ``Trainer.fit`` with ``edge_partition`` on "dataset" with
+  "hparams" (its first step's gradients, and rank 0's ``metrics.csv``);
 - ``md``: ``Simulation(mesh, edge_partition=True)`` for ``steps`` steps; the
   positions of every rank are gathered, with ``stale``; with ``record``,
   every force evaluation's positions and forces (gathered) and the positions
   its list was built at, so that a single-process evaluation on the same
   list can be held against each;
 - ``raises``: a call that must raise (``overflow``: a boundary capacity too
-  small; ``trainer``: ``--edge-partition`` training; ``fused``: a fused
-  Transformer or TensorNet under partitioning); the exception is recorded;
+  small); the exception is recorded;
 - ``probe``: which collectives of the backend take CUDA tensors as they are.
 
 Each rank writes ``out`` with ``{rank}`` replaced by its rank: {"rank",
@@ -58,20 +62,79 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
+def _kernel_modules():
+    from torchmdnet_tpu_torch.ops.kernels import et_message, t_message, tn_message
+
+    return {"et_message": et_message, "t_message": t_message, "tn_message": tn_message}
+
+
 def _launches():
-    from torchmdnet_tpu_torch.ops.kernels import et_message as em
+    """The fused kernels' launches (each module's forward, backward, source
+    passes and second order) and the cell list's selection launches."""
     from torchmdnet_tpu_torch.ops.kernels.select_topk import select_topk
 
-    return {"et_message_fwd": em.run_fwd.launches, "et_message_bwd": em.run_bwd.launches,
-            "et_message_bwd_src": em.bwd_source.launches, "select_topk": select_topk.launches}
+    out = {}
+    for name, km in _kernel_modules().items():
+        for kind, fn in (("fwd", "run_fwd"), ("bwd", "run_bwd"), ("bwd_src", "bwd_source"), ("bwd2", "run_bwd2"),
+                         ("bwd2_src", "bwd2_source")):
+            if hasattr(km, fn):
+                out[f"{name}_{kind}"] = getattr(km, fn).launches
+    out["select_topk"] = select_topk.launches
+    return {k: v for k, v in out.items() if v or k in ("et_message_fwd", "et_message_bwd", "et_message_bwd_src",
+                                                      "select_topk")}
 
 
 def _reset_launches():
-    from torchmdnet_tpu_torch.ops.kernels import et_message as em
     from torchmdnet_tpu_torch.ops.kernels.select_topk import select_topk
 
-    em.reset_launch_counts()
+    for km in _kernel_modules().values():
+        km.reset_launch_counts()
     select_topk.launches = 0
+
+
+def force_loss(y, neg_dy, y_t, f_t, atom_mask, atoms):
+    """A force-training loss of energies ``y`` (replicated under edge
+    partitioning) and forces ``neg_dy`` (a rank's rows, or all of them):
+    sum (y - y_t)^2 + (the sum over the valid rows of |neg_dy - f_t|^2) /
+    ``atoms``, the global count of valid atoms."""
+    err = ((neg_dy - f_t) ** 2).sum(dim=-1)
+    return ((y - y_t) ** 2).sum() + torch.where(atom_mask, err, torch.zeros_like(err)).sum() / atoms
+
+
+def _force_grads(case, model, sharded, ex, ctx, mesh):
+    """The force-loss gradient (summed over the ranks) through the
+    partitioned forces, its launches, and with ``case["third"]`` whether a
+    third derivative raises."""
+    from torchmdnet_tpu_torch.parallel.distributed import sum_gradients
+    from torchmdnet_tpu_torch.parallel.edge_partition import _rows
+
+    dev = mesh.device
+    y_t, f_t = (t.to(dev) for t in case["targets"])
+    f_t = f_t[_rows(mesh, f_t.shape[0])]
+    named = [(n, p) for n, p in model.module.named_parameters() if p.requires_grad]
+    params = [p for _, p in named]
+    atoms = float(case["batch"]["atom_mask"].sum())
+    for p in params:
+        p.grad = None
+    _reset_launches()
+    y, f = ex.energy_and_forces(sharded, ctx, create_graph=True)
+    loss = force_loss(y, f, y_t, f_t, sharded.atom_mask, atoms)
+    loss.backward()
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    sum_gradients(mesh, params)
+    _sync(dev)
+    out = {"grads": {n: p.grad.detach().cpu() for n, p in named}, "grad_launches": _launches()}
+    if case.get("third"):
+        y, f = ex.energy_and_forces(sharded, ctx, create_graph=True)
+        loss = force_loss(y, f, y_t, f_t, sharded.atom_mask, atoms)
+        try:
+            torch.autograd.grad(loss, params, create_graph=True, allow_unused=True)
+            out["third"] = {"raised": None, "message": ""}
+        except Exception as e:  # the case records what was raised
+            out["third"] = {"raised": type(e).__name__, "message": str(e)}
+    return out
 
 
 def run_forces(case, mesh):
@@ -104,10 +167,13 @@ def run_forces(case, mesh):
     plan = ctx.nbl.transpose_perm
     h = model.args["embedding_dimension"]
     stats = ring_comm_stats(ctx.nbl.idx, ctx.nbl.mask, mesh, row_bytes=7 * h * 2, plan=plan)
-    return {
+    out = {
         "energy": y0.cpu(), "forces": gather_atom_rows(mesh, f0).cpu(), "repeat_bitwise": repeat_equal,
         "ms": ms, "build_ms": build_ms, "launches": launches, "peak_bytes": peak, "stats": stats._asdict(),
     }
+    if case.get("targets") is not None:
+        out.update(_force_grads(case, model, sharded, ex, ctx, mesh))
+    return out
 
 
 def run_md(case, mesh):
@@ -151,20 +217,53 @@ def run_md(case, mesh):
 
 def run_raises(case, mesh):
     from torchmdnet_tpu_torch.parallel.edge_partition import ring_apply
-    from torchmdnet_tpu_torch.train.trainer import Trainer
 
     dev = mesh.device
     model = _model(case, dev)
-    what = case["what"]
     try:
-        if what == "trainer":
-            Trainer(model, dict(model.args, edge_partition=True, log_dir=case.get("log_dir", "/tmp/logs")),
-                    mesh=mesh)
-        else:
-            ring_apply(model, _batch(case["batch"], dev), mesh, boundary_capacity=case.get("boundary_capacity", 2048))
+        ring_apply(model, _batch(case["batch"], dev), mesh, boundary_capacity=case.get("boundary_capacity", 2048))
     except Exception as e:  # the case records what was raised
         return {"raised": type(e).__name__, "message": str(e)}
     return {"raised": None, "message": ""}
+
+
+def run_train(case, mesh):
+    """``Trainer.fit`` with ``edge_partition`` (the rank's hyperparameters:
+    case["hparams"] on the mesh's device, the log in case["log_dir"]): the
+    first step's gradients (summed over the ranks), rank 0's metrics.csv
+    rows, the fit's seconds and its launches."""
+    import csv
+    import os
+
+    from torchmdnet_tpu_torch.data.module import DataModule
+    from torchmdnet_tpu_torch.models.potential import create_model
+    from torchmdnet_tpu_torch.train.trainer import Trainer
+
+    h = dict(case["hparams"], device=str(mesh.device), log_dir=case["log_dir"], edge_partition=True)
+    data = DataModule(h, dataset=case["dataset"])
+    data.setup()
+    model = create_model(h, device=mesh.device, seed=h.get("seed", 1))
+    grads = {}
+
+    class Recording(Trainer):
+        def on_before_optimizer_step(self):
+            if self.state.global_step == 0:
+                grads.update({n: p.grad.detach().cpu() for n, p in zip(self.param_names, self.params)})
+
+    trainer = Recording(model, h, mesh=mesh)
+    _reset_launches()
+    _sync(mesh.device)
+    t0 = time.perf_counter()
+    trainer.fit(data)
+    _sync(mesh.device)
+    seconds = time.perf_counter() - t0
+    rows = None
+    if mesh.rank == 0:
+        with open(os.path.join(case["log_dir"], "metrics.csv")) as f:
+            rows = [{k: float(v) for k, v in r.items() if v not in ("", None)} for r in csv.DictReader(f)]
+    peak = torch.cuda.max_memory_allocated(mesh.device) if mesh.device.type == "cuda" else None
+    return {"grads": grads, "rows": rows, "seconds": seconds, "steps": trainer.state.global_step,
+            "launches": _launches(), "peak_bytes": peak}
 
 
 def run_probe(case, mesh, seconds: float = 10.0):
@@ -207,7 +306,7 @@ def run_probe(case, mesh, seconds: float = 10.0):
     return out
 
 
-RUNNERS = {"forces": run_forces, "md": run_md, "raises": run_raises, "probe": run_probe}
+RUNNERS = {"forces": run_forces, "md": run_md, "raises": run_raises, "probe": run_probe, "train": run_train}
 
 
 def main(argv=None):

@@ -32,6 +32,17 @@ in rank order, and the losses, metrics, LR schedule, early stopping and
 checkpoint choice all read global values, so the ranks take the same steps
 as one process on the global batch, up to the order of float sums.  Only
 rank 0 writes logs and checkpoints.
+
+Edge partitioning (``edge_partition``, ``parallel/edge_partition.py``):
+every rank loads the same global batch, sorts it in space, builds the
+global neighbor list and keeps its block of the atom rows; the model runs on
+those rows with the exchanges of a ``RingExecutor`` sized from the first
+batch (``edge_boundary_limit``), whose overflow flag accumulates with the
+other capacity flags.  The energies are replicated on every rank and the
+forces are the rank's rows: the energy loss's gradient reaches a rank's
+parameters only through that rank's partials, the force loss covers the
+rank's rows normalised by the global atom count, and the gradients are
+summed over the ranks as under data parallelism.
 """
 
 import math
@@ -44,7 +55,6 @@ import torch
 from torchmdnet_tpu_torch.data.batch import spatial_sort
 from torchmdnet_tpu_torch.models.potential import Potential, check_atom_filter_batch
 from torchmdnet_tpu_torch.ops.cell_list import probe_cell_kwargs
-from torchmdnet_tpu_torch.parallel.context import G2_ITEM
 from torchmdnet_tpu_torch.parallel.distributed import (
     broadcast_,
     localize_shard,
@@ -59,9 +69,6 @@ _QUEUE = "ROADMAP.md, 'The next bring_up slices'"
 _LATER_SLICES = {
     "force_grad_mode": "force_grad_mode='jvp' (forward-over-reverse) is not ported; the port trains force "
                        f"losses by grad-of-grad ({_QUEUE}, item 3, training leftovers)",
-    "edge_partition": "--edge-partition training (force losses through the partitioned exchange, the "
-                      f"second-order kernels on each shard) is not ported yet ({G2_ITEM}); edge-partitioned "
-                      "energy, forces and MD are (parallel/edge_partition.py, md.Simulation)",
 }
 
 
@@ -94,15 +101,19 @@ class TrainerState:
 
 class Trainer:
     """``mesh`` (``parallel.mesh.make_mesh``): train data-parallel over its
-    ranks; None trains in this process alone."""
+    ranks, or with each batch's atom rows partitioned over them under
+    ``edge_partition``; None trains in this process alone."""
 
     def __init__(self, model: Potential, hparams, mesh=None):
         self.model = model
         self.h = h = dict(hparams)
         if h.get("force_grad_mode", "gradgrad") == "jvp":
             raise NotImplementedError(_LATER_SLICES["force_grad_mode"])
-        if h.get("edge_partition"):
-            raise NotImplementedError(_LATER_SLICES["edge_partition"])
+        self._edge = bool(h.get("edge_partition"))
+        if self._edge and mesh is None:
+            raise ValueError("edge_partition needs a mesh (parallel.mesh.make_mesh(allow_single=True)); "
+                             "pass --ndevices")
+        self._ring = None  # the RingExecutor, sized from the first batch in fit
         self.mesh = mesh
         self.is_main = mesh is None or mesh.rank == 0
         self.device = model.device
@@ -150,6 +161,8 @@ class Trainer:
             )
 
     def _prepare_batch(self, batch):
+        if self._edge:  # every rank holds the global batch: its grid, as one process sorts it
+            return spatial_sort(batch, cell=self.h.get("cutoff_upper", 5.0))[0].to(self.device)
         if self.mesh is not None:
             batch = localize_shard(batch, self.mesh.rank)
         if self._fused:
@@ -160,9 +173,24 @@ class Trainer:
             batch, _ = spatial_sort(batch, cell=self.h.get("cutoff_upper", 5.0), origin=origin)
         return batch.to(self.device)
 
+    def _size_ring(self, batch):
+        """The edge partition's executor, its boundary capacities sized once
+        from ``batch`` (a global batch); later batches' boundaries are
+        watched by ``RingContext.overflow``."""
+        from torchmdnet_tpu_torch.parallel.edge_partition import sized_ring_executor
+
+        self._ring = sized_ring_executor(
+            self.model, self._prepare_batch(batch), self.mesh,
+            boundary_limit=int(self.h.get("edge_boundary_limit") or 65536), cell_kwargs=self._cell_kwargs)
+
     def _build_nbl(self, batch):
         """The model's neighbor list and a 0/1 flag: did any capacity of this
-        batch overflow (the model's list, its cells, a prior's list)."""
+        batch overflow (the model's list, its cells, a prior's list).  Under
+        edge partitioning, this rank's ``RingContext`` of the global batch
+        instead of the list (its flag folds the boundary capacities too)."""
+        if self._ring is not None:
+            ctx = self._ring.build(batch)
+            return ctx, ctx.overflow.reshape(()).to(self.dtype)
         nbl = self.model.neighbors(batch, **self._cell_kwargs)
         flags = [nbl.overflow()]
         if nbl.cell_overflow is not None:
@@ -180,11 +208,19 @@ class Trainer:
         """Predictions against labels; ``train`` keeps the graph to the
         parameters (through the forces too: grad-of-grad)."""
         derivative = self.h.get("derivative", False)
-        if derivative:
+        if self._ring is not None:  # nbl is the RingContext: this rank's rows
+            batch = self._ring.shard(batch)
+            if derivative:
+                y, neg_dy = self._ring.energy_and_forces(batch, nbl, create_graph=train)
+            else:
+                with torch.set_grad_enabled(train):
+                    y = self._ring.energy(batch, nbl)
+        elif derivative:
             y, neg_dy = self.model.energy_and_forces(batch, nbl=nbl, create_graph=train)
         else:
             with torch.set_grad_enabled(train):
                 y = self.model.energy(batch, nbl=nbl)
+        if not derivative:
             neg_dy = None
         out = {}
         if batch.y is not None:
@@ -236,7 +272,7 @@ class Trainer:
                 p.grad = torch.zeros_like(p)
         if self.mesh is not None:
             mse_y, mse_f, over = sum_gradients(
-                self.mesh, self.params, torch.stack([mse_y.detach(), mse_f.detach(), over]))
+                self.mesh, self.params, self._rank_shares(torch.stack([mse_y.detach(), mse_f.detach(), over])))
             loss_y = torch.where(has[0], alpha_y * mse_y + (1 - alpha_y) * ema_y, zero)
             loss_f = torch.where(has[1], alpha_f * mse_f + (1 - alpha_f) * ema_f, zero)
             total = y_w * loss_y + f_w * loss_f
@@ -257,7 +293,22 @@ class Trainer:
         """(valid molecules, valid atoms) with labels in the global batch."""
         zero = torch.zeros((), dtype=self.dtype, device=self.device)
         local = torch.stack([preds[k][2].sum().to(self.dtype) if k in preds else zero for k in ("y", "neg_dy")])
-        return sum_in_rank_order(self.mesh, local)
+        total = sum_in_rank_order(self.mesh, local)
+        if self._edge:  # the molecules are whole on every rank, the atoms split
+            return torch.stack([local[0], total[1]])
+        return total
+
+    def _rank_shares(self, terms):
+        """(mse_y, mse_f, overflow) terms, or an evaluation row (y's three,
+        neg_dy's three, overflow), as this rank's shares of their sums over
+        the ranks: under edge partitioning the energy's terms and the flag are
+        replicated, so rank 0 alone contributes them (adding zeros keeps its
+        bits)."""
+        if not self._edge or self.mesh.rank == 0:
+            return terms
+        keep = torch.zeros_like(terms, dtype=torch.bool)
+        keep[-1 - terms.shape[0] // 2:-1] = True  # the force terms
+        return torch.where(keep, terms, torch.zeros_like(terms))
 
     def _eval_step(self, batch):
         """(sums of the L1 and squared errors over the valid rows, and their
@@ -274,7 +325,8 @@ class Trainer:
                           mask.sum().to(self.dtype)]
             else:
                 terms += [zero, zero, zero]
-        return torch.stack(terms + [over])
+        row = torch.stack(terms + [over])
+        return row if self.mesh is None else self._rank_shares(row)
 
     def _current_lr(self, state: TrainerState):
         warmup = self.h.get("lr_warmup_steps", 0)
@@ -291,7 +343,7 @@ class Trainer:
         # setup checks on the first training batch: probed cell sizes for
         # large molecules, then every neighbor list checked on the host
         batch0 = next(iter(train_loader))
-        if self.mesh is not None:
+        if self.mesh is not None and not self._edge:
             batch0 = localize_shard(batch0, self.mesh.rank)
         batch0 = batch0.to(self.device)
         cutoff = h.get("cutoff_upper", 5.0)
@@ -301,6 +353,8 @@ class Trainer:
             prior.probe_cell_sizes(batch0)
             prior.check_neighbor_capacity(batch0, "the first training batch")
         check_atom_filter_batch(self.model.module, batch0, "the first training batch")
+        if self._edge:
+            self._size_ring(batch0)
 
         if not ckpt_path and h.get("auto_resume"):
             ckpt_path = latest_checkpoint(self.log_dir)
@@ -411,6 +465,8 @@ class Trainer:
 
     def test(self, datamodule):
         """Test metrics of the module's current weights."""
+        if self._edge and self._ring is None:  # no fit before
+            self._size_ring(next(iter(datamodule.test_dataloader())))
         metrics = self._run_eval_epoch(datamodule.test_dataloader(), "test")
         for logger in self.loggers:
             logger.log_metrics(metrics, step=self.state.global_step)
