@@ -55,12 +55,20 @@ environment rendezvous, and on NCCL at world size 1, each against one
 process on the same global batches; ET energy and forces edge-partitioned
 over two ranks at DHFR size (the fused kernels #1/#2 on each rank's rows)
 and at STMV size (each rank's peak memory), and ``Simulation(mesh,
-edge_partition=True)`` at DHFR size, each against one process. It times each. Each phase prints one line; the line before the last is a JSON object
+edge_partition=True)`` at DHFR size, each against one process. The training
+leftovers: one force-loss step of ET, the Transformer and TensorNet fused
+at their training shapes in ``force_grad_mode="jvp"`` against the same step
+by grad-of-grad (no second-order launch in jvp mode), examples/ET-MD17.yaml
+through the CLI with ``--force-grad-mode jvp``, a third derivative through
+each fused family against its plain twin, and a checkpoint written by the
+JAX package (tests/data/jax_et.ckpt) served against JAX's energies. It
+times each. Each phase prints one line; the line before the last is a JSON object
 with each kernel's numbers, the last line is ``{"ok": true, "device":
 {...}}``. Any failure raises and exits non-zero. Without a CUDA device, or
 outside a checkout, it exits non-zero and prints no result.
 """
 
+import contextlib
 import csv
 import json
 import math
@@ -305,7 +313,7 @@ def check_bwd2(nbl, ins, cts, heads, seed):
 def check_kernels(label, n_atoms, k, h, heads, rbf, cutoff, seed, batch=None):
     """Kernels vs plain versions: forward outputs, all 16 input cotangents
     (weight cotangents from the backward kernel's partials), and the second
-    order's 16 + 2 gradients; a third derivative must raise."""
+    order's 16 + 2 gradients (a third derivative: ``third_derivative_probes``)."""
     import torch
 
     from torchmdnet_tpu_torch.ops.kernels import et_message as em
@@ -326,17 +334,6 @@ def check_kernels(label, n_atoms, k, h, heads, rbf, cutoff, seed, batch=None):
         grads[name]["msk"] = torch.zeros_like(ins["msk"])
     bwd2, bwd2_abs = check_bwd2(nbl, ins, cts, heads, seed)
     parts = check_parts(nbl, ins, cts, heads, seed)
-    # a second derivative runs the second-order kernel; keeping its graph
-    # (the way to a third derivative) must raise
-    t = {n: v.clone().requires_grad_(n in ("q", "k")) for n, v in ins.items()}
-    x, _ = _call(em.fused_et_messages, nbl, t, heads)
-    (g,) = torch.autograd.grad((x * x).sum(), t["q"], create_graph=True)
-    try:
-        torch.autograd.grad((g * g).sum(), t["k"], create_graph=True)
-    except NotImplementedError:
-        pass
-    else:
-        raise AssertionError("a third derivative through the fused kernels did not raise")
     fwd = {nm: _rel(a, b) for nm, a, b in zip(("x_agg", "vec_agg"), outs["kernel"], outs["plain"])}
     bwd = {nm: _rel(grads["kernel"][nm], grads["plain"][nm]) for nm in ORDER}
     fwd_abs = max(float((a - b).abs().max()) for a, b in zip(outs["kernel"], outs["plain"]))
@@ -347,7 +344,7 @@ def check_kernels(label, n_atoms, k, h, heads, rbf, cutoff, seed, batch=None):
         f"bwd max rel err {max(bwd.values()):.3e} (tol {BWD_TOL}) {_fmt(bwd)}; "
         f"bwd2 max rel err {max(bwd2.values()):.3e} (tol {BWD2_TOL}) {_fmt(bwd2)}; "
         f"helper kernels against their plain versions {_fmt(parts)} (source passes tol {PART_TOL}, "
-        f"weight reduction tol {WGRAD_TOL}); a third derivative raises")
+        f"weight reduction tol {WGRAD_TOL})")
     if max(fwd.values()) > FWD_TOL:
         raise AssertionError(f"forward kernel disagrees with the plain version at {label}: {fwd}")
     if max(bwd.values()) > BWD_TOL:
@@ -1732,8 +1729,7 @@ def check_tn_kernels(label, kind, seed, h=TN_ARGS["embedding_dimension"], rbf=TN
     RBFs: the forward output, all nine input cotangents through autograd
     (the weight cotangents from the edge reductions), the backward without
     weight cotangents (serving's), and the second order's nine + 1
-    gradients; a third derivative must raise.  Returns the max abs errors
-    (fwd, bwd, bwd2)."""
+    gradients.  Returns the max abs errors (fwd, bwd, bwd2)."""
     import torch
 
     from torchmdnet_tpu_torch.ops.kernels import tn_message as tm
@@ -1765,16 +1761,6 @@ def check_tn_kernels(label, kind, seed, h=TN_ARGS["embedding_dimension"], rbf=TN
     bwd2 = {nm: _rel(a, b) for nm, a, b in zip(names, got, want)}
     bwd2_abs = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, want))
     parts = check_tn_parts(idx, perm, inputs, ct, z)
-    # keeping the second derivative's graph (the way to a third) must raise
-    t = {n: v.clone().requires_grad_(n in ("cat", "ea")) for n, v in ins.items()}
-    m = tm.fused_tn_messages(idx, *[t[n] for n in TN_ORDER], perm=perm)
-    (g,) = torch.autograd.grad((m * m).sum(), t["cat"], create_graph=True)
-    try:
-        torch.autograd.grad((g.float() * g.float()).sum(), t["ea"], create_graph=True)
-    except NotImplementedError:
-        pass
-    else:
-        raise AssertionError("a third derivative through the fused TensorNet kernels did not raise")
     fwd = _rel(outs["kernel"], outs["plain"])
     exact = tm.tn_messages_reference(idx, *[ins[n].float() for n in TN_ORDER], perm=perm)
     k_exact, p_exact = _rel(outs["kernel"], exact), _rel(outs["plain"], exact)
@@ -1787,7 +1773,7 @@ def check_tn_kernels(label, kind, seed, h=TN_ARGS["embedding_dimension"], rbf=TN
         f"{k_exact:.3e}, plain {p_exact:.3e}); bwd max rel err {max(bwd.values()):.3e} "
         f"(tol {BWD_TOL}) {_fmt(bwd)}; bwd2 max rel err {max(bwd2.values()):.3e} (tol {BWD2_TOL}) "
         f"{_fmt(bwd2)}; weight reduction (et_dw_kernel) against its plain version on #9's and #10's rows "
-        f"{_fmt(parts)} (tol {WGRAD_TOL}); frozen-weight backward equal; a third derivative raises")
+        f"{_fmt(parts)} (tol {WGRAD_TOL}); frozen-weight backward equal")
     if fwd > TN_FWD_TOL or k_exact > 2 * p_exact:
         raise AssertionError(f"TensorNet forward kernel disagrees with the plain version at {label}: {fwd} "
                              f"(from unrounded f32: kernel {k_exact}, plain {p_exact})")
@@ -2508,8 +2494,8 @@ def check_t_kernels(label, n_atoms, k, h, heads, rbf, cutoff, seed, batch=None, 
     """#11, #12 and #13 against their plain versions: the forward output, the
     nine input cotangents through autograd (the weight cotangents from the
     weight reduction), the second order's nine + 1 gradients, and the
-    helper kernels (``check_t_parts``); a third derivative must raise.
-    Returns the max abs errors (fwd, bwd, bwd2)."""
+    helper kernels (``check_t_parts``).  Returns the max abs errors (fwd,
+    bwd, bwd2)."""
     import torch
 
     from torchmdnet_tpu_torch.ops.kernels import t_message as tmk
@@ -2533,16 +2519,6 @@ def check_t_kernels(label, n_atoms, k, h, heads, rbf, cutoff, seed, batch=None, 
     pairs = [(n, a, b) for n, a, b in zip(T_ORDER, got[0], want[0]) if a is not None] + [("ct", got[1], want[1])]
     bwd2 = {n: _rel(a, b) for n, a, b in pairs}
     bwd2_abs = max(float((a.float() - b.float()).abs().max()) for _, a, b in pairs)
-    # keeping the second derivative's graph (the way to a third) must raise
-    t = {n: None if v is None else v.clone().requires_grad_(n in ("q", "k")) for n, v in ins.items()}
-    out = tmk.fused_t_messages(idx, *[t[n] for n in T_ORDER], heads=heads, perm=perm)
-    (g,) = torch.autograd.grad((out * out).sum(), t["q"], create_graph=True)
-    try:
-        torch.autograd.grad((g.float() * g.float()).sum(), t["k"], create_graph=True)
-    except NotImplementedError:
-        pass
-    else:
-        raise AssertionError("a third derivative through the fused Transformer kernels did not raise")
     parts = check_t_parts(nbl, ins, ct, heads, seed)
     fwd = _rel(outs["kernel"], outs["plain"])
     bwd = {n: _rel(grads["kernel"][n], grads["plain"][n]) for n in names}
@@ -2555,8 +2531,7 @@ def check_t_kernels(label, n_atoms, k, h, heads, rbf, cutoff, seed, batch=None, 
         f"{_fmt(bwd2)}; helper kernels against their plain versions "
         f"{_fmt({x: v for x, v in parts.items() if x != 'bwd_src_buffer_differ'})} (source passes tol {PART_TOL}, "
         f"weight reductions tol {WGRAD_TOL}); #12's dk/dv against the buffer form (per-edge values summed in slot "
-        f"order): {parts['bwd_src_buffer_differ']} of {2 * idx.shape[0] * h} elements differ; a third derivative "
-        f"raises")
+        f"order): {parts['bwd_src_buffer_differ']} of {2 * idx.shape[0] * h} elements differ")
     if fwd > FWD_TOL:
         raise AssertionError(f"Transformer forward kernel disagrees with the plain version at {label}: {fwd}")
     if max(bwd.values()) > BWD_TOL:
@@ -4820,7 +4795,8 @@ def _one_force_grads(args, batch, targets):
 
 def _one_train(h, data):
     """One process's plain ``Trainer.fit`` of a rank case: (metrics.csv rows,
-    the first step's gradients, seconds, steps)."""
+    the first step's gradients, the same step's in force_grad_mode="jvp"
+    (taken before it), seconds, steps)."""
     import csv
 
     import torch
@@ -4829,17 +4805,13 @@ def _one_train(h, data):
     from torchmdnet_tpu_torch.data.module import DataModule
     from torchmdnet_tpu_torch.train.trainer import Trainer
 
+    from torchmdnet_tpu_torch.tools.partition_run import first_step_recorder
+
     h = dict(h, device="cuda")
     dm = DataModule(h, dataset=data)
     dm.setup()
-    grads = {}
-
-    class Recording(Trainer):
-        def on_before_optimizer_step(self):
-            if self.state.global_step == 0:
-                grads.update({n: p.grad.detach().cpu() for n, p in zip(self.param_names, self.params)})
-
-    trainer = Recording(create_model(h, seed=h["seed"]), h)
+    recording, grads, jvp_grads = first_step_recorder(Trainer, jvp=True)
+    trainer = recording(create_model(h, seed=h["seed"]), h)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     trainer.fit(dm)
@@ -4847,14 +4819,15 @@ def _one_train(h, data):
     seconds = time.perf_counter() - t0
     with open(os.path.join(h["log_dir"], "metrics.csv")) as f:
         rows = [{k: float(v) for k, v in r.items() if v not in ("", None)} for r in csv.DictReader(f)]
-    return rows, grads, seconds, trainer.state.global_step
+    return rows, grads, jvp_grads, seconds, trainer.state.global_step
 
 
-def _train_launches(layers, steps, evals, prefix, src=True):
+def _train_launches(layers, steps, evals, prefix, src=True, jvp_steps=0):
     """A training run's launches a rank: (fwd, bwd, bwd2) per layer per step
-    (1, 2, 1) and per evaluation batch (1, 1, 0), with the source passes."""
-    out = {f"{prefix}_fwd": layers * (steps + evals), f"{prefix}_bwd": layers * (2 * steps + evals),
-           f"{prefix}_bwd2": layers * steps}
+    (1, 2, 1), per evaluation batch (1, 1, 0) and per extra step in
+    force_grad_mode="jvp" (3, 3, 0), with the source passes."""
+    out = {f"{prefix}_fwd": layers * (steps + evals + 3 * jvp_steps),
+           f"{prefix}_bwd": layers * (2 * steps + evals + 3 * jvp_steps), f"{prefix}_bwd2": layers * steps}
     if src:
         out[f"{prefix}_bwd_src"], out[f"{prefix}_bwd2_src"] = out[f"{prefix}_bwd"], out[f"{prefix}_bwd2"]
     return out
@@ -4930,7 +4903,7 @@ def edge_training(workdir):
     train_cases = {"train_t": T_ARGS, "train_tn": TN_ARGS, "train_et_f32": et32}
     for name, args in train_cases.items():
         cases.append(dict(name=name, kind="train", hparams=dict(args, **EPT_TRAIN), dataset=frames,
-                          log_dir=os.path.join(workdir, name)))
+                          log_dir=os.path.join(workdir, name), jvp_grads=True))
     outs = _ranks(workdir, cases, "edge_training", EPT_TIMEOUT_S)
     if any(o["backend"] != "gloo" or o["size"] != 2 for o in outs):
         raise AssertionError(f"G-EPT: expected two gloo ranks, got {[(o['backend'], o['size']) for o in outs]}")
@@ -4962,24 +4935,30 @@ def edge_training(workdir):
                      f"{EPT_BF16_GRAD_TOL}): " + "; ".join(parts))
     for name, args in train_cases.items():
         h = dict(args, **EPT_TRAIN, log_dir=os.path.join(workdir, name + "_one"))
-        rows1, g_one, sec1, steps1 = _one_train(h, frames)
+        rows1, g_one, j_one, sec1, steps1 = _one_train(h, frames)
         d = outs[0]["cases"][name]
         fused = name != "train_et_f32"
-        if fused:
-            gc, gr, ok = _copies_gap(g_one, d["grads"], EPT_BF16_COPY_TOL, EPT_BF16_GRAD_TOL)
-        else:
-            gc, gr = 0.0, _grad_gap(g_one, d["grads"])
-            ok = gr <= EPT_F32_GRAD_TOL
+        # the first step by gradgrad and, before it, the same step in jvp mode
+        gaps = []
+        for one, ranks in ((g_one, d["grads"]), (j_one, d["jvp_grads"])):
+            if fused:
+                gaps.append(_copies_gap(one, ranks, EPT_BF16_COPY_TOL, EPT_BF16_GRAD_TOL))
+            else:
+                gr = _grad_gap(one, ranks)
+                gaps.append((0.0, gr, gr <= EPT_F32_GRAD_TOL))
+        (gc, gr, ok), (jc, jr, jok) = gaps
+        ok = ok and jok
         gap = _rows_gap(rows1, d["rows"])
         rtol = EPT_BF16_LOSS_RTOL if fused else EPT_F32_LOSS_RTOL
         prefix = {"train_t": "t_message", "train_tn": "tn_message", "train_et_f32": None}[name]
         tsteps = EPT_TRAIN["num_epochs"] * EPT_TRAIN["train_size"]
         tevals = EPT_TRAIN["num_epochs"] * EPT_TRAIN["val_size"]
-        want = _train_launches(args["num_layers"], tsteps, tevals, prefix, src=name == "train_t") if prefix else {}
+        want = (_train_launches(args["num_layers"], tsteps, tevals, prefix, src=name == "train_t", jvp_steps=1)
+                if prefix else {})
         got = {k: v for k, v in d["launches"].items() if prefix and k.startswith(prefix) and v}
         if not ok or gap[0] > rtol or d["steps"] != steps1 or got != want:
-            raise AssertionError(f"G-EPT {name}: gradients {gc:.3e} / {gr:.3e}, metrics {gap}, steps {d['steps']} / "
-                                 f"{steps1}, launches {got} (expected {want})")
+            raise AssertionError(f"G-EPT {name}: gradients {gc:.3e} / {gr:.3e}, jvp step {jc:.3e} / {jr:.3e}, "
+                                 f"metrics {gap}, steps {d['steps']} / {steps1}, launches {got} (expected {want})")
         if prefix:
             launches[f"ep_{name}"] = got
         peak = [o["cases"][name]["peak_bytes"] / 2 ** 30 for o in outs]
@@ -4988,8 +4967,10 @@ def edge_training(workdir):
                      f"{1e3 * sec1 / steps1:.1f} ms a step (validation included), rank 0 "
                      f"{1e3 * d['seconds'] / d['steps']:.1f} ms, peak ranks {peak[0]:.3f} / {peak[1]:.3f} GiB; "
                      f"metrics' largest gap {gap[0]:.3e} ({gap[1]}; tol {rtol}); first step's gradients "
-                     + (f"copies {gc:.3e} (tol {EPT_BF16_COPY_TOL}), rest {gr:.3e} (tol {EPT_BF16_GRAD_TOL})"
-                        if fused else f"{gr:.3e} (tol {EPT_F32_GRAD_TOL})") + f"; launches a rank {got}")
+                     + (f"copies {gc:.3e} (tol {EPT_BF16_COPY_TOL}), rest {gr:.3e} (tol {EPT_BF16_GRAD_TOL}); "
+                        f"the same step in force_grad_mode jvp, ranks against one process: copies {jc:.3e}, "
+                        f"rest {jr:.3e}" if fused else f"{gr:.3e} (tol {EPT_F32_GRAD_TOL}); in force_grad_mode "
+                        f"jvp {jr:.3e}") + f"; launches a rank {got} (with the jvp step's)")
     torch.cuda.empty_cache()
     # the wrappers at the ranks' shapes of the DHFR frame's lists
     from torchmdnet_tpu_torch import create_model
@@ -5018,6 +4999,422 @@ def edge_training(workdir):
             timed[f"{prefix}_fwd"][serve] = t["fwd"][:2]
             timed[f"{prefix}_bwd"][serve] = t["bwd"][:2]
     return launches, timed
+
+
+# --- slice H1: force_grad_mode="jvp", third derivatives, JAX checkpoints ------
+
+# (H-FGM) One force-loss step's gradients in force_grad_mode="jvp" against
+# the same step by grad-of-grad, from the same weights and batch, both
+# fused bf16 at the training shapes, per parameter tensor as max|dg| /
+# max|g| and over all parameters as |dg| / |g|: the two modes round the
+# bf16 operands' cotangents and tangents at different points (the CPU
+# tests' 24 atoms, 2 layers: at most 5.8e-3, the bf16-copied filters
+# 8.4e-3).  Measured on an NVIDIA H100 80GB HBM3 at the training shapes: ET
+# 6.5e-3 (|dg|/|g| 2.9e-4), the Transformer 5.2e-3 (4.0e-5), TensorNet
+# 4.5e-3 (5.6e-7).  These limits are coarse: the energy loss's gradient
+# dominates the step's (the force part was 0.18-0.34 % of it in the CPU
+# tests), and the modes' bf16 roundings of it hide a fault of the force
+# part.  So the force loss alone (y_weight 0: the gradient the jvp pass
+# computes) is compared too, with a limit a family
+# (FGM_FORCE_L2_TOL, |dg|/|g|) between the sound reading and the check's
+# own planted fault, which every run repeats: the same jvp step with the
+# fused backward's tangent dropped (``derivatives.vjp_tangent`` giving
+# zeros, as a kernel's outputs carry no tangent), whose |dg|/|g| must
+# exceed the limit.  Measured by this phase on an NVIDIA H100 80GB HBM3 at
+# 700 W, sound against fault: ET 1.964e-3 against 0.591, T 5.522e-4
+# against 0.329, TN 6.951e-7 against 4.935e-4 (the CPU twins at the tests'
+# 24 atoms: 2.3e-3 / 0.72, 8.0e-4 / 0.26, 3.2e-6 / 1.9e-3).  Limits
+# between, about as far from each:
+FGM_GRAD_TOL = 2e-2
+FGM_GRAD_L2_TOL = 2e-3
+FGM_FORCE_L2_TOL = {"et": 2e-2, "t": 1e-2, "tn": 2e-5}
+FGM_TIMED_STEPS = 5
+FGM_PROFILED_STEPS = 3
+# (H-3) a third derivative through each family's fused Functions (#1/#2/#3
+# and their counterparts for the primals, the composable rule above) against
+# the plain twin's, at the "medium" check shapes, per input as max|d| /
+# max|want|: the second order's bf16 roundings (BWD2_TOL's) carried one
+# differentiation further.  Measured on an NVIDIA H100 80GB HBM3: ET 1.3e-2,
+# the Transformer 1.1e-2, TensorNet 7.8e-3 (the CPU twins' the same).
+THIRD_TOL = 5e-2
+# (H-CLI) examples/ET-MD17.yaml through the CLI with --force-grad-mode jvp:
+# a few steps against the same steps by grad-of-grad (the same cut): the
+# logged metrics' largest relative gap.  The weights of the two runs part
+# by the modes' bf16 roundings each step (H-FGM's gradients): measured
+# 3.1e-4 on an NVIDIA H100 80GB HBM3 (3.0e-4 with the CPU twins).
+JVP_CLI_SPLIT = (32, 16, 16)  # four training steps of 8, one val and one test batch
+JVP_CLI_RTOL = 5e-3
+# (H-CKPT) the JAX package's checkpoint (tests/data/jax_et.ckpt, written by
+# its save_checkpoint; tests/test_torch_jax_checkpoint.py makes it) served on
+# the card: as written (composable f32) against the JAX energies and forces
+# beside it (JAX on a CPU, f32), and fused bf16 through External.
+JAX_CKPT = os.path.join("tests", "data", "jax_et.ckpt")
+JAX_CKPT_REF = os.path.join("tests", "data", "jax_et_ref.npz")
+JAX_CKPT_F32_TOL = 1e-4
+# fused bf16 against JAX's f32: bf16 carries 8 significant bits, and these
+# energies are sums over 18 atoms, not DHFR's 2489 (E2E_ENERGY_TOL's): the
+# CPU twins' |dE|/|E| 2.2e-3 and max|dF|/max|F| 8.1e-3 at these weights.
+JAX_CKPT_BF16_TOL = (1e-2, E2E_FORCE_TOL)
+
+
+def _prefix(km):
+    from torchmdnet_tpu_torch.ops.kernels import et_message as em
+    from torchmdnet_tpu_torch.ops.kernels import t_message as tmk
+
+    return "et_message" if km is em else "t_message" if km is tmk else "tn_message"
+
+
+def _path_launches(km):
+    """{kernel row: launches since the last reset} of a fused family's three
+    kernels and the ELL gather pair (#4/#5: the bf16 gathers of the
+    composable tangent passes)."""
+    from torchmdnet_tpu_torch.ops.kernels import ell_gather as eg
+
+    p = _prefix(km)
+    fwd, bwd, bwd2, _ = _launches(km)
+    return {f"{p}_fwd": fwd, f"{p}_bwd": bwd, f"{p}_bwd2": bwd2, "ell_gather": eg.gather_rows.launches,
+            "ell_transpose_sum": eg.transpose_sum_rows.launches}
+
+
+def _check_family_parts(path, km, bwd, bwd2):
+    from torchmdnet_tpu_torch.ops.kernels import et_message as em
+    from torchmdnet_tpu_torch.ops.kernels import t_message as tmk
+
+    if km is em:
+        return _check_et_parts(path, bwd, bwd2)
+    if km is tmk:
+        return _check_t_parts(path, bwd, bwd2)
+    return _check_tn_parts(path, 0, bwd + bwd2)
+
+
+def _grad_gaps(got, want):
+    """({tensor: max|d| / max|want|}, |d| / |want| over every tensor)."""
+    per = {k: _rel(got[k], v) for k, v in want.items()}
+    num = sum(float((got[k].double() - v.double()).pow(2).sum()) for k, v in want.items())
+    den = sum(float(v.double().pow(2).sum()) for v in want.values())
+    return per, math.sqrt(num / den)
+
+
+@contextlib.contextmanager
+def _dropped_backward_tangent():
+    """H-FGM's planted fault: every fused backward's tangent zero, as a
+    backward that ran its kernel outside its Function would leave it."""
+    import torch
+
+    from torchmdnet_tpu_torch.ops.kernels import derivatives
+
+    sound = derivatives.vjp_tangent
+
+    def dropped(fn, primals, cts, t_primals, t_cts):
+        return [None if p is None else torch.zeros_like(p) for p in primals]
+
+    derivatives.vjp_tangent = dropped
+    try:
+        yield
+    finally:
+        derivatives.vjp_tangent = sound
+
+
+def _untimed(kernel, path):
+    """Whether no timing of this run is at the shape ``path`` runs
+    ``kernel``: the slice-H1 paths that ``main``'s table of timed shapes
+    leaves out."""
+    if path.startswith("third_") or path == "jax_ckpt_external":
+        return True
+    return kernel in ("ell_gather", "ell_transpose_sum") and (path.startswith("fgm_") or "jvp" in path)
+
+
+def force_grad_modes(train_ds, tn_ds, workdir):
+    """(H-FGM) ET (8 x 256), the Transformer (8 x 256) and TensorNet-ANI1X
+    (2 x 128) fused bf16 at their training shapes: one step's gradients
+    (``Trainer.step_gradients``, no optimizer step) by grad-of-grad and in
+    ``force_grad_mode="jvp"`` from the same weights and batch.  Checks: the
+    gradients agree (FGM_GRAD_TOL, FGM_GRAD_L2_TOL), those of the force loss
+    alone too (FGM_FORCE_L2_TOL), and the same jvp step of the force loss
+    with the fused backward's tangent dropped does not (the planted fault,
+    over FGM_FORCE_L2_TOL); a gradgrad step launches
+    (L, 2L, L) of (forward, backward, second order) for L layers, a jvp step
+    (3L, 3L, 0): no second-order kernel.  Times each mode's step three ways:
+    host clock with a sync (median of FGM_TIMED_STEPS), CUDA events (the
+    same, the host's enqueue inside the window) and the device's busy time
+    (torch.profiler, mean of FGM_PROFILED_STEPS: the host's enqueue kept
+    out), beside its peak memory.  Returns ({path: launches}, {kernel row:
+    {path: (ms, bound_ms)}} is left to the caller)."""
+    import torch
+
+    from torchmdnet_tpu_torch import create_model
+    from torchmdnet_tpu_torch.train.trainer import Trainer
+
+    paths, lines, failures = {}, [], []
+    for kind in ("et", "t", "tn"):
+        cfg = _train_cfg(kind)
+        args, km = cfg["args"], cfg["km"]
+        layers = args["num_layers"]
+        ds = tn_ds if kind == "tn" else train_ds
+        batch = _train_batch(ds, "cuda", cfg["batch"], args["cutoff_upper"], cfg["mol"])
+        model = create_model(args, seed=SEED)
+        zero = torch.zeros((), device="cuda")
+        grads, stats, hs = {}, {}, {}
+        for mode in ("gradgrad", "jvp"):
+            h = hs[mode] = dict(args, lr=cfg["lr"], y_weight=cfg["weights"][0], neg_dy_weight=cfg["weights"][1],
+                                force_grad_mode=mode, log_dir=os.path.join(workdir, f"fgm_{kind}_{mode}"))
+            trainer = Trainer(model, h)
+
+            def step(trainer=trainer):
+                trainer.step_gradients(batch, zero, zero)
+
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _reset_launches()
+            step()
+            torch.cuda.synchronize()
+            launches = _path_launches(km)
+            p = _prefix(km)
+            path = f"fgm_{kind}_{mode}"
+            _check_family_parts(path, km, launches[f"{p}_bwd"], launches[f"{p}_bwd2"])
+            paths[path] = launches
+            grads[mode] = {n: q.grad.detach().clone() for n, q in zip(trainer.param_names, trainer.params)}
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            host = _host_ms(step, reps=FGM_TIMED_STEPS, warmup=1)
+            event = _event_ms(step, reps=FGM_TIMED_STEPS, warmup=0)
+            wall, busy, groups, other, other_launches, _ = _profile(step, FGM_PROFILED_STEPS, cfg["kernels"])
+            stats[mode] = dict(launches=launches, host=host, event=event, wall=wall, busy=busy, peak=peak,
+                               shares=_shares(groups, other, busy), other=other_launches)
+        want = {"gradgrad": (layers, 2 * layers, layers), "jvp": (3 * layers, 3 * layers, 0)}
+        for mode, (f, b, b2) in want.items():
+            got = stats[mode]["launches"]
+            if (got[f"{p}_fwd"], got[f"{p}_bwd"], got[f"{p}_bwd2"]) != (f, b, b2):
+                raise AssertionError(f"H-FGM {kind} {mode}: expected (fwd, bwd, bwd2) launches {(f, b, b2)}, "
+                                     f"got {got}")
+        per, l2 = _grad_gaps(grads["jvp"], grads["gradgrad"])
+        # the force loss alone, by both modes, and by jvp with the planted fault
+        force = {}
+        for mode, fault in (("gradgrad", False), ("jvp", False), ("dropped", True)):
+            trainer = Trainer(model, dict(hs["jvp" if fault else mode], y_weight=0.0))
+            with _dropped_backward_tangent() if fault else contextlib.nullcontext():
+                trainer.step_gradients(batch, zero, zero)
+            force[mode] = {n: q.grad.detach().clone() for n, q in zip(trainer.param_names, trainer.params)}
+        _, force_l2 = _grad_gaps(force["jvp"], force["gradgrad"])
+        fault_per, fault_l2 = _grad_gaps(force["dropped"], force["gradgrad"])
+        worst = max(per, key=per.get)
+        g, j = stats["gradgrad"], stats["jvp"]
+        limit = FGM_FORCE_L2_TOL[kind]
+        lines.append(
+            f"{cfg['label']} ({cfg['batch']} molecules, N={batch.num_atoms}): jvp against gradgrad over {len(per)} "
+            f"parameter tensors max|dg|/max|g| worst {per[worst]:.3e} ({worst}; tol {FGM_GRAD_TOL}), median "
+            f"{statistics.median(per.values()):.3e}, |dg|/|g| {l2:.3e} (tol {FGM_GRAD_L2_TOL}); the force loss "
+            f"alone |dg|/|g| {force_l2:.3e} (tol {limit}), with the fused backward's tangent dropped (the planted "
+            f"fault) {fault_l2:.3e} (worst tensor {max(fault_per.values()):.3e}); a step "
+            + "; ".join(f"{mode}: host {s['host']:.3f} ms, CUDA events {s['event']:.3f} ms, device busy "
+                        f"{s['busy']:.3f} ms (profiled wall {s['wall']:.3f} ms; {s['shares']}; {s['other']:.0f} "
+                        f"other launches), peak {s['peak']:.2f} GiB, launches {s['launches']}"
+                        for mode, s in stats.items())
+            + f"; jvp / gradgrad: host {j['host'] / g['host']:.2f}x, device busy {j['busy'] / g['busy']:.2f}x")
+        if per[worst] > FGM_GRAD_TOL or l2 > FGM_GRAD_L2_TOL or force_l2 > limit:
+            failures.append(f"H-FGM {kind}: the jvp step's gradients disagree with gradgrad's")
+        if fault_l2 <= limit:
+            failures.append(f"H-FGM {kind}: a dropped backward tangent stays inside the limit {limit}")
+        del grads, model, force, trainer
+        torch.cuda.empty_cache()
+    log("force_grad_mode jvp against gradgrad at the training shapes (H-FGM): " + "; ".join(lines))
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return paths
+
+
+def _third(fn, leaves, firsts, seconds, probe):
+    """A third derivative of ``fn(leaves)`` (its output(s) contracted with
+    ``probe``): g = d/d``firsts``, g2 = d<g, g>/d``seconds``, both with
+    their graphs, then d<g2, g2>/d(every leaf)."""
+    import torch
+
+    out = fn(leaves)
+    outs = out if isinstance(out, tuple) else (out,)
+    e = sum((o * w).sum() + 0.1 * (o * o).sum() for o, w in zip(outs, probe))
+    g = torch.autograd.grad(e, [leaves[n] for n in firsts], create_graph=True)
+    s = sum((x.float() * x.float()).sum() for x in g)
+    g2 = torch.autograd.grad(s, [leaves[n] for n in seconds], create_graph=True)
+    s2 = sum((x.float() * x.float()).sum() for x in g2)
+    names = list(leaves)
+    g3 = torch.autograd.grad(s2, [leaves[n] for n in names], allow_unused=True)
+    return {n: torch.zeros_like(leaves[n]) if x is None else x for n, x in zip(names, g3)}
+
+
+def third_derivative_probes():
+    """(H-3) A third derivative through each fused family's Functions on the
+    card (the forward, backward and second-order kernels for the primals;
+    the second order's gradient composable: ``derivatives.Bwd2``) against
+    the same third derivative of its plain twin, at the "medium" check
+    shapes: ET and the Transformer at N 512, K 40, H 64; TensorNet in a
+    periodic box at H 64.  Every float input a f32 leaf, cast to its dtype
+    at the call.  Returns {path: launches}."""
+    import torch
+
+    from torchmdnet_tpu_torch.ops.kernels import et_message as em
+    from torchmdnet_tpu_torch.ops.kernels import t_message as tmk
+    from torchmdnet_tpu_torch.ops.kernels import tn_message as tm
+
+    nbl, ins, cts = _kernel_inputs(512, 40, 64, 32, 3.5, seed=9)
+    t_nbl, t_ins, t_ct = _t_kernel_inputs(512, 40, 64, 32, 3.5, seed=10)
+    tn_nbl, tn_pos, box = _tn_system("box", 11)
+    tn_ins, tn_ct = _tn_kernel_inputs(tn_nbl, tn_pos, 64, TN_ARGS["num_rbf"], TN_ARGS["cutoff_upper"], 11, box=box)
+    families = (
+        ("ET", em, ins, ORDER, nbl, cts, ("q", "dir0"), ("k", "ea"),
+         lambda f, nb, a: f(nb.idx, *a, heads=4, perm=nb.transpose_perm),
+         (em.fused_et_messages, em.et_messages_reference)),
+        ("Transformer", tmk, t_ins, T_ORDER, t_nbl, (t_ct,), ("q", "cutm"), ("k", "ea"),
+         lambda f, nb, a: f(nb.idx, *a, heads=4, perm=nb.transpose_perm),
+         (tmk.fused_t_messages, tmk.t_messages_reference)),
+        ("TensorNet", tm, tn_ins, TN_ORDER, tn_nbl, (tn_ct,), ("cat", "cutm"), ("ea", "w1"),
+         lambda f, nb, a: f(nb.idx, *a, perm=nb.transpose_perm),
+         (tm.fused_tn_messages, tm.tn_messages_reference)),
+    )
+    paths, parts = {}, []
+    for label, km, inputs, order, nb, probe, firsts, seconds, call, (fused, plain) in families:
+        dtypes = {n: None if v is None else v.dtype for n, v in inputs.items()}
+        got = {}
+        for name, fn in (("fused", fused), ("plain", plain)):
+            leaves = {n: v.float().clone().requires_grad_(True) for n, v in inputs.items()
+                      if v is not None and n != "msk"}
+
+            def f(lv, fn=fn):
+                args = [None if inputs[n] is None else inputs[n] if n == "msk" else lv[n].to(dtypes[n])
+                        for n in order]
+                return call(fn, nb, args)
+
+            _reset_launches()
+            got[name] = _third(f, leaves, firsts, seconds, probe)
+            torch.cuda.synchronize()
+            if name == "fused":
+                launches = _path_launches(km)
+        p = _prefix(km)
+        if launches[f"{p}_bwd2"] < 1:
+            raise AssertionError(f"H-3 {label}: the third derivative ran no second-order kernel: {launches}")
+        paths[f"third_{p.split('_')[0]}"] = launches
+        rel = {n: _rel(got["fused"][n], v) for n, v in got["plain"].items() if float(v.abs().max()) > 0}
+        worst = max(rel, key=rel.get)
+        parts.append(f"{label} (N={nb.idx.shape[0]} K={nb.idx.shape[1]}): max|d|/max|want| worst {rel[worst]:.3e} "
+                     f"({worst}), median {statistics.median(rel.values()):.3e}; launches {launches}")
+        if rel[worst] > THIRD_TOL:
+            raise AssertionError(f"H-3 {label}: the third derivative disagrees with the plain twin's: {parts[-1]}")
+    log(f"third derivatives through the fused Functions against the plain twins (H-3; tol {THIRD_TOL}): "
+        + "; ".join(parts))
+    return paths
+
+
+def md17_jvp_cli(workdir):
+    """(H-CLI) examples/ET-MD17.yaml through the training CLI with
+    ``--force-grad-mode jvp`` (fused bf16, the rMD17-format file that
+    ``md17_training`` wrote under ``workdir``), cut to JVP_CLI_SPLIT and one
+    epoch, against the same run by grad-of-grad.  Checks the jvp run's
+    launches ((3, 3, 0) per layer a step, (1, 1, 0) an evaluation batch),
+    finite losses, and every logged metric within JVP_CLI_RTOL of the
+    gradgrad run's.  Returns {path: launches}."""
+    import torch
+
+    from torchmdnet_tpu_torch.ops.kernels import et_message as em
+    from torchmdnet_tpu_torch.scripts import train as cli
+
+    root = os.path.join(workdir, "data")
+    train, val, test = JVP_CLI_SPLIT
+    rows, launches, seconds = {}, {}, {}
+    for mode in ("jvp", "gradgrad"):
+        logs = os.path.join(workdir, f"logs_{mode}")
+        flags = ["--conf", os.path.join(ROOT, MD17_CONF), "--dataset-root", root,
+                 "--dataset-arg", json.dumps({"molecules": MD17_MOLECULE}), "--train-size", str(train),
+                 "--val-size", str(val), "--test-size", str(test), "--num-epochs", "1",
+                 "--lr-warmup-steps", str(MD17_WARMUP_STEPS), "--save-interval", "1", "--fused-attention", "true",
+                 "--bf16-messages", "true", "--seed", str(SEED), "--num-workers", "0", "--log-dir", logs,
+                 "--force-grad-mode", mode]
+        _reset_launches()
+        t0 = time.perf_counter()
+        trainer, test_metrics = cli.main(flags)
+        torch.cuda.synchronize()
+        seconds[mode] = time.perf_counter() - t0
+        launches[mode] = _path_launches(em)
+        if mode == "jvp":
+            _check_et_parts("md17_jvp_train", launches[mode]["et_message_bwd"], launches[mode]["et_message_bwd2"])
+        with open(os.path.join(logs, "metrics.csv")) as f:
+            rows[mode] = [{k: float(v) for k, v in r.items() if v not in ("", None)} for r in csv.DictReader(f)]
+        if trainer.h["force_grad_mode"] != mode or not all(
+                math.isfinite(v) for r in rows[mode] for v in r.values()):
+            raise AssertionError(f"H-CLI {mode}: the run did not train in its mode: {rows[mode]}")
+    h = trainer.h
+    layers, bs, ibs = h["num_layers"], h["batch_size"], h["inference_batch_size"]
+    steps, evals = train // bs, -(-val // ibs) + -(-test // ibs)
+    want = (layers * (3 * steps + evals), layers * (3 * steps + evals), 0)
+    got = tuple(launches["jvp"][f"et_message_{k}"] for k in ("fwd", "bwd", "bwd2"))
+    if got != want:
+        raise AssertionError(f"H-CLI: expected jvp launches {want} for {steps} steps and {evals} evaluation "
+                             f"batches, got {got}")
+    gap = _rows_gap(rows["gradgrad"], rows["jvp"])
+    log(f"ET-MD17 training CLI with --force-grad-mode jvp (H-CLI; {layers}x{h['embedding_dimension']} fused bf16, "
+        f"splits {JVP_CLI_SPLIT}, 1 epoch: {steps} steps): {seconds['jvp']:.1f} s (gradgrad {seconds['gradgrad']:.1f}"
+        f" s); launches {launches['jvp']} ({steps} steps x (3, 3, 0) x L + {evals} evaluation batches x (1, 1, 0) "
+        f"x L, L={layers}); logged metrics against the gradgrad run's: largest gap {gap[0]:.3e} ({gap[1]}; tol "
+        f"{JVP_CLI_RTOL}); jvp epoch {json.dumps({k: round(v, 5) for k, v in rows['jvp'][0].items()})}")
+    if gap[0] > JVP_CLI_RTOL:
+        raise AssertionError(f"H-CLI: the jvp run's metrics disagree with gradgrad's: {gap}")
+    return {"md17_jvp_train": launches["jvp"]}
+
+
+def jax_checkpoint_serving():
+    """(H-CKPT) The JAX package's checkpoint served on the card: read by the
+    port's decoder (no flax), loaded by ``load_model`` as written (composable
+    f32) and through ``External(path)``, against the JAX energies and forces
+    stored beside it (JAX_CKPT_F32_TOL), then fused bf16 through ``External``
+    against them (JAX_CKPT_BF16_TOL) with #1/#2 counted.
+    Returns {path: launches}."""
+    import numpy as np
+    import torch
+
+    from torchmdnet_tpu_torch.calculators import External
+    from torchmdnet_tpu_torch.data.batch import pad_molecules
+    from torchmdnet_tpu_torch.models.potential import load_model
+    from torchmdnet_tpu_torch.ops.kernels import et_message as em
+    from torchmdnet_tpu_torch.train.checkpoints import is_jax_checkpoint
+
+    path = os.path.join(ROOT, JAX_CKPT)
+    ref = np.load(os.path.join(ROOT, JAX_CKPT_REF))
+    if not is_jax_checkpoint(path):
+        raise AssertionError(f"{JAX_CKPT} is not a checkpoint of the JAX package")
+    e_ref, f_ref = ref["energy"], ref["forces"]
+    m = e_ref.shape[0]
+    a = ref["z"].shape[0] // m
+    z, pos = ref["z"].reshape(m, a), ref["pos"].reshape(m, a, 3)
+
+    def errs(y, f):
+        y, f = np.asarray(y, np.float64).reshape(-1), np.asarray(f, np.float64).reshape(-1, 3)
+        return (float(np.abs(y - e_ref).max() / np.abs(e_ref).max()),
+                float(np.abs(f - f_ref).max() / np.abs(f_ref).max()))
+
+    model = load_model(path)
+    batch = pad_molecules([{"z": z[i], "pos": pos[i]} for i in range(m)], num_atoms=m * a, device="cuda")
+    y, f = model.energy_and_forces(batch)
+    direct = errs(y.cpu(), f.cpu())
+    ext = External(path, z)
+    ye, fe = ext.calculate(torch.as_tensor(pos))
+    served = errs(ye.cpu(), fe.cpu())
+    fused = External((load_model(path, fused_attention=True, bf16_messages=True), None), z)
+    _reset_launches()
+    yf, ff = fused.calculate(torch.as_tensor(pos))
+    torch.cuda.synchronize()
+    launches = _path_launches(em)
+    _check_et_parts("jax_ckpt_external", launches["et_message_bwd"], 0)
+    fused_err = errs(yf.cpu(), ff.cpu())
+    layers = model.args["num_layers"]
+    log(f"JAX checkpoint served on the card (H-CKPT; {JAX_CKPT}, {os.path.getsize(path)} bytes, written by the JAX "
+        f"package's save_checkpoint: ET {layers}x{model.args['embedding_dimension']}; {m} molecules of {a} atoms "
+        f"against JAX's f32 energies and forces on a CPU): load_model |dE|/|E| {direct[0]:.3e}, max|dF|/max|F| "
+        f"{direct[1]:.3e}; External(path) {served[0]:.3e} / {served[1]:.3e} (tol {JAX_CKPT_F32_TOL}); fused bf16 "
+        f"through External {fused_err[0]:.3e} / {fused_err[1]:.3e} (tol {JAX_CKPT_BF16_TOL[0]} / "
+        f"{JAX_CKPT_BF16_TOL[1]}), "
+        f"launches {launches}")
+    if max(direct + served) > JAX_CKPT_F32_TOL or any(e > t for e, t in zip(fused_err, JAX_CKPT_BF16_TOL)):
+        raise AssertionError("H-CKPT: the JAX checkpoint does not serve JAX's energies and forces")
+    if (launches["et_message_fwd"], launches["et_message_bwd"]) != (layers, layers):
+        raise AssertionError(f"H-CKPT: expected ({layers}, {layers}) launches of #1/#2, got {launches}")
+    return {"jax_ckpt_external": launches}
 
 
 def main():
@@ -5084,6 +5481,7 @@ def main():
     _, _, t_bwd2_abs = check_t_kernels("training", None, ta["max_num_neighbors"], ta["embedding_dimension"],
                                        ta["num_heads"], ta["num_rbf"], ta["cutoff_upper"], seed=4,
                                        batch=_train_batch(train_ds, "cuda"))
+    third_launches = third_derivative_probes()
     stmv = _stmv_batch()
     keys, k, _ = stmv_skin_keys(stmv)
     zbl_k = find_zbl_k()
@@ -5147,6 +5545,8 @@ def main():
     t_cfg = _train_cfg("t")
     train_grads_vs_composable(train_ds, t_cfg)
     with tempfile.TemporaryDirectory() as workdir:
+        fgm_launches = force_grad_modes(train_ds, tn_ds, workdir)
+    with tempfile.TemporaryDirectory() as workdir:
         prior_train_launches, prior_trainer, prior_ds, prior_cfg = prior_training(workdir)
     prior_batch = _train_batch(prior_ds, "cuda", PRIOR_TRAIN_BATCH)
     prior_ms, _, prior_bounds = time_train_kernels(prior_batch, "the prior-training shapes")
@@ -5162,6 +5562,8 @@ def main():
     with tempfile.TemporaryDirectory() as workdir:
         md17_launches, md17_trainer, md17_batch, md17_best = md17_training(workdir)
         import_launches = import_serving(md17_best, workdir, md17_batch)
+        jvp_cli_launches = md17_jvp_cli(workdir)
+    ckpt_launches = jax_checkpoint_serving()
     # #1-#3 against their plain versions at the shapes these two paths run:
     # ET-MD17's training batch and its widths at DHFR size with K 80
     mh = md17_trainer.h
@@ -5248,6 +5650,14 @@ def main():
         # rank 0 of two edge-partitioned ranks: ET's CLI force training on DHFR
         # frames; one T and one TensorNet DHFR call; their training steps
         **ept_launches,
+        # slice H1: one force-loss step by gradgrad and in jvp mode at the
+        # training shapes (ET, T, TensorNet); a third derivative of each
+        # family at the medium check shapes; ET-MD17's CLI in jvp mode; the
+        # JAX package's checkpoint served fused through External
+        **fgm_launches,
+        **third_launches,
+        **jvp_cli_launches,
+        **ckpt_launches,
     }
     for path, parts in PART_LAUNCHES.items():
         paths[path].update(parts)
@@ -5291,6 +5701,20 @@ def main():
     }
     for name, at in ept_timed.items():  # the G-EPT paths at rank 0's shape
         timed_at.setdefault(name, {}).update(at)
+    # H-FGM's steps at the training shapes, H-CLI's at ET-MD17's
+    for mode in ("gradgrad", "jvp"):
+        for row, at in (("et_message_fwd", (train_ms["fwd"], train_bounds["fwd"][0])),
+                        ("et_message_bwd", (train_ms["bwd_w"], train_bounds["bwd_w"][0])),
+                        ("et_message_bwd2", (train_ms["bwd2"], train_bounds["bwd2"][0])),
+                        ("t_message_fwd", t_times[("training", "fwd")][::2][:2]),
+                        ("t_message_bwd", t_times[("training", "bwd_w")][::2][:2]),
+                        ("t_message_bwd2", t_times[("training", "bwd2")][::2][:2]),
+                        ("tn_message_fwd", tn_times[("training", "fwd")][::2][:2]),
+                        ("tn_message_bwd", tn_times[("training", "bwd_w")][::2][:2]),
+                        ("tn_message_bwd2", tn_times[("training", "bwd2")][::2][:2])):
+            timed_at.setdefault(row, {})[f"fgm_{row.split('_')[0]}_{mode}"] = at
+    timed_at["et_message_fwd"]["md17_jvp_train"] = (md17_ms["fwd"], md17_bounds["fwd"][0])
+    timed_at["et_message_bwd"]["md17_jvp_train"] = (md17_ms["bwd_w"], md17_bounds["bwd_w"][0])
     # #4's and #5's three times (event window, device alone, host enqueue)
     # beside their library call's, at each shape a GN path runs them
     by_shape = {name: {"times_by_shape": {where: {key: val for key, val in v[kind].items() if key != "bound_by"}
@@ -5333,9 +5757,14 @@ def main():
                    "t_message_bwd": ("t_message_bwd_src", "t_message_dw"),
                    "t_message_bwd2": ("t_message_bwd2_src", "t_message_dw")}.get(name, ())
         # the redesign queue's order (ROADMAP.md): the device time this run's
-        # launches spent above the bound, each path's at its own timed shape
-        at = {path: timed_at.get(name, {}).get(path, (ms, bound_ms)) for path in by_path}
-        excess = {path: n * (at[path][0] - at[path][1]) for path, n in by_path.items() if n}
+        # launches spent above the bound, each path's at its own timed shape;
+        # null where this run timed no launch at the path's shape (H-3's
+        # probes at the medium check shapes, the served JAX checkpoint's
+        # molecules, the bf16 gathers of the jvp steps' composable tangents)
+        at = {path: timed_at.get(name, {}).get(path, None if _untimed(name, path) else (ms, bound_ms))
+              for path in by_path}
+        excess = {path: None if at[path] is None else n * (at[path][0] - at[path][1])
+                  for path, n in by_path.items() if n}
         kernels.append(dict(
             helper_launches={h: sum(c.get(h, 0) for c in paths.values()) for h in helpers},
             name=name, route="cuda", source=f"torchmdnet_tpu_torch/csrc/{source}",
@@ -5343,8 +5772,9 @@ def main():
             launches=sum(by_path.values()), launches_by_path=by_path,
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
             library_ms=lib_ms,
-            ms_by_path={path: at[path][0] for path in excess}, excess_by_path=excess,
-            excess_ms=sum(excess.values()), **by_shape.get(name, {}),
+            ms_by_path={path: None if at[path] is None else at[path][0] for path in excess},
+            excess_by_path=excess, excess_ms=sum(v for v in excess.values() if v is not None),
+            **by_shape.get(name, {}),
         ))
         if max(by_path.values()) < 1:
             raise AssertionError(f"{name} was not launched on a main path")

@@ -14,8 +14,8 @@
 - The autograd wiring of ``_EtMessages``/``_EtMessagesBwd`` with the three
   kernel launches swapped for their plain twins: grad-of-grad through the
   Functions equals grad-of-grad through ``et_messages_reference`` (which
-  output takes which Z, the transpose-sum's adjoint, None Zs), and a third
-  derivative raises.
+  output takes which Z, the transpose-sum's adjoint, None Zs), and so does a
+  third derivative (autograd through the second order's plain version).
 """
 
 import jax
@@ -188,17 +188,36 @@ def test_autograd_wiring_grad_of_grad(monkeypatch):
 
 
 def test_third_derivative_raises(monkeypatch):
+    """A third derivative through the Functions equals the plain version's
+    in f64 (the name is kept from when it raised): the second order's
+    gradient is autograd through ``et_messages_bwd2_reference``
+    (``derivatives.Bwd2``), composable as JAX's third-order rule."""
     idx, ins, cts, _ = _inputs(seed=6)
     monkeypatch.setattr(em, "run_fwd", _plain_fwd)
     monkeypatch.setattr(em, "run_bwd", _plain_bwd)
     monkeypatch.setattr(em, "run_bwd2", _plain_bwd2)
+    for fn in (_plain_fwd, _plain_bwd, _plain_bwd2):
+        fn.launches = 0
     tidx = torch.as_tensor(idx, dtype=torch.int32)
-    t = {n: torch.as_tensor(a).requires_grad_(n != "msk") for n, a in ins.items()}
-    x, _ = em._EtMessages.apply((HEADS, "silu", "silu"), tidx, transpose_perm(tidx), *[t[n] for n in ORDER])
-    (g,) = torch.autograd.grad((x * x).sum(), t["q"], create_graph=True)
-    # a second derivative is fine without a graph; keeping its graph (the
-    # way to a third) raises
-    (g2,) = torch.autograd.grad((g * g).sum(), t["k"], retain_graph=True)
-    assert torch.isfinite(g2).all()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        torch.autograd.grad((g * g).sum(), t["k"], create_graph=True)
+    perm = transpose_perm(tidx)
+    names = [n for n in ORDER if n != "msk"]
+    third = {}
+    for fused in (True, False):
+        t = {n: torch.as_tensor(a).requires_grad_(n != "msk") for n, a in ins.items()}
+        args = [t[n] for n in ORDER]
+        if fused:
+            x, vec = em._EtMessages.apply((HEADS, "silu", "silu"), tidx, perm, *args)
+        else:
+            x, vec = em.et_messages_reference(tidx, *args, heads=HEADS, perm=perm)
+        (g,) = torch.autograd.grad((x * x).sum() + (vec * x.repeat(1, 3)).sum(), t["q"], create_graph=True)
+        (g2,) = torch.autograd.grad((g * g).sum(), t["k"], create_graph=True)
+        g3 = torch.autograd.grad((g2 ** 3).sum(), [t[n] for n in names], allow_unused=True)
+        third[fused] = {n: torch.zeros_like(t[n]) if v is None else v for n, v in zip(names, g3)}
+    # each backward through a fused node with grad on launches the next
+    # order's kernel (three backwards reach the forward's node, three the
+    # backward's); the third order itself launches nothing
+    assert (_plain_fwd.launches, _plain_bwd.launches, _plain_bwd2.launches) == (1, 3, 3)
+    assert max(float(v.abs().max()) for v in third[False].values()) > 1e-3
+    for n, g in third[True].items():
+        torch.testing.assert_close(g, third[False][n], rtol=1e-9, atol=1e-9 * float(third[False][n].abs().max()),
+                                   msg=f"third derivative wrt {n}")

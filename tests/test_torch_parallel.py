@@ -7,8 +7,9 @@
 - the training CLI with ``--ndevices 2`` (two gloo ranks, started as the
   CLI's launcher starts them) against one process on the same global batches: a 1-layer ET with a
   force loss, one epoch of two steps (batches of 4, then a short one that
-  leaves rank 1 no molecule).  The first step's summed gradients agree
-  within 1e-5 of each tensor's largest value, and the epoch's loss (the
+  leaves rank 1 no molecule).  The first step's summed gradients, and the
+  ranks' same step in ``force_grad_mode="jvp"``, agree within 1e-5 of each
+  tensor's largest value, and the epoch's loss (the
   mean of the two steps), the validation and test metrics within rtol 1e-5
   (they differ only in the order of float sums);
 - the environment rendezvous of ``--num-nodes`` (``initialize_distributed``'s
@@ -172,19 +173,28 @@ def _epochs(log_dir):
         return [{k: float(v) for k, v in row.items() if v not in ("", None)} for row in csv.DictReader(f)]
 
 
-# one rank of the CLI whose trainer saves the first step's gradients (its
-# ``on_before_optimizer_step`` hook): python -c _RANK grads.pt [flags]
+# one rank of the CLI whose trainer (``partition_run.first_step_recorder``)
+# saves the first step's gradients, and the same step's gradients in
+# force_grad_mode="jvp" (grads.pt.jvp): python -c _RANK grads.pt [flags]
 _RANK = """
 import sys, torch
+import torchmdnet_tpu_torch.train.trainer as tr
 from torchmdnet_tpu_torch.scripts import train as cli
-from torchmdnet_tpu_torch.train.trainer import Trainer
+from torchmdnet_tpu_torch.tools.partition_run import first_step_recorder
 
-def save(trainer):
-    if trainer.state.global_step == 0 and trainer.is_main:
-        torch.save({n: p.grad.detach().cpu() for n, p in zip(trainer.param_names, trainer.params)}, sys.argv[1])
+recording, grads, jvp_grads = first_step_recorder(tr.Trainer, jvp=True)
+made = []
 
-Trainer.on_before_optimizer_step = save
+class Saving(recording):
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        made.append(self)
+
+tr.Trainer = Saving
 cli.main(sys.argv[2:])
+if made[0].is_main:
+    torch.save(grads, sys.argv[1])
+    torch.save(jvp_grads, sys.argv[1] + ".jvp")
 """
 
 
@@ -202,7 +212,9 @@ def test_cli_ndevices_starts_one_rank_a_device(tmp_path, monkeypatch):
 def test_two_rank_cli_matches_one_process(tmp_path, monkeypatch):
     import sys
 
+    import torchmdnet_tpu_torch.train.trainer as trainer_module
     from torchmdnet_tpu_torch.scripts import train as cli
+    from torchmdnet_tpu_torch.tools.partition_run import first_step_recorder
     from torchmdnet_tpu_torch.train.trainer import Trainer
 
     monkeypatch.setenv("OMP_NUM_THREADS", "1")
@@ -215,20 +227,21 @@ def test_two_rank_cli_matches_one_process(tmp_path, monkeypatch):
         if ranks == "2":  # the ranks as the CLI's launcher starts them, each with the hook
             assert distributed.launch(["-c", _RANK, grads] + flags, 2, timeout=120) == 0
         else:
-            def save(trainer, path=grads):
-                if trainer.state.global_step == 0:
-                    torch.save({n: p.grad.detach().cpu() for n, p in zip(trainer.param_names, trainer.params)},
-                               path)
-
-            monkeypatch.setattr(Trainer, "on_before_optimizer_step", save)
+            recording, first, _ = first_step_recorder(Trainer)
+            monkeypatch.setattr(trainer_module, "Trainer", recording)
             trainer, _ = cli.main(flags)
             assert trainer is not None
+            torch.save(first, grads)
         runs[ranks] = (_epochs(log_dir), torch.load(grads))
     (one, g1), (two, g2) = runs["1"], runs["2"]
-    assert g1.keys() == g2.keys() and len(g1) > 10
+    # the ranks' first step taken in force_grad_mode="jvp" too: the same
+    # summed gradients
+    g2_jvp = torch.load(str(tmp_path / "grads2.pt") + ".jvp")
+    assert g1.keys() == g2.keys() == g2_jvp.keys() and len(g1) > 10
     for name in g1:
         scale = float(g1[name].abs().max())
-        assert float((g2[name] - g1[name]).abs().max()) <= 1e-5 * max(scale, 1e-12), name
+        for got in (g2, g2_jvp):
+            assert float((got[name] - g1[name]).abs().max()) <= 1e-5 * max(scale, 1e-12), name
     assert len(one) == len(two) >= 2  # the epoch and the test
     for a, b in zip(one, two):
         assert a.keys() == b.keys()

@@ -20,7 +20,8 @@ the CPU.
 - The autograd wiring of ``_TMessages``/``_TMessagesBwd`` with the three
   launches swapped for counting plain twins: grad-of-grad through the
   Functions equals grad-of-grad through ``t_messages_reference`` at (1, 2, 1)
-  launches, a third derivative raises, and a fused Trainer step of a
+  launches, a third derivative through them equals the plain version's,
+  and a fused Trainer step of a
   2-layer Transformer launches (2, 4, 2).
 """
 
@@ -265,18 +266,25 @@ def test_autograd_wiring_grad_of_grad(monkeypatch):
 
 
 def test_third_derivative_raises(monkeypatch):
+    """A third derivative through the Functions equals the plain version's
+    in f64 (the name is kept from when it raised): the second order's
+    gradient is autograd through ``t_messages_bwd2_reference``."""
     idx, ins, _, _ = _inputs(seed=6, n=24, h=32, rbf=8, side=6.0, cutoff=2.5)
     through = route_through_functions(monkeypatch)
     tidx = torch.as_tensor(idx, dtype=torch.int32)
-    t = {n: torch.as_tensor(a).requires_grad_(True) for n, a in ins.items()}
-    out = through(tidx, *[t[n] for n in ORDER], heads=4)
-    (g,) = torch.autograd.grad((out * out).sum(), t["q"], create_graph=True)
-    # a second derivative is fine without a graph; keeping its graph (the
-    # way to a third) raises
-    (g2,) = torch.autograd.grad((g * g).sum(), t["k"], retain_graph=True)
-    assert torch.isfinite(g2).all()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        torch.autograd.grad((g * g).sum(), t["k"], create_graph=True)
+    third = {}
+    for fused in (True, False):
+        t = {n: torch.as_tensor(a).requires_grad_(True) for n, a in ins.items()}
+        fn = through if fused else tm.t_messages_reference
+        out = fn(tidx, *[t[n] for n in ORDER], heads=4)
+        (g,) = torch.autograd.grad((out * out).sum(), t["q"], create_graph=True)
+        (g2,) = torch.autograd.grad((g * g).sum(), t["k"], create_graph=True)
+        g3 = torch.autograd.grad((g2 ** 3).sum(), [t[n] for n in ORDER], allow_unused=True)
+        third[fused] = {n: torch.zeros_like(t[n]) if v is None else v for n, v in zip(ORDER, g3)}
+    assert _plain_bwd2.launches >= 1 and max(float(v.abs().max()) for v in third[False].values()) > 1e-3
+    for n, g in third[True].items():
+        torch.testing.assert_close(g, third[False][n], rtol=1e-9, atol=1e-9 * float(third[False][n].abs().max()),
+                                   msg=f"third derivative wrt {n}")
 
 
 def test_fused_step_launches_each_kernel_per_layer(tmp_path, monkeypatch):

@@ -14,7 +14,8 @@
 - The autograd wiring of ``_TnMessages``/``_TnMessagesBwd`` with the kernel
   launches swapped for plain twins that count: grad-of-grad through the
   Functions equals grad-of-grad through the plain version and launches one
-  forward, two backward and one second order; a third derivative raises.
+  forward, two backward and one second order; a third derivative through
+  them equals the plain version's.
 - The backward kernel's source-row cotangent in its gather form (``ct``
   gathered through ``idx``, times the receiver row's own edge weights), in
   plain PyTorch, equals autograd's on a symmetric list in a periodic box.
@@ -241,15 +242,28 @@ def test_autograd_wiring_grad_of_grad(monkeypatch):
 
 
 def test_third_derivative_raises(monkeypatch):
+    """A third derivative through the Functions equals the plain version's
+    in f64 (the name is kept from when it raised): the second order's
+    gradient is autograd through ``tn_messages_bwd2_reference``."""
     idx, ins, _ = _inputs(seed=7, n=24, h=32, rbf=8, cutoff=2.5, side=6.0)
-    route_through_functions(monkeypatch)
-    t = {n: torch.as_tensor(a).requires_grad_(True) for n, a in ins.items()}
-    m = tm.fused_tn_messages(torch.as_tensor(idx, dtype=torch.int32), *[t[n] for n in ORDER])
-    (g,) = torch.autograd.grad((m * m).sum(), t["cat"], create_graph=True)
-    (g2,) = torch.autograd.grad((g * g).sum(), t["ea"], retain_graph=True)
-    assert torch.isfinite(g2).all()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        torch.autograd.grad((g * g).sum(), t["ea"], create_graph=True)
+    tidx = torch.as_tensor(idx, dtype=torch.int32)
+    third = {}
+    for fused in (True, False):
+        with pytest.MonkeyPatch.context() as mp:
+            if fused:
+                route_through_functions(mp)
+            t = {n: torch.as_tensor(a, dtype=torch.float64).requires_grad_(True) for n, a in ins.items()}
+            m = tm.fused_tn_messages(tidx, *[t[n] for n in ORDER])
+            (g,) = torch.autograd.grad((m * m).sum(), t["cat"], create_graph=True)
+            (g2,) = torch.autograd.grad((g * g).sum(), t["ea"], create_graph=True)
+            g3 = torch.autograd.grad((g2 ** 3).sum(), [t[n] for n in ORDER], allow_unused=True)
+            third[fused] = {n: torch.zeros_like(t[n]) if v is None else v for n, v in zip(ORDER, g3)}
+            if fused:
+                assert plain_bwd2.launches >= 1
+    assert max(float(v.abs().max()) for v in third[False].values()) > 1e-3
+    for n, g in third[True].items():
+        torch.testing.assert_close(g, third[False][n], rtol=1e-9, atol=1e-9 * float(third[False][n].abs().max()),
+                                   msg=f"third derivative wrt {n}")
 
 
 def test_source_cotangent_gather_form_in_a_periodic_box():

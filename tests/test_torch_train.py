@@ -178,9 +178,14 @@ def test_fused_bf16_grads_match_jax_bf16_composable():
 
 
 def test_later_slice_options_raise(tmp_path):
+    """The options of the JAX trainer that the port takes (the name is kept
+    from when some raised): ``force_grad_mode`` "jvp" or "gradgrad", and no
+    other; edge partitioning with a mesh; the accepted no-ops."""
     pm = create_model(dict(ARGS, precision=32), create_prior_models(ARGS, _dataset()), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Trainer(pm, dict(ARGS, log_dir=str(tmp_path), force_grad_mode="jvp"))
+    for mode in ("jvp", "gradgrad"):
+        assert Trainer(pm, dict(ARGS, log_dir=str(tmp_path), force_grad_mode=mode)).h["force_grad_mode"] == mode
+    with pytest.raises(ValueError, match="force_grad_mode"):
+        Trainer(pm, dict(ARGS, log_dir=str(tmp_path), force_grad_mode="forward"))
     # edge partitioning is ported: it needs a mesh (one rank is allowed)
     with pytest.raises(ValueError, match="needs a mesh"):
         Trainer(pm, dict(ARGS, log_dir=str(tmp_path), edge_partition=True))

@@ -305,12 +305,12 @@ def create_model(
 
 
 def load_model(filepath, args=None, device=None, **kwargs) -> Potential:
-    """A Potential with the weights of a port checkpoint
-    (``train/checkpoints.py``) and the standardization's mean and std saved
-    beside them.  Hyperparameters come from the checkpoint unless ``args``
-    is given; ``kwargs`` override single ones.  Runs on ``cuda`` unless
-    ``device`` names another device."""
-    from torchmdnet_tpu_torch.train.checkpoints import load_checkpoint
+    """A Potential with the weights of a checkpoint of the port or of the
+    JAX package (``train/checkpoints.py``) and the standardization's mean
+    and std saved beside them (a JAX checkpoint keeps none).  Hyperparameters
+    come from the checkpoint unless ``args`` is given; ``kwargs`` override
+    single ones.  Runs on ``cuda`` unless ``device`` names another device."""
+    from torchmdnet_tpu_torch.train.checkpoints import load_checkpoint, load_weights
 
     ckpt = load_checkpoint(filepath)
     args = dict(ckpt["hyper_parameters"] if args is None else args)
@@ -322,5 +322,5 @@ def load_model(filepath, args=None, device=None, **kwargs) -> Potential:
         args[key] = value
     extra = ckpt.get("extra") or {}
     model = create_model(args, device=device, mean=extra.get("mean"), std=extra.get("std"))
-    model.module.load_state_dict(ckpt["state_dict"])
+    load_weights(model.module, ckpt)
     return model

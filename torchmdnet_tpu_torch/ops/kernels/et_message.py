@@ -22,10 +22,14 @@ pass (``et_bwd_kernel``) that leaves per edge and head only the scalars the
 source side needs, a source pass (``bwd_source``) that sums each atom's K
 slots of the transpose permutation in gather form, and, when the weights
 want a gradient, a reduction of the per-edge filter cotangents
-(``weight_grads``).  The backward is itself differentiable once
+(``weight_grads``).  The backward is itself differentiable
 (``_EtMessagesBwd``): its gradient is the second order (``run_bwd2``, the
 same three parts), so a force-loss training step runs per layer one
-forward, two backward and one second-order call.  A third derivative raises.
+forward, two backward and one second-order call.  Every other derivative
+is composable from the plain twin (``derivatives.py``): the forward-mode
+tangents of the forward and the backward (``force_grad_mode="jvp"`` runs
+per layer three forward and three backward calls and no second order) and
+the second order's gradient (a third derivative and above).
 
 ``et_messages_reference`` is the plain PyTorch version of the same function
 (the counterpart of ``_composable_reference``, et_message.py:932), with
@@ -45,7 +49,7 @@ from typing import Optional
 import torch
 from torch.autograd.function import once_differentiable
 
-from torchmdnet_tpu_torch.ops.kernels import build
+from torchmdnet_tpu_torch.ops.kernels import build, derivatives
 from torchmdnet_tpu_torch.ops.neighbors import ell_gather, transpose_perm
 from torchmdnet_tpu_torch.parallel.context import ShardPlan
 
@@ -1005,11 +1009,6 @@ def reset_launch_counts():
     weight_grads.launches = 0
 
 
-def _wide(t):
-    """f32 for low-precision tensors, else the tensor's own dtype."""
-    return t if t.dtype == torch.float64 else t.float()
-
-
 def et_messages_bwd2_reference(idx, perm, inputs, ct, Z, *, heads: int, act: str = "silu",
                                attn_act: str = "silu"):
     """Plain version of the second-order kernel (the counterpart of
@@ -1022,38 +1021,46 @@ def et_messages_bwd2_reference(idx, perm, inputs, ct, Z, *, heads: int, act: str
     msk slot is ignored: msk's first-order gradient is zero by convention;
     None means zero).  Returns (g_inputs (16, zeros for an input that does
     not reach S, None for an absent filter), g_ct (2))."""
-    with torch.enable_grad():
-        a = [None if t is None else t.detach().requires_grad_(True) for t in inputs]
-        c = [t.detach().requires_grad_(True) for t in ct]
-        out = et_messages_reference(idx, *a, heads=heads, act=act, attn_act=attn_act, perm=perm)
-        live = [i for i, t in enumerate(a) if t is not None]
-        g = torch.autograd.grad(out, [a[i] for i in live], c, create_graph=True, allow_unused=True)
-        s = sum(
-            (_wide(gi) * _wide(Z[i])).sum()
-            for i, gi in zip(live, g)
-            if i != 8 and gi is not None and Z[i] is not None
-        )
-        leaves = [a[i] for i in live] + c
-        grads = torch.autograd.grad(s, leaves, allow_unused=True) if torch.is_tensor(s) else [None] * len(leaves)
-    full = [None] * 16
-    for i, gr in zip(live, grads):
-        full[i] = torch.zeros_like(a[i]) if gr is None else gr
-    g_ct = tuple(torch.zeros_like(ci) if gr is None else gr for ci, gr in zip(c, grads[len(live):]))
-    return tuple(full), g_ct
+    g_inputs, g_ct = derivatives.second_order(_twin((heads, act, attn_act), idx, perm), inputs, ct,
+                                              _no_msk(Z))
+    return tuple(g_inputs), tuple(g_ct)
 
 
-_THIRD_ORDER = (
-    "third derivatives of the fused ET edge phase are not supported: the "
-    "second-order kernel is differentiable no further (JAX's composable "
-    "third-order rule, torchmdnet_tpu/ops/pallas/et_message.py:1166, is "
-    "queued in ROADMAP.md)"
-)
+def _twin(cfg, idx, perm):
+    """``et_messages_reference`` as a function of the 16 operands: the plain
+    twin every composable derivative rule differentiates (``perm`` a
+    ``ShardPlan``: this rank's rows, its gathers through the exchange)."""
+    heads, act, attn_act = cfg
+    return lambda *a: et_messages_reference(idx, *a, heads=heads, act=act, attn_act=attn_act, perm=perm)
+
+
+def _z_slots(zs):
+    """The Zs on the backward's 15 outputs, one per input slot: msk (8) has
+    no output and takes no Z."""
+    return list(zs[:8]) + [None] + list(zs[8:])
+
+
+def _no_msk(t_inputs):
+    """One tensor per input with msk's dropped (a tangent, a Z): msk is 0/1
+    data, without a gradient or a tangent, as in the JAX op."""
+    return [None if i == 8 else t for i, t in enumerate(t_inputs)]
+
+
+def _bwd_outputs(g, want_w):
+    """The 16 input gradients of a composable rule as the backward's 15
+    outputs (no msk slot; no weight cotangents unless ``want_w``)."""
+    out = list(g[:8]) + list(g[9:])
+    if not want_w:
+        out[11:] = [None] * 4
+    return tuple(out)
 
 
 class _EtMessages(torch.autograd.Function):
-    """The fused edge phase; its backward is the backward kernel, itself
-    differentiable once through ``_EtMessagesBwd`` when grad mode is on
-    (``create_graph=True``: a force-loss training step's inner pass)."""
+    """The fused edge phase (#1); its backward is the backward kernel (#2),
+    differentiable through ``_EtMessagesBwd`` when grad mode is on
+    (``create_graph=True``: a force-loss training step's inner pass) or a
+    forward-mode tangent is live (``force_grad_mode="jvp"``).  The tangent
+    (``jvp``) is composable: the double vjp of the plain twin."""
 
     @staticmethod
     def forward(ctx, cfg, idx, perm, q, k, v, vec0, vec1, vec2, ea, cutm, msk,
@@ -1062,8 +1069,15 @@ class _EtMessages(torch.autograd.Function):
         ctx.cfg = cfg
         ctx.save_for_backward(idx, perm, q, k, v, vec0, vec1, vec2, ea, cutm, msk,
                               dir0, dir1, dir2, wdk, bdk, wdv, bdv)
+        ctx.save_for_forward(idx, perm, q, k, v, vec0, vec1, vec2, ea, cutm, msk,
+                             dir0, dir1, dir2, wdk, bdk, wdv, bdv)
         return run_fwd(idx, q, k, v, vec0, vec1, vec2, ea, cutm, msk, (dir0, dir1, dir2),
                        wdk, bdk, wdv, bdv, heads=heads, act=act, attn_act=attn_act)
+
+    @staticmethod
+    def jvp(ctx, _cfg, _idx, _perm, *t_inputs):
+        idx, perm, *inputs = ctx.saved_tensors
+        return tuple(derivatives.jvp(_twin(ctx.cfg, idx, perm), inputs, _no_msk(t_inputs)))
 
     @staticmethod
     def backward(ctx, ct_x, ct_vec):
@@ -1071,7 +1085,7 @@ class _EtMessages(torch.autograd.Function):
         idx, perm, *inputs = ctx.saved_tensors
         want_w = any(ctx.needs_input_grad[15:19])
         ct_x, ct_vec = ct_x.contiguous(), ct_vec.contiguous()
-        if torch.is_grad_enabled():
+        if torch.is_grad_enabled() or derivatives.tangent_live(*inputs, ct_x, ct_vec):
             g = _EtMessagesBwd.apply(ctx.cfg, want_w, idx, perm, *inputs, ct_x, ct_vec)
         else:
             (q, k, v, vec0, vec1, vec2, ea, cutm, msk, dir0, dir1, dir2, wdk, bdk, wdv, bdv) = inputs
@@ -1087,31 +1101,42 @@ class _EtMessages(torch.autograd.Function):
 
 
 class _EtMessagesBwd(torch.autograd.Function):
-    """The backward kernel as a function of (inputs, ct); its gradient is the
-    second-order kernel.  Outputs are ``run_bwd``'s 15 (no msk slot)."""
+    """The backward kernel (#2) as a function of (inputs, ct); its gradient
+    is the second-order kernel (#3) through ``derivatives.Bwd2``, its tangent
+    the composable ``derivatives.vjp_tangent`` of the plain twin.  Outputs
+    are ``run_bwd``'s 15 (no msk slot)."""
 
     @staticmethod
     def forward(ctx, cfg, want_w, idx, perm, q, k, v, vec0, vec1, vec2, ea, cutm, msk,
                 dir0, dir1, dir2, wdk, bdk, wdv, bdv, ct_x, ct_vec):
         heads, act, attn_act = cfg
-        ctx.cfg = cfg
+        ctx.cfg, ctx.want_w = cfg, want_w
         ctx.save_for_backward(idx, perm, q, k, v, vec0, vec1, vec2, ea, cutm, msk,
                               dir0, dir1, dir2, wdk, bdk, wdv, bdv, ct_x, ct_vec)
+        ctx.save_for_forward(idx, perm, q, k, v, vec0, vec1, vec2, ea, cutm, msk,
+                             dir0, dir1, dir2, wdk, bdk, wdv, bdv, ct_x, ct_vec)
         return run_bwd(idx, perm, q, k, v, vec0, vec1, vec2, ea, cutm, msk, (dir0, dir1, dir2),
                        wdk, bdk, wdv, bdv, ct_x, ct_vec,
                        heads=heads, act=act, attn_act=attn_act, want_weight_grads=want_w)
 
     @staticmethod
+    def jvp(ctx, _cfg, _want_w, _idx, _perm, *t):
+        idx, perm, *rest = ctx.saved_tensors
+        g = derivatives.vjp_tangent(_twin(ctx.cfg, idx, perm), rest[:16], rest[16:], _no_msk(t[:16]), t[16:])
+        return _bwd_outputs(g, ctx.want_w)
+
+    @staticmethod
     def backward(ctx, *zs):
-        if torch.is_grad_enabled():  # create_graph=True once more: a third derivative
-            raise NotImplementedError(_THIRD_ORDER)
         heads, act, attn_act = ctx.cfg
         idx, perm, *rest = ctx.saved_tensors
         inputs, ct = rest[:16], rest[16:]
-        # Z per input slot: the msk slot (8) has no output and takes no Z
-        Z = list(zs[:8]) + [None] + list(zs[8:])
-        g_inputs, g_ct = run_bwd2(idx, perm, inputs, ct, Z, heads=heads, act=act, attn_act=attn_act)
-        return (None, None, None, None, *g_inputs, *g_ct)
+        def run(ins, c, z):
+            return run_bwd2(idx, perm, ins, c, z, heads=heads, act=act, attn_act=attn_act)
+
+        if torch.is_grad_enabled() or derivatives.tangent_live(*rest, *zs):  # a third derivative
+            g = derivatives.bwd2_apply(run, _twin(ctx.cfg, idx, perm), inputs, ct, zs, _z_slots)
+            return (None, None, None, None, *g)
+        return (None, None, None, None, *derivatives.flat(run(inputs, ct, _z_slots(zs))))
 
 
 def _shard_bwd(cfg, plan, srcs, inputs, ct, want_w):
@@ -1196,9 +1221,12 @@ class _EtMessagesShard(torch.autograd.Function):
 
     Forward (#1): the source rows [k | v | vec] of the ghost atoms arrive in
     one exchange and extend the local source tables; the kernel reads them
-    through the plan's local ids.  Backward (#2, ``_shard_bwd``), itself
-    differentiable once through ``_EtMessagesShardBwd`` (#3,
-    ``_shard_bwd2``).  CPU tensors run the passes' plain versions."""
+    through the plan's local ids.  Backward (#2, ``_shard_bwd``),
+    differentiable through ``_EtMessagesShardBwd`` (#3, ``_shard_bwd2``).
+    The composable rules (the tangent, the third order) run the plain twin
+    on the rank's rows, its gathers through the exchange
+    (``ring_ell_gather``), so they stay partitioned.  CPU tensors run the
+    passes' plain versions."""
 
     @staticmethod
     def forward(ctx, cfg, plan, q, k, v, vec0, vec1, vec2, ea, cutm, msk, dir0, dir1, dir2, wdk, bdk, wdv, bdv):
@@ -1208,7 +1236,9 @@ class _EtMessagesShard(torch.autograd.Function):
         heads, act, attn_act = cfg
         srcs = extend_rows(plan, [k, v, vec0, vec1, vec2], "src")
         ctx.cfg, ctx.plan = cfg, plan
-        ctx.save_for_backward(q, k, v, vec0, vec1, vec2, ea, cutm, msk, dir0, dir1, dir2, wdk, bdk, wdv, bdv, *srcs)
+        inputs = (q, k, v, vec0, vec1, vec2, ea, cutm, msk, dir0, dir1, dir2, wdk, bdk, wdv, bdv)
+        ctx.save_for_backward(*inputs, *srcs)
+        ctx.save_for_forward(*inputs)
         if q.device.type == "cpu":
             with ring_scope(None), torch.no_grad():  # local ids into the extended tables
                 return et_messages_reference(plan.lidx, q, *srcs, ea, cutm, msk, dir0, dir1, dir2,
@@ -1218,12 +1248,17 @@ class _EtMessagesShard(torch.autograd.Function):
                        heads=heads, act=act, attn_act=attn_act, ext=True)
 
     @staticmethod
+    def jvp(ctx, _cfg, _plan, *t_inputs):
+        twin = _twin(ctx.cfg, ctx.plan.lidx, ctx.plan)
+        return tuple(derivatives.jvp(twin, ctx.saved_tensors, _no_msk(t_inputs)))
+
+    @staticmethod
     def backward(ctx, ct_x, ct_vec):
         saved = ctx.saved_tensors
         inputs, srcs = saved[:16], saved[16:]
         want_w = any(ctx.needs_input_grad[14:18])
         ct = (ct_x.contiguous(), ct_vec.contiguous())
-        if torch.is_grad_enabled():
+        if torch.is_grad_enabled() or derivatives.tangent_live(*inputs, *ct):
             g = _EtMessagesShardBwd.apply(ctx.cfg, ctx.plan, want_w, srcs, *inputs, *ct)
         else:
             g = _shard_bwd(ctx.cfg, ctx.plan, srcs, inputs, ct, want_w)[0]
@@ -1234,25 +1269,40 @@ class _EtMessagesShard(torch.autograd.Function):
 
 class _EtMessagesShardBwd(torch.autograd.Function):
     """``_shard_bwd`` as a function of this rank's (inputs, ct); its gradient
-    is ``_shard_bwd2``.  ``srcs`` (the extended source tables of the forward)
-    is not an input: the gradients of the source rows are those of k, v and
-    vec, whose ghost copies it holds."""
+    is ``_shard_bwd2`` through ``derivatives.Bwd2``.  ``srcs`` (the extended
+    source tables of the forward) is not an input: the gradients of the
+    source rows are those of k, v and vec, whose ghost copies it holds.  The
+    weight cotangents are this rank's share, and so are their tangent and
+    gradients: only their sum over the ranks is the whole."""
 
     @staticmethod
     def forward(ctx, cfg, plan, want_w, srcs, q, k, v, vec0, vec1, vec2, ea, cutm, msk, dir0, dir1, dir2,
                 wdk, bdk, wdv, bdv, ct_x, ct_vec):
         inputs = (q, k, v, vec0, vec1, vec2, ea, cutm, msk, dir0, dir1, dir2, wdk, bdk, wdv, bdv)
         grads, rx = _shard_bwd(cfg, plan, srcs, inputs, (ct_x, ct_vec), want_w)
-        ctx.cfg, ctx.plan = cfg, plan
+        ctx.cfg, ctx.plan, ctx.want_w = cfg, plan, want_w
         ctx.save_for_backward(*inputs, ct_x, ct_vec, *srcs, *rx)
+        ctx.save_for_forward(*inputs, ct_x, ct_vec)
         return grads
 
     @staticmethod
+    def jvp(ctx, _cfg, _plan, _want_w, _srcs, *t):
+        saved = ctx.saved_tensors
+        twin = _twin(ctx.cfg, ctx.plan.lidx, ctx.plan)
+        g = derivatives.vjp_tangent(twin, saved[:16], saved[16:18], _no_msk(t[:16]), t[16:])
+        return _bwd_outputs(g, ctx.want_w)
+
+    @staticmethod
     def backward(ctx, *zs):
-        if torch.is_grad_enabled():  # create_graph=True once more: a third derivative
-            raise NotImplementedError(_THIRD_ORDER)
         saved = ctx.saved_tensors
         inputs, ct, srcs, rx = saved[:16], saved[16:18], saved[18:23], saved[23:]
+        if torch.is_grad_enabled() or derivatives.tangent_live(*saved[:18], *zs):  # a third derivative
+            def run(ins, c, z):
+                g = _shard_bwd2(ctx.cfg, ctx.plan, srcs, ins, c, rx, z[:8] + z[9:])
+                return g[:16], g[16:]
+
+            twin = _twin(ctx.cfg, ctx.plan.lidx, ctx.plan)
+            return (None, None, None, None, *derivatives.bwd2_apply(run, twin, inputs, ct, zs, _z_slots))
         g = _shard_bwd2(ctx.cfg, ctx.plan, srcs, inputs, ct, rx, zs)
         return (None, None, None, None, *g)
 

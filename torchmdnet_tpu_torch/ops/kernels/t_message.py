@@ -23,10 +23,11 @@ source side needs, a source pass (``bwd_source``) that sums each atom's K
 slots of the transpose permutation in gather form (no per-edge source-row
 buffer, no float atomics), and, when the weights want a gradient, ET's
 reduction of the per-edge filter cotangents (``em.weight_grads``).  The
-backward is differentiable once more through ``_TMessagesBwd``, whose
-gradient is the second order (``run_bwd2``, the same three parts), so a
-force-loss training step runs per layer one forward, two backward and one
-second-order call; a third derivative raises.
+backward is differentiable through ``_TMessagesBwd``, whose gradient is
+the second order (``run_bwd2``, the same three parts), so a force-loss
+training step runs per layer one forward, two backward and one
+second-order call; the tangents and the orders above the second are
+composable, as ET's (``derivatives.py``).
 
 ``t_messages_reference`` is the plain PyTorch version (the counterpart of
 ``_composable_t_reference``, t_message.py:354), with gradients from
@@ -45,7 +46,7 @@ from typing import Optional
 
 import torch
 
-from torchmdnet_tpu_torch.ops.kernels import build
+from torchmdnet_tpu_torch.ops.kernels import build, derivatives
 from torchmdnet_tpu_torch.ops.kernels import et_message as em
 from torchmdnet_tpu_torch.ops.neighbors import ell_gather, transpose_perm
 from torchmdnet_tpu_torch.parallel.context import ShardPlan
@@ -729,46 +730,44 @@ def t_messages_bwd2_reference(idx, perm, inputs, ct, Z, *, heads: int, act: str 
     (N, H) cotangent, ``Z`` 9 cotangents on the first-order gradients (None
     means zero).  Returns (g_inputs (9, zeros for an input that does not
     reach S, None for an absent filter), g_ct)."""
-    with torch.enable_grad():
-        a = [None if t is None else t.detach().requires_grad_(True) for t in inputs]
-        c = ct.detach().requires_grad_(True)
-        out = t_messages_reference(idx, *a, heads=heads, act=act, attn_act=attn_act, perm=perm)
-        live = [i for i, t in enumerate(a) if t is not None]
-        g = torch.autograd.grad(out, [a[i] for i in live], c, create_graph=True, allow_unused=True)
-        s = sum(
-            (em._wide(gi) * em._wide(Z[i])).sum()
-            for i, gi in zip(live, g)
-            if gi is not None and Z[i] is not None
-        )
-        leaves = [a[i] for i in live] + [c]
-        grads = torch.autograd.grad(s, leaves, allow_unused=True) if torch.is_tensor(s) else [None] * len(leaves)
-    full = [None] * 9
-    for i, gr in zip(live, grads):
-        full[i] = torch.zeros_like(a[i]) if gr is None else gr
-    g_ct = torch.zeros_like(c) if grads[-1] is None else grads[-1]
-    return tuple(full), g_ct
+    g_inputs, (g_ct,) = derivatives.second_order(_twin((heads, act, attn_act), idx, perm), inputs, (ct,), Z)
+    return tuple(g_inputs), g_ct
 
 
-_THIRD_ORDER = (
-    "third derivatives of the fused Transformer edge phase are not supported: "
-    "the second-order kernel is differentiable no further (JAX's composable "
-    "third-order rule, torchmdnet_tpu/ops/pallas/t_message.py:698, is queued "
-    "in ROADMAP.md)"
-)
+def _twin(cfg, idx, perm):
+    """``t_messages_reference`` as a function of the 9 operands: the plain
+    twin every composable derivative rule differentiates (``perm`` a
+    ``ShardPlan``: this rank's rows, its gathers through the exchange)."""
+    heads, act, attn_act = cfg
+    return lambda *a: (t_messages_reference(idx, *a, heads=heads, act=act, attn_act=attn_act, perm=perm),)
+
+
+def _bwd_outputs(g, want_w):
+    """The 9 input gradients of a composable rule as the backward's outputs
+    (no weight cotangents unless ``want_w``)."""
+    return tuple(g[:5]) + (tuple(g[5:]) if want_w else (None,) * 4)
 
 
 class _TMessages(torch.autograd.Function):
-    """The fused edge phase; its backward is the backward kernel, itself
-    differentiable once through ``_TMessagesBwd`` when grad mode is on
-    (``create_graph=True``: a force-loss training step's inner pass)."""
+    """The fused edge phase (#11); its backward is the backward kernel
+    (#12), differentiable through ``_TMessagesBwd`` when grad mode is on
+    (``create_graph=True``: a force-loss training step's inner pass) or a
+    forward-mode tangent is live.  The tangent is composable: the double vjp
+    of the plain twin."""
 
     @staticmethod
     def forward(ctx, cfg, idx, perm, q, k, v, ea, cutm, wdk, bdk, wdv, bdv):
         heads, act, attn_act = cfg
         ctx.cfg = cfg
         ctx.save_for_backward(idx, perm, q, k, v, ea, cutm, wdk, bdk, wdv, bdv)
+        ctx.save_for_forward(idx, perm, q, k, v, ea, cutm, wdk, bdk, wdv, bdv)
         return run_fwd(idx, q, k, v, ea, cutm, wdk, bdk, wdv, bdv,
                        heads=heads, act=act, attn_act=attn_act)
+
+    @staticmethod
+    def jvp(ctx, _cfg, _idx, _perm, *t_inputs):
+        idx, perm, *inputs = ctx.saved_tensors
+        return derivatives.jvp(_twin(ctx.cfg, idx, perm), inputs, t_inputs)[0]
 
     @staticmethod
     def backward(ctx, ct):
@@ -776,7 +775,7 @@ class _TMessages(torch.autograd.Function):
         idx, perm, *inputs = ctx.saved_tensors
         want_w = any(ctx.needs_input_grad[8:12])
         ct = ct.contiguous()
-        if torch.is_grad_enabled():
+        if torch.is_grad_enabled() or derivatives.tangent_live(*inputs, ct):
             g = _TMessagesBwd.apply(ctx.cfg, want_w, idx, perm, *inputs, ct)
         else:
             g = run_bwd(idx, perm, *inputs, ct, heads=heads, act=act, attn_act=attn_act,
@@ -785,26 +784,37 @@ class _TMessages(torch.autograd.Function):
 
 
 class _TMessagesBwd(torch.autograd.Function):
-    """The backward kernel as a function of (inputs, ct); its gradient is the
-    second-order kernel.  Outputs are ``run_bwd``'s 9."""
+    """The backward kernel (#12) as a function of (inputs, ct); its gradient
+    is the second-order kernel (#13) through ``derivatives.Bwd2``, its
+    tangent the composable ``derivatives.vjp_tangent`` of the plain twin.
+    Outputs are ``run_bwd``'s 9."""
 
     @staticmethod
     def forward(ctx, cfg, want_w, idx, perm, q, k, v, ea, cutm, wdk, bdk, wdv, bdv, ct):
         heads, act, attn_act = cfg
-        ctx.cfg = cfg
+        ctx.cfg, ctx.want_w = cfg, want_w
         ctx.save_for_backward(idx, perm, q, k, v, ea, cutm, wdk, bdk, wdv, bdv, ct)
+        ctx.save_for_forward(idx, perm, q, k, v, ea, cutm, wdk, bdk, wdv, bdv, ct)
         return run_bwd(idx, perm, q, k, v, ea, cutm, wdk, bdk, wdv, bdv, ct,
                        heads=heads, act=act, attn_act=attn_act, want_weight_grads=want_w)
 
     @staticmethod
+    def jvp(ctx, _cfg, _want_w, _idx, _perm, *t):
+        idx, perm, *rest = ctx.saved_tensors
+        g = derivatives.vjp_tangent(_twin(ctx.cfg, idx, perm), rest[:9], rest[9:], t[:9], t[9:])
+        return _bwd_outputs(g, ctx.want_w)
+
+    @staticmethod
     def backward(ctx, *zs):
-        if torch.is_grad_enabled():  # create_graph=True once more: a third derivative
-            raise NotImplementedError(_THIRD_ORDER)
         heads, act, attn_act = ctx.cfg
         idx, perm, *rest = ctx.saved_tensors
-        g_inputs, g_ct = run_bwd2(idx, perm, rest[:9], rest[9], list(zs),
-                                  heads=heads, act=act, attn_act=attn_act)
-        return (None, None, None, None, *g_inputs, g_ct)
+        def run(ins, c, z):
+            return run_bwd2(idx, perm, ins, c[0], z, heads=heads, act=act, attn_act=attn_act)
+
+        if torch.is_grad_enabled() or derivatives.tangent_live(*rest, *zs):  # a third derivative
+            g = derivatives.bwd2_apply(run, _twin(ctx.cfg, idx, perm), rest[:9], rest[9:], zs)
+            return (None, None, None, None, *g)
+        return (None, None, None, None, *derivatives.flat(run(rest[:9], rest[9:], list(zs))))
 
 
 def _shard_bwd(cfg, plan, srcs, inputs, ct, want_w):
@@ -874,8 +884,9 @@ class _TMessagesShard(torch.autograd.Function):
     partitioning (``plan`` a ``ShardPlan``), as ET's ``_EtMessagesShard``:
     the forward (#11) over the source tables [k | v] extended with the ghost
     rows (one exchange), the backward (#12, ``_shard_bwd``), differentiable
-    once through ``_TMessagesShardBwd`` (#13, ``_shard_bwd2``).  CPU tensors
-    run the passes' plain versions."""
+    through ``_TMessagesShardBwd`` (#13, ``_shard_bwd2``); the composable
+    rules gather through the exchange.  CPU tensors run the passes' plain
+    versions."""
 
     @staticmethod
     def forward(ctx, cfg, plan, q, k, v, ea, cutm, wdk, bdk, wdv, bdv):
@@ -886,6 +897,7 @@ class _TMessagesShard(torch.autograd.Function):
         srcs = extend_rows(plan, [k, v], "src")
         ctx.cfg, ctx.plan = cfg, plan
         ctx.save_for_backward(q, k, v, ea, cutm, wdk, bdk, wdv, bdv, *srcs)
+        ctx.save_for_forward(q, k, v, ea, cutm, wdk, bdk, wdv, bdv)
         if q.device.type == "cpu":
             with ring_scope(None), torch.no_grad():  # local ids into the extended tables
                 return t_messages_reference(plan.lidx, q, *srcs, ea, cutm, wdk, bdk, wdv, bdv, heads=heads, act=act,
@@ -894,12 +906,16 @@ class _TMessagesShard(torch.autograd.Function):
                        ext=True)
 
     @staticmethod
+    def jvp(ctx, _cfg, _plan, *t_inputs):
+        return derivatives.jvp(_twin(ctx.cfg, ctx.plan.lidx, ctx.plan), ctx.saved_tensors, t_inputs)[0]
+
+    @staticmethod
     def backward(ctx, ct):
         saved = ctx.saved_tensors
         inputs, srcs = saved[:9], saved[9:]
         want_w = any(ctx.needs_input_grad[7:11])
         ct = ct.contiguous()
-        if torch.is_grad_enabled():
+        if torch.is_grad_enabled() or derivatives.tangent_live(*inputs, ct):
             g = _TMessagesShardBwd.apply(ctx.cfg, ctx.plan, want_w, srcs, *inputs, ct)
         else:
             g = _shard_bwd(ctx.cfg, ctx.plan, srcs, inputs, ct, want_w)[0]
@@ -908,23 +924,36 @@ class _TMessagesShard(torch.autograd.Function):
 
 class _TMessagesShardBwd(torch.autograd.Function):
     """``_shard_bwd`` as a function of this rank's (inputs, ct); its gradient
-    is ``_shard_bwd2``.  ``srcs`` (the forward's extended source tables) is
-    not an input."""
+    is ``_shard_bwd2`` through ``derivatives.Bwd2``.  ``srcs`` (the
+    forward's extended source tables) is not an input.  The weight
+    cotangents, their tangent and their gradients are this rank's share."""
 
     @staticmethod
     def forward(ctx, cfg, plan, want_w, srcs, q, k, v, ea, cutm, wdk, bdk, wdv, bdv, ct):
         inputs = (q, k, v, ea, cutm, wdk, bdk, wdv, bdv)
         grads, rx = _shard_bwd(cfg, plan, srcs, inputs, ct, want_w)
-        ctx.cfg, ctx.plan = cfg, plan
+        ctx.cfg, ctx.plan, ctx.want_w = cfg, plan, want_w
         ctx.save_for_backward(*inputs, ct, *srcs, *rx)
+        ctx.save_for_forward(*inputs, ct)
         return grads
 
     @staticmethod
+    def jvp(ctx, _cfg, _plan, _want_w, _srcs, *t):
+        saved = ctx.saved_tensors
+        g = derivatives.vjp_tangent(_twin(ctx.cfg, ctx.plan.lidx, ctx.plan), saved[:9], saved[9:], t[:9], t[9:])
+        return _bwd_outputs(g, ctx.want_w)
+
+    @staticmethod
     def backward(ctx, *zs):
-        if torch.is_grad_enabled():  # create_graph=True once more: a third derivative
-            raise NotImplementedError(_THIRD_ORDER)
         saved = ctx.saved_tensors
         inputs, ct, srcs, rx = saved[:9], saved[9], saved[10:12], saved[12:]
+        if torch.is_grad_enabled() or derivatives.tangent_live(*saved[:10], *zs):  # a third derivative
+            def run(ins, c, z):
+                g = _shard_bwd2(ctx.cfg, ctx.plan, srcs, ins, c[0], rx, z)
+                return g[:9], g[9:]
+
+            twin = _twin(ctx.cfg, ctx.plan.lidx, ctx.plan)
+            return (None, None, None, None, *derivatives.bwd2_apply(run, twin, inputs, (ct,), zs))
         return (None, None, None, None, *_shard_bwd2(ctx.cfg, ctx.plan, srcs, inputs, ct, rx, zs))
 
 

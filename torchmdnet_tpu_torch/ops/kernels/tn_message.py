@@ -18,11 +18,12 @@ with the JAX kernel's layout (cat holds the nine irrep components
 I, A x3, S x5; weights (in, out), biases (1, F)) and precision (bf16
 operands, products rounded to bf16, f32 sums over K, f32 output).  Its
 gradient is the backward kernel: one reverse pass (forces) runs one forward
-and one backward launch per layer.  The backward is differentiable once
+and one backward launch per layer.  The backward is differentiable
 (``_TnMessagesBwd``): its gradient is the second-order kernel, so a
 force-loss training step runs per layer one forward, two backward (the inner
-force pass and the outer energy term) and one second-order launch.  A third
-derivative raises.
+force pass and the outer energy term) and one second-order launch.  The
+tangents and the orders above the second are composable, as ET's
+(``derivatives.py``).
 
 ``tn_messages_reference`` is the plain PyTorch version of the same function
 (the counterpart of ``_composable_tn_reference``, tn_message.py:241), with
@@ -49,7 +50,7 @@ from typing import Optional
 
 import torch
 
-from torchmdnet_tpu_torch.ops.kernels import build
+from torchmdnet_tpu_torch.ops.kernels import build, derivatives
 from torchmdnet_tpu_torch.ops.kernels.et_message import _act3, _act_v, _check, _dact, _ptr, dw_partials, dw_per_split
 from torchmdnet_tpu_torch.ops.neighbors import ell_gather, transpose_perm
 from torchmdnet_tpu_torch.parallel.context import ShardPlan
@@ -601,36 +602,41 @@ def tn_messages_bwd2_reference(idx, perm, inputs, ct, Z, *, act: str = "silu"):
     ``inputs`` are the nine operands, ``ct`` (N, 9H), ``Z`` nine cotangents
     on the first-order gradients (None means zero).  Returns (g_inputs (9,
     zeros for an input that does not reach S), g_ct)."""
-    with torch.enable_grad():
-        a = [t.detach().requires_grad_(True) for t in inputs]
-        c = ct.detach().requires_grad_(True)
-        out = tn_messages_reference(idx, *a, act=act, perm=perm)
-        g = torch.autograd.grad(out, a, c, create_graph=True, allow_unused=True)
-        s = sum((_wide(gi) * _wide(zi)).sum() for gi, zi in zip(g, Z) if gi is not None and zi is not None)
-        leaves = a + [c]
-        grads = torch.autograd.grad(s, leaves, allow_unused=True) if torch.is_tensor(s) else [None] * 10
-    full = tuple(torch.zeros_like(t) if gr is None else gr for t, gr in zip(leaves, grads))
-    return full[:9], full[9]
+    g_inputs, (g_ct,) = derivatives.second_order(_twin(act, idx, perm), inputs, (ct,), Z)
+    return tuple(g_inputs), g_ct
 
 
-_THIRD_ORDER = (
-    "third derivatives of the fused TensorNet message phase are not supported: "
-    "the second-order kernel is differentiable no further (JAX's composable "
-    "third-order rule, torchmdnet_tpu/ops/pallas/tn_message.py:654, is queued "
-    "in ROADMAP.md)"
-)
+def _twin(act, idx, perm):
+    """``tn_messages_reference`` as a function of the nine operands: the
+    plain twin every composable derivative rule differentiates (``perm`` a
+    ``ShardPlan``: this rank's rows, its gathers through the exchange)."""
+    return lambda *a: (tn_messages_reference(idx, *a, act=act, perm=perm),)
+
+
+def _bwd_outputs(g, want_w):
+    """The 9 input gradients of a composable rule as the backward's outputs
+    (no weight cotangents unless ``want_w``)."""
+    return tuple(g[:3]) + (tuple(g[3:]) if want_w else (None,) * 6)
 
 
 class _TnMessages(torch.autograd.Function):
-    """The fused message phase; its backward is the backward kernel, itself
-    differentiable once through ``_TnMessagesBwd`` when grad mode is on
-    (``create_graph=True``: a force-loss training step's inner pass)."""
+    """The fused message phase (#8); its backward is the backward kernel
+    (#9), differentiable through ``_TnMessagesBwd`` when grad mode is on
+    (``create_graph=True``: a force-loss training step's inner pass) or a
+    forward-mode tangent is live.  The tangent is composable: the double vjp
+    of the plain twin."""
 
     @staticmethod
     def forward(ctx, act, idx, perm, cat, ea, cutm, w1, b1, w2, b2, w3, b3):
         ctx.act = act
         ctx.save_for_backward(idx, perm, cat, ea, cutm, w1, b1, w2, b2, w3, b3)
+        ctx.save_for_forward(idx, perm, cat, ea, cutm, w1, b1, w2, b2, w3, b3)
         return run_fwd(idx, cat, ea, cutm, w1, b1, w2, b2, w3, b3, act=act)
+
+    @staticmethod
+    def jvp(ctx, _act, _idx, _perm, *t_inputs):
+        idx, perm, *inputs = ctx.saved_tensors
+        return derivatives.jvp(_twin(ctx.act, idx, perm), inputs, t_inputs)[0]
 
     @staticmethod
     def backward(ctx, ct):
@@ -638,7 +644,7 @@ class _TnMessages(torch.autograd.Function):
         # serving freezes the weights: no weight cotangents then
         want_w = any(ctx.needs_input_grad[6:12])
         ct = ct.contiguous()
-        if torch.is_grad_enabled():
+        if torch.is_grad_enabled() or derivatives.tangent_live(*inputs, ct):
             g = _TnMessagesBwd.apply(ctx.act, want_w, idx, perm, *inputs, ct)
         else:
             g = run_bwd(idx, *inputs, ct, act=ctx.act, want_weight_grads=want_w)
@@ -646,23 +652,35 @@ class _TnMessages(torch.autograd.Function):
 
 
 class _TnMessagesBwd(torch.autograd.Function):
-    """The backward kernel as a function of (inputs, ct); its gradient is the
-    second-order kernel.  Outputs are ``run_bwd``'s nine."""
+    """The backward kernel (#9) as a function of (inputs, ct); its gradient
+    is the second-order kernel (#10) through ``derivatives.Bwd2``, its
+    tangent the composable ``derivatives.vjp_tangent`` of the plain twin.
+    Outputs are ``run_bwd``'s nine."""
 
     @staticmethod
     def forward(ctx, act, want_w, idx, perm, cat, ea, cutm, w1, b1, w2, b2, w3, b3, ct):
-        ctx.act = act
+        ctx.act, ctx.want_w = act, want_w
         ctx.save_for_backward(idx, perm, cat, ea, cutm, w1, b1, w2, b2, w3, b3, ct)
+        ctx.save_for_forward(idx, perm, cat, ea, cutm, w1, b1, w2, b2, w3, b3, ct)
         return run_bwd(idx, cat, ea, cutm, w1, b1, w2, b2, w3, b3, ct, act=act,
                        want_weight_grads=want_w)
 
     @staticmethod
-    def backward(ctx, *zs):
-        if torch.is_grad_enabled():  # create_graph=True once more: a third derivative
-            raise NotImplementedError(_THIRD_ORDER)
+    def jvp(ctx, _act, _want_w, _idx, _perm, *t):
         idx, perm, *rest = ctx.saved_tensors
-        g_inputs, g_ct = run_bwd2(idx, perm, rest[:9], rest[9], list(zs), act=ctx.act)
-        return (None, None, None, None) + tuple(g_inputs) + (g_ct,)
+        g = derivatives.vjp_tangent(_twin(ctx.act, idx, perm), rest[:9], rest[9:], t[:9], t[9:])
+        return _bwd_outputs(g, ctx.want_w)
+
+    @staticmethod
+    def backward(ctx, *zs):
+        idx, perm, *rest = ctx.saved_tensors
+        def run(ins, c, z):
+            return run_bwd2(idx, perm, ins, c[0], z, act=ctx.act)
+
+        if torch.is_grad_enabled() or derivatives.tangent_live(*rest, *zs):  # a third derivative
+            g = derivatives.bwd2_apply(run, _twin(ctx.act, idx, perm), rest[:9], rest[9:], zs)
+            return (None, None, None, None, *g)
+        return (None, None, None, None, *derivatives.flat(run(rest[:9], rest[9:], list(zs))))
 
 
 def _shard_bwd(act, plan, cat_ext, inputs, ct, want_w):
@@ -714,8 +732,9 @@ class _TnMessagesShard(torch.autograd.Function):
     partitioning (``plan`` a ``ShardPlan``): the forward (#8) over ``cat``
     extended with the ghost source rows (one exchange of 9H bf16 rows,
     indexed by the plan's local ids), the backward (#9, ``_shard_bwd``),
-    differentiable once through ``_TnMessagesShardBwd`` (#10,
-    ``_shard_bwd2``).  CPU tensors run the kernels' plain twins."""
+    differentiable through ``_TnMessagesShardBwd`` (#10, ``_shard_bwd2``);
+    the composable rules gather through the exchange.  CPU tensors run the
+    kernels' plain twins."""
 
     @staticmethod
     def forward(ctx, act, plan, cat, ea, cutm, w1, b1, w2, b2, w3, b3):
@@ -725,6 +744,7 @@ class _TnMessagesShard(torch.autograd.Function):
         (cat_ext,) = extend_rows(plan, [cat], "src")
         ctx.act, ctx.plan = act, plan
         ctx.save_for_backward(cat, ea, cutm, w1, b1, w2, b2, w3, b3, cat_ext)
+        ctx.save_for_forward(cat, ea, cutm, w1, b1, w2, b2, w3, b3)
         if cat.device.type == "cpu":
             with ring_scope(None), torch.no_grad():  # local ids into the extended table
                 return tn_messages_reference(plan.lidx, cat_ext, ea, cutm, w1, b1, w2, b2, w3, b3, act=act,
@@ -732,12 +752,16 @@ class _TnMessagesShard(torch.autograd.Function):
         return run_fwd(plan.lidx, cat_ext, ea, cutm, w1, b1, w2, b2, w3, b3, act=act, ext=True)
 
     @staticmethod
+    def jvp(ctx, _act, _plan, *t_inputs):
+        return derivatives.jvp(_twin(ctx.act, ctx.plan.lidx, ctx.plan), ctx.saved_tensors, t_inputs)[0]
+
+    @staticmethod
     def backward(ctx, ct):
         *inputs, cat_ext = ctx.saved_tensors
         # serving freezes the weights: no weight cotangents then
         want_w = any(ctx.needs_input_grad[5:11])
         ct = ct.contiguous()
-        if torch.is_grad_enabled():
+        if torch.is_grad_enabled() or derivatives.tangent_live(*inputs, ct):
             g = _TnMessagesShardBwd.apply(ctx.act, ctx.plan, want_w, cat_ext, *inputs, ct)
         else:
             g = _shard_bwd(ctx.act, ctx.plan, cat_ext, inputs, ct, want_w)[0]
@@ -746,22 +770,35 @@ class _TnMessagesShard(torch.autograd.Function):
 
 class _TnMessagesShardBwd(torch.autograd.Function):
     """``_shard_bwd`` as a function of this rank's (inputs, ct); its gradient
-    is ``_shard_bwd2``.  ``cat_ext`` (the forward's extended table) is not an
-    input."""
+    is ``_shard_bwd2`` through ``derivatives.Bwd2``.  ``cat_ext`` (the
+    forward's extended table) is not an input.  The weight cotangents, their
+    tangent and their gradients are this rank's share."""
 
     @staticmethod
     def forward(ctx, act, plan, want_w, cat_ext, cat, ea, cutm, w1, b1, w2, b2, w3, b3, ct):
         inputs = (cat, ea, cutm, w1, b1, w2, b2, w3, b3)
         grads, ct_ext = _shard_bwd(act, plan, cat_ext, inputs, ct, want_w)
-        ctx.act, ctx.plan = act, plan
+        ctx.act, ctx.plan, ctx.want_w = act, plan, want_w
         ctx.save_for_backward(*inputs, ct, cat_ext, ct_ext)
+        ctx.save_for_forward(*inputs, ct)
         return grads
 
     @staticmethod
+    def jvp(ctx, _act, _plan, _want_w, _cat_ext, *t):
+        saved = ctx.saved_tensors
+        g = derivatives.vjp_tangent(_twin(ctx.act, ctx.plan.lidx, ctx.plan), saved[:9], saved[9:], t[:9], t[9:])
+        return _bwd_outputs(g, ctx.want_w)
+
+    @staticmethod
     def backward(ctx, *zs):
-        if torch.is_grad_enabled():  # create_graph=True once more: a third derivative
-            raise NotImplementedError(_THIRD_ORDER)
         *inputs, ct, cat_ext, ct_ext = ctx.saved_tensors
+        if torch.is_grad_enabled() or derivatives.tangent_live(*inputs, ct, *zs):  # a third derivative
+            def run(ins, c, z):
+                g = _shard_bwd2(ctx.act, ctx.plan, cat_ext, ct_ext, ins, c[0], z)
+                return g[:9], g[9:]
+
+            twin = _twin(ctx.act, ctx.plan.lidx, ctx.plan)
+            return (None, None, None, None, *derivatives.bwd2_apply(run, twin, inputs, (ct,), zs))
         return (None, None, None, None) + _shard_bwd2(ctx.act, ctx.plan, cat_ext, ct_ext, inputs, ct, zs)
 
 

@@ -108,8 +108,15 @@ class _EllGather(torch.autograd.Function):
         # recomputation (remat) saves the same tensors whether or not it has
         # been resolved since.
         ctx.save_for_backward(idx)
+        ctx.save_for_forward(idx)
         ctx.perm = perm
         return _gather(x, idx)
+
+    @staticmethod
+    def jvp(ctx, t, _idx, _perm):
+        # linear: the tangent is gathered as the rows are (#4 for bf16 on the card)
+        (idx,) = ctx.saved_tensors
+        return ell_gather(t, idx, ctx.perm)
 
     @staticmethod
     def backward(ctx, g):
@@ -122,11 +129,18 @@ class _EllTransposeSum(torch.autograd.Function):
     def forward(ctx, g, idx, perm):
         perm = _resolve_perm(idx, perm)
         ctx.save_for_backward(idx, perm)
+        ctx.save_for_forward(idx, perm)
         if g.dtype == torch.bfloat16:  # kernel #5 on the card
             from torchmdnet_tpu_torch.ops.kernels import ell_gather as kernels
 
             return kernels.transpose_sum_rows(g, idx, perm)
         return _transpose_sum(g, idx, perm)
+
+    @staticmethod
+    def jvp(ctx, t, _idx, _perm):
+        # linear: the tangent is transpose-summed as the rows are (#5 for bf16)
+        idx, perm = ctx.saved_tensors
+        return ell_transpose_sum(t, idx, perm)
 
     @staticmethod
     def backward(ctx, c):

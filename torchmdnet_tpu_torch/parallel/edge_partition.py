@@ -232,10 +232,17 @@ def _transpose_impl(g, plan):
 
 
 class _ShardGather(torch.autograd.Function):
+    """Linear, so its tangent is the same gather of the tangent (its ghost
+    rows through the same exchange: every rank runs it at the same point)."""
+
     @staticmethod
     def forward(ctx, x, plan):
         ctx.plan = plan
         return _gather_impl(x, plan)
+
+    @staticmethod
+    def jvp(ctx, t, _plan):
+        return _ShardGather.apply(t.contiguous(), ctx.plan)
 
     @staticmethod
     def backward(ctx, g):
@@ -243,10 +250,17 @@ class _ShardGather(torch.autograd.Function):
 
 
 class _ShardTransposeSum(torch.autograd.Function):
+    """Linear, as ``_ShardGather``: its tangent is the transpose-sum of the
+    tangent."""
+
     @staticmethod
     def forward(ctx, g, plan):
         ctx.plan = plan
         return _transpose_impl(g, plan)
+
+    @staticmethod
+    def jvp(ctx, t, _plan):
+        return _ShardTransposeSum.apply(t.contiguous(), ctx.plan)
 
     @staticmethod
     def backward(ctx, c):
@@ -269,18 +283,48 @@ def ring_ell_transpose(g, plan: ShardPlan):
 
 
 class _RankPartials(torch.autograd.Function):
-    """(D, ...) every rank's partial in rank order; the gradient of a rank's
-    own partial is its row of the cotangent (every rank computes the same
-    function of the stacked partials)."""
+    """(D, ...) every rank's partial in rank order, replicated.  Its
+    cotangent is replicated too (every rank computes the same function of
+    the stacked partials), so a rank's own partial takes its row of it
+    (``_RankRow``), and the gradient of that row, one per rank, goes back
+    through this gather: the pair are each other's transposes, as JAX's
+    psum and its transpose, and every derivative order closes across the
+    ranks."""
 
     @staticmethod
     def forward(ctx, part, mesh):
-        ctx.rank = mesh.rank
+        ctx.mesh = mesh
         return all_gather_stack(mesh, part)
 
     @staticmethod
+    def jvp(ctx, t, _mesh):
+        # linear: every rank's tangent of its partial, gathered in rank order
+        return _RankPartials.apply(t.contiguous(), ctx.mesh)
+
+    @staticmethod
     def backward(ctx, g):
-        return g[ctx.rank], None
+        return _RankRow.apply(g, ctx.mesh), None
+
+
+class _RankRow(torch.autograd.Function):
+    """This rank's row of a replicated (D, ...) stack; its gradient is the
+    ranks' cotangents of their rows, gathered (``_RankPartials``): a
+    function of a replicated value computed on every rank reaches the
+    other ranks' rows through it, as the cross terms of a loss's second
+    derivative in the replicated energy do."""
+
+    @staticmethod
+    def forward(ctx, g, mesh):
+        ctx.mesh = mesh
+        return g[mesh.rank]
+
+    @staticmethod
+    def jvp(ctx, t, _mesh):
+        return t[ctx.mesh.rank]
+
+    @staticmethod
+    def backward(ctx, c):
+        return _RankPartials.apply(c.contiguous(), ctx.mesh), None
 
 
 def ring_segment_reduce(x, segment_ids, num_segments: int, op: str, mesh):

@@ -24,8 +24,9 @@ Edge partitioning, as the JAX package's: ``--edge-partition true
 train on their block of its atom rows (``parallel/edge_partition.py``; one
 rank is allowed), for molecules too large for one card.
 
-``--force-grad-mode jvp`` (a later slice) raises; ``--steps-per-dispatch``
-runs its steps one by one, and the gather-plan flags are accepted and unused
+``--force-grad-mode jvp`` takes the force loss's gradient in forward mode
+over the energy's parameter gradient (``Trainer._force_grads_jvp``);
+``--steps-per-dispatch`` runs its steps one by one, and the gather-plan flags are accepted and unused
 (the port's kernels gather by index).
 """
 
@@ -144,7 +145,7 @@ def get_args(argv=None):
     parser.add_argument('--remat', type=str2bool, default=False, help='Rematerialize each interaction layer in backward passes (torch.utils.checkpoint): one layer of activations at a time, at the cost of recomputing each layer')
     parser.add_argument('--bf16-messages', type=str2bool, default=False, help='Compute the message-passing gathers and products in bfloat16 with float32 accumulation')
     parser.add_argument('--fused-attention', type=str2bool, default=False, help='Route the equivariant-transformer or transformer edge phase through the fused CUDA kernels (requires bf16-messages; batches are spatially sorted). Force-loss training runs their second-order kernel')
-    parser.add_argument('--force-grad-mode', type=str, default='gradgrad', choices=['gradgrad', 'jvp'], help='Force-loss gradient formulation: nested reverse ("gradgrad", default); "jvp" is not ported yet')
+    parser.add_argument('--force-grad-mode', type=str, default='gradgrad', choices=['gradgrad', 'jvp'], help='Force-loss gradient formulation: nested reverse ("gradgrad", default) or forward-over-reverse ("jvp", -jvp_pos(grad_theta E; g)); mathematically identical')
     parser.add_argument('--fused-message', type=str2bool, default=False, help='Route the tensornet message phase through the fused CUDA kernels (requires bf16-messages; batches are spatially sorted). Force-loss training runs their second-order kernel')
     parser.add_argument('--edge-partition', type=str2bool, default=False, help="Shard each batch's atom rows over the devices in training (every rank loads the whole batch and trains on its rows, the neighbors of other ranks' atoms exchanged): for molecules too large for one device")
     parser.add_argument('--edge-boundary-limit', type=int, default=65536, help='Upper limit on the boundary capacity of edge partitioning')
@@ -227,7 +228,7 @@ def _train(args):
     from torchmdnet_tpu_torch.models.potential import create_model, create_prior_models, load_model
     from torchmdnet_tpu_torch.parallel.distributed import barrier
     from torchmdnet_tpu_torch.parallel.mesh import make_mesh
-    from torchmdnet_tpu_torch.train.checkpoints import load_checkpoint
+    from torchmdnet_tpu_torch.train.checkpoints import load_checkpoint, load_weights
     from torchmdnet_tpu_torch.train.trainer import Trainer
     from torchmdnet_tpu_torch.utils import resolve_device
 
@@ -270,7 +271,7 @@ def _train(args):
     # reload the best checkpoint and run the test set
     best = trainer.best_model_path
     if best is not None and os.path.exists(best):
-        model.module.load_state_dict(load_checkpoint(best)["state_dict"])
+        load_weights(model.module, load_checkpoint(best))
     return trainer, trainer.test(data)
 
 

@@ -13,9 +13,11 @@ group, builds the same models and global batches from the spec
   statistics); the forces of every rank are gathered.  With "targets" (the
   global (y, neg_dy)), also the force-loss gradient (``force_loss``) through
   the partitioned forces, summed over the ranks, with its launches, and with
-  "third" whether a third derivative raises;
+  "third" a third derivative (``third_derivative``), summed over the ranks;
 - ``train``: ``Trainer.fit`` with ``edge_partition`` on "dataset" with
-  "hparams" (its first step's gradients, and rank 0's ``metrics.csv``);
+  "hparams" (its first step's gradients, and rank 0's ``metrics.csv``); with
+  "jvp_grads", also the first step's gradients in
+  ``force_grad_mode="jvp"``, taken before that step;
 - ``md``: ``Simulation(mesh, edge_partition=True)`` for ``steps`` steps; the
   positions of every rank are gathered, with ``stale``; with ``record``,
   every force evaluation's positions and forces (gathered) and the positions
@@ -101,10 +103,24 @@ def force_loss(y, neg_dy, y_t, f_t, atom_mask, atoms):
     return ((y - y_t) ** 2).sum() + torch.where(atom_mask, err, torch.zeros_like(err)).sum() / atoms
 
 
+def third_derivative(loss, params, seed: int = 0):
+    """A third derivative of ``loss`` (``force_loss``: once in the positions
+    through the forces, quadratic in the replicated energy): the gradient
+    over ``params`` of <the gradient of ``loss`` over ``params``, r>, with
+    one seeded direction r a parameter (the same on every rank).  None
+    where a parameter is not reached."""
+    gen = torch.Generator().manual_seed(seed)
+    r = [torch.randn(p.shape, generator=gen, dtype=p.dtype).to(p.device) for p in params]
+    grads = torch.autograd.grad(loss, params, create_graph=True, allow_unused=True)
+    probe = sum((g * d).sum() for g, d in zip(grads, r) if g is not None)
+    return torch.autograd.grad(probe, params, allow_unused=True)
+
+
 def _force_grads(case, model, sharded, ex, ctx, mesh):
     """The force-loss gradient (summed over the ranks) through the
-    partitioned forces, its launches, and with ``case["third"]`` whether a
-    third derivative raises."""
+    partitioned forces, its launches, and with ``case["third"]`` a third
+    derivative of the same loss (``third_derivative``), summed over the
+    ranks."""
     from torchmdnet_tpu_torch.parallel.distributed import sum_gradients
     from torchmdnet_tpu_torch.parallel.edge_partition import _rows
 
@@ -128,12 +144,11 @@ def _force_grads(case, model, sharded, ex, ctx, mesh):
     out = {"grads": {n: p.grad.detach().cpu() for n, p in named}, "grad_launches": _launches()}
     if case.get("third"):
         y, f = ex.energy_and_forces(sharded, ctx, create_graph=True)
-        loss = force_loss(y, f, y_t, f_t, sharded.atom_mask, atoms)
-        try:
-            torch.autograd.grad(loss, params, create_graph=True, allow_unused=True)
-            out["third"] = {"raised": None, "message": ""}
-        except Exception as e:  # the case records what was raised
-            out["third"] = {"raised": type(e).__name__, "message": str(e)}
+        third = third_derivative(force_loss(y, f, y_t, f_t, sharded.atom_mask, atoms), params)
+        for p, g in zip(params, third):
+            p.grad = torch.zeros_like(p) if g is None else g
+        sum_gradients(mesh, params)
+        out["third"] = {n: p.grad.detach().cpu() for n, p in named}
     return out
 
 
@@ -230,8 +245,9 @@ def run_raises(case, mesh):
 def run_train(case, mesh):
     """``Trainer.fit`` with ``edge_partition`` (the rank's hyperparameters:
     case["hparams"] on the mesh's device, the log in case["log_dir"]): the
-    first step's gradients (summed over the ranks), rank 0's metrics.csv
-    rows, the fit's seconds and its launches."""
+    first step's gradients (summed over the ranks; with case["jvp_grads"]
+    also in ``force_grad_mode="jvp"``), rank 0's metrics.csv rows, the
+    fit's seconds and its launches."""
     import csv
     import os
 
@@ -243,14 +259,8 @@ def run_train(case, mesh):
     data = DataModule(h, dataset=case["dataset"])
     data.setup()
     model = create_model(h, device=mesh.device, seed=h.get("seed", 1))
-    grads = {}
-
-    class Recording(Trainer):
-        def on_before_optimizer_step(self):
-            if self.state.global_step == 0:
-                grads.update({n: p.grad.detach().cpu() for n, p in zip(self.param_names, self.params)})
-
-    trainer = Recording(model, h, mesh=mesh)
+    recording, grads, jvp_grads = first_step_recorder(Trainer, jvp=case.get("jvp_grads", False))
+    trainer = recording(model, h, mesh=mesh)
     _reset_launches()
     _sync(mesh.device)
     t0 = time.perf_counter()
@@ -262,8 +272,35 @@ def run_train(case, mesh):
         with open(os.path.join(case["log_dir"], "metrics.csv")) as f:
             rows = [{k: float(v) for k, v in r.items() if v not in ("", None)} for r in csv.DictReader(f)]
     peak = torch.cuda.max_memory_allocated(mesh.device) if mesh.device.type == "cuda" else None
-    return {"grads": grads, "rows": rows, "seconds": seconds, "steps": trainer.state.global_step,
-            "launches": _launches(), "peak_bytes": peak}
+    return {"grads": grads, "jvp_grads": jvp_grads, "rows": rows, "seconds": seconds,
+            "steps": trainer.state.global_step, "launches": _launches(), "peak_bytes": peak}
+
+
+def first_step_recorder(trainer_class, jvp: bool = False):
+    """(a subclass of ``trainer_class`` that records the first step's
+    gradients, as {name: CPU tensor} in the second item; with ``jvp``, the
+    same step's gradients in ``force_grad_mode="jvp"``, taken before it, in
+    the third)."""
+    grads, jvp_grads = {}, {}
+
+    def record(trainer, into):
+        into.update({n: p.grad.detach().cpu() for n, p in zip(trainer.param_names, trainer.params)})
+
+    class Recording(trainer_class):
+        def _train_step(self, batch, acc, ema_y, ema_f):
+            if self.state.global_step == 0 and jvp:
+                mode = self.h.get("force_grad_mode", "gradgrad")
+                self.h["force_grad_mode"] = "jvp"
+                self.step_gradients(batch, ema_y, ema_f)
+                record(self, jvp_grads)
+                self.h["force_grad_mode"] = mode
+            return super()._train_step(batch, acc, ema_y, ema_f)
+
+        def on_before_optimizer_step(self):
+            if self.state.global_step == 0:
+                record(self, grads)
+
+    return Recording, grads, jvp_grads
 
 
 def run_probe(case, mesh, seconds: float = 10.0):

@@ -6,10 +6,14 @@ behaviour:
 - loss = y_weight * loss_y + neg_dy_weight * loss_neg_dy, train MSE, val L1
   and MSE, test L1; per-loss EMA smoothing with ema_alpha_y /
   ema_alpha_neg_dy (the EMA starts from 0 and carries across epochs);
-- the force loss differentiates through the forces (grad-of-grad, the JAX
-  trainer's default ``force_grad_mode="gradgrad"``): with
-  ``fused_attention`` a step runs per layer the fused forward kernel once,
-  the backward kernel twice and the second-order kernel once;
+- the force loss differentiates through the forces (grad-of-grad,
+  ``force_grad_mode="gradgrad"``, the default): with ``fused_attention`` a
+  step runs per layer the fused forward kernel once, the backward kernel
+  twice and the second-order kernel once; or, with
+  ``force_grad_mode="jvp"``, as the forward-mode tangent of the energy's
+  parameter gradient (``_force_grads_jvp``, the JAX trainer's three
+  passes): per layer the forward kernel three times and the backward
+  kernel three times, the tangents composable and no second-order kernel;
 - ``torch.optim.AdamW`` configured as ``optax.adamw`` (betas 0.9/0.999,
   eps 1e-8, decoupled weight decay passed explicitly), after global-norm
   clipping written out as ``optax.clip_by_global_norm`` does it;
@@ -51,6 +55,7 @@ from dataclasses import dataclass, field
 from typing import Dict, Optional
 
 import torch
+import torch.autograd.forward_ad as fwAD
 
 from torchmdnet_tpu_torch.data.batch import spatial_sort
 from torchmdnet_tpu_torch.models.potential import Potential, check_atom_filter_batch
@@ -62,15 +67,14 @@ from torchmdnet_tpu_torch.parallel.distributed import (
     sum_gradients,
     sum_in_rank_order,
 )
-from torchmdnet_tpu_torch.train.checkpoints import latest_checkpoint, load_checkpoint, save_checkpoint
+from torchmdnet_tpu_torch.train.checkpoints import (
+    adamw_state_from_optax,
+    latest_checkpoint,
+    load_checkpoint,
+    load_weights,
+    save_checkpoint,
+)
 from torchmdnet_tpu_torch.train.loggers import make_loggers
-
-_QUEUE = "ROADMAP.md, 'The next bring_up slices'"
-_LATER_SLICES = {
-    "force_grad_mode": "force_grad_mode='jvp' (forward-over-reverse) is not ported; the port trains force "
-                       f"losses by grad-of-grad ({_QUEUE}, item 3, training leftovers)",
-}
-
 
 def _masked_sum(err, mask):
     """The sum over valid rows of each row's mean error."""
@@ -107,8 +111,8 @@ class Trainer:
     def __init__(self, model: Potential, hparams, mesh=None):
         self.model = model
         self.h = h = dict(hparams)
-        if h.get("force_grad_mode", "gradgrad") == "jvp":
-            raise NotImplementedError(_LATER_SLICES["force_grad_mode"])
+        if h.get("force_grad_mode", "gradgrad") not in ("gradgrad", "jvp"):
+            raise ValueError(f"force_grad_mode must be 'gradgrad' or 'jvp', not {h['force_grad_mode']!r}")
         self._edge = bool(h.get("edge_partition"))
         if self._edge and mesh is None:
             raise ValueError("edge_partition needs a mesh (parallel.mesh.make_mesh(allow_single=True)); "
@@ -204,6 +208,59 @@ class Trainer:
         over = torch.stack([f.reshape(()).to(torch.bool) for f in flags]).any()
         return nbl, over.to(self.dtype)
 
+    def _uses_jvp(self, batch) -> bool:
+        """Whether this step takes the force-loss gradient in forward mode
+        (JAX's condition, trainer.py:292-297)."""
+        h = self.h
+        return (h.get("force_grad_mode", "gradgrad") == "jvp" and bool(h.get("derivative", False))
+                and batch.neg_dy is not None and h.get("neg_dy_weight", 1.0) > 0)
+
+    def _force_grads_jvp(self, batch, nbl, preds, counts):
+        """The loss's parameter gradients into ``p.grad`` in forward mode
+        (JAX's ``_force_grads_jvp``, trainer.py:325-400).  With g = the force
+        loss's gradient at the current forces (``preds`` from a pass without
+        a graph) and f = -dE/dpos, the force loss's gradient is g . df/dtheta
+        = -d/dt grad_theta(sum E)(pos + t g): the tangent along g of the
+        energy's parameter gradient (mixed partials commute).  Two passes
+        more: the energy loss's gradient by one reverse pass, then the
+        energy's parameter gradient with ``pos`` a dual tensor of tangent g.
+        The fused kernels run the primals (#1, #2 with weights), their
+        ``jvp`` rules the tangents; no second-order kernel runs.  Under edge
+        partitioning the energy is the replicated one of this rank's rows,
+        whose parameter gradient and tangent reach this rank's parameters
+        through its partials only (the shares add up over the ranks, as
+        ``sum_gradients`` adds them)."""
+        h = self.h
+        y_w, f_w = h.get("y_weight", 1.0), h.get("neg_dy_weight", 1.0)
+        f, f_tgt, f_mask = preds["neg_dy"]
+        f = f.detach().requires_grad_(True)
+        with torch.enable_grad():
+            (g,) = torch.autograd.grad(
+                f_w * h.get("ema_alpha_neg_dy", 1.0) * masked_mse(f, f_tgt, f_mask, count=counts[1]), f)
+        if self._ring is not None:
+            batch = self._ring.shard(batch)
+
+        def energy(b):
+            return self._ring.energy(b, nbl) if self._ring is not None else self.model.energy(b, nbl=nbl)
+
+        if "y" in preds:
+            _, y_tgt, y_mask = preds["y"]
+            with torch.enable_grad():
+                loss_y = y_w * h.get("ema_alpha_y", 1.0) * masked_mse(energy(batch), y_tgt, y_mask, count=counts[0])
+            if loss_y.requires_grad:
+                loss_y.backward()
+        with fwAD.dual_level(), torch.enable_grad():
+            pos = fwAD.make_dual(batch.pos.detach(), g.detach())
+            e = energy(batch.replace(pos=pos))
+            # create_graph: under grad mode autograd takes the composable
+            # backward formulas, which carry tangents (silu_backward has no
+            # forward-mode rule); the graph is dropped unused
+            grads = torch.autograd.grad(e.sum(), self.params, allow_unused=True, create_graph=True)
+            tangents = [None if gr is None else fwAD.unpack_dual(gr).tangent for gr in grads]
+        for p, t in zip(self.params, tangents):
+            if t is not None:
+                p.grad = -t.detach() if p.grad is None else p.grad - t.detach()
+
     def _predictions(self, batch, nbl, train: bool):
         """Predictions against labels; ``train`` keeps the graph to the
         parameters (through the forces too: grad-of-grad)."""
@@ -242,15 +299,30 @@ class Trainer:
         """One optimizer step at the current global step's learning rate.
         ``acc`` (4,) accumulates (total, loss_y, loss_f, overflow) on the
         device; returns the smoothed (loss_y, loss_f), the next EMA values."""
+        lr = self._current_lr(self.state)
+        for group in self.optimizer.param_groups:
+            group["lr"] = lr
+        total, loss_y, loss_f, over = self.step_gradients(batch, ema_y, ema_f)
+        self.on_before_optimizer_step()
+        if self.clip > 0:
+            self._clip_grads()
+        self.optimizer.step()
+        acc += torch.stack([total.detach(), loss_y.detach(), loss_f.detach(), over]).to(acc.dtype)
+        self.state.global_step += 1
+        return loss_y.detach(), loss_f.detach()
+
+    def step_gradients(self, batch, ema_y, ema_f):
+        """The gradients of one step's loss on ``batch`` (a prepared batch)
+        into the parameters' ``.grad``, summed over the ranks, in
+        ``force_grad_mode``; returns (total, loss_y, loss_f, overflow), the
+        smoothed losses of the global batch.  Takes no optimizer step."""
         h = self.h
         alpha_y = h.get("ema_alpha_y", 1.0)
         alpha_f = h.get("ema_alpha_neg_dy", 1.0)
         y_w, f_w = h.get("y_weight", 1.0), h.get("neg_dy_weight", 1.0)
-        lr = self._current_lr(self.state)
-        for group in self.optimizer.param_groups:
-            group["lr"] = lr
         nbl, over = self._build_nbl(batch)
-        preds = self._predictions(batch, nbl, train=True)
+        jvp = self._uses_jvp(batch)
+        preds = self._predictions(batch, nbl, train=not jvp)
         zero = torch.zeros((), dtype=self.dtype, device=self.device)
         counts = (None, None)
         if self.mesh is not None:  # normalised by the global batch's counts
@@ -265,7 +337,9 @@ class Trainer:
         loss_f = alpha_f * mse_f + (1 - alpha_f) * ema_f if "neg_dy" in preds else zero
         total = y_w * loss_y + f_w * loss_f
         self.optimizer.zero_grad(set_to_none=True)
-        if total.requires_grad:
+        if jvp:
+            self._force_grads_jvp(batch, nbl, preds, counts)
+        elif total.requires_grad:
             total.backward()
         for p in self.params:  # optax updates every leaf, decay included
             if p.grad is None:
@@ -276,13 +350,7 @@ class Trainer:
             loss_y = torch.where(has[0], alpha_y * mse_y + (1 - alpha_y) * ema_y, zero)
             loss_f = torch.where(has[1], alpha_f * mse_f + (1 - alpha_f) * ema_f, zero)
             total = y_w * loss_y + f_w * loss_f
-        self.on_before_optimizer_step()
-        if self.clip > 0:
-            self._clip_grads()
-        self.optimizer.step()
-        acc += torch.stack([total.detach(), loss_y.detach(), loss_f.detach(), over]).to(acc.dtype)
-        self.state.global_step += 1
-        return loss_y.detach(), loss_f.detach()
+        return total, loss_y, loss_f, over
 
     def on_before_optimizer_step(self):
         """Called in every step once the gradients are complete (summed over
@@ -363,7 +431,7 @@ class Trainer:
         if ckpt_path and not h.get("reset_trainer"):
             self._restore(ckpt_path)
         elif ckpt_path:
-            self.model.module.load_state_dict(load_checkpoint(ckpt_path)["state_dict"])
+            load_weights(self.model.module, load_checkpoint(ckpt_path))
 
         state = self.state
         num_epochs = h.get("num_epochs", 300)
@@ -525,9 +593,11 @@ class Trainer:
 
     def _restore(self, path):
         ckpt = load_checkpoint(path)
-        self.model.module.load_state_dict(ckpt["state_dict"])
+        load_weights(self.model.module, ckpt)
         if ckpt.get("optimizer") is not None:
             self.optimizer.load_state_dict(ckpt["optimizer"])
+        elif ckpt.get("jax_opt_state") is not None:  # written by the JAX package's trainer
+            adamw_state_from_optax(ckpt, self.optimizer, self.param_names)
         extra = ckpt["extra"]
         s = self.state
         s.epoch = extra.get("epoch", 0)

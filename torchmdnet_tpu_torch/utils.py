@@ -131,20 +131,29 @@ class LoadFromFile(argparse.Action):
 
 class LoadFromCheckpoint(argparse.Action):
     """``--load-model ckpt``: take the hyperparameters from ``hparams.yaml``
-    beside the checkpoint (written by the port as JSON, which YAML readers
-    also accept)."""
+    beside the checkpoint (the port writes it as JSON, the JAX package as
+    YAML), or, where there is none, from the checkpoint itself (the port's or
+    the JAX package's)."""
 
     def __call__(self, parser, namespace, values, option_string=None):
         hparams_path = os.path.join(os.path.dirname(values), "hparams.yaml")
-        if not os.path.exists(hparams_path):
+        if os.path.exists(hparams_path):
+            with open(hparams_path) as f:
+                text = f.read()
+            try:
+                config = json.loads(text)
+            except json.JSONDecodeError:
+                import yaml
+
+                config = yaml.safe_load(text)
+        else:
+            from torchmdnet_tpu_torch.train.checkpoints import read_hyperparameters
+
             warnings.warn(
                 "hparams.yaml file not found next to the checkpoint; "
                 "hyperparameters will come from the checkpoint file itself."
             )
-            namespace.load_model = values
-            return
-        with open(hparams_path) as f:
-            config = json.load(f)
+            config = read_hyperparameters(values)
         for key in config.keys():
             if key not in namespace and key != "prior_args":
                 raise ValueError(f"Unknown argument in the model checkpoint: {key}")
