@@ -61,7 +61,14 @@ at their training shapes in ``force_grad_mode="jvp"`` against the same step
 by grad-of-grad (no second-order launch in jvp mode), examples/ET-MD17.yaml
 through the CLI with ``--force-grad-mode jvp``, a third derivative through
 each fused family against its plain twin, and a checkpoint written by the
-JAX package (tests/data/jax_et.ckpt) served against JAX's energies. It
+JAX package (tests/data/jax_et.ckpt) served against JAX's energies. The
+last leftovers: bench.py's ET and TensorNet STMV MD lines under remat, whose
+layers are recomputed in the backward but are served their fused forward
+kernel's outputs again instead of launching it (the kernels' launches per
+step equal those without remat), each training gradient with remat against
+the one without, ``profiling.py``'s trace summary and iteration timer on a
+DHFR call, ET-MD17's loader with the native collation against numpy, and
+the ET-QM9 dipole at four weight seeds. It
 times each. Each phase prints one line; the line before the last is a JSON object
 with each kernel's numbers, the last line is ``{"ok": true, "device":
 {...}}``. Any failure raises and exits non-zero. Without a CUDA device, or
@@ -70,6 +77,7 @@ outside a checkout, it exits non-zero and prints no result.
 
 import contextlib
 import csv
+import importlib.util
 import json
 import math
 import os
@@ -80,6 +88,27 @@ import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+
+
+
+def _load_profiling():
+    """The port's timers: this checkout's ``torchmdnet_tpu_torch/profiling.py``,
+    read by its path (``tools/time_bwd.py`` loads this script beside another
+    tree's package); None outside a checkout, where main() says so and exits."""
+    path = os.path.join(ROOT, "torchmdnet_tpu_torch", "profiling.py")
+    if not os.path.isfile(path):
+        return None
+    spec = importlib.util.spec_from_file_location("_port_profiling", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+profiling = _load_profiling()
+if profiling is not None:
+    FLUSH_KERNELS = profiling.FLUSH_KERNELS
+    device_ms, enqueue_ms, event_ms = profiling.device_ms, profiling.enqueue_ms, profiling.event_ms
+    host_ms, kernel_profile = profiling.host_ms, profiling.kernel_profile
 
 # ET configuration of the serving benchmark (benchmarks/inference.py:31-55
 # with the fused edge phase, as bench.py's et_fused_forces_dhfr2489_ms line)
@@ -390,41 +419,6 @@ def check_parts(nbl, ins, cts, heads, seed):
     return rel
 
 
-def _event_ms(fn, reps=20, warmup=3, flush=None):
-    """Median over ``reps`` launches of CUDA-event time, L2 flushed between."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        if flush is not None:
-            flush.zero_()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
-def _host_ms(fn, reps=20, warmup=3):
-    """Median over ``reps`` calls of host-clock time, each ended by a sync."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        times.append(1e3 * (time.perf_counter() - t0))
-    return statistics.median(times)
-
-
 def _bounds(n, kk, h, rbf, kind):
     """Least time for the same work: max(bytes / HBM rate, operations / peak).
 
@@ -659,17 +653,17 @@ def time_kernels(seed):
     w = [ins[n] for n in ("wdk", "bdk", "wdv", "bdv")]
     perm = nbl.transpose_perm
     kw = dict(heads=heads, act="silu", attn_act="silu")
-    fwd_ms = _event_ms(lambda: em.run_fwd(nbl.idx, *common, dirs, *w, **kw), flush=flush)
-    bwd_ms = _event_ms(lambda: em.run_bwd(
+    fwd_ms = event_ms(lambda: em.run_fwd(nbl.idx, *common, dirs, *w, **kw), flush=flush)
+    bwd_ms = event_ms(lambda: em.run_bwd(
         nbl.idx, perm, *common, dirs, *w, cts[0], cts[1], want_weight_grads=False, **kw), flush=flush)
-    bwd_w_ms = _event_ms(lambda: em.run_bwd(
+    bwd_w_ms = event_ms(lambda: em.run_bwd(
         nbl.idx, perm, *common, dirs, *w, cts[0], cts[1], want_weight_grads=True, **kw), flush=flush)
-    plain_fwd_ms = _event_ms(lambda: _call(em.et_messages_reference, nbl, ins, heads), flush=flush)
+    plain_fwd_ms = event_ms(lambda: _call(em.et_messages_reference, nbl, ins, heads), flush=flush)
     t = {n: v.clone().requires_grad_(n in ("q", "k", "v", "vec0", "vec1", "vec2", "ea", "cutm", "dir0", "dir1", "dir2"))
          for n, v in ins.items()}
     x, vec = _call(em.et_messages_reference, nbl, t, heads)
     leaves = [v for v in t.values() if v.requires_grad]
-    plain_bwd_ms = _event_ms(
+    plain_bwd_ms = event_ms(
         lambda: torch.autograd.grad((x, vec), leaves, cts, retain_graph=True), flush=flush)
     fb, fby = _bounds(n, kk, 128, 50, "fwd")
     bb, bby = _bounds(n, kk, 128, 50, "bwd")
@@ -681,10 +675,10 @@ def time_kernels(seed):
     _, stmv_fwd_abs, stmv_bwd_abs = check_stmv(snbl, sins, scts, heads, seed)
     scommon = [sins[n] for n in ("q", "k", "v", "vec0", "vec1", "vec2", "ea", "cutm", "msk")]
     sdirs, sw = (sins["dir0"], sins["dir1"], sins["dir2"]), [sins[n] for n in ("wdk", "bdk", "wdv", "bdv")]
-    stmv_ms = _event_ms(lambda: em.run_bwd(
+    stmv_ms = event_ms(lambda: em.run_bwd(
         snbl.idx, snbl.transpose_perm, *scommon, sdirs, *sw, scts[0], scts[1], want_weight_grads=False, **kw),
         flush=flush, reps=5)
-    stmv_fwd_ms = _event_ms(lambda: em.run_fwd(snbl.idx, *scommon, sdirs, *sw, **kw), flush=flush, reps=5)
+    stmv_fwd_ms = event_ms(lambda: em.run_fwd(snbl.idx, *scommon, sdirs, *sw, **kw), flush=flush, reps=5)
     sb, sby = _bounds(sn, skk, 128, 50, "bwd")
     sfb, sfby = _bounds(sn, skk, 128, 50, "fwd")
     del snbl, sins, scts, scommon, sdirs, sw
@@ -824,45 +818,11 @@ def main_path(args, km, label):
             f"fp32 output (messages zeroed)")
         ref.module.load_state_dict(potential.module.state_dict())
 
-    fused_ms = _host_ms(lambda: ext.calculate(requests[0]))
-    comp_ms = _host_ms(lambda: ref_ext.calculate(requests[0]))
+    fused_ms = host_ms(lambda: ext.calculate(requests[0]))
+    comp_ms = host_ms(lambda: ref_ext.calculate(requests[0]))
     log(f"{label} energy+forces per call (External.calculate, host clock with sync, median of 20): "
         f"bf16 {fused_ms:.3f} ms; composable fp32 {comp_ms:.3f} ms")
     return launches, ext, requests[0], fused_ms, share
-
-
-def _profile(fn, reps, names):
-    """Run ``fn`` ``reps`` times under torch.profiler's CUDA activity: (wall
-    ms per rep on the host clock, device busy ms per rep, {name: device ms
-    per rep of the kernels whose names contain it}, the other kernels' ms per
-    rep, their launches per rep, {name: launches per rep})."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-        wall = 1e3 * (time.perf_counter() - t0) / reps
-    groups, counts = dict.fromkeys(names, 0.0), dict.fromkeys(names, 0)
-    other, launches = 0.0, 0
-    for ev in prof.events():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        ms = ev.device_time / 1e3 / reps
-        key = next((k for k in groups if k in ev.name), None)
-        if key is None:
-            other += ms
-            launches += 1
-        else:
-            groups[key] += ms
-            counts[key] += 1
-    busy = sum(groups.values()) + other
-    if busy <= 0.0:
-        raise AssertionError("the profiler recorded no device time")
-    return wall, busy, groups, other, launches / reps, {k: c / reps for k, c in counts.items()}
 
 
 def _shares(groups, other, busy):
@@ -877,7 +837,7 @@ TN_SERVE_KERNELS = ("tn_fwd_kernel", "tn_bwd_kernel")
 def profile_calls(ext, pos, names, label, calls=3):
     """Where the time of an energy+forces call goes: device time by kernel
     against the host clock."""
-    wall, busy, groups, other, launches, _ = _profile(lambda: ext.calculate(pos), calls, names)
+    wall, busy, groups, other, launches, _ = kernel_profile(lambda: ext.calculate(pos), calls, names)
     log(f"profile of {calls} {label} calls (torch.profiler): wall {wall:.3f} ms/call, device busy "
         f"{busy:.3f} ms/call ({100 * busy / wall:.1f}%); {_shares(groups, other, busy)} "
         f"({launches:.0f} other launches/call)")
@@ -1082,7 +1042,7 @@ def check_cell_vs_brute(n_atoms):
     if not torch.equal((cell.n_neighbors - brute.n_neighbors).long(), dn):
         raise AssertionError("n_neighbors differences do not match the boundary pairs")
     build_ms = {
-        strategy: _host_ms(lambda: neighbor_list(batch.pos, batch.batch, batch.atom_mask, strategy=strategy, **kw))
+        strategy: host_ms(lambda: neighbor_list(batch.pos, batch.batch, batch.atom_mask, strategy=strategy, **kw))
         for strategy in ("brute", "cell")
     }
     log(f"cell list vs brute at {n_atoms} atoms (N={n}, K={cell.k}, cutoff {cut}): idx, mask, n_neighbors "
@@ -1128,9 +1088,9 @@ def time_select_topk(cases):
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")  # 256 MB > L2
     out, parts = {}, []
     for label, (keys, k, sentinel) in cases.items():
-        ms = _event_ms(lambda: select_topk(keys, k, sentinel), flush=flush)
-        plain_ms = _event_ms(lambda: select_topk_reference(keys, k), flush=flush)
-        lib_ms = _event_ms(lambda: torch.topk(keys, k, dim=1, largest=False, sorted=True), flush=flush)
+        ms = event_ms(lambda: select_topk(keys, k, sentinel), flush=flush)
+        plain_ms = event_ms(lambda: select_topk_reference(keys, k), flush=flush)
+        lib_ms = event_ms(lambda: torch.topk(keys, k, dim=1, largest=False, sorted=True), flush=flush)
         bound_ms, bound_by, design_ops, design_ms = _select_topk_bounds(keys, k, sentinel)
         out[label] = (ms, plain_ms, bound_ms, bound_by, lib_ms)
         parts.append(f"{label} N={keys.shape[0]} W={keys.shape[1]} k={k}: {ms:.4f} ms (plain sort {plain_ms:.4f} ms, "
@@ -1141,20 +1101,20 @@ def time_select_topk(cases):
     return out
 
 
-def _pairs_against_fresh(sim, model, batch, built_at):
+def _pairs_against_fresh(sim, model, batch, built_at, args=ET_ARGS):
     """The skin list built at ``built_at`` and refined at ``sim``'s current
-    positions against a fresh list built there, as sets of (atom, neighbor)
-    pairs: (pairs only the fresh list holds, pairs only the refined list
-    holds, the fresh list's pairs)."""
+    positions against a fresh list built there (``args``' cutoffs), as sets
+    of (atom, neighbor) pairs: (pairs only the fresh list holds, pairs only
+    the refined list holds, the fresh list's pairs)."""
     import torch
 
     from torchmdnet_tpu_torch.ops.cell_list import probe_cell_kwargs
 
-    hi = ET_ARGS["cutoff_upper"]
+    hi = args["cutoff_upper"]
     pos = sim.state.pos
     n = batch.num_atoms
     skin_nbl = sim._build_nbl(built_at)
-    refined = skin_nbl.refine(pos, ET_ARGS["cutoff_lower"], hi)
+    refined = skin_nbl.refine(pos, args["cutoff_lower"], hi)
     fresh = model.neighbors(batch.replace(pos=pos), k=skin_nbl.k - int(skin_nbl.self_loops),
                             **probe_cell_kwargs(batch, cutoff_upper=hi))
     fresh.raise_on_overflow("chip_smoke fresh STMV list")
@@ -1236,7 +1196,7 @@ def md_stmv(select_ms):
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     missed, extra, total = _pairs_against_fresh(sim, model, batch, starts[-1])
 
-    rebuild_ms = _host_ms(lambda: sim._build_nbl(state.pos).transpose_perm, reps=5, warmup=0)
+    rebuild_ms = host_ms(lambda: sim._build_nbl(state.pos).transpose_perm, reps=5, warmup=0)
     log(f"MD at STMV size, bench.py's configuration (ET {layers}x{ET_ARGS['embedding_dimension']} fused "
         f"bf16, {int(real.sum())} atoms padded to {n}, {MD_ARGS}, cell sizes {sim.neighbor_kwargs}): "
         f"{steps} steps, energy {float(state.energy.sum()):.4f} eV, padding still; launches fwd "
@@ -1273,14 +1233,14 @@ def md_stmv(select_ms):
         f"rebuilds {vmove:.3f} A, stale False, two runs from one seed bitwise equal, the refined skin "
         f"list holds exactly a fresh list's pairs")
     del runs, a, b
-    return launches, sim
+    return launches, sim, ms_step, peak_gb
 
 
 def profile_md(sim, names=ET_SERVE_KERNELS, label="ET", steps=10):
     """Where the time of an MD step goes at STMV: device time by kernel over
     ``steps`` steps."""
     names = names + ("select_topk_kernel",)
-    wall, busy, groups, other, _, _ = _profile(lambda: sim.step(steps), 1, names)
+    wall, busy, groups, other, _, _ = kernel_profile(lambda: sim.step(steps), 1, names)
     wall, busy, other = wall / steps, busy / steps, other / steps
     groups = {k: v / steps for k, v in groups.items()}
     log(f"profile of {steps} {label} MD steps at STMV (torch.profiler): wall {wall:.3f} ms/step, device busy "
@@ -1405,21 +1365,21 @@ def time_train_kernels(batch, label="the training shapes", args=TRAIN_ARGS):
     z = _z_like(ins, SEED)
     inputs = [ins[x] for x in ORDER]
     ms = dict(
-        fwd=_event_ms(lambda: em.run_fwd(nbl.idx, *common, dirs, *w, **kw), flush=flush),
-        bwd=_event_ms(lambda: em.run_bwd(nbl.idx, perm, *common, dirs, *w, cts[0], cts[1],
+        fwd=event_ms(lambda: em.run_fwd(nbl.idx, *common, dirs, *w, **kw), flush=flush),
+        bwd=event_ms(lambda: em.run_bwd(nbl.idx, perm, *common, dirs, *w, cts[0], cts[1],
                                          want_weight_grads=False, **kw), flush=flush),
-        bwd_w=_event_ms(lambda: em.run_bwd(nbl.idx, perm, *common, dirs, *w, cts[0], cts[1],
+        bwd_w=event_ms(lambda: em.run_bwd(nbl.idx, perm, *common, dirs, *w, cts[0], cts[1],
                                            want_weight_grads=True, **kw), flush=flush),
-        bwd2=_event_ms(lambda: em.run_bwd2(nbl.idx, perm, inputs, cts, z, **kw), flush=flush),
+        bwd2=event_ms(lambda: em.run_bwd2(nbl.idx, perm, inputs, cts, z, **kw), flush=flush),
     )
     t = {x: v.clone().requires_grad_(x != "msk") for x, v in ins.items()}
     x_out, vec_out = _call(em.et_messages_reference, nbl, t, heads)
     leaves = [t[x] for x in ORDER if x != "msk"]
     plain = dict(
-        fwd=_event_ms(lambda: _call(em.et_messages_reference, nbl, ins, heads), flush=flush),
-        bwd_w=_event_ms(lambda: torch.autograd.grad((x_out, vec_out), leaves, cts, retain_graph=True),
+        fwd=event_ms(lambda: _call(em.et_messages_reference, nbl, ins, heads), flush=flush),
+        bwd_w=event_ms(lambda: torch.autograd.grad((x_out, vec_out), leaves, cts, retain_graph=True),
                         flush=flush),
-        bwd2=_event_ms(lambda: em.et_messages_bwd2_reference(nbl.idx, perm, inputs, cts, z, **kw),
+        bwd2=event_ms(lambda: em.et_messages_bwd2_reference(nbl.idx, perm, inputs, cts, z, **kw),
                        flush=flush, reps=5),
     )
     bounds = {k: _bounds(n, kk, h, rbf, k) for k in ms}
@@ -1435,10 +1395,16 @@ def train_grads_vs_composable(ds, cfg):
     against composable fp32 with the same weights; the fused pass must run
     ``per_step`` launches per layer (L forward, 2L backward and L second
     order for ET and TensorNet).  Then the same gradient with ``remat``
-    (each layer recomputed in the backward pass) must equal it."""
+    (each layer recomputed in the backward pass) must equal it (H2-REMAT):
+    for the fused families with the same launches as without remat, each
+    layer's recomputations served the forward kernel's outputs by replay
+    (``save_list``: L replays in each of the two backward passes); GN's
+    layers are recomputed whole, its gathers launched again, as in JAX.
+    Returns the remat gradient's (fwd, bwd, bwd2) launches."""
     import torch
 
     from torchmdnet_tpu_torch import create_model
+    from torchmdnet_tpu_torch.ops.kernels import save_list
     from torchmdnet_tpu_torch.train.trainer import masked_mse
 
     args = cfg["args"]
@@ -1449,9 +1415,10 @@ def train_grads_vs_composable(ds, cfg):
     remat = create_model(dict(args, remat=True), seed=SEED)
     remat.module.load_state_dict(fused.module.state_dict())
     wy, wf = cfg["weights"]
-    grads, launches = {}, None
+    grads, launches, remat_launches = {}, None, None
     for name, model in (("fused", fused), ("composable", comp), ("remat", remat)):
         _reset_launches()
+        save_list.reset_replays()
         nbl = model.neighbors(batch)
         nbl.raise_on_overflow("the training batch")
         y, neg_dy = model.energy_and_forces(batch, nbl=nbl, create_graph=True)
@@ -1462,11 +1429,18 @@ def train_grads_vs_composable(ds, cfg):
         grads[name] = dict(zip(names, g))
         if name == "fused":
             launches = _launches(cfg["km"])[:3]
+        elif name == "remat":
+            remat_launches, replays = _launches(cfg["km"])[:3], dict(save_list.replays)
     layers = args["num_layers"]
     expected = tuple(c * layers for c in cfg["per_step"])
     if launches != expected:
         raise AssertionError(f"one fused force-loss gradient should launch (fwd, bwd, bwd2) {expected}, "
                              f"got {launches}")
+    fused_family = args["model"] != "graph-network"
+    kernel = f"{cfg['km'].__name__.split('.')[-1]}_fwd" if fused_family else None
+    if fused_family and (remat_launches != launches or replays != {kernel: 2 * layers}):
+        raise AssertionError(f"with remat the gradient launched {remat_launches} (without: {launches}) and "
+                             f"replayed {replays} (expected {{{kernel!r}: {2 * layers}}})")
     remat_err = max(_rel(grads["remat"][k], v) for k, v in grads["fused"].items())
     per = {k: _rel(grads["fused"][k], v) for k, v in grads["composable"].items()}
     num = sum(float((grads["fused"][k].double() - v.double()).pow(2).sum()) for k, v in grads["composable"].items())
@@ -1478,12 +1452,14 @@ def train_grads_vs_composable(ds, cfg):
         f"bwd2 {launches[2]} ({cfg['per_step']} x L for L={layers}); fused bf16 vs composable fp32 over "
         f"{len(per)} parameter tensors: max|dg|/max|g| worst {per[worst]:.3e} ({worst}, tol {TRAIN_GRAD_TOL}), "
         f"median {statistics.median(per.values()):.3e}; |dg|/|g| {l2:.3e} (tol {TRAIN_GRAD_L2_TOL}); "
-        f"with remat, max|dg|/max|g| {remat_err:.3e} from the gradient without (tol {REMAT_TOL})")
+        f"with remat (H2-REMAT), max|dg|/max|g| {remat_err:.3e} from the gradient without (tol {REMAT_TOL}), "
+        f"launches {remat_launches}, replays {replays}")
     if per[worst] > TRAIN_GRAD_TOL or l2 > TRAIN_GRAD_L2_TOL:
         raise AssertionError("fused force-loss gradients disagree with the composable fp32 path")
     if remat_err > REMAT_TOL:
         raise AssertionError(f"the force-loss gradient with remat differs from the one without: {remat_err}")
     del grads, fused, comp, remat
+    return remat_launches
 
 
 def _cli_flags(workdir, cfg):
@@ -1606,7 +1582,7 @@ def profile_train(trainer, batch, cfg, steps=3):
 
     acc = torch.zeros(4, dtype=trainer.dtype, device="cuda")
     ema = torch.zeros((), dtype=trainer.dtype, device="cuda")
-    wall, busy, groups, other, launches, _ = _profile(
+    wall, busy, groups, other, launches, _ = kernel_profile(
         lambda: trainer._train_step(batch, acc, ema, ema), steps, cfg["kernels"])
     log(f"profile of {steps} {cfg['label']} training steps (torch.profiler): wall {wall:.3f} ms/step, device "
         f"busy {busy:.3f} ms/step ({100 * busy / wall:.1f}%); {_shares(groups, other, busy)} "
@@ -1867,19 +1843,19 @@ def time_tn_kernels(train_batch):
         z = _tn_z_like(ins, SEED)
         for k in kinds:
             if k == "fwd":
-                ms = _event_ms(lambda: tm.run_fwd(idx, *args, act="silu"), flush=flush)
-                plain = _event_ms(lambda: tm.tn_messages_reference(idx, *args, perm=perm), flush=flush)
+                ms = event_ms(lambda: tm.run_fwd(idx, *args, act="silu"), flush=flush)
+                plain = event_ms(lambda: tm.tn_messages_reference(idx, *args, perm=perm), flush=flush)
             elif k in ("bwd", "bwd_w"):
                 want = k == "bwd_w"
-                ms = _event_ms(lambda: tm.run_bwd(idx, *args, ct, act="silu", want_weight_grads=want), flush=flush)
+                ms = event_ms(lambda: tm.run_bwd(idx, *args, ct, act="silu", want_weight_grads=want), flush=flush)
                 t = {x: v.clone().requires_grad_(want or x in ("cat", "ea", "cutm")) for x, v in ins.items()}
                 m = tm.tn_messages_reference(idx, *[t[x] for x in TN_ORDER], perm=perm)
                 leaves = [t[x] for x in TN_ORDER if t[x].requires_grad]
-                plain = _event_ms(lambda: torch.autograd.grad(m, leaves, ct, retain_graph=True), flush=flush)
+                plain = event_ms(lambda: torch.autograd.grad(m, leaves, ct, retain_graph=True), flush=flush)
                 del m, t
             else:
-                ms = _event_ms(lambda: tm.run_bwd2(idx, perm, args, ct, z, act="silu"), flush=flush)
-                plain = _event_ms(lambda: tm.tn_messages_bwd2_reference(idx, perm, args, ct, z), flush=flush, reps=5)
+                ms = event_ms(lambda: tm.run_bwd2(idx, perm, args, ct, z, act="silu"), flush=flush)
+                plain = event_ms(lambda: tm.tn_messages_bwd2_reference(idx, perm, args, ct, z), flush=flush, reps=5)
             out[(where, k)] = (ms, plain) + _tn_bounds(n, kk, h, rbf, k) + ((n, kk),)
         if where == "training":
             split = _tn_pass_split(idx, args, ct, flush)
@@ -1905,9 +1881,9 @@ def _tn_pass_split(idx, args, ct, flush):
 
     rows = tm.bwd_rows(idx, *args, ct, act="silu", want_rows=True)[3]
     jobs = tm._bwd_jobs(TN_ARGS["embedding_dimension"], tm._rbfp(TN_ARGS["num_rbf"]))
-    return {"edge kernel": _event_ms(bwd(False), flush=flush),
-            "edge kernel + rows + reduction": _event_ms(bwd(True), flush=flush),
-            "reduction (et_dw_kernel)": _event_ms(lambda: tm.weight_grads(rows, jobs), flush=flush)}
+    return {"edge kernel": event_ms(bwd(False), flush=flush),
+            "edge kernel + rows + reduction": event_ms(bwd(True), flush=flush),
+            "reduction (et_dw_kernel)": event_ms(lambda: tm.weight_grads(rows, jobs), flush=flush)}
 
 
 TN_BWD2_KERNELS = ("tn_bwd2_kernel", "tn_src_sum_kernel", "et_dw_kernel")
@@ -1925,7 +1901,7 @@ def _tn_bwd2_split(idx, perm, args, ct, z, flush, reps=20):
         tm.run_bwd2(idx, perm, args, ct, z, act="silu")
 
     call()
-    return _profile(call, reps, TN_BWD2_KERNELS)[2]
+    return kernel_profile(call, reps, TN_BWD2_KERNELS)[2]
 
 
 # --- The graph network: kernels #4/#5, serving, the fp32 forward, STMV MD, training ---
@@ -2121,49 +2097,21 @@ def _ell_bounds(n, k, f, kind):
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def _enqueue_ms(fn, reps=200, warmup=10):
-    """Median over ``reps`` calls of host-clock time with no synchronise:
-    what the host takes to enqueue one call (the card runs behind it)."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        t0 = time.perf_counter()
-        fn()
-        times.append(1e3 * (time.perf_counter() - t0))
-    torch.cuda.synchronize()
-    return statistics.median(times)
-
-
-FLUSH_KERNELS = ("FillFunctor", "Memset")  # what ``flush.zero_()`` runs on the card
-
-
-def _device_ms(fn, flush, reps=20):
-    """Device time alone of one call: torch.profiler's device time of the
-    kernels ``fn`` runs (``_profile``), mean of ``reps`` calls with the L2
-    flushed before each, the flush's own kernel left out by name."""
-    _, _, groups, other, _, _ = _profile(lambda: (flush.zero_(), fn()), reps, FLUSH_KERNELS)
-    if not (sum(groups.values()) > 0.0 and other > 0.0):
-        raise AssertionError(f"the profiler did not tell the flush from the call: flush {groups}, call {other} ms")
-    return other
 
 
 def _three_ways(fn, flush, kernel, reps=20):
     """One call timed three ways: the CUDA-event window (L2 flushed, median
     of 20); the device time alone of the kernels whose names contain
     ``kernel`` (``device_ms``, ``launches``) and of the call's other kernels
-    (``other_ms``, ``other_launches``), from ``_profile``, mean of ``reps``
+    (``other_ms``, ``other_launches``), from ``kernel_profile``, mean of ``reps``
     calls with the L2 flushed before each, the flush's kernels left out by
     name; and the host's enqueue (no synchronise, median of 200)."""
     fn()
-    _, _, groups, other, others, counts = _profile(lambda: (flush.zero_(), fn()), reps, FLUSH_KERNELS + (kernel,))
+    _, _, groups, other, others, counts = kernel_profile(lambda: (flush.zero_(), fn()), reps, FLUSH_KERNELS + (kernel,))
     if not (groups[kernel] > 0.0 and any(counts[f] for f in FLUSH_KERNELS)):
         raise AssertionError(f"the profiler did not tell the flush from the call: {groups}, other {other} ms")
-    return dict(ms=_event_ms(fn, flush=flush), device_ms=groups[kernel], launches=counts[kernel], other_ms=other,
-                other_launches=others, enqueue_ms=_enqueue_ms(fn))
+    return dict(ms=event_ms(fn, flush=flush), device_ms=groups[kernel], launches=counts[kernel], other_ms=other,
+                other_launches=others, enqueue_ms=enqueue_ms(fn))
 
 
 def ell_cases(lists):
@@ -2218,10 +2166,10 @@ def time_ell_gather(lists):
         for kind, (kern, plain, lib) in calls.items():
             bound, by = _ell_bounds(n, k, f, kind)
             out[where][kind] = dict(
-                ms=_event_ms(kern, flush=flush), plain_ms=_event_ms(plain, flush=flush),
-                library_ms=_event_ms(lib, flush=flush), bound_ms=bound, bound_by=by,
-                device_ms=_device_ms(kern, flush), library_device_ms=_device_ms(lib, flush),
-                enqueue_ms=_enqueue_ms(kern), library_enqueue_ms=_enqueue_ms(lib))
+                ms=event_ms(kern, flush=flush), plain_ms=event_ms(plain, flush=flush),
+                library_ms=event_ms(lib, flush=flush), bound_ms=bound, bound_by=by,
+                device_ms=device_ms(kern, flush), library_device_ms=device_ms(lib, flush),
+                enqueue_ms=enqueue_ms(kern), library_enqueue_ms=enqueue_ms(lib))
     log("ell_gather kernel times (events: L2 flushed, median of 20; device: torch.profiler, mean of 20; "
         "enqueue: host clock without a synchronise, median of 200): " + "; ".join(
             f"{kind} at {where} N={v['shape'][0]} K={v['shape'][1]} F={v['shape'][2]} {t['ms']:.4f} ms "
@@ -2268,7 +2216,7 @@ def gn_forward():
         expected = (layers, 0) if args["bf16_messages"] else (0, 0)
         if launches[:2] != expected:
             raise AssertionError(f"GN {label} forward: expected (#4, #5) launches {expected}, got {launches[:2]}")
-        ms = _host_ms(call, reps=GN_FWD_REPS)
+        ms = host_ms(call, reps=GN_FWD_REPS)
         out[label] = (ms, launches)
         log(f"GN forward at {label} (bench.py's configuration: 6x128, K={args['max_num_neighbors']}, "
             f"{'bf16 messages' if args['bf16_messages'] else 'f32'}, list built in the call, N={batch.num_atoms}): "
@@ -2610,20 +2558,20 @@ def time_t_kernels(train_batch):
         z = _t_z_like(ins, SEED)
         for k in kinds:
             if k == "fwd":
-                ms = _event_ms(lambda: tmk.run_fwd(idx, *args, heads=heads, **kw), flush=flush)
-                plain = _event_ms(lambda: tmk.t_messages_reference(idx, *args, heads=heads, perm=perm), flush=flush)
+                ms = event_ms(lambda: tmk.run_fwd(idx, *args, heads=heads, **kw), flush=flush)
+                plain = event_ms(lambda: tmk.t_messages_reference(idx, *args, heads=heads, perm=perm), flush=flush)
             elif k in ("bwd", "bwd_w"):
                 want = k == "bwd_w"
-                ms = _event_ms(lambda: tmk.run_bwd(idx, perm, *args, ct, heads=heads, want_weight_grads=want, **kw),
+                ms = event_ms(lambda: tmk.run_bwd(idx, perm, *args, ct, heads=heads, want_weight_grads=want, **kw),
                                flush=flush)
                 t = {x: v.clone().requires_grad_(want or x not in ("wdk", "bdk", "wdv", "bdv")) for x, v in ins.items()}
                 m = tmk.t_messages_reference(idx, *[t[x] for x in T_ORDER], heads=heads, perm=perm)
                 leaves = [t[x] for x in T_ORDER if t[x].requires_grad]
-                plain = _event_ms(lambda: torch.autograd.grad(m, leaves, ct, retain_graph=True), flush=flush)
+                plain = event_ms(lambda: torch.autograd.grad(m, leaves, ct, retain_graph=True), flush=flush)
                 del m, t
             else:
-                ms = _event_ms(lambda: tmk.run_bwd2(idx, perm, args, ct, z, heads=heads, **kw), flush=flush)
-                plain = _event_ms(lambda: tmk.t_messages_bwd2_reference(idx, perm, args, ct, z, heads=heads),
+                ms = event_ms(lambda: tmk.run_bwd2(idx, perm, args, ct, z, heads=heads, **kw), flush=flush)
+                plain = event_ms(lambda: tmk.t_messages_bwd2_reference(idx, perm, args, ct, z, heads=heads),
                                   flush=flush, reps=5)
             out[(where, k)] = (ms, plain) + _t_bounds(n, kk, h, rbf, k) + ((n, kk, h),)
         split = _t_pass_split(idx, perm, args, ct, z, heads, flush)
@@ -2656,7 +2604,7 @@ def _t_pass_split(idx, perm, args, ct, z, heads, flush):
         "t_bwd2_src_kernel": lambda: tmk.bwd2_source(idx, perm, args, ct, z, hs4, **kw),
         "et_dw_kernel (#13)": lambda: em.weight_grads([(ea, bpre), (zea, bpret)], rbf),
     }
-    return {name: _event_ms(fn, flush=flush) for name, fn in calls.items()}
+    return {name: event_ms(fn, flush=flush) for name, fn in calls.items()}
 
 
 def _zero_t_messages(rep):
@@ -2877,8 +2825,8 @@ def time_compaction(batch):
             ms=kern["ms"], device_ms=kern["device_ms"], enqueue_ms=kern["enqueue_ms"],
             build_ms=build["ms"], build_device_ms=build["device_ms"],
             build_enqueue_ms=build["enqueue_ms"], build_launches=build["launches"],
-            plain_ms=_event_ms(lambda: compact_neighbors_reference(*args, **kw), flush=flush),
-            library_ms=_event_ms(lambda: neighbor_list(*args, strategy="brute", **kw), flush=flush),
+            plain_ms=event_ms(lambda: compact_neighbors_reference(*args, **kw), flush=flush),
+            library_ms=event_ms(lambda: neighbor_list(*args, strategy="brute", **kw), flush=flush),
             bound_ms=bound, bound_by=by)
     log("compaction times (events: L2 flushed, median of 20; device: torch.profiler, mean of 20; enqueue: host "
         "clock without a synchronise, median of 200): " + "; ".join(
@@ -3137,10 +3085,10 @@ def zbl_path(zbl_k):
     df = float(((f1 - f0) - f_prior).abs().max())
     de_tol = ZBL_SUM_ULPS * eps * float(e0.abs().max() + e_prior.abs().max())
     df_tol = ZBL_SUM_ULPS * eps * float(max(f0.abs().max(), f_prior.abs().max()))
-    with_ms = _host_ms(lambda: ext.calculate(requests[0]))
+    with_ms = host_ms(lambda: ext.calculate(requests[0]))
     without = External((plain, None), z[None])
     without.calculate(requests[0])
-    without_ms = _host_ms(lambda: without.calculate(requests[0]))
+    without_ms = host_ms(lambda: without.calculate(requests[0]))
     log(f"ET {layers}x{ET_ARGS['embedding_dimension']} fused with a ZBL prior (K={zbl_k}, {ZBL_CUTOFF} A) through "
         f"External at DHFR size: {REQUESTS} requests; launches fwd {launches[0]} bwd {launches[1]}, select_topk "
         f"{launches[2]} for the model's lists and {prior_launches} for the prior's (one more a call than "
@@ -3202,9 +3150,9 @@ def dipole_path(ds, tn_batch):
     batch = _train_batch(ds, "cuda")
     layers = DIPOLE_ARGS["num_layers"]
 
-    def pair(args):
-        fused = create_model(args, seed=SEED)
-        comp = create_model(dict(args, bf16_messages=False, fused_attention=False, fused_message=False), seed=SEED)
+    def pair(args, seed=SEED):
+        fused = create_model(args, seed=seed)
+        comp = create_model(dict(args, bf16_messages=False, fused_attention=False, fused_message=False), seed=seed)
         comp.module.load_state_dict(fused.module.state_dict())
         return fused, comp
 
@@ -3233,10 +3181,20 @@ def dipole_path(ds, tn_batch):
     shift = torch.tensor([3.7, -2.1, 5.3], device="cuda")
     errs["translated"] = err(serve(fused, batch.replace(pos=torch.where(batch.atom_mask[:, None],
                                                                         batch.pos + shift, batch.pos))), mu)
-    ms = _host_ms(lambda: serve(fused, batch))
-    comp_ms = _host_ms(lambda: serve(comp, batch))
+    ms = host_ms(lambda: serve(fused, batch))
+    comp_ms = host_ms(lambda: serve(comp, batch))
     dipole = fused
     del fused, comp
+    # the fused dipole's gap to composable fp32 for the weights of more seeds
+    seed_errs = {SEED: errs["fused vs composable fp32"]}
+    for seed in DIPOLE_SEEDS[1:]:
+        fused, comp = pair(DIPOLE_ARGS, seed)
+        seed_errs[seed] = err(serve(fused, batch), serve(comp, batch))
+        del fused, comp
+    log(f"ET-QM9 dipole, fused bf16 against composable fp32 by weight seed: "
+        + ", ".join(f"seed {k} {v:.3e}" for k, v in seed_errs.items()) + f" (tol {FWD_TOL})")
+    if max(seed_errs.values()) > FWD_TOL:
+        raise AssertionError(f"the fused dipole exceeds its tolerance for a seed: {seed_errs}")
     for name, tol in DIPOLE_OTHER_HEADS.items():
         fused, comp = pair(dict(DIPOLE_ARGS, output_model=name))
         out = serve(fused, batch)
@@ -3271,8 +3229,8 @@ def dipole_path(ds, tn_batch):
     fwd_abs = max(float((g - r).abs().max()) for g, r in zip(got, want))
     if fwd_err > FWD_TOL:
         raise AssertionError(f"#1 disagrees with its plain version at the dipole shape: {fwd_err}")
-    fwd_ms = _event_ms(lambda: em.run_fwd(nbl.idx, *common, dirs, *w, **kw), flush=flush)
-    plain_ms = _event_ms(lambda: _call(em.et_messages_reference, nbl, ins, heads), flush=flush)
+    fwd_ms = event_ms(lambda: em.run_fwd(nbl.idx, *common, dirs, *w, **kw), flush=flush)
+    plain_ms = event_ms(lambda: _call(em.et_messages_reference, nbl, ins, heads), flush=flush)
     bound_ms, bound_by = _bounds(n, kk, h, rbf, "fwd")
     log(f"ET dipole serving at ET-QM9's widths ({layers}x{h}, {heads} heads, RBF {rbf}, K {a['max_num_neighbors']}, "
         f"fused bf16, {batch.num_mol} molecules of {TRAIN_MOL['num_atoms']} atoms, N={batch.num_atoms}): "
@@ -3656,7 +3614,7 @@ def import_serving(best, workdir, md17_batch):
         if name == "imported":
             launches = (em.run_fwd.launches, em.run_bwd.launches, select_topk.launches)
             _check_et_parts("import_external_dhfr", launches[1], 0)
-            call_ms = _host_ms(lambda: ext.calculate(requests[0]))
+            call_ms = host_ms(lambda: ext.calculate(requests[0]))
     layers = imported.args["num_layers"]
     if launches != (layers * REQUESTS, layers * REQUESTS, REQUESTS + 1):
         raise AssertionError(f"imported ET-MD17 at DHFR size: expected ({layers}, {layers}) launches a request "
@@ -4489,7 +4447,7 @@ def _rank_times(calls, bounds):
     import torch
 
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")  # 256 MB > L2
-    return {kind: (_event_ms(fn, flush=flush),) + bounds(kind) for kind, fn in calls.items()}
+    return {kind: (event_ms(fn, flush=flush),) + bounds(kind) for kind, fn in calls.items()}
 
 
 def _times_text(times):
@@ -5124,6 +5082,41 @@ def _untimed(kernel, path):
     return kernel in ("ell_gather", "ell_transpose_sum") and (path.startswith("fgm_") or "jvp" in path)
 
 
+def _jvp_with_remat(model, args, h, batch, zero, km, layers, want, kind):
+    """(H2-REMAT) ``model``'s jvp step (``h``) on the same batch again with
+    remat (``args``' model with ``model``'s weights): each fused forward's
+    outputs replayed in the three passes' recomputations with its tangent
+    rules kept, so the launches stay (3L,
+    3L, 0), the replays are 3L, and the gradients equal ``want`` (the step
+    without remat) within REMAT_TOL.  Returns (the largest max|dg|/max|g|,
+    whether bitwise, the launches, the replays)."""
+    import torch
+
+    from torchmdnet_tpu_torch import create_model
+    from torchmdnet_tpu_torch.ops.kernels import save_list
+    from torchmdnet_tpu_torch.train.trainer import Trainer
+
+    remat = create_model(dict(args, remat=True), seed=SEED)
+    remat.module.load_state_dict(model.module.state_dict())
+    trainer = Trainer(remat, h)
+    _reset_launches()
+    save_list.reset_replays()
+    trainer.step_gradients(batch, zero, zero)
+    torch.cuda.synchronize()
+    launches, replays = _launches(km)[:3], dict(save_list.replays)
+    got = {n: q.grad.detach() for n, q in zip(trainer.param_names, trainer.params)}
+    gap = max(_rel(got[k], v) for k, v in want.items())
+    bitwise = all(torch.equal(got[k], v) for k, v in want.items())
+    kernel = f"{_prefix(km)}_fwd"
+    if launches != (3 * layers, 3 * layers, 0) or replays != {kernel: 3 * layers}:
+        raise AssertionError(f"H2-REMAT {kind} jvp step with remat: launches {launches}, replays {replays}; "
+                             f"expected {(3 * layers, 3 * layers, 0)} and {{{kernel!r}: {3 * layers}}}")
+    if gap > REMAT_TOL:
+        raise AssertionError(f"H2-REMAT {kind}: the jvp step's gradients with remat differ from those without: "
+                             f"{gap}")
+    return gap, bitwise, launches, replays
+
+
 def force_grad_modes(train_ds, tn_ds, workdir):
     """(H-FGM) ET (8 x 256), the Transformer (8 x 256) and TensorNet-ANI1X
     (2 x 128) fused bf16 at their training shapes: one step's gradients
@@ -5175,9 +5168,9 @@ def force_grad_modes(train_ds, tn_ds, workdir):
             paths[path] = launches
             grads[mode] = {n: q.grad.detach().clone() for n, q in zip(trainer.param_names, trainer.params)}
             peak = torch.cuda.max_memory_allocated() / 2 ** 30
-            host = _host_ms(step, reps=FGM_TIMED_STEPS, warmup=1)
-            event = _event_ms(step, reps=FGM_TIMED_STEPS, warmup=0)
-            wall, busy, groups, other, other_launches, _ = _profile(step, FGM_PROFILED_STEPS, cfg["kernels"])
+            host = host_ms(step, reps=FGM_TIMED_STEPS, warmup=1)
+            event = event_ms(step, reps=FGM_TIMED_STEPS, warmup=0)
+            wall, busy, groups, other, other_launches, _ = kernel_profile(step, FGM_PROFILED_STEPS, cfg["kernels"])
             stats[mode] = dict(launches=launches, host=host, event=event, wall=wall, busy=busy, peak=peak,
                                shares=_shares(groups, other, busy), other=other_launches)
         want = {"gradgrad": (layers, 2 * layers, layers), "jvp": (3 * layers, 3 * layers, 0)}
@@ -5186,6 +5179,7 @@ def force_grad_modes(train_ds, tn_ds, workdir):
             if (got[f"{p}_fwd"], got[f"{p}_bwd"], got[f"{p}_bwd2"]) != (f, b, b2):
                 raise AssertionError(f"H-FGM {kind} {mode}: expected (fwd, bwd, bwd2) launches {(f, b, b2)}, "
                                      f"got {got}")
+        remat = _jvp_with_remat(model, args, hs["jvp"], batch, zero, km, layers, grads["jvp"], kind)
         per, l2 = _grad_gaps(grads["jvp"], grads["gradgrad"])
         # the force loss alone, by both modes, and by jvp with the planted fault
         force = {}
@@ -5209,7 +5203,9 @@ def force_grad_modes(train_ds, tn_ds, workdir):
                         f"{s['busy']:.3f} ms (profiled wall {s['wall']:.3f} ms; {s['shares']}; {s['other']:.0f} "
                         f"other launches), peak {s['peak']:.2f} GiB, launches {s['launches']}"
                         for mode, s in stats.items())
-            + f"; jvp / gradgrad: host {j['host'] / g['host']:.2f}x, device busy {j['busy'] / g['busy']:.2f}x")
+            + f"; jvp / gradgrad: host {j['host'] / g['host']:.2f}x, device busy {j['busy'] / g['busy']:.2f}x; "
+            f"the jvp step with remat (H2-REMAT): max|dg|/max|g| {remat[0]:.3e} from the one without (bitwise "
+            f"{remat[1]}; tol {REMAT_TOL}), launches {remat[2]}, replays {remat[3]}")
         if per[worst] > FGM_GRAD_TOL or l2 > FGM_GRAD_L2_TOL or force_l2 > limit:
             failures.append(f"H-FGM {kind}: the jvp step's gradients disagree with gradgrad's")
         if fault_l2 <= limit:
@@ -5417,6 +5413,453 @@ def jax_checkpoint_serving():
     return {"jax_ckpt_external": launches}
 
 
+# --- slice H2: remat's save-list, profiling.py, the native collation --------
+
+# bench.py runs its STMV MD lines with remat (bench.py:255-260): ET as ET_ARGS
+# (6 x 128, K 80); TensorNet's tensornet_fused_stmv_force_md_ms_per_step is
+# TN_ARGS (2 x 128, 32 RBFs, cutoff 4.5 A, K 64, fused;
+# benchmarks/inference.py:56-60)
+REMAT_MD_MODELS = {"ET": ET_ARGS, "TensorNet": TN_ARGS}
+DIPOLE_SEEDS = (SEED, SEED + 1, SEED + 2, SEED + 3)
+PROF_ITERS = 3
+# H2-PROF: device_ms_per_iter of ET's STMV force evaluation (device-bound:
+# 99 % busy) over one evaluation's CUDA-event window.  The two differ by the
+# window's launch overhead, which the difference of k_hi and k_lo cancels.
+# On a DHFR call (host-bound: 14.7 ms of device time in a 27-40 ms call) the
+# ratio swung from 0.893 to 1.252 between runs on an NVIDIA H100 80GB HBM3
+# at 700 W with the host's speed.  At STMV a timer that divided by k_hi
+# instead of k_hi - k_lo reads 0.67, one that counted a window twice 2.
+DEVICE_ITER_BAND = (0.9, 1.1)
+DEVICE_ITER_K = (1, 3)
+COLLATE_BIG_BATCH = 128  # benchmarks/training.py's and ET-QM9's batch
+
+
+def _remat_forces(args, batch, km, label):
+    """One force evaluation of ``args``' model with remat against one without
+    (same weights, same list): each forward kernel launched L times and
+    served L times by replay, one backward per layer; energies and forces
+    within REMAT_TOL (bitwise where the order of sums allows).  Returns the
+    gaps, whether the forces are bitwise equal, and the evaluation's peak
+    GiB above what was allocated before it, without and with remat."""
+    import torch
+
+    from torchmdnet_tpu_torch import create_model
+    from torchmdnet_tpu_torch.ops.kernels import save_list
+
+    from torchmdnet_tpu_torch.ops.cell_list import probe_cell_kwargs
+
+    ref = create_model(args, seed=SEED)
+    model = create_model(dict(args, remat=True), seed=SEED)
+    model.module.load_state_dict(ref.module.state_dict())
+    nbl = ref.neighbors(batch, **probe_cell_kwargs(batch, cutoff_upper=args["cutoff_upper"]))
+    nbl.raise_on_overflow(f"{label} STMV list")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    y0, f0 = ref.energy_and_forces(batch, nbl=nbl)
+    torch.cuda.synchronize()
+    peak0 = (torch.cuda.max_memory_allocated() - base) / 2**30
+    _reset_launches()
+    save_list.reset_replays()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    y1, f1 = model.energy_and_forces(batch, nbl=nbl)
+    torch.cuda.synchronize()
+    peak1 = (torch.cuda.max_memory_allocated() - base) / 2**30
+    layers = args["num_layers"]
+    got = (km.run_fwd.launches, km.run_bwd.launches, dict(save_list.replays))
+    kernel = f"{km.__name__.split('.')[-1]}_fwd"
+    if got != (layers, layers, {kernel: layers}):
+        raise AssertionError(f"{label}: one force evaluation with remat launched/replayed {got}, expected "
+                             f"({layers}, {layers}, {{{kernel!r}: {layers}}})")
+    gaps = (float((y1 - y0).abs().max() / y0.abs().max()), float((f1 - f0).abs().max() / f0.abs().max()),
+            bool(torch.equal(f1, f0)), peak0, peak1)
+    if max(gaps[:2]) > REMAT_TOL:
+        raise AssertionError(f"{label}: energy/forces with remat differ from those without: {gaps}")
+    del ref, model, nbl, y0, f0, y1, f1
+    return gaps
+
+
+@contextlib.contextmanager
+def _whole_layer_remat():
+    """Remat without the save-list: each recomputed layer runs its fused
+    forward kernel again (the JAX package's nn.remat without a policy)."""
+    from torch.utils.checkpoint import noop_context_fn
+
+    from torchmdnet_tpu_torch.ops.kernels import save_list
+
+    contexts = save_list.contexts
+    save_list.contexts = noop_context_fn
+    try:
+        yield
+    finally:
+        save_list.contexts = contexts
+
+
+def _timed_md(model, batch, km, every, warmup, timed):
+    """``warmup`` + ``timed`` MD steps through md.Simulation at a rebuild
+    every ``every`` steps: (the Simulation, ms/step of the timed steps on the
+    host clock with sync, (fwd, bwd, select_topk) launches, replays, peak
+    GiB since the Simulation was made, the positions at each rebuild)."""
+    import torch
+
+    from torchmdnet_tpu_torch import Simulation
+    from torchmdnet_tpu_torch.ops.kernels import save_list
+    from torchmdnet_tpu_torch.ops.kernels.select_topk import select_topk
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sim = Simulation(model, batch, seed=SEED, **dict(MD_ARGS, rebuild_every=every))
+    sim.set_velocities_from_temperature(300.0)
+    _reset_launches()
+    save_list.reset_replays()
+    starts = []
+    for _ in range(warmup // every):
+        starts.append(sim.state.pos)
+        sim.step(every)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(timed // every):
+        starts.append(sim.state.pos)
+        sim.step(every)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / timed
+    launches = (km.run_fwd.launches, km.run_bwd.launches, select_topk.launches)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    return sim, ms, launches, dict(save_list.replays), peak, starts
+
+
+def _md_counts_ok(label, launches, replays, kernel, layers, steps, every):
+    evaluations, rebuilds = steps + 1, steps // every
+    want = (layers * evaluations, layers * evaluations, rebuilds)
+    if launches != want or replays != {kernel: layers * evaluations}:
+        raise AssertionError(f"{label}: launches {launches}, replays {replays}; expected {want} and "
+                             f"{{{kernel!r}: {layers * evaluations}}} ({evaluations} evaluations, {rebuilds} rebuilds)")
+
+
+def check_tn_stmv(nbl, ins, ct, seed):
+    """#8 and #9 (frozen weights, as MD runs it) at TensorNet's STMV skin
+    list against their plain versions, as ``check_stmv`` does ET's: #8 on
+    every receiver row in chunks of STMV_CHECK_ROWS; #9 on the cotangents of
+    STMV_CHECK_ATOMS random atoms S, the receiver side (d_ea, d_cutm of S's
+    rows) by autograd through the plain version of S's rows, the source side
+    (d_cat) through the K edges pointing at each atom of S, each edge a row
+    of an identity list.  Returns ({output: max rel err}, max abs err of the
+    forward, of the backward); raises past TN_FWD_TOL or BWD_TOL."""
+    import torch
+
+    from torchmdnet_tpu_torch.ops.kernels import tn_message as tm
+
+    idx, perm = nbl.idx, nbl.transpose_perm
+    n, kk = idx.shape
+    w = [ins[x] for x in TN_ORDER[3:]]
+    m = tm.run_fwd(idx, *[ins[x] for x in TN_ORDER], act="silu")
+    fwd = []
+    for r0 in range(0, n, STMV_CHECK_ROWS):
+        r = slice(r0, min(n, r0 + STMV_CHECK_ROWS))
+        fwd.append((m[r], tm.tn_messages_reference(idx[r], ins["cat"], ins["ea"][r], ins["cutm"][r], *w,
+                                                   perm=_no_perm)))
+    rel = {"fwd_m": _max_rel(fwd)}
+    fwd_abs = max(float((a - b).abs().max()) for a, b in fwd)
+    del m, fwd
+    got = dict(zip(("cat", "ea", "cutm"), tm.run_bwd(idx, *[ins[x] for x in TN_ORDER], ct, act="silu",
+                                                      want_weight_grads=False)[:3]))
+    g = torch.Generator().manual_seed(seed)
+    atoms = torch.randperm(n, generator=g)[:STMV_CHECK_ATOMS].sort().values.to(idx.device)
+    t = {x: ins[x][atoms].clone().requires_grad_() for x in ("ea", "cutm")}
+    out = tm.tn_messages_reference(idx[atoms], ins["cat"], t["ea"], t["cutm"], *w, perm=_no_perm)
+    want = dict(zip(("ea", "cutm"), torch.autograd.grad(out, [t["ea"], t["cutm"]], ct[atoms])))
+    edges = perm.reshape(n, kk)[atoms].reshape(-1).long()
+    recv, me = torch.div(edges, kk, rounding_mode="floor"), edges.numel()
+    if not torch.equal(idx.reshape(-1)[edges].reshape(-1, kk)[:, 0], atoms):
+        raise AssertionError("transpose_perm's groups do not point at their atoms")
+    ident = torch.arange(me, dtype=torch.int32, device=idx.device)
+    src = ins["cat"][atoms].repeat_interleave(kk, dim=0).clone().requires_grad_()
+    e_ea = ins["ea"].reshape(n * kk, -1)[edges].reshape(me, 1, -1)
+    e_cutm = ins["cutm"].reshape(-1)[edges].reshape(me, 1)
+    out = tm.tn_messages_reference(ident.reshape(me, 1), src, e_ea, e_cutm, *w, perm=ident)
+    (gs,) = torch.autograd.grad(out, [src], ct[recv])
+    want["cat"] = gs.float().reshape(len(atoms), kk, -1).sum(1)
+    bwd_abs = 0.0
+    for x, b in want.items():
+        a = got[x][atoms]
+        rel[f"bwd_{x}"] = _rel(a, b)
+        bwd_abs = max(bwd_abs, float((a.float() - b.float()).abs().max()))
+    torch.cuda.synchronize()
+    fwd_err = rel["fwd_m"]
+    bwd_err = max(v for k, v in rel.items() if k.startswith("bwd"))
+    log(f"TensorNet kernel check at the STMV skin list (N={n} K={kk} H={ins['cat'].shape[1] // 9} "
+        f"RBF={ins['ea'].shape[-1]}; #8 on every row in chunks of {STMV_CHECK_ROWS}, #9 frozen on {len(atoms)} "
+        f"random atoms, both sides): fwd max rel err {fwd_err:.3e} (tol {TN_FWD_TOL}), bwd max rel err "
+        f"{bwd_err:.3e} (tol {BWD_TOL}) {_fmt(rel)}")
+    if fwd_err > TN_FWD_TOL or bwd_err > BWD_TOL:
+        raise AssertionError(f"TensorNet kernels disagree with their plain versions at the STMV skin list: {rel}")
+    return rel, fwd_abs, bwd_abs
+
+
+def remat_md_stmv(et_md):
+    """(H2-REMAT) bench.py's STMV MD lines under remat through md.Simulation
+    on 30,336 padded atoms at full width, each fused forward's outputs kept
+    and served again in each layer's recomputation (``save_list``).
+
+    ET (6 x 128, K 80, skin 0.5 A, fused, remat): one force evaluation
+    against one without remat; bench.py's cadence (a rebuild every 10
+    steps): #1 and #2 L times per force evaluation (not 2L #1), #6 per
+    rebuild, L replays per evaluation; ms/step and peak memory beside
+    ``et_md`` (ms/step, peak GiB without remat, this run).
+
+    TensorNet (2 x 128, 32 RBFs, 4.5 A, K 64, fused, remat; never run on the
+    card before): the same evaluation check; MD_VALID_EVERY (where the skin
+    holds): stale False, the refined list a fresh one's, two runs bitwise;
+    bench.py's cadence for the time (its lists go stale, as ET's); #8 and #9
+    checked and timed at its STMV skin list, #6 at its skin build.
+
+    Returns ({path: {kernel: launches}}, {kernel: {path: (ms, bound_ms)}},
+    #8's and #9's largest absolute errors at the skin list, the two
+    Simulations at bench.py's cadence for the profiles)."""
+    import torch
+
+    from torchmdnet_tpu_torch import create_model
+    from torchmdnet_tpu_torch.ops.kernels import et_message as em
+    from torchmdnet_tpu_torch.ops.kernels import tn_message as tm
+    from torchmdnet_tpu_torch.ops.kernels.select_topk import select_topk, select_topk_reference
+
+    batch = _stmv_batch()
+    real = batch.atom_mask
+    steps, every = MD_WARMUP_STEPS + MD_TIMED_STEPS, MD_ARGS["rebuild_every"]
+    half_skin = 0.5 * MD_ARGS["neighbor_skin"]
+    paths, timed_at = {}, {}
+
+    def largest_move(starts, end):
+        ends = starts[1:] + [end]
+        return max(float((b - a).norm(dim=-1)[real].max()) for a, b in zip(starts, ends))
+
+    # ET
+    args, layers = REMAT_MD_MODELS["ET"], REMAT_MD_MODELS["ET"]["num_layers"]
+    gaps = _remat_forces(args, batch, em, "ET")
+    model = create_model(dict(args, remat=True), seed=SEED)
+    sim, ms, launches, replays, peak, starts = _timed_md(model, batch, em, every, MD_WARMUP_STEPS, MD_TIMED_STEPS)
+    _md_counts_ok("ET STMV MD with remat", launches, replays, "et_message_fwd", layers, steps, every)
+    _check_et_parts("md_stmv_remat", launches[1], 0)
+    state = sim.state
+    if not (torch.isfinite(state.pos).all() and torch.isfinite(state.energy).all()):
+        raise AssertionError("non-finite positions or energies in ET MD with remat")
+    if not torch.equal(state.pos[~real], batch.pos[~real]):
+        raise AssertionError("padding atoms moved")
+    move = largest_move(starts, state.pos)
+    if move > half_skin and not bool(state.stale):
+        raise AssertionError(f"atoms moved {move:.3f} A between rebuilds (> skin/2) but stale is False")
+    paths["md_stmv_remat"] = dict(zip(("et_message_fwd", "et_message_bwd", "select_topk"), launches))
+    # the same steps with the layers recomputed whole (no save-list: each
+    # recomputation launches #1 again), in this process
+    with _whole_layer_remat():
+        _, whole_ms, whole_launches, _, whole_peak, _ = _timed_md(model, batch, em, every, MD_WARMUP_STEPS,
+                                                                   MD_TIMED_STEPS)
+    if whole_launches[0] != 2 * launches[0]:
+        raise AssertionError(f"whole-layer remat launched #1 {whole_launches[0]} times, not {2 * launches[0]}")
+    log(f"H2-REMAT: ET STMV MD with remat (bench.py's et_fused_stmv_force_md line: {layers}x"
+        f"{args['embedding_dimension']} fused bf16, K {args['max_num_neighbors']}, {int(real.sum())} atoms padded "
+        f"to {batch.num_atoms}, {MD_ARGS}): one evaluation against no remat |dE|/|E| {gaps[0]:.3e}, "
+        f"max|dF|/max|F| {gaps[1]:.3e} (bitwise {gaps[2]}; tol {REMAT_TOL}); {steps} steps: launches #1 "
+        f"{launches[0]} #2 {launches[1]} #6 {launches[2]} ({steps + 1} evaluations x {layers}, {steps // every} "
+        f"rebuilds; without the save-list #1 would launch {2 * launches[0]}), replays {replays}; {ms:.3f} ms/step "
+        f"(host clock with sync, mean of {MD_TIMED_STEPS}) against {et_md[0]:.3f} without remat; peak memory "
+        f"{peak:.2f} GiB against {et_md[1]:.2f} GiB without remat; stale {bool(state.stale)} (largest move "
+        f"{move:.3f} A against skin/2 {half_skin} A); one force evaluation's peak above what it found "
+        f"allocated {gaps[4]:.2f} GiB with remat, {gaps[3]:.2f} GiB without; the layers recomputed whole (no "
+        f"save-list, the same steps): #1 {whole_launches[0]} launches, {whole_ms:.3f} ms/step, peak "
+        f"{whole_peak:.2f} GiB")
+    et_sim = sim
+    del model, state, starts
+
+    # TensorNet
+    args, layers = REMAT_MD_MODELS["TensorNet"], REMAT_MD_MODELS["TensorNet"]["num_layers"]
+    tn_gaps = _remat_forces(args, batch, tm, "TensorNet")
+    model = create_model(dict(args, remat=True), seed=SEED)
+    valid_steps = MD_VALID_STEPS
+    runs = []
+    for _ in range(2):
+        run = _timed_md(model, batch, tm, MD_VALID_EVERY, 0, valid_steps)
+        _md_counts_ok("TensorNet STMV MD with remat", run[2], run[3], "tn_message_fwd", layers, valid_steps,
+                      MD_VALID_EVERY)
+        runs.append(run)
+    (a, v_ms, _, _, v_peak, vstarts), (b, *_) = runs
+    if not torch.equal(a.state.pos, b.state.pos):
+        raise AssertionError("two TensorNet Simulations from the same batch and seed diverged")
+    if not (torch.isfinite(a.state.pos).all() and torch.isfinite(a.state.energy).all()):
+        raise AssertionError("non-finite positions or energies in TensorNet MD")
+    if not torch.equal(a.state.pos[~real], batch.pos[~real]):
+        raise AssertionError("padding atoms moved")
+    vmove = largest_move(vstarts, a.state.pos)
+    if bool(a.state.stale):
+        raise AssertionError(f"TensorNet's skin list went stale at rebuild_every={MD_VALID_EVERY} ({vmove:.3f} A)")
+    if _pairs_against_fresh(a, model, batch, vstarts[-1], args)[:2] != (0, 0):
+        raise AssertionError("TensorNet's refined skin list and a fresh list hold different pairs")
+    skin_nbl = a._build_nbl(a.state.pos)
+    pos = a.state.pos
+    del runs, b
+    sim, ms, launches, replays, peak, starts = _timed_md(model, batch, tm, every, MD_WARMUP_STEPS, MD_TIMED_STEPS)
+    _md_counts_ok("TensorNet STMV MD with remat at bench.py's cadence", launches, replays, "tn_message_fwd",
+                  layers, steps, every)
+    _check_tn_parts("tn_md_stmv_remat", 0, 0)
+    move = largest_move(starts, sim.state.pos)
+    stale = bool(sim.state.stale)
+    if move > half_skin and not stale:
+        raise AssertionError(f"atoms moved {move:.3f} A between rebuilds (> skin/2) but stale is False")
+    missed, extra, total = _pairs_against_fresh(sim, model, batch, starts[-1], args)
+    if extra:
+        raise AssertionError(f"TensorNet's refined skin list holds {extra} pairs that a fresh list does not")
+    paths["tn_md_stmv_remat"] = dict(zip(("tn_message_fwd", "tn_message_bwd", "select_topk"), launches))
+    tn_sim = sim
+    del starts
+
+    # #8 and #9 at the skin list this path runs, #6 at its skin build
+    h, rbf = args["embedding_dimension"], args["num_rbf"]
+    ins, ct = _tn_kernel_inputs(skin_nbl, pos, h, rbf, args["cutoff_upper"], SEED)
+    rel, fwd_abs, bwd_abs = check_tn_stmv(skin_nbl, ins, ct, SEED)
+    idx, n, kk = skin_nbl.idx, *skin_nbl.idx.shape
+    ops = [ins[x] for x in TN_ORDER]
+    flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")  # 256 MB > L2
+    fwd_ms = event_ms(lambda: tm.run_fwd(idx, *ops, act="silu"), flush=flush, reps=5)
+    bwd_ms = event_ms(lambda: tm.run_bwd(idx, *ops, ct, act="silu", want_weight_grads=False), flush=flush, reps=5)
+    fwd_bound, bwd_bound = _tn_bounds(n, kk, h, rbf, "fwd"), _tn_bounds(n, kk, h, rbf, "bwd")
+    keys, k, _ = cell_keys(args, batch, skin=MD_ARGS["neighbor_skin"])
+    if not torch.equal(select_topk(keys, k, keys.shape[0]), select_topk_reference(keys, k)):
+        raise AssertionError("#6 disagrees with its plain version at TensorNet's STMV skin build")
+    sel_ms = event_ms(lambda: select_topk(keys, k, keys.shape[0]), flush=flush)
+    sel_bound = _select_topk_bounds(keys, k, keys.shape[0])[:2]
+    timed_at = {"tn_message_fwd": {"tn_md_stmv_remat": (fwd_ms, fwd_bound[0])},
+                "tn_message_bwd": {"tn_md_stmv_remat": (bwd_ms, bwd_bound[0])},
+                "select_topk": {"tn_md_stmv_remat": (sel_ms, sel_bound[0])}}
+    log(f"H2-REMAT: TensorNet STMV MD with remat (bench.py's tensornet_fused_stmv_force_md line: {layers}x{h} "
+        f"fused bf16, RBF {rbf}, cutoff {args['cutoff_upper']} A, K {args['max_num_neighbors']}, skin list K {kk}): "
+        f"one evaluation against no remat |dE|/|E| {tn_gaps[0]:.3e}, max|dF|/max|F| {tn_gaps[1]:.3e} (bitwise "
+        f"{tn_gaps[2]}; the evaluation's peak {tn_gaps[4]:.2f} GiB with remat, {tn_gaps[3]:.2f} without); rebuild "
+        f"every {MD_VALID_EVERY}: {valid_steps} steps, {v_ms:.3f} ms/step, peak "
+        f"{v_peak:.2f} GiB, largest move {vmove:.3f} A, stale False, two runs bitwise equal, the refined list a "
+        f"fresh one's; bench.py's cadence (every {every}): {steps} steps, launches #8 {launches[0]} #9 "
+        f"{launches[1]} #6 {launches[2]}, replays {replays}, {ms:.3f} ms/step (host clock with sync, mean of "
+        f"{MD_TIMED_STEPS}), peak {peak:.2f} GiB, stale {stale} (largest move {move:.3f} A), the refined list misses "
+        f"{missed} of a fresh list's {total} pairs; at its skin list (N={n} K={kk}, L2 flushed, median of 5) #8 "
+        f"{fwd_ms:.4f} ms (bound {fwd_bound[0]:.4f} ms by {fwd_bound[1]}), #9 frozen {bwd_ms:.4f} ms (bound "
+        f"{bwd_bound[0]:.4f} ms by {bwd_bound[1]}); #6 at its skin build (N={keys.shape[0]} W={keys.shape[1]} "
+        f"k={k}, median of 20) {sel_ms:.4f} ms (bound {sel_bound[0]:.4f} ms by {sel_bound[1]})")
+    del model, a, ins, ct, skin_nbl, keys
+    return paths, timed_at, (fwd_abs, bwd_abs), (et_sim, tn_sim)
+
+
+def profiling_phase(ext, pos, sim):
+    """(H2-PROF) ``profiling.trace`` of DHFR ET calls read back by
+    ``trace_summary``, which must name #1's and #2's kernels with PROF_ITERS
+    launches per layer and call; ``device_ms_per_iter`` of ``sim``'s force
+    evaluation (ET's STMV MD on its refined skin list) whose positions chain
+    each step's forces (times a zero), against the CUDA-event window of one
+    evaluation (within DEVICE_ITER_BAND)."""
+    import torch
+
+    from torchmdnet_tpu_torch.ops.kernels import et_message as em
+
+    layers = ET_ARGS["num_layers"]
+    with tempfile.TemporaryDirectory() as log_dir:
+        with profiling.trace(log_dir):
+            for _ in range(PROF_ITERS):
+                with profiling.scope("et_dhfr_call"):
+                    ext.calculate(pos)
+        rows = profiling.trace_summary(log_dir, top=8, iters=PROF_ITERS)
+    by_name = {r["name"]: r for r in rows}
+    for kernel in ("et_fwd_kernel", "et_bwd_kernel"):
+        hits = [r for name, r in by_name.items() if kernel in name and "src" not in name]
+        if not hits or sum(r["count"] for r in hits) != layers:
+            raise AssertionError(f"trace_summary did not find {kernel} {layers} times a call: {hits}")
+    total = sum(r["ms"] for r in rows)
+    pos0 = sim.state.pos
+    forces = sim._skin_list(pos0)[0]  # the MD's evaluation on its refined skin list
+
+    @torch.no_grad()
+    def step(p, eps):
+        return p + eps * forces(p)[1]
+
+    k_lo, k_hi = DEVICE_ITER_K
+    per_iter = profiling.device_ms_per_iter(step, pos0, k_lo=k_lo, k_hi=k_hi, reps=2)
+    window = event_ms(lambda: step(pos0, torch.zeros((), device="cuda")), reps=5, warmup=1)
+    _reset_launches()
+    step(pos0, torch.zeros((), device="cuda"))
+    torch.cuda.synchronize()
+    log(f"H2-PROF: trace_summary of {PROF_ITERS} DHFR ET calls: device {total:.3f} ms/call over {len(rows)} "
+        f"kernels, top: " + "; ".join(f"{r['name'][:48]} {r['ms']:.3f} ms x{r['count']:g}" for r in rows[:5])
+        + f"; device_ms_per_iter of ET's STMV force evaluation (k {k_lo} to {k_hi}, best of 2, CUDA events) "
+        f"{per_iter:.3f} ms against an evaluation's CUDA-event window {window:.3f} ms (median of 5), ratio "
+        f"{per_iter / window:.3f} "
+        f"(band {DEVICE_ITER_BAND}; fwd launches a step "
+        f"{em.run_fwd.launches})")
+    lo, hi = DEVICE_ITER_BAND
+    if not lo < per_iter / window < hi:
+        raise AssertionError(f"device_ms_per_iter {per_iter} ms is {per_iter / window:.3f} of the event window "
+                             f"{window} ms, outside {DEVICE_ITER_BAND}")
+    return per_iter, window
+
+
+def native_collation(trainer, workdir):
+    """(H2-COLLATE) ET-MD17's training loader with the native collation
+    (``use_native=True``) against the numpy path (the default): every batch
+    of an epoch bitwise, in the same dtypes, and ms per batch of each (host
+    clock with sync: collation and the copy to the card; and collation alone
+    on the host, at the loader's batch and at COLLATE_BIG_BATCH molecules,
+    the training configurations' batch)."""
+    import copy
+
+    import torch
+
+    from torchmdnet_tpu_torch.data import native_collate
+    from torchmdnet_tpu_torch.data.batch import pad_molecules
+    from torchmdnet_tpu_torch.data.module import DataModule
+
+    data = DataModule(dict(trainer.h, num_workers=0, log_dir=os.path.join(workdir, "collate")))
+    data.setup()
+    slow = data.train_dataloader()
+    fast = copy.copy(slow)
+    fast.use_native = True
+    if not (fast._native() and not slow._native()):
+        raise AssertionError("ET-MD17's loader does not take the native collation")
+    n = 0
+    for a, b in zip(fast, slow):
+        for f in ("z", "pos", "batch", "atom_mask", "mol_mask", "y", "neg_dy", "q", "s"):
+            x, y = getattr(a, f), getattr(b, f)
+            if (x is None) != (y is None) or (x is not None and (x.dtype != y.dtype or not torch.equal(x, y))):
+                raise AssertionError(f"native and numpy batches differ in {f}")
+        n += 1
+    if n != len(fast):
+        raise AssertionError(f"{n} batches of {len(fast)}")
+
+    def epoch(loader):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in loader:
+            pass
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / len(loader)
+
+    loader_ms = {"native": min(epoch(fast) for _ in range(3)), "numpy": min(epoch(slow) for _ in range(3))}
+    plan = fast._batch_plan()[0]
+    mols = [data.dataset[int(i)] for i in plan[0]]
+    alone = {"native": host_ms(lambda: native_collate.fast_pad_collate(mols, plan[1], fast.batch_size), reps=50),
+             "numpy": host_ms(lambda: pad_molecules(mols, num_atoms=plan[1], num_mol=fast.batch_size), reps=50)}
+    big = [data.dataset[i % len(data.dataset)] for i in range(COLLATE_BIG_BATCH)]
+    cap = -(-sum(len(m["z"]) for m in big) // 8) * 8
+    if not torch.equal(native_collate.fast_pad_collate(big, cap, len(big))["pos"],
+                       pad_molecules(big, num_atoms=cap, num_mol=len(big)).pos):
+        raise AssertionError(f"native and numpy collation differ at {len(big)} molecules")
+    alone_big = {"native": host_ms(lambda: native_collate.fast_pad_collate(big, cap, len(big)), reps=50),
+                 "numpy": host_ms(lambda: pad_molecules(big, num_atoms=cap, num_mol=len(big)), reps=50)}
+    log(f"H2-COLLATE: ET-MD17's training loader ({n} batches of {fast.batch_size} molecules, capacity "
+        f"{fast.num_atoms_pad} atoms), native collation against numpy: every batch bitwise equal, same dtypes; "
+        f"ms per batch with the copy to the card (best of 3 epochs) native {loader_ms['native']:.4f}, numpy "
+        f"{loader_ms['numpy']:.4f}; collation alone on the host (median of 50) native {alone['native']:.4f}, "
+        f"numpy {alone['numpy']:.4f}; at {len(big)} molecules ({cap} atoms) native {alone_big['native']:.4f}, numpy "
+        f"{alone_big['numpy']:.4f}")
+    return loader_ms, alone, alone_big
+
+
 def main():
     import torch
 
@@ -5533,17 +5976,18 @@ def main():
     comp_times = time_compaction(dhfr_batch)
     del dhfr_batch, train_batch_gpu
     del keys, stmv, gn_nbls, sel_cases
-    md_launches, sim = md_stmv(sel_time[0])
+    md_launches, sim, md_ms, md_peak = md_stmv(sel_time[0])
+    remat_paths, remat_timed, tn_stmv_abs, remat_sims = remat_md_stmv((md_ms, md_peak))
     gn_md_launches, gn_sim, gn_md_ms, _ = gn_md_stmv()
     t_md_launches, t_md_ms = t_md_brute_pallas()
     et_cfg = _train_cfg("et")
     gn_cfg = _train_cfg("gn")
     gn_ds = _train_dataset(GN_TRAIN_SPLIT, GN_TRAIN_MOL)
-    train_grads_vs_composable(train_ds, et_cfg)
-    train_grads_vs_composable(tn_ds, tn_cfg)
-    train_grads_vs_composable(gn_ds, gn_cfg)
+    remat_train = {"train_remat": train_grads_vs_composable(train_ds, et_cfg),
+                   "tn_train_remat": train_grads_vs_composable(tn_ds, tn_cfg),
+                   "gn_train_remat": train_grads_vs_composable(gn_ds, gn_cfg)}
     t_cfg = _train_cfg("t")
-    train_grads_vs_composable(train_ds, t_cfg)
+    remat_train["t_train_remat"] = train_grads_vs_composable(train_ds, t_cfg)
     with tempfile.TemporaryDirectory() as workdir:
         fgm_launches = force_grad_modes(train_ds, tn_ds, workdir)
     with tempfile.TemporaryDirectory() as workdir:
@@ -5562,6 +6006,7 @@ def main():
     with tempfile.TemporaryDirectory() as workdir:
         md17_launches, md17_trainer, md17_batch, md17_best = md17_training(workdir)
         import_launches = import_serving(md17_best, workdir, md17_batch)
+        native_collation(md17_trainer, workdir)
         jvp_cli_launches = md17_jvp_cli(workdir)
     ckpt_launches = jax_checkpoint_serving()
     # #1-#3 against their plain versions at the shapes these two paths run:
@@ -5588,16 +6033,19 @@ def main():
     gn_train_batch, gn_step_ms = time_train_steps(gn_trainer, gn_ds, gn_cfg)
     t_train_batch, t_step_ms = time_train_steps(t_trainer, train_ds, t_cfg)
     # last: the profiler's tracing may slow what runs after it
+    profiling_phase(ext, pos, sim)
     profile_calls(ext, pos, ET_SERVE_KERNELS, "fused ET")
     profile_calls(tn_ext, tn_pos, TN_SERVE_KERNELS, "fused TensorNet")
     profile_calls(gn_ext, gn_pos, GN_KERNELS, "GN")
     profile_calls(t_ext, t_pos, T_SERVE_KERNELS, "fused Transformer")
     profile_calls(zbl_ext, zbl_pos, ET_SERVE_KERNELS + ("select_topk_kernel",), "fused ET with a ZBL prior")
-    wall, busy, groups, other, launches, _ = _profile(dipole_call, 3, ("et_fwd_kernel",))
+    wall, busy, groups, other, launches, _ = kernel_profile(dipole_call, 3, ("et_fwd_kernel",))
     log(f"profile of 3 ET dipole calls at ET-QM9's widths (torch.profiler): wall {wall:.3f} ms/call, device busy "
         f"{busy:.3f} ms/call ({100 * busy / wall:.1f}%); {_shares(groups, other, busy)} "
         f"({launches:.0f} other launches/call)")
     profile_md(sim)
+    profile_md(remat_sims[0], label="ET with remat")
+    profile_md(remat_sims[1], TN_SERVE_KERNELS, "TensorNet with remat")
     profile_md(gn_sim, GN_KERNELS, "GN", steps=2 * MD_VALID_EVERY)
     profile_train(trainer, train_batch, et_cfg)
     profile_train(tn_trainer, tn_train_batch, tn_cfg)
@@ -5658,6 +6106,15 @@ def main():
         **third_launches,
         **jvp_cli_launches,
         **ckpt_launches,
+        # slice H2: bench.py's STMV MD lines under remat (ET and TensorNet at
+        # bench.py's cadence); one force-loss gradient of each family with
+        # remat at its training shapes
+        **remat_paths,
+        "train_remat": dict(zip(("et_message_fwd", "et_message_bwd", "et_message_bwd2"), remat_train["train_remat"])),
+        "tn_train_remat": dict(zip(("tn_message_fwd", "tn_message_bwd", "tn_message_bwd2"),
+                                   remat_train["tn_train_remat"])),
+        "t_train_remat": dict(zip(("t_message_fwd", "t_message_bwd", "t_message_bwd2"), remat_train["t_train_remat"])),
+        "gn_train_remat": dict(zip(("ell_gather", "ell_transpose_sum"), remat_train["gn_train_remat"][:2])),
     }
     for path, parts in PART_LAUNCHES.items():
         paths[path].update(parts)
@@ -5714,6 +6171,21 @@ def main():
                         ("tn_message_bwd2", tn_times[("training", "bwd2")][::2][:2])):
             timed_at.setdefault(row, {})[f"fgm_{row.split('_')[0]}_{mode}"] = at
     timed_at["et_message_fwd"]["md17_jvp_train"] = (md17_ms["fwd"], md17_bounds["fwd"][0])
+    # H2-REMAT: ET's MD at the STMV skin list and #6 at its skin build,
+    # TensorNet's at its own (remat_md_stmv), the remat gradients at the
+    # training shapes
+    timed_at["et_message_fwd"]["md_stmv_remat"] = times["stmv_fwd"]
+    timed_at["et_message_bwd"]["md_stmv_remat"] = times["stmv_bwd"]
+    timed_at["select_topk"]["md_stmv_remat"] = sel_times["STMV skin build"][::2][:2]
+    for name, at in remat_timed.items():
+        timed_at.setdefault(name, {}).update(at)
+    for row, path in (("et_message_fwd", "train"), ("et_message_bwd", "train"), ("t_message_fwd", "t_train"),
+                      ("t_message_bwd", "t_train"), ("tn_message_fwd", "tn_train"), ("tn_message_bwd", "tn_train"),
+                      ("ell_gather", "gn_train"), ("ell_transpose_sum", "gn_train")):
+        timed_at[row][path.replace("train", "train_remat")] = timed_at[row][path]
+    timed_at["et_message_bwd2"]["train_remat"] = (train_ms["bwd2"], train_bounds["bwd2"][0])
+    timed_at["t_message_bwd2"]["t_train_remat"] = t_times[("training", "bwd2")][::2][:2]
+    timed_at["tn_message_bwd2"]["tn_train_remat"] = tn_times[("training", "bwd2")][::2][:2]
     timed_at["et_message_bwd"]["md17_jvp_train"] = (md17_ms["bwd_w"], md17_bounds["bwd_w"][0])
     # #4's and #5's three times (event window, device alone, host enqueue)
     # beside their library call's, at each shape a GN path runs them
@@ -5734,9 +6206,9 @@ def main():
          max(bwd2_abs, md17_abs[2], md17_dhfr_abs[2])),
         ("select_topk", "select_topk.cu", "select_topk.py:32", sel_time, sel_abs),
         ("tn_message_fwd", "tn_message.cu", "tn_message.py:77", tn_times[("DHFR", "fwd")][:4] + (None,),
-         tn_fwd_abs),
+         max(tn_fwd_abs, tn_stmv_abs[0])),
         ("tn_message_bwd", "tn_message.cu", "tn_message.py:107", tn_times[("DHFR", "bwd")][:4] + (None,),
-         tn_bwd_abs),
+         max(tn_bwd_abs, tn_stmv_abs[1])),
         ("tn_message_bwd2", "tn_message.cu", "tn_message.py:455", tn_times[("training", "bwd2")][:4] + (None,),
          tn_bwd2_abs),
         ("ell_gather", "ell_gather.cu", "onehot_gather.py:178", gn_rows["gather"], gn_errs[0]),

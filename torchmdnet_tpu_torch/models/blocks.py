@@ -16,6 +16,7 @@ from torch import nn
 
 from torchmdnet_tpu_torch.ops.activations import Activation, act_fn_mapping
 from torchmdnet_tpu_torch.ops.cutoff import cosine_cutoff
+from torchmdnet_tpu_torch.ops.kernels import save_list
 from torchmdnet_tpu_torch.ops.neighbors import NeighborList, ell_gather, safe_norm
 
 
@@ -65,12 +66,32 @@ def embedding(num_embeddings: int, features: int, *, generator) -> nn.Embedding:
 def remat_call(remat: bool, fn, *args):
     """``fn(*args)``; under ``remat`` its activations are recomputed in the
     backward pass instead of kept (``torch.utils.checkpoint``, non-reentrant,
-    so every derivative order works), as the JAX package's ``nn.remat``."""
+    so every derivative order works), as the JAX package's ``nn.remat``,
+    except the outputs of the fused forward kernels ``fn`` calls: those are
+    kept and served again in each recomputation (``save_list``, the JAX
+    package's ``save_only_these_names("fused_edge_agg")``)."""
     if not remat:
         return fn(*args)
-    from torch.utils.checkpoint import checkpoint
+    from torch.utils import checkpoint
 
-    return checkpoint(fn, *args, use_reentrant=False)
+    _give_input_saver_a_jvp(checkpoint)
+    return checkpoint.checkpoint(fn, *args, use_reentrant=False, context_fn=save_list.contexts)
+
+
+def _no_tangent(ctx, *tangents):
+    return torch.zeros((0,))
+
+
+def _give_input_saver_a_jvp(checkpoint):
+    """Some torch releases keep a checkpointed call's inputs through
+    ``checkpoint._NoopSaveInputs``, an ``autograd.Function`` without a
+    ``jvp``, so a checkpoint under forward-mode AD (``force_grad_mode="jvp"``
+    with ``remat``) raises.  Its output is an empty placeholder that nothing
+    reads, so its tangent is an empty zero; the inputs it saves keep their
+    own tangents for the recomputation."""
+    saver = getattr(checkpoint, "_NoopSaveInputs", None)
+    if saver is not None and "jvp" not in vars(saver):
+        saver.jvp = staticmethod(_no_tangent)
 
 
 class NeighborEmbedding(nn.Module):

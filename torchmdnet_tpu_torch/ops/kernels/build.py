@@ -7,6 +7,10 @@ included, so a build takes seconds.  Libraries go to
 the source, of every header under ``csrc/`` it includes (``#include "..."``,
 followed through headers) and of the flags, so an edited source or header is
 rebuilt.  ``build`` starts one ``nvcc`` per source, all at once.
+
+The host sources (``HOST_SOURCES``: the data loader's collation engine,
+``collate.cpp``) are built the same way by the host's C++ compiler (``CXX``,
+else ``c++`` or ``g++`` on ``PATH``).
 """
 
 import ctypes
@@ -27,6 +31,9 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
+HOST_SOURCES = ("collate.cpp",)
+CXX_FLAGS = ("-std=c++17", "-O3", "-shared", "-fPIC")
+
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -43,6 +50,22 @@ def nvcc_path() -> str:
         "nvcc not found (set CUDA_HOME or put nvcc on PATH); the port's CUDA "
         "kernels are built from torchmdnet_tpu_torch/csrc at first use"
     )
+
+
+def cxx_path() -> str:
+    for cand in (os.environ.get("CXX", ""), shutil.which("c++") or "", shutil.which("g++") or ""):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError("no C++ compiler found (set CXX or put c++ on PATH); the port's host sources are "
+                       "built from torchmdnet_tpu_torch/csrc at first use")
+
+
+def _host(source: str) -> bool:
+    return source in HOST_SOURCES
+
+
+def _flags(source: str):
+    return CXX_FLAGS if _host(source) else NVCC_FLAGS
 
 
 _INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
@@ -69,7 +92,7 @@ def library_path(source: str) -> str:
     h = hashlib.sha256()
     for text in _sources_of(source):
         h.update(hashlib.sha256(text).digest())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(_flags(source)).encode())
     digest = h.hexdigest()[:16]
     stem = os.path.splitext(source)[0]
     return os.path.join(BUILD_DIR, f"lib{stem}-{digest}.so")
@@ -78,9 +101,9 @@ def library_path(source: str) -> str:
 def build(sources: Sequence[str] = SOURCES) -> Dict[str, str]:
     """Compile every source whose library is missing, all in parallel.
 
-    Returns {source: nvcc's output} for the sources compiled (the
+    Returns {source: the compiler's output} for the sources compiled (nvcc's
     ``-Xptxas=-v`` lines give registers, shared memory and spills).
-    Raises if a compile fails.
+    Raises if a compile fails or its compiler is missing.
     """
     os.makedirs(BUILD_DIR, exist_ok=True)
     jobs = {}
@@ -89,7 +112,8 @@ def build(sources: Sequence[str] = SOURCES) -> Dict[str, str]:
         if os.path.exists(out):
             continue
         tmp = f"{out}.{os.getpid()}.tmp"
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, src)]
+        compiler = cxx_path() if _host(src) else nvcc_path()
+        cmd = [compiler, *_flags(src), "-o", tmp, os.path.join(CSRC_DIR, src)]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         jobs[src] = (proc, tmp, out)
     logs = {}
@@ -102,7 +126,7 @@ def build(sources: Sequence[str] = SOURCES) -> Dict[str, str]:
             continue
         os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
     if failed:
-        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+        raise RuntimeError("compile failed for " + "\n".join(failed))
     return logs
 
 

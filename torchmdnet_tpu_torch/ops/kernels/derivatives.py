@@ -23,6 +23,8 @@ the kernels, its backward and its tangent autograd through the second
 order's plain version.
 """
 
+import contextlib
+
 import torch
 import torch.autograd.forward_ad as fwAD
 
@@ -69,6 +71,29 @@ def _grads(outs, wrt, cts, create_graph=False):
                                create_graph=create_graph)
 
 
+@contextlib.contextmanager
+def _local_graph():
+    """The graph a forward-mode rule builds and differentiates inside itself
+    keeps its saved tensors here, outside any enclosing saved-tensor hooks:
+    under ``remat`` a jvp rule runs inside a checkpointed layer's forward,
+    whose hooks would count these tensors as the layer's and recompute the
+    layer when the rule's own ``autograd.grad`` reads them.  The tensors are
+    released when the block ends (a saved tensor held by a hook would
+    otherwise keep its own node alive), so nothing built inside may be
+    differentiated after it."""
+    saved = []
+
+    def pack(t):
+        saved.append(t)
+        return len(saved) - 1
+
+    try:
+        with torch.autograd.graph.saved_tensors_hooks(pack, saved.__getitem__):
+            yield
+    finally:
+        saved.clear()
+
+
 def _full(primals, live, grads):
     """Gradients in the primals' slots: None for a None primal, zeros where
     the function does not reach it."""
@@ -95,7 +120,7 @@ def jvp(fn, primals, tangents):
     (None: zero): the vjp of the vjp of ``fn`` with respect to its
     cotangents, which is linear in them."""
     live = [i for i, (p, t) in enumerate(zip(primals, tangents)) if p is not None and t is not None]
-    with torch.enable_grad():
+    with torch.enable_grad(), _local_graph():
         a = [None if p is None else p.detach().requires_grad_(i in live) for i, p in enumerate(primals)]
         outs = list(fn(*a))
         at = [j for j, o in enumerate(outs) if o is not None and o.requires_grad]
@@ -117,7 +142,7 @@ def vjp_tangent(fn, primals, cts, t_primals, t_cts):
     derivatives is the gradient over p of <dS/dp, t_p> + <fn(p), t_c>: one
     second-order pass of the plain version, the same math as the second
     order's with Z = t_p."""
-    with torch.enable_grad():
+    with torch.enable_grad(), _local_graph():
         a = _leaves(primals, keep_history=False)
         live = [i for i, t in enumerate(a) if t is not None]
         outs = fn(*a)

@@ -49,7 +49,7 @@ from typing import Optional
 import torch
 from torch.autograd.function import once_differentiable
 
-from torchmdnet_tpu_torch.ops.kernels import build, derivatives
+from torchmdnet_tpu_torch.ops.kernels import build, derivatives, save_list
 from torchmdnet_tpu_torch.ops.neighbors import ell_gather, transpose_perm
 from torchmdnet_tpu_torch.parallel.context import ShardPlan
 
@@ -1071,8 +1071,9 @@ class _EtMessages(torch.autograd.Function):
                               dir0, dir1, dir2, wdk, bdk, wdv, bdv)
         ctx.save_for_forward(idx, perm, q, k, v, vec0, vec1, vec2, ea, cutm, msk,
                              dir0, dir1, dir2, wdk, bdk, wdv, bdv)
-        return run_fwd(idx, q, k, v, vec0, vec1, vec2, ea, cutm, msk, (dir0, dir1, dir2),
-                       wdk, bdk, wdv, bdv, heads=heads, act=act, attn_act=attn_act)
+        return save_list.fused_output("et_message_fwd", lambda: run_fwd(
+            idx, q, k, v, vec0, vec1, vec2, ea, cutm, msk, (dir0, dir1, dir2),
+            wdk, bdk, wdv, bdv, heads=heads, act=act, attn_act=attn_act))
 
     @staticmethod
     def jvp(ctx, _cfg, _idx, _perm, *t_inputs):
@@ -1239,13 +1240,17 @@ class _EtMessagesShard(torch.autograd.Function):
         inputs = (q, k, v, vec0, vec1, vec2, ea, cutm, msk, dir0, dir1, dir2, wdk, bdk, wdv, bdv)
         ctx.save_for_backward(*inputs, *srcs)
         ctx.save_for_forward(*inputs)
-        if q.device.type == "cpu":
-            with ring_scope(None), torch.no_grad():  # local ids into the extended tables
-                return et_messages_reference(plan.lidx, q, *srcs, ea, cutm, msk, dir0, dir1, dir2,
-                                             wdk, bdk, wdv, bdv, heads=heads, act=act, attn_act=attn_act,
-                                             perm=plan.perm_rx)
-        return run_fwd(plan.lidx, q, *srcs, ea, cutm, msk, (dir0, dir1, dir2), wdk, bdk, wdv, bdv,
-                       heads=heads, act=act, attn_act=attn_act, ext=True)
+
+        def launch():
+            if q.device.type == "cpu":
+                with ring_scope(None), torch.no_grad():  # local ids into the extended tables
+                    return et_messages_reference(plan.lidx, q, *srcs, ea, cutm, msk, dir0, dir1, dir2,
+                                                 wdk, bdk, wdv, bdv, heads=heads, act=act, attn_act=attn_act,
+                                                 perm=plan.perm_rx)
+            return run_fwd(plan.lidx, q, *srcs, ea, cutm, msk, (dir0, dir1, dir2), wdk, bdk, wdv, bdv,
+                           heads=heads, act=act, attn_act=attn_act, ext=True)
+
+        return save_list.fused_output("et_message_fwd", launch)
 
     @staticmethod
     def jvp(ctx, _cfg, _plan, *t_inputs):

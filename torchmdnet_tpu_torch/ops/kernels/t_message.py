@@ -46,7 +46,7 @@ from typing import Optional
 
 import torch
 
-from torchmdnet_tpu_torch.ops.kernels import build, derivatives
+from torchmdnet_tpu_torch.ops.kernels import build, derivatives, save_list
 from torchmdnet_tpu_torch.ops.kernels import et_message as em
 from torchmdnet_tpu_torch.ops.neighbors import ell_gather, transpose_perm
 from torchmdnet_tpu_torch.parallel.context import ShardPlan
@@ -761,8 +761,8 @@ class _TMessages(torch.autograd.Function):
         ctx.cfg = cfg
         ctx.save_for_backward(idx, perm, q, k, v, ea, cutm, wdk, bdk, wdv, bdv)
         ctx.save_for_forward(idx, perm, q, k, v, ea, cutm, wdk, bdk, wdv, bdv)
-        return run_fwd(idx, q, k, v, ea, cutm, wdk, bdk, wdv, bdv,
-                       heads=heads, act=act, attn_act=attn_act)
+        return save_list.fused_output("t_message_fwd", lambda: run_fwd(
+            idx, q, k, v, ea, cutm, wdk, bdk, wdv, bdv, heads=heads, act=act, attn_act=attn_act))
 
     @staticmethod
     def jvp(ctx, _cfg, _idx, _perm, *t_inputs):
@@ -898,12 +898,16 @@ class _TMessagesShard(torch.autograd.Function):
         ctx.cfg, ctx.plan = cfg, plan
         ctx.save_for_backward(q, k, v, ea, cutm, wdk, bdk, wdv, bdv, *srcs)
         ctx.save_for_forward(q, k, v, ea, cutm, wdk, bdk, wdv, bdv)
-        if q.device.type == "cpu":
-            with ring_scope(None), torch.no_grad():  # local ids into the extended tables
-                return t_messages_reference(plan.lidx, q, *srcs, ea, cutm, wdk, bdk, wdv, bdv, heads=heads, act=act,
-                                            attn_act=attn_act, perm=plan.perm_rx)
-        return run_fwd(plan.lidx, q, *srcs, ea, cutm, wdk, bdk, wdv, bdv, heads=heads, act=act, attn_act=attn_act,
-                       ext=True)
+
+        def launch():
+            if q.device.type == "cpu":
+                with ring_scope(None), torch.no_grad():  # local ids into the extended tables
+                    return t_messages_reference(plan.lidx, q, *srcs, ea, cutm, wdk, bdk, wdv, bdv, heads=heads,
+                                                act=act, attn_act=attn_act, perm=plan.perm_rx)
+            return run_fwd(plan.lidx, q, *srcs, ea, cutm, wdk, bdk, wdv, bdv, heads=heads, act=act,
+                           attn_act=attn_act, ext=True)
+
+        return save_list.fused_output("t_message_fwd", launch)
 
     @staticmethod
     def jvp(ctx, _cfg, _plan, *t_inputs):

@@ -50,7 +50,7 @@ from typing import Optional
 
 import torch
 
-from torchmdnet_tpu_torch.ops.kernels import build, derivatives
+from torchmdnet_tpu_torch.ops.kernels import build, derivatives, save_list
 from torchmdnet_tpu_torch.ops.kernels.et_message import _act3, _act_v, _check, _dact, _ptr, dw_partials, dw_per_split
 from torchmdnet_tpu_torch.ops.neighbors import ell_gather, transpose_perm
 from torchmdnet_tpu_torch.parallel.context import ShardPlan
@@ -631,7 +631,8 @@ class _TnMessages(torch.autograd.Function):
         ctx.act = act
         ctx.save_for_backward(idx, perm, cat, ea, cutm, w1, b1, w2, b2, w3, b3)
         ctx.save_for_forward(idx, perm, cat, ea, cutm, w1, b1, w2, b2, w3, b3)
-        return run_fwd(idx, cat, ea, cutm, w1, b1, w2, b2, w3, b3, act=act)
+        return save_list.fused_output("tn_message_fwd", lambda: run_fwd(
+            idx, cat, ea, cutm, w1, b1, w2, b2, w3, b3, act=act))
 
     @staticmethod
     def jvp(ctx, _act, _idx, _perm, *t_inputs):
@@ -745,11 +746,15 @@ class _TnMessagesShard(torch.autograd.Function):
         ctx.act, ctx.plan = act, plan
         ctx.save_for_backward(cat, ea, cutm, w1, b1, w2, b2, w3, b3, cat_ext)
         ctx.save_for_forward(cat, ea, cutm, w1, b1, w2, b2, w3, b3)
-        if cat.device.type == "cpu":
-            with ring_scope(None), torch.no_grad():  # local ids into the extended table
-                return tn_messages_reference(plan.lidx, cat_ext, ea, cutm, w1, b1, w2, b2, w3, b3, act=act,
-                                             perm=plan.perm_rx)
-        return run_fwd(plan.lidx, cat_ext, ea, cutm, w1, b1, w2, b2, w3, b3, act=act, ext=True)
+
+        def launch():
+            if cat.device.type == "cpu":
+                with ring_scope(None), torch.no_grad():  # local ids into the extended table
+                    return tn_messages_reference(plan.lidx, cat_ext, ea, cutm, w1, b1, w2, b2, w3, b3, act=act,
+                                                 perm=plan.perm_rx)
+            return run_fwd(plan.lidx, cat_ext, ea, cutm, w1, b1, w2, b2, w3, b3, act=act, ext=True)
+
+        return save_list.fused_output("tn_message_fwd", launch)
 
     @staticmethod
     def jvp(ctx, _act, _plan, *t_inputs):

@@ -79,3 +79,30 @@ def make_mesh(ndevices: int = -1, axis_name: str = "dp", allow_single: bool = Fa
         return None
     backend = dist.get_backend() if initialized else "none"
     return Mesh(size=world, rank=rank, device=rank_device(device), backend=str(backend), axis=axis_name)
+
+
+def make_2d_mesh(dp: int, mp: int):
+    """dp x mp layout of the process group's ranks for edge-partitioned
+    (model-parallel) execution: rank r at row r // mp, column r % mp.
+    Returns ((row, column), dp_group, mp_group): along "mp" the mp ranks of
+    this rank's row (one batch's atom rows split among them), along "dp" the
+    dp ranks of its column (the same rows of different batches); the groups
+    are None without a process group.  Every rank calls it (creating a group
+    is collective); dp * mp must be the group's size."""
+    import torch.distributed as dist
+
+    initialized = dist.is_available() and dist.is_initialized()
+    world = dist.get_world_size() if initialized else 1
+    rank = dist.get_rank() if initialized else 0
+    if dp < 1 or mp < 1 or dp * mp != world:
+        raise ValueError(f"a {dp} x {mp} mesh needs {dp * mp} ranks; the process group has {world}")
+    groups = [None, None]
+    if initialized:
+        columns = [list(range(j, world, mp)) for j in range(mp)]
+        rows = [list(range(i * mp, (i + 1) * mp)) for i in range(dp)]
+        for axis, lines in enumerate((columns, rows)):
+            for line in lines:
+                group = dist.new_group(line)
+                if rank in line:
+                    groups[axis] = group
+    return divmod(rank, mp), groups[0], groups[1]

@@ -186,13 +186,13 @@ def main(argv=None) -> int:
 
         if name == "stmv":  # MD freezes the weights: no weight cotangents, no second order
             calls = dict(fwd=lambda: em.run_fwd(nbl.idx, *ops, dirs, *w, **kw), bwd=bwd(False))
-            row = {f"{k}_ms": cs._event_ms(fn, flush=flush, reps=5) for k, fn in calls.items()}
+            row = {f"{k}_ms": cs.profiling.event_ms(fn, flush=flush, reps=5) for k, fn in calls.items()}
         else:
             calls = dict(fwd=lambda: em.run_fwd(nbl.idx, *ops, dirs, *w, **kw), bwd=bwd(False),
                          bwd_weights=bwd(True))
             if hasattr(em, "run_bwd2"):
                 calls["bwd2"] = bwd2()
-            row = {f"{k}_ms": cs._event_ms(fn, flush=flush) for k, fn in calls.items()}
+            row = {f"{k}_ms": cs.profiling.event_ms(fn, flush=flush) for k, fn in calls.items()}
         result[name] = row
         if args.dump:
             for k, fn in calls.items():
@@ -227,7 +227,7 @@ def _time_t(cs, name, s, flush):
     else:
         z = cs._t_z_like(ins, cs.SEED)
         calls.update(bwd_weights=bwd(True), bwd2=lambda: tmk.run_bwd2(idx, perm, args, ct, z, **kw))
-    return {f"{k}_ms": cs._event_ms(fn, flush=flush) for k, fn in calls.items()}, calls
+    return {f"{k}_ms": cs.profiling.event_ms(fn, flush=flush) for k, fn in calls.items()}, calls
 
 
 def _time_tn(cs, name, s, flush):
@@ -248,11 +248,11 @@ def _time_tn(cs, name, s, flush):
 
     if name == "tn_dhfr":
         calls = dict(fwd=lambda: tm.run_fwd(idx, *args, act="silu"), bwd=bwd(False))
-        return {f"{k}_ms": cs._event_ms(fn, flush=flush) for k, fn in calls.items()}, calls
+        return {f"{k}_ms": cs.profiling.event_ms(fn, flush=flush) for k, fn in calls.items()}, calls
     z = cs._tn_z_like(ins, cs.SEED)
     calls = dict(fwd=lambda: tm.run_fwd(idx, *args, act="silu"), bwd=bwd(False), bwd_weights=bwd(True),
                  bwd2=lambda: tm.run_bwd2(idx, perm, args, ct, z, act="silu"))
-    row = {f"{k}_ms": cs._event_ms(fn, flush=flush) for k, fn in calls.items()}
+    row = {f"{k}_ms": cs.profiling.event_ms(fn, flush=flush) for k, fn in calls.items()}
     if hasattr(tm, "bwd_rows"):  # the reduction alone, on the rows of one backward
         row["bwd_reduction_ms"] = cs._tn_pass_split(idx, args, ct, flush)["reduction (et_dw_kernel)"]
     # #10 kernel by kernel (device time from the profiler, mean of 20)
@@ -271,7 +271,7 @@ def _time_topk(cs, flush):
     keys, k, _ = cs.stmv_skin_keys(stmv)
     cases, _ = cs.select_cases(cs._synthetic_batch(DHFR_ATOMS, cs.SEED, "cuda")[2], stmv, keys, k)
     calls = {label: (lambda c=c: select_topk(*c)) for label, c in cases.items()}
-    return {f"{label}_ms": cs._event_ms(fn, flush=flush) for label, fn in calls.items()}, calls
+    return {f"{label}_ms": cs.profiling.event_ms(fn, flush=flush) for label, fn in calls.items()}, calls
 
 
 def _time_ell(cs, flush, dumped=None):
@@ -282,9 +282,9 @@ def _time_ell(cs, flush, dumped=None):
     for where, shape, calls in cs.ell_cases(cs._gn_lists()):
         for kind, (kern, _, lib) in calls.items():
             row[f"{where}/{kind}"] = dict(
-                shape=shape, ms=cs._event_ms(kern, flush=flush), device_ms=cs._device_ms(kern, flush),
-                enqueue_ms=cs._enqueue_ms(kern), library_ms=cs._event_ms(lib, flush=flush),
-                library_device_ms=cs._device_ms(lib, flush), library_enqueue_ms=cs._enqueue_ms(lib))
+                shape=shape, ms=cs.profiling.event_ms(kern, flush=flush), device_ms=cs.profiling.device_ms(kern, flush),
+                enqueue_ms=cs.profiling.enqueue_ms(kern), library_ms=cs.profiling.event_ms(lib, flush=flush),
+                library_device_ms=cs.profiling.device_ms(lib, flush), library_enqueue_ms=cs.profiling.enqueue_ms(lib))
             if dumped is not None:
                 dumped[f"ell/{where}/{kind}"] = _flat_cpu(kern())
     return row

@@ -38,25 +38,16 @@ def _chip_smoke():
     return mod
 
 
-def _device_ms_per_call(fn, calls=3):
+def _device_ms_per_call(cs, fn, calls=3):
     """torch.profiler's device time and kernel launches per call of ``fn``."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    events = [ev for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA]
-    return sum(ev.device_time for ev in events) / 1e3 / calls, len(events) / calls
+    _, busy, _, _, launches, _ = cs.profiling.kernel_profile(fn, calls, ())
+    return busy, launches
 
 
 def _train_step_ms(cs, model_args):
     """A force-loss Trainer step on one training batch: host ms (median of
     20 after 3) and device ms per step (profiler, 3 steps)."""
-    import statistics
     import tempfile
-    import time
 
     import torch
 
@@ -70,17 +61,9 @@ def _train_step_ms(cs, model_args):
         acc = torch.zeros(4, dtype=trainer.dtype, device="cuda")
         ema = torch.zeros((), dtype=trainer.dtype, device="cuda")
         step = lambda: trainer._train_step(batch, acc, ema, ema)
-        for _ in range(cs.TRAIN_WARMUP_STEPS):
-            step()
-        times = []
-        for _ in range(cs.TRAIN_TIMED_STEPS):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            step()
-            torch.cuda.synchronize()
-            times.append(1e3 * (time.perf_counter() - t0))
-        device_ms, launches = _device_ms_per_call(step)
-    return dict(step_ms=statistics.median(times), device_ms_per_step=device_ms, launches_per_step=launches)
+        step_ms = cs.profiling.host_ms(step, reps=cs.TRAIN_TIMED_STEPS, warmup=cs.TRAIN_WARMUP_STEPS)
+        device_ms, launches = _device_ms_per_call(cs, step)
+    return dict(step_ms=step_ms, device_ms_per_step=device_ms, launches_per_step=launches)
 
 
 def main(argv=None) -> int:
@@ -119,9 +102,9 @@ def main(argv=None) -> int:
     potential = create_model(cs.T_ARGS if args.model == "transformer" else cs.ET_ARGS, seed=cs.SEED)
     ext = External((potential, None), z[None])
     result = dict(label=args.label or tree, tree=tree,
-                  external_ms=cs._host_ms(lambda: ext.calculate(request)))
+                  external_ms=cs.profiling.host_ms(lambda: ext.calculate(request)))
     result["device_ms_per_call"], result["launches_per_call"] = _device_ms_per_call(
-        lambda: ext.calculate(request))
+        cs, lambda: ext.calculate(request))
 
     p = torch.as_tensor(request, device=ext.device)
     batch = ext._template.replace(pos=torch.cat([p, p.new_zeros((ext.n_pad, 3))]))
@@ -133,8 +116,8 @@ def main(argv=None) -> int:
             by_strategy[strategy] = None  # the tree has no such strategy
             continue
         by_strategy[strategy] = dict(
-            list_ms=cs._host_ms(lambda: potential.neighbors(batch, strategy=strategy)),
-            energy_and_forces_ms=cs._host_ms(
+            list_ms=cs.profiling.host_ms(lambda: potential.neighbors(batch, strategy=strategy)),
+            energy_and_forces_ms=cs.profiling.host_ms(
                 lambda: potential.energy_and_forces(batch, nbl=potential.neighbors(batch, strategy=strategy))),
         )
     result["by_strategy"] = by_strategy
