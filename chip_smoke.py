@@ -68,7 +68,16 @@ kernel's outputs again instead of launching it (the kernels' launches per
 step equal those without remat), each training gradient with remat against
 the one without, ``profiling.py``'s trace summary and iteration timer on a
 DHFR call, ET-MD17's loader with the native collation against numpy, and
-the ET-QM9 dipole at four weight seeds. It
+the ET-QM9 dipole at four weight seeds. The published configurations:
+bench.py's GN STMV MD line under remat against the same steps without
+(forces bitwise), examples/ET-SPICE.yaml and TensorNet-SPICE.yaml (K 128,
+forces) and ET-QM9.yaml and TensorNet-QM9.yaml (energies only, Atomref)
+through the CLI at their own widths on Custom npy files of seeded
+Morse-labelled molecules that this script writes, with #1-#3 and #8-#10
+held against their plain versions at the SPICE shapes, and ``optimize()``
+serving ET at DHFR size against ``External``. The configurations and
+operands it shares with the timing tools are
+``torchmdnet_tpu_torch/tools/chip_configs.py``'s. It
 times each. Each phase prints one line; the line before the last is a JSON object
 with each kernel's numbers, the last line is ``{"ok": true, "device":
 {...}}``. Any failure raises and exits non-zero. Without a CUDA device, or
@@ -77,7 +86,6 @@ outside a checkout, it exits non-zero and prints no result.
 
 import contextlib
 import csv
-import importlib.util
 import json
 import math
 import os
@@ -88,40 +96,34 @@ import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+if not os.path.isdir(os.path.join(ROOT, "torchmdnet_tpu_torch")):
+    sys.exit("chip_smoke: torchmdnet_tpu_torch not found beside chip_smoke.py; run it from a checkout of the "
+             "repository")
+sys.path.insert(0, ROOT)
 
-
-
-def _load_profiling():
-    """The port's timers: this checkout's ``torchmdnet_tpu_torch/profiling.py``,
-    read by its path (``tools/time_bwd.py`` loads this script beside another
-    tree's package); None outside a checkout, where main() says so and exits."""
-    path = os.path.join(ROOT, "torchmdnet_tpu_torch", "profiling.py")
-    if not os.path.isfile(path):
-        return None
-    spec = importlib.util.spec_from_file_location("_port_profiling", path)
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module
-
-
-profiling = _load_profiling()
-if profiling is not None:
-    FLUSH_KERNELS = profiling.FLUSH_KERNELS
-    device_ms, enqueue_ms, event_ms = profiling.device_ms, profiling.enqueue_ms, profiling.event_ms
-    host_ms, kernel_profile = profiling.host_ms, profiling.kernel_profile
-
-# ET configuration of the serving benchmark (benchmarks/inference.py:31-55
-# with the fused edge phase, as bench.py's et_fused_forces_dhfr2489_ms line)
-ET_ARGS = dict(
-    model="equivariant-transformer", embedding_dimension=128, num_layers=6, num_rbf=50,
-    rbf_type="expnorm", trainable_rbf=True, activation="silu", attn_activation="silu",
-    neighbor_embedding=True, num_heads=8, distance_influence="both", cutoff_lower=0.0,
-    cutoff_upper=5.0, max_z=128, max_num_neighbors=80, derivative=True,
-    output_model="Scalar", prior_model=None, reduce_op="add", precision=32,
-    atom_filter=-1, bf16_messages=True, fused_attention=True,
+# the configurations, batches and kernel operands this script shares with the
+# timing tools
+from torchmdnet_tpu_torch import profiling  # noqa: E402
+from torchmdnet_tpu_torch.tools.chip_configs import (  # noqa: E402
+    cell_keys, compaction_shapes, ell_cases, ET_ARGS, GN_ARGS, GN_FWD_ARGS, _gn_lists, GN_MD_EVERY,
+    GN_MD_STD, GN_MD_TIMED_STEPS, GN_MD_WARMUP_STEPS, GN_ODD_F, GN_PAIR_F, GN_STMV_FWD_ARGS, GN_TRAIN_ARGS,
+    GN_TRAIN_BATCH, GN_TRAIN_LR, GN_TRAIN_MOL, GN_TRAIN_SPLIT, GN_TRAIN_WEIGHTS, _kernel_inputs, MD_ARGS,
+    MD_TIMED_STEPS, MD_VALID_EVERY, MD_VALID_STEPS, MD_WARMUP_STEPS, ORDER, SEED, select_cases, _stmv_batch,
+    _stmv_kernel_inputs, stmv_skin_keys, _synthetic_batch, T_ARGS, _t_kernel_inputs, T_ORDER, T_TRAIN_ARGS,
+    _t_z_like, _three_ways, TN_ARGS, _tn_bwd2_split, _tn_kernel_inputs, TN_ORDER, _tn_pass_split, _tn_system,
+    TN_TRAIN_ARGS, TN_TRAIN_BATCH, TN_TRAIN_LR, TN_TRAIN_SPLIT, TN_TRAIN_WEIGHTS, _tn_z_like, TRAIN_ARGS,
+    TRAIN_BATCH, _train_batch, _train_dataset, TRAIN_EPOCHS, TRAIN_MOL, TRAIN_SPLIT, TRAIN_TIMED_STEPS,
+    TRAIN_WARMUP_STEPS, _z_like, ZBL_CUTOFF,
+    COVERED_BY, EXAMPLE_EPOCHS, EXAMPLES, example_flags, GN_REMAT_ARGS, GN_REMAT_STEPS,
+    OPT_CALLS, OPT_REBUILD_EVERY, OPT_SKIN, OPT_STEP, QM9_CONFS, QM9_FRAMES, QM9_SIZES, QM9_SPLIT, SPICE_CONFS,
+    SPICE_FRAMES, SPICE_SIZES, SPICE_SPLITS, write_custom_frames,
 )
+
+FLUSH_KERNELS = profiling.FLUSH_KERNELS
+device_ms, enqueue_ms, event_ms = profiling.device_ms, profiling.enqueue_ms, profiling.event_ms
+host_ms, kernel_profile = profiling.host_ms, profiling.kernel_profile
+
 REQUESTS = 5
-SEED = 0
 
 # Kernel against plain version, normalised as max|kernel - plain| / max|plain|.
 # Forward: both sides round the same bf16 intermediates at the same points
@@ -161,27 +163,6 @@ TRAIN_GRAD_L2_TOL = 5e-2
 # tensor's largest value.
 REMAT_TOL = 1e-5
 
-# ET configuration of the training benchmark (benchmarks/training.py:24-31,
-# 91-124): 8 x 256, 8 heads, 64 ExpNormal RBFs (not trainable), cutoff 0-5 A,
-# max_num_neighbors 32, NeighborEmbedding, Scalar head, the fused bf16 edge
-# phase, energy and force loss (gradgrad), AdamW at lr 1e-4, batches of 128
-# molecules of 18 atoms
-TRAIN_ARGS = dict(
-    model="equivariant-transformer", embedding_dimension=256, num_layers=8, num_rbf=64,
-    rbf_type="expnorm", trainable_rbf=False, activation="silu", attn_activation="silu",
-    neighbor_embedding=True, num_heads=8, distance_influence="both", cutoff_lower=0.0,
-    cutoff_upper=5.0, max_z=100, max_num_neighbors=32, derivative=True,
-    output_model="Scalar", prior_model=None, reduce_op="add", precision=32,
-    atom_filter=-1, bf16_messages=True, fused_attention=True,
-)
-TRAIN_BATCH = 128
-# SyntheticMorse molecules of 18 atoms in a 6 A cell keep the 2 A spacing
-# that the 8-atom default has in its 4 A cell
-TRAIN_MOL = dict(num_atoms=18, cell=6.0)
-TRAIN_SPLIT = (1536, 128, 128)  # 12 training batches, one val, one test
-TRAIN_EPOCHS = 2
-TRAIN_WARMUP_STEPS = 3
-TRAIN_TIMED_STEPS = 20
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -192,99 +173,28 @@ F32_CUDA_CORE_FLOPS = 67e12
 # one operation each, so a quarter of it
 INT32_CUDA_CORE_OPS = F32_CUDA_CORE_FLOPS / 4
 
-# STMV molecular dynamics as bench.py's stmv_md_ms configures it
-# (bench.py:397-473): Verlet skin 0.5 A, a rebuild every 10 steps, Langevin
-# at 300 K, spatially sorted atoms
-MD_ARGS = dict(timestep_fs=1.0, temperature_K=300.0, friction_per_fs=0.01,
-               neighbor_skin=0.5, rebuild_every=10)
-MD_WARMUP_STEPS = 10
-MD_TIMED_STEPS = 20
-# a rebuild cadence at which the skin holds: at 300 K the fastest of 30,000
-# atoms (hydrogens) start near 0.075 A/fs, so thermal motion alone carries
-# them about 0.75 A in bench.py's 10 fs, three times skin/2, whatever the
-# potential; in 2 fs about 0.15 A
-MD_VALID_EVERY = 2
-MD_VALID_STEPS = 10
 # cutoff-boundary pairs between the brute search (|xi|^2 + |xj|^2 - 2 xi.xj)
 # and the cell list (component form) may differ where d^2 is within this many
 # f32 ulps of the cutoff^2: the two forms round differently
 BOUNDARY_ULPS = 4
 
 
+# (host clock, the line's first words) of every line this script prints: the
+# run's longest stretches are printed at the end, to see where its time goes
+_LINE_TIMES = []
+
+
 def log(line):
+    _LINE_TIMES.append((time.perf_counter(), line[:56]))
     print(line, flush=True)
 
 
-def _synthetic_batch(n_atoms, seed, device):
-    from torchmdnet_tpu_torch.data.batch import pad_molecules
-    from torchmdnet_tpu_torch.data.systems import synthetic_system
-
-    z, pos = synthetic_system(n_atoms, seed=seed)
-    padded = -(-n_atoms // 32) * 32
-    return z, pos, pad_molecules([{"z": z, "pos": pos}], num_atoms=padded, device=device)
 
 
-def _kernel_inputs(n_atoms, k, h, rbf, cutoff, seed, batch=None, nbl=None):
-    """Edge-phase operands on the card: a real ELL list of a synthetic
-    system (or of ``batch``, a batch of small molecules: brute search, as
-    ``Potential.neighbors`` takes for it; or ``nbl``, a list of ``batch``),
-    its geometry and RBFs, random bf16 features and filters."""
-    import torch
-
-    from torchmdnet_tpu_torch.ops.cutoff import cosine_cutoff
-    from torchmdnet_tpu_torch.ops.neighbors import edge_geometry_components, neighbor_list
-    from torchmdnet_tpu_torch.ops.rbf import ExpNormalSmearing
-
-    dev = torch.device("cuda")
-    strategy = "auto"
-    if batch is None:
-        _, _, batch = _synthetic_batch(n_atoms, seed, dev)
-    else:
-        strategy = "brute"
-    if nbl is None:
-        nbl = neighbor_list(batch.pos, batch.batch, batch.atom_mask, k=k, cutoff_upper=cutoff, loop=True,
-                            strategy=strategy)
-    nbl.raise_on_overflow("chip_smoke kernel inputs")
-    n, kk = nbl.idx.shape
-    (dx, dy, dz), dist = edge_geometry_components(batch.pos, nbl)
-    inv = (dist > 0).float() / torch.where(dist > 0, dist, torch.ones_like(dist))
-    g = torch.Generator().manual_seed(seed)
-    bf = torch.bfloat16
-
-    def rnd(*shape, scale=1.0):
-        return (torch.randn(*shape, generator=g) * scale).to(dev)
-
-    ins = dict(
-        q=rnd(n, h).to(bf), k=rnd(n, h).to(bf), v=rnd(n, 3 * h).to(bf),
-        vec0=rnd(n, h).to(bf), vec1=rnd(n, h).to(bf), vec2=rnd(n, h).to(bf),
-        ea=ExpNormalSmearing(0.0, cutoff, rbf).to(dev)(dist).detach().to(bf),
-        cutm=(cosine_cutoff(dist, 0.0, cutoff) * nbl.mask).float(),
-        msk=nbl.mask.float(),
-        dir0=(dx * inv).float(), dir1=(dy * inv).float(), dir2=(dz * inv).float(),
-        wdk=rnd(rbf, h, scale=rbf ** -0.5).to(bf), bdk=rnd(1, h, scale=0.1).to(bf),
-        wdv=rnd(rbf, 3 * h, scale=rbf ** -0.5).to(bf), bdv=rnd(1, 3 * h, scale=0.1).to(bf),
-    )
-    cts = (rnd(n, h), rnd(n, 3 * h))
-    return nbl, ins, cts
 
 
-ORDER = ["q", "k", "v", "vec0", "vec1", "vec2", "ea", "cutm", "msk",
-         "dir0", "dir1", "dir2", "wdk", "bdk", "wdv", "bdv"]
 
 
-def _stmv_kernel_inputs(seed):
-    """#2's operands at ET MD's STMV skin list (30,336 atoms, cutoff 5 A + a
-    0.5 A skin, K = 112, the probed cell sizes of ``md.Simulation``), H =
-    128, RBF = 50."""
-    from torchmdnet_tpu_torch import create_model
-    from torchmdnet_tpu_torch.ops.cell_list import probe_cell_kwargs
-
-    stmv = _stmv_batch()
-    skin = MD_ARGS["neighbor_skin"]
-    model = create_model(ET_ARGS, seed=SEED)
-    nbl = model.neighbors(stmv, skin=skin, **probe_cell_kwargs(stmv, cutoff_upper=ET_ARGS["cutoff_upper"] + skin))
-    return _kernel_inputs(None, nbl.idx.shape[1], ET_ARGS["embedding_dimension"], ET_ARGS["num_rbf"],
-                          ET_ARGS["cutoff_upper"], seed, batch=stmv, nbl=nbl)
 
 
 # The backward's and second order's helper kernels (the source passes,
@@ -311,14 +221,6 @@ def _fmt(d):
     return json.dumps({a: float(f"{b:.3e}") for a, b in d.items()})
 
 
-def _z_like(ins, seed):
-    """Random cotangents Z on the backward's 16 outputs (none on msk's), in
-    their dtypes: the second-order kernel's third operand."""
-    import torch
-
-    g = torch.Generator().manual_seed(seed)
-    return [None if n == "msk" else (torch.randn(ins[n].shape, generator=g) * 0.5).to("cuda", ins[n].dtype)
-            for n in ORDER]
 
 
 def check_bwd2(nbl, ins, cts, heads, seed):
@@ -843,74 +745,12 @@ def profile_calls(ext, pos, names, label, calls=3):
         f"({launches:.0f} other launches/call)")
 
 
-def _stmv_batch():
-    """Synthetic STMV (seed 0), padded to a multiple of 32, spatially sorted,
-    on the card: the batch of bench.py's STMV MD (bench.py:420-425)."""
-    from torchmdnet_tpu_torch.data.batch import spatial_sort
-    from torchmdnet_tpu_torch.data.systems import STMV_ATOMS
-
-    _, _, batch = _synthetic_batch(STMV_ATOMS, SEED, "cuda")
-    return spatial_sort(batch)[0]
 
 
-def cell_keys(args, batch, skin=0.0):
-    """The selection kernel's input at a cell-list build of ``args``' model
-    on ``batch``: the candidate key matrix with the cell sizes probed as
-    External, md.Simulation and the GN forward probe them, and the k the
-    build selects (``Potential.neighbors``' rule, the skin list's k scaled by
-    the skin volume).  Returns (keys, k, the probed sizes)."""
-    from torchmdnet_tpu_torch.ops.cell_list import cell_candidate_keys, probe_cell_kwargs
-
-    cut = args["cutoff_upper"]
-    sizes = probe_cell_kwargs(batch, cutoff_upper=cut + skin)
-    keys, _, overflow = cell_candidate_keys(
-        batch.pos, batch.batch, batch.atom_mask, cutoff_lower=max(0.0, args["cutoff_lower"] - skin),
-        cutoff_upper=cut + skin, **sizes)
-    if bool(overflow):
-        raise AssertionError(f"a cell-list build at cutoff {cut + skin} overflowed its probed sizes {sizes}")
-    k = args["max_num_neighbors"]
-    if skin > 0.0:
-        k = int(math.ceil(k * ((cut + skin) / cut) ** 3 / 8.0)) * 8
-    return keys, min(k, keys.shape[1]), sizes
 
 
-def stmv_skin_keys(batch):
-    """The selection kernel's input at an STMV skin rebuild of ET MD (and GN
-    MD, whose cutoff, k and skin are ET's): ``cell_keys`` with the skin."""
-    return cell_keys(ET_ARGS, batch, skin=MD_ARGS["neighbor_skin"])
 
 
-def select_cases(dhfr, stmv, skin_keys, skin_k, zbl_k):
-    """{label: (keys, k, sentinel)} for each cell-list build a path runs,
-    and {path: label}: the DHFR builds of External's four models (cutoff
-    and k; the ET, GN and Transformer builds are one, and the ZBL path's
-    model builds too), GN's STMV forward (cutoff 5 A, K = 32), the STMV skin
-    build of MD, and the ZBL prior's own DHFR build (4 A, K = ``zbl_k``, the
-    sizes External probes for it)."""
-    from torchmdnet_tpu_torch.ops.cell_list import cell_candidate_keys, probe_cell_kwargs
-
-    models = {"external_dhfr": ET_ARGS, "tn_external_dhfr": TN_ARGS, "gn_external_dhfr": GN_ARGS,
-              "t_external_dhfr": T_ARGS, "gn_forward_stmv": GN_STMV_FWD_ARGS, "zbl_external_dhfr": ET_ARGS}
-    cases, label_of = {}, {}
-    for path, args in models.items():
-        batch = dhfr if path.endswith("_dhfr") else stmv
-        where = "DHFR" if batch is dhfr else "STMV"
-        label = f"{where} build (cutoff {args['cutoff_lower']}-{args['cutoff_upper']} A, K={args['max_num_neighbors']})"
-        if label not in cases:
-            keys, k, _ = cell_keys(args, batch)
-            cases[label] = (keys, k, keys.shape[0])
-        label_of[path] = label
-    label = "STMV skin build"
-    cases[label] = (skin_keys, skin_k, skin_keys.shape[0])
-    label_of.update(md_stmv=label, gn_md_stmv=label)
-    sizes = probe_cell_kwargs(dhfr, cutoff_upper=ZBL_CUTOFF)
-    keys, _, overflow = cell_candidate_keys(dhfr.pos, dhfr.batch, dhfr.atom_mask, cutoff_upper=ZBL_CUTOFF, **sizes)
-    if bool(overflow):
-        raise AssertionError(f"the ZBL prior's DHFR build overflowed its probed sizes {sizes}")
-    label = f"DHFR ZBL prior build (cutoff 0-{ZBL_CUTOFF} A, K={zbl_k}, {sizes})"
-    cases[label] = (keys, zbl_k, keys.shape[0])
-    label_of["zbl_prior_dhfr"] = label
-    return cases, label_of
 
 
 def _unique_keys(rng, n, w, sentinel, invalid_share):
@@ -1236,7 +1076,7 @@ def md_stmv(select_ms):
     return launches, sim, ms_step, peak_gb
 
 
-def profile_md(sim, names=ET_SERVE_KERNELS, label="ET", steps=10):
+def profile_md(sim, names=ET_SERVE_KERNELS, label="ET", steps=5):
     """Where the time of an MD step goes at STMV: device time by kernel over
     ``steps`` steps."""
     names = names + ("select_topk_kernel",)
@@ -1299,25 +1139,8 @@ def _train_cfg(kind):
                 flags=["--neighbor-embedding", "true", "--aggr", GN_TRAIN_ARGS["aggr"]])
 
 
-def _train_dataset(split=TRAIN_SPLIT, mol=TRAIN_MOL):
-    from torchmdnet_tpu_torch.data.datasets import SyntheticMorse
-
-    return SyntheticMorse(num_samples=sum(split), seed=SEED, **mol)
 
 
-def _train_batch(ds, device, batch_size=TRAIN_BATCH, cutoff=TRAIN_ARGS["cutoff_upper"], mol=TRAIN_MOL):
-    """The first ``batch_size`` molecules as the trainer sees a batch: padded
-    to a multiple of 8 atoms, partial charges (``pq``) collated as the loader
-    collates them, spatially sorted (the fused paths), on ``device``."""
-    from torchmdnet_tpu_torch.data.batch import pad_molecules, spatial_sort
-
-    mols = [ds[i] for i in range(batch_size)]
-    keys = ("partial_charges",) if "pq" in mols[0] else ()
-    if keys:
-        mols = [dict(m, partial_charges=m["pq"]) for m in mols]
-    n = -(-batch_size * mol["num_atoms"] // 8) * 8
-    batch = pad_molecules(mols, num_atoms=n, num_mol=batch_size, extra_atom_keys=keys)
-    return spatial_sort(batch, cell=cutoff)[0].to(device)
 
 
 def _launches(km):
@@ -1343,11 +1166,11 @@ def _reset_launches():
     select_topk.launches = 0
 
 
-def time_train_kernels(batch, label="the training shapes", args=TRAIN_ARGS):
+def time_train_kernels(batch, label="the training shapes", args=TRAIN_ARGS, kinds=("fwd", "bwd", "bwd_w", "bwd2")):
     """#1, #2 (with and without weight cotangents) and #3 at the training
     shapes (N=2304, K=33, H=256, 8 heads, RBF=64; or ``batch``'s N and
     ``args``' widths), their plain versions and bounds (L2 flushed, median
-    of 20)."""
+    of 20); ``kinds`` names the ones to time."""
     import torch
 
     from torchmdnet_tpu_torch.ops.kernels import et_message as em
@@ -1364,24 +1187,24 @@ def time_train_kernels(batch, label="the training shapes", args=TRAIN_ARGS):
     kw = dict(heads=heads, act="silu", attn_act="silu")
     z = _z_like(ins, SEED)
     inputs = [ins[x] for x in ORDER]
-    ms = dict(
-        fwd=event_ms(lambda: em.run_fwd(nbl.idx, *common, dirs, *w, **kw), flush=flush),
-        bwd=event_ms(lambda: em.run_bwd(nbl.idx, perm, *common, dirs, *w, cts[0], cts[1],
-                                         want_weight_grads=False, **kw), flush=flush),
-        bwd_w=event_ms(lambda: em.run_bwd(nbl.idx, perm, *common, dirs, *w, cts[0], cts[1],
-                                           want_weight_grads=True, **kw), flush=flush),
-        bwd2=event_ms(lambda: em.run_bwd2(nbl.idx, perm, inputs, cts, z, **kw), flush=flush),
+    calls = dict(
+        fwd=lambda: em.run_fwd(nbl.idx, *common, dirs, *w, **kw),
+        bwd=lambda: em.run_bwd(nbl.idx, perm, *common, dirs, *w, cts[0], cts[1], want_weight_grads=False, **kw),
+        bwd_w=lambda: em.run_bwd(nbl.idx, perm, *common, dirs, *w, cts[0], cts[1], want_weight_grads=True, **kw),
+        bwd2=lambda: em.run_bwd2(nbl.idx, perm, inputs, cts, z, **kw),
     )
+    ms = {k: event_ms(calls[k], flush=flush) for k in kinds}
     t = {x: v.clone().requires_grad_(x != "msk") for x, v in ins.items()}
     x_out, vec_out = _call(em.et_messages_reference, nbl, t, heads)
     leaves = [t[x] for x in ORDER if x != "msk"]
-    plain = dict(
-        fwd=event_ms(lambda: _call(em.et_messages_reference, nbl, ins, heads), flush=flush),
-        bwd_w=event_ms(lambda: torch.autograd.grad((x_out, vec_out), leaves, cts, retain_graph=True),
-                        flush=flush),
-        bwd2=event_ms(lambda: em.et_messages_bwd2_reference(nbl.idx, perm, inputs, cts, z, **kw),
-                       flush=flush, reps=5),
+    plain_calls = dict(
+        fwd=lambda: event_ms(lambda: _call(em.et_messages_reference, nbl, ins, heads), flush=flush),
+        bwd_w=lambda: event_ms(lambda: torch.autograd.grad((x_out, vec_out), leaves, cts, retain_graph=True),
+                               flush=flush),
+        bwd2=lambda: event_ms(lambda: em.et_messages_bwd2_reference(nbl.idx, perm, inputs, cts, z, **kw),
+                              flush=flush, reps=5),
     )
+    plain = {k: plain_calls[k]() for k in kinds if k in plain_calls}
     bounds = {k: _bounds(n, kk, h, rbf, k) for k in ms}
     log(f"kernel times at {label} (N={n} K={kk} H={h} heads={heads} RBF={rbf}, L2 flushed, "
         f"median of 20; plain second order of 5): "
@@ -1390,17 +1213,21 @@ def time_train_kernels(batch, label="the training shapes", args=TRAIN_ARGS):
     return ms, plain, bounds
 
 
-def train_grads_vs_composable(ds, cfg):
-    """One force-loss gradient at a training configuration, fused bf16
-    against composable fp32 with the same weights; the fused pass must run
-    ``per_step`` launches per layer (L forward, 2L backward and L second
-    order for ET and TensorNet).  Then the same gradient with ``remat``
-    (each layer recomputed in the backward pass) must equal it (H2-REMAT):
-    for the fused families with the same launches as without remat, each
-    layer's recomputations served the forward kernel's outputs by replay
+def train_grads_vs_composable(ds, cfg, batch=None, remat=True, grads_out=None):
+    """One training gradient at a training configuration (the force loss, or
+    the energy loss where ``derivative`` is false), fused bf16 against
+    composable fp32 with the same weights, on ``batch`` (by default the first
+    molecules of ``ds``); the fused pass must run ``per_step`` launches per
+    layer (L forward, 2L backward and L second order for ET and TensorNet's
+    force loss).  Then (``remat``) the same gradient with remat (each layer
+    recomputed in the backward pass) must equal it (H2-REMAT): for the fused
+    families with the same launches as without remat, each layer's
+    recomputations served the forward kernel's outputs by replay
     (``save_list``: L replays in each of the two backward passes); GN's
     layers are recomputed whole, its gathers launched again, as in JAX.
-    Returns the remat gradient's (fwd, bwd, bwd2) launches."""
+    ``grads_out`` (a dict) receives the fused gradients by parameter name.
+    Returns the remat gradient's (fwd, bwd, bwd2) launches (None without
+    ``remat``)."""
     import torch
 
     from torchmdnet_tpu_torch import create_model
@@ -1408,25 +1235,37 @@ def train_grads_vs_composable(ds, cfg):
     from torchmdnet_tpu_torch.train.trainer import masked_mse
 
     args = cfg["args"]
-    batch = _train_batch(ds, "cuda", cfg["batch"], args["cutoff_upper"], cfg["mol"])
+    if batch is None:
+        batch = _train_batch(ds, "cuda", cfg["batch"], args["cutoff_upper"], cfg["mol"])
     fused = create_model(args, seed=SEED)
     comp = create_model(dict(args, bf16_messages=False, fused_attention=False, fused_message=False), seed=SEED)
     comp.module.load_state_dict(fused.module.state_dict())
-    remat = create_model(dict(args, remat=True), seed=SEED)
-    remat.module.load_state_dict(fused.module.state_dict())
+    models = [("fused", fused), ("composable", comp)]
+    if remat:
+        models.append(("remat", create_model(dict(args, remat=True), seed=SEED)))
+        models[-1][1].module.load_state_dict(fused.module.state_dict())
     wy, wf = cfg["weights"]
-    grads, launches, remat_launches = {}, None, None
-    for name, model in (("fused", fused), ("composable", comp), ("remat", remat)):
+    grads, launches, remat_launches, replays, peaks = {}, None, None, None, {}
+    for name, model in models:
         _reset_launches()
         save_list.reset_replays()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         nbl = model.neighbors(batch)
         nbl.raise_on_overflow("the training batch")
-        y, neg_dy = model.energy_and_forces(batch, nbl=nbl, create_graph=True)
-        loss = wy * masked_mse(y, batch.y, batch.mol_mask) + wf * masked_mse(neg_dy, batch.neg_dy, batch.atom_mask)
+        if args["derivative"]:
+            y, neg_dy = model.energy_and_forces(batch, nbl=nbl, create_graph=True)
+            loss = (wy * masked_mse(y, batch.y, batch.mol_mask)
+                    + wf * masked_mse(neg_dy, batch.neg_dy, batch.atom_mask))
+        else:
+            loss = wy * masked_mse(model.energy(batch, nbl=nbl), batch.y, batch.mol_mask)
         names = [k for k, p in model.module.named_parameters() if p.requires_grad]
         g = torch.autograd.grad(loss, [dict(model.module.named_parameters())[k] for k in names])
         torch.cuda.synchronize()
+        peaks[name] = (torch.cuda.max_memory_allocated() - base) / 2**30
         grads[name] = dict(zip(names, g))
+        del loss, nbl
         if name == "fused":
             launches = _launches(cfg["km"])[:3]
         elif name == "remat":
@@ -1434,31 +1273,35 @@ def train_grads_vs_composable(ds, cfg):
     layers = args["num_layers"]
     expected = tuple(c * layers for c in cfg["per_step"])
     if launches != expected:
-        raise AssertionError(f"one fused force-loss gradient should launch (fwd, bwd, bwd2) {expected}, "
+        raise AssertionError(f"one fused training gradient should launch (fwd, bwd, bwd2) {expected}, "
                              f"got {launches}")
     fused_family = args["model"] != "graph-network"
     kernel = f"{cfg['km'].__name__.split('.')[-1]}_fwd" if fused_family else None
-    if fused_family and (remat_launches != launches or replays != {kernel: 2 * layers}):
+    if remat and fused_family and (remat_launches != launches or replays != {kernel: 2 * layers}):
         raise AssertionError(f"with remat the gradient launched {remat_launches} (without: {launches}) and "
                              f"replayed {replays} (expected {{{kernel!r}: {2 * layers}}})")
-    remat_err = max(_rel(grads["remat"][k], v) for k, v in grads["fused"].items())
+    remat_err = max(_rel(grads["remat"][k], v) for k, v in grads["fused"].items()) if remat else None
     per = {k: _rel(grads["fused"][k], v) for k, v in grads["composable"].items()}
     num = sum(float((grads["fused"][k].double() - v.double()).pow(2).sum()) for k, v in grads["composable"].items())
     den = sum(float(v.double().pow(2).sum()) for v in grads["composable"].values())
     l2 = math.sqrt(num / den)
     worst = max(per, key=per.get)
-    log(f"force-loss gradient at the training configuration ({cfg['label']}, {cfg['batch']} molecules of "
-        f"{cfg['mol']['num_atoms']} atoms, N={batch.num_atoms}): launches fwd {launches[0]} bwd {launches[1]} "
+    what = "force-loss" if args["derivative"] else "energy-loss"
+    log(f"{what} gradient at the training configuration ({cfg['label']}, {batch.num_mol} molecules, "
+        f"N={batch.num_atoms}, K={args['max_num_neighbors']}): launches fwd {launches[0]} bwd {launches[1]} "
         f"bwd2 {launches[2]} ({cfg['per_step']} x L for L={layers}); fused bf16 vs composable fp32 over "
         f"{len(per)} parameter tensors: max|dg|/max|g| worst {per[worst]:.3e} ({worst}, tol {TRAIN_GRAD_TOL}), "
-        f"median {statistics.median(per.values()):.3e}; |dg|/|g| {l2:.3e} (tol {TRAIN_GRAD_L2_TOL}); "
-        f"with remat (H2-REMAT), max|dg|/max|g| {remat_err:.3e} from the gradient without (tol {REMAT_TOL}), "
-        f"launches {remat_launches}, replays {replays}")
+        f"median {statistics.median(per.values()):.3e}; |dg|/|g| {l2:.3e} (tol {TRAIN_GRAD_L2_TOL}); peak "
+        f"above what each found allocated: " + ", ".join(f"{k} {v:.2f} GiB" for k, v in peaks.items())
+        + ("" if not remat else f"; with remat (H2-REMAT), max|dg|/max|g| {remat_err:.3e} from the gradient "
+           f"without (tol {REMAT_TOL}), launches {remat_launches}, replays {replays}"))
     if per[worst] > TRAIN_GRAD_TOL or l2 > TRAIN_GRAD_L2_TOL:
-        raise AssertionError("fused force-loss gradients disagree with the composable fp32 path")
-    if remat_err > REMAT_TOL:
-        raise AssertionError(f"the force-loss gradient with remat differs from the one without: {remat_err}")
-    del grads, fused, comp, remat
+        raise AssertionError(f"fused {what} gradients disagree with the composable fp32 path")
+    if remat and remat_err > REMAT_TOL:
+        raise AssertionError(f"the {what} gradient with remat differs from the one without: {remat_err}")
+    if grads_out is not None:
+        grads_out.update(grads["fused"])
+    del grads, models, fused, comp
     return remat_launches
 
 
@@ -1481,16 +1324,33 @@ def _cli_flags(workdir, cfg):
     ]
 
 
+def _check_reload(trainer):
+    """The best checkpoint of ``trainer`` reloads through ``load_model``
+    with the weights it holds, its optimizer state, and the model's mean and
+    std.  Returns the checkpoint's path."""
+    import torch
+
+    from torchmdnet_tpu_torch.models.potential import load_model
+    from torchmdnet_tpu_torch.train.checkpoints import load_checkpoint
+
+    best = trainer.best_model_path
+    ckpt = load_checkpoint(best)
+    reloaded = load_model(best)
+    same = all(torch.equal(v.cpu(), ckpt["state_dict"][k]) for k, v in reloaded.module.state_dict().items())
+    scale = (trainer.model.module.mean, trainer.model.module.std)
+    if not same or ckpt["optimizer"] is None or (reloaded.module.mean, reloaded.module.std) != scale:
+        raise AssertionError(f"the checkpoint {best} did not reload")
+    return best
+
+
 def train_cli(workdir, cfg):
     """Force-loss training through the CLI's entry point: losses finite and
     falling, the expected launches, a checkpoint written and reloadable."""
     import torch
 
-    from torchmdnet_tpu_torch.models.potential import load_model
     from torchmdnet_tpu_torch.ops.kernels import et_message as et_kernels
     from torchmdnet_tpu_torch.ops.kernels import t_message as t_kernels
     from torchmdnet_tpu_torch.scripts import train as cli
-    from torchmdnet_tpu_torch.train.checkpoints import load_checkpoint
 
     t0 = time.perf_counter()
     _reset_launches()
@@ -1524,12 +1384,7 @@ def train_cli(workdir, cfg):
             raise AssertionError("the Transformer second order's weight reduction did not run once per launch")
     elif cfg["args"]["model"] == "tensornet":
         _check_tn_parts("tn_train", launches[2], launches[1] + launches[2])
-    best = trainer.best_model_path
-    ckpt = load_checkpoint(best)
-    reloaded = load_model(best)
-    same = all(torch.equal(v.cpu(), ckpt["state_dict"][k]) for k, v in reloaded.module.state_dict().items())
-    if not same or ckpt["optimizer"] is None:
-        raise AssertionError(f"the checkpoint {best} did not reload")
+    best = _check_reload(trainer)
     log(f"training CLI (scripts.train.main, {cfg['label']} fused bf16, SyntheticMorse {cfg['mol']}, "
         f"{split} samples, batches of {bs}, {TRAIN_EPOCHS} epochs = {steps} steps): "
         f"first step loss {first:.4f}, epoch train losses {[round(v, 4) for v in train_losses]}, "
@@ -1540,13 +1395,15 @@ def train_cli(workdir, cfg):
     return trainer, launches
 
 
-def time_train_steps(trainer, ds, cfg):
-    """Trainer steps on one training batch: host clock with sync around each
-    step, median after warm-up; (L, 2L, L) launches per step."""
+def time_train_steps(trainer, ds, cfg, batch=None):
+    """Trainer steps on one training batch (``batch``, by default the first
+    molecules of ``ds``): host clock with sync around each step, median
+    after warm-up; ``per_step`` launches per layer and step, and the peak."""
     import torch
 
-    bs = cfg["batch"]
-    batch = trainer._prepare_batch(_train_batch(ds, "cpu", bs, cfg["args"]["cutoff_upper"], cfg["mol"]))
+    if batch is None:
+        batch = trainer._prepare_batch(_train_batch(ds, "cpu", cfg["batch"], cfg["args"]["cutoff_upper"], cfg["mol"]))
+    bs = batch.num_mol
     acc = torch.zeros(4, dtype=trainer.dtype, device="cuda")
     ema = torch.zeros((), dtype=trainer.dtype, device="cuda")
     torch.cuda.reset_peak_memory_stats()
@@ -1567,15 +1424,16 @@ def time_train_steps(trainer, ds, cfg):
                              f"{TRAIN_TIMED_STEPS} steps")
     ms = statistics.median(times)
     peak = torch.cuda.max_memory_allocated() / 2**30
-    log(f"training step (Trainer, {cfg['label']} fused bf16, {bs} x {cfg['mol']['num_atoms']} atoms, "
-        f"host clock with sync, median of {TRAIN_TIMED_STEPS} after {TRAIN_WARMUP_STEPS}): {ms:.3f} ms/step "
+    log(f"training step (Trainer, {cfg['label']} fused bf16, {bs} molecules, {int(batch.atom_mask.sum())} atoms "
+        f"padded to N={batch.num_atoms}, host clock with sync, median of {TRAIN_TIMED_STEPS} after "
+        f"{TRAIN_WARMUP_STEPS}): {ms:.3f} ms/step "
         f"(min {min(times):.3f}, max {max(times):.3f}), {1e3 * bs / ms:.1f} molecules/s; launches "
         f"per step fwd {launches[0] // TRAIN_TIMED_STEPS} bwd {launches[1] // TRAIN_TIMED_STEPS} bwd2 "
         f"{launches[2] // TRAIN_TIMED_STEPS}; peak memory {peak:.2f} GiB")
     return batch, ms
 
 
-def profile_train(trainer, batch, cfg, steps=3):
+def profile_train(trainer, batch, cfg, steps=2):
     """Where the time of a training step goes: device time by kernel
     against the host clock."""
     import torch
@@ -1591,25 +1449,6 @@ def profile_train(trainer, batch, cfg, steps=3):
 
 # --- TensorNet: serving at DHFR size and force-loss training ----------------
 
-# TensorNet configuration of the serving benchmark (benchmarks/inference.py:31-61,
-# as bench.py's tensornet_forces_dhfr2489_ms line): 2 x 128, 32 ExpNormal RBFs
-# (not trainable), cutoff 0-4.5 A, 64 neighbors, O(3), the fused bf16 message phase
-TN_ARGS = dict(
-    model="tensornet", embedding_dimension=128, num_layers=2, num_rbf=32, rbf_type="expnorm",
-    trainable_rbf=False, activation="silu", cutoff_lower=0.0, cutoff_upper=4.5, max_z=128,
-    max_num_neighbors=64, derivative=True, output_model="Scalar", prior_model=None,
-    reduce_op="add", precision=32, atom_filter=-1, equivariance_invariance_group="O(3)",
-    bf16_messages=True, fused_message=True,
-)
-# examples/TensorNet-ANI1X.yaml: 2 x 128, 32 RBFs, cutoff 4.5 A, 32 neighbors,
-# batches of 64, y_weight 0.5, neg_dy_weight 0.5, lr 2e-4, max_z 128, O(3); with
-# the fused bf16 message phase.  SyntheticMorse stands in for ANI1X's files.
-TN_TRAIN_ARGS = dict(TN_ARGS, max_num_neighbors=32)
-TN_TRAIN_BATCH = 64
-TN_TRAIN_SPLIT = (768, 64, 64)  # 12 training batches, one val, one test
-TN_TRAIN_LR = 2e-4
-TN_TRAIN_WEIGHTS = (0.5, 0.5)  # y_weight, neg_dy_weight
-TN_ORDER = ["cat", "ea", "cutm", "w1", "b1", "w2", "b2", "w3", "b3"]
 # TensorNet's forward, kernel against plain version: both round at the same
 # points, but the edge MLP chains three layers, and the order of a layer's
 # f32 sums can flip the bf16 rounding of a pre-activation in each of them
@@ -1620,8 +1459,6 @@ TN_ORDER = ["cat", "ea", "cutm", "w1", "b1", "w2", "b2", "w3", "b3"]
 # farther than twice the plain version's distance from the same function in
 # f32 without intermediate rounding.
 TN_FWD_TOL = 5e-3
-# a periodic cube of random atoms at about water's number density (0.1 / A^3)
-TN_BOX_ATOMS = 512
 # the narrow checks: widths below TN_ARGS's 128 that the kernels take, on a
 # training batch of this many molecules (K = 33)
 TN_NARROW_WIDTHS = (64, 96)
@@ -1629,89 +1466,27 @@ TN_NARROW_MOLECULES = 16
 TN_WIDE_RBF = 64
 
 
-def _tn_kernel_inputs(nbl, pos, h, rbf, cutoff, seed, box=None):
-    """Message-phase operands on the card for a list ``nbl`` over ``pos``:
-    its RBFs and cutoff from the geometry, random bf16 source rows and MLP."""
-    import torch
-
-    from torchmdnet_tpu_torch.ops.cutoff import cosine_cutoff
-    from torchmdnet_tpu_torch.ops.neighbors import edge_geometry_components
-    from torchmdnet_tpu_torch.ops.rbf import ExpNormalSmearing
-
-    n = nbl.idx.shape[0]
-    _, dist = edge_geometry_components(pos, nbl, box=box)
-    g = torch.Generator().manual_seed(seed)
-    bf = torch.bfloat16
-
-    def rnd(*shape, scale=1.0):
-        return (torch.randn(*shape, generator=g) * scale).to("cuda")
-
-    ins = dict(
-        cat=rnd(n, 9 * h).to(bf),
-        ea=ExpNormalSmearing(0.0, cutoff, rbf).to("cuda")(dist).detach().to(bf),
-        cutm=(cosine_cutoff(dist, 0.0, cutoff) * nbl.mask).float().detach(),
-        w1=rnd(rbf, h, scale=rbf ** -0.5).to(bf), b1=rnd(1, h, scale=0.1).to(bf),
-        w2=rnd(h, 2 * h, scale=h ** -0.5).to(bf), b2=rnd(1, 2 * h, scale=0.1).to(bf),
-        w3=rnd(2 * h, 3 * h, scale=(2 * h) ** -0.5).to(bf), b3=rnd(1, 3 * h, scale=0.1).to(bf),
-    )
-    return ins, rnd(n, 9 * h)
 
 
-def _tn_system(kind, seed):
-    """(nbl, pos, box) on the card: "DHFR" (External's list at DHFR size),
-    "box" (a periodic cube, brute search) or a training batch."""
-    import torch
-
-    from torchmdnet_tpu_torch.ops.neighbors import neighbor_list
-
-    box = None
-    if kind == "DHFR":
-        from torchmdnet_tpu_torch.data.systems import DHFR_ATOMS
-
-        from torchmdnet_tpu_torch.ops.cell_list import probe_cell_kwargs
-
-        _, _, batch = _synthetic_batch(DHFR_ATOMS, seed, "cuda")
-        k, cut, strategy = TN_ARGS["max_num_neighbors"], TN_ARGS["cutoff_upper"], "auto"
-        cell_kwargs = probe_cell_kwargs(batch, cutoff_upper=cut)
-    elif kind == "box":
-        g = torch.Generator().manual_seed(seed)
-        side = (TN_BOX_ATOMS / 0.1) ** (1.0 / 3.0)
-        pos = (torch.rand(TN_BOX_ATOMS, 3, generator=g) * side).to("cuda")
-        box = torch.eye(3, device="cuda") * side
-        nbl = neighbor_list(pos, k=80, cutoff_upper=TN_ARGS["cutoff_upper"], loop=True, box=box,
-                            strategy="brute")
-        nbl.raise_on_overflow("chip_smoke periodic box")
-        return nbl, pos, box
-    else:
-        batch = kind
-        k, cut, strategy = TN_TRAIN_ARGS["max_num_neighbors"], TN_TRAIN_ARGS["cutoff_upper"], "brute"
-        cell_kwargs = {}
-    nbl = neighbor_list(batch.pos, batch.batch, batch.atom_mask, k=k, cutoff_upper=cut, loop=True,
-                        strategy=strategy, **cell_kwargs)
-    nbl.raise_on_overflow("chip_smoke TensorNet kernel inputs")
-    return nbl, batch.pos, box
 
 
-def _tn_z_like(ins, seed):
-    """Random cotangents Z on the backward's nine outputs, in their dtypes."""
-    import torch
-
-    g = torch.Generator().manual_seed(seed)
-    return [(torch.randn(ins[n].shape, generator=g) * 0.5).to("cuda", ins[n].dtype) for n in TN_ORDER]
 
 
-def check_tn_kernels(label, kind, seed, h=TN_ARGS["embedding_dimension"], rbf=TN_ARGS["num_rbf"]):
+def check_tn_kernels(label, kind, seed, h=TN_ARGS["embedding_dimension"], rbf=TN_ARGS["num_rbf"], k=None,
+                     cutoff=None):
     """#8, #9 and #10 against their plain versions at width ``h`` and ``rbf``
-    RBFs: the forward output, all nine input cotangents through autograd
-    (the weight cotangents from the edge reductions), the backward without
-    weight cotangents (serving's), and the second order's nine + 1
+    RBFs (a training batch's list at ``k`` and ``cutoff``, TensorNet-ANI1X's
+    by default): the forward output, all nine input cotangents through
+    autograd (the weight cotangents from the edge reductions), the backward
+    without weight cotangents (serving's), and the second order's nine + 1
     gradients.  Returns the max abs errors (fwd, bwd, bwd2)."""
     import torch
 
     from torchmdnet_tpu_torch.ops.kernels import tn_message as tm
 
-    nbl, pos, box = _tn_system(kind, seed)
-    ins, ct = _tn_kernel_inputs(nbl, pos, h, rbf, TN_ARGS["cutoff_upper"], seed, box=box)
+    nbl, pos, box = _tn_system(kind, seed, k=k, cutoff=cutoff)
+    cut = TN_ARGS["cutoff_upper"] if cutoff is None else cutoff
+    ins, ct = _tn_kernel_inputs(nbl, pos, h, rbf, cut, seed, box=box)
     idx, perm = nbl.idx, nbl.transpose_perm
     outs, grads = {}, {}
     for name, fn in (("kernel", tm.fused_tn_messages), ("plain", tm.tn_messages_reference)):
@@ -1822,14 +1597,44 @@ def _tn_bounds(n, kk, h, rbf, kind):
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def _tn_times(nbl, ins, ct, z, kinds, flush):
+    """{kind: (ms, plain ms, bound ms, bound by, (N, K))} of TensorNet's
+    kernels on ``ins`` (L2 flushed, median of 20; the plain second order of
+    5)."""
+    import torch
+
+    from torchmdnet_tpu_torch.ops.kernels import tn_message as tm
+
+    idx, perm = nbl.idx, nbl.transpose_perm
+    n, kk = idx.shape
+    h, rbf = ins["cat"].shape[1] // 9, ins["ea"].shape[-1]
+    args = [ins[x] for x in TN_ORDER]
+    out = {}
+    for k in kinds:
+        if k == "fwd":
+            ms = event_ms(lambda: tm.run_fwd(idx, *args, act="silu"), flush=flush)
+            plain = event_ms(lambda: tm.tn_messages_reference(idx, *args, perm=perm), flush=flush)
+        elif k in ("bwd", "bwd_w"):
+            want = k == "bwd_w"
+            ms = event_ms(lambda: tm.run_bwd(idx, *args, ct, act="silu", want_weight_grads=want), flush=flush)
+            t = {x: v.clone().requires_grad_(want or x in ("cat", "ea", "cutm")) for x, v in ins.items()}
+            m = tm.tn_messages_reference(idx, *[t[x] for x in TN_ORDER], perm=perm)
+            leaves = [t[x] for x in TN_ORDER if t[x].requires_grad]
+            plain = event_ms(lambda: torch.autograd.grad(m, leaves, ct, retain_graph=True), flush=flush)
+            del m, t
+        else:
+            ms = event_ms(lambda: tm.run_bwd2(idx, perm, args, ct, z, act="silu"), flush=flush)
+            plain = event_ms(lambda: tm.tn_messages_bwd2_reference(idx, perm, args, ct, z), flush=flush, reps=5)
+        out[k] = (ms, plain) + _tn_bounds(n, kk, h, rbf, k) + ((n, kk),)
+    return out
+
+
 def time_tn_kernels(train_batch):
     """#8 and #9 (frozen weights) at the DHFR serving shapes, #9 with weight
     cotangents and #10 at the training shapes: each kernel's time (L2
     flushed, median of 20), its plain version's and its bound.  No single
     PyTorch call computes the fused phase: no library time."""
     import torch
-
-    from torchmdnet_tpu_torch.ops.kernels import tn_message as tm
 
     h, rbf = TN_ARGS["embedding_dimension"], TN_ARGS["num_rbf"]
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")  # 256 MB > L2
@@ -1841,22 +1646,8 @@ def time_tn_kernels(train_batch):
         n, kk = idx.shape
         args = [ins[x] for x in TN_ORDER]
         z = _tn_z_like(ins, SEED)
-        for k in kinds:
-            if k == "fwd":
-                ms = event_ms(lambda: tm.run_fwd(idx, *args, act="silu"), flush=flush)
-                plain = event_ms(lambda: tm.tn_messages_reference(idx, *args, perm=perm), flush=flush)
-            elif k in ("bwd", "bwd_w"):
-                want = k == "bwd_w"
-                ms = event_ms(lambda: tm.run_bwd(idx, *args, ct, act="silu", want_weight_grads=want), flush=flush)
-                t = {x: v.clone().requires_grad_(want or x in ("cat", "ea", "cutm")) for x, v in ins.items()}
-                m = tm.tn_messages_reference(idx, *[t[x] for x in TN_ORDER], perm=perm)
-                leaves = [t[x] for x in TN_ORDER if t[x].requires_grad]
-                plain = event_ms(lambda: torch.autograd.grad(m, leaves, ct, retain_graph=True), flush=flush)
-                del m, t
-            else:
-                ms = event_ms(lambda: tm.run_bwd2(idx, perm, args, ct, z, act="silu"), flush=flush)
-                plain = event_ms(lambda: tm.tn_messages_bwd2_reference(idx, perm, args, ct, z), flush=flush, reps=5)
-            out[(where, k)] = (ms, plain) + _tn_bounds(n, kk, h, rbf, k) + ((n, kk),)
+        for k, row in _tn_times(nbl, ins, ct, z, kinds, flush).items():
+            out[(where, k)] = row
         if where == "training":
             split = _tn_pass_split(idx, args, ct, flush)
             split2 = _tn_bwd2_split(idx, perm, args, ct, z, flush)
@@ -1870,120 +1661,21 @@ def time_tn_kernels(train_batch):
     return out
 
 
-def _tn_pass_split(idx, args, ct, flush):
-    """#9 at the training shapes pass by pass: the edge kernel alone (no
-    per-edge rows), with the rows and their reduction, and the reduction
-    (et_dw_kernel) alone on the rows of one launch."""
-    from torchmdnet_tpu_torch.ops.kernels import tn_message as tm
-
-    def bwd(want):
-        return lambda: tm.run_bwd(idx, *args, ct, act="silu", want_weight_grads=want)
-
-    rows = tm.bwd_rows(idx, *args, ct, act="silu", want_rows=True)[3]
-    jobs = tm._bwd_jobs(TN_ARGS["embedding_dimension"], tm._rbfp(TN_ARGS["num_rbf"]))
-    return {"edge kernel": event_ms(bwd(False), flush=flush),
-            "edge kernel + rows + reduction": event_ms(bwd(True), flush=flush),
-            "reduction (et_dw_kernel)": event_ms(lambda: tm.weight_grads(rows, jobs), flush=flush)}
 
 
-TN_BWD2_KERNELS = ("tn_bwd2_kernel", "tn_src_sum_kernel", "et_dw_kernel")
 
 
-def _tn_bwd2_split(idx, perm, args, ct, z, flush, reps=20):
-    """#10 kernel by kernel: the device time a launch of each of run_bwd2's
-    kernels takes (the edge kernel, the source-row sum of g_cat, the weight
-    reduction), from torch.profiler over ``reps`` calls with the L2 flushed
-    before each: {name: ms}."""
-    from torchmdnet_tpu_torch.ops.kernels import tn_message as tm
-
-    def call():
-        flush.zero_()
-        tm.run_bwd2(idx, perm, args, ct, z, act="silu")
-
-    call()
-    return kernel_profile(call, reps, TN_BWD2_KERNELS)[2]
 
 
 # --- The graph network: kernels #4/#5, serving, the fp32 forward, STMV MD, training ---
 
-# GN configuration of the serving benchmark (benchmarks/inference.py:31-55, as
-# bench.py's gn_forces_dhfr2489_ms line): 6 x 128, 50 trainable ExpNormal
-# RBFs, NeighborEmbedding, cutoff 0-5 A, 80 neighbors, add, Scalar head, bf16
-# messages (the gathers run #4, their gradients #5)
-GN_ARGS = dict(
-    model="graph-network", embedding_dimension=128, num_layers=6, num_rbf=50, rbf_type="expnorm",
-    trainable_rbf=True, activation="silu", neighbor_embedding=True, cutoff_lower=0.0,
-    cutoff_upper=5.0, max_z=128, max_num_neighbors=80, derivative=True, output_model="Scalar",
-    prior_model=None, reduce_op="add", precision=32, atom_filter=-1, aggr="add", bf16_messages=True,
-)
-# bench.py's headline GN forward (bench.py:94-117): the same model in f32,
-# max_z 100, no forces, and max_num_neighbors 32, which truncates the list at
-# protein density (about 49 neighbors within 5 A) as the reference's
-# radius_graph does; the STMV forward (bench.py:300-320) with bf16 messages
-GN_FWD_ARGS = dict(GN_ARGS, max_z=100, max_num_neighbors=32, derivative=False, bf16_messages=False)
-GN_STMV_FWD_ARGS = dict(GN_FWD_ARGS, bf16_messages=True)
 # the reference's published GN forward times (BASELINE.md), taken on a
 # desktop NVIDIA GPU, not an H100
 REF_GN_FWD_MS = {"DHFR": 27.22, "STMV": 217.72}
 GN_FWD_REPS = 10
-# GN MD at STMV size (bench.py's gn_stmv_force_md_ms_per_step: K = 80, skin
-# 0.5 A, so a skin list of K = 112) at a rebuild cadence at which the skin
-# holds, without remat (the residuals of six layers fit on the card).  GN's
-# random weights give forces several times ET's, which carried atoms 1.089 A
-# in 2 fs on the card; the model's output is standardized by std = 0.1
-# (EnergyModel's std), at which a rebuild every 2 fs holds.  The time per
-# step does not depend on it.
-GN_MD_STD = 0.1
-GN_MD_EVERY = MD_VALID_EVERY
-GN_MD_WARMUP_STEPS = 2
-GN_MD_TIMED_STEPS = 10
-# GN force training: BASELINE.json configs[1] (GN on MD17 aspirin) with
-# examples/ET-MD17.yaml's settings and --model graph-network: 6 x 128, 32
-# ExpNormal RBFs (not trainable), cutoff 0-5 A, 32 neighbors,
-# NeighborEmbedding, batches of 8, y_weight 0.2, neg_dy_weight 0.8, lr 5e-4;
-# bf16 messages.  SyntheticMorse molecules of aspirin's 21 atoms (MD17 needs a
-# download) in a 6.3 A cell, the 2 A spacing of the other training paths.
-GN_TRAIN_ARGS = dict(GN_ARGS, num_rbf=32, trainable_rbf=False, max_z=100, max_num_neighbors=32)
-GN_TRAIN_BATCH = 8
-GN_TRAIN_MOL = dict(num_atoms=21, cell=6.3)
-GN_TRAIN_SPLIT = (96, 16, 16)  # 12 training batches, two val, two test
-GN_TRAIN_LR = 5e-4
-GN_TRAIN_WEIGHTS = (0.2, 0.8)
 GN_KERNELS = ("gather_rows_kernel", "transpose_sum_rows_kernel")
-# widths for the kernel checks: a ragged last span of #5 (130 = 2 x 64 + 2
-# channels; #4 copies one bf16 at a time there) and one bf16 for both (odd)
-GN_PAIR_F = 130
-GN_ODD_F = 13
 
 
-def _gn_lists():
-    """GN's lists on the card, one for each shape a GN path runs #4/#5 at:
-    External's at DHFR (cell list, probed sizes, K = 80), the STMV skin list
-    of MD (cutoff 5.5 A, K = 112), the STMV forward's (bench.py's K = 32,
-    truncated) and a GN-aspirin training batch's (8 molecules of 21 atoms,
-    brute, K = 32)."""
-    from torchmdnet_tpu_torch import create_model
-    from torchmdnet_tpu_torch.data.systems import DHFR_ATOMS
-    from torchmdnet_tpu_torch.ops.cell_list import probe_cell_kwargs
-
-    model = create_model(GN_ARGS, seed=SEED)
-    _, _, dhfr = _synthetic_batch(DHFR_ATOMS, SEED, "cuda")
-    stmv = _stmv_batch()
-    skin, cut = MD_ARGS["neighbor_skin"], GN_ARGS["cutoff_upper"]
-    train = _train_batch(_train_dataset(GN_TRAIN_SPLIT, GN_TRAIN_MOL), "cuda", GN_TRAIN_BATCH,
-                         GN_TRAIN_ARGS["cutoff_upper"], GN_TRAIN_MOL)
-    lists = {
-        "DHFR": model.neighbors(dhfr, **probe_cell_kwargs(dhfr, cutoff_upper=cut)),
-        "STMV skin": model.neighbors(stmv, skin=skin, **probe_cell_kwargs(stmv, cutoff_upper=cut + skin)),
-        "STMV forward": create_model(GN_STMV_FWD_ARGS, seed=SEED).neighbors(
-            stmv, **probe_cell_kwargs(stmv, cutoff_upper=GN_STMV_FWD_ARGS["cutoff_upper"])),
-        "training": create_model(GN_TRAIN_ARGS, seed=SEED).neighbors(train),
-    }
-    if bool(lists["STMV forward"].cell_overflow):  # truncated at K = 32 by design, as bench.py's
-        raise AssertionError("the GN STMV forward's cell list overflowed its probed sizes")
-    for name in ("DHFR", "STMV skin", "training"):
-        lists[name].raise_on_overflow(f"chip_smoke GN {name} list")
-    return lists
 
 
 def _bf16_ulp(x):
@@ -2099,52 +1791,8 @@ def _ell_bounds(n, k, f, kind):
 
 
 
-def _three_ways(fn, flush, kernel, reps=20):
-    """One call timed three ways: the CUDA-event window (L2 flushed, median
-    of 20); the device time alone of the kernels whose names contain
-    ``kernel`` (``device_ms``, ``launches``) and of the call's other kernels
-    (``other_ms``, ``other_launches``), from ``kernel_profile``, mean of ``reps``
-    calls with the L2 flushed before each, the flush's kernels left out by
-    name; and the host's enqueue (no synchronise, median of 200)."""
-    fn()
-    _, _, groups, other, others, counts = kernel_profile(lambda: (flush.zero_(), fn()), reps, FLUSH_KERNELS + (kernel,))
-    if not (groups[kernel] > 0.0 and any(counts[f] for f in FLUSH_KERNELS)):
-        raise AssertionError(f"the profiler did not tell the flush from the call: {groups}, other {other} ms")
-    return dict(ms=event_ms(fn, flush=flush), device_ms=groups[kernel], launches=counts[kernel], other_ms=other,
-                other_launches=others, enqueue_ms=enqueue_ms(fn))
 
 
-def ell_cases(lists):
-    """#4 and #5 on each of ``_gn_lists`` at GN's width, operands drawn
-    from SEED: yields (shape name, (N, K, F),
-    {kind: (kernel call, plain call, library call)}).  The STMV forward's
-    truncated list has no transpose (its forward needs none), so #4 only.
-    The library calls: ``index_select`` for #4, ``index_add_`` into f32 of
-    the rows in f32 for #5 (its atomics add in no fixed order)."""
-    import torch
-
-    from torchmdnet_tpu_torch.ops import neighbors as nb
-    from torchmdnet_tpu_torch.ops.kernels import ell_gather as eg
-
-    f = GN_ARGS["embedding_dimension"]
-    g = torch.Generator().manual_seed(SEED)
-    for where, nbl in lists.items():
-        n, k = nbl.idx.shape
-        idx, flat = nbl.idx, nbl.idx.reshape(-1).long()
-        x = torch.randn(n, f, generator=g).to("cuda", torch.bfloat16)
-        calls = dict(gather=(lambda: eg.gather_rows(x, idx), lambda: nb._gather_rows(x, idx),
-                             lambda: x.index_select(0, flat)))
-        if where != "STMV forward":
-            perm = nbl.transpose_perm
-            ct = torch.randn(n, k, f, generator=g).to("cuda", torch.bfloat16)
-            rows32 = ct.reshape(n * k, f).float()
-            acc = torch.zeros(n, f, device="cuda")
-            calls["transpose"] = (lambda: eg.transpose_sum_rows(ct, idx, perm),
-                                  lambda: nb._transpose_sum(ct, idx, perm),
-                                  lambda: acc.index_add_(0, flat, rows32))
-        yield where, (n, k, f), calls
-        del calls
-        torch.cuda.empty_cache()
 
 
 def time_ell_gather(lists):
@@ -2343,16 +1991,6 @@ def tn_strong_messages():
 
 # --- The Transformer (kernels #11-#13) and the fused brute search (#7) ------
 
-# Transformer configuration of the serving benchmark (benchmarks/inference.py:31-55,
-# model_args("transformer")): 6 x 128, 8 heads, 50 trainable ExpNormal RBFs,
-# NeighborEmbedding, distance_influence "both", cutoff 0-5 A, 80 neighbors
-# (+ the self loop), Scalar head, the fused bf16 edge phase
-T_ARGS = dict(ET_ARGS, model="transformer")
-# benchmarks/training.py with --model transformer --forces --fused-attention:
-# ET's training shapes (8 x 256, 64 RBFs, K = 32, batches of 128 molecules of
-# 18 atoms), NeighborEmbedding, 8 heads
-T_TRAIN_ARGS = dict(TRAIN_ARGS, model="transformer")
-T_ORDER = ["q", "k", "v", "ea", "cutm", "wdk", "bdk", "wdv", "bdv"]
 T_KERNELS = ("t_fwd_kernel", "t_bwd_kernel", "t_bwd_src_kernel", "t_bwd2_kernel", "t_bwd2_src_kernel",
              "et_dw_kernel")
 T_SERVE_KERNELS = ("t_fwd_kernel", "t_bwd_kernel", "t_bwd_src_kernel")
@@ -2364,29 +2002,8 @@ T_MD_STEPS = 10
 T_MD_STD = 0.1
 
 
-def _t_kernel_inputs(n_atoms, k, h, rbf, cutoff, seed, batch=None, influence="both", nbl=None):
-    """The Transformer edge phase's operands on the card: ET's (a real ELL
-    list and its geometry, random bf16 rows and filters) cut to T's widths;
-    filters absent where ``influence`` leaves them out."""
-    nbl, ins, cts = _kernel_inputs(n_atoms, k, h, rbf, cutoff, seed, batch=batch, nbl=nbl)
-    t = dict(q=ins["q"], k=ins["k"], v=ins["v"][:, :h].contiguous(), ea=ins["ea"], cutm=ins["cutm"],
-             wdk=ins["wdk"], bdk=ins["bdk"], wdv=ins["wdv"][:, :h].contiguous(),
-             bdv=ins["bdv"][:, :h].contiguous())
-    if influence not in ("keys", "both"):
-        t["wdk"] = t["bdk"] = None
-    if influence not in ("values", "both"):
-        t["wdv"] = t["bdv"] = None
-    return nbl, t, cts[0]
 
 
-def _t_z_like(ins, seed):
-    """Random cotangents Z on the backward's nine outputs, in their dtypes
-    (None for an absent filter)."""
-    import torch
-
-    g = torch.Generator().manual_seed(seed)
-    return [None if ins[n] is None else (torch.randn(ins[n].shape, generator=g) * 0.5).to("cuda", ins[n].dtype)
-            for n in T_ORDER]
 
 
 def check_t_parts(nbl, ins, ct, heads, seed):
@@ -2768,19 +2385,6 @@ def check_compaction(label, batch, k, cutoff_upper, cutoff_lower=0.0, model=None
     return 0.0
 
 
-def compaction_shapes():
-    """#7's two shapes on the synthetic DHFR system (N 2496): the row shape
-    of External's list and of the check (K 80, cutoff 0-5 A, no loop), and
-    the Transformer MD build's (``Potential.neighbors`` with bench.py's
-    skin: cutoff and K grown by the skin, the self loop)."""
-    a, skin = T_ARGS, MD_ARGS["neighbor_skin"]
-    hi = a["cutoff_upper"] + skin
-    k = int(math.ceil(a["max_num_neighbors"] * (hi / a["cutoff_upper"]) ** 3 / 8.0)) * 8
-    return {
-        "DHFR": dict(k=a["max_num_neighbors"], cutoff_lower=a["cutoff_lower"], cutoff_upper=a["cutoff_upper"],
-                     loop=False),
-        "MD build": dict(k=k, cutoff_lower=max(0.0, a["cutoff_lower"] - skin), cutoff_upper=hi, loop=True),
-    }
 
 
 def _compaction_bounds(n, k, pairs):
@@ -2915,7 +2519,6 @@ def t_md_brute_pallas():
 # --- force training with ZBL, D2 and Coulomb -------------------------------
 
 EV = 1.602176634e-19  # J: positions in A and energies in eV, as SyntheticMorse's
-ZBL_CUTOFF = 4.0
 # ZBL's capacities tried on DHFR, from the JAX package's default up
 ZBL_K_TRIED = (32, 48, 64)
 # the prior alone on the card (f32) against an f64 sum of its closed form
@@ -3405,10 +3008,8 @@ def md17_training(workdir):
     import torch
 
     from torchmdnet_tpu_torch.data.datasets import MD17, Custom
-    from torchmdnet_tpu_torch.models.potential import load_model
     from torchmdnet_tpu_torch.ops.kernels import et_message as em
     from torchmdnet_tpu_torch.scripts import train as cli
-    from torchmdnet_tpu_torch.train.checkpoints import load_checkpoint
 
     root = os.path.join(workdir, "data")
     globs = write_rmd17(root)
@@ -3459,13 +3060,8 @@ def md17_training(workdir):
                              f"batches, got {launches} after {trainer.state.global_step} steps")
     if _check_et_parts("md17_train", launches[1], launches[2])["et_message_dw"] < launches[2]:
         raise AssertionError("ET-MD17: the second order's weight reduction did not run once per launch")
-    best = trainer.best_model_path
-    ckpt = load_checkpoint(best)
-    reloaded = load_model(best)
-    same = all(torch.equal(v.cpu(), ckpt["state_dict"][k]) for k, v in reloaded.module.state_dict().items())
+    best = _check_reload(trainer)
     scale = (trainer.model.module.mean, trainer.model.module.std)
-    if not same or ckpt["optimizer"] is None or (reloaded.module.mean, reloaded.module.std) != scale:
-        raise AssertionError(f"the checkpoint {best} did not reload")
     log(f"ET-MD17 training CLI (scripts.train.main --conf {MD17_CONF}, {layers}x{h['embedding_dimension']}, "
         f"{h['num_heads']} heads, {h['num_rbf']} RBFs, K {h['max_num_neighbors']}, batches of {bs}, fused bf16; "
         f"MD17('{MD17_MOLECULE}') on an rMD17-format file of {len(md17)} SyntheticMorse-labelled frames with "
@@ -4986,8 +4582,8 @@ def edge_training(workdir):
 FGM_GRAD_TOL = 2e-2
 FGM_GRAD_L2_TOL = 2e-3
 FGM_FORCE_L2_TOL = {"et": 2e-2, "t": 1e-2, "tn": 2e-5}
-FGM_TIMED_STEPS = 5
-FGM_PROFILED_STEPS = 3
+FGM_TIMED_STEPS = 3
+FGM_PROFILED_STEPS = 2
 # (H-3) a third derivative through each family's fused Functions (#1/#2/#3
 # and their counterparts for the primals, the composable rule above) against
 # the plain twin's, at the "medium" check shapes, per input as max|d| /
@@ -5138,7 +4734,7 @@ def force_grad_modes(train_ds, tn_ds, workdir):
     from torchmdnet_tpu_torch import create_model
     from torchmdnet_tpu_torch.train.trainer import Trainer
 
-    paths, lines, failures = {}, [], []
+    paths, failures = {}, []
     for kind in ("et", "t", "tn"):
         cfg = _train_cfg(kind)
         args, km = cfg["args"], cfg["km"]
@@ -5193,7 +4789,7 @@ def force_grad_modes(train_ds, tn_ds, workdir):
         worst = max(per, key=per.get)
         g, j = stats["gradgrad"], stats["jvp"]
         limit = FGM_FORCE_L2_TOL[kind]
-        lines.append(
+        log(f"force_grad_mode jvp against gradgrad at the training shapes (H-FGM): "
             f"{cfg['label']} ({cfg['batch']} molecules, N={batch.num_atoms}): jvp against gradgrad over {len(per)} "
             f"parameter tensors max|dg|/max|g| worst {per[worst]:.3e} ({worst}; tol {FGM_GRAD_TOL}), median "
             f"{statistics.median(per.values()):.3e}, |dg|/|g| {l2:.3e} (tol {FGM_GRAD_L2_TOL}); the force loss "
@@ -5212,7 +4808,6 @@ def force_grad_modes(train_ds, tn_ds, workdir):
             failures.append(f"H-FGM {kind}: a dropped backward tangent stays inside the limit {limit}")
         del grads, model, force, trainer
         torch.cuda.empty_cache()
-    log("force_grad_mode jvp against gradgrad at the training shapes (H-FGM): " + "; ".join(lines))
     if failures:
         raise AssertionError("; ".join(failures))
     return paths
@@ -5748,6 +5343,21 @@ def remat_md_stmv(et_md):
     return paths, timed_at, (fwd_abs, bwd_abs), (et_sim, tn_sim)
 
 
+def _evaluation_step(sim):
+    """``sim``'s force evaluation on its refined skin list as a
+    ``device_ms_per_iter`` step: the positions chain each step's forces
+    (times a zero)."""
+    import torch
+
+    forces = sim._skin_list(sim.state.pos)[0]
+
+    @torch.no_grad()
+    def step(p, eps):
+        return p + eps * forces(p)[1]
+
+    return step
+
+
 def profiling_phase(ext, pos, sim):
     """(H2-PROF) ``profiling.trace`` of DHFR ET calls read back by
     ``trace_summary``, which must name #1's and #2's kernels with PROF_ITERS
@@ -5773,12 +5383,7 @@ def profiling_phase(ext, pos, sim):
             raise AssertionError(f"trace_summary did not find {kernel} {layers} times a call: {hits}")
     total = sum(r["ms"] for r in rows)
     pos0 = sim.state.pos
-    forces = sim._skin_list(pos0)[0]  # the MD's evaluation on its refined skin list
-
-    @torch.no_grad()
-    def step(p, eps):
-        return p + eps * forces(p)[1]
-
+    step = _evaluation_step(sim)
     k_lo, k_hi = DEVICE_ITER_K
     per_iter = profiling.device_ms_per_iter(step, pos0, k_lo=k_lo, k_hi=k_hi, reps=2)
     window = event_ms(lambda: step(pos0, torch.zeros((), device="cuda")), reps=5, warmup=1)
@@ -5860,17 +5465,402 @@ def native_collation(trainer, workdir):
     return loader_ms, alone, alone_big
 
 
+# --- slice H3: the published configurations on the card ---------------------
+
+H3_TN_KERNELS = ("tn_fwd_kernel", "tn_bwd_kernel", "tn_bwd2_kernel", "tn_src_sum_kernel", "et_dw_kernel")
+# the keys of an examples/*.yaml file that the H3 phases override (the
+# dataset and its files, the splits, the epochs, the log directory): every
+# other key of the file must reach the trainer unchanged
+EXAMPLE_OVERRIDES = ("dataset", "coord_files", "embed_files", "energy_files", "force_files", "train_size",
+                     "val_size", "test_size", "num_epochs", "log_dir")
+# molecules of the batch on which a configuration's fused gradient is held
+# against the composable fp32 one, where not the whole training batch: the
+# composable force-loss gradient of ET-SPICE's batch (N 3072, K 129, 8 x
+# 256) ran out of the card's 80 GB (NVIDIA H100 80GB HBM3); a batch of 8 of
+# its molecules (N 768, K 129) keeps the configuration
+H3_GRAD_MOLECULES = {"ET-SPICE.yaml": 8}
+
+
+def gn_remat_md_stmv():
+    """(H3-GNREMAT) bench.py's gn_stmv_force_md_ms_per_step: GN 6 x 128, K 80,
+    bf16 messages, with remat (``GN_REMAT_ARGS``), md.Simulation at STMV size
+    (30,336 atoms, skin 0.5 A) at bench.py's cadence (a rebuild every 10
+    steps) and at GN_MD_EVERY, each against the same steps without remat on
+    the same weights: the positions at every rebuild and the final positions,
+    energies and forces bitwise; #4 and #5 per force evaluation (GN stays
+    whole-layer under remat, as JAX's: each recomputed layer gathers again,
+    so 2L #4 and L #5 against L and L); #6 once a rebuild; ``stale`` (False
+    required at GN_MD_EVERY, where the refined list must hold a fresh one's
+    pairs); ms/step on the host clock, the device ms of one force evaluation
+    (``profiling.device_ms_per_iter``) and the peak.  Returns {path: {kernel:
+    launches}} of the remat runs."""
+    import torch
+
+    from torchmdnet_tpu_torch import create_model
+
+    batch = _stmv_batch()
+    real = batch.atom_mask
+    km = _gn_km()
+    layers = GN_ARGS["num_layers"]
+    plain = create_model(GN_ARGS, seed=SEED, std=GN_MD_STD)
+    remat = create_model(GN_REMAT_ARGS, seed=SEED, std=GN_MD_STD)
+    remat.module.load_state_dict(plain.module.state_dict())
+    paths, lines = {}, []
+    for path, every, timed in (("gn_md_stmv_remat", MD_ARGS["rebuild_every"], GN_REMAT_STEPS),
+                               ("gn_md_stmv_remat_valid", GN_MD_EVERY, GN_MD_TIMED_STEPS)):
+        steps = every + timed
+        evaluations, rebuilds = steps + 1, steps // every
+        runs = {}
+        for name, model, per_eval in (("no remat", plain, (1, 1)), ("remat", remat, (2, 1))):
+            sim, ms, launches, _, peak, starts = _timed_md(model, batch, km, every, every, timed)
+            want = (per_eval[0] * layers * evaluations, per_eval[1] * layers * evaluations, rebuilds)
+            if launches != want:
+                raise AssertionError(f"GN STMV MD ({name}, a rebuild every {every}): launches (#4, #5, #6) "
+                                     f"{launches}, expected {want} ({evaluations} evaluations, {rebuilds} rebuilds)")
+            state = sim.state
+            if not (torch.isfinite(state.pos).all() and torch.isfinite(state.energy).all()):
+                raise AssertionError(f"non-finite positions or energies in GN MD ({name})")
+            if not torch.equal(state.pos[~real], batch.pos[~real]):
+                raise AssertionError("padding atoms moved")
+            ends = starts[1:] + [state.pos]
+            move = max(float((b - a).norm(dim=-1)[real].max()) for a, b in zip(starts, ends))
+            dev_ms = None
+            if every == MD_ARGS["rebuild_every"]:
+                dev_ms = profiling.device_ms_per_iter(_evaluation_step(sim), sim.state.pos, k_lo=DEVICE_ITER_K[0],
+                                                      k_hi=DEVICE_ITER_K[1], reps=2)
+            runs[name] = dict(sim=sim, ms=ms, launches=launches, peak=peak, starts=starts, move=move,
+                              stale=bool(state.stale), dev_ms=dev_ms,
+                              forces=sim._carried[1] if sim._carried[0] is state.pos else None)
+        a, b = runs["no remat"], runs["remat"]
+        same = (len(a["starts"]) == len(b["starts"]) and all(torch.equal(x, y) for x, y in zip(a["starts"], b["starts"]))
+                and torch.equal(a["sim"].state.pos, b["sim"].state.pos)
+                and torch.equal(a["sim"].state.energy, b["sim"].state.energy)
+                and a["forces"] is not None and b["forces"] is not None and torch.equal(a["forces"], b["forces"]))
+        if not same:
+            raise AssertionError(f"GN STMV MD with remat (a rebuild every {every}) is not bitwise the run without")
+        if b["stale"] != a["stale"]:
+            raise AssertionError("stale differs with and without remat")
+        if every == GN_MD_EVERY:
+            if b["stale"]:
+                raise AssertionError(f"GN's skin list went stale at rebuild_every={every} ({b['move']:.3f} A)")
+            if _pairs_against_fresh(b["sim"], remat, batch, b["starts"][-1], GN_ARGS)[:2] != (0, 0):
+                raise AssertionError("GN's refined skin list and a fresh list hold different pairs")
+        elif b["move"] > 0.5 * MD_ARGS["neighbor_skin"] and not b["stale"]:
+            raise AssertionError(f"atoms moved {b['move']:.3f} A between rebuilds (> skin/2) but stale is False")
+        paths[path] = dict(zip(("ell_gather", "ell_transpose_sum", "select_topk"), b["launches"]))
+        dev = "" if b["dev_ms"] is None else (f"; one force evaluation's device time (device_ms_per_iter) "
+                                              f"{b['dev_ms']:.3f} ms with remat, {a['dev_ms']:.3f} ms without")
+        lines.append(f"a rebuild every {every}: {steps} steps, positions, energies and forces bitwise with and "
+                     f"without remat; launches (#4, #5, #6) {b['launches']} with remat ({2 * layers}, {layers} "
+                     f"a force evaluation), {a['launches']} without; stale {b['stale']} (largest move between "
+                     f"rebuilds {b['move']:.3f} A against skin/2 {0.5 * MD_ARGS['neighbor_skin']} A); "
+                     f"{b['ms']:.3f} ms/step with remat, {a['ms']:.3f} without (host clock with sync, mean of "
+                     f"{timed}){dev}; peak {b['peak']:.2f} GiB with remat, {a['peak']:.2f} GiB without")
+        del runs, a, b
+    log(f"H3-GNREMAT: GN STMV MD with remat (bench.py's gn_stmv_force_md line: {layers}x"
+        f"{GN_ARGS['embedding_dimension']} bf16 messages, K {GN_ARGS['max_num_neighbors']}, {int(real.sum())} atoms "
+        f"padded to {batch.num_atoms}, skin {MD_ARGS['neighbor_skin']} A, std {GN_MD_STD}): " + "; ".join(lines))
+    del plain, remat
+    return paths
+
+
+def _trained_table(grads, batch):
+    """The Atomref table's gradient: (elements in ``batch`` with a nonzero
+    gradient, elements in it, elements outside it with a nonzero one)."""
+    import torch
+
+    (g,) = [v for k, v in grads.items() if k.endswith("atomref")]
+    g = g.reshape(-1)
+    present = torch.zeros_like(g, dtype=torch.bool)
+    present[batch.z[batch.atom_mask].long().unique()] = True
+    return int((g[present] != 0).sum()), int(present.sum()), int((g[~present] != 0).sum())
+
+
+def example_training(workdir, conf, split, sizes, frames, forces):
+    """(H3-SPICE-ET, H3-SPICE-TN, H3-QM9) ``examples/<conf>`` through the
+    training CLI (``scripts.train.main --conf``), unchanged but for
+    EXAMPLE_OVERRIDES: Custom npy files that ``write_custom_frames`` writes
+    (seeded molecules of ``sizes`` atoms, Morse energies and, with
+    ``forces``, forces), the splits, EXAMPLE_EPOCHS and the family's fused
+    flags.  ``derivative`` and the learning-rate warmup come from the file.
+
+    Checks: every other key of the file reached the trainer; launches per
+    step (1, 2, 1) x L with the force loss or (1, 1, 0) x L with the energy
+    loss and per evaluation batch (1, 1, 0) or (1, 0, 0) x L, and no #6
+    (batches of small molecules take the brute search under "auto", as in
+    JAX); losses finite, the validation loss falling; the checkpoint
+    reloads; one gradient on a training batch from the loader (of
+    H3_GRAD_MOLECULES molecules where named), fused bf16 against composable
+    fp32 (TRAIN_GRAD_TOL); an Atomref prior's gradient nonzero on the
+    elements present and zero elsewhere.  Then Trainer steps on that batch:
+    ms/step (host clock with sync), launches and peak (``time_train_steps``)
+    and the profiled busy share (``profile_train``).
+    Returns ((fwd, bwd, bwd2, select_topk) launches, the trainer, the batch)."""
+    import torch
+    import yaml
+
+    from torchmdnet_tpu_torch.data.module import DataModule
+    from torchmdnet_tpu_torch.ops.kernels import et_message as em
+    from torchmdnet_tpu_torch.ops.kernels import tn_message as tm
+    from torchmdnet_tpu_torch.scripts import train as cli
+
+    with open(os.path.join(EXAMPLES, conf)) as f:
+        file_args = yaml.safe_load(f)
+    model = file_args["model"]
+    et = model == "equivariant-transformer"
+    km, kernels = (em, MD17_KERNELS) if et else (tm, H3_TN_KERNELS)
+    path = f"{conf[:-5].lower().replace('-', '_')}_train"
+    t0 = time.perf_counter()
+    data = write_custom_frames(os.path.join(workdir, "data"), sizes, frames, forces=forces)
+    write_s = time.perf_counter() - t0
+    logs = os.path.join(workdir, "logs")
+    t0 = time.perf_counter()
+    _reset_launches()
+    trainer, test_metrics = cli.main(example_flags(conf, data, split, logs, model))
+    torch.cuda.synchronize()
+    launches = _launches(km)
+    seconds = time.perf_counter() - t0
+    h = trainer.h
+    changed = {k: (h.get(k), v) for k, v in file_args.items() if k not in EXAMPLE_OVERRIDES and h.get(k) != v}
+    if changed:
+        raise AssertionError(f"{conf}: keys of the file did not reach the trainer unchanged: {changed}")
+    derivative = h["derivative"]
+    with open(os.path.join(logs, "metrics.csv")) as f:
+        rows = [r for r in csv.DictReader(f) if r.get("train_total_mse_loss")]
+    train_losses = [float(r["train_total_mse_loss"]) for r in rows]
+    val_losses = [float(r["val_total_mse_loss"]) for r in rows]
+    first = trainer.first_step_loss
+    values = train_losses + val_losses + [first] + [float(v) for v in test_metrics.values()]
+    if len(rows) != EXAMPLE_EPOCHS or not all(math.isfinite(v) for v in values):
+        raise AssertionError(f"{conf}: training losses missing or not finite: {rows}, {test_metrics}")
+    # the training batches mix molecules of several sizes, whose energies
+    # differ by tens of eV, so a batch's loss swings with its sizes: the
+    # losses compared are the validation set's, the same frames each epoch
+    if not val_losses[-1] < val_losses[0]:
+        raise AssertionError(f"{conf}: the last epoch's validation loss {val_losses[-1]} is not below the first "
+                             f"epoch's {val_losses[0]}")
+    layers, bs, ibs = h["num_layers"], h["batch_size"], h["inference_batch_size"]
+    train, val, test = split
+    steps = EXAMPLE_EPOCHS * (train // bs)
+    evals = EXAMPLE_EPOCHS * -(-val // ibs) + -(-test // ibs)
+    per_step, per_eval = ((1, 2, 1), (1, 1, 0)) if derivative else ((1, 1, 0), (1, 0, 0))
+    expected = tuple(layers * (s * steps + e * evals) for s, e in zip(per_step, per_eval)) + (0,)
+    if launches != expected or trainer.state.global_step != steps:
+        raise AssertionError(f"{conf}: expected launches {expected} for {steps} steps and {evals} evaluation "
+                             f"batches, got {launches} after {trainer.state.global_step} steps")
+    reductions = launches[2] if derivative else layers * steps  # the weight cotangents of each training step
+    if et:
+        if _check_et_parts(path, launches[1], launches[2])["et_message_dw"] < reductions:
+            raise AssertionError(f"{conf}: the weight reduction ran fewer than {reductions} times")
+    else:
+        _check_tn_parts(path, reductions, launches[1] + launches[2])
+    best = _check_reload(trainer)
+
+    def loader_batch(molecules):
+        dm = DataModule(dict(h, batch_size=molecules, inference_batch_size=molecules, num_workers=0,
+                             log_dir=os.path.join(workdir, f"loader{molecules}")))
+        dm.setup()
+        return trainer._prepare_batch(next(iter(dm.train_dataloader())))
+
+    batch = loader_batch(bs)
+    grad_batch = loader_batch(H3_GRAD_MOLECULES[conf]) if conf in H3_GRAD_MOLECULES else batch
+    grads = {}
+    cfg = dict(args=h, km=km, per_step=per_step, weights=(h["y_weight"], h["neg_dy_weight"]), label=conf)
+    train_grads_vs_composable(None, cfg, batch=grad_batch, remat=False, grads_out=grads)
+    table = ""
+    if h["prior_model"] == "Atomref":
+        nonzero, present, outside = _trained_table(grads, grad_batch)
+        if nonzero != present or outside:
+            raise AssertionError(f"{conf}: the Atomref table's gradient is nonzero on {nonzero} of the {present} "
+                                 f"elements present and on {outside} others")
+        table = (f"; the Atomref table (Custom carries none, so it starts from zeros, the rule both packages "
+                 f"share) has a nonzero gradient on all {present} elements present and none elsewhere")
+    del grads, grad_batch
+    cfg.update(kernels=kernels, label=f"{conf} {layers}x{h['embedding_dimension']}")
+    label = f"H3-{'SPICE' if 'SPICE' in conf else 'QM9'}-{'ET' if et else 'TN'}"
+    log(f"{label}: scripts.train.main --conf {os.path.join('examples', conf)} ({layers}x{h['embedding_dimension']}, "
+        f"RBF {h['num_rbf']}, cutoff {h['cutoff_upper']} A, K {h['max_num_neighbors']}, batches of {bs}, "
+        f"derivative {derivative} from the file, prior {h['prior_model']}, fused bf16) on Custom npy files of "
+        f"{frames} Morse-labelled frames of each of {sizes} atoms ({'energies and forces' if forces else 'energies only'}"
+        f", written in {write_s:.1f} s); overridden: the dataset, splits {split}, {EXAMPLE_EPOCHS} epochs (the "
+        f"file's {file_args['lr_warmup_steps']}-step warmup kept), the log dir and the fused flags: "
+        f"first step loss {first:.4f}, epoch train losses {[round(v, 4) for v in train_losses]}, validation "
+        f"losses {[round(v, 4) for v in val_losses]}, test "
+        f"{json.dumps({k: round(v, 4) for k, v in test_metrics.items()})}; launches fwd {launches[0]} bwd "
+        f"{launches[1]} bwd2 {launches[2]} select_topk {launches[3]} ({steps} steps x {per_step} x L + {evals} "
+        f"evaluation batches x {per_eval} x L, L={layers}; the brute search, no #6); checkpoint "
+        f"{os.path.basename(best)} reloads{table}; {seconds:.1f} s in all")
+    # the step on a batch from the loader, timed and profiled
+    time_train_steps(trainer, None, cfg, batch=batch)
+    profile_train(trainer, batch, cfg)
+    return launches, trainer, batch
+
+
+def h3_kernel_times(et_spice, tn_spice, et_qm9, tn_qm9):
+    """Each H3 path's kernels at the shapes it runs them (L2 flushed, median
+    of 20; the plain second order of 5), with their plain versions and
+    bounds: #1-#3 at ET-SPICE's training batch and #1/#2 at ET-QM9's
+    (``time_train_kernels``), #8-#10 at TensorNet-SPICE's and #8/#9 at
+    TensorNet-QM9's.  Each argument is (the trainer's hparams, a training
+    batch).  Returns {kernel row: {path: (ms, bound_ms)}} and the rows
+    {(path, kind): (ms, plain, bound, by, (N, K))}."""
+    import torch
+
+    timed_at, rows = {}, {}
+    for path, (h, batch), kinds in (("et_spice_train", et_spice, ("fwd", "bwd_w", "bwd2")),
+                                    ("et_qm9_train", et_qm9, ("fwd", "bwd_w"))):
+        ms, plain, bounds = time_train_kernels(batch, f"{path}'s shapes", args=h, kinds=kinds)
+        n, kk = batch.num_atoms, h["max_num_neighbors"] + 1
+        for kind in kinds:
+            rows[(path, kind)] = (ms[kind], plain.get(kind)) + bounds[kind] + ((n, kk),)
+        timed_at.setdefault("et_message_fwd", {})[path] = (ms["fwd"], bounds["fwd"][0])
+        timed_at.setdefault("et_message_bwd", {})[path] = (ms["bwd_w"], bounds["bwd_w"][0])
+        if "bwd2" in kinds:
+            timed_at.setdefault("et_message_bwd2", {})[path] = (ms["bwd2"], bounds["bwd2"][0])
+    flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")  # 256 MB > L2
+    for path, (h, batch), kinds in (("tensornet_spice_train", tn_spice, ("fwd", "bwd_w", "bwd2")),
+                                    ("tensornet_qm9_train", tn_qm9, ("fwd", "bwd_w"))):
+        hh, rbf, cut = h["embedding_dimension"], h["num_rbf"], h["cutoff_upper"]
+        nbl, pos, box = _tn_system(batch, SEED, k=h["max_num_neighbors"], cutoff=cut)
+        ins, ct = _tn_kernel_inputs(nbl, pos, hh, rbf, cut, SEED, box=box)
+        got = _tn_times(nbl, ins, ct, _tn_z_like(ins, SEED), kinds, flush)
+        for kind, row in got.items():
+            rows[(path, kind)] = row
+            name = {"fwd": "tn_message_fwd", "bwd_w": "tn_message_bwd", "bwd2": "tn_message_bwd2"}[kind]
+            timed_at.setdefault(name, {})[path] = (row[0], row[2])
+        del nbl, ins, ct
+    log("H3 kernel times (L2 flushed, median of 20; plain second order of 5): " + "; ".join(
+        f"{kind} at {path} N={v[4][0]} K={v[4][1]} {v[0]:.4f} ms (plain "
+        + ("-" if v[1] is None else f"{v[1]:.4f}") + f" ms, bound {v[2]:.4f} ms by {v[3]}, "
+        f"{100 * v[2] / v[0]:.1f}% of it reached)" for (path, kind), v in rows.items()))
+    return timed_at, rows
+
+
+def opt_dhfr(ext):
+    """(H3-OPT) ``optimize()`` serving ET at DHFR size (ET_ARGS, 2489 atoms
+    padded to 2496) with a 0.5 A skin and a rebuild every OPT_REBUILD_EVERY
+    calls, over OPT_CALLS calls, each moving every atom by a seeded normal
+    step of OPT_STEP A a coordinate; then ``ext`` (``External.calculate`` of
+    the same seeded weights, a fresh list each call) at the same positions.
+    Checks: each call's refined list holds a fresh list's pairs; energies
+    within FWD_TOL and forces within BWD_TOL of External's (the same pairs
+    on a list of another width: the skin list's K 113 against K 81 regroups
+    the kernels' f32 slot sums, which may flip a bf16 rounding, and the
+    forces come out of #2; how many calls are bitwise is printed); ``stale``
+    False; launches per call (#1 and #2 L each, #6 once a
+    rebuild); ms per call against External's; #1, #2 and #6 timed at its skin
+    list and build.  Returns ((fwd, bwd, select_topk) launches, {kernel row:
+    {"opt_dhfr": (ms, bound_ms)}})."""
+    import numpy as np
+    import torch
+
+    from torchmdnet_tpu_torch import create_model, optimize
+    from torchmdnet_tpu_torch.ops.cell_list import probe_cell_kwargs
+    from torchmdnet_tpu_torch.ops.kernels import et_message as em
+    from torchmdnet_tpu_torch.ops.kernels.select_topk import select_topk
+
+    z, pos, _ = _synthetic_batch(ext.n_real, SEED, "cpu")
+    model = create_model(ET_ARGS, seed=SEED)
+    template = ext._template
+    n, n_all = ext.n_real, template.num_atoms
+    rng = np.random.default_rng(SEED)
+    moves = [rng.normal(scale=OPT_STEP, size=pos.shape).astype(np.float32) for _ in range(OPT_CALLS)]
+    inputs = []
+    p = torch.as_tensor(pos, device="cuda")
+    for m in moves:
+        p = p + torch.as_tensor(m, device="cuda")
+        inputs.append(torch.cat([p, p.new_zeros((n_all - n, 3))]))
+    # the example's positions size the cell list (External's template holds zeros)
+    opt = optimize(model, template.replace(pos=inputs[0]), skin=OPT_SKIN, rebuild_every=OPT_REBUILD_EVERY)
+    _reset_launches()
+    results, lists = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for full in inputs:
+        y, f = opt(full)
+        results.append((y, f))
+        lists.append(opt._nbl)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / OPT_CALLS
+    launches = (em.run_fwd.launches, em.run_bwd.launches, select_topk.launches)
+    layers = ET_ARGS["num_layers"]
+    rebuilds = -(-OPT_CALLS // OPT_REBUILD_EVERY)
+    if launches != (layers * OPT_CALLS, layers * OPT_CALLS, rebuilds):
+        raise AssertionError(f"optimize(): launches {launches}, expected ({layers * OPT_CALLS}, "
+                             f"{layers * OPT_CALLS}, {rebuilds})")
+    _check_et_parts("opt_dhfr", launches[1], 0)
+    if opt.stale:
+        raise AssertionError("optimize()'s skin list went stale")
+    lo, hi = ET_ARGS["cutoff_lower"], ET_ARGS["cutoff_upper"]
+
+    def pairs(nbl):
+        rows = torch.arange(n_all, device="cuda")[:, None].expand_as(nbl.idx)
+        return torch.sort((rows * n_all + nbl.idx.long())[nbl.mask]).values
+
+    same_lists, bitwise, worst = 0, 0, (0.0, 0.0)
+    for full, (y, f), nbl in zip(inputs, results, lists):
+        refined = nbl.refine(full, lo, hi)
+        at = template.replace(pos=full)
+        fresh = model.neighbors(at, **probe_cell_kwargs(at, cutoff_upper=hi))
+        fresh.raise_on_overflow("optimize()'s fresh list")
+        a, b = pairs(refined), pairs(fresh)
+        equal_pairs = a.shape == b.shape and bool(torch.equal(a, b))
+        energy, forces = ext.calculate(full[:n])
+        if not (y.shape == (1, 1) and f.shape == (n_all, 3) and torch.isfinite(y).all() and torch.isfinite(f).all()):
+            raise AssertionError(f"optimize(): energies {tuple(y.shape)} and forces {tuple(f.shape)} not finite")
+        same = bool(torch.equal(y.reshape(1), energy)) and bool(torch.equal(f[:n], forces[0]))
+        e_err = float((y.reshape(1) - energy).abs().max() / energy.abs().max())
+        f_err = float((f[:n] - forces[0]).abs().max() / forces[0].abs().max())
+        worst = (max(worst[0], e_err), max(worst[1], f_err))
+        same_lists += equal_pairs
+        bitwise += same
+        if not equal_pairs or e_err > FWD_TOL or f_err > BWD_TOL:
+            raise AssertionError(f"optimize() against External: |dE|/|E| {e_err:.3e}, max|dF|/max|F| {f_err:.3e}, "
+                                 f"the pairs {'equal' if equal_pairs else 'not equal'}")
+    ext_ms = host_ms(lambda: ext.calculate(inputs[-1][:n]))
+    # #1 and #2 (frozen weights) at the last call's refined skin list, #6 at
+    # its build (L2 flushed, median of 20)
+    knbl, ins, cts = _kernel_inputs(None, lists[-1].k, ET_ARGS["embedding_dimension"], ET_ARGS["num_rbf"], hi, SEED,
+                                    batch=template.replace(pos=inputs[-1]), nbl=lists[-1].refine(inputs[-1], lo, hi))
+    flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")  # 256 MB > L2
+    dirs = (ins["dir0"], ins["dir1"], ins["dir2"])
+    common = [ins[x] for x in ("q", "k", "v", "vec0", "vec1", "vec2", "ea", "cutm", "msk")]
+    w = [ins[x] for x in ("wdk", "bdk", "wdv", "bdv")]
+    kw = dict(heads=ET_ARGS["num_heads"], act="silu", attn_act="silu")
+    nk, kk = knbl.idx.shape
+    h, rbf = ET_ARGS["embedding_dimension"], ET_ARGS["num_rbf"]
+    keys, k, _ = cell_keys(ET_ARGS, template.replace(pos=inputs[-1]), skin=OPT_SKIN)
+    timed = {
+        "et_message_fwd": (event_ms(lambda: em.run_fwd(knbl.idx, *common, dirs, *w, **kw), flush=flush),
+                           _bounds(nk, kk, h, rbf, "fwd")[0]),
+        "et_message_bwd": (event_ms(lambda: em.run_bwd(knbl.idx, knbl.transpose_perm, *common, dirs, *w, cts[0],
+                                                        cts[1], want_weight_grads=False, **kw), flush=flush),
+                           _bounds(nk, kk, h, rbf, "bwd")[0]),
+        "select_topk": (event_ms(lambda: select_topk(keys, k, keys.shape[0]), flush=flush),
+                        _select_topk_bounds(keys, k, keys.shape[0])[0]),
+    }
+    log(f"H3-OPT: optimize() serving ET {layers}x{ET_ARGS['embedding_dimension']} fused bf16 at DHFR size ({n} atoms "
+        f"padded to {n_all}, skin {OPT_SKIN} A, a rebuild every {OPT_REBUILD_EVERY} calls, {OPT_CALLS} calls, seeded "
+        f"steps of {OPT_STEP} A a coordinate): launches #1 {launches[0]} #2 {launches[1]} #6 {launches[2]} ({layers} "
+        f"+ {layers} a call, one #6 a rebuild); stale False; the refined list held a fresh list's pairs in "
+        f"{same_lists} of {OPT_CALLS} calls; against External.calculate at the same positions: bitwise in {bitwise} "
+        f"of {OPT_CALLS} calls, largest |dE|/|E| {worst[0]:.3e} (tol {FWD_TOL}), max|dF|/max|F| {worst[1]:.3e} "
+        f"(tol {BWD_TOL}); "
+        f"{ms:.3f} ms a call (host clock with sync, mean of {OPT_CALLS}, rebuilds included) against External's "
+        f"{ext_ms:.3f} ms (median of 20); at its skin list (N={nk} K={kk}) #1 {timed['et_message_fwd'][0]:.4f} ms "
+        f"(bound {timed['et_message_fwd'][1]:.4f}), #2 frozen {timed['et_message_bwd'][0]:.4f} ms (bound "
+        f"{timed['et_message_bwd'][1]:.4f}); #6 at its build (W={keys.shape[1]} k={k}) {timed['select_topk'][0]:.4f} "
+        f"ms (bound {timed['select_topk'][1]:.4f})")
+    del opt, model, results, lists, knbl, ins, cts, keys
+    return launches, {name: {"opt_dhfr": at} for name, at in timed.items()}
+
+
 def main():
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs on a GPU", file=sys.stderr)
         return 1
-    if not os.path.isdir(os.path.join(ROOT, "torchmdnet_tpu_torch")):
-        print("chip_smoke: torchmdnet_tpu_torch not found beside chip_smoke.py; "
-              "run it from a checkout of the repository", file=sys.stderr)
-        return 1
-    sys.path.insert(0, ROOT)
     from torchmdnet_tpu_torch import create_model
     from torchmdnet_tpu_torch.data.systems import DHFR_ATOMS, FACTOR_IX_ATOMS
 
@@ -5958,6 +5948,7 @@ def main():
     log_ell_resources(gn_nbls)
     gn_errs = check_ell_gather(gn_nbls)
     ext_launches, ext, pos, _, _ = main_path(ET_ARGS, em, "ET 6x128 fused")
+    opt_launches, opt_timed = opt_dhfr(ext)
     zbl_launches, zbl_prior_launches, zbl_ext, zbl_pos = zbl_path(zbl_k)
     tn_ext_launches, tn_ext, tn_pos, tn_call_ms, _ = main_path(TN_ARGS, tm, "TensorNet 2x128 fused")
     tn_strong_messages()
@@ -5979,6 +5970,7 @@ def main():
     md_launches, sim, md_ms, md_peak = md_stmv(sel_time[0])
     remat_paths, remat_timed, tn_stmv_abs, remat_sims = remat_md_stmv((md_ms, md_peak))
     gn_md_launches, gn_sim, gn_md_ms, _ = gn_md_stmv()
+    gn_remat_paths = gn_remat_md_stmv()
     t_md_launches, t_md_ms = t_md_brute_pallas()
     et_cfg = _train_cfg("et")
     gn_cfg = _train_cfg("gn")
@@ -6009,6 +6001,31 @@ def main():
         native_collation(md17_trainer, workdir)
         jvp_cli_launches = md17_jvp_cli(workdir)
     ckpt_launches = jax_checkpoint_serving()
+    # slice H3: the published SPICE and QM9 configurations through the CLI
+    h3_paths, h3_runs = {}, {}
+    for confs, split_of, sizes, frames, forces in ((SPICE_CONFS, SPICE_SPLITS, SPICE_SIZES, SPICE_FRAMES, True),
+                                                   (QM9_CONFS, None, QM9_SIZES, QM9_FRAMES, False)):
+        for family, conf in confs.items():
+            with tempfile.TemporaryDirectory() as workdir:
+                launches, h3_trainer, h3_batch = example_training(
+                    workdir, conf, QM9_SPLIT if split_of is None else split_of[family], sizes, frames, forces)
+            path = f"{conf[:-5].lower().replace('-', '_')}_train"
+            prefix = "et" if family == "ET" else "tn"
+            h3_paths[path] = dict(zip((f"{prefix}_message_fwd", f"{prefix}_message_bwd", f"{prefix}_message_bwd2",
+                                       "select_topk"), launches))
+            h3_runs[path] = (dict(h3_trainer.h), h3_batch)
+            del h3_trainer
+    sh, sb = h3_runs["et_spice_train"]
+    h3_et_abs = check_kernels("ET-SPICE training", None, sh["max_num_neighbors"], sh["embedding_dimension"],
+                              sh["num_heads"], sh["num_rbf"], sh["cutoff_upper"], seed=9, batch=sb)
+    sh, sb = h3_runs["tensornet_spice_train"]
+    h3_tn_abs = check_tn_kernels("TensorNet-SPICE training", sb, seed=10, h=sh["embedding_dimension"],
+                                 rbf=sh["num_rbf"], k=sh["max_num_neighbors"], cutoff=sh["cutoff_upper"])
+    h3_timed, _ = h3_kernel_times(*(h3_runs[p] for p in ("et_spice_train", "tensornet_spice_train", "et_qm9_train",
+                                                          "tensornet_qm9_train")))
+    log("H3: the published configurations no phase runs and the path that covers each: "
+        + "; ".join(f"examples/{a}: {b}'s path" for a, b in COVERED_BY.items()))
+    del h3_runs, sb
     # #1-#3 against their plain versions at the shapes these two paths run:
     # ET-MD17's training batch and its widths at DHFR size with K 80
     mh = md17_trainer.h
@@ -6115,6 +6132,12 @@ def main():
                                    remat_train["tn_train_remat"])),
         "t_train_remat": dict(zip(("t_message_fwd", "t_message_bwd", "t_message_bwd2"), remat_train["t_train_remat"])),
         "gn_train_remat": dict(zip(("ell_gather", "ell_transpose_sum"), remat_train["gn_train_remat"][:2])),
+        # slice H3: bench.py's GN STMV MD line with remat (its cadence and one
+        # where the skin holds); examples' SPICE and QM9 files through the CLI;
+        # optimize() serving ET at DHFR size
+        **gn_remat_paths,
+        **h3_paths,
+        "opt_dhfr": dict(zip(("et_message_fwd", "et_message_bwd", "select_topk"), opt_launches)),
     }
     for path, parts in PART_LAUNCHES.items():
         paths[path].update(parts)
@@ -6187,6 +6210,14 @@ def main():
     timed_at["t_message_bwd2"]["t_train_remat"] = t_times[("training", "bwd2")][::2][:2]
     timed_at["tn_message_bwd2"]["tn_train_remat"] = tn_times[("training", "bwd2")][::2][:2]
     timed_at["et_message_bwd"]["md17_jvp_train"] = (md17_ms["bwd_w"], md17_bounds["bwd_w"][0])
+    # H3: the example trainings at their training batches, optimize() at its
+    # skin list and build, GN's remat MD at the STMV skin list and build
+    for name, at in list(h3_timed.items()) + list(opt_timed.items()):
+        timed_at.setdefault(name, {}).update(at)
+    for path in gn_remat_paths:
+        timed_at["ell_gather"][path] = gn_at["STMV skin"]["gather"]
+        timed_at["ell_transpose_sum"][path] = gn_at["STMV skin"]["transpose"]
+        timed_at["select_topk"][path] = sel_times["STMV skin build"][::2][:2]
     # #4's and #5's three times (event window, device alone, host enqueue)
     # beside their library call's, at each shape a GN path runs them
     by_shape = {name: {"times_by_shape": {where: {key: val for key, val in v[kind].items() if key != "bound_by"}
@@ -6199,18 +6230,18 @@ def main():
     kernels = []
     for name, source, line, (ms, plain_ms, bound_ms, bound_by, lib_ms), err in (
         ("et_message_fwd", "et_message.cu", "et_message.py:227", times["fwd"] + (None,),
-         max(fwd_abs, times["stmv_abs"][0], dipole_abs, md17_abs[0], md17_dhfr_abs[0])),
+         max(fwd_abs, times["stmv_abs"][0], dipole_abs, md17_abs[0], md17_dhfr_abs[0], h3_et_abs[0])),
         ("et_message_bwd", "et_message.cu", "et_message.py:296", times["bwd"] + (None,),
-         max(bwd_abs, times["stmv_abs"][1], md17_abs[1], md17_dhfr_abs[1])),
+         max(bwd_abs, times["stmv_abs"][1], md17_abs[1], md17_dhfr_abs[1], h3_et_abs[1])),
         ("et_message_bwd2", "et_message.cu", "et_message.py:685", bwd2_row,
-         max(bwd2_abs, md17_abs[2], md17_dhfr_abs[2])),
+         max(bwd2_abs, md17_abs[2], md17_dhfr_abs[2], h3_et_abs[2])),
         ("select_topk", "select_topk.cu", "select_topk.py:32", sel_time, sel_abs),
         ("tn_message_fwd", "tn_message.cu", "tn_message.py:77", tn_times[("DHFR", "fwd")][:4] + (None,),
-         max(tn_fwd_abs, tn_stmv_abs[0])),
+         max(tn_fwd_abs, tn_stmv_abs[0], h3_tn_abs[0])),
         ("tn_message_bwd", "tn_message.cu", "tn_message.py:107", tn_times[("DHFR", "bwd")][:4] + (None,),
-         max(tn_bwd_abs, tn_stmv_abs[1])),
+         max(tn_bwd_abs, tn_stmv_abs[1], h3_tn_abs[1])),
         ("tn_message_bwd2", "tn_message.cu", "tn_message.py:455", tn_times[("training", "bwd2")][:4] + (None,),
-         tn_bwd2_abs),
+         max(tn_bwd2_abs, h3_tn_abs[2])),
         ("ell_gather", "ell_gather.cu", "onehot_gather.py:178", gn_rows["gather"], gn_errs[0]),
         ("ell_transpose_sum", "ell_gather.cu", "onehot_gather.py:227", gn_rows["transpose"], gn_errs[1]),
         ("compaction", "compaction.cu", "compaction.py:31", comp_row, 0.0),
@@ -6250,6 +6281,9 @@ def main():
         ))
         if max(by_path.values()) < 1:
             raise AssertionError(f"{name} was not launched on a main path")
+    gaps = sorted(((b[0] - a[0], b[1]) for a, b in zip(_LINE_TIMES, _LINE_TIMES[1:])), reverse=True)
+    log(f"run time {_LINE_TIMES[-1][0] - _LINE_TIMES[0][0]:.1f} s from the first line; the stretches of 3 s or "
+        "more, each ended by the line it names: " + "; ".join(f"{t:.1f} s to '{name}'" for t, name in gaps if t >= 3))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -62,7 +62,9 @@ def _one_torch_thread():
 
 
 def _inputs(seed, n=N, h=H, rbf=RBF, k_req=16, cutoff=3.0, side=9.0):
-    """numpy inputs on a symmetric (not overflowing) brute-force list."""
+    """numpy inputs on a symmetric (not overflowing) brute-force list; each
+    edge's ea is the same at both of its slots, as the fused op requires
+    (``require_symmetric_edges``)."""
     rng = np.random.RandomState(seed)
     pos = rng.uniform(0, side, (n, 3)).astype(np.float32)
     nbl = j_neighbor_list(jnp.asarray(pos), jnp.zeros(n, jnp.int32), jnp.ones(n, bool),
@@ -72,8 +74,10 @@ def _inputs(seed, n=N, h=H, rbf=RBF, k_req=16, cutoff=3.0, side=9.0):
     k = idx.shape[1]
     dist = np.where(mask, np.linalg.norm(pos[idx] - pos[:, None, :], axis=-1), 0.0)
     r = lambda *s: rng.randn(*s)
+    pair = r(n, n, rbf) * 0.3
+    pair = (pair + pair.transpose(1, 0, 2)) / np.sqrt(2.0)
     ins = dict(
-        cat=r(n, 9 * h), ea=r(n, k, rbf) * 0.3,
+        cat=r(n, 9 * h), ea=pair[np.arange(n)[:, None], idx],
         cutm=np.asarray(j_cosine_cutoff(jnp.asarray(dist), 0.0, cutoff)) * mask,
         w1=r(rbf, h) * 0.2, b1=r(1, h) * 0.1, w2=r(h, 2 * h) * 0.08, b2=r(1, 2 * h) * 0.1,
         w3=r(2 * h, 3 * h) * 0.05, b3=r(1, 3 * h) * 0.1,
@@ -132,6 +136,12 @@ def test_reference_matches_jax_fused_kernel():
     m, grads = _port(idx, ins, ct)
     assert m.shape == (N, 9 * H) and m.dtype == torch.float32
     _check(m, grads, out, ref_grads)
+    # the card's backward reads ct in gather form (bwd_reference is its
+    # arithmetic); on these symmetric inputs it equals JAX's scatter form
+    t = [torch.as_tensor(ins[n]) for n in ORDER]
+    d_cat = tm.bwd_reference(torch.as_tensor(idx, dtype=torch.int32), *t, torch.as_tensor(ct), act="silu",
+                             want_rows=False)[0]
+    np.testing.assert_allclose(d_cat.numpy(), np.asarray(ref_grads["cat"]), rtol=GRAD_TOL, atol=GRAD_TOL)
 
 
 @pytest.mark.parametrize("act", ["tanh", "ssp"])
@@ -183,6 +193,49 @@ def test_cpu_tensors_take_the_plain_version():
     m.sum().backward()
     assert t["cat"].grad.dtype == torch.bfloat16 and t["w3"].grad.shape == (64, 96)
     assert (tm.run_fwd.launches, tm.run_bwd.launches, tm.run_bwd2.launches) == (0, 0, 0)
+
+
+def _asymmetric(ins, idx, name, seed):
+    """``ins`` with ``name`` (ea or cutm) changed at one live slot of each of
+    a few rows and not at the slot's reverse."""
+    rng = np.random.RandomState(seed)
+    out = dict(ins)
+    a = ins[name].copy()
+    live = np.argwhere((ins["cutm"] != 0) & (idx != np.arange(len(idx))[:, None]))
+    for i, k in live[rng.choice(len(live), 4, replace=False)]:
+        a[i, k] = a[i, k] * 1.5 + 0.1
+    out[name] = a
+    return out
+
+
+@pytest.mark.parametrize("name", ["ea", "cutm"])
+def test_cpu_twin_raises_on_asymmetric_edge_inputs(name):
+    """The backward's gather-form d_cat needs each edge's ea and cutm equal at
+    both of its slots; the CPU twin refuses other inputs."""
+    idx, ins, _ = _inputs(seed=6, n=24, h=32, rbf=8, cutoff=2.5, side=6.0)
+    tidx = torch.as_tensor(idx, dtype=torch.int32)
+    tm.fused_tn_messages(tidx, *[torch.as_tensor(ins[n]) for n in ORDER])  # symmetric: runs
+    bad = _asymmetric(ins, idx, name, seed=7)
+    with pytest.raises(ValueError, match="both slots of an edge"):
+        tm.fused_tn_messages(tidx, *[torch.as_tensor(bad[n]) for n in ORDER])
+
+
+@pytest.mark.parametrize("symmetric", [True, False])
+def test_gather_form_d_cat_against_scatter_form(symmetric):
+    """In f64: the card's gather-form d_cat (``bwd_reference``) equals the
+    scatter form (autograd of the plain version) when ea and cutm are
+    symmetric, and differs when one edge's ea is not."""
+    idx, ins, ct = _inputs(seed=8, n=24, h=32, rbf=8, cutoff=2.5, side=6.0)
+    if not symmetric:
+        ins = _asymmetric(ins, idx, "ea", seed=9)
+    t = {n: torch.as_tensor(ins[n], dtype=torch.float64) for n in ORDER}
+    t["cat"].requires_grad_(True)
+    tidx, tct = torch.as_tensor(idx, dtype=torch.int32), torch.as_tensor(ct, dtype=torch.float64)
+    m = tm.tn_messages_reference(tidx, *[t[n] for n in ORDER])
+    (scatter,) = torch.autograd.grad(m, [t["cat"]], tct)
+    gather = tm.bwd_reference(tidx, *[t[n].detach() for n in ORDER], tct, act="silu", want_rows=False)[0]
+    gap = float((gather - scatter).abs().max() / scatter.abs().max())
+    assert (gap < 1e-12) if symmetric else (gap > 1e-3), gap
 
 
 # --- the autograd wiring, with the kernel launches swapped for plain twins

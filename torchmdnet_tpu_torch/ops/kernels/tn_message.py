@@ -41,8 +41,12 @@ The backward kernel's source-row cotangent uses the symmetry of the list:
 ``w[i, k]`` depends only on the edge's distance and cutoff, equal for (i, j)
 and (j, i), so it gathers ``ct`` through ``idx`` instead of scattering.  It
 needs what the port already requires of every list, a symmetric list that did
-not overflow (``transpose_perm`` raises otherwise), with ``ea`` and ``cutm``
-functions of the distance (ROADMAP.md, section 3).
+not overflow (``transpose_perm`` raises otherwise), and, narrower than the
+JAX kernel's scatter form, ``ea`` and ``cutm`` equal at the two slots of
+every edge, as functions of the distance are (``require_symmetric_edges``).
+On CPU tensors ``fused_tn_messages`` checks that condition and raises; on
+the card it is not checked (the check would read a flag on the host every
+call), so a caller with other per-edge inputs gets a wrong ``d_cat``.
 """
 
 import ctypes
@@ -807,6 +811,31 @@ class _TnMessagesShardBwd(torch.autograd.Function):
         return (None, None, None, None) + _shard_bwd2(ctx.act, ctx.plan, cat_ext, ct_ext, inputs, ct, zs)
 
 
+def require_symmetric_edges(idx, ea, cutm, perm):
+    """Raise unless every live slot's edge has the same ``ea`` and ``cutm`` at
+    its reverse slot: the condition under which the backward's gather-form
+    ``d_cat`` equals the scatter form.  A slot (i, k) with ``cutm`` nonzero
+    points at j = idx[i, k]; its reverse is the slot of row j that points at
+    i, found in j's group of ``perm`` (the slots pointing at j, in row
+    order)."""
+    n, kk = idx.shape
+    groups = perm.long().reshape(n, kk)
+    rows = torch.div(groups, kk, rounding_mode="floor")
+    at = torch.searchsorted(rows, idx.long()).clamp_max(kk - 1)
+    rev = torch.gather(groups, 1, at).reshape(-1)
+    live = cutm.reshape(-1) != 0
+    same = (torch.div(rev, kk, rounding_mode="floor") == idx.reshape(-1).long())
+    same &= cutm.reshape(-1)[rev] == cutm.reshape(-1)
+    e = ea.reshape(n * kk, -1)
+    same &= (e[rev] == e).all(dim=1)
+    bad = live & ~same
+    if bool(bad.any()):
+        raise ValueError(
+            f"fused_tn_messages needs ea and cutm equal at both slots of an edge (functions of the "
+            f"distance); {int(bad.sum())} live slots differ from their reverse slot.  The backward's "
+            "gather-form source cotangent would be wrong: use tn_messages_reference for such inputs")
+
+
 def fused_tn_messages(idx, cat, ea, cutm, w1, b1, w2, b2, w3, b3, *, act: str = "silu",
                       perm: Optional[torch.Tensor] = None):
     """Fused TensorNet message phase: m (N, 9H) in f32.
@@ -815,12 +844,22 @@ def fused_tn_messages(idx, cat, ea, cutm, w1, b1, w2, b2, w3, b3, *, act: str = 
     are bf16.  CUDA tensors run the kernels (or raise); CPU tensors run the
     plain version.  A ``ShardPlan`` as ``perm`` (edge partitioning: this
     rank's receiver rows, global ids in ``idx``) runs ``_TnMessagesShard``.
+
+    The backward's source-row cotangent is in gather form (it reads ``ct`` at
+    each receiver's sources with the receiver's own edge weights), so the
+    op's contract is narrower than the JAX kernel's: ``ea`` and ``cutm`` must
+    be equal at the two slots of every edge of the symmetric list, as
+    functions of the distance are.  CPU tensors are checked and raise
+    (``require_symmetric_edges``); CUDA tensors are not checked.
     """
     if isinstance(perm, ShardPlan):
         if cat.device.type == "cuda" and act not in _ACT_CODE:
             raise ValueError(f"unsupported activation for the fused TensorNet kernel: {act}")
         return _TnMessagesShard.apply(act, perm, cat, ea, cutm, w1, b1, w2, b2, w3, b3)
     if cat.device.type == "cpu":
+        if perm is None:
+            perm = transpose_perm(idx)
+        require_symmetric_edges(idx, ea, cutm, perm)
         return tn_messages_reference(idx, cat, ea, cutm, w1, b1, w2, b2, w3, b3, act=act, perm=perm)
     if cat.device.type != "cuda":
         raise ValueError(f"fused_tn_messages runs on cuda or cpu tensors, not {cat.device}")

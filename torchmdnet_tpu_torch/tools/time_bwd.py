@@ -9,13 +9,14 @@ TensorNet's (#8-#10), for the port in a given checkout.
 imported and built (default: the checkout holding this file), so that two
 commits (or two builds of one kernel source) are timed on one card back to
 back, one process each, in the order parent, change, change, parent.  The
-operands are chip_smoke.py's (the chip_smoke.py beside this package): the
+operands are ``tools/chip_configs.py``'s (this checkout's, whichever tree is
+timed): the
 DHFR shapes (N = 2496, K = 81, H = 128, RBF = 50) and the training shapes
 (N = 2304, K = 33, H = 256, RBF = 64, a batch of 128 SyntheticMorse
 molecules, drawn with this checkout's package, so that a tree without the
 datasets is timed on the same batch), and #1 and #2 without weight
 cotangents at ET MD's STMV skin list (N = 30,336, K = 112, H = 128, RBF =
-50).  The Transformer's operands are chip_smoke.py's too
+50).  The Transformer's operands are chip_configs.py's too
 (``_t_kernel_inputs``): #12 with and without weight cotangents at DHFR (K =
 81, H = 128, RBF = 50), #12 with weight cotangents and #13 at the training
 shapes.  TensorNet's (``_tn_system``, ``_tn_kernel_inputs``): #8 and #9
@@ -26,16 +27,16 @@ reduction), the reduction alone where the tree has one
 TensorNet-ANI1X training shapes (64 molecules of 18 atoms, K = 33), with
 each of its kernels' device time apart (the edge kernel, the source-row
 sum, the weight reduction; torch.profiler, mean of 20).  ``topk`` is #6
-at each cell-list build a path runs (chip_smoke.py's ``select_cases``:
+at each cell-list build a path runs (chip_configs.py's ``select_cases``:
 the DHFR builds of External's models, GN's STMV forward, the STMV skin
 build of MD).  ``ell`` is the ELL gather #4 and transpose-sum #5 (F = 128)
-at each shape a GN path runs them (chip_smoke.py's ``_gn_lists``: DHFR,
+at each shape a GN path runs them (chip_configs.py's ``_gn_lists``: DHFR,
 the STMV skin list, the STMV forward's K = 32 list, #4 only, and a
 GN-aspirin training batch), each with its library call (``index_select``,
 ``index_add_``), timed three ways: CUDA events as below, the device time
 alone (torch.profiler, mean of 20, L2 flushed) and the host's enqueue
 (host clock without a synchronise, median of 200).  ``compaction`` is
-the fused brute search #7 at chip_smoke.py's ``compaction_shapes`` (the
+the fused brute search #7 at chip_configs.py's ``compaction_shapes`` (the
 DHFR row shape, K 80 without the loop, and the Transformer MD build's, K
 112 at 5.5 A with the self loop) on the synthetic DHFR system: the
 kernel's wrapper (with the loop where the tree's takes one) and the whole
@@ -57,7 +58,6 @@ ell, compaction).  Needs a CUDA device (``--compare`` does not).
 """
 
 import argparse
-import importlib.util
 import json
 import os
 import subprocess
@@ -66,13 +66,7 @@ import sys
 import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-
-
-def _chip_smoke():
-    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
+profiling = None  # this checkout's timers (torchmdnet_tpu_torch.profiling), set by main()
 
 
 def main(argv=None) -> int:
@@ -88,9 +82,12 @@ def main(argv=None) -> int:
     tree = os.path.abspath(args.tree)
     here = os.path.dirname(os.path.abspath(__file__))
     rest = [p for p in sys.path if os.path.abspath(p or os.curdir) != here]
-    cs = _chip_smoke()
-    # the training molecules from this checkout's datasets, then the tree's package
+    # this checkout's configurations and training molecules, then the tree's package
     sys.path[:] = [ROOT] + rest
+    global profiling
+    from torchmdnet_tpu_torch import profiling
+    from torchmdnet_tpu_torch.tools import chip_configs as cs
+
     train_ds = cs._train_dataset()
     train_mols = [train_ds[i] for i in range(cs.TRAIN_BATCH)]
     tn_ds = cs._train_dataset(cs.TN_TRAIN_SPLIT)
@@ -186,13 +183,13 @@ def main(argv=None) -> int:
 
         if name == "stmv":  # MD freezes the weights: no weight cotangents, no second order
             calls = dict(fwd=lambda: em.run_fwd(nbl.idx, *ops, dirs, *w, **kw), bwd=bwd(False))
-            row = {f"{k}_ms": cs.profiling.event_ms(fn, flush=flush, reps=5) for k, fn in calls.items()}
+            row = {f"{k}_ms": profiling.event_ms(fn, flush=flush, reps=5) for k, fn in calls.items()}
         else:
             calls = dict(fwd=lambda: em.run_fwd(nbl.idx, *ops, dirs, *w, **kw), bwd=bwd(False),
                          bwd_weights=bwd(True))
             if hasattr(em, "run_bwd2"):
                 calls["bwd2"] = bwd2()
-            row = {f"{k}_ms": cs.profiling.event_ms(fn, flush=flush) for k, fn in calls.items()}
+            row = {f"{k}_ms": profiling.event_ms(fn, flush=flush) for k, fn in calls.items()}
         result[name] = row
         if args.dump:
             for k, fn in calls.items():
@@ -227,7 +224,7 @@ def _time_t(cs, name, s, flush):
     else:
         z = cs._t_z_like(ins, cs.SEED)
         calls.update(bwd_weights=bwd(True), bwd2=lambda: tmk.run_bwd2(idx, perm, args, ct, z, **kw))
-    return {f"{k}_ms": cs.profiling.event_ms(fn, flush=flush) for k, fn in calls.items()}, calls
+    return {f"{k}_ms": profiling.event_ms(fn, flush=flush) for k, fn in calls.items()}, calls
 
 
 def _time_tn(cs, name, s, flush):
@@ -248,11 +245,11 @@ def _time_tn(cs, name, s, flush):
 
     if name == "tn_dhfr":
         calls = dict(fwd=lambda: tm.run_fwd(idx, *args, act="silu"), bwd=bwd(False))
-        return {f"{k}_ms": cs.profiling.event_ms(fn, flush=flush) for k, fn in calls.items()}, calls
+        return {f"{k}_ms": profiling.event_ms(fn, flush=flush) for k, fn in calls.items()}, calls
     z = cs._tn_z_like(ins, cs.SEED)
     calls = dict(fwd=lambda: tm.run_fwd(idx, *args, act="silu"), bwd=bwd(False), bwd_weights=bwd(True),
                  bwd2=lambda: tm.run_bwd2(idx, perm, args, ct, z, act="silu"))
-    row = {f"{k}_ms": cs.profiling.event_ms(fn, flush=flush) for k, fn in calls.items()}
+    row = {f"{k}_ms": profiling.event_ms(fn, flush=flush) for k, fn in calls.items()}
     if hasattr(tm, "bwd_rows"):  # the reduction alone, on the rows of one backward
         row["bwd_reduction_ms"] = cs._tn_pass_split(idx, args, ct, flush)["reduction (et_dw_kernel)"]
     # #10 kernel by kernel (device time from the profiler, mean of 20)
@@ -271,7 +268,7 @@ def _time_topk(cs, flush):
     keys, k, _ = cs.stmv_skin_keys(stmv)
     cases, _ = cs.select_cases(cs._synthetic_batch(DHFR_ATOMS, cs.SEED, "cuda")[2], stmv, keys, k)
     calls = {label: (lambda c=c: select_topk(*c)) for label, c in cases.items()}
-    return {f"{label}_ms": cs.profiling.event_ms(fn, flush=flush) for label, fn in calls.items()}, calls
+    return {f"{label}_ms": profiling.event_ms(fn, flush=flush) for label, fn in calls.items()}, calls
 
 
 def _time_ell(cs, flush, dumped=None):
@@ -282,9 +279,9 @@ def _time_ell(cs, flush, dumped=None):
     for where, shape, calls in cs.ell_cases(cs._gn_lists()):
         for kind, (kern, _, lib) in calls.items():
             row[f"{where}/{kind}"] = dict(
-                shape=shape, ms=cs.profiling.event_ms(kern, flush=flush), device_ms=cs.profiling.device_ms(kern, flush),
-                enqueue_ms=cs.profiling.enqueue_ms(kern), library_ms=cs.profiling.event_ms(lib, flush=flush),
-                library_device_ms=cs.profiling.device_ms(lib, flush), library_enqueue_ms=cs.profiling.enqueue_ms(lib))
+                shape=shape, ms=profiling.event_ms(kern, flush=flush), device_ms=profiling.device_ms(kern, flush),
+                enqueue_ms=profiling.enqueue_ms(kern), library_ms=profiling.event_ms(lib, flush=flush),
+                library_device_ms=profiling.device_ms(lib, flush), library_enqueue_ms=profiling.enqueue_ms(lib))
             if dumped is not None:
                 dumped[f"ell/{where}/{kind}"] = _flat_cpu(kern())
     return row

@@ -9,7 +9,8 @@ commits are timed on one card back to back: unpack the other commit with
 ``git archive`` into a git-ignored directory and run parent, change, change,
 parent, one process each.  The request is chip_smoke.py's first one (its
 ``ET_ARGS``, or ``T_ARGS`` with ``--model transformer``, the synthetic
-2489-atom system, seed 0), taken from the chip_smoke.py beside this package.  Prints the card's name and power limit,
+2489-atom system, seed 0), taken from this checkout's ``tools/chip_configs.py``.  Prints the card's name and
+power limit,
 then one JSON line: the host time of ``External.calculate`` (median of 20,
 each call ended by a sync), the device time and kernel launches per call
 (torch.profiler over 3 calls), and for each neighbor strategy the tree
@@ -22,25 +23,18 @@ per step (torch.profiler over 3 steps).  Needs a CUDA device.
 """
 
 import argparse
-import importlib.util
 import json
 import os
 import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+profiling = None  # this checkout's timers (torchmdnet_tpu_torch.profiling), set by main()
 
 
-def _chip_smoke():
-    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
-def _device_ms_per_call(cs, fn, calls=3):
+def _device_ms_per_call(fn, calls=3):
     """torch.profiler's device time and kernel launches per call of ``fn``."""
-    _, busy, _, _, launches, _ = cs.profiling.kernel_profile(fn, calls, ())
+    _, busy, _, _, launches, _ = profiling.kernel_profile(fn, calls, ())
     return busy, launches
 
 
@@ -61,8 +55,8 @@ def _train_step_ms(cs, model_args):
         acc = torch.zeros(4, dtype=trainer.dtype, device="cuda")
         ema = torch.zeros((), dtype=trainer.dtype, device="cuda")
         step = lambda: trainer._train_step(batch, acc, ema, ema)
-        step_ms = cs.profiling.host_ms(step, reps=cs.TRAIN_TIMED_STEPS, warmup=cs.TRAIN_WARMUP_STEPS)
-        device_ms, launches = _device_ms_per_call(cs, step)
+        step_ms = profiling.host_ms(step, reps=cs.TRAIN_TIMED_STEPS, warmup=cs.TRAIN_WARMUP_STEPS)
+        device_ms, launches = _device_ms_per_call(step)
     return dict(step_ms=step_ms, device_ms_per_step=device_ms, launches_per_step=launches)
 
 
@@ -75,7 +69,16 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     tree = os.path.abspath(args.tree)
     here = os.path.dirname(os.path.abspath(__file__))
-    sys.path[:] = [tree] + [p for p in sys.path if os.path.abspath(p or os.curdir) != here]
+    rest = [p for p in sys.path if os.path.abspath(p or os.curdir) != here]
+    # this checkout's configurations and timers, then the tree's package
+    sys.path[:] = [ROOT] + rest
+    global profiling
+    from torchmdnet_tpu_torch import profiling
+    from torchmdnet_tpu_torch.tools import chip_configs as cs
+
+    for name in [m for m in sys.modules if m.split(".")[0] == "torchmdnet_tpu_torch"]:
+        del sys.modules[name]
+    sys.path[:] = [tree] + rest
 
     import numpy as np
     import torch
@@ -90,7 +93,6 @@ def main(argv=None) -> int:
 
     if not os.path.abspath(torchmdnet_tpu_torch.__file__).startswith(tree + os.sep):
         raise RuntimeError(f"imported {torchmdnet_tpu_torch.__file__}, not the package under {tree}")
-    cs = _chip_smoke()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -102,9 +104,9 @@ def main(argv=None) -> int:
     potential = create_model(cs.T_ARGS if args.model == "transformer" else cs.ET_ARGS, seed=cs.SEED)
     ext = External((potential, None), z[None])
     result = dict(label=args.label or tree, tree=tree,
-                  external_ms=cs.profiling.host_ms(lambda: ext.calculate(request)))
+                  external_ms=profiling.host_ms(lambda: ext.calculate(request)))
     result["device_ms_per_call"], result["launches_per_call"] = _device_ms_per_call(
-        cs, lambda: ext.calculate(request))
+        lambda: ext.calculate(request))
 
     p = torch.as_tensor(request, device=ext.device)
     batch = ext._template.replace(pos=torch.cat([p, p.new_zeros((ext.n_pad, 3))]))
@@ -116,8 +118,8 @@ def main(argv=None) -> int:
             by_strategy[strategy] = None  # the tree has no such strategy
             continue
         by_strategy[strategy] = dict(
-            list_ms=cs.profiling.host_ms(lambda: potential.neighbors(batch, strategy=strategy)),
-            energy_and_forces_ms=cs.profiling.host_ms(
+            list_ms=profiling.host_ms(lambda: potential.neighbors(batch, strategy=strategy)),
+            energy_and_forces_ms=profiling.host_ms(
                 lambda: potential.energy_and_forces(batch, nbl=potential.neighbors(batch, strategy=strategy))),
         )
     result["by_strategy"] = by_strategy
